@@ -1,0 +1,82 @@
+"""Trace served DLRM requests on the GPU: where the device time goes.
+
+Run from the repository root, on a machine with a CUDA card:
+
+    python3 profile_serving.py [--trace_dir DIR]
+
+Builds the model that chip_smoke.py serves (bench.py's DLRM at full width,
+random weights from seed 0), answers warm-up requests, then profiles
+REQUESTS requests at B=8192 and at B=256 with torch.profiler. For each
+batch size it prints the device time per kernel name and its share, the
+device busy share between the first kernel's start and the last kernel's
+end, and the host time per request; the chrome traces go to --trace_dir.
+Times are taken with the profiler on, which slows the host side.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+import chip_smoke as cs
+
+REQUESTS = 10  # profiled requests per batch size, after 2 warm-up ones
+
+
+def profile_batch(eval_fn, rng, batch: int, n: int, trace_dir: str) -> None:
+    reqs = [cs.make_request(rng, batch) for _ in range(n + 2)]
+    for dense, kjt in reqs[:2]:  # warm-up
+        eval_fn(dense.cuda(), kjt.to("cuda")).cpu()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for dense, kjt in reqs[2:]:
+            eval_fn(dense.cuda(), kjt.to("cuda")).cpu()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device-side ranges of record_function labels would count their
+    # kernels twice
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation]
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    span_us = (max(e.time_range.end for e in kernels)
+               - min(e.time_range.start for e in kernels))
+    per_name = {}
+    for e in kernels:
+        per_name[e.name] = per_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    print(f"B={batch}: {n} requests, host {wall_ms / n:.3f} ms/request "
+          f"(profiler on); device busy {busy_us / n:.1f} us/request, "
+          f"{100 * busy_us / span_us:.1f}% of the kernel span; "
+          f"{len(kernels) / n:.1f} kernel launches/request")
+    for name, us in sorted(per_name.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"  {us / n:9.1f} us/request {100 * us / busy_us:5.1f}%  "
+              f"{name[:110]}")
+    os.makedirs(trace_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(trace_dir,
+                                          f"serve_trace_B{batch}.json"))
+
+
+def main() -> None:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--trace_dir", default="profile_traces")
+    args = p.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_serving: no CUDA device")
+    card = cs.identify()
+    dmp = cs.make_dmp("cuda").init(cs.SEED)
+    eval_fn = dmp.make_eval_fn()
+    rng = np.random.RandomState(cs.SEED)
+    for batch in (cs.BENCH_BATCH, cs.SERVE_BATCH):
+        profile_batch(eval_fn, rng, batch, REQUESTS, args.trace_dir)
+    print(card["smi"])
+
+
+if __name__ == "__main__":
+    main()

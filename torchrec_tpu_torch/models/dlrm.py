@@ -1,0 +1,184 @@
+"""DLRM (Deep Learning Recommendation Model, arxiv 1906.00091).
+
+Counterpart of torchrec_tpu/models/dlrm.py: SparseArch, DenseArch,
+InteractionArch, OverArch, DLRM and the DLRMTrain loss wrapper. The
+pairwise interaction is one [B, F+1, D] x [B, D, F+1] batched product with
+the upper triangle taken in `np.triu_indices(F + 1, k=1)` order; the JAX
+package leaves it to XLA outside any Pallas kernel, and here it stays
+`torch.bmm`. Logits are always fp32.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from torchrec_tpu_torch.modules.embedding_modules import (
+    EmbeddingBagCollection,
+    SparseInput,
+)
+from torchrec_tpu_torch.modules.mlp import MLP, Perceptron
+from torchrec_tpu_torch.utils.device import DeviceLike
+
+
+def _identity(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
+class SparseArch(nn.Module):
+    """EBC wrapper returning [B, F, D]."""
+
+    def __init__(self, embedding_bag_collection: nn.Module):
+        super().__init__()
+        self.embedding_bag_collection = embedding_bag_collection
+
+    def forward(self, features: SparseInput) -> torch.Tensor:
+        kt = self.embedding_bag_collection(features)
+        return kt.values.reshape(kt.values.shape[0], len(kt.keys), -1)
+
+
+class DenseArch(nn.Module):
+    """MLP over the dense input -> [B, D]."""
+
+    def __init__(
+        self,
+        in_features: int,
+        layer_sizes: Sequence[int],
+        dtype: Optional[torch.dtype] = None,
+        device: DeviceLike = None,
+    ):
+        super().__init__()
+        self.mlp = MLP(in_features, layer_sizes, dtype=dtype, device=device)
+
+    def forward(self, features: torch.Tensor) -> torch.Tensor:
+        return self.mlp(features)
+
+
+class InteractionArch(nn.Module):
+    """Pairwise dot interactions of (dense ++ sparse) features.
+
+    Returns [B, D + F*(F+1)/2]: the dense features followed by the upper
+    triangle (offset 1) of the (F+1) x (F+1) Gram matrix, row-major. With a
+    compute `dtype` the inputs are rounded to it and the products are
+    summed in fp32, as the JAX einsum's preferred_element_type does.
+    """
+
+    def __init__(self, num_sparse_features: int,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.num_sparse_features = num_sparse_features
+        self.dtype = dtype
+
+    def forward(
+        self, dense_features: torch.Tensor, sparse_features: torch.Tensor
+    ) -> torch.Tensor:
+        F = self.num_sparse_features
+        if F <= 0:
+            return dense_features
+        combined = torch.cat(
+            [dense_features[:, None, :], sparse_features], dim=1
+        )  # [B, F+1, D]
+        if self.dtype is not None:
+            combined = combined.to(self.dtype)
+        combined = combined.float()
+        gram = torch.bmm(combined, combined.transpose(1, 2))
+        iu, ju = torch.triu_indices(F + 1, F + 1, offset=1,
+                                    device=gram.device)
+        return torch.cat([dense_features, gram[:, iu, ju]], dim=1)
+
+
+class OverArch(nn.Module):
+    """MLP + final linear head."""
+
+    def __init__(
+        self,
+        in_features: int,
+        layer_sizes: Sequence[int],
+        dtype: Optional[torch.dtype] = None,
+        device: DeviceLike = None,
+    ):
+        super().__init__()
+        if len(layer_sizes) <= 1:
+            raise ValueError("OverArch must have multiple layers.")
+        self.mlp = MLP(in_features, layer_sizes[:-1], dtype=dtype,
+                       device=device)
+        self.head = Perceptron(layer_sizes[-2], layer_sizes[-1],
+                               activation=_identity, dtype=dtype,
+                               device=device)
+
+    def forward(self, features: torch.Tensor) -> torch.Tensor:
+        return self.head(self.mlp(features))
+
+
+class DLRM(nn.Module):
+    """All tables share one embedding_dim, which the dense arch's last
+    layer must equal. `dense_dtype` is the compute dtype of the dense,
+    interaction and over arches; parameters and logits stay fp32."""
+
+    def __init__(
+        self,
+        embedding_bag_collection: EmbeddingBagCollection,
+        dense_in_features: int,
+        dense_arch_layer_sizes: Sequence[int],
+        over_arch_layer_sizes: Sequence[int],
+        dense_dtype: Optional[torch.dtype] = None,
+        device: DeviceLike = None,
+    ):
+        super().__init__()
+        tables = embedding_bag_collection.tables
+        if not tables:
+            raise ValueError("At least one embedding bag is required")
+        dims = {cfg.embedding_dim for cfg in tables}
+        if len(dims) != 1:
+            raise ValueError(
+                "All EmbeddingBagConfigs must have the same dimension"
+            )
+        embedding_dim = tables[0].embedding_dim
+        if dense_arch_layer_sizes[-1] != embedding_dim:
+            raise ValueError(
+                f"embedding_dim {embedding_dim} must match dense arch output "
+                f"{dense_arch_layer_sizes[-1]}"
+            )
+        num_features = sum(len(cfg.feature_names) for cfg in tables)
+        self.sparse_arch = SparseArch(embedding_bag_collection)
+        self.dense_arch = DenseArch(dense_in_features, dense_arch_layer_sizes,
+                                    dtype=dense_dtype, device=device)
+        self.inter_arch = InteractionArch(num_features, dtype=dense_dtype)
+        over_in = embedding_dim + num_features * (num_features + 1) // 2
+        self.over_arch = OverArch(over_in, over_arch_layer_sizes,
+                                  dtype=dense_dtype, device=device)
+
+    def forward(
+        self, dense_features: torch.Tensor, sparse_features: SparseInput
+    ) -> torch.Tensor:
+        """dense_features [B, d_in]; sparse_features the [F, B, L] batch.
+        Returns fp32 logits [B, 1]."""
+        embedded_dense = self.dense_arch(dense_features)
+        embedded_sparse = self.sparse_arch(sparse_features)
+        concatenated = self.inter_arch(embedded_dense, embedded_sparse)
+        return self.over_arch(concatenated).float()
+
+
+class DLRMTrain(nn.Module):
+    """DLRM + BCE-with-logits loss (mean)."""
+
+    def __init__(self, dlrm: DLRM):
+        super().__init__()
+        self.dlrm = dlrm
+
+    def forward(
+        self,
+        dense_features: torch.Tensor,
+        sparse_features: SparseInput,
+        labels: torch.Tensor,
+    ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+        """Returns (loss, (loss, logits, labels))."""
+        logits = self.dlrm(dense_features, sparse_features).squeeze(-1)
+        labels = labels.to(logits.dtype)
+        loss = torch.mean(
+            torch.clamp(logits, min=0) - logits * labels
+            + torch.log1p(torch.exp(-torch.abs(logits)))
+        )
+        return loss, (loss, logits, labels)

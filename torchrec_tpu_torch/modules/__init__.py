@@ -1,0 +1,11 @@
+from torchrec_tpu_torch.modules.embedding_configs import (  # noqa: F401
+    BaseEmbeddingConfig,
+    DataType,
+    EmbeddingBagConfig,
+    PoolingType,
+    pooling_type_to_mode,
+)
+from torchrec_tpu_torch.modules.embedding_modules import (  # noqa: F401
+    EmbeddingBagCollection,
+)
+from torchrec_tpu_torch.modules.mlp import MLP, Perceptron  # noqa: F401

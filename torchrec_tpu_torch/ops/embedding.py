@@ -1,0 +1,127 @@
+"""Table-batched pooled embedding lookup: the forward of every embedding
+module and sharding strategy.
+
+Counterpart of torchrec_tpu/ops/embedding.py. Tables of a group are
+row-concatenated into one [total_rows, D] array and a per-feature
+`row_offsets` vector rebases ids, so one call pools the whole group. Ids
+come in the padded [F, B, L] layout; pooling is a sum over L weighted by a
+coefficient that carries the length mask, per-sample weights and 1/len for
+MEAN.
+
+Dispatch: an fp32 table goes to the K1 wrapper (ops/tbe_lookup.py), which
+launches the CUDA kernel for CUDA tensors and takes its plain version for
+CPU tensors. bf16/fp16 tables take the plain expression and pool in fp32,
+as the JAX package does in XLA. PoolingMode.NONE (the K8 row gather),
+`lookup_rows` and `sequence_embedding_lookup` are not ported yet.
+"""
+
+from __future__ import annotations
+
+import enum
+from typing import Optional, Sequence
+
+import torch
+
+from torchrec_tpu_torch.ops.tbe_lookup import tbe_lookup_pooled
+
+
+class PoolingMode(enum.Enum):
+    SUM = "sum"
+    MEAN = "mean"
+    NONE = "none"
+
+
+def _no_unpooled(pooling: PoolingMode) -> None:
+    if pooling is PoolingMode.NONE:
+        raise NotImplementedError(
+            "PoolingMode.NONE needs the row-gather kernel (K8 gather_rows), "
+            "which is not ported yet"
+        )
+
+
+def pooled_lookup(
+    weights: torch.Tensor, ids: torch.Tensor, coeff: torch.Tensor
+) -> torch.Tensor:
+    """Fused gather + pool: out[..., :] = sum_l coeff[..., l] * W[ids[..., l]].
+
+    weights [R, D]; ids [..., L] global row ids, clamped to [0, R-1] as the
+    TPU kernel clamps them (a negative id reads row 0); coeff [..., L]
+    pooling coefficients (0 where invalid). Returns [..., D] in fp32.
+    """
+    lead = ids.shape[:-1]
+    L = ids.shape[-1]
+    D = weights.shape[1]
+    if weights.dtype == torch.float32:
+        out = tbe_lookup_pooled(
+            weights,
+            ids.reshape(-1, L).to(torch.int32).contiguous(),
+            coeff.reshape(-1, L).to(torch.float32).contiguous(),
+        )
+        return out.reshape(*lead, D)
+    if weights.dtype not in (torch.bfloat16, torch.float16):
+        raise TypeError(f"unsupported table dtype {weights.dtype}")
+    # low-precision tables pool with fp32 accumulation and return fp32
+    rows = weights[ids.clamp(0, weights.shape[0] - 1).long()]
+    c = coeff.to(weights.dtype).float()
+    return torch.einsum("...ld,...l->...d", rows.float(), c)
+
+
+def embedding_bag_lookup(
+    weights: torch.Tensor,
+    ids: torch.Tensor,
+    lengths: torch.Tensor,
+    pooling: PoolingMode = PoolingMode.SUM,
+    per_sample_weights: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Single-table pooled lookup.
+
+    weights [R, D]; ids [B, L] (pad slots may hold any id); lengths [B].
+    Returns [B, D].
+    """
+    _no_unpooled(pooling)
+    B, L = ids.shape
+    col = torch.arange(L, device=ids.device)
+    mask = (col[None, :] < lengths[:, None]).to(weights.dtype)
+    if per_sample_weights is not None:
+        mask = mask * per_sample_weights.to(weights.dtype)
+    if pooling is PoolingMode.MEAN:
+        denom = lengths.to(weights.dtype).clamp(min=1.0)
+        mask = mask / denom[:, None]
+    return pooled_lookup(weights, ids, mask)
+
+
+def batched_embedding_lookup(
+    weights: torch.Tensor,
+    ids: torch.Tensor,
+    lengths: torch.Tensor,
+    row_offsets,
+    pooling: PoolingMode = PoolingMode.SUM,
+    per_sample_weights: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Grouped multi-table pooled lookup (the TBE forward).
+
+    weights [total_rows, D] row-concatenation of the group's tables;
+    ids [F, B, L] per-feature local ids; lengths [F, B]; row_offsets [F]
+    base row of each feature's table; per_sample_weights optional
+    [F, B, L]. Returns [F, B, D].
+    """
+    _no_unpooled(pooling)
+    F, B, L = ids.shape
+    offs = torch.as_tensor(row_offsets, dtype=ids.dtype, device=ids.device)
+    global_ids = ids + offs[:, None, None]
+    col = torch.arange(L, device=ids.device)
+    mask = (col[None, None, :] < lengths[:, :, None]).to(weights.dtype)
+    if per_sample_weights is not None:
+        mask = mask * per_sample_weights.to(weights.dtype)
+    if pooling is PoolingMode.MEAN:
+        denom = lengths.to(weights.dtype).clamp(min=1.0)
+        mask = mask / denom[:, :, None]
+    return pooled_lookup(weights, global_ids, mask)
+
+
+def make_row_offsets(rows_per_table: Sequence[int]) -> torch.Tensor:
+    """Cumulative base-row offsets for a table group."""
+    offs = [0]
+    for r in rows_per_table:
+        offs.append(offs[-1] + int(r))
+    return torch.as_tensor(offs[:-1], dtype=torch.int32)

@@ -1,0 +1,13 @@
+from torchrec_tpu_torch.parallel.types import (  # noqa: F401
+    ComputeKernel,
+    ParameterSharding,
+    ShardingEnv,
+    ShardingPlan,
+    ShardingType,
+)
+from torchrec_tpu_torch.parallel.sharded_ebc import (  # noqa: F401
+    ShardedEmbeddingBagCollection,
+)
+from torchrec_tpu_torch.parallel.dmp import (  # noqa: F401
+    DistributedModelParallel,
+)

@@ -1,0 +1,128 @@
+"""Table grouping for sharded embedding collections.
+
+Counterpart of torchrec_tpu/parallel/embedding_sharding.py. Tables are
+grouped by (sharding type, embedding dim, data type): one group is one
+table-batched weight array, one lookup and, across devices, one set of
+collectives. Pooling may differ per table inside a group; it travels as
+per-feature flags into the pooling coefficients.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Sequence, Tuple
+
+import numpy as np
+
+from torchrec_tpu_torch.modules.embedding_configs import (
+    DataType,
+    EmbeddingBagConfig,
+    pooling_type_to_mode,
+)
+from torchrec_tpu_torch.ops.embedding import PoolingMode
+from torchrec_tpu_torch.parallel.types import (
+    ComputeKernel,
+    ParameterSharding,
+    ShardingType,
+)
+from torchrec_tpu_torch.sparse.jagged import PaddedSparseBatch
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedTableMeta:
+    """Static per-table metadata inside a group."""
+
+    name: str
+    rows: int
+    dim: int
+    pooling: PoolingMode
+    feature_names: Tuple[str, ...]
+    embedding_names: Tuple[str, ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupMeta:
+    """Static metadata of one sharding group."""
+
+    sharding_type: ShardingType
+    tables: Tuple[ShardedTableMeta, ...]
+    dim: int
+    is_weighted: bool
+    data_type: DataType = DataType.FP32
+
+    @property
+    def features(self) -> Tuple[str, ...]:
+        return tuple(f for t in self.tables for f in t.feature_names)
+
+    @property
+    def embedding_names(self) -> Tuple[str, ...]:
+        return tuple(n for t in self.tables for n in t.embedding_names)
+
+    @property
+    def feature_table(self) -> np.ndarray:
+        """[F] table index of each feature."""
+        return np.asarray(
+            [ti for ti, t in enumerate(self.tables) for _ in t.feature_names],
+            dtype=np.int32,
+        )
+
+    @property
+    def feature_pooling_mean(self) -> np.ndarray:
+        """[F] bool: the feature uses MEAN pooling."""
+        return np.asarray(
+            [t.pooling is PoolingMode.MEAN
+             for t in self.tables for _ in t.feature_names],
+            dtype=bool,
+        )
+
+
+class GroupedInputDistMixin:
+    """Per-group feature selection shared by the sharded modules (the host
+    class defines ``self.groups``)."""
+
+    def _group_batch(self, sb: PaddedSparseBatch,
+                     group_idx: int) -> PaddedSparseBatch:
+        feats = self.groups[group_idx].features
+        key_index = {k: i for i, k in enumerate(sb.keys)}
+        return sb.select_features([key_index[f] for f in feats])
+
+
+def group_tables(
+    tables: Sequence[EmbeddingBagConfig],
+    embedding_names_per_table: Sequence[Sequence[str]],
+    plan: Dict[str, ParameterSharding],
+    is_weighted: bool = False,
+) -> List[GroupMeta]:
+    """Partition tables into sharding groups, keeping table order within
+    each group (the sharded module restores the output feature order)."""
+    groups: Dict[Tuple[ShardingType, int, DataType],
+                 List[ShardedTableMeta]] = {}
+    for cfg, enames in zip(tables, embedding_names_per_table):
+        ps = plan.get(cfg.name)
+        if ps is None:
+            raise ValueError(f"no sharding plan entry for table {cfg.name}")
+        if ps.compute_kernel is ComputeKernel.FUSED_UVM_CACHING:
+            raise NotImplementedError(
+                f"table {cfg.name}: FUSED_UVM_CACHING (host-resident tables "
+                "with a device row cache) is not ported yet"
+            )
+        meta = ShardedTableMeta(
+            name=cfg.name,
+            rows=cfg.num_embeddings,
+            dim=cfg.embedding_dim,
+            pooling=pooling_type_to_mode(cfg.pooling),
+            feature_names=tuple(cfg.feature_names),
+            embedding_names=tuple(enames),
+        )
+        key = (ps.sharding_type, cfg.embedding_dim, cfg.data_type)
+        groups.setdefault(key, []).append(meta)
+    return [
+        GroupMeta(
+            sharding_type=key[0],
+            tables=tuple(metas),
+            dim=key[1],
+            is_weighted=is_weighted,
+            data_type=key[2],
+        )
+        for key, metas in groups.items()
+    ]

@@ -1,0 +1,127 @@
+"""ShardedEmbeddingBagCollection.
+
+Counterpart of torchrec_tpu/parallel/sharded_ebc.py. Groups the tables by
+sharding type into one strategy each, hands each strategy its group's
+features and assembles the group outputs into one KeyedTensor in the
+unsharded module's feature order. Where the JAX module is functional over
+a tuple of group states, this one is an `nn.Module` whose strategies hold
+their shards as buffers; `init`, `shard_from_dense` and `unshard_to_dense`
+keep the JAX names and return the group states.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from torchrec_tpu_torch.modules.embedding_configs import EmbeddingBagConfig
+from torchrec_tpu_torch.modules.embedding_modules import (
+    SparseInput,
+    as_padded,
+    embedding_names_by_table,
+)
+from torchrec_tpu_torch.parallel.embedding_sharding import (
+    GroupedInputDistMixin,
+    group_tables,
+)
+from torchrec_tpu_torch.parallel.strategies import (
+    ArrayLike,
+    EmbeddingGroupState,
+    create_sharding_strategy,
+)
+from torchrec_tpu_torch.parallel.types import ParameterSharding, ShardingEnv
+from torchrec_tpu_torch.sparse.jagged import KeyedTensor
+
+
+class ShardedEmbeddingBagCollection(GroupedInputDistMixin, nn.Module):
+    """Sharded EBC: the groups' strategies and the routing between the
+    sparse batch, the groups and the output order.
+
+    max_feature_length: the L a KeyedJaggedTensor input is padded to, as
+    in the unsharded module it replaces.
+    """
+
+    def __init__(
+        self,
+        env: ShardingEnv,
+        tables: Sequence[EmbeddingBagConfig],
+        plan: Dict[str, ParameterSharding],
+        is_weighted: bool = False,
+        max_feature_length: int = 1,
+    ):
+        super().__init__()
+        self.env = env
+        self.tables = tuple(tables)
+        self.is_weighted = is_weighted
+        self.max_feature_length = max_feature_length
+        enames_per_table = embedding_names_by_table(self.tables)
+        self.groups = group_tables(self.tables, enames_per_table, plan,
+                                   is_weighted)
+        self.strategies = nn.ModuleList(
+            create_sharding_strategy(env, g) for g in self.groups
+        )
+        # canonical output order: tables in declaration order
+        self.embedding_names: Tuple[str, ...] = tuple(
+            n for names in enames_per_table for n in names)
+        dim_by_name = {n: cfg.embedding_dim
+                       for cfg, names in zip(self.tables, enames_per_table)
+                       for n in names}
+        self.length_per_key: Tuple[int, ...] = tuple(
+            dim_by_name[n] for n in self.embedding_names)
+
+    # -- state ---------------------------------------------------------------
+
+    @property
+    def states(self) -> Tuple[EmbeddingGroupState, ...]:
+        return tuple(EmbeddingGroupState(weights=s.weights)
+                     for s in self.strategies)
+
+    @torch.no_grad()
+    def init(
+        self, generator: Optional[torch.Generator] = None
+    ) -> Tuple[EmbeddingGroupState, ...]:
+        """Draw every table afresh (see BaseEmbeddingShardingStrategy
+        .init_weights)."""
+        for s in self.strategies:
+            s.weights = s.init_weights(generator)
+        return self.states
+
+    @torch.no_grad()
+    def shard_from_dense(
+        self, dense: Mapping[str, ArrayLike]
+    ) -> Tuple[EmbeddingGroupState, ...]:
+        """Load unsharded per-table [R, D] weights into the shards."""
+        for s in self.strategies:
+            s.weights = s.shard_from_dense(dense)
+        return self.states
+
+    def unshard_to_dense(
+        self, states: Optional[Sequence[EmbeddingGroupState]] = None
+    ) -> Dict[str, np.ndarray]:
+        """Per-table [R, D] numpy arrays from `states` (default: the
+        module's own)."""
+        states = self.states if states is None else states
+        out: Dict[str, np.ndarray] = {}
+        for s, st in zip(self.strategies, states):
+            out.update(s.unshard_to_dense(st.weights))
+        return out
+
+    # -- compute -------------------------------------------------------------
+
+    def forward(self, features: SparseInput) -> KeyedTensor:
+        """-> KeyedTensor [B, sum(D)]."""
+        sb = as_padded(features, self.max_feature_length)
+        per_name: Dict[str, torch.Tensor] = {}
+        for gi, (strat, group) in enumerate(zip(self.strategies,
+                                                self.groups)):
+            with torch.profiler.record_function(
+                    f"## ebc_fwd_{group.sharding_type.value}_g{gi} ##"):
+                out = strat(self._group_batch(sb, gi))  # [F_g, B, D_g]
+            for j, ename in enumerate(group.embedding_names):
+                per_name[ename] = out[j]
+        values = torch.cat([per_name[n] for n in self.embedding_names], dim=1)
+        return KeyedTensor(values=values, keys=self.embedding_names,
+                           length_per_key=self.length_per_key)

@@ -1,0 +1,227 @@
+"""Sharding strategies: the forward half of ROW_WISE.
+
+Counterpart of torchrec_tpu/parallel/strategies.py. Each strategy is a
+module that holds one table group's shard in the JAX package's layout,
+[n_dev, rows_loc, D]: each table's rows are split into n contiguous blocks
+of ceil(R / n) rows, the tables' blocks are concatenated per device, and
+the per-device row count is padded up to ROW_TILE. `unshard_to_dense`
+inverts that packing exactly.
+
+ROW_WISE forward on n devices is all_gather(ids) -> masked lookup of the
+rows this device owns (partial sums) -> psum_scatter over the batch. On the
+one device of this slice both collectives are identities and the masked
+lookup is the whole forward: one K1 launch per group. The fused update,
+the collectives for n > 1 and the DATA_PARALLEL / TABLE_WISE / COLUMN_WISE
+/ hierarchical strategies come with later slices and raise here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Mapping, Optional, Tuple, Union
+
+import numpy as np
+import torch
+from torch import nn
+
+from torchrec_tpu_torch.modules.embedding_configs import (
+    data_type_to_torch_dtype,
+)
+from torchrec_tpu_torch.ops.embedding import pooled_lookup
+from torchrec_tpu_torch.parallel.embedding_sharding import GroupMeta
+from torchrec_tpu_torch.parallel.types import ShardingEnv, ShardingType
+from torchrec_tpu_torch.sparse.jagged import PaddedSparseBatch
+
+# Per-device packed row counts are padded to this tile, as in the JAX
+# package, so that a shard round-trips between the two packages unchanged.
+ROW_TILE = 128
+
+ArrayLike = Union[np.ndarray, torch.Tensor]
+
+
+@dataclasses.dataclass
+class EmbeddingGroupState:
+    """Sharded weights of one group (the fused optimizer state joins them
+    with the training slice)."""
+
+    weights: torch.Tensor
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _pad_rows_tile(rows: int) -> int:
+    return _cdiv(int(rows), ROW_TILE) * ROW_TILE
+
+
+def _token_mask(lengths: torch.Tensor, L: int) -> torch.Tensor:
+    """[F, B, L] bool validity mask from [F, B] lengths."""
+    col = torch.arange(L, device=lengths.device)
+    return col[None, None, :] < lengths[:, :, None]
+
+
+def _pool_coeff(
+    lengths: torch.Tensor,
+    L: int,
+    mean_flags: torch.Tensor,
+    psw: Optional[torch.Tensor],
+    dtype: torch.dtype,
+) -> torch.Tensor:
+    """[F, B, L] pooling coefficient: mask * sample weight / (len if MEAN).
+    mean_flags: [F] bool, True where the feature's table pools by MEAN."""
+    coeff = _token_mask(lengths, L).to(dtype)
+    if psw is not None:
+        coeff = coeff * psw.to(dtype)
+    denom = lengths.to(dtype).clamp(min=1.0)[:, :, None]
+    return torch.where(mean_flags[:, None, None], coeff / denom, coeff)
+
+
+class BaseEmbeddingShardingStrategy(nn.Module):
+    """One table group sharded one way. Holds the group's shard as the
+    buffer `weights`."""
+
+    def __init__(self, env: ShardingEnv, meta: GroupMeta):
+        super().__init__()
+        self.env = env
+        self.meta = meta
+        self.n = env.world_size
+        self.dim = meta.dim
+        # table storage dtype; pooled outputs are fp32
+        self.w_dtype = data_type_to_torch_dtype(meta.data_type)
+        self._build()
+        self.register_buffer("weights", torch.zeros(
+            self.weights_shape(), dtype=self.w_dtype, device=env.device))
+
+    def _build(self) -> None:
+        raise NotImplementedError
+
+    def weights_shape(self) -> Tuple[int, ...]:
+        raise NotImplementedError
+
+    def _place(self, out: torch.Tensor, i: int, table: torch.Tensor) -> None:
+        """Write table i's unsharded [R, D] rows into the packed `out`."""
+        raise NotImplementedError
+
+    def init_weights(
+        self, generator: Optional[torch.Generator] = None
+    ) -> torch.Tensor:
+        """Packed weights with each table drawn from U(-b, b),
+        b = sqrt(1 / rows), as the JAX strategy draws them."""
+        out = torch.zeros(self.weights_shape(), dtype=self.w_dtype,
+                          device=self.weights.device)
+        for i, t in enumerate(self.meta.tables):
+            bound = (1.0 / t.rows) ** 0.5
+            table = torch.empty((t.rows, t.dim), device=out.device)
+            self._place(out, i, table.uniform_(-bound, bound,
+                                               generator=generator))
+        return out
+
+    def shard_from_dense(self, dense: Mapping[str, ArrayLike]) -> torch.Tensor:
+        """Pack unsharded per-table [R_t, D] arrays (numpy or torch) into
+        this strategy's layout."""
+        out = torch.zeros(self.weights_shape(), dtype=self.w_dtype,
+                          device=self.weights.device)
+        for i, t in enumerate(self.meta.tables):
+            table = dense[t.name]
+            table = (table.to(out.device) if isinstance(table, torch.Tensor)
+                     else torch.tensor(np.asarray(table), device=out.device))
+            if tuple(table.shape) != (t.rows, t.dim):
+                raise ValueError(
+                    f"table {t.name}: expected {(t.rows, t.dim)}, got "
+                    f"{tuple(table.shape)}"
+                )
+            self._place(out, i, table)
+        return out
+
+    def unshard_to_dense(self, weights: torch.Tensor) -> Dict[str, np.ndarray]:
+        """Per-table [R, D] numpy arrays (bf16 tables come back as fp32,
+        which holds them exactly: numpy has no bf16)."""
+        raise NotImplementedError
+
+    def update(self, *args, **kwargs):
+        raise NotImplementedError(
+            "the fused embedding update (K2-K5) comes with the training "
+            "slice"
+        )
+
+
+class RwEmbeddingSharding(BaseEmbeddingShardingStrategy):
+    """Row-wise: each table's rows split into n contiguous blocks of
+    ceil(R / n) rows (the last one padded); device d owns block d of every
+    table. A row a table does not own is masked out of the pooling."""
+
+    def _build(self) -> None:
+        self.shard_rows = np.asarray(
+            [_cdiv(t.rows, self.n) for t in self.meta.tables], np.int64)
+        self.local_offsets = np.concatenate(
+            [[0], np.cumsum(self.shard_rows)[:-1]]).astype(np.int64)
+        self.rows_loc = _pad_rows_tile(int(self.shard_rows.sum()))
+        ft = self.meta.feature_table
+        dev = self.env.device
+        # per-feature routing constants; buffers so that .to() moves them
+        self.register_buffer("feat_shard_rows", torch.as_tensor(
+            self.shard_rows[ft], dtype=torch.int32, device=dev),
+            persistent=False)
+        self.register_buffer("feat_local_off", torch.as_tensor(
+            self.local_offsets[ft], dtype=torch.int32, device=dev),
+            persistent=False)
+        self.register_buffer("feat_mean", torch.as_tensor(
+            self.meta.feature_pooling_mean, device=dev), persistent=False)
+
+    def weights_shape(self) -> Tuple[int, ...]:
+        return (self.n, self.rows_loc, self.dim)
+
+    def _place(self, out, i, table):
+        t = self.meta.tables[i]
+        sr, off = int(self.shard_rows[i]), int(self.local_offsets[i])
+        blocks = torch.zeros((self.n * sr, t.dim), dtype=out.dtype,
+                             device=out.device)
+        blocks[: t.rows] = table
+        out[:, off:off + sr] = blocks.reshape(self.n, sr, t.dim)
+
+    def unshard_to_dense(self, weights):
+        w = weights.detach().cpu()
+        if w.dtype == torch.bfloat16:
+            w = w.float()
+        out = {}
+        for sr, off, t in zip(self.shard_rows, self.local_offsets,
+                              self.meta.tables):
+            tbl = w[:, int(off):int(off + sr), :].reshape(-1, t.dim)
+            out[t.name] = tbl[: t.rows].numpy().copy()
+        return out
+
+    def _route(self, ids_g: torch.Tensor, lengths_g: torch.Tensor, my: int,
+               L: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Owner and local row of each gathered id."""
+        sr = self.feat_shard_rows[:, None, None]
+        off = self.feat_local_off[:, None, None]
+        owner = torch.div(ids_g, sr, rounding_mode="floor")
+        local = torch.remainder(ids_g, sr) + off
+        owned = (owner == my) & _token_mask(lengths_g, L)
+        return local, owned
+
+    def _fwd_gathered(self, w, ids_g, len_g, psw_g, L):
+        """Forward body on global-batch inputs: the partial sums of the
+        rows this device owns, [F, B, D] fp32."""
+        local, owned = self._route(ids_g, len_g, self.env.rank, L)
+        coeff = _pool_coeff(len_g, L, self.feat_mean, psw_g, w.dtype)
+        coeff = coeff * owned.to(w.dtype)
+        return pooled_lookup(w[0], local, coeff)
+
+    def forward(self, sb: PaddedSparseBatch) -> torch.Tensor:
+        """Pooled output [F, B, D]. On one device the all_gather of the
+        ids and the psum_scatter of the partial sums are identities."""
+        return self._fwd_gathered(self.weights, sb.ids, sb.lengths,
+                                  sb.weights, sb.ids.shape[2])
+
+
+def create_sharding_strategy(
+    env: ShardingEnv, meta: GroupMeta
+) -> BaseEmbeddingShardingStrategy:
+    if meta.sharding_type is not ShardingType.ROW_WISE:
+        raise NotImplementedError(
+            f"sharding type {meta.sharding_type.value}: only ROW_WISE is "
+            "ported; the other strategies come with the multi-GPU slice"
+        )
+    return RwEmbeddingSharding(env, meta)
