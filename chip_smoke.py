@@ -7,7 +7,8 @@ Run from the repository root:
 Phases, each failing the run with a non-zero exit when it fails:
 
 1. Identify the card (name, count, power limit); TF32 is switched off.
-2. Build the K1 kernel (csrc/tbe_lookup.cu) with nvcc for sm_90a.
+2. Build the kernels with nvcc for sm_90a, one nvcc per source, started
+   together: K1 (csrc/tbe_lookup.cu) and K2-K5 (csrc/fused_update.cu).
 3. Serve the DLRM that bench.py and bench_config.py describe, at full
    width, through the port's DistributedModelParallel.make_eval_fn:
    26 fp32 tables of 100,000 x 128 (ROW_WISE on one device), dense arch
@@ -20,6 +21,28 @@ Phases, each failing the run with a non-zero exit when it fails:
    model's table at the main path's shape (bit-exact at L=1) and at L=20
    with MEAN / per-sample coefficients and out-of-range ids (rtol 1e-6),
    and time the kernel, the plain version and F.embedding_bag.
+5. Train the same model wrapped in DLRMTrain through make_train_step, as
+   bench.py trains it (fused lr 0.1, dense SGD at 0.05), for EXACT_SGD and
+   ROWWISE_ADAGRAD: 3 warm-up and 10 timed steps at B=8192 on seeded
+   batches. Every loss must be finite and every step must launch exactly
+   K1 and K3 once (EXACT_SGD) or K1, K5 and K4 once (ROWWISE_ADAGRAD). One
+   ROWWISE_ADAGRAD step with fused_params w_impl="write" must launch K2
+   once and K4's row update never.
+6. For each optimizer, copy a fresh card DMP to a CPU DMP with
+   load_state_dict and take 2 steps at B=256 on both: the losses, the
+   dense parameters and the table rows and momentum the batches touched
+   must agree (rtol 1e-4, atol 1e-5: GEMM and gradient sums run in
+   another order), and every other row must be unchanged on both.
+7. Hold K2-K5 against their plain versions on the card, on the trained
+   ROWWISE_ADAGRAD table and momentum and one real batch's run totals and
+   dedup output (real sentinel patterns): bit-exact, since neither side
+   contracts a multiply-add and both round sqrt and divide per IEEE. Time
+   each kernel, its plain version and its library yardstick.
+
+Kernel times are device times from torch.profiler (the kernel's own for a
+kernel, all device activity of the call for the plain version and the
+library call); the log gives each wrapper call's CUDA-event time beside
+it, which includes the host's time to make the call where that is longer.
 
 The line before the last is a JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -30,9 +53,11 @@ result.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -54,7 +79,27 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
 MODULE_KEY = "sparse_arch/embedding_bag_collection"
+TRAIN_KEY = "dlrm/" + MODULE_KEY  # the same EBC inside DLRMTrain
+FUSED_LR = 0.1  # bench.py: fused_params={"learning_rate": 0.1}
+DENSE_LR = 0.05  # bench.py: dense_optimizer=optax.sgd(0.05)
+WARMUP_STEPS, TIMED_STEPS, CPU_STEPS = 3, 10, 2
 DEVICE = "cuda"
+
+# kernel -> (wrapper name, source, the Pallas function it replaces)
+KERNELS = {
+    "K1": ("tbe_lookup_pooled", "torchrec_tpu_torch/csrc/tbe_lookup.cu",
+           "torchrec_tpu/ops/pallas_embedding.py:298"),
+    "K2": ("scatter_rows_write", "torchrec_tpu_torch/csrc/fused_update.cu",
+           "torchrec_tpu/ops/pallas_embedding.py:189"),
+    "K3": ("fused_update_sgd", "torchrec_tpu_torch/csrc/fused_update.cu",
+           "torchrec_tpu/ops/pallas_embedding.py:577"),
+    "K4": ("fused_update_rowwise_adagrad",
+           "torchrec_tpu_torch/csrc/fused_update.cu",
+           "torchrec_tpu/ops/pallas_embedding.py:617"),
+    "K5": ("rowwise_momentum_stream",
+           "torchrec_tpu_torch/csrc/fused_update.cu",
+           "torchrec_tpu/ops/pallas_embedding.py:902"),
+}
 
 
 def log(*args) -> None:
@@ -76,20 +121,40 @@ def identify() -> dict:
     return {"name": name, "smi": smi}
 
 
-def build_kernels(tl) -> None:
-    info = tl.build(force=True)
-    log(f"built {info['path']} in {info['seconds']:.2f} s")
-    for line in info["ptxas"].splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            log("  " + line.strip())
+def build_kernels(libraries) -> None:
+    """Build every library from its source, one nvcc each, all at once."""
+    with ThreadPoolExecutor(len(libraries)) as pool:
+        futures = [pool.submit(lib.build, True) for lib in libraries]
+    for fut in futures:
+        info = fut.result()
+        log(f"built {info['path']} in {info['seconds']:.2f} s")
+        for line in info["ptxas"].splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                log("  " + line.strip())
 
 
-def make_dmp(device: str):
-    from torchrec_tpu_torch.models import DLRM
+def counts(tl, fk) -> dict:
+    """Launches per kernel so far."""
+    return {"K1": tl.LAUNCHES, **{k: fk.LAUNCHES[name]
+                                  for k, (name, _, _) in KERNELS.items()
+                                  if k != "K1"}}
+
+
+def reset_counts(tl, fk) -> None:
+    tl.LAUNCHES = 0
+    fk.reset_launches()
+
+
+def make_dmp(device: str, train: bool = False, optim=None,
+             fused_params=None):
+    """bench.py's DLRM (DLRMTrain when `train`) on `device`; `optim`
+    defaults to the DMP's (ROWWISE_ADAGRAD)."""
+    from torchrec_tpu_torch.models import DLRM, DLRMTrain
     from torchrec_tpu_torch.modules import (
         EmbeddingBagCollection,
         EmbeddingBagConfig,
     )
+    from torchrec_tpu_torch.ops.fused_update import EmbOptimType
     from torchrec_tpu_torch.parallel import (
         DistributedModelParallel,
         ParameterSharding,
@@ -106,9 +171,15 @@ def make_dmp(device: str):
         EmbeddingBagCollection(tables, max_feature_length=L, device="meta"),
         DENSE_IN, DENSE_ARCH, OVER_ARCH, device="meta",
     )
-    plan = ShardingPlan({MODULE_KEY: {
+    if train:
+        model = DLRMTrain(model)
+    plan = ShardingPlan({TRAIN_KEY if train else MODULE_KEY: {
         t.name: ParameterSharding(ShardingType.ROW_WISE) for t in tables}})
-    return DistributedModelParallel(model, plan=plan, device=device)
+    return DistributedModelParallel(
+        model, plan=plan, device=device,
+        fused_optim=optim or EmbOptimType.ROWWISE_ADAGRAD,
+        fused_params={"learning_rate": FUSED_LR, **(fused_params or {})},
+        dense_optimizer=lambda p: torch.optim.SGD(p, lr=DENSE_LR))
 
 
 def make_request(rng: np.random.RandomState, batch: int):
@@ -123,8 +194,20 @@ def make_request(rng: np.random.RandomState, batch: int):
     return torch.from_numpy(dense), kjt
 
 
-def serve(dmp, tl) -> dict:
-    """The main path: requests through make_eval_fn, K1 counted."""
+def make_batch(rng: np.random.RandomState, batch: int):
+    """(dense, KeyedJaggedTensor, labels [B] in {0, 1}) on the CPU."""
+    dense, kjt = make_request(rng, batch)
+    labels = rng.randint(0, 2, size=batch).astype(np.float32)
+    return dense, kjt, torch.from_numpy(labels)
+
+
+def to_device(batch):
+    dense, kjt, labels = batch
+    return dense.to(DEVICE), kjt.to(DEVICE), labels.to(DEVICE)
+
+
+def serve(dmp, tl, fk) -> dict:
+    """The serving path: requests through make_eval_fn, K1 counted."""
     eval_fn = dmp.make_eval_fn()
     rng = np.random.RandomState(SEED)
     requests = [(b, *make_request(rng, b))
@@ -132,7 +215,7 @@ def serve(dmp, tl) -> dict:
                 + [SERVE_BATCH] * REQUESTS_PER_BATCH]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    tl.LAUNCHES = 0
+    reset_counts(tl, fk)
     latencies = {BENCH_BATCH: [], SERVE_BATCH: []}
     last = None
     for batch, dense, kjt in requests:
@@ -143,10 +226,12 @@ def serve(dmp, tl) -> dict:
             raise AssertionError(
                 f"bad logits at B={batch}: {tuple(logits.shape)}")
         last = (dense, kjt, logits)
-    launches = tl.LAUNCHES
-    if launches != len(requests):
+    launches = counts(tl, fk)
+    if launches != {"K1": len(requests), "K2": 0, "K3": 0, "K4": 0,
+                    "K5": 0}:
         raise AssertionError(
-            f"K1 launched {launches} times for {len(requests)} requests")
+            f"{len(requests)} requests launched {launches}")
+    launches = launches["K1"]
     peak = torch.cuda.max_memory_allocated()
     for batch, ms in latencies.items():
         log(f"serve B={batch}: request ms (host clock, H2D + forward + "
@@ -184,6 +269,8 @@ def check_against_cpu(dmp, last) -> None:
 
 
 def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+    """Stream time per call between CUDA events around `iters` calls: the
+    device time, or the host's time to make a call where that is longer."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -195,6 +282,41 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, kernel: str = "", iters: int = 20, warmup: int = 3
+              ) -> float:
+    """Device time per call from torch.profiler: the summed duration of
+    the device activity (kernels, copies) of `iters` calls, only kernels
+    whose name contains `kernel` when it is given."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events()
+              if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+              and kernel in e.name]
+    if not events:
+        raise AssertionError(f"no device activity recorded for {kernel!r}")
+    return sum(e.time_range.elapsed_us() for e in events) / iters / 1e3
+
+
+def timings(kernel_fn, kernel: str, plain_fn, library_fn=None) -> dict:
+    """The kernel's own device time, its wrapper call's stream time, and
+    the device times of the plain version and the library call."""
+    return {
+        "ms": device_ms(kernel_fn, kernel),
+        "call_ms": cuda_ms(kernel_fn, 20),
+        "plain_ms": device_ms(plain_fn),
+        "library_ms": None if library_fn is None else device_ms(library_fn),
+    }
 
 
 def bound(weights, ids, coeff) -> dict:
@@ -257,20 +379,296 @@ def check_kernel(dmp, tl) -> dict:
     del ref20
 
     b = bound(W, ids, coeff)
-    ms = cuda_ms(lambda: tl.tbe_lookup_pooled(W, ids, coeff))
-    plain_ms = cuda_ms(lambda: tl.tbe_lookup_pooled_reference(W, ids, coeff))
-    lib_ms = cuda_ms(lambda: F.embedding_bag(
-        ids, W, mode="sum", per_sample_weights=coeff))
-    log(f"K1 L=1: {ms:.4f} ms; plain {plain_ms:.4f} ms; F.embedding_bag "
-        f"{lib_ms:.4f} ms; bound {b['ms']:.4f} ms ({b['by']}: "
+    t = timings(lambda: tl.tbe_lookup_pooled(W, ids, coeff),
+                "tbe_lookup_pooled_kernel",
+                lambda: tl.tbe_lookup_pooled_reference(W, ids, coeff),
+                lambda: F.embedding_bag(ids, W, mode="sum",
+                                        per_sample_weights=coeff))
+    log(f"K1 L=1: {t['ms']:.4f} ms on the device (call {t['call_ms']:.4f} "
+        f"ms); plain {t['plain_ms']:.4f} ms; F.embedding_bag "
+        f"{t['library_ms']:.4f} ms; bound {b['ms']:.4f} ms ({b['by']}: "
         f"{b['bytes']} B with {b['rows']} distinct rows); kernel at "
-        f"{100 * b['ms'] / ms:.1f}% of the bound")
+        f"{100 * b['ms'] / t['ms']:.1f}% of the bound")
     b20 = bound(W, ids20, coeff20)
-    ms20 = cuda_ms(lambda: tl.tbe_lookup_pooled(W, ids20, coeff20), iters=20)
+    ms20 = device_ms(lambda: tl.tbe_lookup_pooled(W, ids20, coeff20),
+                     "tbe_lookup_pooled_kernel")
     log(f"K1 L=20: {ms20:.4f} ms; bound {b20['ms']:.4f} ms ({b20['by']}); "
         f"kernel at {100 * b20['ms'] / ms20:.1f}% of the bound")
-    return {"max_abs_err": max(err, err20), "ms": ms, "plain_ms": plain_ms,
-            "library_ms": lib_ms, "bound_ms": b["ms"], "bound_by": b["by"]}
+    return {"max_abs_err": max(err, err20), "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "library_ms": t["library_ms"],
+            "bound_ms": b["ms"], "bound_by": b["by"]}
+
+
+def train(optim, tl, fk) -> dict:
+    """The training path: WARMUP_STEPS + TIMED_STEPS train steps at
+    B=8192, each launching exactly the kernels of `optim`'s update."""
+    from torchrec_tpu_torch.ops.fused_update import EmbOptimType
+
+    name = optim.name
+    dmp = make_dmp(DEVICE, train=True, optim=optim).init(SEED)
+    step = dmp.make_train_step()
+    rng = np.random.RandomState(SEED + 2)
+    batches = [to_device(make_batch(rng, BENCH_BATCH))
+               for _ in range(WARMUP_STEPS + TIMED_STEPS)]
+    per_step = {"K1": 1, "K2": 0, "K3": 0, "K4": 0, "K5": 0}
+    per_step.update({"K3": 1} if optim is EmbOptimType.EXACT_SGD
+                    else {"K4": 1, "K5": 1})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(tl, fk)
+    ms, losses = [], []
+    for batch in batches:
+        before = counts(tl, fk)
+        t0 = time.perf_counter()
+        loss, _ = step(*batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        after = counts(tl, fk)
+        launched = {k: after[k] - before[k] for k in after}
+        if launched != per_step:
+            raise AssertionError(f"{name} step {len(ms)} launched "
+                                 f"{launched}, expected {per_step}")
+        losses.append(loss.item())
+        if not math.isfinite(losses[-1]):
+            raise AssertionError(f"{name} step {len(ms)}: loss {losses[-1]}")
+    launches = counts(tl, fk)
+    peak = torch.cuda.max_memory_allocated()
+    timed = ms[WARMUP_STEPS:]
+    ex_per_s = TIMED_STEPS * BENCH_BATCH / (sum(timed) / 1e3)
+    log(f"train {name} B={BENCH_BATCH}: losses {losses}")
+    log(f"train {name}: warm-up step ms {ms[:WARMUP_STEPS]}; timed step ms "
+        f"(host clock, synchronized) {timed}; min {min(timed):.4f} max "
+        f"{max(timed):.4f} median {sorted(timed)[TIMED_STEPS // 2]:.4f}; "
+        f"{ex_per_s:.1f} examples/s over the {TIMED_STEPS} timed steps")
+    log(f"train {name}: launches per step {per_step}, in all {launches}; "
+        f"max_memory_allocated {peak} B")
+    return {"dmp": dmp, "launches": launches, "ms": timed,
+            "ex_per_s": ex_per_s, "peak_bytes": peak}
+
+
+def write_step(tl, fk) -> dict:
+    """One ROWWISE_ADAGRAD step with w_impl="write": K2 writes the rows."""
+    from torchrec_tpu_torch.ops.fused_update import EmbOptimType
+
+    dmp = make_dmp(DEVICE, train=True, optim=EmbOptimType.ROWWISE_ADAGRAD,
+                   fused_params={"w_impl": "write"}).init(SEED)
+    step = dmp.make_train_step()
+    batch = to_device(make_batch(np.random.RandomState(SEED + 6),
+                                 BENCH_BATCH))
+    torch.cuda.synchronize()
+    reset_counts(tl, fk)
+    loss, _ = step(*batch)
+    launches = counts(tl, fk)
+    expect = {"K1": 1, "K2": 1, "K3": 0, "K4": 0, "K5": 1}
+    if launches != expect or not math.isfinite(loss.item()):
+        raise AssertionError(f"w_impl=write step launched {launches} "
+                             f"(expected {expect}), loss {loss.item()}")
+    log(f"train ROWWISE_ADAGRAD w_impl=write: one step launched {launches}")
+    return launches
+
+
+def _touched(strat, batches) -> torch.Tensor:
+    """[rows_loc] bool: the packed rows the batches' ids address."""
+    off = torch.as_tensor(strat.local_offsets, dtype=torch.int64)
+    mask = torch.zeros(strat.rows_loc, dtype=torch.bool)
+    for _, kjt, _ in batches:
+        ids = kjt.values.long().reshape(NUM_TABLES, -1)
+        mask[(ids + off[:, None]).reshape(-1)] = True
+    return mask
+
+
+def check_train_against_cpu(optim) -> None:
+    """CPU_STEPS steps at B=256 of a fresh card DMP and its CPU copy."""
+    name = optim.name
+    gpu = make_dmp(DEVICE, train=True, optim=optim).init(SEED + 3)
+    cpu = make_dmp("cpu", train=True, optim=optim)
+    cpu.load_state_dict(gpu.state_dict())
+    rng = np.random.RandomState(SEED + 4)
+    batches = [make_batch(rng, SERVE_BATCH) for _ in range(CPU_STEPS)]
+    step_g, step_c = gpu.make_train_step(), cpu.make_train_step()
+    for i, batch in enumerate(batches):
+        loss_g, _ = step_g(*to_device(batch))
+        loss_c, _ = step_c(*batch)
+        torch.testing.assert_close(loss_g.cpu(), loss_c, rtol=1e-4,
+                                   atol=1e-5)
+        log(f"train {name} B={SERVE_BATCH} step {i}: card loss "
+            f"{loss_g.item():.9g}, CPU loss {loss_c.item():.9g}")
+    pg = dict(gpu.module.named_parameters())
+    for pname, p in cpu.module.named_parameters():
+        torch.testing.assert_close(pg[pname].detach().cpu(), p.detach(),
+                                   rtol=1e-4, atol=1e-5)
+    sg = gpu.sharded_ebcs[TRAIN_KEY].strategies[0]
+    sc = cpu.sharded_ebcs[TRAIN_KEY].strategies[0]
+    touched = _touched(sc, batches)
+    pairs = [("table", sg.weights[0].cpu(), sc.weights[0])]
+    if sc.momentum1 is not None:
+        pairs.append(("momentum", sg.momentum1[0].cpu(), sc.momentum1[0]))
+    for what, a, b in pairs:
+        torch.testing.assert_close(a[touched], b[touched], rtol=1e-4,
+                                   atol=1e-5)
+        if not torch.equal(a[~touched], b[~touched]):
+            raise AssertionError(f"{name}: untouched {what} rows differ")
+        err = (a[touched] - b[touched]).abs().max().item()
+        log(f"train {name}: {int(touched.sum())} touched {what} rows within "
+            f"rtol 1e-4 / atol 1e-5 of the CPU run (max abs diff "
+            f"{err:.3e}), the rest equal")
+    log(f"train {name}: dense parameters match the CPU run")
+
+
+def rows_bound(N: int, n_real: int, D: int, rows_moved: int,
+               extra_bytes: int = 0, flops_per_elem: int = 2) -> dict:
+    """Least time for a row kernel: the N ids, `rows_moved` f32 rows of D
+    per real slot (sentinel slots move only their id) and `extra_bytes`
+    over HBM rate, against `flops_per_elem` per moved element over the
+    fp32 rate."""
+    nbytes = N * 4 + n_real * D * 4 * rows_moved + extra_bytes
+    flops = n_real * D * flops_per_elem
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return {"bytes": nbytes, "ms": max(t_bytes, t_ops) * 1e3,
+            "by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _hold(name: str, pairs) -> float:
+    """Bit-exact comparison of (kernel, plain) outputs; max abs error."""
+    torch.cuda.synchronize()
+    err = 0.0
+    for a, b in pairs:
+        if not torch.equal(a, b):
+            diff = (a - b).abs().max().item()
+            raise AssertionError(f"{name} is not bit-exact with its plain "
+                                 f"version: max abs diff {diff:.3e}")
+        err = max(err, (a - b).abs().max().item())
+    return err
+
+
+def check_update_kernels(dmp, fk) -> dict:
+    """K2-K5 against their plain versions on the trained table."""
+    from torchrec_tpu_torch.ops import fused_update as fu
+
+    strat = dmp.sharded_ebcs[TRAIN_KEY].strategies[0]
+    W, M = strat.weights[0], strat.momentum1[0]
+    R, D = W.shape
+    lr = FUSED_LR
+    rng = np.random.RandomState(SEED + 5)
+    _, kjt, _ = make_batch(rng, BENCH_BATCH)
+    sb = kjt.to(DEVICE).to_padded(L)
+    off = torch.as_tensor(strat.local_offsets, dtype=torch.int32,
+                          device=DEVICE)
+    flat = (sb.ids + off[:, None, None]).reshape(-1)
+    valid = sb.mask().reshape(-1)
+    d_pooled = torch.from_numpy(
+        (rng.randn(NUM_TABLES, BENCH_BATCH, D) * 1e-3).astype(np.float32)
+    ).to(DEVICE)
+    row_grads = fu.pooled_grad_to_row_grads(
+        d_pooled, sb.lengths, L).reshape(-1, D)
+    u_rt, g_rt = fu.run_total_row_grads(flat, row_grads, valid, R)
+    u_dd, g_dd = fu.dedup_row_grads(flat, row_grads, valid, R)
+    N = int(flat.numel())
+    real_rt = u_rt < R
+    n_real = int(real_rt.sum())
+    ids_real, g_real = u_rt[real_rt].long(), g_rt[real_rt]
+    log(f"update kernels: N={N} slots, {n_real} distinct rows, "
+        f"{int((u_rt == fu.RUN_SENTINEL).sum())} run sentinels, "
+        f"{int((u_dd >= R).sum())} dedup sentinels; W {tuple(W.shape)}")
+    out = {}
+
+    # K3, with and without weight decay
+    errs = []
+    for wd in (0.0, 0.01):
+        W1, W2 = W.clone(), W.clone()
+        fk.fused_update_sgd(W1, u_rt, g_rt, lr, weight_decay=wd)
+        fk.fused_update_sgd_reference(W2, u_rt, g_rt, lr, weight_decay=wd)
+        errs.append(_hold("K3", [(W1, W2)]))
+    b = rows_bound(N, n_real, D, rows_moved=3)
+    out["K3"] = {
+        "max_abs_err": max(errs), "bound": b,
+        **timings(lambda: fk.fused_update_sgd(W1, u_rt, g_rt, lr),
+                  "row_update_kernel",
+                  lambda: fk.fused_update_sgd_reference(W2, u_rt, g_rt, lr),
+                  lambda: W2.index_add_(0, ids_real, g_real, alpha=-lr)),
+    }
+
+    # K2: the rows of the write form of the SGD update
+    rows = W[u_rt.clamp(max=R - 1).long()] - lr * g_rt
+    W1, W2 = W.clone(), W.clone()
+    fk.scatter_rows_write(W1, u_rt, rows)
+    fk.scatter_rows_write_reference(W2, u_rt, rows)
+    rows_real = rows[real_rt]
+    out["K2"] = {
+        "max_abs_err": _hold("K2", [(W1, W2)]),
+        "bound": rows_bound(N, n_real, D, rows_moved=2, flops_per_elem=0),
+        **timings(lambda: fk.scatter_rows_write(W1, u_rt, rows),
+                  "row_update_kernel",
+                  lambda: fk.scatter_rows_write_reference(W2, u_rt, rows),
+                  lambda: W2.index_copy_(0, ids_real, rows_real)),
+    }
+    del rows, rows_real
+
+    # K5 on the dedup output's g_sq
+    real_dd = u_dd < R
+    n_uniq = int(real_dd.sum())
+    g_sq = (g_dd * g_dd).mean(dim=1) * real_dd.to(torch.float32)
+    M1, M2 = M.clone(), M.clone()
+    _, inv1, ovf = fk.rowwise_momentum_stream(M1, u_dd, g_sq)
+    _, inv2, _ = fk.rowwise_momentum_stream_reference(M2, u_dd, g_sq)
+    if bool(ovf):
+        raise AssertionError("K5 reported an overflow")
+    err5 = _hold("K5", [(M1, M2), (inv1, inv2)])
+    # ids, g_sq of the real slots and inv are contiguous; each distinct
+    # row's momentum word is read and written once, at a random place
+    payload = N * 4 + n_uniq * 4 + N * 4 + 2 * n_uniq * 4
+    sectors = N * 4 + n_uniq * 4 + N * 4 + 2 * n_uniq * 32
+    t_bytes, t_ops = payload / HBM_BYTES_PER_S, 4 * n_uniq / FP32_FLOPS
+    out["K5"] = {
+        "max_abs_err": err5,
+        "bound": {"bytes": payload, "ms": max(t_bytes, t_ops) * 1e3,
+                  "by": "bytes" if t_bytes >= t_ops else "operations"},
+        **timings(lambda: fk.rowwise_momentum_stream(M1, u_dd, g_sq),
+                  "rowwise_momentum_kernel",
+                  lambda: fk.rowwise_momentum_stream_reference(
+                      M2, u_dd, g_sq)),
+    }
+    log(f"K5 bound: {payload} B of payload ({1e3 * payload / HBM_BYTES_PER_S:.4f} "
+        f"ms, used for the share); {sectors} B counting a 32-byte sector "
+        f"per scattered momentum read and write "
+        f"({1e3 * sectors / HBM_BYTES_PER_S:.4f} ms)")
+
+    # K4: the scaled RMW on K5's scale, then the whole rowwise update
+    scale = lr * inv2
+    W1, W2 = W.clone(), W.clone()
+    fk.scaled_row_update(W1, u_dd, g_dd, scale)
+    fk.scaled_row_update_reference(W2, u_dd, g_dd, scale)
+    err4 = _hold("K4", [(W1, W2)])
+    M1, M2 = M.clone(), M.clone()
+    fk.fused_update_rowwise_adagrad(W1, M1, u_dd, g_dd, lr,
+                                    momentum_stream=True)
+    fk.fused_update_rowwise_adagrad_reference(W2, M2, u_dd, g_dd, lr,
+                                              momentum_stream=True)
+    err4 = max(err4, _hold("fused_update_rowwise_adagrad",
+                           [(W1, W2), (M1, M2)]))
+    out["K4"] = {
+        "max_abs_err": err4,
+        "bound": rows_bound(N, n_uniq, D, rows_moved=3,
+                            extra_bytes=n_uniq * 4),
+        **timings(lambda: fk.scaled_row_update(W1, u_dd, g_dd, scale),
+                  "row_update_kernel",
+                  lambda: fk.scaled_row_update_reference(
+                      W2, u_dd, g_dd, scale)),
+    }
+    for k in ("K2", "K3", "K4", "K5"):
+        r = out[k]
+        lib = ("none" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms")
+        log(f"{k} {KERNELS[k][0]}: bit-exact with its plain version; "
+            f"{r['ms']:.4f} ms on the device (call {r['call_ms']:.4f} ms); "
+            f"plain {r['plain_ms']:.4f} ms; library "
+            f"{lib}; bound {r['bound']['ms']:.4f} ms ({r['bound']['by']}: "
+            f"{r['bound']['bytes']} B); kernel at "
+            f"{100 * r['bound']['ms'] / r['ms']:.1f}% of the bound")
+    return {k: {"max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
+                "bound_ms": r["bound"]["ms"], "bound_by": r["bound"]["by"]}
+            for k, r in out.items()}
 
 
 def main() -> int:
@@ -278,27 +676,44 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
               file=sys.stderr)
         return 1
+    from torchrec_tpu_torch.ops import fused_update_kernels as fk
     from torchrec_tpu_torch.ops import tbe_lookup as tl
+    from torchrec_tpu_torch.ops.fused_update import EmbOptimType
 
     card = identify()
-    build_kernels(tl)
+    build_kernels([tl.LIBRARY, fk.LIBRARY])
     t0 = time.perf_counter()
     dmp = make_dmp(DEVICE).init(SEED)
     torch.cuda.synchronize()
     log(f"DLRM built and initialised on the card in "
         f"{time.perf_counter() - t0:.2f} s")
-    served = serve(dmp, tl)
+    served = serve(dmp, tl, fk)
     check_against_cpu(dmp, served["last"])
-    k1 = check_kernel(dmp, tl)
+    results = {"K1": check_kernel(dmp, tl)}
+    served_launches = served["launches"]
+    del dmp, served
+
+    sgd = train(EmbOptimType.EXACT_SGD, tl, fk)
+    del sgd["dmp"]
+    adagrad = train(EmbOptimType.ROWWISE_ADAGRAD, tl, fk)
+    write = write_step(tl, fk)
+    for optim in (EmbOptimType.EXACT_SGD, EmbOptimType.ROWWISE_ADAGRAD):
+        check_train_against_cpu(optim)
+    results.update(check_update_kernels(adagrad["dmp"], fk))
+    launches = {"K1": served_launches, "K2": write["K2"],
+                "K3": sgd["launches"]["K3"], "K4": adagrad["launches"]["K4"],
+                "K5": adagrad["launches"]["K5"]}
+    log(f"launches on the paths: K1 serving, K3 EXACT_SGD training, K4 and "
+        f"K5 ROWWISE_ADAGRAD training, K2 the w_impl=write step: {launches}")
     log(card["smi"])
     log(json.dumps({"kernels": [{
-        "name": "tbe_lookup_pooled",
+        "name": KERNELS[k][0],
         "route": "cuda",
-        "source": "torchrec_tpu_torch/csrc/tbe_lookup.cu",
-        "replaces": "torchrec_tpu/ops/pallas_embedding.py:298",
-        "launches": served["launches"],
-        **k1,
-    }]}))
+        "source": KERNELS[k][1],
+        "replaces": KERNELS[k][2],
+        "launches": launches[k],
+        **results[k],
+    } for k in sorted(KERNELS)]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card["name"],
         "count": torch.cuda.device_count()}}))

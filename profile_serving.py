@@ -29,6 +29,36 @@ import chip_smoke as cs
 REQUESTS = 10  # profiled requests per batch size, after 2 warm-up ones
 
 
+def summarize(prof, n: int, unit: str, wall_ms: float) -> None:
+    """Print the device time of the profiled window per `unit` (request or
+    step): busy share of the kernel span, kernel launches, the largest
+    kernels and the device time under each `## ... ##` label."""
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # device-side ranges of record_function labels would count their
+    # kernels twice
+    kernels = [e for e in events if not e.is_user_annotation]
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    span_us = (max(e.time_range.end for e in kernels)
+               - min(e.time_range.start for e in kernels))
+    print(f"{n} {unit}s, host {wall_ms / n:.3f} ms/{unit} (profiler on); "
+          f"device busy {busy_us / n:.1f} us/{unit}, "
+          f"{100 * busy_us / span_us:.1f}% of the kernel span; "
+          f"{len(kernels) / n:.1f} kernel launches/{unit}")
+    per_name = {}
+    for e in kernels:
+        per_name[e.name] = per_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    for name, us in sorted(per_name.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"  {us / n:9.1f} us/{unit} {100 * us / busy_us:5.1f}%  "
+              f"{name[:110]}")
+    labels = {}
+    for e in events:
+        if e.is_user_annotation and e.name.startswith("##"):
+            labels[e.name] = (labels.get(e.name, 0.0)
+                              + e.time_range.elapsed_us())
+    for name, us in sorted(labels.items(), key=lambda kv: -kv[1]):
+        print(f"  {us / n:9.1f} us/{unit} span of {name}")
+
+
 def profile_batch(eval_fn, rng, batch: int, n: int, trace_dir: str) -> None:
     reqs = [cs.make_request(rng, batch) for _ in range(n + 2)]
     for dense, kjt in reqs[:2]:  # warm-up
@@ -41,23 +71,8 @@ def profile_batch(eval_fn, rng, batch: int, n: int, trace_dir: str) -> None:
             eval_fn(dense.cuda(), kjt.to("cuda")).cpu()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side ranges of record_function labels would count their
-    # kernels twice
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-               and not e.is_user_annotation]
-    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
-    span_us = (max(e.time_range.end for e in kernels)
-               - min(e.time_range.start for e in kernels))
-    per_name = {}
-    for e in kernels:
-        per_name[e.name] = per_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    print(f"B={batch}: {n} requests, host {wall_ms / n:.3f} ms/request "
-          f"(profiler on); device busy {busy_us / n:.1f} us/request, "
-          f"{100 * busy_us / span_us:.1f}% of the kernel span; "
-          f"{len(kernels) / n:.1f} kernel launches/request")
-    for name, us in sorted(per_name.items(), key=lambda kv: -kv[1])[:12]:
-        print(f"  {us / n:9.1f} us/request {100 * us / busy_us:5.1f}%  "
-              f"{name[:110]}")
+    print(f"B={batch}:")
+    summarize(prof, n, "request", wall_ms)
     os.makedirs(trace_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(trace_dir,
                                           f"serve_trace_B{batch}.json"))

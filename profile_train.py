@@ -1,0 +1,72 @@
+"""Trace train steps on the GPU: where the device time goes.
+
+Run from the repository root, on a machine with a CUDA card:
+
+    python3 profile_train.py [--trace_dir DIR]
+
+Builds the model that chip_smoke.py trains (bench.py's DLRMTrain at full
+width, random weights from seed 0, fused lr 0.1, dense SGD at 0.05) for
+EXACT_SGD and for ROWWISE_ADAGRAD, takes 3 warm-up steps at B=8192, then
+profiles STEPS steps with torch.profiler. For each optimizer it prints the
+device time per kernel name and its share, the device busy share between
+the first kernel's start and the last kernel's end, the device span of
+each phase of the step (`## train_* ##` and `## ebc_* ##` labels) and the
+host time per step; the chrome traces go to --trace_dir. Times are taken
+with the profiler on, which slows the host side.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+import chip_smoke as cs
+from profile_serving import summarize
+
+STEPS = 10  # profiled steps per optimizer, after 3 warm-up ones
+
+
+def profile_optim(optim, trace_dir: str) -> None:
+    dmp = cs.make_dmp("cuda", train=True, optim=optim).init(cs.SEED)
+    step = dmp.make_train_step()
+    rng = np.random.RandomState(cs.SEED + 2)
+    batches = [cs.to_device(cs.make_batch(rng, cs.BENCH_BATCH))
+               for _ in range(STEPS + 3)]
+    for batch in batches[:3]:
+        step(*batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for batch in batches[3:]:
+            step(*batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    print(f"train {optim.name} B={cs.BENCH_BATCH}:")
+    summarize(prof, STEPS, "step", wall_ms)
+    os.makedirs(trace_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(
+        trace_dir, f"train_trace_{optim.name}.json"))
+
+
+def main() -> None:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--trace_dir", default="profile_traces")
+    args = p.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_train: no CUDA device")
+    from torchrec_tpu_torch.ops.fused_update import EmbOptimType
+
+    card = cs.identify()
+    for optim in (EmbOptimType.EXACT_SGD, EmbOptimType.ROWWISE_ADAGRAD):
+        profile_optim(optim, args.trace_dir)
+    print(card["smi"])
+
+
+if __name__ == "__main__":
+    main()

@@ -23,12 +23,15 @@ from torchrec_tpu_torch.parallel import (
     ShardingPlan,
     ShardingType,
 )
+from torchrec_tpu_torch.modules.embedding_configs import DataType
+from torchrec_tpu_torch.ops import fused_update as tfu
 from torchrec_tpu_torch.parallel.types import ComputeKernel
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "torchrec_tpu")
 PORT_FILES = sorted((ROOT / "torchrec_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "profile_serving.py"
+    ROOT / "chip_smoke.py", ROOT / "profile_serving.py",
+    ROOT / "profile_train.py",
 ]
 
 
@@ -49,15 +52,16 @@ def test_port_imports_no_jax(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
-def _tables():
+def _tables(data_type=DataType.FP32):
     return [EmbeddingBagConfig(num_embeddings=10, embedding_dim=4,
-                               name=f"t{i}", feature_names=[f"f{i}"])
+                               name=f"t{i}", feature_names=[f"f{i}"],
+                               data_type=data_type)
             for i in range(2)]
 
 
-def _model(device):
-    return DLRM(EmbeddingBagCollection(_tables(), device=device), 3, (4,),
-                (4, 1), device=device)
+def _model(device, data_type=DataType.FP32):
+    return DLRM(EmbeddingBagCollection(_tables(data_type), device=device),
+                3, (4,), (4, 1), device=device)
 
 
 def _plan(sharding_type=ShardingType.ROW_WISE, **kw):
@@ -65,7 +69,7 @@ def _plan(sharding_type=ShardingType.ROW_WISE, **kw):
         t.name: ParameterSharding(sharding_type, **kw) for t in _tables()}})
 
 
-@pytest.mark.parametrize("entry", ["env", "dmp", "mlp", "ebc"])
+@pytest.mark.parametrize("entry", ["env", "dmp", "mlp", "ebc", "train_step"])
 def test_entry_points_refuse_cpu_without_asking(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -73,6 +77,10 @@ def test_entry_points_refuse_cpu_without_asking(entry, monkeypatch):
             ShardingEnv()
         elif entry == "dmp":
             DistributedModelParallel(_model("meta"), plan=_plan())
+        elif entry == "train_step":
+            DistributedModelParallel(
+                _model("meta"), plan=_plan(),
+                fused_optim=tfu.EmbOptimType.EXACT_SGD).make_train_step()
         elif entry == "mlp":
             MLP(3, (4,))
         else:
@@ -87,8 +95,24 @@ def test_dmp_serves_on_cpu_when_asked():
 
 
 @pytest.mark.parametrize(
-    "case", ["no_plan", "table_wise", "uvm", "world_size", "update"])
+    "case", ["no_plan", "table_wise", "uvm", "world_size", "update",
+             "bf16_train", "fused_param"])
 def test_unported_parts_raise(case):
+    """`update`: the ADAGRAD and ADAM fused updates (K6, K7) raise, from
+    make_train_step before any step and from apply_fused_update."""
+    if case == "update":
+        for optim in (tfu.EmbOptimType.ADAGRAD, tfu.EmbOptimType.ADAM):
+            dmp = DistributedModelParallel(_model("meta"), plan=_plan(),
+                                           device="cpu", fused_optim=optim)
+            with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+                dmp.make_train_step()
+            with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+                tfu.apply_fused_update(
+                    torch.zeros(10, 4),
+                    tfu.init_fused_optimizer_state(10, 4, optim),
+                    torch.zeros(2, dtype=torch.int32), torch.zeros(2, 4),
+                    torch.ones(2, dtype=torch.bool), 0.1)
+        return
     with pytest.raises(NotImplementedError):
         if case == "no_plan":
             DistributedModelParallel(_model("meta"), device="cpu")
@@ -101,8 +125,11 @@ def test_unported_parts_raise(case):
                 plan=_plan(compute_kernel=ComputeKernel.FUSED_UVM_CACHING))
         elif case == "world_size":
             ShardingEnv.from_devices(["cpu", "cpu"])
+        elif case == "bf16_train":  # bf16 tables train with SR, unported
+            DistributedModelParallel(
+                _model("meta", DataType.BF16), plan=_plan(), device="cpu",
+                fused_optim=tfu.EmbOptimType.EXACT_SGD).make_train_step()
         else:
-            dmp = DistributedModelParallel(_model("meta"), plan=_plan(),
-                                           device="cpu")
-            dmp.sharded_ebcs["sparse_arch/embedding_bag_collection"] \
-                .strategies[0].update()
+            DistributedModelParallel(
+                _model("meta"), plan=_plan(), device="cpu",
+                fused_params={"stochastic_rounding": True}).make_train_step()

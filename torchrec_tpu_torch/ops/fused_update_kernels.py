@@ -1,0 +1,365 @@
+"""K2-K5: the fused embedding-update kernels as hand-written CUDA kernels.
+
+Counterparts of four functions of torchrec_tpu/ops/pallas_embedding.py,
+with the same names and arguments minus the TPU's wave sizes (`T`, `TB`,
+`window_rows`, `max_block_share`, `skip_blocks`) and `interpret`:
+
+* K2 `scatter_rows_write`  (:189, `_scatter_write_kernel` :154)
+* K3 `fused_update_sgd`    (:577, `_sgd_kernel` :457)
+* K4 `fused_update_rowwise_adagrad` (:617; its scaled RMW
+  `_scaled_update_kernel` :477 is the kernel)
+* K5 `rowwise_momentum_stream` (:902, `_rowwise_mom_stream_kernel` :737)
+
+The four kernels live in csrc/fused_update.cu, one library built with nvcc
+for sm_90a at first use and bound with ctypes (ops/cuda_build.py). All four
+are bound by bytes: scattered 512-byte rows (K2-K4) or 4-byte momentum
+words (K5), with a few flops per element; the source says how each one
+moves its bytes.
+
+The JAX functions return new arrays; these update `weights` and `momentum`
+IN PLACE and return the same tensors, so callers port one to one. CUDA
+tensors launch the kernel, which needs D % 4 == 0 and 16-byte aligned rows
+and raises otherwise; CPU tensors take the plain PyTorch version
+(`*_reference`), which takes any D. Nothing falls back.
+
+Slots whose id is not a real row (0 <= id < R) are skipped: the sentinels
+are 2**31 - 1 (`run_total_row_grads`) and R + pos (`dedup_row_grads`).
+Real ids must be unique (K2-K4) or sorted (K5), as the callers guarantee.
+`lr`, `weight_decay` and `eps` are Python floats, passed by value, so no
+launch waits on the device.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Callable, Dict, Tuple
+
+import torch
+
+from torchrec_tpu_torch.ops.cuda_build import CudaLibrary
+
+_P, _I64, _F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    sigs = {
+        "trt_scatter_rows_write_f32": [_P, _P, _P, _I64, _I64, _I64, _P],
+        "trt_fused_update_sgd_f32":
+            [_P, _P, _P, _I64, _I64, _I64, _F32, _F32, _P],
+        "trt_scaled_row_update_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _P],
+        "trt_rowwise_momentum_f32": [_P, _P, _P, _P, _I64, _I64, _F32, _P],
+    }
+    for name, argtypes in sigs.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+
+
+LIBRARY = CudaLibrary("fused_update.cu", _bind)
+
+# Kernel launches made by each wrapper in this process.
+LAUNCHES: Dict[str, int] = {
+    "scatter_rows_write": 0,
+    "fused_update_sgd": 0,
+    "fused_update_rowwise_adagrad": 0,
+    "rowwise_momentum_stream": 0,
+}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# -- checks and launch ---------------------------------------------------------
+
+
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype, dim: int,
+           rows: int = -1) -> None:
+    if t.dtype != dtype or t.dim() != dim:
+        raise TypeError(f"{name} must be a {dim}-D {dtype} tensor, got "
+                        f"{t.dtype} {tuple(t.shape)}")
+    if rows >= 0 and t.shape[0] != rows:
+        raise ValueError(f"{name} has {t.shape[0]} rows, expected {rows}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _same_device(*ts: torch.Tensor) -> torch.device:
+    devices = {t.device for t in ts}
+    if len(devices) != 1:
+        raise ValueError(f"tensors on different devices: {devices}")
+    dev = devices.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def _check_rows(weights: torch.Tensor, uids: torch.Tensor,
+                src: torch.Tensor, src_name: str) -> torch.device:
+    _check("weights", weights, torch.float32, 2)
+    _check("uids", uids, torch.int32, 1)
+    _check(src_name, src, torch.float32, 2, uids.shape[0])
+    if src.shape[1] != weights.shape[1]:
+        raise ValueError(f"{src_name} has width {src.shape[1]}, weights "
+                         f"{weights.shape[1]}")
+    return _same_device(weights, uids, src)
+
+
+def _vector_rows(*ts: torch.Tensor) -> None:
+    """The CUDA row kernels move rows as 16-byte float4s."""
+    D = ts[0].shape[1]
+    if D % 4:
+        raise ValueError(f"the CUDA row kernels need D % 4 == 0, got D={D}")
+    if any(t.data_ptr() % 16 for t in ts):
+        raise ValueError("the CUDA row kernels need 16-byte aligned rows")
+
+
+def _launch(name: str, device: torch.device, call: Callable) -> None:
+    lib = LIBRARY.load()
+    with torch.cuda.device(device):
+        err = call(lib, torch.cuda.current_stream(device).cuda_stream)
+    LIBRARY.check(name, err)
+    LAUNCHES[name] += 1
+
+
+def _real_slots(uids: torch.Tensor, R: int) -> torch.Tensor:
+    """Positions of the slots whose id is a real row (the plain versions
+    only: this waits for the device)."""
+    return torch.nonzero((uids >= 0) & (uids < R)).squeeze(1)
+
+
+def _div(num: float, den: torch.Tensor) -> torch.Tensor:
+    """num / den rounded once, as the kernels and JAX compute it
+    (`float / Tensor` in PyTorch multiplies by a reciprocal instead)."""
+    return torch.full_like(den, num) / den
+
+
+# -- K2 ------------------------------------------------------------------------
+
+
+def scatter_rows_write_reference(weights: torch.Tensor, uids: torch.Tensor,
+                                 rows: torch.Tensor) -> torch.Tensor:
+    """Plain version of K2: weights[uids[t]] = rows[t] where uids[t] is a
+    real row, in place."""
+    sel = _real_slots(uids, weights.shape[0])
+    weights.index_copy_(0, uids[sel].long(), rows[sel])
+    return weights
+
+
+def scatter_rows_write(weights: torch.Tensor, uids: torch.Tensor,
+                       rows: torch.Tensor) -> torch.Tensor:
+    """K2: weights[uids[t]] = rows[t] in place, for real uids[t]; sentinel
+    slots are skipped and their rows never read. weights [R, D] f32; uids
+    [N] int32, unique among real slots; rows [N, D] f32. Returns
+    `weights`."""
+    dev = _check_rows(weights, uids, rows, "rows")
+    if dev.type == "cpu":
+        return scatter_rows_write_reference(weights, uids, rows)
+    (R, D), N = weights.shape, uids.shape[0]
+    if N == 0 or D == 0:
+        return weights
+    _vector_rows(weights, rows)
+    _launch("scatter_rows_write", dev, lambda lib, s:
+            lib.trt_scatter_rows_write_f32(
+                weights.data_ptr(), uids.data_ptr(), rows.data_ptr(),
+                R, D, N, s))
+    return weights
+
+
+# -- K3 ------------------------------------------------------------------------
+
+
+def fused_update_sgd_reference(weights: torch.Tensor, uids: torch.Tensor,
+                               g: torch.Tensor, lr: float,
+                               weight_decay: float = 0.0) -> torch.Tensor:
+    """Plain version of K3: W[id] = W[id] - lr * (g + wd * W[id]) for the
+    real slots, in place."""
+    sel = _real_slots(uids, weights.shape[0])
+    ids = uids[sel].long()
+    w, gg = weights[ids], g[sel]
+    if weight_decay:
+        gg = gg + weight_decay * w
+    weights.index_copy_(0, ids, w - lr * gg)
+    return weights
+
+
+def fused_update_sgd(weights: torch.Tensor, uids: torch.Tensor,
+                     g: torch.Tensor, lr: float,
+                     weight_decay: float = 0.0) -> torch.Tensor:
+    """K3: in-place SGD on unique touched rows,
+    W[id] -= lr * (g + weight_decay * W[id]); slots whose id is not a real
+    row (the 2**31 - 1 sentinels between run totals) are skipped.
+    weights [R, D] f32; uids [N] int32; g [N, D] f32. Returns `weights`."""
+    dev = _check_rows(weights, uids, g, "g")
+    lr, weight_decay = float(lr), float(weight_decay)
+    if dev.type == "cpu":
+        return fused_update_sgd_reference(weights, uids, g, lr, weight_decay)
+    (R, D), N = weights.shape, uids.shape[0]
+    if N == 0 or D == 0:
+        return weights
+    _vector_rows(weights, g)
+    _launch("fused_update_sgd", dev, lambda lib, s:
+            lib.trt_fused_update_sgd_f32(
+                weights.data_ptr(), uids.data_ptr(), g.data_ptr(),
+                R, D, N, lr, weight_decay, s))
+    return weights
+
+
+# -- K4's scaled RMW -----------------------------------------------------------
+
+
+def scaled_row_update_reference(weights: torch.Tensor, uids: torch.Tensor,
+                                g: torch.Tensor,
+                                scale: torch.Tensor) -> torch.Tensor:
+    """Plain version of K4's kernel: W[id] = W[id] + scale[t] * g[t] for
+    the real slots, in place."""
+    sel = _real_slots(uids, weights.shape[0])
+    ids = uids[sel].long()
+    weights.index_copy_(0, ids, weights[ids] + scale[sel, None] * g[sel])
+    return weights
+
+
+def scaled_row_update(weights: torch.Tensor, uids: torch.Tensor,
+                      g: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """K4's kernel: W[id] += scale[t] * g[t] in place for unique real ids.
+    Counted as `fused_update_rowwise_adagrad`, whose row write it is."""
+    dev = _check_rows(weights, uids, g, "g")
+    _check("scale", scale, torch.float32, 1, uids.shape[0])
+    _same_device(weights, scale)
+    if dev.type == "cpu":
+        return scaled_row_update_reference(weights, uids, g, scale)
+    (R, D), N = weights.shape, uids.shape[0]
+    if N == 0 or D == 0:
+        return weights
+    _vector_rows(weights, g)
+    _launch("fused_update_rowwise_adagrad", dev, lambda lib, s:
+            lib.trt_scaled_row_update_f32(
+                weights.data_ptr(), uids.data_ptr(), g.data_ptr(),
+                scale.data_ptr(), R, D, N, s))
+    return weights
+
+
+# -- K5 ------------------------------------------------------------------------
+
+
+def rowwise_momentum_stream_reference(
+    momentum: torch.Tensor, uids: torch.Tensor, g_sq: torch.Tensor,
+    eps: float = 1.0e-8,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of K5: momentum[u] += g_sq over the real slots, in
+    place; inv[p] = -1 / (sqrt(momentum[uids[p]]) + eps) afterwards, 0 at
+    sentinel slots."""
+    R = momentum.shape[0]
+    real = (uids >= 0) & (uids < R)
+    ids = torch.where(real, uids, 0).long()
+    momentum.index_add_(0, ids, torch.where(real, g_sq, 0.0))
+    inv = _div(-1.0, torch.sqrt(momentum[ids]) + eps)
+    inv = torch.where(real, inv, 0.0)
+    return momentum, inv, torch.zeros((), dtype=torch.bool,
+                                      device=momentum.device)
+
+
+def rowwise_momentum_stream(
+    momentum: torch.Tensor, uids: torch.Tensor, g_sq: torch.Tensor,
+    eps: float = 1.0e-8,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K5: rowwise-momentum accumulate and per-slot inverse scale.
+
+    momentum [R] f32, updated in place; uids [N] int32 SORTED ascending
+    (`dedup_row_grads` output: real ids, then sentinels >= R; duplicates
+    are allowed and every slot of a run gets the run's new momentum);
+    g_sq [N] f32. Returns (momentum, inv_scale [N], overflowed) with
+    inv_scale[p] = -1 / (sqrt(new_m[uids[p]]) + eps), 0 at sentinel slots.
+    `overflowed` is always a False tensor: unlike the TPU kernel's
+    contribution windows, nothing here can overflow.
+    """
+    _check("momentum", momentum, torch.float32, 1)
+    _check("uids", uids, torch.int32, 1)
+    _check("g_sq", g_sq, torch.float32, 1, uids.shape[0])
+    dev = _same_device(momentum, uids, g_sq)
+    eps = float(eps)
+    if dev.type == "cpu":
+        return rowwise_momentum_stream_reference(momentum, uids, g_sq, eps)
+    R, N = momentum.shape[0], uids.shape[0]
+    inv = torch.empty((N,), dtype=torch.float32, device=dev)
+    if N:
+        _launch("rowwise_momentum_stream", dev, lambda lib, s:
+                lib.trt_rowwise_momentum_f32(
+                    momentum.data_ptr(), uids.data_ptr(), g_sq.data_ptr(),
+                    inv.data_ptr(), R, N, eps, s))
+    return momentum, inv, torch.zeros((), dtype=torch.bool, device=dev)
+
+
+# -- K4 ------------------------------------------------------------------------
+
+
+def _rowwise_adagrad(weights, momentum, uids, g, lr, eps, weight_decay,
+                     momentum_stream, w_impl, mom_fn, scaled_fn, write_fn):
+    """The logic of pallas_embedding.fused_update_rowwise_adagrad
+    (:640-734), over the given K5 / K4 / K2 callables."""
+    if w_impl not in ("rmw", "write"):
+        raise ValueError(f"w_impl must be 'rmw' or 'write', got {w_impl!r}")
+    R = weights.shape[0]
+    valid = uids < R  # dedup sentinels are R + pos, never negative
+    ids = uids.clamp(max=R - 1).long()
+    # L2 weight decay folds into g before the accumulator (FBGEMM)
+    if weight_decay:
+        g = g + weight_decay * weights[ids]
+    g_sq = (g * g).mean(dim=1) * valid.to(torch.float32)
+    if momentum_stream:
+        _, inv, _ = mom_fn(momentum, uids, g_sq, eps)
+        scale = lr * inv
+    else:
+        m_rows = momentum[ids] + g_sq
+        momentum.index_add_(0, ids, g_sq)  # sentinels add 0 to row R-1
+        scale = torch.where(
+            valid, _div(-lr, torch.sqrt(m_rows) + eps), 0.0)
+    if w_impl == "write":
+        write_fn(weights, uids, weights[ids] + scale[:, None] * g)
+    else:
+        scaled_fn(weights, uids, g.contiguous(), scale.contiguous())
+    return weights, momentum
+
+
+def _check_adagrad(weights, momentum, uids, g) -> None:
+    _check_rows(weights, uids, g, "g")
+    _check("momentum", momentum, torch.float32, 1, weights.shape[0])
+    _same_device(weights, momentum)
+
+
+def fused_update_rowwise_adagrad_reference(
+    weights, momentum, uids, g, lr, eps=1.0e-8, weight_decay=0.0,
+    momentum_stream=False, w_impl="rmw",
+):
+    """Plain version of `fused_update_rowwise_adagrad`, on the plain
+    versions of K5, K4 and K2."""
+    _check_adagrad(weights, momentum, uids, g)
+    return _rowwise_adagrad(
+        weights, momentum, uids, g, float(lr), float(eps),
+        float(weight_decay), momentum_stream, w_impl,
+        rowwise_momentum_stream_reference, scaled_row_update_reference,
+        scatter_rows_write_reference)
+
+
+def fused_update_rowwise_adagrad(
+    weights: torch.Tensor, momentum: torch.Tensor, uids: torch.Tensor,
+    g: torch.Tensor, lr: float, eps: float = 1.0e-8,
+    weight_decay: float = 0.0, momentum_stream: bool = False,
+    w_impl: str = "rmw",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4: in-place rowwise Adagrad on unique touched rows.
+
+    weights [R, D] f32 and momentum [R] f32 (mean(g^2) per row) are
+    updated in place and returned; uids [N] int32 SORTED unique
+    (`dedup_row_grads` output, sentinels R + pos); g [N, D] f32 total
+    row gradients. Weight decay folds into g; the momentum step runs
+    through K5 (`momentum_stream=True`) or torch index ops; the rows are
+    written by the scaled-RMW kernel (`w_impl="rmw"`) or gathered, scaled
+    and written by K2 (`"write"`).
+    """
+    _check_adagrad(weights, momentum, uids, g)
+    return _rowwise_adagrad(
+        weights, momentum, uids, g, float(lr), float(eps),
+        float(weight_decay), momentum_stream, w_impl,
+        rowwise_momentum_stream, scaled_row_update, scatter_rows_write)

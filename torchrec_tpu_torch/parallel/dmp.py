@@ -1,4 +1,4 @@
-"""DistributedModelParallel: the model-parallel engine, serving half.
+"""DistributedModelParallel: the model-parallel engine.
 
 Counterpart of torchrec_tpu/parallel/dmp.py for models whose sparse part is
 EmbeddingBagCollections. The JAX DMP swaps each EBC for a parameter-less
@@ -13,18 +13,26 @@ modules are re-allocated on the env's device with `to_empty`, so build
 the model on `device="meta"` and call `init(seed)` or load weights
 (utils/jax_bridge.py) before the first forward.
 
-Not ported yet: the train step and its fused optimizers (the next slice;
-`fused_optim` and `fused_params` are stored for it), the planner (a plan
-must be given), and embedding towers, EmbeddingCollections, UVM-cached
-tables and feature processors, whose modules the port does not have.
+The train step follows the JAX DMP's: the sharded lookups run outside
+autograd, their pooled values enter the dense model as leaves, one
+backward gives the dense gradients and the pooled cotangents, the dense
+optimizer steps and each sharded EBC applies its fused optimizer to the
+touched rows. Where the JAX step returns a new DMPState, this one updates
+the DMP's parameters, tables and optimizer state in place.
+
+Not ported yet: the planner (a plan must be given), the prefetched and
+pipelined train steps, and embedding towers, EmbeddingCollections,
+UVM-cached tables and feature processors, whose modules the port does not
+have.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping, Optional
+from typing import Any, Callable, Dict, Iterable, Mapping, Optional
 
 import torch
 from torch import nn
+from torch.profiler import record_function
 
 from torchrec_tpu_torch.modules.embedding_modules import (
     EmbeddingBagCollection,
@@ -36,7 +44,15 @@ from torchrec_tpu_torch.parallel.sharded_ebc import (
 )
 from torchrec_tpu_torch.parallel.strategies import ArrayLike
 from torchrec_tpu_torch.parallel.types import ShardingEnv, ShardingPlan
+from torchrec_tpu_torch.sparse.jagged import (
+    KeyedJaggedTensor,
+    KeyedTensor,
+    PaddedSparseBatch,
+)
 from torchrec_tpu_torch.utils.device import DeviceLike
+
+DenseOptimizerFactory = Callable[[Iterable[nn.Parameter]],
+                                 torch.optim.Optimizer]
 
 
 def _set_submodule(root: nn.Module, path: str, new: nn.Module) -> None:
@@ -44,14 +60,29 @@ def _set_submodule(root: nn.Module, path: str, new: nn.Module) -> None:
     setattr(root.get_submodule(parent) if parent else root, leaf, new)
 
 
+def _detach(x: Any) -> Any:
+    if isinstance(x, torch.Tensor):
+        return x.detach()
+    if isinstance(x, (tuple, list)):
+        return type(x)(_detach(v) for v in x)
+    if isinstance(x, dict):
+        return {k: _detach(v) for k, v in x.items()}
+    return x
+
+
 class DistributedModelParallel(nn.Module):
     """Wraps an authored model, shards its EmbeddingBagCollections per the
-    plan and serves it on the env's device.
+    plan, and serves and trains it on the env's device.
 
     env: where to run (default: ShardingEnv(device), and `device` defaults
     to the current CUDA card). plan: ShardingPlan with an entry for every
-    EBC. fused_optim / fused_params: the embedding optimizer of the
-    training slice, stored as given until that slice reads them.
+    EBC. fused_optim: the embedding tables' fused optimizer. fused_params:
+    its `learning_rate` (default 0.01), an optional `lr_schedule`
+    (step -> lr, evaluated on the host from the DMP's step counter) and
+    the keys of ops/fused_update.apply_fused_update. dense_optimizer: a
+    factory params -> torch.optim.Optimizer for the dense parameters
+    (default: plain SGD at the fused learning rate, the update of the JAX
+    DMP's default optax.sgd).
     """
 
     def __init__(
@@ -61,6 +92,7 @@ class DistributedModelParallel(nn.Module):
         plan: Optional[ShardingPlan] = None,
         fused_optim: EmbOptimType = EmbOptimType.ROWWISE_ADAGRAD,
         fused_params: Optional[dict] = None,
+        dense_optimizer: Optional[DenseOptimizerFactory] = None,
         device: DeviceLike = None,
     ):
         super().__init__()
@@ -82,7 +114,11 @@ class DistributedModelParallel(nn.Module):
                 "init() could not initialise the others"
             )
         self.fused_optim = fused_optim
-        self.fused_params = dict(fused_params or {})
+        fused_params = dict(fused_params or {})
+        self.learning_rate = fused_params.pop("learning_rate", 0.01)
+        self.fused_lr_schedule: Optional[Callable[[int], float]] = (
+            fused_params.pop("lr_schedule", None))
+        self.fused_params = fused_params
 
         sharded: Dict[str, ShardedEmbeddingBagCollection] = {}
         for name, ebc in ebcs.items():
@@ -94,6 +130,7 @@ class DistributedModelParallel(nn.Module):
                 self.env, ebc.tables, module_plan,
                 is_weighted=ebc.is_weighted,
                 max_feature_length=ebc.max_feature_length,
+                optim=fused_optim, optim_kwargs=fused_params,
             )
             # drop the unsharded tables before the dense part is allocated
             _set_submodule(module, name, nn.Identity())
@@ -102,17 +139,27 @@ class DistributedModelParallel(nn.Module):
             _set_submodule(module, key.replace("/", "."), sebc)
         self.module = module
         self.sharded_ebcs = sharded
+        self.dense_optimizer = (dense_optimizer or self._default_dense_opt)(
+            list(module.parameters()))
+        # train steps taken: the fused lr_schedule's argument
+        self.step = 0
+
+    def _default_dense_opt(self, params) -> torch.optim.Optimizer:
+        return torch.optim.SGD(params, lr=self.learning_rate)
 
     @torch.no_grad()
     def init(self, seed: int = 0) -> "DistributedModelParallel":
         """Draw every dense parameter and table from one generator seeded
-        with `seed` on the env's device."""
+        with `seed` on the env's device, and zero the fused optimizer
+        state."""
         g = torch.Generator(device=self.env.device).manual_seed(seed)
         for m in self.module.modules():
             if isinstance(m, Perceptron):
                 m.reset_parameters(g)
         for sebc in self.sharded_ebcs.values():
             sebc.init(g)
+        self.dense_optimizer.state.clear()
+        self.step = 0
         return self
 
     def load_tables(
@@ -135,3 +182,59 @@ class DistributedModelParallel(nn.Module):
                 return self.module(*args)
 
         return eval_fn
+
+    def _fused_lr(self) -> float:
+        if self.fused_lr_schedule is not None:
+            return float(self.fused_lr_schedule(self.step))
+        return float(self.learning_rate)
+
+    def make_train_step(self, loss_fn: Optional[Callable] = None) -> Callable:
+        """train_step(*args) -> (loss, aux), one optimizer step.
+
+        The wrapped module must return (loss, aux) (DLRMTrain-style) unless
+        `loss_fn(model_output) -> (loss, aux)` is given; one of `args` is
+        the sparse batch (KeyedJaggedTensor or PaddedSparseBatch). The step
+        updates the dense parameters, the tables and the fused optimizer
+        state in place, where the JAX step returns a new DMPState; loss and
+        aux come back detached. Raises here, before any step, if a group's
+        fused optimizer, table dtype or fused_params is not ported.
+        """
+        for sebc in self.sharded_ebcs.values():
+            sebc.check_trainable()
+
+        def train_step(*args):
+            sparse = [a for a in args
+                      if isinstance(a, (KeyedJaggedTensor, PaddedSparseBatch))]
+            if len(sparse) != 1:
+                raise ValueError("train_step takes exactly one sparse batch "
+                                 f"argument, got {len(sparse)}")
+            lr = self._fused_lr()
+            leaves: Dict[str, torch.Tensor] = {}
+            with torch.no_grad():
+                for key, sebc in self.sharded_ebcs.items():
+                    kt = sebc(sparse[0])
+                    leaves[key] = kt.values.requires_grad_(True)
+                    sebc.injected = KeyedTensor(
+                        values=leaves[key], keys=kt.keys,
+                        length_per_key=kt.length_per_key)
+            try:
+                with record_function("## train_dense_forward ##"):
+                    out = self.module(*args)
+                    loss, aux = out if loss_fn is None else loss_fn(out)
+            finally:
+                for sebc in self.sharded_ebcs.values():
+                    sebc.injected = None
+            self.dense_optimizer.zero_grad(set_to_none=True)
+            with record_function("## train_backward ##"):
+                loss.backward()
+            with record_function("## train_dense_optimizer ##"):
+                self.dense_optimizer.step()
+            for key, sebc in self.sharded_ebcs.items():
+                d_values = leaves[key].grad
+                if d_values is None:  # the loss does not read these tables
+                    d_values = torch.zeros_like(leaves[key])
+                sebc.update(sparse[0], d_values, lr)
+            self.step += 1
+            return loss.detach(), _detach(aux)
+
+        return train_step

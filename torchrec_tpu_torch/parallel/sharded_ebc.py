@@ -5,8 +5,9 @@ sharding type into one strategy each, hands each strategy its group's
 features and assembles the group outputs into one KeyedTensor in the
 unsharded module's feature order. Where the JAX module is functional over
 a tuple of group states, this one is an `nn.Module` whose strategies hold
-their shards as buffers; `init`, `shard_from_dense` and `unshard_to_dense`
-keep the JAX names and return the group states.
+their shards and fused optimizer state as buffers; `init`,
+`shard_from_dense`, `unshard_to_dense` and `update` keep the JAX names, and
+`update` changes the buffers in place.
 """
 
 from __future__ import annotations
@@ -22,6 +23,10 @@ from torchrec_tpu_torch.modules.embedding_modules import (
     SparseInput,
     as_padded,
     embedding_names_by_table,
+)
+from torchrec_tpu_torch.ops.fused_update import (
+    EmbOptimType,
+    fused_state_shapes,
 )
 from torchrec_tpu_torch.parallel.embedding_sharding import (
     GroupedInputDistMixin,
@@ -41,7 +46,12 @@ class ShardedEmbeddingBagCollection(GroupedInputDistMixin, nn.Module):
     sparse batch, the groups and the output order.
 
     max_feature_length: the L a KeyedJaggedTensor input is padded to, as
-    in the unsharded module it replaces.
+    in the unsharded module it replaces. optim / optim_kwargs: the fused
+    optimizer of every group and its fused_params.
+
+    `injected`: while set, `forward` returns it instead of looking up; the
+    DMP's train step sets it to the pooled values it computed outside
+    autograd (the torch form of the JAX DMP's injected collection).
     """
 
     def __init__(
@@ -51,6 +61,8 @@ class ShardedEmbeddingBagCollection(GroupedInputDistMixin, nn.Module):
         plan: Dict[str, ParameterSharding],
         is_weighted: bool = False,
         max_feature_length: int = 1,
+        optim: EmbOptimType = EmbOptimType.ROWWISE_ADAGRAD,
+        optim_kwargs: Optional[dict] = None,
     ):
         super().__init__()
         self.env = env
@@ -61,8 +73,10 @@ class ShardedEmbeddingBagCollection(GroupedInputDistMixin, nn.Module):
         self.groups = group_tables(self.tables, enames_per_table, plan,
                                    is_weighted)
         self.strategies = nn.ModuleList(
-            create_sharding_strategy(env, g) for g in self.groups
+            create_sharding_strategy(env, g, optim, optim_kwargs)
+            for g in self.groups
         )
+        self.injected: Optional[KeyedTensor] = None
         # canonical output order: tables in declaration order
         self.embedding_names: Tuple[str, ...] = tuple(
             n for names in enames_per_table for n in names)
@@ -71,12 +85,15 @@ class ShardedEmbeddingBagCollection(GroupedInputDistMixin, nn.Module):
                        for n in names}
         self.length_per_key: Tuple[int, ...] = tuple(
             dim_by_name[n] for n in self.embedding_names)
+        offsets = np.concatenate([[0], np.cumsum(self.length_per_key)])
+        self._out_slice = {n: (int(offsets[i]), int(offsets[i + 1]))
+                           for i, n in enumerate(self.embedding_names)}
 
     # -- state ---------------------------------------------------------------
 
     @property
     def states(self) -> Tuple[EmbeddingGroupState, ...]:
-        return tuple(EmbeddingGroupState(weights=s.weights)
+        return tuple(EmbeddingGroupState(weights=s.weights, opt=s.opt)
                      for s in self.strategies)
 
     @torch.no_grad()
@@ -84,9 +101,10 @@ class ShardedEmbeddingBagCollection(GroupedInputDistMixin, nn.Module):
         self, generator: Optional[torch.Generator] = None
     ) -> Tuple[EmbeddingGroupState, ...]:
         """Draw every table afresh (see BaseEmbeddingShardingStrategy
-        .init_weights)."""
+        .init_weights) and zero the optimizer state."""
         for s in self.strategies:
             s.weights = s.init_weights(generator)
+            s.reset_opt()
         return self.states
 
     @torch.no_grad()
@@ -109,10 +127,32 @@ class ShardedEmbeddingBagCollection(GroupedInputDistMixin, nn.Module):
             out.update(s.unshard_to_dense(st.weights))
         return out
 
+    def unshard_rowwise(self) -> Dict[str, np.ndarray]:
+        """Per-table [R] rowwise momentum of the groups that keep one."""
+        out: Dict[str, np.ndarray] = {}
+        for s in self.strategies:
+            if fused_state_shapes(s.optim)[0] == "row":
+                out.update(s.unshard_rowwise(s.momentum1))
+        return out
+
+    @torch.no_grad()
+    def shard_rowwise(self, per_table: Mapping[str, ArrayLike]) -> None:
+        """Load per-table [R] rowwise momentum into the groups that keep
+        one."""
+        for s in self.strategies:
+            if fused_state_shapes(s.optim)[0] == "row":
+                s.momentum1 = s.shard_rowwise(per_table)
+
+    def check_trainable(self) -> None:
+        for s in self.strategies:
+            s.check_trainable()
+
     # -- compute -------------------------------------------------------------
 
     def forward(self, features: SparseInput) -> KeyedTensor:
         """-> KeyedTensor [B, sum(D)]."""
+        if self.injected is not None:
+            return self.injected
         sb = as_padded(features, self.max_feature_length)
         per_name: Dict[str, torch.Tensor] = {}
         for gi, (strat, group) in enumerate(zip(self.strategies,
@@ -125,3 +165,21 @@ class ShardedEmbeddingBagCollection(GroupedInputDistMixin, nn.Module):
         values = torch.cat([per_name[n] for n in self.embedding_names], dim=1)
         return KeyedTensor(values=values, keys=self.embedding_names,
                            length_per_key=self.length_per_key)
+
+    @torch.no_grad()
+    def update(self, features: SparseInput, d_values: torch.Tensor,
+               learning_rate: float) -> Tuple[EmbeddingGroupState, ...]:
+        """Fused optimizer step, in place, from the cotangent of the
+        forward's KeyedTensor.values [B, sum(D)]: each group gets its
+        features' [F_g, B, D_g] slices by embedding name."""
+        sb = as_padded(features, self.max_feature_length)
+        for gi, (strat, group) in enumerate(zip(self.strategies,
+                                                self.groups)):
+            d_pooled = torch.stack([
+                d_values[:, slice(*self._out_slice[n])]
+                for n in group.embedding_names])
+            with torch.profiler.record_function(
+                    f"## ebc_update_{group.sharding_type.value}_g{gi} ##"):
+                strat.update(self._group_batch(sb, gi), d_pooled,
+                             learning_rate)
+        return self.states

@@ -1,18 +1,21 @@
-"""Sharding strategies: the forward half of ROW_WISE.
+"""Sharding strategies: ROW_WISE forward and fused update.
 
 Counterpart of torchrec_tpu/parallel/strategies.py. Each strategy is a
 module that holds one table group's shard in the JAX package's layout,
 [n_dev, rows_loc, D]: each table's rows are split into n contiguous blocks
 of ceil(R / n) rows, the tables' blocks are concatenated per device, and
 the per-device row count is padded up to ROW_TILE. `unshard_to_dense`
-inverts that packing exactly.
+inverts that packing exactly; the rowwise momentum, [n_dev, rows_loc],
+packs the same way (`unshard_rowwise` / `shard_rowwise`).
 
 ROW_WISE forward on n devices is all_gather(ids) -> masked lookup of the
-rows this device owns (partial sums) -> psum_scatter over the batch. On the
-one device of this slice both collectives are identities and the masked
-lookup is the whole forward: one K1 launch per group. The fused update,
-the collectives for n > 1 and the DATA_PARALLEL / TABLE_WISE / COLUMN_WISE
-/ hierarchical strategies come with later slices and raise here.
+rows this device owns (partial sums) -> psum_scatter over the batch; the
+update all_gathers ids and cotangents and applies the fused optimizer to
+the owned rows. On the one device of this slice the collectives are
+identities: the forward is one K1 launch per group and the update one
+`apply_fused_update`. The collectives for n > 1 and the DATA_PARALLEL /
+TABLE_WISE / COLUMN_WISE / hierarchical strategies come with later slices
+and raise here.
 """
 
 from __future__ import annotations
@@ -28,6 +31,13 @@ from torchrec_tpu_torch.modules.embedding_configs import (
     data_type_to_torch_dtype,
 )
 from torchrec_tpu_torch.ops.embedding import pooled_lookup
+from torchrec_tpu_torch.ops.fused_update import (
+    EmbOptimType,
+    FusedOptimizerState,
+    apply_fused_update,
+    check_trainable,
+    fused_state_shapes,
+)
 from torchrec_tpu_torch.parallel.embedding_sharding import GroupMeta
 from torchrec_tpu_torch.parallel.types import ShardingEnv, ShardingType
 from torchrec_tpu_torch.sparse.jagged import PaddedSparseBatch
@@ -41,10 +51,11 @@ ArrayLike = Union[np.ndarray, torch.Tensor]
 
 @dataclasses.dataclass
 class EmbeddingGroupState:
-    """Sharded weights of one group (the fused optimizer state joins them
-    with the training slice)."""
+    """Sharded weights and fused optimizer state of one group (views of the
+    strategy's buffers)."""
 
     weights: torch.Tensor
+    opt: FusedOptimizerState
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -79,19 +90,41 @@ def _pool_coeff(
 
 class BaseEmbeddingShardingStrategy(nn.Module):
     """One table group sharded one way. Holds the group's shard as the
-    buffer `weights`."""
+    buffer `weights` and the fused optimizer state as the buffers
+    `momentum1` / `momentum2` (None where the optimizer keeps none; fp32,
+    shaped weights_shape() or weights_shape()[:-1]) and `step`.
 
-    def __init__(self, env: ShardingEnv, meta: GroupMeta):
+    optim / optim_kwargs: the fused optimizer and its fused_params (see
+    ops/fused_update.apply_fused_update).
+    """
+
+    def __init__(
+        self,
+        env: ShardingEnv,
+        meta: GroupMeta,
+        optim: EmbOptimType = EmbOptimType.ROWWISE_ADAGRAD,
+        optim_kwargs: Optional[dict] = None,
+    ):
         super().__init__()
         self.env = env
         self.meta = meta
+        self.optim = optim
+        self.optim_kwargs = dict(optim_kwargs or {})
         self.n = env.world_size
         self.dim = meta.dim
-        # table storage dtype; pooled outputs are fp32
+        # table storage dtype; pooled outputs and optimizer state are fp32
         self.w_dtype = data_type_to_torch_dtype(meta.data_type)
         self._build()
         self.register_buffer("weights", torch.zeros(
             self.weights_shape(), dtype=self.w_dtype, device=env.device))
+        for name, kind in zip(("momentum1", "momentum2"),
+                              fused_state_shapes(optim)):
+            shape = {"row": self.weights_shape()[:-1],
+                     "full": self.weights_shape()}.get(kind)
+            self.register_buffer(name, None if shape is None else torch.zeros(
+                shape, dtype=torch.float32, device=env.device))
+        self.register_buffer("step", torch.zeros(
+            (), dtype=torch.int32, device=env.device))
 
     def _build(self) -> None:
         raise NotImplementedError
@@ -139,11 +172,46 @@ class BaseEmbeddingShardingStrategy(nn.Module):
         which holds them exactly: numpy has no bf16)."""
         raise NotImplementedError
 
-    def update(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the fused embedding update (K2-K5) comes with the training "
-            "slice"
-        )
+    def unshard_rowwise(self, m: torch.Tensor) -> Dict[str, np.ndarray]:
+        """Per-table [R] numpy view of a rowwise momentum array shaped
+        weights_shape()[:-1]."""
+        raise NotImplementedError
+
+    def shard_rowwise(self, per_table: Mapping[str, ArrayLike]) -> torch.Tensor:
+        """Inverse of unshard_rowwise: the plan-shaped rowwise momentum."""
+        raise NotImplementedError
+
+    # -- fused optimizer state ------------------------------------------------
+
+    @property
+    def opt(self) -> FusedOptimizerState:
+        return FusedOptimizerState(momentum1=self.momentum1,
+                                   momentum2=self.momentum2, step=self.step,
+                                   optim=self.optim)
+
+    def _opt_local(self) -> FusedOptimizerState:
+        """The state with the leading device axis stripped (views)."""
+        opt = self.opt
+        return dataclasses.replace(
+            opt,
+            momentum1=None if opt.momentum1 is None else opt.momentum1[0],
+            momentum2=None if opt.momentum2 is None else opt.momentum2[0])
+
+    @torch.no_grad()
+    def reset_opt(self) -> None:
+        """Zero the momentum and the step, as a fresh init_opt."""
+        for t in (self.momentum1, self.momentum2, self.step):
+            if t is not None:
+                t.zero_()
+
+    def check_trainable(self) -> None:
+        """Raise unless this group's optimizer, table dtype and
+        fused_params are ported."""
+        check_trainable(self.optim, self.w_dtype, self.optim_kwargs)
+
+    def update(self, sb: PaddedSparseBatch, d_pooled: torch.Tensor,
+               learning_rate: float) -> None:
+        raise NotImplementedError
 
 
 class RwEmbeddingSharding(BaseEmbeddingShardingStrategy):
@@ -191,6 +259,29 @@ class RwEmbeddingSharding(BaseEmbeddingShardingStrategy):
             out[t.name] = tbl[: t.rows].numpy().copy()
         return out
 
+    def unshard_rowwise(self, m):
+        m = m.detach().cpu()
+        return {
+            t.name: m[:, int(off):int(off + sr)].reshape(-1)[: t.rows]
+            .numpy().copy()
+            for sr, off, t in zip(self.shard_rows, self.local_offsets,
+                                  self.meta.tables)
+        }
+
+    def shard_rowwise(self, per_table):
+        out = torch.zeros(self.weights_shape()[:-1], dtype=torch.float32,
+                          device=self.weights.device)
+        for sr, off, t in zip(self.shard_rows, self.local_offsets,
+                              self.meta.tables):
+            v = torch.as_tensor(np.asarray(per_table[t.name], np.float32))
+            if tuple(v.shape) != (t.rows,):
+                raise ValueError(f"momentum of {t.name}: expected "
+                                 f"({t.rows},), got {tuple(v.shape)}")
+            blocks = torch.zeros((self.n * int(sr),), dtype=torch.float32)
+            blocks[: t.rows] = v
+            out[:, int(off):int(off + sr)] = blocks.reshape(self.n, int(sr))
+        return out
+
     def _route(self, ids_g: torch.Tensor, lengths_g: torch.Tensor, my: int,
                L: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """Owner and local row of each gathered id."""
@@ -215,13 +306,36 @@ class RwEmbeddingSharding(BaseEmbeddingShardingStrategy):
         return self._fwd_gathered(self.weights, sb.ids, sb.lengths,
                                   sb.weights, sb.ids.shape[2])
 
+    def _upd_gathered(self, ids_g, len_g, psw_g, d_g, lr, L) -> None:
+        """Update body on global-batch inputs (d_g: the gathered [F, B, D]
+        cotangent): the owned rows' per-token gradients through the fused
+        optimizer, in place."""
+        local, owned = self._route(ids_g, len_g, self.env.rank, L)
+        coeff = _pool_coeff(len_g, L, self.feat_mean, psw_g,
+                            self.weights.dtype)
+        row_grads = d_g[:, :, None, :] * coeff[:, :, :, None]
+        apply_fused_update(
+            self.weights[0], self._opt_local(), local.reshape(-1),
+            row_grads.reshape(-1, self.dim), owned.reshape(-1), lr,
+            **self.optim_kwargs)
+
+    def update(self, sb, d_pooled, learning_rate):
+        """Fused optimizer step from the cotangent of the pooled output
+        [F, B, D], in place. On one device the all_gathers of the ids and
+        of the cotangent are identities."""
+        self._upd_gathered(sb.ids, sb.lengths, sb.weights, d_pooled,
+                           learning_rate, sb.ids.shape[2])
+
 
 def create_sharding_strategy(
-    env: ShardingEnv, meta: GroupMeta
+    env: ShardingEnv,
+    meta: GroupMeta,
+    optim: EmbOptimType = EmbOptimType.ROWWISE_ADAGRAD,
+    optim_kwargs: Optional[dict] = None,
 ) -> BaseEmbeddingShardingStrategy:
     if meta.sharding_type is not ShardingType.ROW_WISE:
         raise NotImplementedError(
             f"sharding type {meta.sharding_type.value}: only ROW_WISE is "
             "ported; the other strategies come with the multi-GPU slice"
         )
-    return RwEmbeddingSharding(env, meta)
+    return RwEmbeddingSharding(env, meta, optim, optim_kwargs)

@@ -10,18 +10,23 @@ The JAX side hands over numpy arrays only, so this module imports no JAX:
 * `tables`: {table name -> [R, D]} as the JAX
   `ShardedEmbeddingBagCollection.unshard_to_dense` returns it; each table
   goes to the port's sharded EBC that holds a table of that name.
+* `momentum` (optional): {table name -> [R]} rowwise momentum as the JAX
+  strategies' `unshard_rowwise` returns it (ROWWISE_ADAGRAD).
+  `rowwise_momentum` reads the port's back in the same form.
 
 Usage, with `state` the JAX DMP state:
 
     dense = jax.tree.map(np.asarray, state.dense_params)
     tables = jax_sebc.unshard_to_dense(state.emb_states[key])
-    load_jax_weights(torch_dmp, dense, tables)
+    momentum = jax_sebc.strategies[0].unshard_rowwise(
+        np.asarray(state.emb_states[key][0].opt.momentum1))
+    load_jax_weights(torch_dmp, dense, tables, momentum)
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -56,14 +61,35 @@ def flax_dense_to_state_dict(
     return out
 
 
+def _per_module(dmp: DistributedModelParallel, what: str,
+                per_table: Mapping[str, np.ndarray],
+                ) -> Dict[str, Dict[str, np.ndarray]]:
+    """Split {table -> array} by the sharded EBC that holds each table;
+    raises unless the tables match the DMP's exactly."""
+    owner = {t.name: key for key, sebc in dmp.sharded_ebcs.items()
+             for t in sebc.tables}
+    unknown = sorted(set(per_table) - set(owner))
+    absent = sorted(set(owner) - set(per_table))
+    if unknown or absent:
+        raise ValueError(
+            f"{what} do not match: unknown {unknown}, missing {absent}"
+        )
+    out: Dict[str, Dict[str, np.ndarray]] = {}
+    for name, w in per_table.items():
+        out.setdefault(owner[name], {})[name] = w
+    return out
+
+
 @torch.no_grad()
 def load_jax_weights(
     dmp: DistributedModelParallel,
     dense_params: Mapping,
     tables: Mapping[str, np.ndarray],
+    momentum: Optional[Mapping[str, np.ndarray]] = None,
 ) -> None:
-    """Load the JAX DMP's dense params and unsharded tables into `dmp`.
-    Raises unless every dense parameter and every table is matched."""
+    """Load the JAX DMP's dense params, unsharded tables and (optionally)
+    rowwise momentum into `dmp`. Raises unless every dense parameter and
+    every table is matched."""
     flat = flax_dense_to_state_dict(dense_params)
     params = dict(dmp.module.named_parameters())
     missing = sorted(set(params) - set(flat))
@@ -80,15 +106,16 @@ def load_jax_weights(
                 f"{name}: JAX shape {tuple(src.shape)}, port {tuple(p.shape)}"
             )
         p.copy_(src)
-    owner = {t.name: key for key, sebc in dmp.sharded_ebcs.items()
-             for t in sebc.tables}
-    unknown = sorted(set(tables) - set(owner))
-    absent = sorted(set(owner) - set(tables))
-    if unknown or absent:
-        raise ValueError(
-            f"tables do not match: unknown {unknown}, missing {absent}"
-        )
-    per_module: Dict[str, Dict[str, np.ndarray]] = {}
-    for name, w in tables.items():
-        per_module.setdefault(owner[name], {})[name] = w
-    dmp.load_tables(per_module)
+    dmp.load_tables(_per_module(dmp, "tables", tables))
+    if momentum is not None:
+        for key, m in _per_module(dmp, "momentum tables", momentum).items():
+            dmp.sharded_ebcs[key].shard_rowwise(m)
+
+
+def rowwise_momentum(dmp: DistributedModelParallel) -> Dict[str, np.ndarray]:
+    """{table -> [R]} rowwise momentum of the port's DMP, in the form of
+    the JAX strategies' `unshard_rowwise`."""
+    out: Dict[str, np.ndarray] = {}
+    for sebc in dmp.sharded_ebcs.values():
+        out.update(sebc.unshard_rowwise())
+    return out
