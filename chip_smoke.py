@@ -8,7 +8,7 @@ Phases, each failing the run with a non-zero exit when it fails:
 
 1. Identify the card (name, count, power limit); TF32 is switched off.
 2. Build the kernels with nvcc for sm_90a, one nvcc per source, started
-   together: K1 (csrc/tbe_lookup.cu) and K2-K5 (csrc/fused_update.cu).
+   together: K1 (csrc/tbe_lookup.cu) and K2-K7 (csrc/fused_update.cu).
 3. Serve the DLRM that bench.py and bench_config.py describe, at full
    width, through the port's DistributedModelParallel.make_eval_fn:
    26 fp32 tables of 100,000 x 128 (ROW_WISE on one device), dense arch
@@ -22,22 +22,29 @@ Phases, each failing the run with a non-zero exit when it fails:
    with MEAN / per-sample coefficients and out-of-range ids (rtol 1e-6),
    and time the kernel, the plain version and F.embedding_bag.
 5. Train the same model wrapped in DLRMTrain through make_train_step, as
-   bench.py trains it (fused lr 0.1, dense SGD at 0.05), for EXACT_SGD and
-   ROWWISE_ADAGRAD: 3 warm-up and 10 timed steps at B=8192 on seeded
-   batches. Every loss must be finite and every step must launch exactly
-   K1 and K3 once (EXACT_SGD) or K1, K5 and K4 once (ROWWISE_ADAGRAD). One
-   ROWWISE_ADAGRAD step with fused_params w_impl="write" must launch K2
-   once and K4's row update never.
-6. For each optimizer, copy a fresh card DMP to a CPU DMP with
-   load_state_dict and take 2 steps at B=256 on both: the losses, the
-   dense parameters and the table rows and momentum the batches touched
-   must agree (rtol 1e-4, atol 1e-5: GEMM and gradient sums run in
-   another order), and every other row must be unchanged on both.
-7. Hold K2-K5 against their plain versions on the card, on the trained
-   ROWWISE_ADAGRAD table and momentum and one real batch's run totals and
-   dedup output (real sentinel patterns): bit-exact, since neither side
-   contracts a multiply-add and both round sqrt and divide per IEEE. Time
-   each kernel, its plain version and its library yardstick.
+   bench.py trains it (fused lr 0.1, dense SGD at 0.05), for EXACT_SGD,
+   ROWWISE_ADAGRAD, ADAGRAD and ADAM: 3 warm-up and 10 timed steps at
+   B=8192 on seeded batches. Every loss must be finite and every step must
+   launch exactly K1 and K3 once (EXACT_SGD), K1, K5 and K4 once
+   (ROWWISE_ADAGRAD), K1 and K6 once (ADAGRAD) or K1 and K7 once (ADAM),
+   and no other kernel. After each of the last three, hold its update
+   kernels against their plain versions on the card, on the trained table
+   and momenta and one real batch's run totals and dedup output (real
+   sentinel patterns): K2-K5 after ROWWISE_ADAGRAD, K6 after ADAGRAD, K7
+   after ADAM. Bit-exact, since neither side contracts a multiply-add and
+   both round sqrt and divide per IEEE. Time each kernel, its plain
+   version and its library yardstick.
+6. One step with fused_params w_impl="write" per momentum optimizer must
+   launch K2 once and K4's row update never (ROWWISE_ADAGRAD), K2 twice
+   (ADAGRAD) or three times (ADAM) and K6 / K7 never.
+7. For EXACT_SGD, ROWWISE_ADAGRAD, ADAGRAD, ADAM and the four optimizers
+   without a kernel (PARTIAL_ROWWISE_ADAM, LAMB, PARTIAL_ROWWISE_LAMB,
+   LARS_SGD), copy a fresh card DMP to a CPU DMP with load_state_dict and
+   take 2 steps at B=256 on both, from seeded momenta at step 5: the
+   losses, the dense parameters and the table rows and momenta the
+   batches touched must agree (rtol 1e-4, atol 1e-5: GEMM and gradient
+   sums run in another order), and every other row must be unchanged on
+   both.
 
 Kernel times are device times from torch.profiler (the kernel's own for a
 kernel, all device activity of the call for the plain version and the
@@ -83,6 +90,7 @@ TRAIN_KEY = "dlrm/" + MODULE_KEY  # the same EBC inside DLRMTrain
 FUSED_LR = 0.1  # bench.py: fused_params={"learning_rate": 0.1}
 DENSE_LR = 0.05  # bench.py: dense_optimizer=optax.sgd(0.05)
 WARMUP_STEPS, TIMED_STEPS, CPU_STEPS = 3, 10, 2
+START_STEP = 5  # the optimizer step the card-against-CPU runs start at
 DEVICE = "cuda"
 
 # kernel -> (wrapper name, source, the Pallas function it replaces)
@@ -99,7 +107,17 @@ KERNELS = {
     "K5": ("rowwise_momentum_stream",
            "torchrec_tpu_torch/csrc/fused_update.cu",
            "torchrec_tpu/ops/pallas_embedding.py:902"),
+    "K6": ("fused_update_adagrad", "torchrec_tpu_torch/csrc/fused_update.cu",
+           "torchrec_tpu/ops/pallas_embedding.py:1033"),
+    "K7": ("fused_update_adam", "torchrec_tpu_torch/csrc/fused_update.cu",
+           "torchrec_tpu/ops/pallas_embedding.py:1089"),
 }
+# the kernels of each optimizer's train step, beside K1 (once each)
+STEP_KERNELS = {"EXACT_SGD": ("K3",), "ROWWISE_ADAGRAD": ("K4", "K5"),
+                "ADAGRAD": ("K6",), "ADAM": ("K7",)}
+# K2 launches of one w_impl="write" step, and the other kernels it launches
+WRITE_KERNELS = {"ROWWISE_ADAGRAD": {"K2": 1, "K5": 1},
+                 "ADAGRAD": {"K2": 2}, "ADAM": {"K2": 3}}
 
 
 def log(*args) -> None:
@@ -131,6 +149,11 @@ def build_kernels(libraries) -> None:
         for line in info["ptxas"].splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log("  " + line.strip())
+
+
+def expected(**launches) -> dict:
+    """Launches per kernel: those given, 0 for every other kernel."""
+    return {k: launches.get(k, 0) for k in KERNELS}
 
 
 def counts(tl, fk) -> dict:
@@ -227,8 +250,7 @@ def serve(dmp, tl, fk) -> dict:
                 f"bad logits at B={batch}: {tuple(logits.shape)}")
         last = (dense, kjt, logits)
     launches = counts(tl, fk)
-    if launches != {"K1": len(requests), "K2": 0, "K3": 0, "K4": 0,
-                    "K5": 0}:
+    if launches != expected(K1=len(requests)):
         raise AssertionError(
             f"{len(requests)} requests launched {launches}")
     launches = launches["K1"]
@@ -402,17 +424,13 @@ def check_kernel(dmp, tl) -> dict:
 def train(optim, tl, fk) -> dict:
     """The training path: WARMUP_STEPS + TIMED_STEPS train steps at
     B=8192, each launching exactly the kernels of `optim`'s update."""
-    from torchrec_tpu_torch.ops.fused_update import EmbOptimType
-
     name = optim.name
     dmp = make_dmp(DEVICE, train=True, optim=optim).init(SEED)
     step = dmp.make_train_step()
     rng = np.random.RandomState(SEED + 2)
     batches = [to_device(make_batch(rng, BENCH_BATCH))
                for _ in range(WARMUP_STEPS + TIMED_STEPS)]
-    per_step = {"K1": 1, "K2": 0, "K3": 0, "K4": 0, "K5": 0}
-    per_step.update({"K3": 1} if optim is EmbOptimType.EXACT_SGD
-                    else {"K4": 1, "K5": 1})
+    per_step = expected(K1=1, **{k: 1 for k in STEP_KERNELS[name]})
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts(tl, fk)
@@ -446,11 +464,11 @@ def train(optim, tl, fk) -> dict:
             "ex_per_s": ex_per_s, "peak_bytes": peak}
 
 
-def write_step(tl, fk) -> dict:
-    """One ROWWISE_ADAGRAD step with w_impl="write": K2 writes the rows."""
-    from torchrec_tpu_torch.ops.fused_update import EmbOptimType
-
-    dmp = make_dmp(DEVICE, train=True, optim=EmbOptimType.ROWWISE_ADAGRAD,
+def write_step(optim, tl, fk) -> dict:
+    """One step of `optim` with w_impl="write": K2 writes the rows and
+    the momenta."""
+    name = optim.name
+    dmp = make_dmp(DEVICE, train=True, optim=optim,
                    fused_params={"w_impl": "write"}).init(SEED)
     step = dmp.make_train_step()
     batch = to_device(make_batch(np.random.RandomState(SEED + 6),
@@ -459,11 +477,11 @@ def write_step(tl, fk) -> dict:
     reset_counts(tl, fk)
     loss, _ = step(*batch)
     launches = counts(tl, fk)
-    expect = {"K1": 1, "K2": 1, "K3": 0, "K4": 0, "K5": 1}
+    expect = expected(K1=1, **WRITE_KERNELS[name])
     if launches != expect or not math.isfinite(loss.item()):
-        raise AssertionError(f"w_impl=write step launched {launches} "
+        raise AssertionError(f"{name} w_impl=write step launched {launches} "
                              f"(expected {expect}), loss {loss.item()}")
-    log(f"train ROWWISE_ADAGRAD w_impl=write: one step launched {launches}")
+    log(f"train {name} w_impl=write: one step launched {launches}")
     return launches
 
 
@@ -478,9 +496,22 @@ def _touched(strat, batches) -> torch.Tensor:
 
 
 def check_train_against_cpu(optim) -> None:
-    """CPU_STEPS steps at B=256 of a fresh card DMP and its CPU copy."""
+    """CPU_STEPS steps at B=256 of a fresh card DMP and its CPU copy.
+
+    The optimizer state starts at step START_STEP with momenta drawn from
+    U(0, 0.01), as the CPU tests start the JAX and port DMPs. From zero
+    momenta the first ADAGRAD / ADAM / LAMB step is lr * g / (|g| + eps)
+    per element, which turns the last-bit differences of a gradient
+    element near eps (GEMM sums in another order) into differences of
+    order lr: that would compare summation orders, not the update."""
     name = optim.name
     gpu = make_dmp(DEVICE, train=True, optim=optim).init(SEED + 3)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
+    for strat in gpu.sharded_ebcs[TRAIN_KEY].strategies:
+        for m in (strat.momentum1, strat.momentum2):
+            if m is not None:
+                m.uniform_(0.0, 0.01, generator=gen)
+        strat.step.fill_(START_STEP)
     cpu = make_dmp("cpu", train=True, optim=optim)
     cpu.load_state_dict(gpu.state_dict())
     rng = np.random.RandomState(SEED + 4)
@@ -501,8 +532,10 @@ def check_train_against_cpu(optim) -> None:
     sc = cpu.sharded_ebcs[TRAIN_KEY].strategies[0]
     touched = _touched(sc, batches)
     pairs = [("table", sg.weights[0].cpu(), sc.weights[0])]
-    if sc.momentum1 is not None:
-        pairs.append(("momentum", sg.momentum1[0].cpu(), sc.momentum1[0]))
+    for what in ("momentum1", "momentum2"):
+        if getattr(sc, what) is not None:
+            pairs.append((what, getattr(sg, what)[0].cpu(),
+                          getattr(sc, what)[0]))
     for what, a, b in pairs:
         torch.testing.assert_close(a[touched], b[touched], rtol=1e-4,
                                    atol=1e-5)
@@ -541,14 +574,12 @@ def _hold(name: str, pairs) -> float:
     return err
 
 
-def check_update_kernels(dmp, fk) -> dict:
-    """K2-K5 against their plain versions on the trained table."""
+def batch_grads(strat):
+    """One real batch's packed ids, validity and per-token row gradients
+    [N, D] for the strategy's table (cotangents drawn at 1e-3)."""
     from torchrec_tpu_torch.ops import fused_update as fu
 
-    strat = dmp.sharded_ebcs[TRAIN_KEY].strategies[0]
-    W, M = strat.weights[0], strat.momentum1[0]
-    R, D = W.shape
-    lr = FUSED_LR
+    D = strat.weights.shape[-1]
     rng = np.random.RandomState(SEED + 5)
     _, kjt, _ = make_batch(rng, BENCH_BATCH)
     sb = kjt.to(DEVICE).to_padded(L)
@@ -561,6 +592,18 @@ def check_update_kernels(dmp, fk) -> dict:
     ).to(DEVICE)
     row_grads = fu.pooled_grad_to_row_grads(
         d_pooled, sb.lengths, L).reshape(-1, D)
+    return flat, valid, row_grads
+
+
+def check_update_kernels(dmp, fk) -> dict:
+    """K2-K5 against their plain versions on the trained table."""
+    from torchrec_tpu_torch.ops import fused_update as fu
+
+    strat = dmp.sharded_ebcs[TRAIN_KEY].strategies[0]
+    W, M = strat.weights[0], strat.momentum1[0]
+    R, D = W.shape
+    lr = FUSED_LR
+    flat, valid, row_grads = batch_grads(strat)
     u_rt, g_rt = fu.run_total_row_grads(flat, row_grads, valid, R)
     u_dd, g_dd = fu.dedup_row_grads(flat, row_grads, valid, R)
     N = int(flat.numel())
@@ -655,8 +698,12 @@ def check_update_kernels(dmp, fk) -> dict:
                   lambda: fk.scaled_row_update_reference(
                       W2, u_dd, g_dd, scale)),
     }
-    for k in ("K2", "K3", "K4", "K5"):
-        r = out[k]
+    return report(out)
+
+
+def report(out: dict) -> dict:
+    """Log each checked kernel's numbers; the JSON line's fields."""
+    for k, r in out.items():
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
         log(f"{k} {KERNELS[k][0]}: bit-exact with its plain version; "
@@ -669,6 +716,56 @@ def check_update_kernels(dmp, fk) -> dict:
                 "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
                 "bound_ms": r["bound"]["ms"], "bound_by": r["bound"]["by"]}
             for k, r in out.items()}
+
+
+def check_moment_kernels(dmp, fk) -> dict:
+    """K6 (ADAGRAD) or K7 (ADAM) against its plain version on the trained
+    table and momenta, at the next step, with and without weight decay.
+    No single PyTorch call applies Adagrad or Adam to scattered rows, so
+    there is no library yardstick."""
+    from torchrec_tpu_torch.ops import fused_update as fu
+
+    strat = dmp.sharded_ebcs[TRAIN_KEY].strategies[0]
+    adam = strat.optim is fu.EmbOptimType.ADAM
+    k = "K7" if adam else "K6"
+    state = [strat.weights[0], strat.momentum1[0]] + (
+        [strat.momentum2[0]] if adam else [])
+    R, D = state[0].shape
+    lr = FUSED_LR
+    flat, valid, row_grads = batch_grads(strat)
+    u_rt, g_rt = fu.run_total_row_grads(flat, row_grads, valid, R)
+    del flat, valid, row_grads
+    N, n_real = int(u_rt.numel()), int((u_rt < R).sum())
+    step = strat.step + 1
+    log(f"{k}: N={N} slots, {n_real} distinct rows, step {int(step)}; "
+        f"{len(state)} tensors of {tuple(state[0].shape)}")
+
+    def kernel(ts, wd=0.0):
+        if adam:
+            return fk.fused_update_adam(*ts, u_rt, g_rt, lr, step,
+                                        weight_decay=wd)
+        return fk.fused_update_adagrad(*ts, u_rt, g_rt, lr, weight_decay=wd)
+
+    def plain(ts, wd=0.0):
+        if adam:
+            return fk.fused_update_adam_reference(*ts, u_rt, g_rt, lr, step,
+                                                  weight_decay=wd)
+        return fk.fused_update_adagrad_reference(*ts, u_rt, g_rt, lr,
+                                                 weight_decay=wd)
+
+    errs = []
+    for wd in (0.0, 0.01):
+        a, b = [t.clone() for t in state], [t.clone() for t in state]
+        kernel(a, wd)
+        plain(b, wd)
+        errs.append(_hold(KERNELS[k][0], list(zip(a, b))))
+    # read W, the momenta and g, write W and the momenta: 5 or 7 rows
+    bound_ = rows_bound(N, n_real, D, rows_moved=2 * len(state) + 1,
+                        flops_per_elem=14 if adam else 7)
+    out = {k: {"max_abs_err": max(errs), "bound": bound_,
+               **timings(lambda: kernel(a), "moment_update_kernel",
+                         lambda: plain(b))}}
+    return report(out)
 
 
 def main() -> int:
@@ -693,18 +790,29 @@ def main() -> int:
     served_launches = served["launches"]
     del dmp, served
 
-    sgd = train(EmbOptimType.EXACT_SGD, tl, fk)
-    del sgd["dmp"]
-    adagrad = train(EmbOptimType.ROWWISE_ADAGRAD, tl, fk)
-    write = write_step(tl, fk)
-    for optim in (EmbOptimType.EXACT_SGD, EmbOptimType.ROWWISE_ADAGRAD):
-        check_train_against_cpu(optim)
-    results.update(check_update_kernels(adagrad["dmp"], fk))
-    launches = {"K1": served_launches, "K2": write["K2"],
-                "K3": sgd["launches"]["K3"], "K4": adagrad["launches"]["K4"],
-                "K5": adagrad["launches"]["K5"]}
+    # each optimizer's training path, its update kernels checked after it
+    # on its trained table (one trained DMP on the card at a time)
+    trained = {}
+    for optim in (EmbOptimType.EXACT_SGD, EmbOptimType.ROWWISE_ADAGRAD,
+                  EmbOptimType.ADAGRAD, EmbOptimType.ADAM):
+        trained[optim.name] = train(optim, tl, fk)
+        dmp = trained[optim.name].pop("dmp")
+        if optim is EmbOptimType.ROWWISE_ADAGRAD:
+            results.update(check_update_kernels(dmp, fk))
+        elif optim is not EmbOptimType.EXACT_SGD:
+            results.update(check_moment_kernels(dmp, fk))
+        del dmp
+    writes = [write_step(EmbOptimType[name], tl, fk)
+              for name in WRITE_KERNELS]
+    for optim in EmbOptimType:
+        if optim is not EmbOptimType.SGD:  # SGD is EXACT_SGD's update
+            check_train_against_cpu(optim)
+    launches = {"K1": served_launches, "K2": sum(w["K2"] for w in writes)}
+    for name, ks in STEP_KERNELS.items():
+        launches.update({k: trained[name]["launches"][k] for k in ks})
     log(f"launches on the paths: K1 serving, K3 EXACT_SGD training, K4 and "
-        f"K5 ROWWISE_ADAGRAD training, K2 the w_impl=write step: {launches}")
+        f"K5 ROWWISE_ADAGRAD training, K6 ADAGRAD training, K7 ADAM "
+        f"training, K2 the three w_impl=write steps: {launches}")
     log(card["smi"])
     log(json.dumps({"kernels": [{
         "name": KERNELS[k][0],

@@ -2,11 +2,13 @@
 
 Run from the repository root, on a machine with a CUDA card:
 
-    python3 profile_train.py [--trace_dir DIR]
+    python3 profile_train.py [--trace_dir DIR] [--optim NAME ...]
 
 Builds the model that chip_smoke.py trains (bench.py's DLRMTrain at full
 width, random weights from seed 0, fused lr 0.1, dense SGD at 0.05) for
-EXACT_SGD and for ROWWISE_ADAGRAD, takes 3 warm-up steps at B=8192, then
+each fused optimizer named by --optim (default: EXACT_SGD and
+ROWWISE_ADAGRAD; any EmbOptimType name, e.g. ADAGRAD ADAM), takes 3
+warm-up steps at B=8192, then
 profiles STEPS steps with torch.profiler. For each optimizer it prints the
 device time per kernel name and its share, the device busy share between
 the first kernel's start and the last kernel's end, the device span of
@@ -27,6 +29,7 @@ from torch.profiler import ProfilerActivity, profile
 
 import chip_smoke as cs
 from profile_serving import summarize
+from torchrec_tpu_torch.ops.fused_update import EmbOptimType
 
 STEPS = 10  # profiled steps per optimizer, after 3 warm-up ones
 
@@ -57,13 +60,16 @@ def profile_optim(optim, trace_dir: str) -> None:
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--trace_dir", default="profile_traces")
+    p.add_argument("--optim", nargs="+",
+                   default=["EXACT_SGD", "ROWWISE_ADAGRAD"],
+                   choices=[o.name for o in EmbOptimType],
+                   help="fused optimizers to profile")
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: no CUDA device")
-    from torchrec_tpu_torch.ops.fused_update import EmbOptimType
-
+    optims = [EmbOptimType[name] for name in args.optim]
     card = cs.identify()
-    for optim in (EmbOptimType.EXACT_SGD, EmbOptimType.ROWWISE_ADAGRAD):
+    for optim in optims:
         profile_optim(optim, args.trace_dir)
     print(card["smi"])
 

@@ -1,6 +1,6 @@
 """The port's fused embedding update against the JAX package, on the CPU.
 
-K2-K5's plain versions (what the port's wrappers run on CPU tensors) are
+K2-K7's plain versions (what the port's wrappers run on CPU tensors) are
 held against the Pallas kernels run in interpret mode, as
 tests/test_pallas.py runs them; the gradient prep and `apply_fused_update`
 against the JAX functions, whose XLA route is what JAX takes on the CPU.
@@ -8,10 +8,17 @@ Inputs are made from a seed with numpy and handed to both sides.
 
 Tolerances: row writes (K2) and the combined ids must match bit for bit.
 Row updates differ by an ulp where XLA contracts a multiply and an add
-into one fused operation (K3, K4), and sums run in another order (the
-mean of g^2; duplicate ids combined per run here, per token in JAX's SGD
-scatter-add): fp32 rows are held to rtol 1e-5 / atol 1e-6 and momentum to
-rtol 1e-6.
+into one fused operation (K3, K4, K6, K7), and sums run in another order
+(the mean of g^2; duplicate ids combined per run here, per token in JAX's
+SGD scatter-add): fp32 rows are held to rtol 1e-5 / atol 1e-6 and
+momentum to rtol 1e-6 (atol 1e-7 for the full momenta, whose elements
+reach zero). Against `apply_fused_update`'s XLA route, which adds a
+delta where the kernels write the new value and divides by 1 - b**t where
+K7 multiplies by its inverse: ADAM's rows rtol 1e-4 / atol 1e-6, as
+tests/test_pallas.py holds the two JAX routes to each other; LAMB,
+PARTIAL_ROWWISE_LAMB and LARS_SGD, whose per-row norms sum D terms in
+another order, rtol 1e-4 / atol 1e-6; ADAGRAD and PARTIAL_ROWWISE_ADAM
+rtol 1e-5 / atol 1e-6. Momenta take the same tolerance as their rows.
 """
 
 import jax.numpy as jnp
@@ -236,3 +243,192 @@ def test_apply_fused_update_rejects_unknown_impl():
         tfu.apply_fused_update(_t(_weights()), opt, _t(ids), _t(grads),
                                _t(valid), 0.1, w_impl="scatter")
     assert int(opt.step) == 0
+
+
+SENTINEL = 2**31 - 1
+
+
+def _run_totals(seed=1):
+    """Run-total inputs of K6 / K7 from JAX's `run_total_row_grads`."""
+    ids, grads, valid = _raw_batch(seed=seed)
+    uids, totals = jfu.run_total_row_grads(
+        jnp.asarray(ids), jnp.asarray(grads), jnp.asarray(valid), R)
+    uids, totals = np.asarray(uids), np.asarray(totals)
+    assert (uids == SENTINEL).any()  # the sentinels sit between real slots
+    return uids, totals
+
+
+def _assert_untouched(outs, before, uids):
+    untouched = np.setdiff1d(np.arange(R), uids[uids < R])
+    for out, b in zip(outs, before):
+        np.testing.assert_array_equal(out.numpy()[untouched], b[untouched])
+
+
+@pytest.mark.parametrize("wd", [0.0, 0.01])
+def test_k6_fused_update_adagrad_matches_pallas(wd):
+    uids, totals = _run_totals()
+    w = _weights()
+    m = np.random.RandomState(3).rand(R, D).astype(np.float32)
+    ref_w, ref_m = pe.fused_update_adagrad(
+        jnp.asarray(w), jnp.asarray(m), jnp.asarray(uids),
+        jnp.asarray(totals), LR, weight_decay=wd, interpret=True)
+    before = _unchanged_launches()
+    W, M = _t(w), _t(m)
+    out_w, out_m = fk.fused_update_adagrad(W, M, _t(uids), _t(totals), LR,
+                                           weight_decay=wd)
+    assert out_w is W and out_m is M and fk.LAUNCHES == before
+    np.testing.assert_allclose(out_w.numpy(), np.asarray(ref_w), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(out_m.numpy(), np.asarray(ref_m), rtol=1e-6,
+                               atol=1e-7)
+    _assert_untouched((out_w, out_m), (w, m), uids)
+
+
+@pytest.mark.parametrize("wd", [0.0, 0.01])
+def test_k7_fused_update_adam_matches_pallas(wd):
+    uids, totals = _run_totals()
+    w = _weights()
+    rng = np.random.RandomState(3)
+    m1 = (rng.randn(R, D) * 0.01).astype(np.float32)
+    m2 = (rng.rand(R, D) * 0.01).astype(np.float32)
+    step = 6  # the incremented step: bias corrections far from 1
+    ref_w, ref_m1, ref_m2 = pe.fused_update_adam(
+        jnp.asarray(w), jnp.asarray(m1), jnp.asarray(m2), jnp.asarray(uids),
+        jnp.asarray(totals), LR, jnp.asarray(step, jnp.int32),
+        weight_decay=wd, interpret=True)
+    before = _unchanged_launches()
+    W, M1, M2 = _t(w), _t(m1), _t(m2)
+    out = fk.fused_update_adam(W, M1, M2, _t(uids), _t(totals), LR,
+                               torch.tensor(step, dtype=torch.int32),
+                               weight_decay=wd)
+    assert out[0] is W and out[1] is M1 and out[2] is M2
+    assert fk.LAUNCHES == before
+    np.testing.assert_allclose(W.numpy(), np.asarray(ref_w), rtol=1e-5,
+                               atol=1e-6)
+    for got, ref in ((M1, ref_m1), (M2, ref_m2)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-6,
+                                   atol=1e-7)
+    _assert_untouched((W, M1, M2), (w, m1, m2), uids)
+
+
+def test_adam_bias_correction_rounds_as_jax():
+    """The f32 bias corrections agree with the Pallas wrapper's, and the
+    1 - beta constants are rounded once from double (JAX's weak typing),
+    not formed from f32 beta: the two differ for beta2 = 0.999."""
+    for t in (1, 2, 6, 1000):
+        bc = fk.adam_bias_correction(torch.tensor(t, dtype=torch.int32),
+                                     0.9, 0.999)
+        tf = jnp.float32(t)
+        ref = np.array([1.0 / (1.0 - 0.9**tf), 1.0 / (1.0 - 0.999**tf)],
+                       np.float32)
+        assert bc.dtype == torch.float32 and bc.shape == (2,)
+        np.testing.assert_allclose(bc.numpy(), ref, rtol=1e-6)
+    assert np.float32(1.0 - 0.999) != np.float32(1) - np.float32(0.999)
+    g = torch.ones(1, 1)
+    _, _, m2 = fk.adam_rows(g, g * 0, g * 0, g, 0.0, torch.ones(2), 1e-8, 0.0,
+                            0.9, 0.999)
+    assert m2.item() == np.float32(1.0 - 0.999)
+
+
+@pytest.mark.parametrize("optim", ["ADAGRAD", "ADAM"])
+def test_full_momentum_write_matches_rmw(optim):
+    """The gather + K2 write form of ADAGRAD / ADAM against the K6 / K7
+    form through `apply_fused_update`, as tests/test_pallas.py holds the
+    JAX package's two forms."""
+    ids, grads, valid = _raw_batch(seed=9)
+    w = _weights(seed=10)
+    rng = np.random.RandomState(11)
+    outs = {}
+    m = {k: rng.rand(R, D).astype(np.float32) for k in ("m1", "m2")}
+    for impl in ("rmw", "write"):
+        opt = tfu.init_fused_optimizer_state(R, D, tfu.EmbOptimType[optim])
+        opt.momentum1 = _t(m["m1"])
+        if opt.momentum2 is not None:
+            opt.momentum2 = _t(m["m2"])
+        opt.step.fill_(3)
+        W = _t(w)
+        tfu.apply_fused_update(W, opt, _t(ids), _t(grads), _t(valid), 0.05,
+                               weight_decay=0.01, w_impl=impl)
+        assert int(opt.step) == 4
+        outs[impl] = (W, opt)
+    (w_r, o_r), (w_w, o_w) = outs["rmw"], outs["write"]
+    np.testing.assert_allclose(w_w.numpy(), w_r.numpy(), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(o_w.momentum1.numpy(), o_r.momentum1.numpy(),
+                               rtol=1e-6, atol=1e-7)
+    if o_r.momentum2 is not None:
+        np.testing.assert_allclose(o_w.momentum2.numpy(),
+                                   o_r.momentum2.numpy(), rtol=1e-6,
+                                   atol=1e-7)
+
+
+NEW_OPTIMS = {  # optimizer -> (rtol, atol) of rows and momenta
+    "ADAGRAD": (1e-5, 1e-6),
+    "ADAM": (1e-4, 1e-6),
+    "PARTIAL_ROWWISE_ADAM": (1e-5, 1e-6),
+    "LAMB": (1e-4, 1e-6),
+    "PARTIAL_ROWWISE_LAMB": (1e-4, 1e-6),
+    "LARS_SGD": (1e-4, 1e-6),
+}
+
+
+@pytest.mark.parametrize("wd", [0.0, 0.01])
+@pytest.mark.parametrize("optim", sorted(NEW_OPTIMS))
+def test_apply_fused_update_full_state_matches_jax(optim, wd):
+    ids, grads, valid = _raw_batch(seed=6)
+    w = _weights(seed=7)
+    rng = np.random.RandomState(8)
+    jopt = jfu.init_fused_optimizer_state(R, D, jfu.EmbOptimType[optim])
+    topt = tfu.init_fused_optimizer_state(R, D, tfu.EmbOptimType[optim])
+    start = {}
+    for name in ("momentum1", "momentum2"):
+        m = getattr(topt, name)
+        if m is not None:
+            start[name] = (rng.rand(*m.shape) * 0.1).astype(np.float32)
+            setattr(topt, name, _t(start[name]))
+    jopt = jopt.replace(step=jnp.asarray(4, jnp.int32),
+                        **{k: jnp.asarray(v) for k, v in start.items()})
+    topt.step.fill_(4)
+    ref_w, ref_opt = jfu.apply_fused_update(
+        jnp.asarray(w), jopt, jnp.asarray(ids), jnp.asarray(grads),
+        jnp.asarray(valid), 0.1, weight_decay=wd)
+    before = _unchanged_launches()
+    W = _t(w)
+    out_w, out_opt = tfu.apply_fused_update(
+        W, topt, _t(ids), _t(grads), _t(valid), 0.1, weight_decay=wd)
+    assert out_w is W and out_opt is topt and int(topt.step) == 5
+    assert fk.LAUNCHES == before
+    rtol, atol = NEW_OPTIMS[optim]
+    np.testing.assert_allclose(out_w.numpy(), np.asarray(ref_w), rtol=rtol,
+                               atol=atol)
+    for name, m0 in start.items():
+        np.testing.assert_allclose(
+            getattr(topt, name).numpy(), np.asarray(getattr(ref_opt, name)),
+            rtol=rtol, atol=atol, err_msg=name)
+    # rows and momenta no valid slot touched keep their bits
+    untouched = np.setdiff1d(np.arange(R), ids[valid])
+    np.testing.assert_array_equal(out_w.numpy()[untouched], w[untouched])
+    for name, m0 in start.items():
+        np.testing.assert_array_equal(
+            getattr(topt, name).numpy()[untouched], m0[untouched])
+
+
+@pytest.mark.parametrize("bad", ["m_rows", "m_width", "m_dtype", "step_dev"])
+def test_moment_kernels_reject_bad_inputs(bad):
+    w, uids, g = torch.zeros(10, 8), torch.zeros(4, dtype=torch.int32), \
+        torch.zeros(4, 8)
+    m1, m2, step = torch.zeros(10, 8), torch.zeros(10, 8), torch.tensor(1)
+    if bad == "m_rows":
+        m2 = torch.zeros(9, 8)
+    elif bad == "m_width":
+        m1 = torch.zeros(10, 4)
+    elif bad == "m_dtype":
+        m2 = m2.double()
+    else:
+        step = step.to("meta")
+    with pytest.raises((TypeError, ValueError)):
+        fk.fused_update_adam(w, m1, m2, uids, g, 0.1, step)
+    if bad != "step_dev":
+        with pytest.raises((TypeError, ValueError)):
+            fk.fused_update_adagrad(w, m1 if bad == "m_width" else m2, uids,
+                                    g, 0.1)

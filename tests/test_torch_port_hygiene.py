@@ -98,20 +98,23 @@ def test_dmp_serves_on_cpu_when_asked():
     "case", ["no_plan", "table_wise", "uvm", "world_size", "update",
              "bf16_train", "fused_param"])
 def test_unported_parts_raise(case):
-    """`update`: the ADAGRAD and ADAM fused updates (K6, K7) raise, from
-    make_train_step before any step and from apply_fused_update."""
+    """`update`: an ADAM update of a bf16 table (stochastic rounding, not
+    ported) raises, from make_train_step before any step and from
+    apply_fused_update, and changes nothing."""
     if case == "update":
-        for optim in (tfu.EmbOptimType.ADAGRAD, tfu.EmbOptimType.ADAM):
-            dmp = DistributedModelParallel(_model("meta"), plan=_plan(),
-                                           device="cpu", fused_optim=optim)
-            with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-                dmp.make_train_step()
-            with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-                tfu.apply_fused_update(
-                    torch.zeros(10, 4),
-                    tfu.init_fused_optimizer_state(10, 4, optim),
-                    torch.zeros(2, dtype=torch.int32), torch.zeros(2, 4),
-                    torch.ones(2, dtype=torch.bool), 0.1)
+        optim = tfu.EmbOptimType.ADAM
+        dmp = DistributedModelParallel(_model("meta", DataType.BF16),
+                                       plan=_plan(), device="cpu",
+                                       fused_optim=optim)
+        with pytest.raises(NotImplementedError, match="stochastic rounding"):
+            dmp.make_train_step()
+        opt = tfu.init_fused_optimizer_state(10, 4, optim)
+        with pytest.raises(NotImplementedError, match="stochastic rounding"):
+            tfu.apply_fused_update(
+                torch.zeros(10, 4, dtype=torch.bfloat16), opt,
+                torch.zeros(2, dtype=torch.int32), torch.zeros(2, 4),
+                torch.ones(2, dtype=torch.bool), 0.1)
+        assert int(opt.step) == 0 and not opt.momentum1.any()
         return
     with pytest.raises(NotImplementedError):
         if case == "no_plan":
@@ -132,4 +135,4 @@ def test_unported_parts_raise(case):
         else:
             DistributedModelParallel(
                 _model("meta"), plan=_plan(), device="cpu",
-                fused_params={"stochastic_rounding": True}).make_train_step()
+                fused_params={"compact": "always"}).make_train_step()

@@ -4,17 +4,19 @@ A JAX DistributedModelParallel over DLRMTrain (one device, every table
 ROW_WISE) and the port's DMP on device="cpu" start from the same weights,
 bridged as numpy through utils/jax_bridge.py, and take three steps on the
 same batches: fused_params {"learning_rate": 0.1} and a dense SGD at
-0.05, as bench.py trains. The small tables (50/131/77 rows, B=32) make
-duplicate ids within a batch common; L=3 adds a MEAN table and empty bags.
-Both sides run their CPU routes: JAX its XLA fused update, the port the
-plain versions of K2-K5 behind the same dispatch as on the card.
+0.05, as bench.py trains, under every fused optimizer. The optimizer state
+starts at step 5 with seeded momenta, set in the JAX state and bridged
+into the port with the weights. The small tables (50/131/77 rows, B=32)
+make duplicate ids within a batch common; L=3 adds a MEAN table and empty
+bags. Both sides run their CPU routes: JAX its XLA fused update, the port
+the plain versions of K2-K7 behind the same dispatch as on the card.
 
-Tolerances: the loss rtol 1e-4 / atol 1e-5 and the dense parameters and
-tables atol 1e-5 (rtol 1e-4), as the serving test holds the forward: the
-MLP, Gram and gradient sums run in another order, and duplicate rows'
-gradients are combined per run here and per token in JAX's SGD. The
-rowwise momentum, a sum of mean(g^2), is held to rtol 1e-4 / atol 1e-9.
-Momentum round trips through the bridge are exact.
+Tolerances: the loss rtol 1e-4 / atol 1e-5 and the dense parameters,
+tables and full momenta atol 1e-5 (rtol 1e-4), as the serving test holds
+the forward: the MLP, Gram and gradient sums run in another order, and
+duplicate rows' gradients are combined per run here and per token in
+JAX's SGD. The rowwise momenta, sums of mean(g^2), are held to rtol 1e-4
+/ atol 1e-9. Optimizer state round trips through the bridge are exact.
 """
 
 import jax
@@ -26,6 +28,7 @@ import torch
 
 from test_torch_port_dlrm import (
     B,
+    D,
     DENSE_ARCH,
     DENSE_IN,
     JAX_KEY,
@@ -41,6 +44,7 @@ from torchrec_tpu.modules import EmbeddingBagCollection as JEBC
 from torchrec_tpu.modules import EmbeddingBagConfig as JConfig
 from torchrec_tpu.modules.embedding_configs import PoolingType as JPooling
 from torchrec_tpu.ops.fused_update import EmbOptimType as JOptim
+from torchrec_tpu.ops.fused_update import fused_state_shapes
 from torchrec_tpu.parallel import DistributedModelParallel as JDMP
 from torchrec_tpu.parallel import ParameterSharding as JPS
 from torchrec_tpu.parallel import ShardingEnv as JEnv
@@ -65,12 +69,14 @@ from torchrec_tpu_torch.parallel import (
 from torchrec_tpu_torch.sparse import KeyedJaggedTensor
 from torchrec_tpu_torch.utils.jax_bridge import (
     flax_dense_to_state_dict,
+    fused_optimizer_state,
     load_jax_weights,
-    rowwise_momentum,
 )
 
 FUSED_LR, DENSE_LR, STEPS = 0.1, 0.05, 3
+START_STEP = 5
 KEYS = [f"f{i}" for i in range(len(ROWS))]
+TABLES = [f"t{i}" for i in range(len(ROWS))]
 
 
 def _jax_dmp(L, mean, optim, lr_schedule=None):
@@ -109,14 +115,42 @@ def _port_dmp(L, mean, optim, lr_schedule=None):
         dense_optimizer=lambda p: torch.optim.SGD(p, lr=DENSE_LR))
 
 
-def _jax_momentum(jdmp, state):
-    strat = jdmp.sharded_ebcs[JAX_KEY].strategies[0]
-    return strat.unshard_rowwise(
-        np.asarray(state.emb_states[JAX_KEY][0].opt.momentum1))
-
-
 def _halving(step):
     return FUSED_LR / (1.0 + step)
+
+
+def _opt_tables(optim, seed, step=START_STEP):
+    """Seeded per-table optimizer state in the JAX strategies' canonical
+    form: momenta in [0, 0.01), `step`."""
+    rng = np.random.RandomState(seed)
+    out = {}
+    for name, rows in zip(TABLES, ROWS):
+        entry = {"step": np.asarray(step, np.int32)}
+        for tag, kind in zip(("m1", "m2"), fused_state_shapes(JOptim[optim])):
+            shape = {"row": (rows,), "full": (rows, D)}.get(kind)
+            if shape is not None:
+                entry[f"{tag}__{kind}"] = (rng.rand(*shape) * 0.01).astype(
+                    np.float32)
+        out[name] = entry
+    return out
+
+
+def _with_opt_state(jdmp, state, per_table):
+    """The JAX state with every group's optimizer state loaded from the
+    canonical form."""
+    groups = tuple(
+        g.replace(opt=strat.shard_opt_from_tables(per_table, g.opt))
+        for strat, g in zip(jdmp.sharded_ebcs[JAX_KEY].strategies,
+                            state.emb_states[JAX_KEY]))
+    return state.replace(emb_states={**state.emb_states, JAX_KEY: groups})
+
+
+def _jax_opt_tables(jdmp, state):
+    out = {}
+    for strat, g in zip(jdmp.sharded_ebcs[JAX_KEY].strategies,
+                        state.emb_states[JAX_KEY]):
+        out.update(strat.unshard_opt_to_tables(g.opt))
+    return out
 
 
 @pytest.mark.parametrize("optim,L,mean,schedule", [
@@ -125,6 +159,14 @@ def _halving(step):
     ("ROWWISE_ADAGRAD", 1, False, None),
     ("ROWWISE_ADAGRAD", 3, True, None),
     ("ROWWISE_ADAGRAD", 1, False, _halving),
+    ("ADAGRAD", 1, False, None),
+    ("ADAGRAD", 3, True, None),
+    ("ADAM", 1, False, None),
+    ("ADAM", 3, True, None),
+    ("PARTIAL_ROWWISE_ADAM", 1, False, None),
+    ("LAMB", 1, False, None),
+    ("PARTIAL_ROWWISE_LAMB", 3, True, None),
+    ("LARS_SGD", 1, False, None),
 ])
 def test_train_steps_match_jax(optim, L, mean, schedule):
     batches = [_request(L, seed=10 * L + s) for s in range(STEPS)]
@@ -134,11 +176,13 @@ def test_train_steps_match_jax(optim, L, mean, schedule):
                             jnp.asarray(lengths)).to_padded(L)
     state = jdmp.init(jax.random.PRNGKey(0), jnp.asarray(dense), sb0,
                       jnp.asarray(labels))
+    state = _with_opt_state(jdmp, state, _opt_tables(optim, seed=L))
     dmp = _port_dmp(L, mean, optim, schedule)
     load_jax_weights(
         dmp, jax.tree.map(np.asarray, state.dense_params),
         jdmp.sharded_ebcs[JAX_KEY].unshard_to_dense(
-            state.emb_states[JAX_KEY]))
+            state.emb_states[JAX_KEY]),
+        opt_state=_jax_opt_tables(jdmp, state))
 
     jstep = jdmp.make_train_step()
     step = dmp.make_train_step()
@@ -169,17 +213,21 @@ def test_train_steps_match_jax(optim, L, mean, schedule):
         np.testing.assert_allclose(tables[name], np.asarray(jtables[name]),
                                    rtol=1e-4, atol=1e-5, err_msg=name)
     strat = dmp.sharded_ebcs[PORT_KEY].strategies[0]
-    assert int(strat.step) == STEPS
-    if optim == "ROWWISE_ADAGRAD":
-        jm = _jax_momentum(jdmp, state)
-        m = rowwise_momentum(dmp)
-        assert m.keys() == jm.keys()
-        for name in jm:
-            assert np.asarray(jm[name]).max() > 0
-            np.testing.assert_allclose(m[name], np.asarray(jm[name]),
-                                       rtol=1e-4, atol=1e-9, err_msg=name)
-    else:
-        assert strat.momentum1 is None and rowwise_momentum(dmp) == {}
+    assert int(strat.step) == START_STEP + STEPS
+    jopt, opt = _jax_opt_tables(jdmp, state), fused_optimizer_state(dmp)
+    start = _opt_tables(optim, seed=L)
+    assert opt.keys() == jopt.keys()
+    for name in jopt:
+        assert opt[name].keys() == jopt[name].keys()
+        assert int(opt[name]["step"]) == START_STEP + STEPS
+        for tag in sorted(set(jopt[name]) - {"step"}):
+            ref = np.asarray(jopt[name][tag])
+            assert not np.array_equal(ref, start[name][tag])  # it moved
+            atol = 1e-9 if tag.endswith("__row") else 1e-5
+            np.testing.assert_allclose(opt[name][tag], ref, rtol=1e-4,
+                                       atol=atol, err_msg=f"{name} {tag}")
+    if optim == "EXACT_SGD":
+        assert strat.momentum1 is None and strat.momentum2 is None
 
 
 def test_rowwise_momentum_round_trips_through_bridge():
@@ -200,11 +248,17 @@ def test_rowwise_momentum_round_trips_through_bridge():
     load_jax_weights(
         dmp, jax.tree.map(np.asarray, state.dense_params),
         jdmp.sharded_ebcs[JAX_KEY].unshard_to_dense(
-            state.emb_states[JAX_KEY]), momentum=jm)
+            state.emb_states[JAX_KEY]),
+        opt_state={t: {"m1__row": m, "step": np.int32(0)}
+                   for t, m in jm.items()})
     strat = dmp.sharded_ebcs[PORT_KEY].strategies[0]
     # the port's [n, rows_loc] momentum is the JAX layout, bit for bit
     np.testing.assert_array_equal(strat.momentum1.numpy(), jm_packed)
-    back = rowwise_momentum(dmp)
+
+    def rowwise(d):
+        return {t: e["m1__row"] for t, e in fused_optimizer_state(d).items()}
+
+    back = rowwise(dmp)
     assert back.keys() == jm.keys()
     for name in jm:
         np.testing.assert_array_equal(back[name], jm[name])
@@ -216,8 +270,56 @@ def test_rowwise_momentum_round_trips_through_bridge():
     other = _port_dmp(L, False, "ROWWISE_ADAGRAD").init(0)
     other.load_state_dict(dmp.state_dict())
     for name in jm:
-        np.testing.assert_array_equal(rowwise_momentum(other)[name],
-                                      jm[name])
+        np.testing.assert_array_equal(rowwise(other)[name], jm[name])
+
+
+@pytest.mark.parametrize("optim", ["ADAM", "PARTIAL_ROWWISE_ADAM"])
+def test_opt_state_round_trips_through_bridge(optim):
+    """Full and rowwise momenta and the step, JAX -> port -> JAX, exact."""
+    L = 1
+    ids, lengths, dense, labels = _request(L, seed=3)
+    jdmp = _jax_dmp(L, False, optim)
+    sb = JKJT.from_lengths(KEYS, jnp.asarray(ids),
+                           jnp.asarray(lengths)).to_padded(L)
+    state = jdmp.init(jax.random.PRNGKey(1), jnp.asarray(dense), sb,
+                      jnp.asarray(labels))
+    per_table = _opt_tables(optim, seed=4, step=7)
+    state = _with_opt_state(jdmp, state, per_table)
+    jopt = state.emb_states[JAX_KEY][0].opt
+
+    dmp = _port_dmp(L, False, optim)
+    load_jax_weights(
+        dmp, jax.tree.map(np.asarray, state.dense_params),
+        jdmp.sharded_ebcs[JAX_KEY].unshard_to_dense(
+            state.emb_states[JAX_KEY]),
+        opt_state=_jax_opt_tables(jdmp, state))
+    strat = dmp.sharded_ebcs[PORT_KEY].strategies[0]
+    # the port's packed state is the JAX layout, bit for bit
+    for name in ("momentum1", "momentum2"):
+        np.testing.assert_array_equal(getattr(strat, name).numpy(),
+                                      np.asarray(getattr(jopt, name)))
+    assert int(strat.step) == 7
+    back = fused_optimizer_state(dmp)
+    assert back.keys() == per_table.keys()
+    for name, entry in per_table.items():
+        assert back[name].keys() == entry.keys()
+        for tag, arr in entry.items():
+            np.testing.assert_array_equal(back[name][tag], arr)
+    # and the JAX side loads the port's form back unchanged
+    again = jdmp.sharded_ebcs[JAX_KEY].strategies[0].shard_opt_from_tables(
+        back, jopt)
+    for name in ("momentum1", "momentum2"):
+        np.testing.assert_array_equal(np.asarray(getattr(again, name)),
+                                      np.asarray(getattr(jopt, name)))
+    assert int(again.step) == 7
+    # a state for another optimizer's momenta is refused
+    with pytest.raises(ValueError, match="m2__"):
+        load_jax_weights(
+            _port_dmp(L, False, optim), jax.tree.map(np.asarray,
+                                                     state.dense_params),
+            jdmp.sharded_ebcs[JAX_KEY].unshard_to_dense(
+                state.emb_states[JAX_KEY]),
+            opt_state=_opt_tables("ADAGRAD", seed=4))
 
 
 def test_init_zeroes_the_optimizer_state():

@@ -1,10 +1,15 @@
-// K2-K5: the fused embedding-update kernels for Hopper (sm_90a).
+// K2-K7: the fused embedding-update kernels for Hopper (sm_90a).
 //
 //   K2 scatter_rows_write    W[id_t] = rows[t]
 //   K3 fused_update_sgd      W[id_t] = W[id_t] - lr * (g[t] + wd * W[id_t])
 //   K4 scaled row update     W[id_t] = W[id_t] + scale[t] * g[t]
 //   K5 rowwise momentum      m[u] += sum of a run's g_sq;
 //                            inv[p] = -1 / (sqrt(m_new[uids[p]]) + eps)
+//   K6 fused_update_adagrad  g += wd * W; m += g * g;
+//                            W -= lr * g / (sqrt(m) + eps), elementwise
+//   K7 fused_update_adam     g += wd * W; m1 = b1 * m1 + (1 - b1) * g;
+//                            m2 = b2 * m2 + (1 - b2) * g * g;
+//                            W -= lr * (m1 * bc1) / (sqrt(m2 * bc2) + eps)
 //
 // each for every slot t whose id is a real row (0 <= id < R). Slots whose id
 // is a sentinel (2^31 - 1 from run_total_row_grads, R + pos from
@@ -18,6 +23,8 @@
 //      `_scaled_update_kernel` (:477-500, :706-733)
 //   K5 `rowwise_momentum_stream` / `_rowwise_mom_stream_kernel`
 //      (:737-1030)
+//   K6 `fused_update_adagrad` / `_adagrad_kernel` (:503-528, :1033-1086)
+//   K7 `fused_update_adam` / `_adam_kernel` (:531-565, :1089-1163)
 // They compute the same functions. None of the TPU's machinery is carried
 // over: the DMA waves capped by 256 semaphores, the SMEM id budget, and
 // K5's one-hot MXU matmuls over [TB, 128] momentum tiles with their
@@ -25,16 +32,23 @@
 // are taken, and K5 cannot overflow.
 //
 // Bound: bytes. K2-K4 move whole 512-byte rows of a D=128 f32 table at
-// random places and do 1-4 flops per element moved; K5 moves 4-byte momentum
-// words and does a sqrt and a divide per row. Both are far below the card's
-// ~20 fp32 flops per byte, so the least time is the bytes over the memory
-// rate. What the design does about it:
-//   * K2-K4: one warp takes 32 consecutive slots. Lane i loads slot i's id
-//     (and K4's scale) once; the warp walks the 32 slots, broadcasting each
-//     id with a shuffle, and moves each real slot's row with every lane
-//     holding one 16-byte float4, so a 512-byte row is one coalesced request
-//     (wider rows loop over 512-byte chunks). A sentinel slot costs only its
-//     4-byte id.
+// random places and do 1-4 flops per element moved; K6 and K7 move five and
+// seven such rows per real slot (W, the momenta and g read, W and the
+// momenta written) and do 7-16 flops per element, about 0.5 flop per byte;
+// K5 moves 4-byte momentum words and does a sqrt and a divide per row. All
+// are far below the card's ~20 fp32 flops per byte, so the least time is
+// the bytes over the memory rate. What the design does about it:
+//   * K2-K4, K6, K7: one warp takes 32 consecutive slots. Lane i loads slot
+//     i's id (and K4's scale) once; the warp walks the 32 slots,
+//     broadcasting each id with a shuffle, and moves each real slot's rows
+//     with every lane holding one 16-byte float4 of each tensor, so a
+//     512-byte row is one coalesced request per tensor (wider rows loop over
+//     512-byte chunks). A sentinel slot costs only its 4-byte id.
+//   * K7's bias corrections bc = [1 / (1 - b1^t), 1 / (1 - b2^t)] are read
+//     from device memory (the caller computes them from the device step), so
+//     no launch waits for the host to learn the step. 1 - b1 and 1 - b2 are
+//     rounded once from double on the host, as JAX rounds the kernel's
+//     Python constants, and passed by value.
 //   * The ids are unique among real slots (dedup or run totals upstream),
 //     so no two warps touch one row and nothing is atomic.
 //   * K5: the ids are sorted, so the thread of each run's first slot walks
@@ -122,6 +136,83 @@ __global__ void row_update_kernel(float* __restrict__ w,
   }
 }
 
+enum class Moment { kAdagrad, kAdam };
+
+struct MomentArgs {
+  float lr, eps, wd;
+  float b1, omb1, b2, omb2;  // K7 only; omb = 1 - b, rounded on the host
+};
+
+// One element of K6 (m1 = Adagrad's accumulator) or K7 (m1, m2 = Adam's
+// moments); x is the element's total gradient.
+template <Moment kOpt>
+__device__ __forceinline__ void moment_step(float& w, float& m1, float& m2,
+                                            float x, const MomentArgs& a,
+                                            float bc1, float bc2) {
+  const float g = a.wd != 0.f ? __fadd_rn(x, __fmul_rn(a.wd, w)) : x;
+  if (kOpt == Moment::kAdagrad) {
+    m1 = __fadd_rn(m1, __fmul_rn(g, g));
+    w = __fsub_rn(w, __fdiv_rn(__fmul_rn(a.lr, g),
+                               __fadd_rn(__fsqrt_rn(m1), a.eps)));
+  } else {
+    m1 = __fadd_rn(__fmul_rn(a.b1, m1), __fmul_rn(a.omb1, g));
+    m2 = __fadd_rn(__fmul_rn(a.b2, m2), __fmul_rn(__fmul_rn(a.omb2, g), g));
+    const float m1_hat = __fmul_rn(m1, bc1);
+    const float m2_hat = __fmul_rn(m2, bc2);
+    w = __fsub_rn(w, __fdiv_rn(__fmul_rn(a.lr, m1_hat),
+                               __fadd_rn(__fsqrt_rn(m2_hat), a.eps)));
+  }
+}
+
+// K6 / K7: w, m1 (and K7's m2) [R, D], g [N, D]; bc is K7's [2] bias
+// corrections (unused by K6).
+template <Moment kOpt>
+__global__ void moment_update_kernel(float* __restrict__ w,
+                                     float* __restrict__ m1,
+                                     float* __restrict__ m2,
+                                     const int32_t* __restrict__ uids,
+                                     const float* __restrict__ g,
+                                     const float* __restrict__ bc, int64_t R,
+                                     int64_t D, int64_t N, MomentArgs a) {
+  const int lane = threadIdx.x & 31;
+  const int64_t warp =
+      static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int64_t base = warp * 32;
+  if (base >= N) return;  // whole warp leaves together
+  const int n = static_cast<int>(N - base < 32 ? N - base : 32);
+  const int32_t my_id = lane < n ? uids[base + lane] : -1;
+  float bc1 = 0.f, bc2 = 0.f;
+  if (kOpt == Moment::kAdam) {
+    bc1 = __ldg(bc);
+    bc2 = __ldg(bc + 1);
+  }
+  const int64_t cols = D / 4;
+  for (int j = 0; j < n; ++j) {
+    const int32_t id = __shfl_sync(kFullMask, my_id, j);
+    if (!is_real(id, R)) continue;  // the same for the whole warp
+    const int64_t row = static_cast<int64_t>(id) * D;
+    float4* wrow = reinterpret_cast<float4*>(w + row);
+    float4* m1row = reinterpret_cast<float4*>(m1 + row);
+    float4* m2row =
+        kOpt == Moment::kAdam ? reinterpret_cast<float4*>(m2 + row) : nullptr;
+    const float4* grow = reinterpret_cast<const float4*>(g + (base + j) * D);
+    for (int64_t c = lane; c < cols; c += 32) {
+      const float4 x = __ldg(grow + c);
+      float4 wv = wrow[c];
+      float4 av = m1row[c];
+      float4 bv = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (kOpt == Moment::kAdam) bv = m2row[c];
+      moment_step<kOpt>(wv.x, av.x, bv.x, x.x, a, bc1, bc2);
+      moment_step<kOpt>(wv.y, av.y, bv.y, x.y, a, bc1, bc2);
+      moment_step<kOpt>(wv.z, av.z, bv.z, x.z, a, bc1, bc2);
+      moment_step<kOpt>(wv.w, av.w, bv.w, x.w, a, bc1, bc2);
+      wrow[c] = wv;
+      m1row[c] = av;
+      if (kOpt == Moment::kAdam) m2row[c] = bv;
+    }
+  }
+}
+
 __global__ void rowwise_momentum_kernel(float* __restrict__ m,
                                         const int32_t* __restrict__ uids,
                                         const float* __restrict__ g_sq,
@@ -162,6 +253,22 @@ int launch_rows(void* w, const void* uids, const void* src, const void* scale,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <Moment kOpt>
+int launch_moments(void* w, void* m1, void* m2, const void* uids,
+                   const void* g, const void* bc, int64_t R, int64_t D,
+                   int64_t N, MomentArgs a, void* stream) {
+  const int64_t warps = (N + 31) / 32;
+  const dim3 grid(
+      static_cast<unsigned>((warps + kWarpsPerBlock - 1) / kWarpsPerBlock));
+  moment_update_kernel<kOpt><<<grid, 32 * kWarpsPerBlock, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(w), static_cast<float*>(m1),
+      static_cast<float*>(m2), static_cast<const int32_t*>(uids),
+      static_cast<const float*>(g), static_cast<const float*>(bc), R, D, N,
+      a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -197,6 +304,25 @@ int trt_rowwise_momentum_f32(void* m, const void* uids, const void* g_sq,
       static_cast<float*>(m), static_cast<const int32_t*>(uids),
       static_cast<const float*>(g_sq), static_cast<float*>(inv), R, N, eps);
   return static_cast<int>(cudaGetLastError());
+}
+
+int trt_fused_update_adagrad_f32(void* w, void* m, const void* uids,
+                                 const void* g, int64_t R, int64_t D,
+                                 int64_t N, float lr, float eps, float wd,
+                                 void* stream) {
+  const MomentArgs a{lr, eps, wd, 0.f, 0.f, 0.f, 0.f};
+  return launch_moments<Moment::kAdagrad>(w, m, nullptr, uids, g, nullptr, R,
+                                          D, N, a, stream);
+}
+
+int trt_fused_update_adam_f32(void* w, void* m1, void* m2, const void* uids,
+                              const void* g, const void* bc, int64_t R,
+                              int64_t D, int64_t N, float lr, float eps,
+                              float wd, float b1, float omb1, float b2,
+                              float omb2, void* stream) {
+  const MomentArgs a{lr, eps, wd, b1, omb1, b2, omb2};
+  return launch_moments<Moment::kAdam>(w, m1, m2, uids, g, bc, R, D, N, a,
+                                       stream);
 }
 
 const char* trt_cuda_error_string(int err) {

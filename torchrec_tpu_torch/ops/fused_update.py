@@ -5,15 +5,20 @@ dense [R, D] gradient: the train step hands the cotangent of the pooled
 output to `apply_fused_update`, which combines the gradients of duplicate
 ids in static shapes (sort + run totals, sentinels in place of `unique`,
 so nothing waits for the device) and updates only the touched rows, in
-place, through the kernels K2-K5 (ops/fused_update_kernels.py).
+place, through the kernels K2-K7 (ops/fused_update_kernels.py).
 
-Ported: SGD, EXACT_SGD and ROWWISE_ADAGRAD on fp32 tables, routed as the
-JAX package's Pallas route (`_apply_fused_update_pallas`) routes them, on
-the card and on the CPU alike (on the CPU each kernel wrapper takes its
-plain version). The fused_params keys are `eps`, `weight_decay`, `w_impl`
-and `mom_impl`. The other optimizers and half-precision tables (which need
-stochastic rounding) raise NotImplementedError: ROADMAP queue 1 item 4.
-The JAX package's XLA route and its v5e cost-model levers (`compact`,
+Every EmbOptimType trains fp32 tables. SGD, EXACT_SGD, ROWWISE_ADAGRAD,
+ADAGRAD and ADAM route as the JAX package's Pallas route
+(`_apply_fused_update_pallas`) routes them, on the card and on the CPU
+alike (on the CPU each kernel wrapper takes its plain version).
+PARTIAL_ROWWISE_ADAM, LAMB, PARTIAL_ROWWISE_LAMB and LARS_SGD have no
+Pallas kernel (the JAX package runs them in XLA on the TPU too): they are
+PyTorch ops on the same run-total form, masked as JAX's XLA route masks
+them. The fused_params keys are `eps`, `weight_decay`, `beta1`, `beta2`,
+`eta`, `momentum`, `stochastic_rounding` (no effect on fp32 tables, as in
+JAX), `w_impl` and `mom_impl`. Half-precision tables need stochastic
+rounding and raise NotImplementedError (ROADMAP queue 1, stochastic
+rounding). The JAX package's v5e cost-model levers (`compact`,
 `unique_entries`, `mom_block_fracs`, `mom_max_block_share`, the split
 momentum dispatch, wave sizes) are not ported: see ROADMAP.md.
 """
@@ -41,9 +46,8 @@ class EmbOptimType(enum.Enum):
     LARS_SGD = "lars_sgd"
 
 
-PORTED_OPTIMS = (EmbOptimType.SGD, EmbOptimType.EXACT_SGD,
-                 EmbOptimType.ROWWISE_ADAGRAD)
-FUSED_PARAM_KEYS = ("eps", "weight_decay", "w_impl", "mom_impl")
+FUSED_PARAM_KEYS = ("eps", "weight_decay", "beta1", "beta2", "eta",
+                    "momentum", "stochastic_rounding", "w_impl", "mom_impl")
 # the skip sentinel of run_total_row_grads
 RUN_SENTINEL = 2**31 - 1
 
@@ -98,10 +102,11 @@ def init_fused_optimizer_state(
 
 
 def _w_impl(w_impl: str) -> str:
-    """Row-write form: "rmw" reads each touched row and its gradient and
-    writes the row once, in one kernel (three row transfers per slot);
-    "write" gathers the rows into an [N, D] buffer, computes the new rows
-    into another and writes them with K2 (at least seven). So "auto" is
+    """Row-write form: "rmw" reads each touched row, its momenta and its
+    gradient and writes the row and momenta once, in one kernel (three
+    row transfers per slot for SGD, five for ADAGRAD, seven for ADAM);
+    "write" gathers them into [N, D] buffers, computes the new rows into
+    others and writes each with K2 (more than twice as many). So "auto" is
     "rmw"."""
     if w_impl not in ("auto", "rmw", "write"):
         raise ValueError(f"w_impl must be 'auto', 'rmw' or 'write', got "
@@ -119,18 +124,14 @@ def _mom_stream(mom_impl: str) -> bool:
     return mom_impl != "xla"
 
 
-def check_trainable(optim: EmbOptimType, dtype: torch.dtype,
-                    params: Mapping = ()) -> None:
-    """Raise unless `apply_fused_update` takes this optimizer, table dtype
-    and fused_params (checked before a train step changes anything)."""
-    if optim not in PORTED_OPTIMS:
-        raise NotImplementedError(
-            f"fused optimizer {optim.name} is not ported yet (ROADMAP queue "
-            "1 item 4); ported: SGD, EXACT_SGD, ROWWISE_ADAGRAD")
+def check_trainable(dtype: torch.dtype, params: Mapping = ()) -> None:
+    """Raise unless `apply_fused_update` takes this table dtype and these
+    fused_params (checked before a train step changes anything); every
+    optimizer is ported."""
     if dtype != torch.float32:
         raise NotImplementedError(
             f"training {dtype} tables needs stochastic rounding, which is "
-            "not ported yet (ROADMAP queue 1 item 4)")
+            "not ported yet (ROADMAP queue 1, stochastic rounding)")
     unknown = sorted(set(params) - set(FUSED_PARAM_KEYS))
     if unknown:
         raise NotImplementedError(
@@ -219,6 +220,75 @@ def run_total_row_grads(
     return uids.to(torch.int32), totals
 
 
+def _add_rows(t: torch.Tensor, ids: torch.Tensor, fm: torch.Tensor,
+              delta: torch.Tensor) -> None:
+    """t[ids[i]] += delta[i] where fm[i], in place: the masked scatter-add
+    of JAX's XLA route. Masked slots (sentinels clamped to row R - 1) add
+    exact zeros and the real ids are unique, so the result does not
+    depend on the order of the card's atomic adds."""
+    mask = fm if delta.dim() == 1 else fm[:, None]
+    t.index_add_(0, ids, torch.where(mask, delta, 0.0))
+
+
+def _pow(beta: float, t: torch.Tensor) -> torch.Tensor:
+    """beta**t in f32, as JAX raises a weak-typed Python float."""
+    return torch.full_like(t, beta) ** t
+
+
+def _xla_only_update(weights, opt_state, uids, g, lr, eps, weight_decay,
+                     beta1, beta2, eta, momentum) -> None:
+    """PARTIAL_ROWWISE_ADAM, LAMB, PARTIAL_ROWWISE_LAMB and LARS_SGD, the
+    optimizers without a Pallas kernel, as PyTorch ops: JAX's XLA route
+    (fused_update.py:700-809) on the run-total form, whose real slots are
+    each touched row's first sorted position (JAX's `fm`)."""
+    optim = opt_state.optim
+    R = weights.shape[0]
+    fm = uids < R
+    ids = uids.clamp(max=R - 1).long()
+    w_rows = weights[ids]
+    m1 = opt_state.momentum1
+    m1_rows = m1[ids]
+    if optim is EmbOptimType.LARS_SGD:
+        w_norm = torch.linalg.vector_norm(w_rows, dim=1)
+        g_norm = torch.linalg.vector_norm(g, dim=1)
+        denom = g_norm + weight_decay * w_norm
+        lr_adj = torch.where((w_norm > 0) & (denom > 0),
+                             lr * eta * w_norm / (denom + eps), lr)
+        new_m1 = momentum * m1_rows + lr_adj[:, None] * (
+            g + weight_decay * w_rows)
+        _add_rows(weights, ids, fm, -new_m1)
+        _add_rows(m1, ids, fm, new_m1 - m1_rows)
+        return
+    rowwise = optim in (EmbOptimType.PARTIAL_ROWWISE_ADAM,
+                        EmbOptimType.PARTIAL_ROWWISE_LAMB)
+    m2 = opt_state.momentum2
+    m2_rows = m2[ids]
+    g_sq = (g * g).mean(dim=1) if rowwise else g * g
+    new_m1 = beta1 * m1_rows + (1.0 - beta1) * g
+    new_m2 = beta2 * m2_rows + (1.0 - beta2) * g_sq
+    t = (opt_state.step + 1).to(torch.float32)
+    m1_hat = new_m1 / (1.0 - _pow(beta1, t))
+    m2_hat = new_m2 / (1.0 - _pow(beta2, t))
+    denom = torch.sqrt(m2_hat)
+    denom = (denom[:, None] if rowwise else denom) + eps
+    if optim is EmbOptimType.PARTIAL_ROWWISE_ADAM:
+        upd = -lr * m1_hat / denom
+        if weight_decay:
+            upd = upd - lr * weight_decay * w_rows
+    else:  # LAMB, PARTIAL_ROWWISE_LAMB: per-row trust ratio
+        rt = m1_hat / denom
+        if weight_decay:
+            rt = rt + weight_decay * w_rows
+        w_norm = torch.linalg.vector_norm(w_rows, dim=1)
+        r_norm = torch.linalg.vector_norm(rt, dim=1)
+        trust = torch.where((w_norm > 0) & (r_norm > 0),
+                            w_norm / (r_norm + eps), 1.0)
+        upd = -lr * trust[:, None] * rt
+    _add_rows(weights, ids, fm, upd)
+    _add_rows(m1, ids, fm, new_m1 - m1_rows)
+    _add_rows(m2, ids, fm, new_m2 - m2_rows)
+
+
 def apply_fused_update(
     weights: torch.Tensor,
     opt_state: FusedOptimizerState,
@@ -228,6 +298,11 @@ def apply_fused_update(
     learning_rate: float,
     eps: float = 1.0e-8,
     weight_decay: float = 0.0,
+    beta1: float = 0.9,
+    beta2: float = 0.999,
+    eta: float = 0.001,
+    momentum: float = 0.9,
+    stochastic_rounding: bool = True,
     mom_impl: str = "auto",
     w_impl: str = "auto",
 ) -> Tuple[torch.Tensor, FusedOptimizerState]:
@@ -242,14 +317,24 @@ def apply_fused_update(
       SGD, EXACT_SGD:  w -= lr * (g + wd * w)
       ROWWISE_ADAGRAD: g += wd * w; m += mean(g^2);
                        w -= lr * g / (sqrt(m) + eps)
+      ADAGRAD:         g += wd * w; m += g^2; w -= lr * g / (sqrt(m) + eps)
+      ADAM:            g += wd * w; m1 = b1 m1 + (1-b1) g;
+                       m2 = b2 m2 + (1-b2) g^2;
+                       w -= lr * m1_hat / (sqrt(m2_hat) + eps)
+      PARTIAL_ROWWISE_ADAM: ADAM with rowwise m2 (mean of g^2), wd
+                       applied as w -= lr * wd * w
+      LAMB, PARTIAL_ROWWISE_LAMB: Adam ratio rt (+ wd * w), per-row trust
+                       w -= lr * (|w| / |rt|) * rt
+      LARS_SGD:        lr_adj = lr * eta * |w| / (|g| + wd * |w|);
+                       m = momentum * m + lr_adj * (g + wd * w); w -= m
 
-    with g the total gradient of each row. w_impl "auto"|"rmw"|"write" and
-    mom_impl "auto"|"stream"|"xla" pick the kernels (see `_w_impl`,
-    `_mom_stream`).
+    with g the total gradient of each row and m_hat = m / (1 - b**t) at
+    the incremented step t. w_impl "auto"|"rmw"|"write" and mom_impl
+    "auto"|"stream"|"xla" pick the kernels (see `_w_impl`,
+    `_mom_stream`). `stochastic_rounding` has no effect on fp32 tables.
     """
     optim = opt_state.optim
-    check_trainable(optim, weights.dtype,
-                    {"w_impl": w_impl, "mom_impl": mom_impl})
+    check_trainable(weights.dtype, {"w_impl": w_impl, "mom_impl": mom_impl})
     w_impl = _w_impl(w_impl)
     lr = float(learning_rate)
     R = weights.shape[0]
@@ -260,7 +345,7 @@ def apply_fused_update(
             weights, opt_state.momentum1, uids, g, lr, eps=eps,
             weight_decay=weight_decay, momentum_stream=_mom_stream(mom_impl),
             w_impl=w_impl)
-    else:
+    elif optim in (EmbOptimType.SGD, EmbOptimType.EXACT_SGD):
         uids, g = run_total_row_grads(flat_ids, row_grads, valid, R)
         if w_impl == "write":
             w_rows = weights[uids.clamp(max=R - 1).long()]
@@ -270,5 +355,34 @@ def apply_fused_update(
         else:
             fk.fused_update_sgd(weights, uids, g, lr,
                                 weight_decay=weight_decay)
+    elif optim in (EmbOptimType.ADAGRAD, EmbOptimType.ADAM):
+        uids, g = run_total_row_grads(flat_ids, row_grads, valid, R)
+        m1, m2 = opt_state.momentum1, opt_state.momentum2
+        step = opt_state.step + 1
+        if w_impl == "rmw" and optim is EmbOptimType.ADAGRAD:
+            fk.fused_update_adagrad(weights, m1, uids, g, lr, eps=eps,
+                                    weight_decay=weight_decay)
+        elif w_impl == "rmw":
+            fk.fused_update_adam(weights, m1, m2, uids, g, lr, step,
+                                 eps=eps, weight_decay=weight_decay,
+                                 beta1=beta1, beta2=beta2)
+        else:  # gather, compute, write each tensor with K2
+            safe = uids.clamp(max=R - 1).long()
+            if optim is EmbOptimType.ADAGRAD:
+                new = fk.adagrad_rows(weights[safe], m1[safe], g, lr, eps,
+                                      weight_decay)
+                dsts = (weights, m1)
+            else:
+                new = fk.adam_rows(
+                    weights[safe], m1[safe], m2[safe], g, lr,
+                    fk.adam_bias_correction(step, beta1, beta2), eps,
+                    weight_decay, beta1, beta2)
+                dsts = (weights, m1, m2)
+            for dst, rows in zip(dsts, new):
+                fk.scatter_rows_write(dst, uids, rows)
+    else:
+        uids, g = run_total_row_grads(flat_ids, row_grads, valid, R)
+        _xla_only_update(weights, opt_state, uids, g, lr, eps, weight_decay,
+                         beta1, beta2, eta, momentum)
     opt_state.step.add_(1)
     return weights, opt_state

@@ -1,6 +1,6 @@
-"""K2-K5: the fused embedding-update kernels as hand-written CUDA kernels.
+"""K2-K7: the fused embedding-update kernels as hand-written CUDA kernels.
 
-Counterparts of four functions of torchrec_tpu/ops/pallas_embedding.py,
+Counterparts of six functions of torchrec_tpu/ops/pallas_embedding.py,
 with the same names and arguments minus the TPU's wave sizes (`T`, `TB`,
 `window_rows`, `max_block_share`, `skip_blocks`) and `interpret`:
 
@@ -9,24 +9,27 @@ with the same names and arguments minus the TPU's wave sizes (`T`, `TB`,
 * K4 `fused_update_rowwise_adagrad` (:617; its scaled RMW
   `_scaled_update_kernel` :477 is the kernel)
 * K5 `rowwise_momentum_stream` (:902, `_rowwise_mom_stream_kernel` :737)
+* K6 `fused_update_adagrad` (:1033, `_adagrad_kernel` :503)
+* K7 `fused_update_adam`    (:1089, `_adam_kernel` :531)
 
-The four kernels live in csrc/fused_update.cu, one library built with nvcc
-for sm_90a at first use and bound with ctypes (ops/cuda_build.py). All four
-are bound by bytes: scattered 512-byte rows (K2-K4) or 4-byte momentum
-words (K5), with a few flops per element; the source says how each one
-moves its bytes.
+The six kernels live in csrc/fused_update.cu, one library built with nvcc
+for sm_90a at first use and bound with ctypes (ops/cuda_build.py). All six
+are bound by bytes: scattered 512-byte rows (K2-K4 move two or three per
+real slot, K6 five, K7 seven) or 4-byte momentum words (K5), with a few
+flops per element; the source says how each one moves its bytes.
 
-The JAX functions return new arrays; these update `weights` and `momentum`
-IN PLACE and return the same tensors, so callers port one to one. CUDA
-tensors launch the kernel, which needs D % 4 == 0 and 16-byte aligned rows
-and raises otherwise; CPU tensors take the plain PyTorch version
+The JAX functions return new arrays; these update `weights` and the
+momenta IN PLACE and return the same tensors, so callers port one to one.
+CUDA tensors launch the kernel, which needs D % 4 == 0 and 16-byte aligned
+rows and raises otherwise; CPU tensors take the plain PyTorch version
 (`*_reference`), which takes any D. Nothing falls back.
 
 Slots whose id is not a real row (0 <= id < R) are skipped: the sentinels
 are 2**31 - 1 (`run_total_row_grads`) and R + pos (`dedup_row_grads`).
-Real ids must be unique (K2-K4) or sorted (K5), as the callers guarantee.
-`lr`, `weight_decay` and `eps` are Python floats, passed by value, so no
-launch waits on the device.
+Real ids must be unique (K2-K4, K6, K7) or sorted (K5), as the callers
+guarantee. `lr`, `weight_decay`, `eps` and the betas are Python floats,
+passed by value, and K7's step is a device tensor, so no launch waits on
+the device.
 """
 
 from __future__ import annotations
@@ -48,6 +51,10 @@ def _bind(lib: ctypes.CDLL) -> None:
             [_P, _P, _P, _I64, _I64, _I64, _F32, _F32, _P],
         "trt_scaled_row_update_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _P],
         "trt_rowwise_momentum_f32": [_P, _P, _P, _P, _I64, _I64, _F32, _P],
+        "trt_fused_update_adagrad_f32":
+            [_P, _P, _P, _P, _I64, _I64, _I64, _F32, _F32, _F32, _P],
+        "trt_fused_update_adam_f32":
+            [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64] + [_F32] * 7 + [_P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
@@ -63,6 +70,8 @@ LAUNCHES: Dict[str, int] = {
     "fused_update_sgd": 0,
     "fused_update_rowwise_adagrad": 0,
     "rowwise_momentum_stream": 0,
+    "fused_update_adagrad": 0,
+    "fused_update_adam": 0,
 }
 
 
@@ -363,3 +372,149 @@ def fused_update_rowwise_adagrad(
         weights, momentum, uids, g, float(lr), float(eps),
         float(weight_decay), momentum_stream, w_impl,
         rowwise_momentum_stream, scaled_row_update, scatter_rows_write)
+
+
+# -- K6 and K7 -----------------------------------------------------------------
+
+
+def adagrad_rows(w: torch.Tensor, m: torch.Tensor, g: torch.Tensor,
+                 lr: float, eps: float, weight_decay: float
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K6's arithmetic on gathered rows, rounded where `_adagrad_kernel`
+    (pallas_embedding.py:503-528) and the CUDA kernel round: returns
+    (new rows, new momentum)."""
+    if weight_decay:
+        g = g + weight_decay * w
+    m = m + g * g
+    return w - lr * g / (torch.sqrt(m) + eps), m
+
+
+def adam_bias_correction(step: torch.Tensor, beta1: float,
+                         beta2: float) -> torch.Tensor:
+    """[1 / (1 - beta1**t), 1 / (1 - beta2**t)] in f32 on `step`'s device,
+    t = step as f32, as pallas_embedding.fused_update_adam (:1111-1114)
+    computes it: device ops only, so nothing waits for the step."""
+    t = step.to(torch.float32)
+    return torch.stack([_div(1.0, 1.0 - torch.full_like(t, b) ** t)
+                        for b in (beta1, beta2)])
+
+
+def adam_rows(w: torch.Tensor, m1: torch.Tensor, m2: torch.Tensor,
+              g: torch.Tensor, lr: float, bc: torch.Tensor, eps: float,
+              weight_decay: float, beta1: float, beta2: float
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K7's arithmetic on gathered rows, rounded where `_adam_kernel`
+    (pallas_embedding.py:531-565) and the CUDA kernel round; bc from
+    `adam_bias_correction`. 1 - beta is taken in double before it meets
+    f32, as JAX takes the kernel's Python constants. Returns (new rows,
+    new m1, new m2)."""
+    if weight_decay:
+        g = g + weight_decay * w
+    m1 = beta1 * m1 + (1.0 - beta1) * g
+    m2 = beta2 * m2 + (1.0 - beta2) * g * g
+    w = w - lr * (m1 * bc[0]) / (torch.sqrt(m2 * bc[1]) + eps)
+    return w, m1, m2
+
+
+def _check_moments(weights, uids, g, **moments) -> torch.device:
+    dev = _check_rows(weights, uids, g, "g")
+    for name, m in moments.items():
+        _check(name, m, torch.float32, 2, weights.shape[0])
+        if m.shape[1] != weights.shape[1]:
+            raise ValueError(f"{name} has width {m.shape[1]}, weights "
+                             f"{weights.shape[1]}")
+    _same_device(weights, *moments.values())
+    return dev
+
+
+def fused_update_adagrad_reference(weights, momentum, uids, g, lr,
+                                   eps=1.0e-8, weight_decay=0.0):
+    """Plain version of K6, in place on the real slots."""
+    sel = _real_slots(uids, weights.shape[0])
+    ids = uids[sel].long()
+    w, m = adagrad_rows(weights[ids], momentum[ids], g[sel], float(lr),
+                        float(eps), float(weight_decay))
+    weights.index_copy_(0, ids, w)
+    momentum.index_copy_(0, ids, m)
+    return weights, momentum
+
+
+def fused_update_adagrad(
+    weights: torch.Tensor, momentum: torch.Tensor, uids: torch.Tensor,
+    g: torch.Tensor, lr: float, eps: float = 1.0e-8,
+    weight_decay: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K6: in-place elementwise Adagrad on unique touched rows.
+
+    weights and momentum [R, D] f32 are updated in place and returned;
+    uids [N] int32, unique among real slots (`run_total_row_grads`
+    output, sentinels 2**31 - 1); g [N, D] f32 total row gradients.
+    g += wd * W; m += g * g; W -= lr * g / (sqrt(m) + eps).
+    """
+    dev = _check_moments(weights, uids, g, momentum=momentum)
+    lr, eps, wd = float(lr), float(eps), float(weight_decay)
+    if dev.type == "cpu":
+        return fused_update_adagrad_reference(weights, momentum, uids, g,
+                                              lr, eps, wd)
+    (R, D), N = weights.shape, uids.shape[0]
+    if N == 0 or D == 0:
+        return weights, momentum
+    _vector_rows(weights, momentum, g)
+    _launch("fused_update_adagrad", dev, lambda lib, s:
+            lib.trt_fused_update_adagrad_f32(
+                weights.data_ptr(), momentum.data_ptr(), uids.data_ptr(),
+                g.data_ptr(), R, D, N, lr, eps, wd, s))
+    return weights, momentum
+
+
+def fused_update_adam_reference(weights, momentum1, momentum2, uids, g, lr,
+                                step, eps=1.0e-8, weight_decay=0.0,
+                                beta1=0.9, beta2=0.999):
+    """Plain version of K7, in place on the real slots."""
+    bc = adam_bias_correction(step, beta1, beta2)
+    sel = _real_slots(uids, weights.shape[0])
+    ids = uids[sel].long()
+    w, m1, m2 = adam_rows(weights[ids], momentum1[ids], momentum2[ids],
+                          g[sel], float(lr), bc, float(eps),
+                          float(weight_decay), float(beta1), float(beta2))
+    weights.index_copy_(0, ids, w)
+    momentum1.index_copy_(0, ids, m1)
+    momentum2.index_copy_(0, ids, m2)
+    return weights, momentum1, momentum2
+
+
+def fused_update_adam(
+    weights: torch.Tensor, momentum1: torch.Tensor, momentum2: torch.Tensor,
+    uids: torch.Tensor, g: torch.Tensor, lr: float, step: torch.Tensor,
+    eps: float = 1.0e-8, weight_decay: float = 0.0, beta1: float = 0.9,
+    beta2: float = 0.999,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K7: in-place elementwise Adam on unique touched rows.
+
+    weights, momentum1 and momentum2 [R, D] f32 are updated in place and
+    returned; uids and g as K6; step the already incremented 0-d int
+    tensor on the tables' device, as in the JAX call
+    (fused_update.py:1121-1125). The bias corrections are computed from
+    it on the device (`adam_bias_correction`) and read by the kernel.
+    """
+    dev = _check_moments(weights, uids, g, momentum1=momentum1,
+                         momentum2=momentum2)
+    _same_device(weights, step)
+    lr, eps, wd = float(lr), float(eps), float(weight_decay)
+    beta1, beta2 = float(beta1), float(beta2)
+    if dev.type == "cpu":
+        return fused_update_adam_reference(
+            weights, momentum1, momentum2, uids, g, lr, step, eps, wd,
+            beta1, beta2)
+    (R, D), N = weights.shape, uids.shape[0]
+    if N == 0 or D == 0:
+        return weights, momentum1, momentum2
+    _vector_rows(weights, momentum1, momentum2, g)
+    bc = adam_bias_correction(step, beta1, beta2)
+    _launch("fused_update_adam", dev, lambda lib, s:
+            lib.trt_fused_update_adam_f32(
+                weights.data_ptr(), momentum1.data_ptr(),
+                momentum2.data_ptr(), uids.data_ptr(), g.data_ptr(),
+                bc.data_ptr(), R, D, N, lr, eps, wd, beta1, 1.0 - beta1,
+                beta2, 1.0 - beta2, s))
+    return weights, momentum1, momentum2

@@ -20,10 +20,11 @@ optimizer steps and each sharded EBC applies its fused optimizer to the
 touched rows. Where the JAX step returns a new DMPState, this one updates
 the DMP's parameters, tables and optimizer state in place.
 
-Not ported yet: the planner (a plan must be given), the prefetched and
-pipelined train steps, and embedding towers, EmbeddingCollections,
-UVM-cached tables and feature processors, whose modules the port does not
-have.
+Every fused optimizer trains fp32 tables. Not ported yet: training
+half-precision tables (stochastic rounding), the planner (a plan must be
+given), the prefetched and pipelined train steps, and embedding towers,
+EmbeddingCollections, UVM-cached tables and feature processors, whose
+modules the port does not have.
 """
 
 from __future__ import annotations
@@ -196,8 +197,10 @@ class DistributedModelParallel(nn.Module):
         the sparse batch (KeyedJaggedTensor or PaddedSparseBatch). The step
         updates the dense parameters, the tables and the fused optimizer
         state in place, where the JAX step returns a new DMPState; loss and
-        aux come back detached. Raises here, before any step, if a group's
-        fused optimizer, table dtype or fused_params is not ported.
+        aux come back detached. Every EmbOptimType trains fp32 tables;
+        raises here, before any step, for half-precision tables (they
+        need stochastic rounding, not ported yet) or a fused_params key
+        the port does not take.
         """
         for sebc in self.sharded_ebcs.values():
             sebc.check_trainable()

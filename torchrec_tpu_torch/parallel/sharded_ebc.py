@@ -24,10 +24,7 @@ from torchrec_tpu_torch.modules.embedding_modules import (
     as_padded,
     embedding_names_by_table,
 )
-from torchrec_tpu_torch.ops.fused_update import (
-    EmbOptimType,
-    fused_state_shapes,
-)
+from torchrec_tpu_torch.ops.fused_update import EmbOptimType
 from torchrec_tpu_torch.parallel.embedding_sharding import (
     GroupedInputDistMixin,
     group_tables,
@@ -127,21 +124,21 @@ class ShardedEmbeddingBagCollection(GroupedInputDistMixin, nn.Module):
             out.update(s.unshard_to_dense(st.weights))
         return out
 
-    def unshard_rowwise(self) -> Dict[str, np.ndarray]:
-        """Per-table [R] rowwise momentum of the groups that keep one."""
-        out: Dict[str, np.ndarray] = {}
+    def unshard_opt_to_tables(self) -> Dict[str, Dict[str, np.ndarray]]:
+        """Every table's fused optimizer state: {table: {"m1__full" |
+        "m1__row", "m2__...", "step"}}, the JAX strategies' canonical
+        form (see BaseEmbeddingShardingStrategy.unshard_opt_to_tables)."""
+        out: Dict[str, Dict[str, np.ndarray]] = {}
         for s in self.strategies:
-            if fused_state_shapes(s.optim)[0] == "row":
-                out.update(s.unshard_rowwise(s.momentum1))
+            out.update(s.unshard_opt_to_tables())
         return out
 
-    @torch.no_grad()
-    def shard_rowwise(self, per_table: Mapping[str, ArrayLike]) -> None:
-        """Load per-table [R] rowwise momentum into the groups that keep
-        one."""
+    def shard_opt_from_tables(
+        self, per_table: Mapping[str, Mapping[str, ArrayLike]]
+    ) -> None:
+        """Load every group's fused optimizer state from that form."""
         for s in self.strategies:
-            if fused_state_shapes(s.optim)[0] == "row":
-                s.momentum1 = s.shard_rowwise(per_table)
+            s.shard_opt_from_tables(per_table)
 
     def check_trainable(self) -> None:
         for s in self.strategies:

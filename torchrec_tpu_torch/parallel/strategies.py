@@ -5,8 +5,11 @@ module that holds one table group's shard in the JAX package's layout,
 [n_dev, rows_loc, D]: each table's rows are split into n contiguous blocks
 of ceil(R / n) rows, the tables' blocks are concatenated per device, and
 the per-device row count is padded up to ROW_TILE. `unshard_to_dense`
-inverts that packing exactly; the rowwise momentum, [n_dev, rows_loc],
-packs the same way (`unshard_rowwise` / `shard_rowwise`).
+inverts that packing exactly; full momenta, [n_dev, rows_loc, D] fp32,
+pack as the weights do, and the rowwise momentum, [n_dev, rows_loc], the
+same way (`unshard_rowwise` / `shard_rowwise`). The whole optimizer state
+moves per table in the JAX strategies' canonical form
+(`unshard_opt_to_tables` / `shard_opt_from_tables`).
 
 ROW_WISE forward on n devices is all_gather(ids) -> masked lookup of the
 rows this device owns (partial sums) -> psum_scatter over the batch; the
@@ -150,10 +153,12 @@ class BaseEmbeddingShardingStrategy(nn.Module):
                                                generator=generator))
         return out
 
-    def shard_from_dense(self, dense: Mapping[str, ArrayLike]) -> torch.Tensor:
+    def shard_from_dense(self, dense: Mapping[str, ArrayLike],
+                         dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         """Pack unsharded per-table [R_t, D] arrays (numpy or torch) into
-        this strategy's layout."""
-        out = torch.zeros(self.weights_shape(), dtype=self.w_dtype,
+        this strategy's layout, in `dtype` (default: the table's; pass
+        torch.float32 for momenta, which never live in half precision)."""
+        out = torch.zeros(self.weights_shape(), dtype=dtype or self.w_dtype,
                           device=self.weights.device)
         for i, t in enumerate(self.meta.tables):
             table = dense[t.name]
@@ -197,6 +202,53 @@ class BaseEmbeddingShardingStrategy(nn.Module):
             momentum1=None if opt.momentum1 is None else opt.momentum1[0],
             momentum2=None if opt.momentum2 is None else opt.momentum2[0])
 
+    def unshard_opt_to_tables(self) -> Dict[str, Dict[str, np.ndarray]]:
+        """The optimizer state per table, in the canonical form of the JAX
+        strategies' `unshard_opt_to_tables`: {table: {"m1__full" [R, D] |
+        "m1__row" [R], the same for "m2", "step": int32}}."""
+        out: Dict[str, Dict[str, np.ndarray]] = {
+            t.name: {} for t in self.meta.tables}
+        for tag, kind in zip(("m1", "m2"), fused_state_shapes(self.optim)):
+            if kind == "none":
+                continue
+            m = getattr(self, f"momentum{tag[1]}")
+            per = (self.unshard_to_dense(m) if kind == "full"
+                   else self.unshard_rowwise(m))
+            for name, arr in per.items():
+                out[name][f"{tag}__{kind}"] = arr
+        step = np.asarray(self.step.item(), np.int32)
+        for entry in out.values():
+            entry["step"] = step
+        return out
+
+    @torch.no_grad()
+    def shard_opt_from_tables(
+        self, per_table: Mapping[str, Mapping[str, ArrayLike]]
+    ) -> None:
+        """Load `unshard_opt_to_tables`' form into the momentum and step
+        buffers. Raises unless every table carries the momenta this
+        optimizer keeps, at their shapes, and a step; the group's step is
+        the largest, as the JAX strategies take it."""
+        for tag, kind in zip(("m1", "m2"), fused_state_shapes(self.optim)):
+            if kind == "none":
+                continue
+            key = f"{tag}__{kind}"
+            per = {}
+            for t in self.meta.tables:
+                arr = per_table.get(t.name, {}).get(key)
+                if arr is None:
+                    raise ValueError(f"{self.optim.name} state of table "
+                                     f"{t.name} has no {key}")
+                per[t.name] = arr
+            setattr(self, f"momentum{tag[1]}",
+                    self.shard_from_dense(per, torch.float32)
+                    if kind == "full" else self.shard_rowwise(per))
+        steps = [per_table.get(t.name, {}).get("step")
+                 for t in self.meta.tables]
+        if any(s is None for s in steps):
+            raise ValueError("every table's state needs a step")
+        self.step.fill_(max(int(s) for s in steps))
+
     @torch.no_grad()
     def reset_opt(self) -> None:
         """Zero the momentum and the step, as a fresh init_opt."""
@@ -205,9 +257,9 @@ class BaseEmbeddingShardingStrategy(nn.Module):
                 t.zero_()
 
     def check_trainable(self) -> None:
-        """Raise unless this group's optimizer, table dtype and
-        fused_params are ported."""
-        check_trainable(self.optim, self.w_dtype, self.optim_kwargs)
+        """Raise unless this group's table dtype and fused_params are
+        ported."""
+        check_trainable(self.w_dtype, self.optim_kwargs)
 
     def update(self, sb: PaddedSparseBatch, d_pooled: torch.Tensor,
                learning_rate: float) -> None:
@@ -273,7 +325,7 @@ class RwEmbeddingSharding(BaseEmbeddingShardingStrategy):
                           device=self.weights.device)
         for sr, off, t in zip(self.shard_rows, self.local_offsets,
                               self.meta.tables):
-            v = torch.as_tensor(np.asarray(per_table[t.name], np.float32))
+            v = torch.tensor(np.asarray(per_table[t.name], np.float32))
             if tuple(v.shape) != (t.rows,):
                 raise ValueError(f"momentum of {t.name}: expected "
                                  f"({t.rows},), got {tuple(v.shape)}")

@@ -10,17 +10,22 @@ The JAX side hands over numpy arrays only, so this module imports no JAX:
 * `tables`: {table name -> [R, D]} as the JAX
   `ShardedEmbeddingBagCollection.unshard_to_dense` returns it; each table
   goes to the port's sharded EBC that holds a table of that name.
-* `momentum` (optional): {table name -> [R]} rowwise momentum as the JAX
-  strategies' `unshard_rowwise` returns it (ROWWISE_ADAGRAD).
-  `rowwise_momentum` reads the port's back in the same form.
+* `opt_state` (optional): the whole fused optimizer state per table, as
+  the JAX strategies' `unshard_opt_to_tables` returns it: {table name ->
+  {"m1__full" [R, D] | "m1__row" [R], "m2__full" | "m2__row", "step"}},
+  with the momenta `fused_state_shapes` gives the optimizer. Raises
+  unless they match the port's. `fused_optimizer_state` reads the port's
+  back in the same form, which the JAX strategies'
+  `shard_opt_from_tables` loads.
 
 Usage, with `state` the JAX DMP state:
 
     dense = jax.tree.map(np.asarray, state.dense_params)
     tables = jax_sebc.unshard_to_dense(state.emb_states[key])
-    momentum = jax_sebc.strategies[0].unshard_rowwise(
-        np.asarray(state.emb_states[key][0].opt.momentum1))
-    load_jax_weights(torch_dmp, dense, tables, momentum)
+    opt = {}
+    for strat, group in zip(jax_sebc.strategies, state.emb_states[key]):
+        opt.update(strat.unshard_opt_to_tables(group.opt))
+    load_jax_weights(torch_dmp, dense, tables, opt_state=opt)
 """
 
 from __future__ import annotations
@@ -85,11 +90,11 @@ def load_jax_weights(
     dmp: DistributedModelParallel,
     dense_params: Mapping,
     tables: Mapping[str, np.ndarray],
-    momentum: Optional[Mapping[str, np.ndarray]] = None,
+    opt_state: Optional[Mapping[str, Mapping[str, np.ndarray]]] = None,
 ) -> None:
     """Load the JAX DMP's dense params, unsharded tables and (optionally)
-    rowwise momentum into `dmp`. Raises unless every dense parameter and
-    every table is matched."""
+    fused optimizer state into `dmp`. Raises unless every dense parameter
+    and every table is matched."""
     flat = flax_dense_to_state_dict(dense_params)
     params = dict(dmp.module.named_parameters())
     missing = sorted(set(params) - set(flat))
@@ -107,15 +112,19 @@ def load_jax_weights(
             )
         p.copy_(src)
     dmp.load_tables(_per_module(dmp, "tables", tables))
-    if momentum is not None:
-        for key, m in _per_module(dmp, "momentum tables", momentum).items():
-            dmp.sharded_ebcs[key].shard_rowwise(m)
+    if opt_state is not None:
+        for key, st in _per_module(dmp, "optimizer states",
+                                   opt_state).items():
+            dmp.sharded_ebcs[key].shard_opt_from_tables(st)
 
 
-def rowwise_momentum(dmp: DistributedModelParallel) -> Dict[str, np.ndarray]:
-    """{table -> [R]} rowwise momentum of the port's DMP, in the form of
-    the JAX strategies' `unshard_rowwise`."""
-    out: Dict[str, np.ndarray] = {}
+def fused_optimizer_state(
+    dmp: DistributedModelParallel,
+) -> Dict[str, Dict[str, np.ndarray]]:
+    """{table -> {"m1__...", "m2__...", "step"}}: the port's fused
+    optimizer state in the form of the JAX strategies'
+    `unshard_opt_to_tables`."""
+    out: Dict[str, Dict[str, np.ndarray]] = {}
     for sebc in dmp.sharded_ebcs.values():
-        out.update(sebc.unshard_rowwise())
+        out.update(sebc.unshard_opt_to_tables())
     return out
