@@ -8,7 +8,8 @@ Phases, each failing the run with a non-zero exit when it fails:
 
 1. Identify the card (name, count, power limit); TF32 is switched off.
 2. Build the kernels with nvcc for sm_90a, one nvcc per source, started
-   together: K1 (csrc/tbe_lookup.cu) and K2-K7 (csrc/fused_update.cu).
+   together: K1 (csrc/tbe_lookup.cu), K2-K7 (csrc/fused_update.cu) and K8
+   (csrc/gather_rows.cu).
 3. Serve the DLRM that bench.py and bench_config.py describe, at full
    width, through the port's DistributedModelParallel.make_eval_fn:
    26 fp32 tables of 100,000 x 128 (ROW_WISE on one device), dense arch
@@ -45,6 +46,35 @@ Phases, each failing the run with a non-zero exit when it fails:
    batches touched must agree (rtol 1e-4, atol 1e-5: GEMM and gradient
    sums run in another order), and every other row must be unchanged on
    both.
+8. Serve examples/bert4rec_main.py's BERT4Rec (--synthetic_ml1m defaults:
+   vocab 3,708 = 3,706 items + pad 0 + MASK, L=64, D=64, 2 heads, 2
+   blocks, dropout 0) through make_eval_fn, its item table ROW_WISE in a
+   ShardedEmbeddingCollection: 3 requests at B=32 (the example's batch)
+   and 3 at B=1024 (a larger ranking request), masked as make_eval_batch
+   masks them. Each request must launch K8 once and nothing else of the
+   port; the logits [B, 64, 3708] must be finite, and one B=32 request's
+   must equal the CPU run's (rtol 1e-4, atol 1e-5).
+9. Train it through make_train_step (ROWWISE_ADAGRAD at 0.01, dense
+   torch.optim.Adam at 1e-3): 3 warm-up and 10 timed steps at B=32 on
+   batches masked as make_train_batch masks them, each launching K8, K5
+   and K4 once and nothing else. Then copy the card DMP to a CPU DMP, the
+   dense Adam state included (nonzero moments), and take 2 steps on both:
+   losses, dense parameters and the touched table rows and momenta agree
+   (rtol 1e-4, atol 1e-5), untouched rows are unchanged on both. The
+   attention key biases are the exception: their gradient is zero up to
+   rounding, which Adam scales up to steps of order lr, so they are held
+   within Adam's reach (2 x 3.2 x lr x steps) instead.
+10. Hold K8 against its plain version and torch.index_select, bit-exact,
+   on the trained [3712, 64] shard with one batch's 2,048 ids and at a
+   bytes-bound shape (W 2,600,064 x 128, 212,992 ids with negative and
+   out-of-range ones), and time all three.
+11. Gradients through the unsharded EmbeddingBagCollection (weighted,
+   L=20, SUM and MEAN, D=128) and EmbeddingCollection on the card against
+   the CPU: d_W and the per-sample weights' gradient (rtol 1e-5, atol
+   1e-6). K1 launches once in the EBC's forward and K8 once in its
+   backward. The EC takes histories at their own lengths, so padding is
+   masked (a pad row summing hundreds of cotangents would differ by more
+   than 1e-5 in summation order alone).
 
 Kernel times are device times from torch.profiler (the kernel's own for a
 kernel, all device activity of the call for the plain version and the
@@ -59,6 +89,7 @@ result.
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import subprocess
@@ -93,6 +124,21 @@ WARMUP_STEPS, TIMED_STEPS, CPU_STEPS = 3, 10, 2
 START_STEP = 5  # the optimizer step the card-against-CPU runs start at
 DEVICE = "cuda"
 
+# examples/bert4rec_main.py --synthetic_ml1m with its defaults (copied)
+B4R_ITEMS = 3706  # ML-1M's movies
+B4R_VOCAB = B4R_ITEMS + 2  # + pad id 0 + MASK
+B4R_MASK = B4R_VOCAB - 1
+B4R_LEN, B4R_DIM, B4R_HEADS, B4R_LAYERS = 64, 64, 2, 2
+B4R_BATCH = 32  # --batch_size
+B4R_RANK_BATCH = 1024  # a larger ranking request
+B4R_MASK_PROB = 0.2
+B4R_EMB_LR, B4R_DENSE_LR = 0.01, 1e-3  # --emb_lr, optax.adam(--lr)
+B4R_USERS = 512  # sequences drawn for the batches (ML-1M has 6040)
+B4R_KEY = "model/ec"
+# K8 at a bytes-bound shape: slice 2's packed DLRM shard and one B=8192
+# batch's ids
+K8_ROWS, K8_DIM, K8_IDS = 2_600_064, 128, 212_992
+
 # kernel -> (wrapper name, source, the Pallas function it replaces)
 KERNELS = {
     "K1": ("tbe_lookup_pooled", "torchrec_tpu_torch/csrc/tbe_lookup.cu",
@@ -111,6 +157,8 @@ KERNELS = {
            "torchrec_tpu/ops/pallas_embedding.py:1033"),
     "K7": ("fused_update_adam", "torchrec_tpu_torch/csrc/fused_update.cu",
            "torchrec_tpu/ops/pallas_embedding.py:1089"),
+    "K8": ("gather_rows", "torchrec_tpu_torch/csrc/gather_rows.cu",
+           "torchrec_tpu/ops/pallas_embedding.py:91"),
 }
 # the kernels of each optimizer's train step, beside K1 (once each)
 STEP_KERNELS = {"EXACT_SGD": ("K3",), "ROWWISE_ADAGRAD": ("K4", "K5"),
@@ -156,15 +204,26 @@ def expected(**launches) -> dict:
     return {k: launches.get(k, 0) for k in KERNELS}
 
 
-def counts(tl, fk) -> dict:
+def _counted():
+    from torchrec_tpu_torch.ops import fused_update_kernels as fk
+    from torchrec_tpu_torch.ops import gather_rows as gr
+    from torchrec_tpu_torch.ops import tbe_lookup as tl
+
+    return tl, fk, gr
+
+
+def counts() -> dict:
     """Launches per kernel so far."""
-    return {"K1": tl.LAUNCHES, **{k: fk.LAUNCHES[name]
-                                  for k, (name, _, _) in KERNELS.items()
-                                  if k != "K1"}}
+    tl, fk, gr = _counted()
+    return {"K1": tl.LAUNCHES, "K8": gr.LAUNCHES,
+            **{k: fk.LAUNCHES[name] for k, (name, _, _) in KERNELS.items()
+               if k not in ("K1", "K8")}}
 
 
-def reset_counts(tl, fk) -> None:
+def reset_counts() -> None:
+    tl, fk, gr = _counted()
     tl.LAUNCHES = 0
+    gr.LAUNCHES = 0
     fk.reset_launches()
 
 
@@ -229,7 +288,7 @@ def to_device(batch):
     return dense.to(DEVICE), kjt.to(DEVICE), labels.to(DEVICE)
 
 
-def serve(dmp, tl, fk) -> dict:
+def serve(dmp) -> dict:
     """The serving path: requests through make_eval_fn, K1 counted."""
     eval_fn = dmp.make_eval_fn()
     rng = np.random.RandomState(SEED)
@@ -238,7 +297,7 @@ def serve(dmp, tl, fk) -> dict:
                 + [SERVE_BATCH] * REQUESTS_PER_BATCH]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_counts(tl, fk)
+    reset_counts()
     latencies = {BENCH_BATCH: [], SERVE_BATCH: []}
     last = None
     for batch, dense, kjt in requests:
@@ -249,7 +308,7 @@ def serve(dmp, tl, fk) -> dict:
             raise AssertionError(
                 f"bad logits at B={batch}: {tuple(logits.shape)}")
         last = (dense, kjt, logits)
-    launches = counts(tl, fk)
+    launches = counts()
     if launches != expected(K1=len(requests)):
         raise AssertionError(
             f"{len(requests)} requests launched {launches}")
@@ -306,38 +365,64 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, kernel: str = "", iters: int = 20, warmup: int = 3
-              ) -> float:
-    """Device time per call from torch.profiler: the summed duration of
-    the device activity (kernels, copies) of `iters` calls, only kernels
-    whose name contains `kernel` when it is given."""
+def device_ms(fn, kernel: str = "", bound_ms: float = 0.0, iters: int = 20,
+              warmup: int = 3, attempts: int = 3) -> float:
+    """Device time per call from torch.profiler over `iters` calls: for
+    each name of device activity (kernels, copies), its mean duration
+    times its launches per call, summed; only kernels whose name contains
+    `kernel` when it is given. Without lost events this is the window's
+    summed device time over `iters`.
+
+    The profiler now and then loses events: a window came back with none,
+    one with 18 of 20 launches of a kernel three times running, and one
+    timed a kernel at 6 % of its bound. So launches per call are rounded
+    from the events kept, and a window with no events, or with a time
+    under a quarter of `bound_ms` (no cache of the card serves bytes four
+    times as fast as its memory), is profiled again, up to `attempts`
+    times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    for attempt in range(attempts):
         torch.cuda.synchronize()
-    events = [e for e in prof.events()
-              if e.device_type == DeviceType.CUDA and not e.is_user_annotation
-              and kernel in e.name]
-    if not events:
-        raise AssertionError(f"no device activity recorded for {kernel!r}")
-    return sum(e.time_range.elapsed_us() for e in events) / iters / 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        durations = {}
+        for e in prof.events():
+            if (e.device_type == DeviceType.CUDA and not e.is_user_annotation
+                    and kernel in e.name):
+                durations.setdefault(e.name, []).append(
+                    e.time_range.elapsed_us())
+        ms = sum(sum(d) / len(d) * max(1, round(len(d) / iters))
+                 for d in durations.values()) / 1e3
+        counted = {n: len(d) for n, d in durations.items()}
+        if durations and ms >= bound_ms / 4:
+            if any(c % iters for c in counted.values()):
+                log(f"device_ms: events per name {counted} over {iters} "
+                    f"calls; launches per call rounded")
+            return ms
+        log(f"device_ms: {ms:.5f} ms from events {counted} for {kernel!r} "
+            f"over {iters} calls, bound {bound_ms:.5f} ms (attempt "
+            f"{attempt + 1} of {attempts})")
+    raise AssertionError(f"no whole profiler window for {kernel!r}")
 
 
-def timings(kernel_fn, kernel: str, plain_fn, library_fn=None) -> dict:
+def timings(kernel_fn, kernel: str, bound_ms: float, plain_fn,
+            library_fn=None) -> dict:
     """The kernel's own device time, its wrapper call's stream time, and
-    the device times of the plain version and the library call."""
+    the device times of the plain version and the library call, each of
+    which computes the same function and so is held to the same bound."""
     return {
-        "ms": device_ms(kernel_fn, kernel),
+        "ms": device_ms(kernel_fn, kernel, bound_ms),
         "call_ms": cuda_ms(kernel_fn, 20),
-        "plain_ms": device_ms(plain_fn),
-        "library_ms": None if library_fn is None else device_ms(library_fn),
+        "plain_ms": device_ms(plain_fn, bound_ms=bound_ms),
+        "library_ms": (None if library_fn is None
+                       else device_ms(library_fn, bound_ms=bound_ms)),
     }
 
 
@@ -402,7 +487,7 @@ def check_kernel(dmp, tl) -> dict:
 
     b = bound(W, ids, coeff)
     t = timings(lambda: tl.tbe_lookup_pooled(W, ids, coeff),
-                "tbe_lookup_pooled_kernel",
+                "tbe_lookup_pooled_kernel", b["ms"],
                 lambda: tl.tbe_lookup_pooled_reference(W, ids, coeff),
                 lambda: F.embedding_bag(ids, W, mode="sum",
                                         per_sample_weights=coeff))
@@ -413,7 +498,7 @@ def check_kernel(dmp, tl) -> dict:
         f"{100 * b['ms'] / t['ms']:.1f}% of the bound")
     b20 = bound(W, ids20, coeff20)
     ms20 = device_ms(lambda: tl.tbe_lookup_pooled(W, ids20, coeff20),
-                     "tbe_lookup_pooled_kernel")
+                     "tbe_lookup_pooled_kernel", b20["ms"])
     log(f"K1 L=20: {ms20:.4f} ms; bound {b20['ms']:.4f} ms ({b20['by']}); "
         f"kernel at {100 * b20['ms'] / ms20:.1f}% of the bound")
     return {"max_abs_err": max(err, err20), "ms": t["ms"],
@@ -421,7 +506,7 @@ def check_kernel(dmp, tl) -> dict:
             "bound_ms": b["ms"], "bound_by": b["by"]}
 
 
-def train(optim, tl, fk) -> dict:
+def train(optim) -> dict:
     """The training path: WARMUP_STEPS + TIMED_STEPS train steps at
     B=8192, each launching exactly the kernels of `optim`'s update."""
     name = optim.name
@@ -433,15 +518,15 @@ def train(optim, tl, fk) -> dict:
     per_step = expected(K1=1, **{k: 1 for k in STEP_KERNELS[name]})
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_counts(tl, fk)
+    reset_counts()
     ms, losses = [], []
     for batch in batches:
-        before = counts(tl, fk)
+        before = counts()
         t0 = time.perf_counter()
         loss, _ = step(*batch)
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
-        after = counts(tl, fk)
+        after = counts()
         launched = {k: after[k] - before[k] for k in after}
         if launched != per_step:
             raise AssertionError(f"{name} step {len(ms)} launched "
@@ -449,7 +534,7 @@ def train(optim, tl, fk) -> dict:
         losses.append(loss.item())
         if not math.isfinite(losses[-1]):
             raise AssertionError(f"{name} step {len(ms)}: loss {losses[-1]}")
-    launches = counts(tl, fk)
+    launches = counts()
     peak = torch.cuda.max_memory_allocated()
     timed = ms[WARMUP_STEPS:]
     ex_per_s = TIMED_STEPS * BENCH_BATCH / (sum(timed) / 1e3)
@@ -464,7 +549,7 @@ def train(optim, tl, fk) -> dict:
             "ex_per_s": ex_per_s, "peak_bytes": peak}
 
 
-def write_step(optim, tl, fk) -> dict:
+def write_step(optim) -> dict:
     """One step of `optim` with w_impl="write": K2 writes the rows and
     the momenta."""
     name = optim.name
@@ -474,9 +559,9 @@ def write_step(optim, tl, fk) -> dict:
     batch = to_device(make_batch(np.random.RandomState(SEED + 6),
                                  BENCH_BATCH))
     torch.cuda.synchronize()
-    reset_counts(tl, fk)
+    reset_counts()
     loss, _ = step(*batch)
-    launches = counts(tl, fk)
+    launches = counts()
     expect = expected(K1=1, **WRITE_KERNELS[name])
     if launches != expect or not math.isfinite(loss.item()):
         raise AssertionError(f"{name} w_impl=write step launched {launches} "
@@ -626,7 +711,7 @@ def check_update_kernels(dmp, fk) -> dict:
     out["K3"] = {
         "max_abs_err": max(errs), "bound": b,
         **timings(lambda: fk.fused_update_sgd(W1, u_rt, g_rt, lr),
-                  "row_update_kernel",
+                  "row_update_kernel", b["ms"],
                   lambda: fk.fused_update_sgd_reference(W2, u_rt, g_rt, lr),
                   lambda: W2.index_add_(0, ids_real, g_real, alpha=-lr)),
     }
@@ -637,11 +722,11 @@ def check_update_kernels(dmp, fk) -> dict:
     fk.scatter_rows_write(W1, u_rt, rows)
     fk.scatter_rows_write_reference(W2, u_rt, rows)
     rows_real = rows[real_rt]
+    b = rows_bound(N, n_real, D, rows_moved=2, flops_per_elem=0)
     out["K2"] = {
-        "max_abs_err": _hold("K2", [(W1, W2)]),
-        "bound": rows_bound(N, n_real, D, rows_moved=2, flops_per_elem=0),
+        "max_abs_err": _hold("K2", [(W1, W2)]), "bound": b,
         **timings(lambda: fk.scatter_rows_write(W1, u_rt, rows),
-                  "row_update_kernel",
+                  "row_update_kernel", b["ms"],
                   lambda: fk.scatter_rows_write_reference(W2, u_rt, rows),
                   lambda: W2.index_copy_(0, ids_real, rows_real)),
     }
@@ -662,12 +747,12 @@ def check_update_kernels(dmp, fk) -> dict:
     payload = N * 4 + n_uniq * 4 + N * 4 + 2 * n_uniq * 4
     sectors = N * 4 + n_uniq * 4 + N * 4 + 2 * n_uniq * 32
     t_bytes, t_ops = payload / HBM_BYTES_PER_S, 4 * n_uniq / FP32_FLOPS
+    b = {"bytes": payload, "ms": max(t_bytes, t_ops) * 1e3,
+         "by": "bytes" if t_bytes >= t_ops else "operations"}
     out["K5"] = {
-        "max_abs_err": err5,
-        "bound": {"bytes": payload, "ms": max(t_bytes, t_ops) * 1e3,
-                  "by": "bytes" if t_bytes >= t_ops else "operations"},
+        "max_abs_err": err5, "bound": b,
         **timings(lambda: fk.rowwise_momentum_stream(M1, u_dd, g_sq),
-                  "rowwise_momentum_kernel",
+                  "rowwise_momentum_kernel", b["ms"],
                   lambda: fk.rowwise_momentum_stream_reference(
                       M2, u_dd, g_sq)),
     }
@@ -689,12 +774,11 @@ def check_update_kernels(dmp, fk) -> dict:
                                               momentum_stream=True)
     err4 = max(err4, _hold("fused_update_rowwise_adagrad",
                            [(W1, W2), (M1, M2)]))
+    b = rows_bound(N, n_uniq, D, rows_moved=3, extra_bytes=n_uniq * 4)
     out["K4"] = {
-        "max_abs_err": err4,
-        "bound": rows_bound(N, n_uniq, D, rows_moved=3,
-                            extra_bytes=n_uniq * 4),
+        "max_abs_err": err4, "bound": b,
         **timings(lambda: fk.scaled_row_update(W1, u_dd, g_dd, scale),
-                  "row_update_kernel",
+                  "row_update_kernel", b["ms"],
                   lambda: fk.scaled_row_update_reference(
                       W2, u_dd, g_dd, scale)),
     }
@@ -764,8 +848,407 @@ def check_moment_kernels(dmp, fk) -> dict:
                         flops_per_elem=14 if adam else 7)
     out = {k: {"max_abs_err": max(errs), "bound": bound_,
                **timings(lambda: kernel(a), "moment_update_kernel",
+                         bound_["ms"],
                          lambda: plain(b))}}
     return report(out)
+
+# -- BERT4Rec ----------------------------------------------------------------
+
+
+def make_b4r_dmp(device: str):
+    """The example's BERT4Rec through the DMP: the item table ROW_WISE in a
+    sharded EmbeddingCollection, ROWWISE_ADAGRAD at lr 0.01, dense Adam
+    at 1e-3, dropout 0.0."""
+    from torchrec_tpu_torch.models import (
+        BERT4Rec,
+        BERT4RecTrain,
+        make_item_embedding_collection,
+    )
+    from torchrec_tpu_torch.parallel import (
+        DistributedModelParallel,
+        ParameterSharding,
+        ShardingPlan,
+        ShardingType,
+    )
+
+    model = BERT4RecTrain(BERT4Rec(
+        B4R_VOCAB, B4R_LEN, B4R_DIM, B4R_HEADS, B4R_LAYERS, dropout=0.0,
+        ec=make_item_embedding_collection(B4R_VOCAB, B4R_DIM, B4R_LEN,
+                                          device="meta"),
+        device="meta"))
+    return DistributedModelParallel(
+        model, plan=ShardingPlan({B4R_KEY: {
+            "item_embedding": ParameterSharding(ShardingType.ROW_WISE)}}),
+        fused_params={"learning_rate": B4R_EMB_LR},
+        dense_optimizer=lambda p: torch.optim.Adam(p, lr=B4R_DENSE_LR),
+        device=device)
+
+
+def b4r_sequences(rng: np.random.RandomState) -> list:
+    """Item histories shaped as the example's ML-1M stand-in: lengths from
+    its log-normal (min 20, mean about 165), Zipf-popular items 1..3706."""
+    seqs = []
+    for _ in range(B4R_USERS):
+        n = int(np.clip(rng.lognormal(4.56, 0.95), 20, 1000))
+        seqs.append((rng.zipf(1.05, size=n) - 1) % B4R_ITEMS + 1)
+    return seqs
+
+
+def _pad(seq) -> np.ndarray:
+    s = np.asarray(seq[-B4R_LEN:], np.int32)
+    return np.concatenate([np.zeros(B4R_LEN - len(s), np.int32), s])
+
+
+def _b4r_kjt(ids: np.ndarray):
+    from torchrec_tpu_torch.sparse import KeyedJaggedTensor
+
+    return KeyedJaggedTensor.from_lengths(
+        ["item"], ids.reshape(-1), np.full(len(ids), B4R_LEN, np.int32))
+
+
+def b4r_train_batch(rng, seqs, batch: int):
+    """make_train_batch: a user's history but its last item, each real
+    item masked with probability 0.2 (at least the last one). Returns
+    (KeyedJaggedTensor, labels [B, L] int32) on the CPU."""
+    rows, labels = [], []
+    for _ in range(batch):
+        s = _pad(seqs[rng.randint(len(seqs))][:-1])
+        m = (rng.rand(B4R_LEN) < B4R_MASK_PROB) & (s > 0)
+        if not m.any():
+            m[np.where(s > 0)[0][-1]] = True
+        labels.append(np.where(m, s, 0).astype(np.int32))
+        rows.append(np.where(m, B4R_MASK, s).astype(np.int32))
+    return _b4r_kjt(np.stack(rows)), torch.from_numpy(np.stack(labels))
+
+
+def b4r_eval_batch(rng, seqs, batch: int):
+    """make_eval_batch: the whole history with its last item masked, and
+    zero labels, as the example serves it."""
+    rows = []
+    for i in rng.randint(len(seqs), size=batch):
+        s = _pad(seqs[i])
+        s[np.where(s > 0)[0][-1]] = B4R_MASK
+        rows.append(s)
+    return (_b4r_kjt(np.stack(rows)),
+            torch.zeros((batch, B4R_LEN), dtype=torch.int32))
+
+
+def b4r_serve(seqs) -> dict:
+    """Requests through make_eval_fn at B=32 and B=1024, K8 once each."""
+    dmp = make_b4r_dmp(DEVICE).init(SEED)
+    eval_fn = dmp.make_eval_fn()
+    rng = np.random.RandomState(SEED + 10)
+    requests = [b4r_eval_batch(rng, seqs, b)
+                for b in [B4R_BATCH] * REQUESTS_PER_BATCH
+                + [B4R_RANK_BATCH] * REQUESTS_PER_BATCH]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    latencies = {B4R_BATCH: [], B4R_RANK_BATCH: []}
+    last = None
+    for kjt, labels in requests:
+        batch = labels.shape[0]
+        before = counts()
+        t0 = time.perf_counter()
+        _, (_, logits) = eval_fn(kjt.to(DEVICE), labels.to(DEVICE))
+        torch.cuda.synchronize()
+        latencies[batch].append((time.perf_counter() - t0) * 1e3)
+        after = counts()
+        launched = {k: after[k] - before[k] for k in after}
+        if launched != expected(K8=1):
+            raise AssertionError(f"a B={batch} BERT4Rec request launched "
+                                 f"{launched}")
+        if (logits.shape != (batch, B4R_LEN, B4R_VOCAB)
+                or not bool(torch.isfinite(logits).all())):
+            raise AssertionError(f"bad BERT4Rec logits at B={batch}: "
+                                 f"{tuple(logits.shape)}")
+        if batch == B4R_BATCH:
+            last = (kjt, labels, logits.cpu())
+    launches = counts()["K8"]
+    peak = torch.cuda.max_memory_allocated()
+    for batch, ms in latencies.items():
+        log(f"bert4rec serve B={batch}: request ms (host clock, H2D + "
+            f"forward, synchronized; first includes warm-up) {ms}")
+    log(f"bert4rec serve: {len(requests)} requests, K8 launches {launches}, "
+        f"max_memory_allocated {peak} B")
+    fwd = {}
+    for batch in (B4R_BATCH, B4R_RANK_BATCH):
+        kjt, labels = b4r_eval_batch(rng, seqs, batch)
+        kjt, labels = kjt.to(DEVICE), labels.to(DEVICE)
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eval_fn(kjt, labels)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        fwd[batch] = times
+        log(f"bert4rec serve B={batch}: forward ms (host clock, "
+            f"synchronized) {times}")
+
+    kjt, labels, logits = last
+    cpu = make_b4r_dmp("cpu")
+    cpu.load_state_dict(dmp.state_dict())
+    _, (_, ref) = cpu.make_eval_fn()(kjt, labels)
+    torch.testing.assert_close(logits, ref, rtol=1e-4, atol=1e-5)
+    log(f"bert4rec serve B={B4R_BATCH}: card logits match the CPU run, max "
+        f"abs diff {(logits - ref).abs().max().item():.3e}")
+    return {"launches": launches, "request_ms": latencies,
+            "forward_ms": fwd, "peak_bytes": peak}
+
+
+def _b4r_state(dmp) -> dict:
+    strat = dmp.sharded_ebcs[B4R_KEY].strategies[0]
+    return {"table": strat.weights[0].detach().cpu(),
+            "momentum1": strat.momentum1[0].detach().cpu()}
+
+
+def b4r_train(seqs) -> dict:
+    """WARMUP_STEPS + TIMED_STEPS train steps at B=32, each launching K8,
+    K5 and K4 once; then the card DMP and a CPU copy (dense Adam state
+    included) take CPU_STEPS more steps and must agree."""
+    dmp = make_b4r_dmp(DEVICE).init(SEED)
+    step = dmp.make_train_step()
+    rng = np.random.RandomState(SEED + 11)
+    batches = [b4r_train_batch(rng, seqs, B4R_BATCH)
+               for _ in range(WARMUP_STEPS + TIMED_STEPS)]
+    batches = [(kjt.to(DEVICE), labels.to(DEVICE))
+               for kjt, labels in batches]
+    per_step = expected(K8=1, K5=1, K4=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    ms, losses = [], []
+    for kjt, labels in batches:
+        before = counts()
+        t0 = time.perf_counter()
+        loss, _ = step(kjt, labels)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        after = counts()
+        launched = {k: after[k] - before[k] for k in after}
+        if launched != per_step:
+            raise AssertionError(f"BERT4Rec step {len(ms)} launched "
+                                 f"{launched}, expected {per_step}")
+        losses.append(loss.item())
+        if not math.isfinite(losses[-1]):
+            raise AssertionError(f"BERT4Rec step {len(ms)}: loss "
+                                 f"{losses[-1]}")
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    timed = ms[WARMUP_STEPS:]
+    median = sorted(timed)[TIMED_STEPS // 2]
+    seq_per_s = TIMED_STEPS * B4R_BATCH / (sum(timed) / 1e3)
+    log(f"bert4rec train B={B4R_BATCH}: losses {losses}")
+    log(f"bert4rec train: warm-up step ms {ms[:WARMUP_STEPS]}; timed step "
+        f"ms (host clock, synchronized) {timed}; min {min(timed):.4f} max "
+        f"{max(timed):.4f} median {median:.4f}; {seq_per_s:.1f} sequences/s "
+        f"over the {TIMED_STEPS} timed steps")
+    log(f"bert4rec train: launches per step {per_step}, in all {launches}; "
+        f"max_memory_allocated {peak} B")
+
+    # the card against the CPU, from the trained state: nonzero Adam
+    # moments, so a step is not lr * sign(g) per element
+    cpu = make_b4r_dmp("cpu")
+    cpu.load_state_dict(dmp.state_dict())
+    # a copy: load_state_dict keeps tensors already on the target device
+    cpu.dense_optimizer.load_state_dict(
+        copy.deepcopy(dmp.dense_optimizer.state_dict()))
+    start = _b4r_state(cpu)
+    step_c = cpu.make_train_step()
+    extra = [b4r_train_batch(rng, seqs, B4R_BATCH) for _ in range(CPU_STEPS)]
+    touched = torch.zeros(start["table"].shape[0], dtype=torch.bool)
+    for i, (kjt, labels) in enumerate(extra):
+        touched[kjt.values.long()] = True
+        loss_g, _ = step(kjt.to(DEVICE), labels.to(DEVICE))
+        loss_c, _ = step_c(kjt, labels)
+        torch.testing.assert_close(loss_g.cpu(), loss_c, rtol=1e-4,
+                                   atol=1e-5)
+        log(f"bert4rec train B={B4R_BATCH} card-against-CPU step {i}: card "
+            f"loss {loss_g.item():.9g}, CPU loss {loss_c.item():.9g}")
+    pc = dict(cpu.module.named_parameters())
+    # Adam moves an element by at most about (1 - b1) / sqrt(1 - b2) * lr
+    # = 3.2 * lr per step
+    adam_reach = 3.2 * B4R_DENSE_LR * CPU_STEPS
+    for name, p in dmp.module.named_parameters():
+        a, b = p.detach().cpu(), pc[name].detach()
+        if max(p.grad.abs().max().item(), pc[name].grad.abs().max().item()
+               ) < 1e-6:
+            # a gradient that is zero up to rounding (the attention key
+            # bias: softmax ignores a constant added to a query's logits);
+            # Adam scales the rounding noise up to steps of order lr, so
+            # the card and the CPU move it differently, each within reach
+            diff = (a - b).abs().max().item()
+            if diff > 2 * adam_reach:
+                raise AssertionError(f"{name}: card and CPU differ by {diff}")
+            log(f"bert4rec train: {name} has a zero gradient up to "
+                f"rounding; card and CPU differ by {diff:.3e}, within "
+                f"Adam's reach {2 * adam_reach:.3e}")
+            continue
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    sg, sc = _b4r_state(dmp), _b4r_state(cpu)
+    for what in ("table", "momentum1"):
+        a, b = sg[what], sc[what]
+        torch.testing.assert_close(a[touched], b[touched], rtol=1e-4,
+                                   atol=1e-5)
+        if not (torch.equal(a[~touched], start[what][~touched])
+                and torch.equal(b[~touched], start[what][~touched])):
+            raise AssertionError(f"BERT4Rec: untouched {what} rows changed")
+        log(f"bert4rec train: {int(touched.sum())} touched {what} rows "
+            f"within rtol 1e-4 / atol 1e-5 of the CPU run (max abs diff "
+            f"{(a[touched] - b[touched]).abs().max().item():.3e}), the "
+            f"others unchanged on both")
+    log("bert4rec train: the other dense parameters match the CPU run")
+    return {"dmp": dmp, "launches": launches, "ms": timed,
+            "median_ms": median, "seq_per_s": seq_per_s, "peak_bytes": peak,
+            "batch_ids": batches[0][0].values}
+
+
+def gather_bound(N: int, distinct: int, D: int) -> dict:
+    """Least time for K8: the N ids and each distinct row read once, the
+    N output rows written once, over the HBM rate (no arithmetic)."""
+    nbytes = N * 4 + distinct * D * 4 + N * D * 4
+    return {"bytes": nbytes, "ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "by": "bytes"}
+
+
+def check_gather(W: torch.Tensor, ids: torch.Tensor, what: str) -> dict:
+    """K8 against its plain version (bit-exact) and torch.index_select,
+    timed beside both."""
+    from torchrec_tpu_torch.ops import gather_rows as gr
+
+    R, D = W.shape
+    N = int(ids.numel())
+    out = gr.gather_rows(W, ids)
+    ref = gr.gather_rows_reference(W, ids)
+    safe = ids.clamp(0, R - 1).long()  # index_select takes no id outside
+    lib = torch.index_select(W, 0, safe)
+    err = _hold("K8", [(out, ref), (out, lib)])
+    distinct = int(torch.unique(safe).numel())
+    b = gather_bound(N, distinct, D)
+    per_id = (N * 4 + 2 * N * D * 4) / HBM_BYTES_PER_S * 1e3
+    t = timings(lambda: gr.gather_rows(W, ids), "gather_rows_kernel",
+                b["ms"], lambda: gr.gather_rows_reference(W, ids),
+                lambda: torch.index_select(W, 0, safe))
+    log(f"K8 {what}: W {tuple(W.shape)}, {N} ids ({distinct} distinct "
+        f"rows, {int(((ids < 0) | (ids >= R)).sum())} out of range): "
+        f"bit-exact with its plain version and index_select; "
+        f"{t['ms']:.4f} ms on the device (call {t['call_ms']:.4f} ms); "
+        f"plain {t['plain_ms']:.4f} ms; index_select "
+        f"{t['library_ms']:.4f} ms; bound {b['ms']:.5f} ms (bytes: "
+        f"{b['bytes']} B; {per_id:.5f} ms reading one row per id); kernel "
+        f"at {100 * b['ms'] / t['ms']:.1f}% of the bound")
+    return {"max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "library_ms": t["library_ms"], "bound_ms": b["ms"],
+            "bound_by": b["by"], "call_ms": t["call_ms"]}
+
+
+def check_gather_kernel(trained, batch_ids) -> dict:
+    """K8 at the path's shape (the trained [3712, 64] shard, one batch's
+    2,048 ids) and at a bytes-bound one (W 2,600,064 x 128, 212,992 ids
+    including negative and out-of-range ones)."""
+    strat = trained.sharded_ebcs[B4R_KEY].strategies[0]
+    path = check_gather(strat.weights[0],
+                        batch_ids.to(DEVICE, torch.int32).contiguous(),
+                        "BERT4Rec path")
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 12)
+    W = torch.rand((K8_ROWS, K8_DIM), device=DEVICE, generator=gen)
+    rng = np.random.RandomState(SEED + 13)
+    ids = torch.from_numpy(rng.randint(
+        -1000, K8_ROWS + 1000, size=K8_IDS).astype(np.int32)).to(DEVICE)
+    big = check_gather(W, ids, "bytes-bound")
+    del W
+    return {"path": path, "big": big}
+
+
+def check_backward() -> None:
+    """Gradients through the unsharded EBC (weighted, L=20, SUM and MEAN,
+    D=128) and EC on the card against the CPU: d_W and d_coeff (the
+    per-sample weights' gradient), rtol 1e-5 / atol 1e-6 (scatter-adds and
+    dot products sum in another order). K1 launches once in the EBC's
+    forward and K8 once in its backward; the EC launches K8 once in its
+    forward and nothing in its backward."""
+    from torchrec_tpu_torch.models import make_item_embedding_collection
+    from torchrec_tpu_torch.modules import (
+        EmbeddingBagCollection,
+        EmbeddingBagConfig,
+        PoolingType,
+    )
+    from torchrec_tpu_torch.sparse import KeyedJaggedTensor
+
+    rng = np.random.RandomState(SEED + 14)
+    L20, B = 20, 2048
+    for pooling in ("SUM", "MEAN"):
+        lengths = rng.randint(0, L20 + 1, size=B).astype(np.int32)
+        ids = rng.randint(0, ROWS, size=int(lengths.sum())).astype(np.int32)
+        psw = rng.rand(ids.shape[0]).astype(np.float32)
+        cot = torch.from_numpy(rng.randn(B, DIM).astype(np.float32))
+        grads = {}
+        for device in (DEVICE, "cpu"):
+            ebc = EmbeddingBagCollection(
+                [EmbeddingBagConfig(num_embeddings=ROWS, embedding_dim=DIM,
+                                    name="t", feature_names=["f"],
+                                    pooling=PoolingType[pooling])],
+                is_weighted=True, max_feature_length=L20, device=device)
+            if device == DEVICE:
+                ebc.reset_parameters(torch.Generator(device).manual_seed(
+                    SEED + 15))
+                weights = ebc.state_dict()
+            else:
+                ebc.load_state_dict(weights)
+            w = torch.tensor(psw, device=device, requires_grad=True)
+            kjt = KeyedJaggedTensor.from_lengths(["f"], ids, lengths,
+                                                 w).to(device)
+            reset_counts()
+            out = ebc(kjt)
+            fwd = counts()
+            (out.values * cot.to(device)).sum().backward()
+            bwd = counts()
+            if device == DEVICE and (fwd != expected(K1=1)
+                                     or bwd != expected(K1=1, K8=1)):
+                raise AssertionError(f"EBC {pooling} gradient launched "
+                                     f"{fwd} forward, {bwd} in all")
+            grads[device] = (ebc.embedding_bags["t"].grad.cpu(), w.grad.cpu())
+        for what, a, b in zip(("d_W", "d_coeff"), grads[DEVICE],
+                              grads["cpu"]):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+            log(f"backward EBC {pooling} L={L20}: card {what} within rtol "
+                f"1e-5 / atol 1e-6 of the CPU (max abs diff "
+                f"{(a - b).abs().max().item():.3e})")
+    log("backward EBC: K1 once in each forward, K8 once in each backward")
+
+    # B=32 histories at their own lengths (at most L), so the padding is
+    # masked and no row sums hundreds of pad tokens' cotangents
+    seqs = b4r_sequences(np.random.RandomState(SEED + 16))
+    hist = [np.asarray(seqs[i][-B4R_LEN:], np.int32)
+            for i in rng.randint(len(seqs), size=B4R_BATCH)]
+    kjt = KeyedJaggedTensor.from_lengths(
+        ["item"], np.concatenate(hist), [len(h) for h in hist])
+    cot = torch.from_numpy(
+        rng.randn(B4R_BATCH, B4R_LEN, B4R_DIM).astype(np.float32))
+    grads = {}
+    for device in (DEVICE, "cpu"):
+        ec = make_item_embedding_collection(B4R_VOCAB, B4R_DIM, B4R_LEN,
+                                            device=device)
+        if device == DEVICE:
+            ec.reset_parameters(torch.Generator(device).manual_seed(SEED))
+            weights = ec.state_dict()
+        else:
+            ec.load_state_dict(weights)
+        reset_counts()
+        out = ec(kjt.to(device))["item"]
+        fwd = counts()
+        (out * cot.to(device)).sum().backward()
+        if device == DEVICE and (fwd != expected(K8=1) or counts() != fwd):
+            raise AssertionError(f"EC gradient launched {fwd} forward, "
+                                 f"{counts()} in all")
+        grads[device] = ec.embeddings["item_embedding"].grad.cpu()
+    torch.testing.assert_close(grads[DEVICE], grads["cpu"], rtol=1e-5,
+                               atol=1e-6)
+    log(f"backward EC: K8 once in the forward, nothing in the backward; "
+        f"card d_W within rtol 1e-5 / atol 1e-6 of the CPU (max abs diff "
+        f"{(grads[DEVICE] - grads['cpu']).abs().max().item():.3e})")
+
 
 
 def main() -> int:
@@ -774,17 +1257,18 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from torchrec_tpu_torch.ops import fused_update_kernels as fk
+    from torchrec_tpu_torch.ops import gather_rows as gr
     from torchrec_tpu_torch.ops import tbe_lookup as tl
     from torchrec_tpu_torch.ops.fused_update import EmbOptimType
 
     card = identify()
-    build_kernels([tl.LIBRARY, fk.LIBRARY])
+    build_kernels([tl.LIBRARY, fk.LIBRARY, gr.LIBRARY])
     t0 = time.perf_counter()
     dmp = make_dmp(DEVICE).init(SEED)
     torch.cuda.synchronize()
     log(f"DLRM built and initialised on the card in "
         f"{time.perf_counter() - t0:.2f} s")
-    served = serve(dmp, tl, fk)
+    served = serve(dmp)
     check_against_cpu(dmp, served["last"])
     results = {"K1": check_kernel(dmp, tl)}
     served_launches = served["launches"]
@@ -795,24 +1279,44 @@ def main() -> int:
     trained = {}
     for optim in (EmbOptimType.EXACT_SGD, EmbOptimType.ROWWISE_ADAGRAD,
                   EmbOptimType.ADAGRAD, EmbOptimType.ADAM):
-        trained[optim.name] = train(optim, tl, fk)
+        trained[optim.name] = train(optim)
         dmp = trained[optim.name].pop("dmp")
         if optim is EmbOptimType.ROWWISE_ADAGRAD:
             results.update(check_update_kernels(dmp, fk))
         elif optim is not EmbOptimType.EXACT_SGD:
             results.update(check_moment_kernels(dmp, fk))
         del dmp
-    writes = [write_step(EmbOptimType[name], tl, fk)
+    writes = [write_step(EmbOptimType[name])
               for name in WRITE_KERNELS]
     for optim in EmbOptimType:
         if optim is not EmbOptimType.SGD:  # SGD is EXACT_SGD's update
             check_train_against_cpu(optim)
-    launches = {"K1": served_launches, "K2": sum(w["K2"] for w in writes)}
+
+    # BERT4Rec: serving and training through the sharded EC (K8), K8 held
+    # at the path's shape and a bytes-bound one, then the gradients of the
+    # unsharded EBC and EC (K1's and K8's autograd Functions)
+    seqs = b4r_sequences(np.random.RandomState(SEED + 9))
+    b4r_served = b4r_serve(seqs)
+    b4r_trained = b4r_train(seqs)
+    k8 = check_gather_kernel(b4r_trained.pop("dmp"),
+                             b4r_trained["batch_ids"])
+    results["K8"] = {**{k: v for k, v in k8["path"].items()
+                        if k != "call_ms"},
+                     "max_abs_err": max(k8["path"]["max_abs_err"],
+                                        k8["big"]["max_abs_err"])}
+    check_backward()
+
+    launches = {"K1": served_launches, "K2": sum(w["K2"] for w in writes),
+                "K8": b4r_served["launches"] + b4r_trained["launches"]["K8"]}
     for name, ks in STEP_KERNELS.items():
         launches.update({k: trained[name]["launches"][k] for k in ks})
     log(f"launches on the paths: K1 serving, K3 EXACT_SGD training, K4 and "
         f"K5 ROWWISE_ADAGRAD training, K6 ADAGRAD training, K7 ADAM "
-        f"training, K2 the three w_impl=write steps: {launches}")
+        f"training, K2 the three w_impl=write steps, K8 BERT4Rec serving "
+        f"({b4r_served['launches']}) and training "
+        f"({b4r_trained['launches']['K8']}; with K4 and K5 "
+        f"{b4r_trained['launches']['K4']} and "
+        f"{b4r_trained['launches']['K5']}): {launches}")
     log(card["smi"])
     log(json.dumps({"kernels": [{
         "name": KERNELS[k][0],

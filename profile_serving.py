@@ -2,7 +2,7 @@
 
 Run from the repository root, on a machine with a CUDA card:
 
-    python3 profile_serving.py [--trace_dir DIR]
+    python3 profile_serving.py [--trace_dir DIR] [--bert4rec]
 
 Builds the model that chip_smoke.py serves (bench.py's DLRM at full width,
 random weights from seed 0), answers warm-up requests, then profiles
@@ -10,7 +10,9 @@ REQUESTS requests at B=8192 and at B=256 with torch.profiler. For each
 batch size it prints the device time per kernel name and its share, the
 device busy share between the first kernel's start and the last kernel's
 end, and the host time per request; the chrome traces go to --trace_dir.
-Times are taken with the profiler on, which slows the host side.
+Times are taken with the profiler on, which slows the host side. With
+--bert4rec it serves chip_smoke.py's BERT4Rec instead, at B=32 and
+B=1024.
 """
 
 from __future__ import annotations
@@ -59,37 +61,57 @@ def summarize(prof, n: int, unit: str, wall_ms: float) -> None:
         print(f"  {us / n:9.1f} us/{unit} span of {name}")
 
 
-def profile_batch(eval_fn, rng, batch: int, n: int, trace_dir: str) -> None:
-    reqs = [cs.make_request(rng, batch) for _ in range(n + 2)]
-    for dense, kjt in reqs[:2]:  # warm-up
-        eval_fn(dense.cuda(), kjt.to("cuda")).cpu()
+def profile_batch(answer, reqs, title: str, trace: str,
+                  trace_dir: str) -> None:
+    """answer(request) for 2 warm-up requests, then the rest profiled."""
+    for req in reqs[:2]:
+        answer(req)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for dense, kjt in reqs[2:]:
-            eval_fn(dense.cuda(), kjt.to("cuda")).cpu()
+        for req in reqs[2:]:
+            answer(req)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    print(f"B={batch}:")
-    summarize(prof, n, "request", wall_ms)
+    print(f"{title}:")
+    summarize(prof, len(reqs) - 2, "request", wall_ms)
     os.makedirs(trace_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(trace_dir,
-                                          f"serve_trace_B{batch}.json"))
+    prof.export_chrome_trace(os.path.join(trace_dir, trace))
+
+
+def profile_dlrm(trace_dir: str) -> None:
+    eval_fn = cs.make_dmp("cuda").init(cs.SEED).make_eval_fn()
+    rng = np.random.RandomState(cs.SEED)
+    for batch in (cs.BENCH_BATCH, cs.SERVE_BATCH):
+        reqs = [cs.make_request(rng, batch) for _ in range(REQUESTS + 2)]
+        profile_batch(lambda r: eval_fn(r[0].cuda(), r[1].to("cuda")).cpu(),
+                      reqs, f"B={batch}", f"serve_trace_B{batch}.json",
+                      trace_dir)
+
+
+def profile_bert4rec(trace_dir: str) -> None:
+    eval_fn = cs.make_b4r_dmp("cuda").init(cs.SEED).make_eval_fn()
+    seqs = cs.b4r_sequences(np.random.RandomState(cs.SEED + 9))
+    rng = np.random.RandomState(cs.SEED + 10)
+    for batch in (cs.B4R_BATCH, cs.B4R_RANK_BATCH):
+        reqs = [cs.b4r_eval_batch(rng, seqs, batch)
+                for _ in range(REQUESTS + 2)]
+        profile_batch(lambda r: eval_fn(r[0].to("cuda"), r[1].to("cuda")),
+                      reqs, f"BERT4Rec B={batch}",
+                      f"serve_trace_BERT4Rec_B{batch}.json", trace_dir)
 
 
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--trace_dir", default="profile_traces")
+    p.add_argument("--bert4rec", action="store_true",
+                   help="serve BERT4Rec instead of the DLRM")
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving: no CUDA device")
     card = cs.identify()
-    dmp = cs.make_dmp("cuda").init(cs.SEED)
-    eval_fn = dmp.make_eval_fn()
-    rng = np.random.RandomState(cs.SEED)
-    for batch in (cs.BENCH_BATCH, cs.SERVE_BATCH):
-        profile_batch(eval_fn, rng, batch, REQUESTS, args.trace_dir)
+    (profile_bert4rec if args.bert4rec else profile_dlrm)(args.trace_dir)
     print(card["smi"])
 
 

@@ -3,6 +3,7 @@
 Run from the repository root, on a machine with a CUDA card:
 
     python3 profile_train.py [--trace_dir DIR] [--optim NAME ...]
+    python3 profile_train.py --bert4rec [--trace_dir DIR]
 
 Builds the model that chip_smoke.py trains (bench.py's DLRMTrain at full
 width, random weights from seed 0, fused lr 0.1, dense SGD at 0.05) for
@@ -14,7 +15,9 @@ device time per kernel name and its share, the device busy share between
 the first kernel's start and the last kernel's end, the device span of
 each phase of the step (`## train_* ##` and `## ebc_* ##` labels) and the
 host time per step; the chrome traces go to --trace_dir. Times are taken
-with the profiler on, which slows the host side.
+with the profiler on, which slows the host side. With --bert4rec it
+profiles chip_smoke.py's BERT4Rec train step instead (the example's model,
+ROWWISE_ADAGRAD at 0.01 and dense Adam at 1e-3, B=32).
 """
 
 from __future__ import annotations
@@ -34,12 +37,9 @@ from torchrec_tpu_torch.ops.fused_update import EmbOptimType
 STEPS = 10  # profiled steps per optimizer, after 3 warm-up ones
 
 
-def profile_optim(optim, trace_dir: str) -> None:
-    dmp = cs.make_dmp("cuda", train=True, optim=optim).init(cs.SEED)
-    step = dmp.make_train_step()
-    rng = np.random.RandomState(cs.SEED + 2)
-    batches = [cs.to_device(cs.make_batch(rng, cs.BENCH_BATCH))
-               for _ in range(STEPS + 3)]
+def profile_steps(step, batches, title: str, trace: str,
+                  trace_dir: str) -> None:
+    """3 warm-up steps, then the rest profiled."""
     for batch in batches[:3]:
         step(*batch)
     torch.cuda.synchronize()
@@ -50,11 +50,33 @@ def profile_optim(optim, trace_dir: str) -> None:
             step(*batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    print(f"train {optim.name} B={cs.BENCH_BATCH}:")
-    summarize(prof, STEPS, "step", wall_ms)
+    print(f"{title}:")
+    summarize(prof, len(batches) - 3, "step", wall_ms)
     os.makedirs(trace_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(
-        trace_dir, f"train_trace_{optim.name}.json"))
+    prof.export_chrome_trace(os.path.join(trace_dir, trace))
+
+
+def profile_optim(optim, trace_dir: str) -> None:
+    dmp = cs.make_dmp("cuda", train=True, optim=optim).init(cs.SEED)
+    rng = np.random.RandomState(cs.SEED + 2)
+    batches = [cs.to_device(cs.make_batch(rng, cs.BENCH_BATCH))
+               for _ in range(STEPS + 3)]
+    profile_steps(dmp.make_train_step(), batches,
+                  f"train {optim.name} B={cs.BENCH_BATCH}",
+                  f"train_trace_{optim.name}.json", trace_dir)
+
+
+def profile_bert4rec(trace_dir: str) -> None:
+    dmp = cs.make_b4r_dmp("cuda").init(cs.SEED)
+    seqs = cs.b4r_sequences(np.random.RandomState(cs.SEED + 9))
+    rng = np.random.RandomState(cs.SEED + 11)
+    batches = [cs.b4r_train_batch(rng, seqs, cs.B4R_BATCH)
+               for _ in range(STEPS + 3)]
+    batches = [(kjt.to("cuda"), labels.to("cuda"))
+               for kjt, labels in batches]
+    profile_steps(dmp.make_train_step(), batches,
+                  f"train BERT4Rec B={cs.B4R_BATCH}",
+                  "train_trace_BERT4Rec.json", trace_dir)
 
 
 def main() -> None:
@@ -64,13 +86,18 @@ def main() -> None:
                    default=["EXACT_SGD", "ROWWISE_ADAGRAD"],
                    choices=[o.name for o in EmbOptimType],
                    help="fused optimizers to profile")
+    p.add_argument("--bert4rec", action="store_true",
+                   help="profile the BERT4Rec train step instead")
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: no CUDA device")
     optims = [EmbOptimType[name] for name in args.optim]
     card = cs.identify()
-    for optim in optims:
-        profile_optim(optim, args.trace_dir)
+    if args.bert4rec:
+        profile_bert4rec(args.trace_dir)
+    else:
+        for optim in optims:
+            profile_optim(optim, args.trace_dir)
     print(card["smi"])
 
 

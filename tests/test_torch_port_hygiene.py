@@ -10,11 +10,18 @@ import pathlib
 import pytest
 import torch
 
-from torchrec_tpu_torch.models import DLRM
+from torchrec_tpu_torch.models import (
+    DLRM,
+    BERT4Rec,
+    BERT4RecTrain,
+    make_item_embedding_collection,
+)
 from torchrec_tpu_torch.modules import (
     MLP,
     EmbeddingBagCollection,
     EmbeddingBagConfig,
+    EmbeddingCollection,
+    EmbeddingConfig,
 )
 from torchrec_tpu_torch.parallel import (
     DistributedModelParallel,
@@ -26,6 +33,7 @@ from torchrec_tpu_torch.parallel import (
 from torchrec_tpu_torch.modules.embedding_configs import DataType
 from torchrec_tpu_torch.ops import fused_update as tfu
 from torchrec_tpu_torch.parallel.types import ComputeKernel
+from torchrec_tpu_torch.sparse import KeyedJaggedTensor
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "torchrec_tpu")
@@ -69,7 +77,26 @@ def _plan(sharding_type=ShardingType.ROW_WISE, **kw):
         t.name: ParameterSharding(sharding_type, **kw) for t in _tables()}})
 
 
-@pytest.mark.parametrize("entry", ["env", "dmp", "mlp", "ebc", "train_step"])
+def _bert4rec(device="meta", data_type=DataType.FP32, dropout=0.0):
+    ec = EmbeddingCollection(
+        [EmbeddingConfig(12, 8, "item_embedding", data_type=data_type,
+                         feature_names=["item"])],
+        max_feature_length=4, device=device)
+    return BERT4RecTrain(BERT4Rec(12, 4, 8, 2, 1, dropout=dropout, ec=ec,
+                                  device=device))
+
+
+def _bert4rec_dmp(sharding_type=ShardingType.ROW_WISE,
+                  data_type=DataType.FP32, device=None):
+    return DistributedModelParallel(
+        _bert4rec("meta", data_type),
+        plan=ShardingPlan({"model/ec": {"item_embedding": ParameterSharding(
+            sharding_type)}}), device=device)
+
+
+@pytest.mark.parametrize("entry", [
+    "env", "dmp", "mlp", "ebc", "train_step", "ec", "bert4rec",
+    "bert4rec_dmp", "bert4rec_train_step"])
 def test_entry_points_refuse_cpu_without_asking(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -83,6 +110,14 @@ def test_entry_points_refuse_cpu_without_asking(entry, monkeypatch):
                 fused_optim=tfu.EmbOptimType.EXACT_SGD).make_train_step()
         elif entry == "mlp":
             MLP(3, (4,))
+        elif entry == "ec":
+            make_item_embedding_collection(12, 8, 4)
+        elif entry == "bert4rec":
+            BERT4Rec(12, 4, 8, 2, 1)
+        elif entry == "bert4rec_dmp":
+            _bert4rec_dmp()
+        elif entry == "bert4rec_train_step":
+            _bert4rec_dmp().make_train_step()
         else:
             EmbeddingBagCollection(_tables())
 
@@ -96,7 +131,8 @@ def test_dmp_serves_on_cpu_when_asked():
 
 @pytest.mark.parametrize(
     "case", ["no_plan", "table_wise", "uvm", "world_size", "update",
-             "bf16_train", "fused_param"])
+             "bf16_train", "fused_param", "seq_table_wise",
+             "seq_data_parallel", "as_jagged", "bf16_ec_train", "dropout"])
 def test_unported_parts_raise(case):
     """`update`: an ADAM update of a bf16 table (stochastic rounding, not
     ported) raises, from make_train_step before any step and from
@@ -132,7 +168,22 @@ def test_unported_parts_raise(case):
             DistributedModelParallel(
                 _model("meta", DataType.BF16), plan=_plan(), device="cpu",
                 fused_optim=tfu.EmbOptimType.EXACT_SGD).make_train_step()
-        else:
+        elif case == "fused_param":
             DistributedModelParallel(
                 _model("meta"), plan=_plan(), device="cpu",
                 fused_params={"compact": "always"}).make_train_step()
+        elif case == "seq_table_wise":  # sequence strategies but ROW_WISE
+            _bert4rec_dmp(ShardingType.TABLE_WISE, device="cpu")
+        elif case == "seq_data_parallel":
+            _bert4rec_dmp(ShardingType.DATA_PARALLEL, device="cpu")
+        elif case == "as_jagged":  # needs JaggedTensor.from_dense_lengths
+            ec = make_item_embedding_collection(12, 8, 4, device="cpu")
+            ec(KeyedJaggedTensor.from_lengths(["item"], [1, 2], [2]),
+               as_jagged=True)
+        elif case == "bf16_ec_train":  # stochastic rounding
+            _bert4rec_dmp(device="cpu",
+                          data_type=DataType.BF16).make_train_step()
+        else:  # dropout in training
+            model = _bert4rec("cpu", dropout=0.1)
+            model(KeyedJaggedTensor.from_lengths(["item"], [1, 2, 3, 4], [4]),
+                  torch.zeros(1, 4, dtype=torch.int32), deterministic=False)

@@ -79,15 +79,6 @@ def test_k1_wrapper_rejects_bad_inputs(bad):
         tl.tbe_lookup_pooled(w, ids, coeff)
 
 
-def test_k1_wrapper_refuses_gradients():
-    w = torch.zeros(10, 8, requires_grad=True)
-    ids = torch.zeros(4, 2, dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
-        tl.tbe_lookup_pooled(w, ids, torch.ones(4, 2))
-    with torch.no_grad():
-        tl.tbe_lookup_pooled(w, ids, torch.ones(4, 2))
-
-
 def _lookup_inputs(dtype, weighted, F=None, seed=1):
     rng = np.random.RandomState(seed)
     B, L = 24, 3
@@ -151,13 +142,6 @@ def test_batched_embedding_lookup_matches_jax(pooling, weighted, dtype):
     assert out.shape == (F, ids.shape[1], D)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref, np.float32),
                                **_tol(dtype))
-
-
-def test_unpooled_lookup_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        temb.embedding_bag_lookup(
-            torch.zeros(4, 2), torch.zeros(2, 1, dtype=torch.int32),
-            torch.ones(2, dtype=torch.int32), temb.PoolingMode.NONE)
 
 
 def _kjt_inputs(seed, weighted, empty=False):

@@ -202,7 +202,7 @@ def test_train_steps_match_jax(optim, L, mean, schedule):
     assert dmp.step == STEPS
 
     jdense = flax_dense_to_state_dict(
-        jax.tree.map(np.asarray, state.dense_params))
+        jax.tree.map(np.asarray, state.dense_params), dmp.module)
     for name, p in dmp.module.named_parameters():
         np.testing.assert_allclose(p.detach().numpy(), jdense[name],
                                    rtol=1e-4, atol=1e-5, err_msg=name)

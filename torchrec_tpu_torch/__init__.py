@@ -2,8 +2,10 @@
 
 The JAX package `torchrec_tpu` is the reference; each module here mirrors
 the module of the same path there. The port serves and trains a row-wise
-sharded DLRM with float tables on one GPU. Its TPU kernels are hand-written
-CUDA kernels: the pooled embedding lookup (csrc/tbe_lookup.cu, bound in
-ops/tbe_lookup.py) and the fused EXACT_SGD and ROWWISE_ADAGRAD embedding
-updates (csrc/fused_update.cu, bound in ops/fused_update_kernels.py).
+sharded DLRM (float tables, every fused optimizer) and BERT4Rec (its item
+table in a sharded EmbeddingCollection) on one GPU. Its TPU kernels are
+hand-written CUDA kernels: the pooled embedding lookup K1
+(csrc/tbe_lookup.cu, bound in ops/tbe_lookup.py), the fused embedding
+updates K2-K7 (csrc/fused_update.cu, bound in ops/fused_update_kernels.py)
+and the row gather K8 (csrc/gather_rows.cu, bound in ops/gather_rows.py).
 """

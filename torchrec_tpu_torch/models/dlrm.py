@@ -42,6 +42,8 @@ class SparseArch(nn.Module):
 class DenseArch(nn.Module):
     """MLP over the dense input -> [B, D]."""
 
+    flax_names = {"MLP_0": "mlp"}
+
     def __init__(
         self,
         in_features: int,
@@ -91,6 +93,8 @@ class InteractionArch(nn.Module):
 
 class OverArch(nn.Module):
     """MLP + final linear head."""
+
+    flax_names = {"MLP_0": "mlp"}
 
     def __init__(
         self,

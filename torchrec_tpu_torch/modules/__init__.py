@@ -2,10 +2,12 @@ from torchrec_tpu_torch.modules.embedding_configs import (  # noqa: F401
     BaseEmbeddingConfig,
     DataType,
     EmbeddingBagConfig,
+    EmbeddingConfig,
     PoolingType,
     pooling_type_to_mode,
 )
 from torchrec_tpu_torch.modules.embedding_modules import (  # noqa: F401
     EmbeddingBagCollection,
+    EmbeddingCollection,
 )
 from torchrec_tpu_torch.modules.mlp import MLP, Perceptron  # noqa: F401

@@ -77,3 +77,8 @@ class EmbeddingBagConfig(BaseEmbeddingConfig):
     """Pooled table."""
 
     pooling: PoolingType = PoolingType.SUM
+
+
+@dataclasses.dataclass
+class EmbeddingConfig(BaseEmbeddingConfig):
+    """Unpooled (sequence) table of an EmbeddingCollection."""

@@ -1,7 +1,8 @@
 """Perceptron / MLP building blocks.
 
 Counterpart of torchrec_tpu/modules/mlp.py. `dtype` is the compute dtype;
-parameters stay fp32.
+parameters stay fp32. `flax_names` maps the flax auto-names of a module's
+children to its attributes, for the weight bridge (utils/jax_bridge.py).
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ from torchrec_tpu_torch.utils.device import DeviceLike, resolve_device
 class Perceptron(nn.Module):
     """Linear + activation, initialised U(-1/sqrt(in), 1/sqrt(in)) for
     weight and bias alike."""
+
+    flax_names = {"Dense_0": "linear"}
 
     def __init__(
         self,
@@ -69,6 +72,8 @@ class MLP(nn.Module):
                        activation=activation, dtype=dtype, device=device)
             for i in range(len(layer_sizes))
         )
+        self.flax_names = {f"Perceptron_{i}": f"perceptrons.{i}"
+                           for i in range(len(layer_sizes))}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for p in self.perceptrons:

@@ -2,7 +2,9 @@ from torchrec_tpu_torch.ops.embedding import (  # noqa: F401
     PoolingMode,
     batched_embedding_lookup,
     embedding_bag_lookup,
+    lookup_rows,
     make_row_offsets,
     pooled_lookup,
+    sequence_embedding_lookup,
 )
 from torchrec_tpu_torch.ops.fused_update import EmbOptimType  # noqa: F401

@@ -1,5 +1,5 @@
-"""Table-batched pooled embedding lookup: the forward of every embedding
-module and sharding strategy.
+"""Table-batched embedding lookup, pooled and per token: the forward of
+every embedding module and sharding strategy.
 
 Counterpart of torchrec_tpu/ops/embedding.py. Tables of a group are
 row-concatenated into one [total_rows, D] array and a per-feature
@@ -8,11 +8,15 @@ come in the padded [F, B, L] layout; pooling is a sum over L weighted by a
 coefficient that carries the length mask, per-sample weights and 1/len for
 MEAN.
 
-Dispatch: an fp32 table goes to the K1 wrapper (ops/tbe_lookup.py), which
-launches the CUDA kernel for CUDA tensors and takes its plain version for
-CPU tensors. bf16/fp16 tables take the plain expression and pool in fp32,
-as the JAX package does in XLA. PoolingMode.NONE (the K8 row gather),
-`lookup_rows` and `sequence_embedding_lookup` are not ported yet.
+PoolingMode.NONE returns the per-token rows [..., L, D] times the mask
+instead: `lookup_rows`, the row gather of sequence models.
+
+Dispatch: an fp32 table goes to the K1 wrapper (ops/tbe_lookup.py) when
+pooled and to the K8 wrapper (ops/gather_rows.py) when not; each launches
+its CUDA kernel for CUDA tensors and takes its plain version for CPU
+tensors, and each is differentiable. bf16/fp16 tables take the plain
+expressions: pooled in fp32, as the JAX package does in XLA, and gathered
+in the table's dtype, as JAX's `weights[flat_ids]` keeps it.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from torchrec_tpu_torch.ops.gather_rows import gather_rows
 from torchrec_tpu_torch.ops.tbe_lookup import tbe_lookup_pooled
 
 
@@ -29,14 +34,6 @@ class PoolingMode(enum.Enum):
     SUM = "sum"
     MEAN = "mean"
     NONE = "none"
-
-
-def _no_unpooled(pooling: PoolingMode) -> None:
-    if pooling is PoolingMode.NONE:
-        raise NotImplementedError(
-            "PoolingMode.NONE needs the row-gather kernel (K8 gather_rows), "
-            "which is not ported yet"
-        )
 
 
 def pooled_lookup(
@@ -66,6 +63,17 @@ def pooled_lookup(
     return torch.einsum("...ld,...l->...d", rows.float(), c)
 
 
+def lookup_rows(weights: torch.Tensor, flat_ids: torch.Tensor) -> torch.Tensor:
+    """Row gather W[flat_ids] -> [N, D] (the PoolingMode.NONE path), ids
+    clamped to [0, R-1] as the TPU kernel clamps them. fp32 tables go to
+    K8; bf16/fp16 tables gather in their own dtype."""
+    if weights.dtype == torch.float32:
+        return gather_rows(weights, flat_ids.to(torch.int32).contiguous())
+    if weights.dtype not in (torch.bfloat16, torch.float16):
+        raise TypeError(f"unsupported table dtype {weights.dtype}")
+    return weights[flat_ids.clamp(0, weights.shape[0] - 1).long()]
+
+
 def embedding_bag_lookup(
     weights: torch.Tensor,
     ids: torch.Tensor,
@@ -76,14 +84,16 @@ def embedding_bag_lookup(
     """Single-table pooled lookup.
 
     weights [R, D]; ids [B, L] (pad slots may hold any id); lengths [B].
-    Returns [B, D].
+    Returns [B, D] ([B, L, D] for NONE).
     """
-    _no_unpooled(pooling)
     B, L = ids.shape
     col = torch.arange(L, device=ids.device)
     mask = (col[None, :] < lengths[:, None]).to(weights.dtype)
     if per_sample_weights is not None:
         mask = mask * per_sample_weights.to(weights.dtype)
+    if pooling is PoolingMode.NONE:
+        rows = lookup_rows(weights, ids.reshape(-1)).reshape(B, L, -1)
+        return rows * mask[:, :, None]
     if pooling is PoolingMode.MEAN:
         denom = lengths.to(weights.dtype).clamp(min=1.0)
         mask = mask / denom[:, None]
@@ -103,9 +113,8 @@ def batched_embedding_lookup(
     weights [total_rows, D] row-concatenation of the group's tables;
     ids [F, B, L] per-feature local ids; lengths [F, B]; row_offsets [F]
     base row of each feature's table; per_sample_weights optional
-    [F, B, L]. Returns [F, B, D].
+    [F, B, L]. Returns [F, B, D] ([F, B, L, D] for NONE).
     """
-    _no_unpooled(pooling)
     F, B, L = ids.shape
     offs = torch.as_tensor(row_offsets, dtype=ids.dtype, device=ids.device)
     global_ids = ids + offs[:, None, None]
@@ -113,10 +122,27 @@ def batched_embedding_lookup(
     mask = (col[None, None, :] < lengths[:, :, None]).to(weights.dtype)
     if per_sample_weights is not None:
         mask = mask * per_sample_weights.to(weights.dtype)
+    if pooling is PoolingMode.NONE:
+        rows = lookup_rows(weights, global_ids.reshape(-1)).reshape(
+            F, B, L, -1)
+        return rows * mask[:, :, :, None]
     if pooling is PoolingMode.MEAN:
         denom = lengths.to(weights.dtype).clamp(min=1.0)
         mask = mask / denom[:, :, None]
     return pooled_lookup(weights, global_ids, mask)
+
+
+def sequence_embedding_lookup(
+    weights: torch.Tensor,
+    ids: torch.Tensor,
+    lengths: torch.Tensor,
+    row_offsets,
+) -> torch.Tensor:
+    """Unpooled per-token lookup of EmbeddingCollection-style modules.
+    Returns [F, B, L, D]; pad tokens are zero rows."""
+    return batched_embedding_lookup(
+        weights, ids, lengths, row_offsets, pooling=PoolingMode.NONE
+    )
 
 
 def make_row_offsets(rows_per_table: Sequence[int]) -> torch.Tensor:

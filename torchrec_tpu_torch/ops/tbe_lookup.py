@@ -6,9 +6,15 @@ csrc/tbe_lookup.cu; it is compiled with `nvcc` for sm_90a into a shared
 library with a plain C interface on first use and bound with `ctypes`
 (ops/cuda_build.py).
 
-`tbe_lookup_pooled` launches the kernel for CUDA tensors and takes the plain
-PyTorch version, `tbe_lookup_pooled_reference`, only for CPU tensors. A
-failed build or launch raises; nothing falls back.
+`tbe_lookup_pooled` is a `torch.autograd.Function`. Its forward launches
+the kernel for CUDA tensors and takes the plain PyTorch version,
+`tbe_lookup_pooled_reference`, only for CPU tensors; a failed build or
+launch raises, nothing falls back. Its backward ports the Pallas VJP
+(`_tbe_lookup_bwd`, :380-394): `d_W` is the dense scatter-add of
+`coeff[b, l] * d_out[b]` with JAX's drop/wrap index semantics, and
+`d_coeff[b, l] = <W[clip(ids[b, l])], d_out[b]>` with the rows gathered
+through K8 (ops/gather_rows.py), as the Pallas VJP gathers them through
+its `gather_rows`. The ids get no gradient.
 """
 
 from __future__ import annotations
@@ -18,6 +24,10 @@ import ctypes
 import torch
 
 from torchrec_tpu_torch.ops.cuda_build import CudaLibrary
+from torchrec_tpu_torch.ops.gather_rows import (
+    gather_rows_forward,
+    scatter_add_rows,
+)
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -73,26 +83,13 @@ def tbe_lookup_pooled_reference(
     return (rows * coeff[..., None]).sum(-2)
 
 
-def tbe_lookup_pooled(
+def tbe_lookup_pooled_forward(
     weights: torch.Tensor, flat_ids: torch.Tensor, coeff: torch.Tensor
 ) -> torch.Tensor:
-    """Fused gather + pool: out[b] = sum_l coeff[b, l] * W[clip(ids[b, l])].
-
-    weights [R, D] f32; flat_ids [NB, L] int32 global rows (clamped to
-    [0, R-1]); coeff [NB, L] f32 carrying the validity mask, per-sample
-    weights and 1/len for MEAN. Returns [NB, D] f32. CUDA tensors launch K1;
-    CPU tensors take `tbe_lookup_pooled_reference`. Slots whose coefficient
-    is 0 are not read by the kernel, so with a non-finite row there the two
-    differ (the reference gives 0 * inf = nan).
-    """
+    """The forward alone, outside autograd: K1 for CUDA tensors, the plain
+    version for CPU tensors."""
     global LAUNCHES
     _check(weights, flat_ids, coeff)
-    if torch.is_grad_enabled() and (weights.requires_grad or coeff.requires_grad):
-        raise NotImplementedError(
-            "tbe_lookup_pooled has no backward yet: K1's autograd Function "
-            "comes with the row-gather kernel K8 (ROADMAP queue 1 item 5). "
-            "Call it under torch.no_grad() or torch.inference_mode()."
-        )
     if weights.device.type == "cpu":
         return tbe_lookup_pooled_reference(weights, flat_ids, coeff)
     R, D = weights.shape
@@ -110,3 +107,43 @@ def tbe_lookup_pooled(
     LIBRARY.check("tbe_lookup_pooled", err)
     LAUNCHES += 1
     return out
+
+
+class TbeLookupPooled(torch.autograd.Function):
+    """K1 forward; the Pallas VJP's backward (see the module docstring)."""
+
+    @staticmethod
+    def forward(ctx, weights: torch.Tensor, flat_ids: torch.Tensor,
+                coeff: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(weights, flat_ids, coeff)
+        return tbe_lookup_pooled_forward(weights, flat_ids, coeff)
+
+    @staticmethod
+    def backward(ctx, d_out: torch.Tensor):
+        weights, flat_ids, coeff = ctx.saved_tensors
+        NB, L = flat_ids.shape
+        d_w = d_coeff = None
+        if ctx.needs_input_grad[0]:
+            row_grads = d_out[:, None, :] * coeff[:, :, None]
+            d_w = scatter_add_rows(weights.shape[0], flat_ids.reshape(-1),
+                                   row_grads.reshape(NB * L, -1))
+        if ctx.needs_input_grad[2]:
+            rows = gather_rows_forward(weights, flat_ids.reshape(-1))
+            d_coeff = (rows.reshape(NB, L, -1) * d_out[:, None, :]).sum(-1)
+        return d_w, None, d_coeff
+
+
+def tbe_lookup_pooled(
+    weights: torch.Tensor, flat_ids: torch.Tensor, coeff: torch.Tensor
+) -> torch.Tensor:
+    """Fused gather + pool: out[b] = sum_l coeff[b, l] * W[clip(ids[b, l])].
+
+    weights [R, D] f32; flat_ids [NB, L] int32 global rows (clamped to
+    [0, R-1]); coeff [NB, L] f32 carrying the validity mask, per-sample
+    weights and 1/len for MEAN. Returns [NB, D] f32. CUDA tensors launch K1;
+    CPU tensors take `tbe_lookup_pooled_reference`. Slots whose coefficient
+    is 0 are not read by the kernel, so with a non-finite row there the two
+    differ (the reference gives 0 * inf = nan). Differentiable in `weights`
+    and `coeff` (see `TbeLookupPooled`).
+    """
+    return TbeLookupPooled.apply(weights, flat_ids, coeff)

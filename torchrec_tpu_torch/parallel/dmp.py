@@ -1,12 +1,15 @@
 """DistributedModelParallel: the model-parallel engine.
 
 Counterpart of torchrec_tpu/parallel/dmp.py for models whose sparse part is
-EmbeddingBagCollections. The JAX DMP swaps each EBC for a parameter-less
-stub and injects the sharded lookup's output through a flax collection;
-here the ShardedEmbeddingBagCollection simply replaces the authored
-EmbeddingBagCollection submodule, which is the torch form of the same
-swap. Plans are keyed by the EBC's module path joined with "/" (for the
-port's DLRMTrain: "dlrm/sparse_arch/embedding_bag_collection").
+EmbeddingBagCollections and EmbeddingCollections. The JAX DMP swaps each
+for a parameter-less stub and injects the sharded lookup's output through a
+flax collection; here a ShardedEmbeddingBagCollection or
+ShardedEmbeddingCollection simply replaces the authored module, wherever
+the model holds it (BERT4Rec holds its EC twice), which is the torch form
+of the same swap. Plans are keyed by the module's first path in
+`named_modules`, joined with "/" (for the port's DLRMTrain
+"dlrm/sparse_arch/embedding_bag_collection", for BERT4RecTrain
+"model/ec").
 
 The DMP takes the authored module's structure, not its values: the dense
 modules are re-allocated on the env's device with `to_empty`, so build
@@ -14,22 +17,24 @@ the model on `device="meta"` and call `init(seed)` or load weights
 (utils/jax_bridge.py) before the first forward.
 
 The train step follows the JAX DMP's: the sharded lookups run outside
-autograd, their pooled values enter the dense model as leaves, one
-backward gives the dense gradients and the pooled cotangents, the dense
-optimizer steps and each sharded EBC applies its fused optimizer to the
-touched rows. Where the JAX step returns a new DMPState, this one updates
-the DMP's parameters, tables and optimizer state in place.
+autograd, their values (an EBC's pooled KeyedTensor values, an EC's
+per-token rows) enter the dense model as leaves, one backward gives the
+dense gradients and the leaves' cotangents, the dense optimizer steps and
+each sharded module applies its fused optimizer to the touched rows. Where
+the JAX step returns a new DMPState, this one updates the DMP's
+parameters, tables and optimizer state in place.
 
 Every fused optimizer trains fp32 tables. Not ported yet: training
 half-precision tables (stochastic rounding), the planner (a plan must be
 given), the prefetched and pipelined train steps, and embedding towers,
-EmbeddingCollections, UVM-cached tables and feature processors, whose
-modules the port does not have.
+UVM-cached tables and feature processors, whose modules the port does not
+have.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Iterable, Mapping, Optional
+import inspect
+from typing import Any, Callable, Dict, Iterable, List, Mapping, Optional
 
 import torch
 from torch import nn
@@ -37,12 +42,14 @@ from torch.profiler import record_function
 
 from torchrec_tpu_torch.modules.embedding_modules import (
     EmbeddingBagCollection,
+    EmbeddingCollection,
 )
-from torchrec_tpu_torch.modules.mlp import Perceptron
 from torchrec_tpu_torch.ops.fused_update import EmbOptimType
 from torchrec_tpu_torch.parallel.sharded_ebc import (
     ShardedEmbeddingBagCollection,
+    ShardedEmbeddingModule,
 )
+from torchrec_tpu_torch.parallel.sharded_ec import ShardedEmbeddingCollection
 from torchrec_tpu_torch.parallel.strategies import ArrayLike
 from torchrec_tpu_torch.parallel.types import ShardingEnv, ShardingPlan
 from torchrec_tpu_torch.sparse.jagged import (
@@ -56,9 +63,32 @@ DenseOptimizerFactory = Callable[[Iterable[nn.Parameter]],
                                  torch.optim.Optimizer]
 
 
-def _set_submodule(root: nn.Module, path: str, new: nn.Module) -> None:
-    parent, _, leaf = path.rpartition(".")
-    setattr(root.get_submodule(parent) if parent else root, leaf, new)
+def _replace_module(root: nn.Module, old: nn.Module, new: nn.Module) -> None:
+    """Put `new` wherever a module of `root` holds `old` as a child."""
+    for m in list(root.modules()):
+        for name, child in list(m.named_children()):
+            if child is old:
+                setattr(m, name, new)
+
+
+def _seeded_reset(m: nn.Module) -> Optional[Callable]:
+    """m.reset_parameters when it takes a `generator`, else None."""
+    reset = getattr(m, "reset_parameters", None)
+    if reset is None or "generator" not in inspect.signature(
+            reset).parameters:
+        return None
+    return reset
+
+
+def _drawn_by(m: nn.Module) -> List[nn.Parameter]:
+    """The parameters a module's seeded reset_parameters draws: its own and
+    those of the descendants that have no seeded reset of their own (a
+    Perceptron's nn.Linear)."""
+    out = list(m.parameters(recurse=False))
+    for child in m.children():
+        if _seeded_reset(child) is None:
+            out.extend(_drawn_by(child))
+    return out
 
 
 def _detach(x: Any) -> Any:
@@ -71,15 +101,25 @@ def _detach(x: Any) -> Any:
     return x
 
 
+def _grad(leaf: Any) -> Any:
+    """The gradient of a leaf or of each leaf of a dict; zeros where the
+    loss does not read it."""
+    if isinstance(leaf, dict):
+        return {n: _grad(t) for n, t in leaf.items()}
+    return leaf.grad if leaf.grad is not None else torch.zeros_like(leaf)
+
+
 class DistributedModelParallel(nn.Module):
-    """Wraps an authored model, shards its EmbeddingBagCollections per the
-    plan, and serves and trains it on the env's device.
+    """Wraps an authored model, shards its EmbeddingBagCollections and
+    EmbeddingCollections per the plan, and serves and trains it on the
+    env's device.
 
     env: where to run (default: ShardingEnv(device), and `device` defaults
     to the current CUDA card). plan: ShardingPlan with an entry for every
-    EBC. fused_optim: the embedding tables' fused optimizer. fused_params:
-    its `learning_rate` (default 0.01), an optional `lr_schedule`
-    (step -> lr, evaluated on the host from the DMP's step counter) and
+    EBC and EC. fused_optim: the embedding tables' fused optimizer.
+    fused_params: its `learning_rate` (default 0.01), an optional
+    `lr_schedule` (step -> lr, evaluated on the host from the DMP's step
+    counter) and
     the keys of ops/fused_update.apply_fused_update. dense_optimizer: a
     factory params -> torch.optim.Optimizer for the dense parameters
     (default: plain SGD at the fused learning rate, the update of the JAX
@@ -98,21 +138,15 @@ class DistributedModelParallel(nn.Module):
     ):
         super().__init__()
         self.env = env or ShardingEnv(device)
-        ebcs = {name: m for name, m in module.named_modules()
-                if isinstance(m, EmbeddingBagCollection)}
-        if not ebcs:
-            raise ValueError("no EmbeddingBagCollection found in module")
+        found = {name: m for name, m in module.named_modules()
+                 if isinstance(m, (EmbeddingBagCollection,
+                                   EmbeddingCollection))}
+        if not found:
+            raise ValueError("no EmbeddingBagCollection or "
+                             "EmbeddingCollection found in module")
         if plan is None:
             raise NotImplementedError(
                 "the sharding planner is not ported yet: pass a ShardingPlan"
-            )
-        covered = {id(p) for m in module.modules()
-                   if isinstance(m, (Perceptron, EmbeddingBagCollection))
-                   for p in m.parameters()}
-        if any(id(p) not in covered for p in module.parameters()):
-            raise NotImplementedError(
-                "only dense modules built from Perceptron are ported; "
-                "init() could not initialise the others"
             )
         self.fused_optim = fused_optim
         fused_params = dict(fused_params or {})
@@ -121,23 +155,33 @@ class DistributedModelParallel(nn.Module):
             fused_params.pop("lr_schedule", None))
         self.fused_params = fused_params
 
-        sharded: Dict[str, ShardedEmbeddingBagCollection] = {}
-        for name, ebc in ebcs.items():
+        # module key -> sharded EBC or EC, as the JAX DMP's sharded_ebcs
+        sharded: Dict[str, ShardedEmbeddingModule] = {}
+        stubs: Dict[str, nn.Module] = {}
+        for name, mod in found.items():
             key = name.replace(".", "/")
             module_plan = plan.get_plan_for_module(key)
             if module_plan is None:
                 raise ValueError(f"the plan has no entry for module {key!r}")
-            sharded[key] = ShardedEmbeddingBagCollection(
-                self.env, ebc.tables, module_plan,
-                is_weighted=ebc.is_weighted,
-                max_feature_length=ebc.max_feature_length,
-                optim=fused_optim, optim_kwargs=fused_params,
-            )
+            if isinstance(mod, EmbeddingCollection):
+                sharded[key] = ShardedEmbeddingCollection(
+                    self.env, mod.tables, module_plan,
+                    max_feature_length=mod.max_feature_length,
+                    optim=fused_optim, optim_kwargs=fused_params,
+                )
+            else:
+                sharded[key] = ShardedEmbeddingBagCollection(
+                    self.env, mod.tables, module_plan,
+                    is_weighted=mod.is_weighted,
+                    max_feature_length=mod.max_feature_length,
+                    optim=fused_optim, optim_kwargs=fused_params,
+                )
             # drop the unsharded tables before the dense part is allocated
-            _set_submodule(module, name, nn.Identity())
+            stubs[key] = nn.Identity()
+            _replace_module(module, mod, stubs[key])
         module.to_empty(device=self.env.device)
-        for key, sebc in sharded.items():
-            _set_submodule(module, key.replace("/", "."), sebc)
+        for key, stub in stubs.items():
+            _replace_module(module, stub, sharded[key])
         self.module = module
         self.sharded_ebcs = sharded
         self.dense_optimizer = (dense_optimizer or self._default_dense_opt)(
@@ -152,11 +196,24 @@ class DistributedModelParallel(nn.Module):
     def init(self, seed: int = 0) -> "DistributedModelParallel":
         """Draw every dense parameter and table from one generator seeded
         with `seed` on the env's device, and zero the fused optimizer
-        state."""
+        state. Each module whose `reset_parameters` takes a generator
+        draws its parameters from the distribution of its JAX
+        counterpart's initializer; raises for a parameter that no module
+        draws."""
         g = torch.Generator(device=self.env.device).manual_seed(seed)
+        drawn = set()
         for m in self.module.modules():
-            if isinstance(m, Perceptron):
-                m.reset_parameters(g)
+            reset = _seeded_reset(m)
+            if reset is not None:
+                reset(generator=g)
+                drawn.update(id(p) for p in _drawn_by(m))
+        missing = [n for n, p in self.module.named_parameters()
+                   if id(p) not in drawn]
+        if missing:
+            raise NotImplementedError(
+                f"init(): no module initialises {missing}; give their "
+                "module a reset_parameters(generator) or load the weights"
+            )
         for sebc in self.sharded_ebcs.values():
             sebc.init(g)
         self.dense_optimizer.state.clear()
@@ -212,14 +269,22 @@ class DistributedModelParallel(nn.Module):
                 raise ValueError("train_step takes exactly one sparse batch "
                                  f"argument, got {len(sparse)}")
             lr = self._fused_lr()
-            leaves: Dict[str, torch.Tensor] = {}
+            # the sharded lookups outside autograd; their values enter the
+            # dense model as leaves: an EBC's pooled values, an EC's
+            # {name: per-token rows}
+            leaves: Dict[str, Any] = {}
             with torch.no_grad():
                 for key, sebc in self.sharded_ebcs.items():
-                    kt = sebc(sparse[0])
-                    leaves[key] = kt.values.requires_grad_(True)
-                    sebc.injected = KeyedTensor(
-                        values=leaves[key], keys=kt.keys,
-                        length_per_key=kt.length_per_key)
+                    out = sebc(sparse[0])
+                    if isinstance(sebc, ShardedEmbeddingCollection):
+                        leaves[key] = {n: t.detach().requires_grad_(True)
+                                       for n, t in out.items()}
+                        sebc.injected = leaves[key]
+                    else:
+                        leaves[key] = out.values.requires_grad_(True)
+                        sebc.injected = KeyedTensor(
+                            values=leaves[key], keys=out.keys,
+                            length_per_key=out.length_per_key)
             try:
                 with record_function("## train_dense_forward ##"):
                     out = self.module(*args)
@@ -233,10 +298,7 @@ class DistributedModelParallel(nn.Module):
             with record_function("## train_dense_optimizer ##"):
                 self.dense_optimizer.step()
             for key, sebc in self.sharded_ebcs.items():
-                d_values = leaves[key].grad
-                if d_values is None:  # the loss does not read these tables
-                    d_values = torch.zeros_like(leaves[key])
-                sebc.update(sparse[0], d_values, lr)
+                sebc.update(sparse[0], _grad(leaves[key]), lr)
             self.step += 1
             return loss.detach(), _detach(aux)
 

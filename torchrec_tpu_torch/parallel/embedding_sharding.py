@@ -4,7 +4,9 @@ Counterpart of torchrec_tpu/parallel/embedding_sharding.py. Tables are
 grouped by (sharding type, embedding dim, data type): one group is one
 table-batched weight array, one lookup and, across devices, one set of
 collectives. Pooling may differ per table inside a group; it travels as
-per-feature flags into the pooling coefficients.
+per-feature flags into the pooling coefficients. An EmbeddingCollection's
+tables (EmbeddingConfig) have no pooling and are grouped as SUM tables, as
+the JAX package groups them; the sequence strategies never pool.
 """
 
 from __future__ import annotations
@@ -15,8 +17,9 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 
 from torchrec_tpu_torch.modules.embedding_configs import (
+    BaseEmbeddingConfig,
     DataType,
-    EmbeddingBagConfig,
+    PoolingType,
     pooling_type_to_mode,
 )
 from torchrec_tpu_torch.ops.embedding import PoolingMode
@@ -88,7 +91,7 @@ class GroupedInputDistMixin:
 
 
 def group_tables(
-    tables: Sequence[EmbeddingBagConfig],
+    tables: Sequence[BaseEmbeddingConfig],
     embedding_names_per_table: Sequence[Sequence[str]],
     plan: Dict[str, ParameterSharding],
     is_weighted: bool = False,
@@ -110,7 +113,8 @@ def group_tables(
             name=cfg.name,
             rows=cfg.num_embeddings,
             dim=cfg.embedding_dim,
-            pooling=pooling_type_to_mode(cfg.pooling),
+            pooling=pooling_type_to_mode(
+                getattr(cfg, "pooling", PoolingType.SUM)),
             feature_names=tuple(cfg.feature_names),
             embedding_names=tuple(enames),
         )

@@ -1,0 +1,73 @@
+"""Sequence (unpooled) sharding strategies for EmbeddingCollection.
+
+Counterpart of torchrec_tpu/parallel/sequence_strategies.py. A sequence
+strategy keeps the storage layout of its pooled strategy (so sharding,
+unsharding and the optimizer state are inherited) and drops the pooling
+reduction: the forward returns per-token rows [F, B, L, D] with pad tokens
+and rows another shard owns zeroed, and the update takes the per-token
+cotangent [F, B, L, D] as the row gradients, unscaled.
+
+ROW_WISE on n devices is all_gather(ids) -> lookup of the owned rows ->
+psum_scatter over the batch; on the one device of this slice the
+collectives are identities, so the forward is one K8 launch per group and
+the update one `apply_fused_update`. DATA_PARALLEL, TABLE_WISE and
+TABLE_ROW_WISE come with the multi-GPU slice (ROADMAP queue 1 item 8) and
+raise here.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from torchrec_tpu_torch.ops.embedding import lookup_rows
+from torchrec_tpu_torch.ops.fused_update import (
+    EmbOptimType,
+    apply_fused_update,
+)
+from torchrec_tpu_torch.parallel.embedding_sharding import GroupMeta
+from torchrec_tpu_torch.parallel.strategies import RwEmbeddingSharding
+from torchrec_tpu_torch.parallel.types import ShardingEnv, ShardingType
+from torchrec_tpu_torch.sparse.jagged import PaddedSparseBatch
+
+
+class RwSequenceEmbeddingSharding(RwEmbeddingSharding):
+    """Row shards; each token's row comes from its owning shard (zeros
+    elsewhere), summed to the batch owner on n devices."""
+
+    def forward(self, sb: PaddedSparseBatch) -> torch.Tensor:
+        """Per-token rows [F, B, L, D], zero where the token is padding or
+        its row lives on another shard."""
+        local, owned = self._route(sb.ids, sb.lengths, self.env.rank,
+                                   sb.ids.shape[2])
+        w = self.weights[0]
+        rows = lookup_rows(w, local.reshape(-1)).reshape(
+            *local.shape, w.shape[-1])
+        return rows * owned.to(rows.dtype)[..., None]
+
+    def update(self, sb: PaddedSparseBatch, d_tokens: torch.Tensor,
+               learning_rate: float) -> None:
+        """Fused optimizer step from the per-token cotangent [F, B, L, D],
+        in place, on the owned rows of the valid tokens."""
+        local, owned = self._route(sb.ids, sb.lengths, self.env.rank,
+                                   sb.ids.shape[2])
+        apply_fused_update(
+            self.weights[0], self._opt_local(), local.reshape(-1),
+            d_tokens.reshape(-1, self.dim), owned.reshape(-1),
+            learning_rate, **self.optim_kwargs)
+
+
+def create_sequence_sharding_strategy(
+    env: ShardingEnv,
+    meta: GroupMeta,
+    optim: EmbOptimType = EmbOptimType.ROWWISE_ADAGRAD,
+    optim_kwargs: Optional[dict] = None,
+) -> RwSequenceEmbeddingSharding:
+    if meta.sharding_type is not ShardingType.ROW_WISE:
+        raise NotImplementedError(
+            f"sequence sharding {meta.sharding_type.value}: only ROW_WISE "
+            "is ported; DATA_PARALLEL, TABLE_WISE and TABLE_ROW_WISE come "
+            "with the multi-GPU slice (ROADMAP queue 1 item 8)"
+        )
+    return RwSequenceEmbeddingSharding(env, meta, optim, optim_kwargs)

@@ -1,4 +1,5 @@
-"""ShardedEmbeddingBagCollection.
+"""ShardedEmbeddingBagCollection, and the state handling it shares with
+ShardedEmbeddingCollection (parallel/sharded_ec.py).
 
 Counterpart of torchrec_tpu/parallel/sharded_ebc.py. Groups the tables by
 sharding type into one strategy each, hands each strategy its group's
@@ -38,55 +39,24 @@ from torchrec_tpu_torch.parallel.types import ParameterSharding, ShardingEnv
 from torchrec_tpu_torch.sparse.jagged import KeyedTensor
 
 
-class ShardedEmbeddingBagCollection(GroupedInputDistMixin, nn.Module):
-    """Sharded EBC: the groups' strategies and the routing between the
-    sparse batch, the groups and the output order.
-
-    max_feature_length: the L a KeyedJaggedTensor input is padded to, as
-    in the unsharded module it replaces. optim / optim_kwargs: the fused
-    optimizer of every group and its fused_params.
+class ShardedEmbeddingModule(GroupedInputDistMixin, nn.Module):
+    """What the sharded EBC and EC share: the table groups, one strategy
+    module per group (`strategies`, holding the shards and the fused
+    optimizer state as buffers) and the state in and out. Subclasses set
+    `groups` and `strategies` and define `forward` and `update`.
 
     `injected`: while set, `forward` returns it instead of looking up; the
-    DMP's train step sets it to the pooled values it computed outside
-    autograd (the torch form of the JAX DMP's injected collection).
+    DMP's train step sets it to the values it computed outside autograd
+    (the torch form of the JAX DMP's injected collection).
     """
 
-    def __init__(
-        self,
-        env: ShardingEnv,
-        tables: Sequence[EmbeddingBagConfig],
-        plan: Dict[str, ParameterSharding],
-        is_weighted: bool = False,
-        max_feature_length: int = 1,
-        optim: EmbOptimType = EmbOptimType.ROWWISE_ADAGRAD,
-        optim_kwargs: Optional[dict] = None,
-    ):
+    def __init__(self, env: ShardingEnv, tables: Sequence,
+                 max_feature_length: int):
         super().__init__()
         self.env = env
         self.tables = tuple(tables)
-        self.is_weighted = is_weighted
         self.max_feature_length = max_feature_length
-        enames_per_table = embedding_names_by_table(self.tables)
-        self.groups = group_tables(self.tables, enames_per_table, plan,
-                                   is_weighted)
-        self.strategies = nn.ModuleList(
-            create_sharding_strategy(env, g, optim, optim_kwargs)
-            for g in self.groups
-        )
-        self.injected: Optional[KeyedTensor] = None
-        # canonical output order: tables in declaration order
-        self.embedding_names: Tuple[str, ...] = tuple(
-            n for names in enames_per_table for n in names)
-        dim_by_name = {n: cfg.embedding_dim
-                       for cfg, names in zip(self.tables, enames_per_table)
-                       for n in names}
-        self.length_per_key: Tuple[int, ...] = tuple(
-            dim_by_name[n] for n in self.embedding_names)
-        offsets = np.concatenate([[0], np.cumsum(self.length_per_key)])
-        self._out_slice = {n: (int(offsets[i]), int(offsets[i + 1]))
-                           for i, n in enumerate(self.embedding_names)}
-
-    # -- state ---------------------------------------------------------------
+        self.injected = None
 
     @property
     def states(self) -> Tuple[EmbeddingGroupState, ...]:
@@ -143,6 +113,48 @@ class ShardedEmbeddingBagCollection(GroupedInputDistMixin, nn.Module):
     def check_trainable(self) -> None:
         for s in self.strategies:
             s.check_trainable()
+
+
+class ShardedEmbeddingBagCollection(ShardedEmbeddingModule):
+    """Sharded EBC: the groups' strategies and the routing between the
+    sparse batch, the groups and the output order.
+
+    max_feature_length: the L a KeyedJaggedTensor input is padded to, as
+    in the unsharded module it replaces. optim / optim_kwargs: the fused
+    optimizer of every group and its fused_params. `injected` holds a
+    KeyedTensor.
+    """
+
+    def __init__(
+        self,
+        env: ShardingEnv,
+        tables: Sequence[EmbeddingBagConfig],
+        plan: Dict[str, ParameterSharding],
+        is_weighted: bool = False,
+        max_feature_length: int = 1,
+        optim: EmbOptimType = EmbOptimType.ROWWISE_ADAGRAD,
+        optim_kwargs: Optional[dict] = None,
+    ):
+        super().__init__(env, tables, max_feature_length)
+        self.is_weighted = is_weighted
+        enames_per_table = embedding_names_by_table(self.tables)
+        self.groups = group_tables(self.tables, enames_per_table, plan,
+                                   is_weighted)
+        self.strategies = nn.ModuleList(
+            create_sharding_strategy(env, g, optim, optim_kwargs)
+            for g in self.groups
+        )
+        # canonical output order: tables in declaration order
+        self.embedding_names: Tuple[str, ...] = tuple(
+            n for names in enames_per_table for n in names)
+        dim_by_name = {n: cfg.embedding_dim
+                       for cfg, names in zip(self.tables, enames_per_table)
+                       for n in names}
+        self.length_per_key: Tuple[int, ...] = tuple(
+            dim_by_name[n] for n in self.embedding_names)
+        offsets = np.concatenate([[0], np.cumsum(self.length_per_key)])
+        self._out_slice = {n: (int(offsets[i]), int(offsets[i + 1]))
+                           for i, n in enumerate(self.embedding_names)}
 
     # -- compute -------------------------------------------------------------
 

@@ -1,0 +1,97 @@
+"""ShardedEmbeddingCollection: sharded unpooled embeddings.
+
+Counterpart of torchrec_tpu/parallel/sharded_ec.py. The tables are grouped
+as the sharded EBC groups them, one sequence strategy per group
+(parallel/sequence_strategies.py); the output is {embedding name: [B, L,
+D]} per-token rows, pad tokens zero, the layout BERT4Rec consumes. It is an
+`nn.Module` that replaces the authored EmbeddingCollection, holding the
+shards and fused optimizer state as its strategies' buffers; `init`,
+`shard_from_dense`, `unshard_to_dense`, the optimizer state in and out and
+`check_trainable` come from ShardedEmbeddingModule, and `update` changes
+the buffers in place.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from torchrec_tpu_torch.modules.embedding_configs import EmbeddingConfig
+from torchrec_tpu_torch.modules.embedding_modules import (
+    SparseInput,
+    as_padded,
+    embedding_names_by_table,
+)
+from torchrec_tpu_torch.ops.fused_update import EmbOptimType
+from torchrec_tpu_torch.parallel.embedding_sharding import group_tables
+from torchrec_tpu_torch.parallel.sequence_strategies import (
+    create_sequence_sharding_strategy,
+)
+from torchrec_tpu_torch.parallel.sharded_ebc import ShardedEmbeddingModule
+from torchrec_tpu_torch.parallel.strategies import EmbeddingGroupState
+from torchrec_tpu_torch.parallel.types import ParameterSharding, ShardingEnv
+
+
+class ShardedEmbeddingCollection(ShardedEmbeddingModule):
+    """Sharded EC. max_feature_length: the L a KeyedJaggedTensor input is
+    padded to, as in the unsharded module it replaces. optim /
+    optim_kwargs: the fused optimizer of every group and its fused_params.
+    `injected` holds {embedding name: [B, L, D]}."""
+
+    def __init__(
+        self,
+        env: ShardingEnv,
+        tables: Sequence[EmbeddingConfig],
+        plan: Dict[str, ParameterSharding],
+        max_feature_length: int = 1,
+        optim: EmbOptimType = EmbOptimType.ROWWISE_ADAGRAD,
+        optim_kwargs: Optional[dict] = None,
+    ):
+        super().__init__(env, tables, max_feature_length)
+        if len({t.embedding_dim for t in self.tables}) > 1:
+            raise ValueError("EmbeddingCollection tables must share one dim")
+        self.groups = group_tables(
+            self.tables, embedding_names_by_table(self.tables), plan)
+        self.strategies = nn.ModuleList(
+            create_sequence_sharding_strategy(env, g, optim, optim_kwargs)
+            for g in self.groups
+        )
+
+    def forward(self, features: SparseInput,
+                as_jagged: bool = False) -> Dict[str, torch.Tensor]:
+        """-> {embedding name: [B, L, D]} per-token rows (pad rows zero).
+        `as_jagged=True` raises, as in the unsharded module."""
+        if as_jagged:
+            raise NotImplementedError(
+                "ShardedEmbeddingCollection(as_jagged=True) needs "
+                "JaggedTensor.from_dense_lengths, which is not ported yet "
+                "(ROADMAP queue 1 item 6)"
+            )
+        if self.injected is not None:
+            return self.injected
+        sb = as_padded(features, self.max_feature_length)
+        out: Dict[str, torch.Tensor] = {}
+        for gi, (strat, group) in enumerate(zip(self.strategies,
+                                                self.groups)):
+            with torch.profiler.record_function(
+                    f"## ec_fwd_{group.sharding_type.value}_g{gi} ##"):
+                rows = strat(self._group_batch(sb, gi))  # [F_g, B, L, D]
+            out.update(zip(group.embedding_names, rows.unbind(0)))
+        return out
+
+    @torch.no_grad()
+    def update(self, features: SparseInput,
+               d_tokens: Mapping[str, torch.Tensor],
+               learning_rate: float) -> Tuple[EmbeddingGroupState, ...]:
+        """Fused optimizer step, in place, from the cotangents of the
+        forward's outputs, {embedding name: [B, L, D]}."""
+        sb = as_padded(features, self.max_feature_length)
+        for gi, (strat, group) in enumerate(zip(self.strategies,
+                                                self.groups)):
+            d = torch.stack([d_tokens[n] for n in group.embedding_names])
+            with torch.profiler.record_function(
+                    f"## ec_update_{group.sharding_type.value}_g{gi} ##"):
+                strat.update(self._group_batch(sb, gi), d, learning_rate)
+        return self.states

@@ -3,13 +3,23 @@
 The JAX side hands over numpy arrays only, so this module imports no JAX:
 
 * `dense_params`: the flax `params` tree of the DMP state (nested dicts of
-  numpy arrays). A flax Dense `kernel` [in, out] becomes the port's
-  `nn.Linear.weight` [out, in]; its `bias` is copied as is. Flax's
-  auto-names map to the port's attributes: `MLP_0` -> `mlp`,
-  `Perceptron_<i>` -> `perceptrons.<i>`, `Dense_0` -> `linear`.
+  numpy arrays), walked beside the port's module tree. A flax auto-name
+  maps to an attribute through the `flax_names` of the port module that
+  holds it (a Perceptron's `Dense_0` is its `linear`, an MLP's
+  `Perceptron_<i>` its `perceptrons.<i>`, a DLRM arch's `MLP_0` its `mlp`,
+  a BERT4Rec TransformerBlock's `Dense_0` / `Dense_1` its `ff_in` /
+  `ff_out`); other names are the attribute's own. A flax `kernel` [in...,
+  out...] becomes the `nn.Linear.weight` [out, in], flattened row-major
+  (DenseGeneral's [D, heads, head_dim] and [heads, head_dim, D] too); a
+  LayerNorm `scale` becomes its `weight`; `bias` and other parameters (the
+  positional embedding) are copied in the port parameter's shape. An
+  unsharded EBC's or EC's table `<name>` is its `embedding_bags.<name>` /
+  `embeddings.<name>`; `load_flax_params` loads such a tree into a module
+  that no DMP wraps.
 * `tables`: {table name -> [R, D]} as the JAX
-  `ShardedEmbeddingBagCollection.unshard_to_dense` returns it; each table
-  goes to the port's sharded EBC that holds a table of that name.
+  `ShardedEmbeddingBagCollection` / `ShardedEmbeddingCollection`
+  `unshard_to_dense` returns it; each table goes to the port's sharded
+  module that holds a table of that name.
 * `opt_state` (optional): the whole fused optimizer state per table, as
   the JAX strategies' `unshard_opt_to_tables` returns it: {table name ->
   {"m1__full" [R, D] | "m1__row" [R], "m2__full" | "m2__row", "step"}},
@@ -30,46 +40,73 @@ Usage, with `state` the JAX DMP state:
 
 from __future__ import annotations
 
-import re
 from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 from torchrec_tpu_torch.parallel.dmp import DistributedModelParallel
 
-
-def _torch_segment(segment: str) -> str:
-    if segment == "MLP_0":
-        return "mlp"
-    if segment == "Dense_0":
-        return "linear"
-    m = re.fullmatch(r"Perceptron_(\d+)", segment)
-    return f"perceptrons.{m.group(1)}" if m else segment
+# flax leaf name -> the port parameter's name
+_LEAF_NAMES = {"kernel": "weight", "scale": "weight"}
 
 
 def flax_dense_to_state_dict(
-    dense_params: Mapping, prefix: str = ""
+    dense_params: Mapping, module: nn.Module, prefix: str = ""
 ) -> Dict[str, np.ndarray]:
-    """Flatten a flax Dense param tree into port parameter names."""
+    """Flatten a flax param tree into the parameter names of `module`, the
+    port module it belongs to, in the port's layouts. Raises for a flax
+    name the module does not have."""
     out: Dict[str, np.ndarray] = {}
+    names = getattr(module, "flax_names", {})
     for name, value in dense_params.items():
         if isinstance(value, Mapping):
-            path = prefix + _torch_segment(name) + "."
-            out.update(flax_dense_to_state_dict(value, path))
-        elif name == "kernel":
-            out[prefix + "weight"] = np.asarray(value).T
-        elif name == "bias":
-            out[prefix + "bias"] = np.asarray(value)
-        else:
-            raise ValueError(f"unexpected flax param {prefix}{name}")
+            attr = names.get(name, name)
+            try:
+                child = module.get_submodule(attr)
+            except AttributeError:
+                raise ValueError(
+                    f"unexpected flax module {prefix}{name}") from None
+            out.update(flax_dense_to_state_dict(value, child,
+                                                f"{prefix}{attr}."))
+            continue
+        pname = names.get(name, _LEAF_NAMES.get(name, name))
+        try:
+            target = module.get_parameter(pname)
+        except AttributeError:
+            raise ValueError(f"unexpected flax param {prefix}{name}") from None
+        arr = np.asarray(value)
+        if arr.size != target.numel():
+            raise ValueError(f"{prefix}{name}: JAX shape {arr.shape}, port "
+                             f"{tuple(target.shape)}")
+        if name == "kernel":
+            arr = arr.reshape(module.in_features, module.out_features).T
+        out[prefix + pname] = arr.reshape(target.shape)
     return out
+
+
+@torch.no_grad()
+def load_flax_params(module: nn.Module, params: Mapping) -> None:
+    """Copy a flax param tree (numpy leaves) into `module`'s parameters.
+    Raises unless every parameter of the module is matched."""
+    flat = flax_dense_to_state_dict(params, module)
+    own = dict(module.named_parameters())
+    missing = sorted(set(own) - set(flat))
+    unexpected = sorted(set(flat) - set(own))
+    if missing or unexpected:
+        raise ValueError(
+            f"params do not match: missing {missing}, "
+            f"unexpected {unexpected}"
+        )
+    for name, p in own.items():
+        p.copy_(torch.tensor(flat[name]))
 
 
 def _per_module(dmp: DistributedModelParallel, what: str,
                 per_table: Mapping[str, np.ndarray],
                 ) -> Dict[str, Dict[str, np.ndarray]]:
-    """Split {table -> array} by the sharded EBC that holds each table;
+    """Split {table -> array} by the sharded module that holds each table;
     raises unless the tables match the DMP's exactly."""
     owner = {t.name: key for key, sebc in dmp.sharded_ebcs.items()
              for t in sebc.tables}
@@ -95,22 +132,7 @@ def load_jax_weights(
     """Load the JAX DMP's dense params, unsharded tables and (optionally)
     fused optimizer state into `dmp`. Raises unless every dense parameter
     and every table is matched."""
-    flat = flax_dense_to_state_dict(dense_params)
-    params = dict(dmp.module.named_parameters())
-    missing = sorted(set(params) - set(flat))
-    unexpected = sorted(set(flat) - set(params))
-    if missing or unexpected:
-        raise ValueError(
-            f"dense params do not match: missing {missing}, "
-            f"unexpected {unexpected}"
-        )
-    for name, p in params.items():
-        src = torch.tensor(flat[name])
-        if src.shape != p.shape:
-            raise ValueError(
-                f"{name}: JAX shape {tuple(src.shape)}, port {tuple(p.shape)}"
-            )
-        p.copy_(src)
+    load_flax_params(dmp.module, dense_params)
     dmp.load_tables(_per_module(dmp, "tables", tables))
     if opt_state is not None:
         for key, st in _per_module(dmp, "optimizer states",
