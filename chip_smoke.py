@@ -26,18 +26,24 @@ Phases, each failing the run with a non-zero exit when it fails:
    bench.py trains it (fused lr 0.1, dense SGD at 0.05), for EXACT_SGD,
    ROWWISE_ADAGRAD, ADAGRAD and ADAM: 3 warm-up and 10 timed steps at
    B=8192 on seeded batches. Every loss must be finite and every step must
-   launch exactly K1 and K3 once (EXACT_SGD), K1, K5 and K4 once
-   (ROWWISE_ADAGRAD), K1 and K6 once (ADAGRAD) or K1 and K7 once (ADAM),
-   and no other kernel. After each of the last three, hold its update
-   kernels against their plain versions on the card, on the trained table
-   and momenta and one real batch's run totals and dedup output (real
-   sentinel patterns): K2-K5 after ROWWISE_ADAGRAD, K6 after ADAGRAD, K7
-   after ADAM. Bit-exact, since neither side contracts a multiply-add and
-   both round sqrt and divide per IEEE. Time each kernel, its plain
-   version and its library yardstick.
-6. One step with fused_params w_impl="write" per momentum optimizer must
-   launch K2 once and K4's row update never (ROWWISE_ADAGRAD), K2 twice
-   (ADAGRAD) or three times (ADAM) and K6 / K7 never.
+   launch exactly K1 and K3 once (EXACT_SGD), K1 and K4 once
+   (ROWWISE_ADAGRAD: the fused kernel, which does K5's work too, so K5
+   never), K1 and K6 once (ADAGRAD) or K1 and K7 once (ADAM), and no other
+   kernel. After each of the last three, hold its update kernels against
+   their plain versions on the card, on the trained table and momenta and
+   one real batch's run totals and dedup output (real sentinel patterns):
+   K2, K3, the fused K4 (at weight decay 0 and 0.01), K5 and K4's scaled
+   RMW after ROWWISE_ADAGRAD, K6 after ADAGRAD, K7 after ADAM. Bit-exact,
+   since neither side contracts a multiply-add, both round sqrt and divide
+   per IEEE and both sum g^2 in row_mean_sq's order. Time each kernel, its
+   plain version and its library yardstick, and the fused K4 in turns with
+   the unfused composition it replaced (K5 and the scaled RMW with the
+   torch ops between them).
+6. One step on each other route of the update: fused_params
+   w_impl="write" must launch K5 and K2 once (ROWWISE_ADAGRAD), K2 twice
+   (ADAGRAD) or three times (ADAM) and K4 / K6 / K7 never;
+   mom_impl="xla" (ROWWISE_ADAGRAD) the scaled RMW once and K4 / K5
+   never.
 7. For EXACT_SGD, ROWWISE_ADAGRAD, ADAGRAD, ADAM and the four optimizers
    without a kernel (PARTIAL_ROWWISE_ADAM, LAMB, PARTIAL_ROWWISE_LAMB,
    LARS_SGD), copy a fresh card DMP to a CPU DMP with load_state_dict and
@@ -56,16 +62,19 @@ Phases, each failing the run with a non-zero exit when it fails:
    must equal the CPU run's (rtol 1e-4, atol 1e-5).
 9. Train it through make_train_step (ROWWISE_ADAGRAD at 0.01, dense
    torch.optim.Adam at 1e-3): 3 warm-up and 10 timed steps at B=32 on
-   batches masked as make_train_batch masks them, each launching K8, K5
-   and K4 once and nothing else. Then copy the card DMP to a CPU DMP, the
+   batches masked as make_train_batch masks them, each launching K8 and
+   the fused K4 once and nothing else. Then copy the card DMP to a CPU DMP, the
    dense Adam state included (nonzero moments), and take 2 steps on both:
    losses, dense parameters and the touched table rows and momenta agree
    (rtol 1e-4, atol 1e-5), untouched rows are unchanged on both. The
    attention key biases are the exception: their gradient is zero up to
    rounding, which Adam scales up to steps of order lr, so they are held
    within Adam's reach (2 x 3.2 x lr x steps) instead.
-10. Hold K8 against its plain version and torch.index_select, bit-exact,
-   on the trained [3712, 64] shard with one batch's 2,048 ids and at a
+10. Hold the fused K4 (weight decay 0 and 0.01), K5 and the scaled RMW
+   against their plain versions, bit-exact, on the trained [3712, 64]
+   shard and momentum with one batch's dedup output, and time them as in
+   5. Hold K8 against its plain version and torch.index_select,
+   bit-exact, on the same shard with the batch's 2,048 ids and at a
    bytes-bound shape (W 2,600,064 x 128, 212,992 ids with negative and
    out-of-range ones), and time all three.
 11. Gradients through the unsharded EmbeddingBagCollection (weighted,
@@ -160,12 +169,20 @@ KERNELS = {
     "K8": ("gather_rows", "torchrec_tpu_torch/csrc/gather_rows.cu",
            "torchrec_tpu/ops/pallas_embedding.py:91"),
 }
+# launch counters beside the eight kernels': K4's scaled RMW, which the
+# rowwise routes other than the fused one launch
+SCALED = "scaled_row_update"
 # the kernels of each optimizer's train step, beside K1 (once each)
-STEP_KERNELS = {"EXACT_SGD": ("K3",), "ROWWISE_ADAGRAD": ("K4", "K5"),
+STEP_KERNELS = {"EXACT_SGD": ("K3",), "ROWWISE_ADAGRAD": ("K4",),
                 "ADAGRAD": ("K6",), "ADAM": ("K7",)}
-# K2 launches of one w_impl="write" step, and the other kernels it launches
-WRITE_KERNELS = {"ROWWISE_ADAGRAD": {"K2": 1, "K5": 1},
-                 "ADAGRAD": {"K2": 2}, "ADAM": {"K2": 3}}
+# one step on each other route of the update: (optimizer, fused_params,
+# the launches of the step beside K1's one)
+ROUTE_STEPS = [
+    ("ROWWISE_ADAGRAD", {"w_impl": "write"}, {"K2": 1, "K5": 1}),
+    ("ROWWISE_ADAGRAD", {"mom_impl": "xla"}, {SCALED: 1}),
+    ("ADAGRAD", {"w_impl": "write"}, {"K2": 2}),
+    ("ADAM", {"w_impl": "write"}, {"K2": 3}),
+]
 
 
 def log(*args) -> None:
@@ -200,8 +217,8 @@ def build_kernels(libraries) -> None:
 
 
 def expected(**launches) -> dict:
-    """Launches per kernel: those given, 0 for every other kernel."""
-    return {k: launches.get(k, 0) for k in KERNELS}
+    """Launches per counter: those given, 0 for every other one."""
+    return {k: launches.get(k, 0) for k in (*KERNELS, SCALED)}
 
 
 def _counted():
@@ -215,7 +232,7 @@ def _counted():
 def counts() -> dict:
     """Launches per kernel so far."""
     tl, fk, gr = _counted()
-    return {"K1": tl.LAUNCHES, "K8": gr.LAUNCHES,
+    return {"K1": tl.LAUNCHES, "K8": gr.LAUNCHES, SCALED: fk.LAUNCHES[SCALED],
             **{k: fk.LAUNCHES[name] for k, (name, _, _) in KERNELS.items()
                if k not in ("K1", "K8")}}
 
@@ -549,25 +566,26 @@ def train(optim) -> dict:
             "ex_per_s": ex_per_s, "peak_bytes": peak}
 
 
-def write_step(optim) -> dict:
-    """One step of `optim` with w_impl="write": K2 writes the rows and
-    the momenta."""
-    name = optim.name
-    dmp = make_dmp(DEVICE, train=True, optim=optim,
-                   fused_params={"w_impl": "write"}).init(SEED)
+def route_step(name: str, params: dict, launches: dict) -> dict:
+    """One step of optimizer `name` with `params` in its fused_params,
+    which must launch K1 once and `launches`."""
+    from torchrec_tpu_torch.ops.fused_update import EmbOptimType
+
+    dmp = make_dmp(DEVICE, train=True, optim=EmbOptimType[name],
+                   fused_params=params).init(SEED)
     step = dmp.make_train_step()
     batch = to_device(make_batch(np.random.RandomState(SEED + 6),
                                  BENCH_BATCH))
     torch.cuda.synchronize()
     reset_counts()
     loss, _ = step(*batch)
-    launches = counts()
-    expect = expected(K1=1, **WRITE_KERNELS[name])
-    if launches != expect or not math.isfinite(loss.item()):
-        raise AssertionError(f"{name} w_impl=write step launched {launches} "
+    got = counts()
+    expect = expected(K1=1, **launches)
+    if got != expect or not math.isfinite(loss.item()):
+        raise AssertionError(f"{name} {params} step launched {got} "
                              f"(expected {expect}), loss {loss.item()}")
-    log(f"train {name} w_impl=write: one step launched {launches}")
-    return launches
+    log(f"train {name} {params}: one step launched {got}")
+    return got
 
 
 def _touched(strat, batches) -> torch.Tensor:
@@ -681,7 +699,8 @@ def batch_grads(strat):
 
 
 def check_update_kernels(dmp, fk) -> dict:
-    """K2-K5 against their plain versions on the trained table."""
+    """K2-K5 and K4's scaled RMW against their plain versions on the
+    trained table."""
     from torchrec_tpu_torch.ops import fused_update as fu
 
     strat = dmp.sharded_ebcs[TRAIN_KEY].strategies[0]
@@ -731,70 +750,106 @@ def check_update_kernels(dmp, fk) -> dict:
                   lambda: W2.index_copy_(0, ids_real, rows_real)),
     }
     del rows, rows_real
-
-    # K5 on the dedup output's g_sq
-    real_dd = u_dd < R
-    n_uniq = int(real_dd.sum())
-    g_sq = (g_dd * g_dd).mean(dim=1) * real_dd.to(torch.float32)
-    M1, M2 = M.clone(), M.clone()
-    _, inv1, ovf = fk.rowwise_momentum_stream(M1, u_dd, g_sq)
-    _, inv2, _ = fk.rowwise_momentum_stream_reference(M2, u_dd, g_sq)
-    if bool(ovf):
-        raise AssertionError("K5 reported an overflow")
-    err5 = _hold("K5", [(M1, M2), (inv1, inv2)])
-    # ids, g_sq of the real slots and inv are contiguous; each distinct
-    # row's momentum word is read and written once, at a random place
-    payload = N * 4 + n_uniq * 4 + N * 4 + 2 * n_uniq * 4
-    sectors = N * 4 + n_uniq * 4 + N * 4 + 2 * n_uniq * 32
-    t_bytes, t_ops = payload / HBM_BYTES_PER_S, 4 * n_uniq / FP32_FLOPS
-    b = {"bytes": payload, "ms": max(t_bytes, t_ops) * 1e3,
-         "by": "bytes" if t_bytes >= t_ops else "operations"}
-    out["K5"] = {
-        "max_abs_err": err5, "bound": b,
-        **timings(lambda: fk.rowwise_momentum_stream(M1, u_dd, g_sq),
-                  "rowwise_momentum_kernel", b["ms"],
-                  lambda: fk.rowwise_momentum_stream_reference(
-                      M2, u_dd, g_sq)),
-    }
-    log(f"K5 bound: {payload} B of payload ({1e3 * payload / HBM_BYTES_PER_S:.4f} "
-        f"ms, used for the share); {sectors} B counting a 32-byte sector "
-        f"per scattered momentum read and write "
-        f"({1e3 * sectors / HBM_BYTES_PER_S:.4f} ms)")
-
-    # K4: the scaled RMW on K5's scale, then the whole rowwise update
-    scale = lr * inv2
-    W1, W2 = W.clone(), W.clone()
-    fk.scaled_row_update(W1, u_dd, g_dd, scale)
-    fk.scaled_row_update_reference(W2, u_dd, g_dd, scale)
-    err4 = _hold("K4", [(W1, W2)])
-    M1, M2 = M.clone(), M.clone()
-    fk.fused_update_rowwise_adagrad(W1, M1, u_dd, g_dd, lr,
-                                    momentum_stream=True)
-    fk.fused_update_rowwise_adagrad_reference(W2, M2, u_dd, g_dd, lr,
-                                              momentum_stream=True)
-    err4 = max(err4, _hold("fused_update_rowwise_adagrad",
-                           [(W1, W2), (M1, M2)]))
-    b = rows_bound(N, n_uniq, D, rows_moved=3, extra_bytes=n_uniq * 4)
-    out["K4"] = {
-        "max_abs_err": err4, "bound": b,
-        **timings(lambda: fk.scaled_row_update(W1, u_dd, g_dd, scale),
-                  "row_update_kernel", b["ms"],
-                  lambda: fk.scaled_row_update_reference(
-                      W2, u_dd, g_dd, scale)),
-    }
+    out.update(check_rowwise(fk, W, M, u_dd, g_dd, lr))
     return report(out)
 
 
-def report(out: dict) -> dict:
+def k5_bound(N: int, n_uniq: int) -> dict:
+    """K5's least time: the ids, the real slots' g_sq and the N inverse
+    scales are contiguous; each distinct row's momentum word is read and
+    written once, at a random place (payload; `sectors` counts a 32-byte
+    sector per scattered access)."""
+    payload = N * 4 + n_uniq * 4 + N * 4 + 2 * n_uniq * 4
+    t_bytes, t_ops = payload / HBM_BYTES_PER_S, 4 * n_uniq / FP32_FLOPS
+    return {"bytes": payload, "ms": max(t_bytes, t_ops) * 1e3,
+            "by": "bytes" if t_bytes >= t_ops else "operations",
+            "sectors": N * 4 + n_uniq * 4 + N * 4 + 2 * n_uniq * 32}
+
+
+def check_rowwise(fk, W, M, u_dd, g_dd, lr, what: str = "DLRM") -> dict:
+    """The rowwise-Adagrad kernels on a trained table and momentum and one
+    batch's dedup output: the fused K4 against its plain version at weight
+    decay 0 and 0.01, K5 and the scaled RMW against theirs, all bit-exact;
+    then the fused K4 timed in turns with the unfused composition it
+    replaced (the route's torch ops over K5 and the scaled RMW), and K5
+    timed alone."""
+    R, D = W.shape
+    N = int(u_dd.numel())
+    real = u_dd < R
+    n_uniq = int(real.sum())
+    log(f"rowwise {what}: N={N} slots, {n_uniq} distinct rows, "
+        f"{N - n_uniq} dedup sentinels; W {tuple(W.shape)}")
+    errs = []
+    for wd in (0.0, 0.01):
+        W1, W2, M1, M2 = W.clone(), W.clone(), M.clone(), M.clone()
+        fk.fused_update_rowwise_adagrad(W1, M1, u_dd, g_dd, lr,
+                                        weight_decay=wd, momentum_stream=True)
+        fk.fused_update_rowwise_adagrad_reference(
+            W2, M2, u_dd, g_dd, lr, weight_decay=wd, momentum_stream=True)
+        errs.append(_hold(f"K4 at weight decay {wd}", [(W1, W2), (M1, M2)]))
+    # K5 on the route's g_sq, the scaled RMW on K5's scale
+    g_sq = fk.row_mean_sq(g_dd) * real.to(torch.float32)
+    M3, M4 = M.clone(), M.clone()
+    _, inv1, ovf = fk.rowwise_momentum_stream(M3, u_dd, g_sq)
+    _, inv2, _ = fk.rowwise_momentum_stream_reference(M4, u_dd, g_sq)
+    if bool(ovf):
+        raise AssertionError("K5 reported an overflow")
+    err5 = _hold("K5", [(M3, M4), (inv1, inv2)])
+    scale = lr * inv2
+    W3, W4 = W.clone(), W.clone()
+    fk.scaled_row_update(W3, u_dd, g_dd, scale)
+    fk.scaled_row_update_reference(W4, u_dd, g_dd, scale)
+    errs.append(_hold("K4's scaled RMW", [(W3, W4)]))
+
+    # read g and W, write W (three rows), read and write the momentum word
+    b4 = rows_bound(N, n_uniq, D, rows_moved=3, extra_bytes=2 * n_uniq * 4,
+                    flops_per_elem=7)
+
+    def fused():
+        fk.fused_update_rowwise_adagrad(W1, M1, u_dd, g_dd, lr,
+                                        momentum_stream=True)
+
+    def unfused():
+        fk.rowwise_adagrad_unfused(W3, M3, u_dd, g_dd, lr)
+
+    k4 = {"max_abs_err": max(errs), "bound": b4,
+          **timings(fused, "rowwise_adagrad_kernel", b4["ms"],
+                    lambda: fk.fused_update_rowwise_adagrad_reference(
+                        W2, M2, u_dd, g_dd, lr, momentum_stream=True))}
+    # in turns: fused (above), unfused, unfused, fused
+    unfused_ms = [device_ms(unfused, bound_ms=b4["ms"]) for _ in range(2)]
+    fused_ms = [k4["ms"], device_ms(fused, "rowwise_adagrad_kernel",
+                                    b4["ms"])]
+    k4["ms"] = sum(fused_ms) / 2
+    k4["unfused_ms"] = sum(unfused_ms) / 2
+    log(f"rowwise {what}: fused K4 {fused_ms[0]:.5f} / {fused_ms[1]:.5f} "
+        f"ms, unfused composition {unfused_ms[0]:.5f} / {unfused_ms[1]:.5f} "
+        f"ms (device time, in turns: fused, unfused, unfused, fused)")
+    b5 = k5_bound(N, n_uniq)
+    k5 = {"max_abs_err": err5, "bound": b5,
+          **timings(lambda: fk.rowwise_momentum_stream(M3, u_dd, g_sq),
+                    "rowwise_momentum_kernel", b5["ms"],
+                    lambda: fk.rowwise_momentum_stream_reference(
+                        M4, u_dd, g_sq))}
+    log(f"K5 {what} bound: {b5['bytes']} B of payload ({b5['ms']:.5f} ms, "
+        f"used for the share); {b5['sectors']} B counting a 32-byte sector "
+        f"per scattered momentum read and write "
+        f"({1e3 * b5['sectors'] / HBM_BYTES_PER_S:.5f} ms)")
+    return {"K4": k4, "K5": k5}
+
+
+def report(out: dict, what: str = "") -> dict:
     """Log each checked kernel's numbers; the JSON line's fields."""
     for k, r in out.items():
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
-        log(f"{k} {KERNELS[k][0]}: bit-exact with its plain version; "
-            f"{r['ms']:.4f} ms on the device (call {r['call_ms']:.4f} ms); "
+        unfused = ("" if "unfused_ms" not in r
+                   else f"; unfused composition {r['unfused_ms']:.5f} ms")
+        log(f"{k} {KERNELS[k][0]}{what}: bit-exact with its plain version; "
+            f"{r['ms']:.5f} ms on the device (call {r['call_ms']:.4f} ms); "
             f"plain {r['plain_ms']:.4f} ms; library "
-            f"{lib}; bound {r['bound']['ms']:.4f} ms ({r['bound']['by']}: "
-            f"{r['bound']['bytes']} B); kernel at "
+            f"{lib}{unfused}; bound {r['bound']['ms']:.5f} ms "
+            f"({r['bound']['by']}: {r['bound']['bytes']} B); kernel at "
             f"{100 * r['bound']['ms'] / r['ms']:.1f}% of the bound")
     return {k: {"max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
@@ -1004,9 +1059,9 @@ def _b4r_state(dmp) -> dict:
 
 
 def b4r_train(seqs) -> dict:
-    """WARMUP_STEPS + TIMED_STEPS train steps at B=32, each launching K8,
-    K5 and K4 once; then the card DMP and a CPU copy (dense Adam state
-    included) take CPU_STEPS more steps and must agree."""
+    """WARMUP_STEPS + TIMED_STEPS train steps at B=32, each launching K8
+    and the fused K4 once; then the card DMP and a CPU copy (dense Adam
+    state included) take CPU_STEPS more steps and must agree."""
     dmp = make_b4r_dmp(DEVICE).init(SEED)
     step = dmp.make_train_step()
     rng = np.random.RandomState(SEED + 11)
@@ -1014,7 +1069,7 @@ def b4r_train(seqs) -> dict:
                for _ in range(WARMUP_STEPS + TIMED_STEPS)]
     batches = [(kjt.to(DEVICE), labels.to(DEVICE))
                for kjt, labels in batches]
-    per_step = expected(K8=1, K5=1, K4=1)
+    per_step = expected(K8=1, K4=1)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -1102,6 +1157,26 @@ def b4r_train(seqs) -> dict:
     return {"dmp": dmp, "launches": launches, "ms": timed,
             "median_ms": median, "seq_per_s": seq_per_s, "peak_bytes": peak,
             "batch_ids": batches[0][0].values}
+
+
+def check_b4r_rowwise(fk, trained, batch_ids) -> None:
+    """The rowwise kernels at BERT4Rec's shape: the trained [3712, 64]
+    shard and momentum, and one batch's 2,048 tokens (every one is
+    updated, pads included, as the path updates them) with cotangents
+    drawn at 1e-3, deduplicated as the update deduplicates them."""
+    from torchrec_tpu_torch.ops import fused_update as fu
+
+    strat = trained.sharded_ebcs[B4R_KEY].strategies[0]
+    W, M = strat.weights[0], strat.momentum1[0]
+    R, D = W.shape
+    ids = batch_ids.to(DEVICE, torch.int32).contiguous()
+    rng = np.random.RandomState(SEED + 17)
+    grads = torch.from_numpy(
+        (rng.randn(ids.numel(), D) * 1e-3).astype(np.float32)).to(DEVICE)
+    u_dd, g_dd = fu.dedup_row_grads(
+        ids, grads, torch.ones_like(ids, dtype=torch.bool), R)
+    report(check_rowwise(fk, W, M, u_dd, g_dd, B4R_EMB_LR, "BERT4Rec"),
+           " at BERT4Rec's shape")
 
 
 def gather_bound(N: int, distinct: int, D: int) -> dict:
@@ -1286,37 +1361,44 @@ def main() -> int:
         elif optim is not EmbOptimType.EXACT_SGD:
             results.update(check_moment_kernels(dmp, fk))
         del dmp
-    writes = [write_step(EmbOptimType[name])
-              for name in WRITE_KERNELS]
+    routes = [route_step(*r) for r in ROUTE_STEPS]
     for optim in EmbOptimType:
         if optim is not EmbOptimType.SGD:  # SGD is EXACT_SGD's update
             check_train_against_cpu(optim)
 
-    # BERT4Rec: serving and training through the sharded EC (K8), K8 held
-    # at the path's shape and a bytes-bound one, then the gradients of the
-    # unsharded EBC and EC (K1's and K8's autograd Functions)
+    # BERT4Rec: serving and training through the sharded EC (K8, K4), K4
+    # held at the path's shape, K8 at the path's shape and a bytes-bound
+    # one, then the gradients of the unsharded EBC and EC (K1's and K8's
+    # autograd Functions)
     seqs = b4r_sequences(np.random.RandomState(SEED + 9))
     b4r_served = b4r_serve(seqs)
     b4r_trained = b4r_train(seqs)
-    k8 = check_gather_kernel(b4r_trained.pop("dmp"),
-                             b4r_trained["batch_ids"])
+    b4r_dmp = b4r_trained.pop("dmp")
+    check_b4r_rowwise(fk, b4r_dmp, b4r_trained["batch_ids"])
+    k8 = check_gather_kernel(b4r_dmp, b4r_trained["batch_ids"])
+    del b4r_dmp
     results["K8"] = {**{k: v for k, v in k8["path"].items()
                         if k != "call_ms"},
                      "max_abs_err": max(k8["path"]["max_abs_err"],
                                         k8["big"]["max_abs_err"])}
     check_backward()
 
-    launches = {"K1": served_launches, "K2": sum(w["K2"] for w in writes),
-                "K8": b4r_served["launches"] + b4r_trained["launches"]["K8"]}
-    for name, ks in STEP_KERNELS.items():
-        launches.update({k: trained[name]["launches"][k] for k in ks})
-    log(f"launches on the paths: K1 serving, K3 EXACT_SGD training, K4 and "
-        f"K5 ROWWISE_ADAGRAD training, K6 ADAGRAD training, K7 ADAM "
-        f"training, K2 the three w_impl=write steps, K8 BERT4Rec serving "
-        f"({b4r_served['launches']}) and training "
-        f"({b4r_trained['launches']['K8']}; with K4 and K5 "
-        f"{b4r_trained['launches']['K4']} and "
-        f"{b4r_trained['launches']['K5']}): {launches}")
+    launches = {k: trained[name]["launches"][k]
+                for name, ks in STEP_KERNELS.items() for k in ks}
+    launches["K4"] += b4r_trained["launches"]["K4"]
+    launches.update(
+        K1=served_launches, K2=sum(r["K2"] for r in routes),
+        K5=sum(r["K5"] for r in routes),
+        K8=b4r_served["launches"] + b4r_trained["launches"]["K8"])
+    log(f"launches on the paths: K1 serving, K3 EXACT_SGD training, K4 "
+        f"ROWWISE_ADAGRAD training of the DLRM "
+        f"({trained['ROWWISE_ADAGRAD']['launches']['K4']}) and BERT4Rec "
+        f"({b4r_trained['launches']['K4']}), K6 ADAGRAD training, K7 ADAM "
+        f"training, K2 the three w_impl=write steps, K5 ROWWISE_ADAGRAD's "
+        f"w_impl=write step, K8 BERT4Rec serving ({b4r_served['launches']}) "
+        f"and training ({b4r_trained['launches']['K8']}); K4's scaled RMW "
+        f"{sum(r[SCALED] for r in routes)} in the mom_impl=xla step: "
+        f"{launches}")
     log(card["smi"])
     log(json.dumps({"kernels": [{
         "name": KERNELS[k][0],

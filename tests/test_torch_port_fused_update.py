@@ -39,16 +39,16 @@ def _t(a):
     return torch.as_tensor(np.array(a))
 
 
-def _weights(seed=0):
-    return np.random.RandomState(seed).randn(R, D).astype(np.float32)
+def _weights(seed=0, dim=D):
+    return np.random.RandomState(seed).randn(R, dim).astype(np.float32)
 
 
-def _raw_batch(n=300, seed=1):
+def _raw_batch(n=300, seed=1, dim=D):
     """Duplicate-rich ids with invalid slots, per-token gradients."""
     rng = np.random.RandomState(seed)
     ids = rng.randint(0, R, size=n).astype(np.int32)
     ids[: n // 4] = rng.randint(0, 20, size=n // 4)  # hot rows repeat
-    grads = rng.randn(n, D).astype(np.float32)
+    grads = rng.randn(n, dim).astype(np.float32)
     valid = rng.rand(n) > 0.2
     return ids, grads, valid
 
@@ -92,28 +92,107 @@ def test_k3_fused_update_sgd_matches_pallas(wd):
     np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("w_impl", ["rmw", "write"])
-@pytest.mark.parametrize("stream", [False, True])
-def test_k4_rowwise_adagrad_matches_pallas(stream, w_impl):
-    ids, grads, valid = _raw_batch()
+def _lane_order_mean_sq(g):
+    """The fused kernel's g_sq in numpy float32, lane by lane: lane l sums
+    ((x*x + y*y) + z*z) + w*w of float4 c * 32 + l over the 128-column
+    chunks c in order, a xor butterfly over 16, 8, 4, 2, 1 combines the 32
+    lanes, and the total is divided by D."""
+    N, dim = g.shape
+    part = np.zeros((N, 32), np.float32)
+    for c in range(-(-dim // 128)):
+        for lane in range(32):
+            k = (c * 32 + lane) * 4
+            if k < dim:
+                x, y, z, w = (g[:, k + i] for i in range(4))
+                part[:, lane] += ((x * x + y * y) + z * z) + w * w
+    for off in (16, 8, 4, 2, 1):
+        part = part + part[:, np.arange(32) ^ off]
+    assert (part == part[:, :1]).all()  # every lane holds the same total
+    return part[:, 0] / np.float32(dim)
+
+
+@pytest.mark.parametrize("dim", [64, 128, 256])
+def test_row_mean_sq_sums_in_the_kernels_order(dim):
+    rng = np.random.RandomState(12)
+    g = (rng.randn(40, dim) * np.exp(rng.randn(40, 1) * 3)).astype(np.float32)
+    out = fk.row_mean_sq(_t(g))
+    assert out.dtype == torch.float32 and out.shape == (40,)
+    np.testing.assert_array_equal(out.numpy(), _lane_order_mean_sq(g))
+    np.testing.assert_allclose(
+        out.numpy(), (g.astype(np.float64) ** 2).mean(axis=1), rtol=1e-6)
+
+
+# (momentum_stream, w_impl, D, weight decay); the first four ids are the
+# routes at D = 128, the rest the default route the fused kernel takes
+K4_CASES = [
+    pytest.param(False, "rmw", D, 0.01, id="False-rmw"),
+    pytest.param(True, "rmw", D, 0.01, id="True-rmw"),
+    pytest.param(False, "write", D, 0.01, id="False-write"),
+    pytest.param(True, "write", D, 0.01, id="True-write"),
+    pytest.param(True, "rmw", 64, 0.0, id="fused-D64-wd0"),
+    pytest.param(True, "rmw", 64, 0.01, id="fused-D64-wd0.01"),
+    pytest.param(True, "rmw", 256, 0.0, id="fused-D256-wd0"),
+    pytest.param(True, "rmw", 256, 0.01, id="fused-D256-wd0.01"),
+]
+
+
+@pytest.mark.parametrize("stream,w_impl,dim,wd", K4_CASES)
+def test_k4_rowwise_adagrad_matches_pallas(stream, w_impl, dim, wd):
+    ids, grads, valid = _raw_batch(dim=dim)
     uids, sums = jfu.dedup_row_grads(
         jnp.asarray(ids), jnp.asarray(grads), jnp.asarray(valid), R)
     uids, sums = np.asarray(uids), np.asarray(sums)
-    w = _weights()
+    w = _weights(dim=dim)
     m = np.random.RandomState(3).rand(R).astype(np.float32)
     ref_w, ref_m = pe.fused_update_rowwise_adagrad(
         jnp.asarray(w), jnp.asarray(m), jnp.asarray(uids), jnp.asarray(sums),
-        LR, weight_decay=0.01, momentum_stream=stream, w_impl=w_impl,
+        LR, weight_decay=wd, momentum_stream=stream, w_impl=w_impl,
         interpret=True)
     before = _unchanged_launches()
     W, M = _t(w), _t(m)
     out_w, out_m = fk.fused_update_rowwise_adagrad(
-        W, M, _t(uids), _t(sums), LR, weight_decay=0.01,
+        W, M, _t(uids), _t(sums), LR, weight_decay=wd,
         momentum_stream=stream, w_impl=w_impl)
     assert out_w is W and out_m is M and fk.LAUNCHES == before
     np.testing.assert_allclose(out_w.numpy(), np.asarray(ref_w), rtol=1e-5,
                                atol=1e-6)
     np.testing.assert_allclose(out_m.numpy(), np.asarray(ref_m), rtol=1e-6)
+
+
+def test_fused_slots_per_warp():
+    """One slot per warp at BERT4Rec's training shape, two at the DLRM's,
+    never more than a warp's 32 lanes."""
+    got = {n: fk.fused_slots_per_warp(n)
+           for n in (1, 2048, 65535, 65536, 212_992, 262_144, 2**31 - 1)}
+    assert got == {1: 1, 2048: 1, 65535: 1, 65536: 2, 212_992: 2,
+                   262_144: 4, 2**31 - 1: 32}
+
+
+@pytest.mark.parametrize("wd", [0.0, 0.01])
+def test_k4_routes_agree_on_momentum(wd):
+    """Every route sums g_sq in row_mean_sq's order, so the four routes
+    (K5 or torch index ops x scaled RMW or K2) leave the same momentum bit
+    for bit; the rows agree bit for bit between the two row writes, and
+    within an ulp of the scale between the two momentum routes (lr * inv
+    against -lr / (...), as JAX's two routes round)."""
+    ids, grads, valid = _raw_batch(seed=13)
+    uids, sums = tfu.dedup_row_grads(_t(ids), _t(grads), _t(valid), R)
+    w = _weights(seed=14)
+    m = np.random.RandomState(15).rand(R).astype(np.float32)
+    out = {}
+    for stream in (True, False):
+        for w_impl in ("rmw", "write"):
+            W, M = _t(w), _t(m)
+            fk.fused_update_rowwise_adagrad(
+                W, M, uids, sums, LR, weight_decay=wd,
+                momentum_stream=stream, w_impl=w_impl)
+            out[stream, w_impl] = (W.numpy(), M.numpy())
+    ref_w, ref_m = out[True, "rmw"]
+    assert not np.array_equal(ref_m, m)
+    for (stream, w_impl), (got_w, got_m) in out.items():
+        np.testing.assert_array_equal(got_m, ref_m)
+        np.testing.assert_array_equal(got_w, out[stream, "rmw"][0])
+        np.testing.assert_allclose(got_w, ref_w, rtol=1e-6, atol=1e-7)
 
 
 @pytest.mark.parametrize("dups", [False, True])

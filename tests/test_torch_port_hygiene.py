@@ -39,7 +39,7 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "torchrec_tpu")
 PORT_FILES = sorted((ROOT / "torchrec_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "profile_serving.py",
-    ROOT / "profile_train.py",
+    ROOT / "profile_train.py", ROOT / "profile_rowwise.py",
 ]
 
 

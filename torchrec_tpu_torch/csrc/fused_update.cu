@@ -10,6 +10,10 @@
 //   K7 fused_update_adam     g += wd * W; m1 = b1 * m1 + (1 - b1) * g;
 //                            m2 = b2 * m2 + (1 - b2) * g * g;
 //                            W -= lr * (m1 * bc1) / (sqrt(m2 * bc2) + eps)
+//   K4 + K5 fused rowwise Adagrad, the default route: g += wd * W;
+//                            m[u] += mean(g * g); W += lr * -1 /
+//                            (sqrt(m[u]) + eps) * g, in one pass (its own
+//                            note is at rowwise_adagrad_kernel below)
 //
 // each for every slot t whose id is a real row (0 <= id < R). Slots whose id
 // is a sentinel (2^31 - 1 from run_total_row_grads, R + pos from
@@ -19,7 +23,8 @@
 // Replaces, in torchrec_tpu/ops/pallas_embedding.py:
 //   K2 `scatter_rows_write` / `_scatter_write_kernel` (:154-227)
 //   K3 `fused_update_sgd` / `_sgd_kernel` (:457-475, :577-614)
-//   K4 the scaled RMW of `fused_update_rowwise_adagrad`,
+//   K4 `fused_update_rowwise_adagrad` (:617-734) with K5 on its default
+//      route (rowwise_adagrad_kernel); on its other routes, its scaled RMW
 //      `_scaled_update_kernel` (:477-500, :706-733)
 //   K5 `rowwise_momentum_stream` / `_rowwise_mom_stream_kernel`
 //      (:737-1030)
@@ -238,6 +243,178 @@ __global__ void rowwise_momentum_kernel(float* __restrict__ m,
   for (int64_t r = p; r < q; ++r) inv[r] = v;
 }
 
+// K4 + K5 fused: the whole rowwise-Adagrad update in one pass.
+//
+// Replaces, on the route `momentum_stream=True, w_impl="rmw"` (what "auto"
+// picks), pallas_embedding.py's `fused_update_rowwise_adagrad` (:617-734)
+// together with the `rowwise_momentum_stream` kernel it calls (:737-1030).
+// The TPU runs them as two kernels with XLA ops between them because a
+// scalar-per-row DMA breaks Mosaic's (8,128) HBM tiling, so the momentum
+// word cannot ride the row wave (:633-638). Here the warp that holds a
+// row's gradient and weights reads and writes the row's 4-byte momentum
+// word in the same pass, and nothing lands in device memory between the
+// steps: no g_sq, inverse-scale or scale buffers. For every slot t whose id
+// u = uids[t] is a real row:
+//
+//   g'    = wd != 0 ? g[t] + wd * W[u] : g[t]   (FBGEMM's fold, :647-654)
+//   g_sq  = mean over D of g' * g'              (in the fixed order below)
+//   m[u]  = m[u] + g_sq
+//   scale = lr * (-1 / (sqrt(m[u]) + eps))      (K5's rounding, then :676)
+//   W[u]  = W[u] + scale * g'                   (K4's rounding)
+//
+// Sentinel slots (R + pos from dedup_row_grads) are skipped before any read:
+// their g is never read and they never index m.
+//
+// Bound: bytes. Per real slot it reads g's and W's rows, writes W's row and
+// reads and writes one momentum word; every slot's id is read once. At the
+// DLRM shape (N 212,992 slots, 204,544 real, D 128) that is 316,667,904 B,
+// 0.0945 ms at 3.35 TB/s, against about 7 flops per element. A row is used
+// once and there is no product, so no wgmma, TMA or shared-memory staging:
+// the only lever is bytes in flight. What the design does:
+//   * one warp takes `slots` (at most 32) consecutive slots; lane i loads
+//     slot i's id, and a ballot of the real lanes lets the warp walk the
+//     real slots only, so a run of sentinels costs no iterations. The walk
+//     is a chain of memory latencies, one per real slot, so the caller
+//     gives each warp fewer slots when N is small (see the wrapper);
+//   * the 32 lanes hold a row, one 16-byte float4 per lane for each 512-byte
+//     chunk, kChunks = ceil(D / 128) chunks in registers (at D = 64 half the
+//     lanes idle, which keeps one summation order for every D);
+//   * the next real slot's g and W chunks and its momentum word are loaded
+//     before the current slot is reduced and stored, so two rows are in
+//     flight per warp across the reduction's latency. This relies on the
+//     real ids being unique (dedup_row_grads' output is sorted and unique):
+//     the row loaded ahead is never the row being written;
+//   * g_sq: lane l's partial is the running sum, over the chunks c in
+//     ascending order, of ((x*x + y*y) + z*z) + w*w of float4 c * 32 + l
+//     (lanes past D add nothing); then a xor butterfly of __shfl_xor_sync
+//     over 16, 8, 4, 2, 1, after which every lane holds bitwise the same
+//     total (a + b == b + a in IEEE arithmetic), and no shared memory is
+//     used; then one rounded division by D. row_mean_sq in
+//     ops/fused_update_kernels.py spells out the same order in torch ops;
+//   * lane 0 reads and writes m[u] and broadcasts the scale.
+template <int kChunks>
+__device__ __forceinline__ void load_slot(
+    const float* __restrict__ w, const float* __restrict__ m,
+    const float* __restrict__ g, int32_t id, int64_t slot, int64_t D,
+    int lane, float4 (&gv)[kChunks], float4 (&wv)[kChunks], float& mv) {
+  const float4* grow = reinterpret_cast<const float4*>(g + slot * D);
+  const float4* wrow =
+      reinterpret_cast<const float4*>(w + static_cast<int64_t>(id) * D);
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) {
+    const int64_t col = c * 32 + lane;
+    if (col < D / 4) {
+      gv[c] = __ldg(grow + col);
+      wv[c] = wrow[col];
+    }
+  }
+  if (lane == 0) mv = m[id];
+}
+
+template <int kChunks>
+__global__ void rowwise_adagrad_kernel(float* __restrict__ w,
+                                       float* __restrict__ m,
+                                       const int32_t* __restrict__ uids,
+                                       const float* __restrict__ g, int64_t R,
+                                       int64_t D, int64_t N, int slots,
+                                       float lr, float eps, float wd) {
+  const int lane = threadIdx.x & 31;
+  const int64_t warp =
+      static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int64_t base = warp * slots;
+  if (base >= N) return;  // whole warp leaves together
+  const int n = static_cast<int>(N - base < slots ? N - base : slots);
+  const int32_t my_id = lane < n ? uids[base + lane] : -1;
+  unsigned todo = __ballot_sync(kFullMask, is_real(my_id, R));
+  if (todo == 0) return;  // the same for the whole warp
+  const int64_t cols = D / 4;
+  float4 gv[kChunks], wv[kChunks], gn[kChunks], wn[kChunks];
+  float mv = 0.f, mn = 0.f;
+  int j = __ffs(todo) - 1;
+  todo &= todo - 1;
+  int32_t id = __shfl_sync(kFullMask, my_id, j);
+  load_slot<kChunks>(w, m, g, id, base + j, D, lane, gv, wv, mv);
+  while (true) {
+    // the next real slot's loads go out before this slot's reduction
+    const bool more = todo != 0;  // the same for the whole warp
+    int32_t next = -1;
+    if (more) {
+      const int jn = __ffs(todo) - 1;
+      todo &= todo - 1;
+      next = __shfl_sync(kFullMask, my_id, jn);
+      load_slot<kChunks>(w, m, g, next, base + jn, D, lane, gn, wn, mn);
+    }
+    float part = 0.f;
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      if (c * 32 + lane < cols) {
+        float4 x = gv[c];
+        if (wd != 0.f) {
+          x.x = __fadd_rn(x.x, __fmul_rn(wd, wv[c].x));
+          x.y = __fadd_rn(x.y, __fmul_rn(wd, wv[c].y));
+          x.z = __fadd_rn(x.z, __fmul_rn(wd, wv[c].z));
+          x.w = __fadd_rn(x.w, __fmul_rn(wd, wv[c].w));
+          gv[c] = x;
+        }
+        const float sq = __fadd_rn(
+            __fadd_rn(__fadd_rn(__fmul_rn(x.x, x.x), __fmul_rn(x.y, x.y)),
+                      __fmul_rn(x.z, x.z)),
+            __fmul_rn(x.w, x.w));
+        part = __fadd_rn(part, sq);
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      part = __fadd_rn(part, __shfl_xor_sync(kFullMask, part, off));
+    float s = 0.f;
+    if (lane == 0) {
+      const float m_new =
+          __fadd_rn(mv, __fdiv_rn(part, static_cast<float>(D)));
+      m[id] = m_new;
+      s = __fmul_rn(lr,
+                    __fdiv_rn(-1.0f, __fadd_rn(__fsqrt_rn(m_new), eps)));
+    }
+    s = __shfl_sync(kFullMask, s, 0);
+    float4* wrow = reinterpret_cast<float4*>(w + static_cast<int64_t>(id) * D);
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      const int64_t col = c * 32 + lane;
+      if (col < cols) {
+        const float4 x = gv[c];
+        float4 v = wv[c];
+        v.x = __fadd_rn(v.x, __fmul_rn(s, x.x));
+        v.y = __fadd_rn(v.y, __fmul_rn(s, x.y));
+        v.z = __fadd_rn(v.z, __fmul_rn(s, x.z));
+        v.w = __fadd_rn(v.w, __fmul_rn(s, x.w));
+        wrow[col] = v;
+      }
+    }
+    if (!more) break;
+    id = next;
+    mv = mn;
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      gv[c] = gn[c];
+      wv[c] = wn[c];
+    }
+  }
+}
+
+template <int kChunks>
+int launch_rowwise_adagrad(void* w, void* m, const void* uids, const void* g,
+                           int64_t R, int64_t D, int64_t N, int slots,
+                           float lr, float eps, float wd, void* stream) {
+  const int64_t warps = (N + slots - 1) / slots;
+  const dim3 grid(
+      static_cast<unsigned>((warps + kWarpsPerBlock - 1) / kWarpsPerBlock));
+  rowwise_adagrad_kernel<kChunks><<<grid, 32 * kWarpsPerBlock, 0,
+                                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(w), static_cast<float*>(m),
+      static_cast<const int32_t*>(uids), static_cast<const float*>(g), R, D,
+      N, slots, lr, eps, wd);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <RowOp kOp>
 int launch_rows(void* w, const void* uids, const void* src, const void* scale,
                 int64_t R, int64_t D, int64_t N, float lr, float wd,
@@ -304,6 +481,31 @@ int trt_rowwise_momentum_f32(void* m, const void* uids, const void* g_sq,
       static_cast<float*>(m), static_cast<const int32_t*>(uids),
       static_cast<const float*>(g_sq), static_cast<float*>(inv), R, N, eps);
   return static_cast<int>(cudaGetLastError());
+}
+
+// D <= 512 (at most four 512-byte chunks per row in registers);
+// 1 <= slots <= 32 slots per warp
+int trt_fused_rowwise_adagrad_f32(void* w, void* m, const void* uids,
+                                  const void* g, int64_t R, int64_t D,
+                                  int64_t N, int slots, float lr, float eps,
+                                  float wd, void* stream) {
+  if (slots < 1 || slots > 32) return static_cast<int>(cudaErrorInvalidValue);
+  switch ((D + 127) / 128) {
+    case 1:
+      return launch_rowwise_adagrad<1>(w, m, uids, g, R, D, N, slots, lr,
+                                       eps, wd, stream);
+    case 2:
+      return launch_rowwise_adagrad<2>(w, m, uids, g, R, D, N, slots, lr,
+                                       eps, wd, stream);
+    case 3:
+      return launch_rowwise_adagrad<3>(w, m, uids, g, R, D, N, slots, lr,
+                                       eps, wd, stream);
+    case 4:
+      return launch_rowwise_adagrad<4>(w, m, uids, g, R, D, N, slots, lr,
+                                       eps, wd, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 int trt_fused_update_adagrad_f32(void* w, void* m, const void* uids,

@@ -115,9 +115,10 @@ def _w_impl(w_impl: str) -> str:
 
 
 def _mom_stream(mom_impl: str) -> bool:
-    """Rowwise momentum through K5 ("stream", one launch that moves each
-    touched momentum word once) or torch index ops ("xla": a gather and a
-    scatter-add). "auto" is "stream"."""
+    """Rowwise momentum in the same pass as the rows ("stream": with
+    w_impl "rmw" one fused kernel does the whole update, with "write" K5
+    moves each touched momentum word once) or through torch index ops
+    ("xla": a gather and a scatter-add). "auto" is "stream"."""
     if mom_impl not in ("auto", "stream", "xla"):
         raise ValueError(f"mom_impl must be 'auto', 'stream' or 'xla', got "
                          f"{mom_impl!r}")

@@ -6,17 +6,18 @@ with the same names and arguments minus the TPU's wave sizes (`T`, `TB`,
 
 * K2 `scatter_rows_write`  (:189, `_scatter_write_kernel` :154)
 * K3 `fused_update_sgd`    (:577, `_sgd_kernel` :457)
-* K4 `fused_update_rowwise_adagrad` (:617; its scaled RMW
-  `_scaled_update_kernel` :477 is the kernel)
+* K4 `fused_update_rowwise_adagrad` (:617): on its default route one
+  kernel that also does K5's work (`rowwise_adagrad_kernel`); on its other
+  routes its scaled RMW (`_scaled_update_kernel` :477, `scaled_row_update`)
 * K5 `rowwise_momentum_stream` (:902, `_rowwise_mom_stream_kernel` :737)
 * K6 `fused_update_adagrad` (:1033, `_adagrad_kernel` :503)
 * K7 `fused_update_adam`    (:1089, `_adam_kernel` :531)
 
-The six kernels live in csrc/fused_update.cu, one library built with nvcc
-for sm_90a at first use and bound with ctypes (ops/cuda_build.py). All six
-are bound by bytes: scattered 512-byte rows (K2-K4 move two or three per
-real slot, K6 five, K7 seven) or 4-byte momentum words (K5), with a few
-flops per element; the source says how each one moves its bytes.
+The kernels live in csrc/fused_update.cu, one library built with nvcc for
+sm_90a at first use and bound with ctypes (ops/cuda_build.py). All are
+bound by bytes: scattered 512-byte rows (K2-K4 move two or three per real
+slot, K6 five, K7 seven) or 4-byte momentum words (K5), with a few flops
+per element; the source says how each one moves its bytes.
 
 The JAX functions return new arrays; these update `weights` and the
 momenta IN PLACE and return the same tensors, so callers port one to one.
@@ -51,6 +52,9 @@ def _bind(lib: ctypes.CDLL) -> None:
             [_P, _P, _P, _I64, _I64, _I64, _F32, _F32, _P],
         "trt_scaled_row_update_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _P],
         "trt_rowwise_momentum_f32": [_P, _P, _P, _P, _I64, _I64, _F32, _P],
+        "trt_fused_rowwise_adagrad_f32":
+            [_P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_int, _F32, _F32, _F32,
+             _P],
         "trt_fused_update_adagrad_f32":
             [_P, _P, _P, _P, _I64, _I64, _I64, _F32, _F32, _F32, _P],
         "trt_fused_update_adam_f32":
@@ -68,7 +72,8 @@ LIBRARY = CudaLibrary("fused_update.cu", _bind)
 LAUNCHES: Dict[str, int] = {
     "scatter_rows_write": 0,
     "fused_update_sgd": 0,
-    "fused_update_rowwise_adagrad": 0,
+    "fused_update_rowwise_adagrad": 0,  # the fused K4 + K5 kernel
+    "scaled_row_update": 0,  # K4's scaled RMW, on the other routes
     "rowwise_momentum_stream": 0,
     "fused_update_adagrad": 0,
     "fused_update_adam": 0,
@@ -231,8 +236,9 @@ def scaled_row_update_reference(weights: torch.Tensor, uids: torch.Tensor,
 
 def scaled_row_update(weights: torch.Tensor, uids: torch.Tensor,
                       g: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """K4's kernel: W[id] += scale[t] * g[t] in place for unique real ids.
-    Counted as `fused_update_rowwise_adagrad`, whose row write it is."""
+    """K4's scaled RMW: W[id] += scale[t] * g[t] in place for unique real
+    ids; the row write of the rowwise routes the fused kernel does not
+    take (`mom_impl="xla"`, D > FUSED_MAX_D)."""
     dev = _check_rows(weights, uids, g, "g")
     _check("scale", scale, torch.float32, 1, uids.shape[0])
     _same_device(weights, scale)
@@ -242,7 +248,7 @@ def scaled_row_update(weights: torch.Tensor, uids: torch.Tensor,
     if N == 0 or D == 0:
         return weights
     _vector_rows(weights, g)
-    _launch("fused_update_rowwise_adagrad", dev, lambda lib, s:
+    _launch("scaled_row_update", dev, lambda lib, s:
             lib.trt_scaled_row_update_f32(
                 weights.data_ptr(), uids.data_ptr(), g.data_ptr(),
                 scale.data_ptr(), R, D, N, s))
@@ -302,20 +308,60 @@ def rowwise_momentum_stream(
 
 # -- K4 ------------------------------------------------------------------------
 
+# the widest row the fused kernel holds in registers (four 512-byte chunks)
+FUSED_MAX_D = 512
+
+
+def fused_slots_per_warp(N: int) -> int:
+    """Slots each warp of the fused kernel walks, one after another: the
+    largest power of two up to 32 at most sqrt(N / 16384). A warp's walk
+    is a chain of memory latencies, one per real slot, which ends the
+    launch when N is small; every warp costs its scheduling, which adds
+    up when N is large. On an H100 this picks the fastest of 1-32 at
+    BERT4Rec's training shape (N 2,048: 1 slot, 1.9 us against 18 us at
+    32) and the DLRM's (N 212,992: 2 slots, 0.114 ms against 0.127 ms at
+    32); see PERF.md."""
+    slots = 1
+    while slots < 32 and (2 * slots) ** 2 * 16384 <= N:
+        slots *= 2
+    return slots
+
+
+def row_mean_sq(g: torch.Tensor) -> torch.Tensor:
+    """mean(g * g, dim=1) of g [N, D], summed in the fused kernel's order
+    (csrc/fused_update.cu, rowwise_adagrad_kernel), so that every route of
+    the rowwise update rounds g_sq alike: lane l of a warp takes float4
+    c * 32 + l of each 128-column chunk c, sums ((x² + y²) + z²) + w² and
+    adds the chunks in ascending order; the 32 lanes' partials are then
+    halved pairwise (lanes l and l + 16, then l + 8, ...) and the total is
+    divided by D once."""
+    N, D = g.shape
+    chunks = -(-D // 128)
+    sq = g * g
+    if D % 128:
+        sq = torch.nn.functional.pad(sq, (0, chunks * 128 - D))
+    a = sq.view(N, chunks, 32, 4)
+    a = ((a[..., 0] + a[..., 1]) + a[..., 2]) + a[..., 3]  # [N, chunks, 32]
+    part = a[:, 0]
+    for c in range(1, chunks):
+        part = part + a[:, c]
+    for half in (16, 8, 4, 2, 1):
+        part = part[:, :half] + part[:, half:2 * half]
+    total = part[:, 0]
+    return total / torch.full_like(total, D)  # one rounded division
+
 
 def _rowwise_adagrad(weights, momentum, uids, g, lr, eps, weight_decay,
                      momentum_stream, w_impl, mom_fn, scaled_fn, write_fn):
     """The logic of pallas_embedding.fused_update_rowwise_adagrad
     (:640-734), over the given K5 / K4 / K2 callables."""
-    if w_impl not in ("rmw", "write"):
-        raise ValueError(f"w_impl must be 'rmw' or 'write', got {w_impl!r}")
     R = weights.shape[0]
     valid = uids < R  # dedup sentinels are R + pos, never negative
     ids = uids.clamp(max=R - 1).long()
     # L2 weight decay folds into g before the accumulator (FBGEMM)
     if weight_decay:
         g = g + weight_decay * weights[ids]
-    g_sq = (g * g).mean(dim=1) * valid.to(torch.float32)
+    g_sq = row_mean_sq(g) * valid.to(torch.float32)
     if momentum_stream:
         _, inv, _ = mom_fn(momentum, uids, g_sq, eps)
         scale = lr * inv
@@ -331,10 +377,13 @@ def _rowwise_adagrad(weights, momentum, uids, g, lr, eps, weight_decay,
     return weights, momentum
 
 
-def _check_adagrad(weights, momentum, uids, g) -> None:
-    _check_rows(weights, uids, g, "g")
+def _check_adagrad(weights, momentum, uids, g, w_impl) -> torch.device:
+    if w_impl not in ("rmw", "write"):
+        raise ValueError(f"w_impl must be 'rmw' or 'write', got {w_impl!r}")
+    dev = _check_rows(weights, uids, g, "g")
     _check("momentum", momentum, torch.float32, 1, weights.shape[0])
     _same_device(weights, momentum)
+    return dev
 
 
 def fused_update_rowwise_adagrad_reference(
@@ -342,13 +391,31 @@ def fused_update_rowwise_adagrad_reference(
     momentum_stream=False, w_impl="rmw",
 ):
     """Plain version of `fused_update_rowwise_adagrad`, on the plain
-    versions of K5, K4 and K2."""
-    _check_adagrad(weights, momentum, uids, g)
+    versions of K5, K4's scaled RMW and K2; on the default route
+    (`momentum_stream=True`, `w_impl="rmw"`) the fused kernel equals it
+    bit for bit."""
+    _check_adagrad(weights, momentum, uids, g, w_impl)
     return _rowwise_adagrad(
         weights, momentum, uids, g, float(lr), float(eps),
         float(weight_decay), momentum_stream, w_impl,
         rowwise_momentum_stream_reference, scaled_row_update_reference,
         scatter_rows_write_reference)
+
+
+def rowwise_adagrad_unfused(
+    weights, momentum, uids, g, lr, eps=1.0e-8, weight_decay=0.0,
+    momentum_stream=True, w_impl="rmw",
+):
+    """The rowwise update as separate launches: torch ops for the weight
+    decay fold, g_sq and the scale, K5 (or torch index ops) for the
+    momentum, the scaled RMW (or a gather and K2) for the rows. The
+    wrapper takes it for CUDA tensors on every route but the fused one;
+    on the default route it is what the fused kernel replaced."""
+    _check_adagrad(weights, momentum, uids, g, w_impl)
+    return _rowwise_adagrad(
+        weights, momentum, uids, g, float(lr), float(eps),
+        float(weight_decay), momentum_stream, w_impl,
+        rowwise_momentum_stream, scaled_row_update, scatter_rows_write)
 
 
 def fused_update_rowwise_adagrad(
@@ -362,16 +429,31 @@ def fused_update_rowwise_adagrad(
     weights [R, D] f32 and momentum [R] f32 (mean(g^2) per row) are
     updated in place and returned; uids [N] int32 SORTED unique
     (`dedup_row_grads` output, sentinels R + pos); g [N, D] f32 total
-    row gradients. Weight decay folds into g; the momentum step runs
-    through K5 (`momentum_stream=True`) or torch index ops; the rows are
-    written by the scaled-RMW kernel (`w_impl="rmw"`) or gathered, scaled
-    and written by K2 (`"write"`).
+    row gradients. Weight decay folds into g before g_sq. On the default
+    route (`momentum_stream=True`, `w_impl="rmw"`, D <= FUSED_MAX_D) one
+    kernel does the whole update, K5's momentum step included. Otherwise
+    the momentum step runs through K5 (`momentum_stream=True`) or torch
+    index ops, and the rows are written by the scaled RMW (`"rmw"`) or
+    gathered, scaled and written by K2 (`"write"`).
     """
-    _check_adagrad(weights, momentum, uids, g)
-    return _rowwise_adagrad(
-        weights, momentum, uids, g, float(lr), float(eps),
-        float(weight_decay), momentum_stream, w_impl,
-        rowwise_momentum_stream, scaled_row_update, scatter_rows_write)
+    dev = _check_adagrad(weights, momentum, uids, g, w_impl)
+    lr, eps, wd = float(lr), float(eps), float(weight_decay)
+    if dev.type == "cpu":
+        return fused_update_rowwise_adagrad_reference(
+            weights, momentum, uids, g, lr, eps, wd, momentum_stream, w_impl)
+    (R, D), N = weights.shape, uids.shape[0]
+    if not momentum_stream or w_impl != "rmw" or D > FUSED_MAX_D:
+        return rowwise_adagrad_unfused(weights, momentum, uids, g, lr, eps,
+                                       wd, momentum_stream, w_impl)
+    if N == 0 or D == 0:
+        return weights, momentum
+    _vector_rows(weights, g)
+    slots = fused_slots_per_warp(N)
+    _launch("fused_update_rowwise_adagrad", dev, lambda lib, s:
+            lib.trt_fused_rowwise_adagrad_f32(
+                weights.data_ptr(), momentum.data_ptr(), uids.data_ptr(),
+                g.data_ptr(), R, D, N, slots, lr, eps, wd, s))
+    return weights, momentum
 
 
 # -- K6 and K7 -----------------------------------------------------------------
