@@ -9,7 +9,7 @@ Phases, each failing the run with a non-zero exit when it fails:
 1. Identify the card (name, count, power limit); TF32 is switched off.
 2. Build the kernels with nvcc for sm_90a, one nvcc per source, started
    together: K1 (csrc/tbe_lookup.cu), K2-K7 (csrc/fused_update.cu) and K8
-   (csrc/gather_rows.cu).
+   with the routed gather (csrc/gather_rows.cu).
 3. Serve the DLRM that bench.py and bench_config.py describe, at full
    width, through the port's DistributedModelParallel.make_eval_fn:
    26 fp32 tables of 100,000 x 128 (ROW_WISE on one device), dense arch
@@ -57,13 +57,17 @@ Phases, each failing the run with a non-zero exit when it fails:
    blocks, dropout 0) through make_eval_fn, its item table ROW_WISE in a
    ShardedEmbeddingCollection: 3 requests at B=32 (the example's batch)
    and 3 at B=1024 (a larger ranking request), masked as make_eval_batch
-   masks them. Each request must launch K8 once and nothing else of the
-   port; the logits [B, 64, 3708] must be finite, and one B=32 request's
-   must equal the CPU run's (rtol 1e-4, atol 1e-5).
+   masks them. Each request must launch the routed gather (K8 redesigned:
+   route, owned mask and row gather in one kernel) once and nothing else
+   of the port, the plain K8 never; the logits [B, 64, 3708] must be
+   finite, and one B=32 request's must equal the CPU run's (rtol 1e-4,
+   atol 1e-5).
 9. Train it through make_train_step (ROWWISE_ADAGRAD at 0.01, dense
    torch.optim.Adam at 1e-3): 3 warm-up and 10 timed steps at B=32 on
-   batches masked as make_train_batch masks them, each launching K8 and
-   the fused K4 once and nothing else. Then copy the card DMP to a CPU DMP, the
+   batches masked as make_train_batch masks them, each launching the
+   routed gather once in the forward, its route-only mode once in the
+   update and the fused K4 once, and nothing else (the plain K8 never).
+   Then copy the card DMP to a CPU DMP, the
    dense Adam state included (nonzero moments), and take 2 steps on both:
    losses, dense parameters and the touched table rows and momenta agree
    (rtol 1e-4, atol 1e-5), untouched rows are unchanged on both. The
@@ -73,10 +77,20 @@ Phases, each failing the run with a non-zero exit when it fails:
 10. Hold the fused K4 (weight decay 0 and 0.01), K5 and the scaled RMW
    against their plain versions, bit-exact, on the trained [3712, 64]
    shard and momentum with one batch's dedup output, and time them as in
-   5. Hold K8 against its plain version and torch.index_select,
-   bit-exact, on the same shard with the batch's 2,048 ids and at a
-   bytes-bound shape (W 2,600,064 x 128, 212,992 ids with negative and
-   out-of-range ones), and time all three.
+   5. Hold the routed gather against its plain version by value (a masked
+   token is +0.0 on both) on the same shard: the B=32 path's 2,048
+   tokens, a B=1024 request's 65,536, a batch of three features with
+   negative, out-of-range and padded ids, a rank that owns none of them
+   (all zeros) and a width of 63 (the scalar path); its route-only mode
+   bit-exact against the strategy's `_route`. Time it at both path
+   shapes in turns with the composition it replaced (the route's torch
+   ops, K8 and the mask multiply), beside its plain version, and each
+   wrapper's host time per call. Hold the plain K8 against its plain
+   version and torch.index_select, bit-exact, at the unsharded EC's
+   shape (2,048 ids of the [3712, 64] shard), at K1's backward's (40,960
+   ids of a 100,000 x 128 table) and at a bytes-bound one (W 2,600,064 x
+   128, 212,992 ids with negative and out-of-range ones), and time all
+   three.
 11. Gradients through the unsharded EmbeddingBagCollection (weighted,
    L=20, SUM and MEAN, D=128) and EmbeddingCollection on the card against
    the CPU: d_W and the per-sample weights' gradient (rtol 1e-5, atol
@@ -147,6 +161,8 @@ B4R_KEY = "model/ec"
 # K8 at a bytes-bound shape: slice 2's packed DLRM shard and one B=8192
 # batch's ids
 K8_ROWS, K8_DIM, K8_IDS = 2_600_064, 128, 212_992
+# K8 in K1's backward as check_backward drives it: B=2048 bags of L=20
+K1_BWD_IDS = 2048 * 20
 
 # kernel -> (wrapper name, source, the Pallas function it replaces)
 KERNELS = {
@@ -168,10 +184,16 @@ KERNELS = {
            "torchrec_tpu/ops/pallas_embedding.py:1089"),
     "K8": ("gather_rows", "torchrec_tpu_torch/csrc/gather_rows.cu",
            "torchrec_tpu/ops/pallas_embedding.py:91"),
+    # K8 redesigned for the sharded sequence path: the route of
+    # torchrec_tpu/parallel/strategies.py:829 and the mask multiply fused in
+    "K8r": ("routed_gather_rows", "torchrec_tpu_torch/csrc/gather_rows.cu",
+            "torchrec_tpu/ops/pallas_embedding.py:91"),
 }
-# launch counters beside the eight kernels': K4's scaled RMW, which the
-# rowwise routes other than the fused one launch
+# launch counters beside the kernels': K4's scaled RMW, which the rowwise
+# routes other than the fused one launch, and the routed gather's
+# route-only mode, which the sharded EC's update launches
 SCALED = "scaled_row_update"
+ROUTE = "route_tokens"
 # the kernels of each optimizer's train step, beside K1 (once each)
 STEP_KERNELS = {"EXACT_SGD": ("K3",), "ROWWISE_ADAGRAD": ("K4",),
                 "ADAGRAD": ("K6",), "ADAM": ("K7",)}
@@ -218,7 +240,7 @@ def build_kernels(libraries) -> None:
 
 def expected(**launches) -> dict:
     """Launches per counter: those given, 0 for every other one."""
-    return {k: launches.get(k, 0) for k in (*KERNELS, SCALED)}
+    return {k: launches.get(k, 0) for k in (*KERNELS, SCALED, ROUTE)}
 
 
 def _counted():
@@ -232,15 +254,17 @@ def _counted():
 def counts() -> dict:
     """Launches per kernel so far."""
     tl, fk, gr = _counted()
-    return {"K1": tl.LAUNCHES, "K8": gr.LAUNCHES, SCALED: fk.LAUNCHES[SCALED],
+    return {"K1": tl.LAUNCHES, "K8": gr.LAUNCHES,
+            "K8r": gr.ROUTED_LAUNCHES, ROUTE: gr.ROUTE_LAUNCHES,
+            SCALED: fk.LAUNCHES[SCALED],
             **{k: fk.LAUNCHES[name] for k, (name, _, _) in KERNELS.items()
-               if k not in ("K1", "K8")}}
+               if k not in ("K1", "K8", "K8r")}}
 
 
 def reset_counts() -> None:
     tl, fk, gr = _counted()
     tl.LAUNCHES = 0
-    gr.LAUNCHES = 0
+    gr.LAUNCHES = gr.ROUTED_LAUNCHES = gr.ROUTE_LAUNCHES = 0
     fk.reset_launches()
 
 
@@ -989,7 +1013,8 @@ def b4r_eval_batch(rng, seqs, batch: int):
 
 
 def b4r_serve(seqs) -> dict:
-    """Requests through make_eval_fn at B=32 and B=1024, K8 once each."""
+    """Requests through make_eval_fn at B=32 and B=1024, the routed
+    gather once each."""
     dmp = make_b4r_dmp(DEVICE).init(SEED)
     eval_fn = dmp.make_eval_fn()
     rng = np.random.RandomState(SEED + 10)
@@ -1010,7 +1035,7 @@ def b4r_serve(seqs) -> dict:
         latencies[batch].append((time.perf_counter() - t0) * 1e3)
         after = counts()
         launched = {k: after[k] - before[k] for k in after}
-        if launched != expected(K8=1):
+        if launched != expected(K8r=1):
             raise AssertionError(f"a B={batch} BERT4Rec request launched "
                                  f"{launched}")
         if (logits.shape != (batch, B4R_LEN, B4R_VOCAB)
@@ -1019,12 +1044,13 @@ def b4r_serve(seqs) -> dict:
                                  f"{tuple(logits.shape)}")
         if batch == B4R_BATCH:
             last = (kjt, labels, logits.cpu())
-    launches = counts()["K8"]
+    launches = counts()["K8r"]
     peak = torch.cuda.max_memory_allocated()
     for batch, ms in latencies.items():
         log(f"bert4rec serve B={batch}: request ms (host clock, H2D + "
             f"forward, synchronized; first includes warm-up) {ms}")
-    log(f"bert4rec serve: {len(requests)} requests, K8 launches {launches}, "
+    log(f"bert4rec serve: {len(requests)} requests, routed gather launches "
+        f"{launches}, "
         f"max_memory_allocated {peak} B")
     fwd = {}
     for batch in (B4R_BATCH, B4R_RANK_BATCH):
@@ -1059,9 +1085,10 @@ def _b4r_state(dmp) -> dict:
 
 
 def b4r_train(seqs) -> dict:
-    """WARMUP_STEPS + TIMED_STEPS train steps at B=32, each launching K8
-    and the fused K4 once; then the card DMP and a CPU copy (dense Adam
-    state included) take CPU_STEPS more steps and must agree."""
+    """WARMUP_STEPS + TIMED_STEPS train steps at B=32, each launching the
+    routed gather, its route-only mode and the fused K4 once; then the
+    card DMP and a CPU copy (dense Adam state included) take CPU_STEPS more
+    steps and must agree."""
     dmp = make_b4r_dmp(DEVICE).init(SEED)
     step = dmp.make_train_step()
     rng = np.random.RandomState(SEED + 11)
@@ -1069,7 +1096,7 @@ def b4r_train(seqs) -> dict:
                for _ in range(WARMUP_STEPS + TIMED_STEPS)]
     batches = [(kjt.to(DEVICE), labels.to(DEVICE))
                for kjt, labels in batches]
-    per_step = expected(K8=1, K4=1)
+    per_step = expected(K8r=1, K4=1, **{ROUTE: 1})
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -1156,7 +1183,7 @@ def b4r_train(seqs) -> dict:
     log("bert4rec train: the other dense parameters match the CPU run")
     return {"dmp": dmp, "launches": launches, "ms": timed,
             "median_ms": median, "seq_per_s": seq_per_s, "peak_bytes": peak,
-            "batch_ids": batches[0][0].values}
+            "batch": batches[0][0], "batch_ids": batches[0][0].values}
 
 
 def check_b4r_rowwise(fk, trained, batch_ids) -> None:
@@ -1219,21 +1246,181 @@ def check_gather(W: torch.Tensor, ids: torch.Tensor, what: str) -> dict:
 
 
 def check_gather_kernel(trained, batch_ids) -> dict:
-    """K8 at the path's shape (the trained [3712, 64] shard, one batch's
-    2,048 ids) and at a bytes-bound one (W 2,600,064 x 128, 212,992 ids
-    including negative and out-of-range ones)."""
+    """The plain K8 at the unsharded EC's shape (one batch's 2,048 ids of
+    the trained [3712, 64] shard), at K1's backward's (40,960 ids of a
+    100,000 x 128 table, as check_backward drives it) and at a bytes-bound
+    one (W 2,600,064 x 128, 212,992 ids including negative and
+    out-of-range ones)."""
     strat = trained.sharded_ebcs[B4R_KEY].strategies[0]
-    path = check_gather(strat.weights[0],
-                        batch_ids.to(DEVICE, torch.int32).contiguous(),
-                        "BERT4Rec path")
+    ec = check_gather(strat.weights[0],
+                      batch_ids.to(DEVICE, torch.int32).contiguous(),
+                      "unsharded EC shape")
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 12)
-    W = torch.rand((K8_ROWS, K8_DIM), device=DEVICE, generator=gen)
     rng = np.random.RandomState(SEED + 13)
+    W = torch.rand((ROWS, DIM), device=DEVICE, generator=gen)
+    ids = torch.from_numpy(rng.randint(0, ROWS, size=K1_BWD_IDS).astype(
+        np.int32)).to(DEVICE)
+    k1_bwd = check_gather(W, ids, "K1 backward shape")
+    W = torch.rand((K8_ROWS, K8_DIM), device=DEVICE, generator=gen)
     ids = torch.from_numpy(rng.randint(
         -1000, K8_ROWS + 1000, size=K8_IDS).astype(np.int32)).to(DEVICE)
     big = check_gather(W, ids, "bytes-bound")
     del W
-    return {"path": path, "big": big}
+    return {"ec": ec, "k1_bwd": k1_bwd, "big": big}
+
+
+def host_ms(fn, iters: int = 200, warmup: int = 10) -> float:
+    """Host time per call: the host clock around `iters` calls that are
+    not waited for (the card runs behind), after a warm-up."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    return ms
+
+
+def routed_bound(ids: torch.Tensor, lengths: torch.Tensor,
+                 local: torch.Tensor, owned: torch.Tensor, D: int) -> dict:
+    """Least time for the routed gather: the ids, lengths and the two
+    per-feature vectors read once, each distinct owned row read once and
+    every output row written once, over the HBM rate (no arithmetic on the
+    values)."""
+    N, F = ids.numel(), ids.shape[0]
+    distinct = int(torch.unique(local[owned]).numel())
+    nbytes = N * 4 + lengths.numel() * 4 + 2 * F * 4 + distinct * D * 4 \
+        + N * D * 4
+    return {"bytes": nbytes, "rows": distinct,
+            "ms": nbytes / HBM_BYTES_PER_S * 1e3, "by": "bytes"}
+
+
+def check_routed_gather(trained, seqs, train_kjt) -> dict:
+    """The routed gather and its route-only mode on the trained [3712, 64]
+    shard against their plain versions: rows by value (+0.0 under a
+    masked token on both), `local` and `owned` bit for bit. At the B=32
+    path shape (one train batch, 2,048 tokens), at the B=1024 serving
+    shape (65,536 tokens), on three features with their own shard rows
+    and offsets and negative, out-of-range and padded ids, with a rank
+    that owns none of the ids, and at D=63 (the scalar path). Then both
+    path shapes timed: the kernel in turns with the composition it
+    replaced (the route's torch ops, K8 through `lookup_rows`, the mask
+    multiply), the plain version, and each wrapper's host time."""
+    from torchrec_tpu_torch.ops import gather_rows as gr
+    from torchrec_tpu_torch.ops.embedding import lookup_rows
+
+    strat = trained.sharded_ebcs[B4R_KEY].strategies[0]
+    W = strat.weights[0]
+    R, D = W.shape
+    rank = trained.env.rank
+    sr, off = strat.feat_shard_rows, strat.feat_local_off
+    rng = np.random.RandomState(SEED + 18)
+    serve_kjt, _ = b4r_eval_batch(rng, seqs, B4R_RANK_BATCH)
+    shapes = {}
+    for what, kjt in (("B=32 path", train_kjt),
+                      ("B=1024 serving", serve_kjt.to(DEVICE))):
+        sb = kjt.to_padded(B4R_LEN)
+        shapes[what] = (sb.ids, sb.lengths)
+    # three features: negative ids, ids >= n x shard rows, random lengths
+    F3 = 3
+    adv = (torch.from_numpy(rng.randint(-5000, 2 * R, size=(
+               F3, B4R_BATCH, B4R_LEN)).astype(np.int32)).to(DEVICE),
+           torch.from_numpy(rng.randint(0, B4R_LEN + 1, size=(
+               F3, B4R_BATCH)).astype(np.int32)).to(DEVICE))
+    sr3 = torch.tensor([B4R_VOCAB, 1000, 500], dtype=torch.int32,
+                       device=DEVICE)
+    off3 = torch.tensor([0, 1200, 3000], dtype=torch.int32, device=DEVICE)
+
+    cases = [(what, W, ids, lengths, sr, off, rank)
+             for what, (ids, lengths) in shapes.items()]
+    cases += [("adversarial", W, *adv, sr3, off3, rank),
+              ("a rank owning none", W, *shapes["B=32 path"], sr, off,
+               rank + 7),
+              ("D=63", W[:, :63].contiguous(), *adv, sr3, off3, rank)]
+    err = 0.0
+    with torch.no_grad():
+        for what, w, ids, lengths, s_, o_, r_ in cases:
+            out = gr.routed_gather_rows(w, ids, lengths, s_, o_, r_)
+            ref = gr.routed_gather_rows_reference(w, ids, lengths, s_, o_,
+                                                  r_)
+            local, owned = gr.route_tokens(ids, lengths, s_, o_, r_)
+            ref_local, ref_owned = gr.route_tokens_reference(
+                ids, lengths, s_, o_, r_)
+            err = max(err, _hold(f"the routed gather ({what})",
+                                 [(out, ref)]))
+            if not (torch.equal(local, ref_local)
+                    and torch.equal(owned, ref_owned)):
+                raise AssertionError(f"the route-only mode ({what}) is not "
+                                     f"bit-exact with the plain route")
+            n_owned = int(owned.sum())
+            if what == "a rank owning none" and (n_owned or out.any()):
+                raise AssertionError("a rank owning no id got rows")
+            log(f"routed gather {what}: ids {tuple(ids.shape)}, W "
+                f"{tuple(w.shape)}, {n_owned} owned tokens, "
+                f"{int((ids < 0).sum())} negative ids: equal to its plain "
+                f"version, route-only mode bit-exact with the route")
+
+        timed = {}
+        for what, (ids, lengths) in shapes.items():
+            local, owned = gr.route_tokens_reference(ids, lengths, sr, off,
+                                                     rank)
+            b = routed_bound(ids, lengths, local, owned, D)
+
+            def kernel():
+                return gr.routed_gather_rows(W, ids, lengths, sr, off, rank)
+
+            def composition():
+                loc, own = strat._route(ids, lengths, rank)
+                rows = lookup_rows(W, loc.reshape(-1)).reshape(
+                    *loc.shape, D)
+                return rows * own.to(rows.dtype)[..., None]
+
+            # in turns: kernel, composition, composition, kernel
+            k_ms = [device_ms(kernel, "routed_gather_kernel", b["ms"])]
+            c_ms = [device_ms(composition, bound_ms=b["ms"])
+                    for _ in range(2)]
+            k_ms.append(device_ms(kernel, "routed_gather_kernel", b["ms"]))
+            t = {"ms": sum(k_ms) / 2, "composition_ms": sum(c_ms) / 2,
+                 "plain_ms": device_ms(
+                     lambda: gr.routed_gather_rows_reference(
+                         W, ids, lengths, sr, off, rank), bound_ms=b["ms"]),
+                 "route_ms": device_ms(
+                     lambda: gr.route_tokens(ids, lengths, sr, off, rank),
+                     "routed_gather_kernel"),
+                 "route_plain_ms": device_ms(
+                     lambda: strat._route(ids, lengths, rank)),
+                 "host_ms": host_ms(kernel),
+                 "route_host_ms": host_ms(
+                     lambda: gr.route_tokens(ids, lengths, sr, off, rank)),
+                 "k8_host_ms": host_ms(
+                     lambda: lookup_rows(W, ids.reshape(-1))),
+                 "composition_host_ms": host_ms(composition),
+                 "route_plain_host_ms": host_ms(
+                     lambda: strat._route(ids, lengths, rank)),
+                 "bound": b}
+            timed[what] = t
+            log(f"routed gather {what}: {k_ms[0]:.5f} / {k_ms[1]:.5f} ms "
+                f"on the device, the composition it replaced "
+                f"{c_ms[0]:.5f} / {c_ms[1]:.5f} ms (in turns: kernel, "
+                f"composition, composition, kernel); plain "
+                f"{t['plain_ms']:.5f} ms; bound {b['ms']:.5f} ms (bytes: "
+                f"{b['bytes']} B, {b['rows']} distinct owned rows); kernel "
+                f"at {100 * b['ms'] / t['ms']:.1f}% of the bound. "
+                f"Route-only mode {t['route_ms']:.5f} ms against the "
+                f"route's torch ops {t['route_plain_ms']:.5f} ms. Host ms "
+                f"per call: routed gather {t['host_ms']:.5f}, route-only "
+                f"{t['route_host_ms']:.5f}, plain K8 through lookup_rows "
+                f"{t['k8_host_ms']:.5f}, the composition "
+                f"{t['composition_host_ms']:.5f}, the route's torch ops "
+                f"{t['route_plain_host_ms']:.5f}")
+    path = timed["B=32 path"]
+    return {"max_abs_err": err, "ms": path["ms"],
+            "plain_ms": path["plain_ms"], "library_ms": None,
+            "bound_ms": path["bound"]["ms"], "bound_by": path["bound"]["by"],
+            "composition_ms": path["composition_ms"],
+            "host_ms": path["host_ms"], "timed": timed}
 
 
 def check_backward() -> None:
@@ -1242,7 +1429,8 @@ def check_backward() -> None:
     per-sample weights' gradient), rtol 1e-5 / atol 1e-6 (scatter-adds and
     dot products sum in another order). K1 launches once in the EBC's
     forward and K8 once in its backward; the EC launches K8 once in its
-    forward and nothing in its backward."""
+    forward and nothing in its backward. Returns the K8 launches of these
+    paths."""
     from torchrec_tpu_torch.models import make_item_embedding_collection
     from torchrec_tpu_torch.modules import (
         EmbeddingBagCollection,
@@ -1253,6 +1441,7 @@ def check_backward() -> None:
 
     rng = np.random.RandomState(SEED + 14)
     L20, B = 20, 2048
+    k8 = 0
     for pooling in ("SUM", "MEAN"):
         lengths = rng.randint(0, L20 + 1, size=B).astype(np.int32)
         ids = rng.randint(0, ROWS, size=int(lengths.sum())).astype(np.int32)
@@ -1283,6 +1472,8 @@ def check_backward() -> None:
                                      or bwd != expected(K1=1, K8=1)):
                 raise AssertionError(f"EBC {pooling} gradient launched "
                                      f"{fwd} forward, {bwd} in all")
+            if device == DEVICE:
+                k8 += bwd["K8"]
             grads[device] = (ebc.embedding_bags["t"].grad.cpu(), w.grad.cpu())
         for what, a, b in zip(("d_W", "d_coeff"), grads[DEVICE],
                               grads["cpu"]):
@@ -1314,15 +1505,18 @@ def check_backward() -> None:
         out = ec(kjt.to(device))["item"]
         fwd = counts()
         (out * cot.to(device)).sum().backward()
-        if device == DEVICE and (fwd != expected(K8=1) or counts() != fwd):
-            raise AssertionError(f"EC gradient launched {fwd} forward, "
-                                 f"{counts()} in all")
+        if device == DEVICE:
+            if fwd != expected(K8=1) or counts() != fwd:
+                raise AssertionError(f"EC gradient launched {fwd} forward, "
+                                     f"{counts()} in all")
+            k8 += fwd["K8"]
         grads[device] = ec.embeddings["item_embedding"].grad.cpu()
     torch.testing.assert_close(grads[DEVICE], grads["cpu"], rtol=1e-5,
                                atol=1e-6)
     log(f"backward EC: K8 once in the forward, nothing in the backward; "
         f"card d_W within rtol 1e-5 / atol 1e-6 of the CPU (max abs diff "
         f"{(grads[DEVICE] - grads['cpu']).abs().max().item():.3e})")
+    return k8
 
 
 
@@ -1375,30 +1569,35 @@ def main() -> int:
     b4r_trained = b4r_train(seqs)
     b4r_dmp = b4r_trained.pop("dmp")
     check_b4r_rowwise(fk, b4r_dmp, b4r_trained["batch_ids"])
+    routed = check_routed_gather(b4r_dmp, seqs, b4r_trained["batch"])
     k8 = check_gather_kernel(b4r_dmp, b4r_trained["batch_ids"])
     del b4r_dmp
-    results["K8"] = {**{k: v for k, v in k8["path"].items()
+    results["K8r"] = {k: v for k, v in routed.items() if k != "timed"}
+    results["K8"] = {**{k: v for k, v in k8["ec"].items()
                         if k != "call_ms"},
-                     "max_abs_err": max(k8["path"]["max_abs_err"],
-                                        k8["big"]["max_abs_err"])}
-    check_backward()
+                     "max_abs_err": max(r["max_abs_err"]
+                                        for r in k8.values())}
+    unsharded_k8 = check_backward()
 
     launches = {k: trained[name]["launches"][k]
                 for name, ks in STEP_KERNELS.items() for k in ks}
     launches["K4"] += b4r_trained["launches"]["K4"]
     launches.update(
         K1=served_launches, K2=sum(r["K2"] for r in routes),
-        K5=sum(r["K5"] for r in routes),
-        K8=b4r_served["launches"] + b4r_trained["launches"]["K8"])
+        K5=sum(r["K5"] for r in routes), K8=unsharded_k8,
+        K8r=b4r_served["launches"] + b4r_trained["launches"]["K8r"])
     log(f"launches on the paths: K1 serving, K3 EXACT_SGD training, K4 "
         f"ROWWISE_ADAGRAD training of the DLRM "
         f"({trained['ROWWISE_ADAGRAD']['launches']['K4']}) and BERT4Rec "
         f"({b4r_trained['launches']['K4']}), K6 ADAGRAD training, K7 ADAM "
         f"training, K2 the three w_impl=write steps, K5 ROWWISE_ADAGRAD's "
-        f"w_impl=write step, K8 BERT4Rec serving ({b4r_served['launches']}) "
-        f"and training ({b4r_trained['launches']['K8']}); K4's scaled RMW "
-        f"{sum(r[SCALED] for r in routes)} in the mom_impl=xla step: "
-        f"{launches}")
+        f"w_impl=write step, K8 the unsharded EBC's backward and EC's "
+        f"forward, the routed gather (K8r) BERT4Rec serving "
+        f"({b4r_served['launches']}) and training "
+        f"({b4r_trained['launches']['K8r']}); K4's scaled RMW "
+        f"{sum(r[SCALED] for r in routes)} in the mom_impl=xla step, the "
+        f"routed gather's route-only mode {b4r_trained['launches'][ROUTE]} "
+        f"in BERT4Rec's updates: {launches}")
     log(card["smi"])
     log(json.dumps({"kernels": [{
         "name": KERNELS[k][0],

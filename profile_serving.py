@@ -9,7 +9,9 @@ random weights from seed 0), answers warm-up requests, then profiles
 REQUESTS requests at B=8192 and at B=256 with torch.profiler. For each
 batch size it prints the device time per kernel name and its share, the
 device busy share between the first kernel's start and the last kernel's
-end, and the host time per request; the chrome traces go to --trace_dir.
+end, the device span and host time of each `## ... ##` label (the sharded
+modules' `## ebc_* ##` / `## ec_* ##`) and the host time per request; the
+chrome traces go to --trace_dir.
 Times are taken with the profiler on, which slows the host side. With
 --bert4rec it serves chip_smoke.py's BERT4Rec instead, at B=32 and
 B=1024.
@@ -34,7 +36,8 @@ REQUESTS = 10  # profiled requests per batch size, after 2 warm-up ones
 def summarize(prof, n: int, unit: str, wall_ms: float) -> None:
     """Print the device time of the profiled window per `unit` (request or
     step): busy share of the kernel span, kernel launches, the largest
-    kernels and the device time under each `## ... ##` label."""
+    kernels, and the device span and host time of each `## ... ##`
+    label."""
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     # device-side ranges of record_function labels would count their
     # kernels twice
@@ -59,6 +62,12 @@ def summarize(prof, n: int, unit: str, wall_ms: float) -> None:
                               + e.time_range.elapsed_us())
     for name, us in sorted(labels.items(), key=lambda kv: -kv[1]):
         print(f"  {us / n:9.1f} us/{unit} span of {name}")
+    host = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name.startswith("##"):
+            host[e.name] = host.get(e.name, 0.0) + e.time_range.elapsed_us()
+    for name, us in sorted(host.items(), key=lambda kv: -kv[1]):
+        print(f"  {us / n:9.1f} us/{unit} host time of {name}")
 
 
 def profile_batch(answer, reqs, title: str, trace: str,

@@ -12,12 +12,13 @@ ROWWISE_ADAGRAD; any EmbOptimType name, e.g. ADAGRAD ADAM), takes 3
 warm-up steps at B=8192, then
 profiles STEPS steps with torch.profiler. For each optimizer it prints the
 device time per kernel name and its share, the device busy share between
-the first kernel's start and the last kernel's end, the device span of
-each phase of the step (`## train_* ##` and `## ebc_* ##` labels) and the
-host time per step; the chrome traces go to --trace_dir. Times are taken
-with the profiler on, which slows the host side. With --bert4rec it
-profiles chip_smoke.py's BERT4Rec train step instead (the example's model,
-ROWWISE_ADAGRAD at 0.01 and dense Adam at 1e-3, B=32).
+the first kernel's start and the last kernel's end, the device span and
+host time of each phase of the step (`## train_* ##`, `## ebc_* ##` and
+`## ec_* ##` labels) and the host time per step; the chrome traces go to
+--trace_dir. Times are taken with the profiler on, which slows the host
+side. With --bert4rec it profiles chip_smoke.py's BERT4Rec train step
+instead (the example's model, ROWWISE_ADAGRAD at 0.01 and dense Adam at
+1e-3, B=32).
 """
 
 from __future__ import annotations

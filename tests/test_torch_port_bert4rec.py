@@ -125,11 +125,11 @@ def _ec_tables():
                  feature_names=["c", "a"])]
 
 
-def _ec_batch(seed):
+def _ec_batch(seed, lo=0, hi=37):
     rng = np.random.RandomState(seed)
     keys = ["a", "b", "c"]
     lengths = rng.randint(0, L + 1, size=len(keys) * B).astype(np.int32)
-    values = rng.randint(0, 37, size=int(lengths.sum())).astype(np.int32)
+    values = rng.randint(lo, hi, size=int(lengths.sum())).astype(np.int32)
     return keys, values, lengths
 
 
@@ -185,7 +185,22 @@ def test_ec_checks_its_tables():
 
 @pytest.mark.parametrize("optim", ["ROWWISE_ADAGRAD", "EXACT_SGD", "ADAM"])
 def test_sharded_ec_forward_and_update_match_jax(optim):
-    keys, values, lengths = _ec_batch(3)
+    _check_sharded_ec_against_jax(optim, *_ec_batch(3))
+
+
+@pytest.mark.parametrize("optim", ["ROWWISE_ADAGRAD", "ADAM"])
+def test_sharded_ec_out_of_range_ids_match_jax(optim):
+    """Ids below 0 and at or above a table's rows (60 and 37) are owned by
+    no shard: zero rows and no update, on both sides. Rows are compared by
+    value: JAX's mask multiply leaves -0.0 where the port writes +0.0."""
+    keys, values, lengths = _ec_batch(13, lo=-70, hi=75)
+    assert (values < 0).any() and (values >= 60).any()
+    _check_sharded_ec_against_jax(optim, keys, values, lengths)
+
+
+def _check_sharded_ec_against_jax(optim, keys, values, lengths):
+    """Forward, one fused update and the optimizer state of the sharded EC
+    against the JAX module, from the same tables and cotangents."""
     rng = np.random.RandomState(4)
     dense = {t["name"]: rng.randn(t["num_embeddings"], D).astype(np.float32)
              for t in _ec_tables()}

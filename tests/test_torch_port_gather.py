@@ -1,5 +1,6 @@
-"""K8 (the row gather), the gradients of K1 and K8, and the unpooled
-lookups of the port against the JAX package, on the CPU.
+"""K8 (the row gather), the routed gather of the sharded sequence path,
+the gradients of K1 and K8, and the unpooled lookups of the port against
+the JAX package, on the CPU.
 
 Inputs are made from a seed with numpy and handed to both sides. K8's
 plain version is held against the Pallas kernel in interpret mode (as
@@ -21,9 +22,18 @@ import torch
 
 from torchrec_tpu.modules import EmbeddingBagCollection as JEBC
 from torchrec_tpu.modules import EmbeddingBagConfig as JConfig
+from torchrec_tpu.modules.embedding_configs import (
+    EmbeddingConfig as JSeqConfig,
+)
 from torchrec_tpu.modules.embedding_configs import PoolingType as JPooling
 from torchrec_tpu.ops import embedding as jemb
 from torchrec_tpu.ops import pallas_embedding as pe
+from torchrec_tpu.parallel import ParameterSharding as JPS
+from torchrec_tpu.parallel import ShardingEnv as JEnv
+from torchrec_tpu.parallel import ShardingType as JST
+from torchrec_tpu.parallel.sharded_ec import (
+    ShardedEmbeddingCollection as JSEC,
+)
 from torchrec_tpu.sparse import KeyedJaggedTensor as JKJT
 from torchrec_tpu_torch.modules import (
     EmbeddingBagCollection,
@@ -274,3 +284,108 @@ def test_unsharded_ebc_gradient_matches_jax(pooling):
                                np.asarray(jd_w), **GRAD_TOL)
     np.testing.assert_allclose(tpsw.grad.numpy(), np.asarray(jd_psw),
                                **GRAD_TOL)
+
+
+# -- the routed gather of the sharded sequence path --------------------------
+
+
+def _routed_inputs(seed, B=4, L=6, D=8):
+    """A JAX row-wise sequence strategy over two devices of the CPU mesh
+    (tables of 37 rows, features a and b, and 20 rows, feature c: F = 3,
+    shard rows 19 and 10), one device's packed shard, and ids [3, B, L]
+    with negative ids, ids >= 2 x shard rows and ids under padding."""
+    tables = (JSeqConfig(num_embeddings=37, embedding_dim=D, name="t0",
+                         feature_names=["a", "b"]),
+              JSeqConfig(num_embeddings=20, embedding_dim=D, name="t1",
+                         feature_names=["c"]))
+    jsec = JSEC(JEnv.from_devices(jax.devices()[:2]), tables,
+                {t.name: JPS(JST.ROW_WISE) for t in tables})
+    strat = jsec.strategies[0]
+    rng = np.random.RandomState(seed)
+    w = rng.randn(strat.rows_loc, D).astype(np.float32)
+    ids = rng.randint(-45, 60, size=(3, B, L)).astype(np.int32)
+    lengths = rng.randint(0, L + 1, size=(3, B)).astype(np.int32)
+    return strat, w, ids, lengths
+
+
+def _port_route_args(strat, ids, lengths, my):
+    return (torch.as_tensor(ids), torch.as_tensor(lengths),
+            torch.as_tensor(strat.feat_shard_rows, dtype=torch.int32),
+            torch.as_tensor(strat.feat_local_off, dtype=torch.int32), my)
+
+
+@pytest.mark.parametrize("my", [0, 1])
+def test_routed_gather_matches_jax_route_and_pallas_gather(my):
+    """JAX's `_route`, the Pallas gather (interpret mode) and the mask
+    multiply against the plain version, and the wrapper on CPU tensors.
+    Rows are compared by value: JAX multiplies a masked row by 0, which
+    leaves -0.0 under negative entries, where the port writes +0.0.
+    `local` and `owned` are compared bit for bit."""
+    strat, w, ids, lengths = _routed_inputs(seed=10 + my)
+    L = ids.shape[2]
+    local, owned = strat._route(jnp.asarray(ids), jnp.asarray(lengths), my, L)
+    rows = pe.gather_rows(jnp.asarray(w), local.reshape(-1), 16, True)
+    ref = np.asarray(rows.reshape(*ids.shape, -1)
+                     * owned.astype(jnp.float32)[..., None])
+    local, owned = np.asarray(local), np.asarray(owned)
+    assert owned.any() and not owned.all()
+    assert ((ids < 0) & (np.arange(L) < lengths[..., None])).any()
+
+    args = _port_route_args(strat, ids, lengths, my)
+    launches = (gr.LAUNCHES, gr.ROUTED_LAUNCHES, gr.ROUTE_LAUNCHES)
+    tw = torch.as_tensor(w)
+    for out in (gr.routed_gather_rows_reference(tw, *args),
+                gr.routed_gather_rows(tw, *args)):
+        assert out.shape == ids.shape + (w.shape[1],)
+        np.testing.assert_array_equal(out.numpy(), ref)
+    for t_local, t_owned in (gr.route_tokens_reference(*args),
+                             gr.route_tokens(*args)):
+        assert t_local.dtype == torch.int32 and t_owned.dtype == torch.bool
+        np.testing.assert_array_equal(t_local.numpy(), local)
+        np.testing.assert_array_equal(t_owned.numpy(), owned)
+    # CPU tensors take the plain versions
+    assert (gr.LAUNCHES, gr.ROUTED_LAUNCHES, gr.ROUTE_LAUNCHES) == launches
+
+
+def test_routed_gather_gives_zeros_under_a_non_finite_masked_row():
+    """The deliberate difference: a masked token whose row is NaN gives
+    zeros here, NaN in JAX's multiply by the mask."""
+    strat, w, ids, lengths = _routed_inputs(seed=3)
+    ids[:] = 5  # owned on rank 0, masked under padding
+    lengths[:] = 2
+    w[[5, 24]] = np.nan  # local rows 5 (t0) and 19 + 5 (t1)
+    args = _port_route_args(strat, ids, lengths, 0)
+    out = gr.routed_gather_rows_reference(torch.as_tensor(w), *args).numpy()
+    assert np.isnan(out[:, :, :2]).all()
+    np.testing.assert_array_equal(out[:, :, 2:], 0.0)
+    jref = np.asarray(pe.gather_rows(jnp.asarray(w), jnp.asarray(
+        ids.reshape(-1)), 16, True)).reshape(out.shape) * 0.0
+    assert np.isnan(jref).all()
+
+
+@pytest.mark.parametrize(
+    "bad", ["ids_dtype", "ids_2d", "lengths_shape", "offsets_dtype",
+            "noncontig", "w_dtype"])
+def test_routed_gather_rejects_bad_inputs(bad):
+    w = torch.zeros(10, 8)
+    ids = torch.zeros(2, 3, 4, dtype=torch.int32)
+    lengths = torch.zeros(2, 3, dtype=torch.int32)
+    sr = torch.full((2,), 5, dtype=torch.int32)
+    off = torch.zeros(2, dtype=torch.int32)
+    if bad == "ids_dtype":
+        ids = ids.long()
+    elif bad == "ids_2d":
+        ids = ids.reshape(6, 4)
+    elif bad == "lengths_shape":
+        lengths = lengths.t().contiguous()
+    elif bad == "offsets_dtype":
+        off = off.long()
+    elif bad == "noncontig":
+        ids = torch.zeros(2, 4, 3, dtype=torch.int32).transpose(1, 2)
+    else:
+        w = w.double()
+    with pytest.raises((TypeError, ValueError)):
+        gr.routed_gather_rows(w, ids, lengths, sr, off, 0)
+    if bad != "w_dtype":
+        with pytest.raises((TypeError, ValueError)):
+            gr.route_tokens(ids, lengths, sr, off, 0)

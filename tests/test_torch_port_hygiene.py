@@ -187,3 +187,27 @@ def test_unported_parts_raise(case):
             model = _bert4rec("cpu", dropout=0.1)
             model(KeyedJaggedTensor.from_lengths(["item"], [1, 2, 3, 4], [4]),
                   torch.zeros(1, 4, dtype=torch.int32), deterministic=False)
+
+
+@pytest.mark.parametrize("wrapper", ["routed_gather_rows", "route_tokens"])
+def test_routed_gather_raises_on_a_cuda_tensor_without_a_card(wrapper):
+    """CUDA tensors launch the kernel or raise: with no card and no nvcc
+    the wrapper raises and does not take the plain version. The tensors
+    are fake CUDA tensors (metadata only), which a CPU build can make."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from torchrec_tpu_torch.ops import gather_rows as gr
+
+    launches = (gr.LAUNCHES, gr.ROUTED_LAUNCHES, gr.ROUTE_LAUNCHES)
+    with FakeTensorMode():
+        ids = torch.zeros(1, 2, 3, dtype=torch.int32, device="cuda")
+        lengths = torch.zeros(1, 2, dtype=torch.int32, device="cuda")
+        sr = torch.ones(1, dtype=torch.int32, device="cuda")
+        args = (ids, lengths, sr, torch.zeros_like(sr), 0)
+        with pytest.raises((RuntimeError, AssertionError)):
+            if wrapper == "route_tokens":
+                gr.route_tokens(*args)
+            else:
+                gr.routed_gather_rows(
+                    torch.zeros(4, 8, device="cuda"), *args)
+    assert (gr.LAUNCHES, gr.ROUTED_LAUNCHES, gr.ROUTE_LAUNCHES) == launches

@@ -17,6 +17,11 @@ the forward: the MLP, Gram and gradient sums run in another order, and
 duplicate rows' gradients are combined per run here and per token in
 JAX's SGD. The rowwise momenta, sums of mean(g^2), are held to rtol 1e-4
 / atol 1e-9. Optimizer state round trips through the bridge are exact.
+
+`load_tables` (and the sharded EC's `shard_from_dense`) restart the fused
+optimizer state as the JAX modules do: the state after a load equals
+JAX's exactly, and the next step equals a fresh module's bit for bit
+(both sides run the same CPU code).
 """
 
 import jax
@@ -26,6 +31,7 @@ import optax
 import pytest
 import torch
 
+from test_torch_port_bert4rec import _ec_batch, _ec_tables
 from test_torch_port_dlrm import (
     B,
     D,
@@ -42,6 +48,9 @@ from torchrec_tpu.models import DLRM as JDLRM
 from torchrec_tpu.models import DLRMTrain as JDLRMTrain
 from torchrec_tpu.modules import EmbeddingBagCollection as JEBC
 from torchrec_tpu.modules import EmbeddingBagConfig as JConfig
+from torchrec_tpu.modules.embedding_configs import (
+    EmbeddingConfig as JSeqConfig,
+)
 from torchrec_tpu.modules.embedding_configs import PoolingType as JPooling
 from torchrec_tpu.ops.fused_update import EmbOptimType as JOptim
 from torchrec_tpu.ops.fused_update import fused_state_shapes
@@ -50,11 +59,15 @@ from torchrec_tpu.parallel import ParameterSharding as JPS
 from torchrec_tpu.parallel import ShardingEnv as JEnv
 from torchrec_tpu.parallel import ShardingPlan as JPlan
 from torchrec_tpu.parallel import ShardingType as JST
+from torchrec_tpu.parallel.sharded_ec import (
+    ShardedEmbeddingCollection as JSEC,
+)
 from torchrec_tpu.sparse import KeyedJaggedTensor as JKJT
 from torchrec_tpu_torch.models import DLRM, DLRMTrain
 from torchrec_tpu_torch.modules import (
     EmbeddingBagCollection,
     EmbeddingBagConfig,
+    EmbeddingConfig,
     PoolingType,
 )
 from torchrec_tpu_torch.ops import fused_update_kernels as fk
@@ -63,6 +76,8 @@ from torchrec_tpu_torch.ops.fused_update import EmbOptimType
 from torchrec_tpu_torch.parallel import (
     DistributedModelParallel,
     ParameterSharding,
+    ShardedEmbeddingCollection,
+    ShardingEnv,
     ShardingPlan,
     ShardingType,
 )
@@ -333,3 +348,114 @@ def test_init_zeroes_the_optimizer_state():
     dmp.init(0)
     assert strat.momentum1.abs().sum() == 0 and int(strat.step) == 0
     assert dmp.step == 0
+
+
+
+def _ebc_load_case(optim):
+    """The DLRM DMP. JAX: init, one step on _request(1, 1), load_tables
+    with its own tables. Returns (JAX's state after the load, make(seed) ->
+    (trained thing, its sharded module), step(thing, seed), load(thing,
+    tables))."""
+    ids, lengths, dense, labels = _request(1, seed=1)
+    jdmp = _jax_dmp(1, False, optim)
+    sb = JKJT.from_lengths(KEYS, jnp.asarray(ids),
+                           jnp.asarray(lengths)).to_padded(1)
+    jargs = (jnp.asarray(dense), sb, jnp.asarray(labels))
+    state = jdmp.init(jax.random.PRNGKey(0), *jargs)
+    state, _, _ = jdmp.make_train_step()(state, *jargs)
+    assert int(_jax_opt_tables(jdmp, state)["t0"]["step"]) == 1
+    state = jdmp.load_tables(state, {JAX_KEY: jdmp.sharded_ebcs[
+        JAX_KEY].unshard_to_dense(state.emb_states[JAX_KEY])})
+
+    def make(seed):
+        d = _port_dmp(1, False, optim).init(seed)
+        return d, d.sharded_ebcs[PORT_KEY]
+
+    def step(d, seed):
+        ids, lengths, dense, labels = _request(1, seed=seed)
+        d.make_train_step()(
+            torch.as_tensor(dense),
+            KeyedJaggedTensor.from_lengths(KEYS, ids, lengths),
+            torch.as_tensor(labels))
+
+    def load(d, tables):
+        d.load_tables({PORT_KEY: tables})
+
+    return _jax_opt_tables(jdmp, state), make, step, load
+
+
+def _ec_load_case(optim):
+    """The sharded EC of test_torch_port_bert4rec (tables of 60 and 37
+    rows, D=16), loaded through shard_from_dense; JAX's state is that of
+    its freshly loaded module."""
+    tables = [JSeqConfig(**t) for t in _ec_tables()]
+    rng = np.random.RandomState(4)
+    jsec = JSEC(JEnv.from_devices(jax.devices()[:1]), tables,
+                {t.name: JPS(JST.ROW_WISE) for t in tables},
+                optim=JOptim[optim])
+    jopt = {}
+    dense = {t.name: rng.randn(t.num_embeddings, D).astype(np.float32)
+             for t in tables}
+    for strat, g in zip(jsec.strategies, jsec.shard_from_dense(dense)):
+        jopt.update(strat.unshard_opt_to_tables(g.opt))
+
+    def make(seed):
+        tables = [EmbeddingConfig(**t) for t in _ec_tables()]
+        sec = ShardedEmbeddingCollection(
+            ShardingEnv("cpu"), tables,
+            {t.name: ParameterSharding(ShardingType.ROW_WISE)
+             for t in tables},
+            max_feature_length=8, optim=EmbOptimType[optim])
+        sec.init(torch.Generator().manual_seed(seed))
+        return sec, sec
+
+    def step(sec, seed):
+        keys, values, lengths = _ec_batch(seed)
+        kjt = KeyedJaggedTensor.from_lengths(keys, values, lengths)
+        rng = np.random.RandomState(seed)
+        sec.update(kjt, {n: torch.as_tensor(rng.randn(*o.shape).astype(
+            np.float32)) for n, o in sec(kjt).items()}, FUSED_LR)
+
+    def load(sec, tables):
+        sec.shard_from_dense(tables)
+
+    return jopt, make, step, load
+
+
+@pytest.mark.parametrize("module,optim", [
+    ("ebc", "ROWWISE_ADAGRAD"), ("ebc", "ADAM"), ("ec", "ROWWISE_ADAGRAD")])
+def test_load_tables_restarts_the_optimizer_state(module, optim):
+    """A module trained one step and loaded with its own tables holds
+    JAX's state after JAX's load: step 0 and zero momenta. Its next step
+    then equals that of a fresh module loaded with the same weights."""
+    jopt, make, step, load = (_ebc_load_case if module == "ebc"
+                              else _ec_load_case)(optim)
+    trained, sebc = make(0)
+    step(trained, 1)
+    assert int(sebc.strategies[0].step) == 1
+    assert sebc.strategies[0].momentum1.abs().sum() > 0
+    weights = sebc.unshard_to_dense()
+    load(trained, weights)
+    opt = sebc.unshard_opt_to_tables()
+    assert opt.keys() == jopt.keys()
+    for name in jopt:
+        assert opt[name].keys() == jopt[name].keys()
+        assert int(opt[name]["step"]) == 0
+        for tag, ref in jopt[name].items():
+            assert not np.asarray(ref).any()
+            np.testing.assert_array_equal(opt[name][tag], np.asarray(ref),
+                                          err_msg=f"{name} {tag}")
+
+    fresh, fresh_sebc = make(1)
+    if module == "ebc":  # the trained dense parameters too
+        with torch.no_grad():
+            for p, q in zip(fresh.module.parameters(),
+                            trained.module.parameters()):
+                p.copy_(q)
+    load(fresh, weights)
+    step(trained, 2)
+    step(fresh, 2)
+    after, ref = sebc.unshard_to_dense(), fresh_sebc.unshard_to_dense()
+    for name in ref:
+        assert not np.array_equal(after[name], weights[name])  # it moved
+        np.testing.assert_array_equal(after[name], ref[name], err_msg=name)

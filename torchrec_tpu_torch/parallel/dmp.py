@@ -224,7 +224,8 @@ class DistributedModelParallel(nn.Module):
         self, tables: Mapping[str, Mapping[str, ArrayLike]]
     ) -> None:
         """Load unsharded per-table weights: {module key -> {table ->
-        [R, D] array}}."""
+        [R, D] array}}. The loaded modules' fused optimizer state restarts
+        at zero momenta and step 0, as the JAX DMP's does."""
         for key, dense in tables.items():
             self.sharded_ebcs[key].shard_from_dense(dense)
 

@@ -78,9 +78,12 @@ class ShardedEmbeddingModule(GroupedInputDistMixin, nn.Module):
     def shard_from_dense(
         self, dense: Mapping[str, ArrayLike]
     ) -> Tuple[EmbeddingGroupState, ...]:
-        """Load unsharded per-table [R, D] weights into the shards."""
+        """Load unsharded per-table [R, D] weights into the shards and
+        zero the fused optimizer state, as the JAX module builds every
+        group with a fresh `init_opt()`."""
         for s in self.strategies:
             s.weights = s.shard_from_dense(dense)
+            s.reset_opt()
         return self.states
 
     def unshard_to_dense(

@@ -34,6 +34,7 @@ from torchrec_tpu_torch.modules.embedding_configs import (
     data_type_to_torch_dtype,
 )
 from torchrec_tpu_torch.ops.embedding import pooled_lookup
+from torchrec_tpu_torch.ops.gather_rows import route_tokens_reference
 from torchrec_tpu_torch.ops.fused_update import (
     EmbOptimType,
     FusedOptimizerState,
@@ -334,20 +335,17 @@ class RwEmbeddingSharding(BaseEmbeddingShardingStrategy):
             out[:, int(off):int(off + sr)] = blocks.reshape(self.n, int(sr))
         return out
 
-    def _route(self, ids_g: torch.Tensor, lengths_g: torch.Tensor, my: int,
-               L: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Owner and local row of each gathered id."""
-        sr = self.feat_shard_rows[:, None, None]
-        off = self.feat_local_off[:, None, None]
-        owner = torch.div(ids_g, sr, rounding_mode="floor")
-        local = torch.remainder(ids_g, sr) + off
-        owned = (owner == my) & _token_mask(lengths_g, L)
-        return local, owned
+    def _route(self, ids_g: torch.Tensor, lengths_g: torch.Tensor,
+               my: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Local row of each gathered id, and whether device `my` owns it
+        and it is not padding."""
+        return route_tokens_reference(ids_g, lengths_g, self.feat_shard_rows,
+                                      self.feat_local_off, my)
 
     def _fwd_gathered(self, w, ids_g, len_g, psw_g, L):
         """Forward body on global-batch inputs: the partial sums of the
         rows this device owns, [F, B, D] fp32."""
-        local, owned = self._route(ids_g, len_g, self.env.rank, L)
+        local, owned = self._route(ids_g, len_g, self.env.rank)
         coeff = _pool_coeff(len_g, L, self.feat_mean, psw_g, w.dtype)
         coeff = coeff * owned.to(w.dtype)
         return pooled_lookup(w[0], local, coeff)
@@ -362,7 +360,7 @@ class RwEmbeddingSharding(BaseEmbeddingShardingStrategy):
         """Update body on global-batch inputs (d_g: the gathered [F, B, D]
         cotangent): the owned rows' per-token gradients through the fused
         optimizer, in place."""
-        local, owned = self._route(ids_g, len_g, self.env.rank, L)
+        local, owned = self._route(ids_g, len_g, self.env.rank)
         coeff = _pool_coeff(len_g, L, self.feat_mean, psw_g,
                             self.weights.dtype)
         row_grads = d_g[:, :, None, :] * coeff[:, :, :, None]

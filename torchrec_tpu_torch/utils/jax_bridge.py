@@ -130,10 +130,12 @@ def load_jax_weights(
     opt_state: Optional[Mapping[str, Mapping[str, np.ndarray]]] = None,
 ) -> None:
     """Load the JAX DMP's dense params, unsharded tables and (optionally)
-    fused optimizer state into `dmp`. Raises unless every dense parameter
-    and every table is matched."""
+    fused optimizer state into `dmp`; without `opt_state` the optimizer
+    state restarts at zero, as after the JAX DMP's `load_tables`. Raises
+    unless every dense parameter and every table is matched."""
     load_flax_params(dmp.module, dense_params)
     dmp.load_tables(_per_module(dmp, "tables", tables))
+    # after the tables: load_tables restarts the optimizer state
     if opt_state is not None:
         for key, st in _per_module(dmp, "optimizer states",
                                    opt_state).items():
