@@ -52,7 +52,34 @@ Phases, each failing the run with a non-zero exit when it fails:
    batches touched must agree (rtol 1e-4, atol 1e-5: GEMM and gradient
    sums run in another order), and every other row must be unchanged on
    both.
-8. Serve examples/bert4rec_main.py's BERT4Rec (--synthetic_ml1m defaults:
+8. The position-weighted DLRM: the same model with its EBC (weighted,
+   L=20) in a FeatureProcessedEmbeddingBagCollection whose
+   PositionWeightedModule learns 20 weights per feature, through the
+   DMP's feature-processor branch. Multi-hot requests, lengths uniform in
+   1..20, ids uniform over each table's rows. 3 requests at B=8192, K1
+   once each; K1 then held against its plain version on the last
+   request's ids and coefficients (rtol = atol = 1e-6) and timed beside
+   F.embedding_bag. Then 1 warm-up and 3 timed steps at B=8192 under
+   EXACT_SGD and under ROWWISE_ADAGRAD (dense SGD at 0.05), each
+   launching K1, K8 (the rows of K1's d_coeff) and K3 or the fused K4
+   once and no other kernel, and building no dense table gradient; the
+   position weights must take each dense step to within an ulp, stay
+   finite and move (under EXACT_SGD at B=8192 the steps stay under half
+   an ulp of 1.0, so they move under ROWWISE_ADAGRAD). After EXACT_SGD, K8 is
+   held bit-exact against its plain version and index_select on the
+   d_coeff gather's table and 4.26 M ids, and timed. After each, its
+   update kernel is held bit-exact against its plain version on clones of
+   the trained table (and momentum) with the last step's 4.26 M ids and
+   row gradients, as in 5 (K3 at weight decay 0 and 0.01, beside
+   index_add_; the fused K4 at both, in turns with the unfused
+   composition, and K5), and timed; 2 more steps are profiled with
+   torch.profiler (device time per kernel name, busy share, each label's
+   span and host time). Then a CPU
+   copy of the trained DMP and the card agree on one B=256 request's
+   logits and over 2 steps at B=256 (losses, position weights, dense
+   parameters, touched rows and momenta within rtol 1e-4 / atol 1e-5;
+   untouched rows equal).
+9. Serve examples/bert4rec_main.py's BERT4Rec (--synthetic_ml1m defaults:
    vocab 3,708 = 3,706 items + pad 0 + MASK, L=64, D=64, 2 heads, 2
    blocks, dropout 0) through make_eval_fn, its item table ROW_WISE in a
    ShardedEmbeddingCollection: 3 requests at B=32 (the example's batch)
@@ -62,7 +89,7 @@ Phases, each failing the run with a non-zero exit when it fails:
    of the port, the plain K8 never; the logits [B, 64, 3708] must be
    finite, and one B=32 request's must equal the CPU run's (rtol 1e-4,
    atol 1e-5).
-9. Train it through make_train_step (ROWWISE_ADAGRAD at 0.01, dense
+10. Train it through make_train_step (ROWWISE_ADAGRAD at 0.01, dense
    torch.optim.Adam at 1e-3): 3 warm-up and 10 timed steps at B=32 on
    batches masked as make_train_batch masks them, each launching the
    routed gather once in the forward, its route-only mode once in the
@@ -74,7 +101,7 @@ Phases, each failing the run with a non-zero exit when it fails:
    attention key biases are the exception: their gradient is zero up to
    rounding, which Adam scales up to steps of order lr, so they are held
    within Adam's reach (2 x 3.2 x lr x steps) instead.
-10. Hold the fused K4 (weight decay 0 and 0.01), K5 and the scaled RMW
+11. Hold the fused K4 (weight decay 0 and 0.01), K5 and the scaled RMW
    against their plain versions, bit-exact, on the trained [3712, 64]
    shard and momentum with one batch's dedup output, and time them as in
    5. Hold the routed gather against its plain version by value (a masked
@@ -91,7 +118,7 @@ Phases, each failing the run with a non-zero exit when it fails:
    ids of a 100,000 x 128 table) and at a bytes-bound one (W 2,600,064 x
    128, 212,992 ids with negative and out-of-range ones), and time all
    three.
-11. Gradients through the unsharded EmbeddingBagCollection (weighted,
+12. Gradients through the unsharded EmbeddingBagCollection (weighted,
    L=20, SUM and MEAN, D=128) and EmbeddingCollection on the card against
    the CPU: d_W and the per-sample weights' gradient (rtol 1e-5, atol
    1e-6). K1 launches once in the EBC's forward and K8 once in its
@@ -112,6 +139,7 @@ result.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
@@ -163,6 +191,9 @@ B4R_KEY = "model/ec"
 K8_ROWS, K8_DIM, K8_IDS = 2_600_064, 128, 212_992
 # K8 in K1's backward as check_backward drives it: B=2048 bags of L=20
 K1_BWD_IDS = 2048 * 20
+# the position-weighted DLRM: multi-hot, lengths uniform in 1..PW_LEN
+PW_LEN = 20
+PW_WARMUP_STEPS, PW_TIMED_STEPS, PW_PROFILED_STEPS = 1, 3, 2
 
 # kernel -> (wrapper name, source, the Pallas function it replaces)
 KERNELS = {
@@ -269,13 +300,17 @@ def reset_counts() -> None:
 
 
 def make_dmp(device: str, train: bool = False, optim=None,
-             fused_params=None):
+             fused_params=None, position_weighted: bool = False):
     """bench.py's DLRM (DLRMTrain when `train`) on `device`; `optim`
-    defaults to the DMP's (ROWWISE_ADAGRAD)."""
+    defaults to the DMP's (ROWWISE_ADAGRAD). `position_weighted` wraps
+    its EBC (weighted, L=PW_LEN) in a FeatureProcessedEmbeddingBagCollection
+    with a PositionWeightedModule of PW_LEN positions per feature."""
     from torchrec_tpu_torch.models import DLRM, DLRMTrain
     from torchrec_tpu_torch.modules import (
         EmbeddingBagCollection,
         EmbeddingBagConfig,
+        FeatureProcessedEmbeddingBagCollection,
+        PositionWeightedModule,
     )
     from torchrec_tpu_torch.ops.fused_update import EmbOptimType
     from torchrec_tpu_torch.parallel import (
@@ -290,10 +325,16 @@ def make_dmp(device: str, train: bool = False, optim=None,
                            name=f"t{i}", feature_names=[f"f{i}"])
         for i in range(NUM_TABLES)
     ]
-    model = DLRM(
-        EmbeddingBagCollection(tables, max_feature_length=L, device="meta"),
-        DENSE_IN, DENSE_ARCH, OVER_ARCH, device="meta",
-    )
+    if position_weighted:
+        sparse = FeatureProcessedEmbeddingBagCollection(
+            EmbeddingBagCollection(tables, is_weighted=True,
+                                   max_feature_length=PW_LEN, device="meta"),
+            PositionWeightedModule({t.feature_names[0]: PW_LEN
+                                    for t in tables}, device="meta"))
+    else:
+        sparse = EmbeddingBagCollection(tables, max_feature_length=L,
+                                        device="meta")
+    model = DLRM(sparse, DENSE_IN, DENSE_ARCH, OVER_ARCH, device="meta")
     if train:
         model = DLRMTrain(model)
     plan = ShardingPlan({TRAIN_KEY if train else MODULE_KEY: {
@@ -617,8 +658,9 @@ def _touched(strat, batches) -> torch.Tensor:
     off = torch.as_tensor(strat.local_offsets, dtype=torch.int64)
     mask = torch.zeros(strat.rows_loc, dtype=torch.bool)
     for _, kjt, _ in batches:
-        ids = kjt.values.long().reshape(NUM_TABLES, -1)
-        mask[(ids + off[:, None]).reshape(-1)] = True
+        feature = torch.repeat_interleave(torch.arange(NUM_TABLES),
+                                          kjt.length_per_key().long())
+        mask[kjt.values.long() + off[feature]] = True
     return mask
 
 
@@ -722,6 +764,29 @@ def batch_grads(strat):
     return flat, valid, row_grads
 
 
+def check_sgd(fk, W, u_rt, g_rt, lr) -> dict:
+    """K3 on clones of a table and one batch's run totals: bit-exact with
+    its plain version at weight decay 0 and 0.01, then timed beside
+    index_add_ on the real slots."""
+    R, D = W.shape
+    real = u_rt < R
+    ids_real, g_real = u_rt[real].long(), g_rt[real]
+    errs = []
+    for wd in (0.0, 0.01):
+        W1, W2 = W.clone(), W.clone()
+        fk.fused_update_sgd(W1, u_rt, g_rt, lr, weight_decay=wd)
+        fk.fused_update_sgd_reference(W2, u_rt, g_rt, lr, weight_decay=wd)
+        errs.append(_hold("K3", [(W1, W2)]))
+    b = rows_bound(int(u_rt.numel()), int(real.sum()), D, rows_moved=3)
+    return {"K3": {
+        "max_abs_err": max(errs), "bound": b,
+        **timings(lambda: fk.fused_update_sgd(W1, u_rt, g_rt, lr),
+                  "row_update_kernel", b["ms"],
+                  lambda: fk.fused_update_sgd_reference(W2, u_rt, g_rt, lr),
+                  lambda: W2.index_add_(0, ids_real, g_real, alpha=-lr)),
+    }}
+
+
 def check_update_kernels(dmp, fk) -> dict:
     """K2-K5 and K4's scaled RMW against their plain versions on the
     trained table."""
@@ -737,27 +802,11 @@ def check_update_kernels(dmp, fk) -> dict:
     N = int(flat.numel())
     real_rt = u_rt < R
     n_real = int(real_rt.sum())
-    ids_real, g_real = u_rt[real_rt].long(), g_rt[real_rt]
+    ids_real = u_rt[real_rt].long()
     log(f"update kernels: N={N} slots, {n_real} distinct rows, "
         f"{int((u_rt == fu.RUN_SENTINEL).sum())} run sentinels, "
         f"{int((u_dd >= R).sum())} dedup sentinels; W {tuple(W.shape)}")
-    out = {}
-
-    # K3, with and without weight decay
-    errs = []
-    for wd in (0.0, 0.01):
-        W1, W2 = W.clone(), W.clone()
-        fk.fused_update_sgd(W1, u_rt, g_rt, lr, weight_decay=wd)
-        fk.fused_update_sgd_reference(W2, u_rt, g_rt, lr, weight_decay=wd)
-        errs.append(_hold("K3", [(W1, W2)]))
-    b = rows_bound(N, n_real, D, rows_moved=3)
-    out["K3"] = {
-        "max_abs_err": max(errs), "bound": b,
-        **timings(lambda: fk.fused_update_sgd(W1, u_rt, g_rt, lr),
-                  "row_update_kernel", b["ms"],
-                  lambda: fk.fused_update_sgd_reference(W2, u_rt, g_rt, lr),
-                  lambda: W2.index_add_(0, ids_real, g_real, alpha=-lr)),
-    }
+    out = check_sgd(fk, W, u_rt, g_rt, lr)
 
     # K2: the rows of the write form of the SGD update
     rows = W[u_rt.clamp(max=R - 1).long()] - lr * g_rt
@@ -1519,6 +1568,304 @@ def check_backward() -> None:
     return k8
 
 
+# -- the position-weighted DLRM ----------------------------------------------
+
+
+@contextlib.contextmanager
+def capturing(module, name: str, seen: dict):
+    """While open, `module.name` keeps the positional arguments of its last
+    call in seen[name] and counts its calls in seen[name + "_calls"]; the
+    callers look the name up in the module at each call."""
+    orig = getattr(module, name)
+    seen.setdefault(name + "_calls", 0)
+
+    def wrapper(*args, **kwargs):
+        seen[name] = args
+        seen[name + "_calls"] += 1
+        return orig(*args, **kwargs)
+
+    setattr(module, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def profile_steps(step, batches, title: str) -> None:
+    """One train step per batch under torch.profiler: the device time per
+    kernel name, the busy share of the kernel span and each label's
+    device span and host time, as the profilers print them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    # profile_serving imports this file as `chip_smoke`; run as a script,
+    # that is a second copy, of which only the summary is used
+    from profile_serving import summarize
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for batch in batches:
+            step(*batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    log(f"{title}:")
+    summarize(prof, len(batches), "step", wall_ms)
+    sys.stdout.flush()
+
+
+def make_pw_batch(rng: np.random.RandomState, batch: int):
+    """(dense [B, 13], KeyedJaggedTensor of 26 features x B rows of 1..20
+    ids uniform over each table's rows, labels [B]) on the CPU."""
+    from torchrec_tpu_torch.sparse import KeyedJaggedTensor
+
+    lengths = rng.randint(1, PW_LEN + 1, size=NUM_TABLES * batch).astype(
+        np.int32)
+    ids = rng.randint(0, ROWS, size=int(lengths.sum())).astype(np.int32)
+    dense = rng.randn(batch, DENSE_IN).astype(np.float32)
+    labels = rng.randint(0, 2, size=batch).astype(np.float32)
+    kjt = KeyedJaggedTensor.from_lengths(
+        [f"f{i}" for i in range(NUM_TABLES)], ids, lengths)
+    return torch.from_numpy(dense), kjt, torch.from_numpy(labels)
+
+
+def _position_weights(dmp, grad: bool = False) -> torch.Tensor:
+    """A DLRMTrain DMP's position weights (or their gradients, zeros where
+    none), stacked [26, PW_LEN], on the CPU."""
+    fp = dmp.module.dlrm.sparse_arch.embedding_bag_collection
+    ps = list(fp.feature_processor.parameters())
+    if grad:
+        return torch.stack([torch.zeros_like(p).cpu() if p.grad is None
+                            else p.grad.cpu() for p in ps])
+    return torch.stack([p.detach().cpu() for p in ps])
+
+
+def _check_pw_step(before: torch.Tensor, after: torch.Tensor,
+                   g: torch.Tensor, what: str) -> float:
+    """The dense SGD step moved every position weight by -lr * g to within
+    one ulp of its value (a step under half an ulp leaves it in place),
+    from a finite, nonzero gradient. Returns lr * max |g|."""
+    if not (bool(torch.isfinite(g).all()) and g.abs().max().item() > 0):
+        raise AssertionError(f"{what}: position weight gradient "
+                             f"{g.abs().max().item()}")
+    ulp = torch.nextafter(before, torch.full_like(before, math.inf)) - before
+    if not bool((((after - before) + DENSE_LR * g).abs() <= ulp).all()):
+        raise AssertionError(f"{what}: the position weights did not take "
+                             f"the step -lr * g")
+    return DENSE_LR * g.abs().max().item()
+
+
+def pw_serve(tl) -> dict:
+    """REQUESTS_PER_BATCH requests at B=8192 through make_eval_fn, K1 once
+    each; K1 then held against its plain version on the last request's
+    table, ids and coefficients (position weights x mask), and timed."""
+    import torch.nn.functional as F
+
+    dmp = make_dmp(DEVICE, position_weighted=True).init(SEED)
+    eval_fn = dmp.make_eval_fn()
+    rng = np.random.RandomState(SEED + 20)
+    requests = [make_pw_batch(rng, BENCH_BATCH)[:2]
+                for _ in range(REQUESTS_PER_BATCH)]
+    seen: dict = {}
+    torch.cuda.synchronize()
+    reset_counts()
+    ms = []
+    with capturing(tl, "tbe_lookup_pooled_forward", seen):
+        for dense, kjt in requests:
+            before = counts()
+            t0 = time.perf_counter()
+            logits = eval_fn(dense.to(DEVICE), kjt.to(DEVICE)).cpu()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            after = counts()
+            launched = {k: after[k] - before[k] for k in after}
+            if launched != expected(K1=1):
+                raise AssertionError(f"a position-weighted request launched "
+                                     f"{launched}")
+            if (logits.shape != (BENCH_BATCH, 1)
+                    or not bool(torch.isfinite(logits).all())):
+                raise AssertionError("bad position-weighted logits")
+    launches = counts()["K1"]
+    log(f"pw serve B={BENCH_BATCH} L<={PW_LEN}: request ms (host clock, H2D "
+        f"+ forward + D2H, first includes warm-up) {ms}; K1 launches "
+        f"{launches}")
+
+    W, ids, coeff = seen["tbe_lookup_pooled_forward"]
+    out = tl.tbe_lookup_pooled_forward(W, ids, coeff)
+    ref = tl.tbe_lookup_pooled_reference(W, ids, coeff)
+    torch.testing.assert_close(out, ref, rtol=1e-6, atol=1e-6)
+    err = (out - ref).abs().max().item()
+    del out, ref
+    b = bound(W, ids, coeff)
+    t = timings(lambda: tl.tbe_lookup_pooled(W, ids, coeff),
+                "tbe_lookup_pooled_kernel", b["ms"],
+                lambda: tl.tbe_lookup_pooled_reference(W, ids, coeff),
+                lambda: F.embedding_bag(ids, W, mode="sum",
+                                        per_sample_weights=coeff))
+    log(f"K1 position-weighted path: W {tuple(W.shape)}, ids "
+        f"{tuple(ids.shape)} ({int((coeff != 0).sum())} live slots): within "
+        f"rtol=atol=1e-6 of the plain version (max abs err {err:.3e}); "
+        f"{t['ms']:.4f} ms on the device (call {t['call_ms']:.4f} ms); "
+        f"plain {t['plain_ms']:.4f} ms; F.embedding_bag "
+        f"{t['library_ms']:.4f} ms; bound {b['ms']:.4f} ms ({b['by']}: "
+        f"{b['bytes']} B with {b['rows']} distinct rows); kernel at "
+        f"{100 * b['ms'] / t['ms']:.1f}% of the bound")
+    return {"launches": launches, "k1": {
+        "max_abs_err": err, "bound_ms": b["ms"],
+        **{k: t[k] for k in ("ms", "plain_ms", "library_ms")}}}
+
+
+def check_pw_against_cpu(gpu, name: str) -> None:
+    """The trained card DMP and a CPU copy of its weights and optimizer
+    state: logits of one B=256 request, then CPU_STEPS steps at B=256.
+    Losses, position weights, dense parameters and touched rows and
+    momenta within rtol 1e-4 / atol 1e-5; untouched rows equal."""
+    cpu = make_dmp("cpu", train=True, optim=gpu.fused_optim,
+                   position_weighted=True)
+    cpu.load_state_dict(gpu.state_dict())
+    rng = np.random.RandomState(SEED + 21)
+    batches = [make_pw_batch(rng, SERVE_BATCH) for _ in range(CPU_STEPS + 1)]
+    _, (_, logits_g, _) = gpu.make_eval_fn()(*to_device(batches[0]))
+    _, (_, logits_c, _) = cpu.make_eval_fn()(*batches[0])
+    torch.testing.assert_close(logits_g.cpu(), logits_c, rtol=1e-4,
+                               atol=1e-5)
+    log(f"pw {name} B={SERVE_BATCH}: card logits match the CPU run, max abs "
+        f"diff {(logits_g.cpu() - logits_c).abs().max().item():.3e}")
+    step_g, step_c = gpu.make_train_step(), cpu.make_train_step()
+    for i, batch in enumerate(batches[1:]):
+        loss_g, _ = step_g(*to_device(batch))
+        loss_c, _ = step_c(*batch)
+        torch.testing.assert_close(loss_g.cpu(), loss_c, rtol=1e-4,
+                                   atol=1e-5)
+        log(f"pw {name} B={SERVE_BATCH} step {i}: card loss "
+            f"{loss_g.item():.9g}, CPU loss {loss_c.item():.9g}")
+    pg = dict(gpu.module.named_parameters())
+    for pname, p in cpu.module.named_parameters():
+        torch.testing.assert_close(pg[pname].detach().cpu(), p.detach(),
+                                   rtol=1e-4, atol=1e-5)
+    pw_g = _position_weights(gpu)
+    pw_c = _position_weights(cpu)
+    g_g, g_c = _position_weights(gpu, grad=True), _position_weights(
+        cpu, grad=True)
+    rel = ((g_g - g_c).norm() / g_c.norm()).item()
+    if not rel <= 1e-3:
+        raise AssertionError(f"pw {name}: the last step's position weight "
+                             f"gradients differ from the CPU's by {rel:.3e} "
+                             f"of their norm")
+    log(f"pw {name}: position weights and dense parameters match the CPU "
+        f"run (position weights max abs diff "
+        f"{(pw_g - pw_c).abs().max().item():.3e}; the last step's position "
+        f"weight gradients within {rel:.3e} of the CPU's in norm, max "
+        f"|g| {g_c.abs().max().item():.3e})")
+    sg = gpu.sharded_ebcs[TRAIN_KEY].strategies[0]
+    sc = cpu.sharded_ebcs[TRAIN_KEY].strategies[0]
+    touched = _touched(sc, batches[1:])
+    for what in ("weights", "momentum1"):
+        if getattr(sc, what) is None:
+            continue
+        a, b = getattr(sg, what)[0].cpu(), getattr(sc, what)[0]
+        torch.testing.assert_close(a[touched], b[touched], rtol=1e-4,
+                                   atol=1e-5)
+        if not torch.equal(a[~touched], b[~touched]):
+            raise AssertionError(f"pw {name}: untouched {what} rows differ")
+        log(f"pw {name}: {int(touched.sum())} touched {what} rows within "
+            f"rtol 1e-4 / atol 1e-5 of the CPU run (max abs diff "
+            f"{(a[touched] - b[touched]).abs().max().item():.3e}), the rest "
+            f"equal")
+
+
+def pw_train(tl, fk, optim) -> dict:
+    """PW_WARMUP_STEPS + PW_TIMED_STEPS train steps at B=8192, each
+    launching K1 (the forward, its coefficient differentiable in the
+    position weights), K8 (the rows of d_coeff in K1's backward) and the
+    update's kernel (K3 or the fused K4) once, and building no dense table
+    gradient. The position weights must take each dense step (-lr * g, to
+    within an ulp), move where a step reaches an ulp of 1.0 and stay
+    finite. Then the update's kernel is held and timed on the trained
+    table with the last step's ids and row gradients, PW_PROFILED_STEPS
+    more steps are profiled, and the card is held against the CPU.
+    Returns the launches, how far the weights moved, the update kernel's
+    numbers and, after EXACT_SGD, K8 held and timed at the shape of
+    d_coeff's gather."""
+    name = optim.name
+    update = KERNELS[STEP_KERNELS[name][0]][0]
+    dmp = make_dmp(DEVICE, train=True, optim=optim,
+                   position_weighted=True).init(SEED)
+    step = dmp.make_train_step()
+    rng = np.random.RandomState(SEED + 22)
+    batches = [to_device(make_pw_batch(rng, BENCH_BATCH))
+               for _ in range(PW_WARMUP_STEPS + PW_TIMED_STEPS)]
+    per_step = expected(K1=1, K8=1, **{k: 1 for k in STEP_KERNELS[name]})
+    pw0 = _position_weights(dmp)
+    seen: dict = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    ms, losses = [], []
+    steps = []
+    with capturing(tl, "gather_rows_forward", seen), \
+            capturing(tl, "scatter_add_rows", seen):
+        for i, batch in enumerate(batches):
+            pw_before = _position_weights(dmp)
+            before = counts()
+            # the update's inputs of the last step only: holding a step's
+            # row gradients into the next would raise the peak
+            last = i == len(batches) - 1
+            t0 = time.perf_counter()
+            with (capturing(fk, update, seen) if last
+                  else contextlib.nullcontext()):
+                loss, _ = step(*batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            after = counts()
+            steps.append(_check_pw_step(
+                pw_before, _position_weights(dmp),
+                _position_weights(dmp, grad=True), f"pw {name} step "
+                f"{len(ms)}"))
+            launched = {k: after[k] - before[k] for k in after}
+            if launched != per_step:
+                raise AssertionError(f"pw {name} step {len(ms)} launched "
+                                     f"{launched}, expected {per_step}")
+            losses.append(loss.item())
+            if not math.isfinite(losses[-1]):
+                raise AssertionError(f"pw {name} step {len(ms)}: loss "
+                                     f"{losses[-1]}")
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    sebc = dmp.sharded_ebcs[TRAIN_KEY]
+    if seen["scatter_add_rows_calls"] or any(
+            b.requires_grad or b.grad is not None for b in sebc.buffers()):
+        raise AssertionError(f"pw {name}: a dense table gradient was built")
+    pw1 = _position_weights(dmp)
+    moved = (pw1 - pw0).abs().max().item()
+    if not bool(torch.isfinite(pw1).all()):
+        raise AssertionError(f"pw {name}: position weights not finite")
+    # a step of an ulp of 1.0 or more (the weights start at ones) must show
+    if max(steps) > torch.finfo(torch.float32).eps and not moved > 0:
+        raise AssertionError(f"pw {name}: position weights moved {moved}")
+    timed = ms[PW_WARMUP_STEPS:]
+    log(f"pw train {name} B={BENCH_BATCH}: losses {losses}")
+    log(f"pw train {name}: warm-up step ms {ms[:PW_WARMUP_STEPS]}; timed "
+        f"step ms (host clock, synchronized) {timed}; launches per step "
+        f"{per_step}, in all {launches}; no dense table gradient; each "
+        f"step moved the position weights by -lr * g to within an ulp, "
+        f"lr * max |g| per step {steps}; they moved by up to {moved:.3e} "
+        f"from the start (fp32 keeps no step under half an ulp), all "
+        f"finite; max_memory_allocated {peak} B")
+    out = {"launches": launches, "ms": timed, "peak_bytes": peak,
+           "moved": moved}
+    if optim.name == "EXACT_SGD":
+        W, ids = seen["gather_rows_forward"]
+        out["k8"] = check_gather(W, ids, "d_coeff shape")
+        held = check_sgd(fk, *seen.pop(update))
+    else:
+        held = check_rowwise(fk, *seen.pop(update), "position-weighted")
+    out["update"] = report(held, " at the position-weighted shape")
+    del held, seen
+    profile_steps(step, batches[-PW_PROFILED_STEPS:],
+                  f"pw train {name} B={BENCH_BATCH}, profiled")
+    check_pw_against_cpu(dmp, name)
+    return out
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1560,6 +1907,14 @@ def main() -> int:
         if optim is not EmbOptimType.SGD:  # SGD is EXACT_SGD's update
             check_train_against_cpu(optim)
 
+    # the position-weighted DLRM: the DMP's feature-processor branch, K1
+    # with learned per-sample weights, K8 in K1's VJP for d_coeff
+    pw_served = pw_serve(tl)
+    pw_trained = {o.name: pw_train(tl, fk, o) for o in (
+        EmbOptimType.EXACT_SGD, EmbOptimType.ROWWISE_ADAGRAD)}
+    if not any(t["moved"] > 0 for t in pw_trained.values()):
+        raise AssertionError("training moved no position weight")
+
     # BERT4Rec: serving and training through the sharded EC (K8, K4), K4
     # held at the path's shape, K8 at the path's shape and a bytes-bound
     # one, then the gradients of the unsharded EBC and EC (K1's and K8's
@@ -1573,26 +1928,46 @@ def main() -> int:
     k8 = check_gather_kernel(b4r_dmp, b4r_trained["batch_ids"])
     del b4r_dmp
     results["K8r"] = {k: v for k, v in routed.items() if k != "timed"}
+    d_coeff = {k: v for k, v in pw_trained["EXACT_SGD"]["k8"].items()
+               if k != "call_ms"}
     results["K8"] = {**{k: v for k, v in k8["ec"].items()
                         if k != "call_ms"},
-                     "max_abs_err": max(r["max_abs_err"]
-                                        for r in k8.values())}
+                     "max_abs_err": max(r["max_abs_err"] for r in
+                                        (*k8.values(), d_coeff)),
+                     "d_coeff_shape": d_coeff}
+    for k, held in (("K1", pw_served["k1"]),
+                    ("K3", pw_trained["EXACT_SGD"]["update"]["K3"]),
+                    ("K4", pw_trained["ROWWISE_ADAGRAD"]["update"]["K4"])):
+        results[k]["position_weighted_shape"] = held
+        results[k]["max_abs_err"] = max(results[k]["max_abs_err"],
+                                        held["max_abs_err"])
     unsharded_k8 = check_backward()
 
     launches = {k: trained[name]["launches"][k]
                 for name, ks in STEP_KERNELS.items() for k in ks}
     launches["K4"] += b4r_trained["launches"]["K4"]
+    pw_steps = {k: sum(t["launches"][k] for t in pw_trained.values())
+                for k in ("K1", "K3", "K4", "K8")}
     launches.update(
-        K1=served_launches, K2=sum(r["K2"] for r in routes),
-        K5=sum(r["K5"] for r in routes), K8=unsharded_k8,
+        K1=served_launches + pw_served["launches"] + pw_steps["K1"],
+        K2=sum(r["K2"] for r in routes),
+        K3=launches["K3"] + pw_steps["K3"],
+        K4=launches["K4"] + pw_steps["K4"],
+        K5=sum(r["K5"] for r in routes), K8=unsharded_k8 + pw_steps["K8"],
         K8r=b4r_served["launches"] + b4r_trained["launches"]["K8r"])
-    log(f"launches on the paths: K1 serving, K3 EXACT_SGD training, K4 "
-        f"ROWWISE_ADAGRAD training of the DLRM "
-        f"({trained['ROWWISE_ADAGRAD']['launches']['K4']}) and BERT4Rec "
+    log(f"launches on the paths: K1 serving ({served_launches}), the "
+        f"position-weighted DLRM's serving ({pw_served['launches']}) and "
+        f"training ({pw_steps['K1']}), K3 EXACT_SGD training of the DLRM "
+        f"({trained['EXACT_SGD']['launches']['K3']}) and the "
+        f"position-weighted DLRM ({pw_steps['K3']}), K4 ROWWISE_ADAGRAD "
+        f"training of the DLRM "
+        f"({trained['ROWWISE_ADAGRAD']['launches']['K4']}), the "
+        f"position-weighted DLRM ({pw_steps['K4']}) and BERT4Rec "
         f"({b4r_trained['launches']['K4']}), K6 ADAGRAD training, K7 ADAM "
         f"training, K2 the three w_impl=write steps, K5 ROWWISE_ADAGRAD's "
-        f"w_impl=write step, K8 the unsharded EBC's backward and EC's "
-        f"forward, the routed gather (K8r) BERT4Rec serving "
+        f"w_impl=write step, K8 the position-weighted DLRM's d_coeff "
+        f"({pw_steps['K8']}), the unsharded EBC's backward and EC's "
+        f"forward ({unsharded_k8}), the routed gather (K8r) BERT4Rec serving "
         f"({b4r_served['launches']}) and training "
         f"({b4r_trained['launches']['K8r']}); K4's scaled RMW "
         f"{sum(r[SCALED] for r in routes)} in the mom_impl=xla step, the "

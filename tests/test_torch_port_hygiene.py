@@ -22,6 +22,8 @@ from torchrec_tpu_torch.modules import (
     EmbeddingBagConfig,
     EmbeddingCollection,
     EmbeddingConfig,
+    PositionWeightedModule,
+    SwishLayerNorm,
 )
 from torchrec_tpu_torch.parallel import (
     DistributedModelParallel,
@@ -96,7 +98,8 @@ def _bert4rec_dmp(sharding_type=ShardingType.ROW_WISE,
 
 @pytest.mark.parametrize("entry", [
     "env", "dmp", "mlp", "ebc", "train_step", "ec", "bert4rec",
-    "bert4rec_dmp", "bert4rec_train_step"])
+    "bert4rec_dmp", "bert4rec_train_step", "position_weighted",
+    "swish_layer_norm"])
 def test_entry_points_refuse_cpu_without_asking(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -118,6 +121,10 @@ def test_entry_points_refuse_cpu_without_asking(entry, monkeypatch):
             _bert4rec_dmp()
         elif entry == "bert4rec_train_step":
             _bert4rec_dmp().make_train_step()
+        elif entry == "position_weighted":
+            PositionWeightedModule({"f0": 4})
+        elif entry == "swish_layer_norm":
+            SwishLayerNorm(8)
         else:
             EmbeddingBagCollection(_tables())
 
@@ -132,7 +139,7 @@ def test_dmp_serves_on_cpu_when_asked():
 @pytest.mark.parametrize(
     "case", ["no_plan", "table_wise", "uvm", "world_size", "update",
              "bf16_train", "fused_param", "seq_table_wise",
-             "seq_data_parallel", "as_jagged", "bf16_ec_train", "dropout"])
+             "seq_data_parallel", "bf16_ec_train", "dropout"])
 def test_unported_parts_raise(case):
     """`update`: an ADAM update of a bf16 table (stochastic rounding, not
     ported) raises, from make_train_step before any step and from
@@ -176,10 +183,6 @@ def test_unported_parts_raise(case):
             _bert4rec_dmp(ShardingType.TABLE_WISE, device="cpu")
         elif case == "seq_data_parallel":
             _bert4rec_dmp(ShardingType.DATA_PARALLEL, device="cpu")
-        elif case == "as_jagged":  # needs JaggedTensor.from_dense_lengths
-            ec = make_item_embedding_collection(12, 8, 4, device="cpu")
-            ec(KeyedJaggedTensor.from_lengths(["item"], [1, 2], [2]),
-               as_jagged=True)
         elif case == "bf16_ec_train":  # stochastic rounding
             _bert4rec_dmp(device="cpu",
                           data_type=DataType.BF16).make_train_step()

@@ -14,7 +14,8 @@ flax 0.12's layers compute:
   `nn.Linear(D, D)` weights (utils/jax_bridge.py reshapes them). Kernels
   are drawn lecun_normal (a normal truncated at 2 sigma, scaled to
   variance 1/fan_in), biases are zero.
-* `LayerNorm` has epsilon 1e-6 (torch's default is 1e-5).
+* `LayerNorm` (modules/activation.py) has epsilon 1e-6 (torch's default
+  is 1e-5).
 * The GELU is the tanh approximation, `jax.nn.gelu`'s default.
 * Attention divides the query by sqrt(head dim) before the QK product and
   sets masked logits to finfo(float32).min, not -inf: a row whose keys
@@ -38,6 +39,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from torchrec_tpu_torch.modules.activation import LayerNorm
 from torchrec_tpu_torch.modules.embedding_configs import EmbeddingConfig
 from torchrec_tpu_torch.modules.embedding_modules import (
     EmbeddingCollection,
@@ -74,21 +76,6 @@ class Dense(nn.Linear):
         std = (1.0 / self.in_features) ** 0.5 / _TRUNCATED_STD
         nn.init.trunc_normal_(self.weight, 0.0, std, -2.0 * std, 2.0 * std,
                               generator=generator)
-        nn.init.zeros_(self.bias)
-
-
-class LayerNorm(nn.LayerNorm):
-    """flax `nn.LayerNorm`: epsilon 1e-6, scale ones, bias zeros."""
-
-    def __init__(self, dim: int, device: DeviceLike = None):
-        super().__init__(dim, eps=1e-6, device=resolve_device(device),
-                         dtype=torch.float32)
-
-    @torch.no_grad()
-    def reset_parameters(
-        self, generator: Optional[torch.Generator] = None
-    ) -> None:
-        nn.init.ones_(self.weight)
         nn.init.zeros_(self.bias)
 
 

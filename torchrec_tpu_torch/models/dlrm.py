@@ -121,6 +121,10 @@ class DLRM(nn.Module):
     layer must equal. `dense_dtype` is the compute dtype of the dense,
     interaction and over arches; parameters and logits stay fp32."""
 
+    # the JAX DLRM holds its EBC (an FP-EBC's processor lives there) itself
+    flax_names = {"embedding_bag_collection":
+                  "sparse_arch.embedding_bag_collection"}
+
     def __init__(
         self,
         embedding_bag_collection: EmbeddingBagCollection,

@@ -10,4 +10,12 @@ from torchrec_tpu_torch.modules.embedding_modules import (  # noqa: F401
     EmbeddingBagCollection,
     EmbeddingCollection,
 )
+from torchrec_tpu_torch.modules.activation import (  # noqa: F401
+    LayerNorm,
+    SwishLayerNorm,
+)
+from torchrec_tpu_torch.modules.feature_processor import (  # noqa: F401
+    FeatureProcessedEmbeddingBagCollection,
+    PositionWeightedModule,
+)
 from torchrec_tpu_torch.modules.mlp import MLP, Perceptron  # noqa: F401

@@ -31,6 +31,7 @@ from torchrec_tpu_torch.ops.embedding import (
     batched_embedding_lookup,
 )
 from torchrec_tpu_torch.sparse.jagged import (
+    JaggedTensor,
     KeyedJaggedTensor,
     KeyedTensor,
     PaddedSparseBatch,
@@ -194,21 +195,15 @@ class EmbeddingCollection(nn.Module):
     def embedding_names(self) -> List[str]:
         return [n for names in self._emb_names for n in names]
 
-    def forward(self, features: SparseInput,
-                as_jagged: bool = False) -> Dict[str, torch.Tensor]:
-        """-> {embedding name: [B, L, D]}. `as_jagged=True` (the JAX
-        module's Dict[str, JaggedTensor] output) raises: it needs
-        `JaggedTensor.from_dense_lengths`, not ported yet (ROADMAP queue 1
-        item 6)."""
-        if as_jagged:
-            raise NotImplementedError(
-                "EmbeddingCollection(as_jagged=True) needs "
-                "JaggedTensor.from_dense_lengths, which is not ported yet "
-                "(ROADMAP queue 1 item 6)"
-            )
+    def forward(
+        self, features: SparseInput, as_jagged: bool = False
+    ) -> Dict[str, Union[torch.Tensor, JaggedTensor]]:
+        """-> {embedding name: [B, L, D]}; with `as_jagged=True`
+        {embedding name: JaggedTensor.from_dense_lengths(rows, lengths)},
+        each row's valid tokens first in B*L slots."""
         sb = as_padded(features, self.max_feature_length)
         key_index = {k: i for i, k in enumerate(sb.keys)}
-        out: Dict[str, torch.Tensor] = {}
+        out: Dict[str, Union[torch.Tensor, JaggedTensor]] = {}
         for cfg, enames in zip(self.tables, self._emb_names):
             fidx = torch.as_tensor(
                 [key_index[f] for f in cfg.feature_names],
@@ -221,5 +216,8 @@ class EmbeddingCollection(nn.Module):
                 [0] * len(cfg.feature_names),
                 pooling=PoolingMode.NONE,
             )  # [f, B, L, D]
-            out.update(zip(enames, rows.unbind(0)))
+            for name, r, lengths in zip(enames, rows.unbind(0),
+                                        sb.lengths[fidx].unbind(0)):
+                out[name] = (JaggedTensor.from_dense_lengths(r, lengths)
+                             if as_jagged else r)
         return out

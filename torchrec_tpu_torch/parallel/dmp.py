@@ -24,15 +24,29 @@ each sharded module applies its fused optimizer to the touched rows. Where
 the JAX step returns a new DMPState, this one updates the DMP's
 parameters, tables and optimizer state in place.
 
+A FeatureProcessedEmbeddingBagCollection is found before the EBC it
+wraps and planned under its own path (for a position-weighted DLRMTrain
+"dlrm/sparse_arch/embedding_bag_collection"). It becomes a
+ShardedFeatureProcessedEmbeddingBagCollection: its processor stays a dense
+module, drawn by `init` and stepped by the dense optimizer, and its EBC a
+weighted ShardedEmbeddingBagCollection. Served, it runs
+`sharded(processor(batch))`. In the train step the processor runs
+with autograd on and the sharded lookup with its pooling coefficient
+differentiable in the processed weights, its table a buffer that takes no
+gradient; after the dense backward the pooled values' cotangent goes back
+through K1's VJP (`d_coeff`, rows gathered by K8) into the processor's
+parameters, and the fused update takes this step's weights, detached, as
+the JAX step passes `sb.replace(weights=w)`.
+
 Every fused optimizer trains fp32 tables. Not ported yet: training
 half-precision tables (stochastic rounding), the planner (a plan must be
-given), the prefetched and pipelined train steps, and embedding towers,
-UVM-cached tables and feature processors, whose modules the port does not
-have.
+given), the prefetched and pipelined train steps, embedding towers and
+UVM-cached tables (an FP-EBC's too).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import inspect
 from typing import Any, Callable, Dict, Iterable, List, Mapping, Optional
 
@@ -43,11 +57,16 @@ from torch.profiler import record_function
 from torchrec_tpu_torch.modules.embedding_modules import (
     EmbeddingBagCollection,
     EmbeddingCollection,
+    as_padded,
+)
+from torchrec_tpu_torch.modules.feature_processor import (
+    FeatureProcessedEmbeddingBagCollection,
 )
 from torchrec_tpu_torch.ops.fused_update import EmbOptimType
 from torchrec_tpu_torch.parallel.sharded_ebc import (
     ShardedEmbeddingBagCollection,
     ShardedEmbeddingModule,
+    ShardedFeatureProcessedEmbeddingBagCollection,
 )
 from torchrec_tpu_torch.parallel.sharded_ec import ShardedEmbeddingCollection
 from torchrec_tpu_torch.parallel.strategies import ArrayLike
@@ -110,13 +129,13 @@ def _grad(leaf: Any) -> Any:
 
 
 class DistributedModelParallel(nn.Module):
-    """Wraps an authored model, shards its EmbeddingBagCollections and
-    EmbeddingCollections per the plan, and serves and trains it on the
-    env's device.
+    """Wraps an authored model, shards its EmbeddingBagCollections,
+    EmbeddingCollections and FeatureProcessedEmbeddingBagCollections per
+    the plan, and serves and trains it on the env's device.
 
     env: where to run (default: ShardingEnv(device), and `device` defaults
     to the current CUDA card). plan: ShardingPlan with an entry for every
-    EBC and EC. fused_optim: the embedding tables' fused optimizer.
+    EBC, EC and FP-EBC. fused_optim: the embedding tables' fused optimizer.
     fused_params: its `learning_rate` (default 0.01), an optional
     `lr_schedule` (step -> lr, evaluated on the host from the DMP's step
     counter) and
@@ -138,9 +157,17 @@ class DistributedModelParallel(nn.Module):
     ):
         super().__init__()
         self.env = env or ShardingEnv(device)
-        found = {name: m for name, m in module.named_modules()
-                 if isinstance(m, (EmbeddingBagCollection,
-                                   EmbeddingCollection))}
+        # module path -> EBC, EC or FP-EBC; named_modules lists an FP-EBC
+        # before the EBC it wraps, which is sharded as part of it
+        found: Dict[str, nn.Module] = {}
+        wrapped = set()
+        for name, m in module.named_modules():
+            if isinstance(m, FeatureProcessedEmbeddingBagCollection):
+                found[name] = m
+                wrapped.add(id(m.embedding_bag_collection))
+            elif (isinstance(m, (EmbeddingBagCollection, EmbeddingCollection))
+                  and id(m) not in wrapped):
+                found[name] = m
         if not found:
             raise ValueError("no EmbeddingBagCollection or "
                              "EmbeddingCollection found in module")
@@ -158,12 +185,27 @@ class DistributedModelParallel(nn.Module):
         # module key -> sharded EBC or EC, as the JAX DMP's sharded_ebcs
         sharded: Dict[str, ShardedEmbeddingModule] = {}
         stubs: Dict[str, nn.Module] = {}
+        # module key -> what replaced an FP-EBC
+        self._fp_ebcs: Dict[
+            str, ShardedFeatureProcessedEmbeddingBagCollection] = {}
         for name, mod in found.items():
             key = name.replace(".", "/")
             module_plan = plan.get_plan_for_module(key)
             if module_plan is None:
                 raise ValueError(f"the plan has no entry for module {key!r}")
-            if isinstance(mod, EmbeddingCollection):
+            if isinstance(mod, FeatureProcessedEmbeddingBagCollection):
+                # the processor stays; the EBC is stubbed and sharded below
+                fp_ebc = ShardedFeatureProcessedEmbeddingBagCollection(
+                    mod.embedding_bag_collection, mod.feature_processor)
+                _replace_module(module, mod, fp_ebc)
+                self._fp_ebcs[key] = fp_ebc
+                mod = mod.embedding_bag_collection
+                sharded[key] = ShardedEmbeddingBagCollection(
+                    self.env, mod.tables, module_plan, is_weighted=True,
+                    max_feature_length=mod.max_feature_length,
+                    optim=fused_optim, optim_kwargs=fused_params,
+                )
+            elif isinstance(mod, EmbeddingCollection):
                 sharded[key] = ShardedEmbeddingCollection(
                     self.env, mod.tables, module_plan,
                     max_feature_length=mod.max_feature_length,
@@ -270,12 +312,30 @@ class DistributedModelParallel(nn.Module):
                 raise ValueError("train_step takes exactly one sparse batch "
                                  f"argument, got {len(sparse)}")
             lr = self._fused_lr()
-            # the sharded lookups outside autograd; their values enter the
-            # dense model as leaves: an EBC's pooled values, an EC's
-            # {name: per-token rows}
+            # the sharded lookups' values enter the dense model as leaves:
+            # an EBC's pooled values, an EC's {name: per-token rows}
             leaves: Dict[str, Any] = {}
+            # an FP-EBC's lookup runs inside autograd, differentiable in
+            # the processed weights only; its update takes them detached
+            batches = {key: sparse[0] for key in self.sharded_ebcs}
+            fp_pooled: Dict[str, torch.Tensor] = {}
+            with record_function("## train_feature_processor ##"):
+                for key, fp_ebc in self._fp_ebcs.items():
+                    sebc = self.sharded_ebcs[key]
+                    sb = fp_ebc.feature_processor(
+                        as_padded(sparse[0], sebc.max_feature_length))
+                    out = sebc(sb)
+                    fp_pooled[key] = out.values
+                    leaves[key] = out.values.detach().requires_grad_(True)
+                    fp_ebc.injected = dataclasses.replace(out,
+                                                          values=leaves[key])
+                    batches[key] = dataclasses.replace(
+                        sb, weights=sb.weights.detach())
+            # the other sharded lookups outside autograd
             with torch.no_grad():
                 for key, sebc in self.sharded_ebcs.items():
+                    if key in leaves:
+                        continue
                     out = sebc(sparse[0])
                     if isinstance(sebc, ShardedEmbeddingCollection):
                         leaves[key] = {n: t.detach().requires_grad_(True)
@@ -291,15 +351,22 @@ class DistributedModelParallel(nn.Module):
                     out = self.module(*args)
                     loss, aux = out if loss_fn is None else loss_fn(out)
             finally:
-                for sebc in self.sharded_ebcs.values():
-                    sebc.injected = None
+                for m in (*self.sharded_ebcs.values(),
+                          *self._fp_ebcs.values()):
+                    m.injected = None
             self.dense_optimizer.zero_grad(set_to_none=True)
             with record_function("## train_backward ##"):
                 loss.backward()
+            with record_function("## train_fp_backward ##"):
+                # the pooled cotangent back through K1's VJP in its
+                # coefficient into the processor's parameters
+                for key, pooled in fp_pooled.items():
+                    if leaves[key].grad is not None:
+                        pooled.backward(leaves[key].grad)
             with record_function("## train_dense_optimizer ##"):
                 self.dense_optimizer.step()
             for key, sebc in self.sharded_ebcs.items():
-                sebc.update(sparse[0], _grad(leaves[key]), lr)
+                sebc.update(batches[key], _grad(leaves[key]), lr)
             self.step += 1
             return loss.detach(), _detach(aux)
 

@@ -195,3 +195,28 @@ class ShardedEmbeddingBagCollection(ShardedEmbeddingModule):
                 strat.update(self._group_batch(sb, gi), d_pooled,
                              learning_rate)
         return self.states
+
+
+class ShardedFeatureProcessedEmbeddingBagCollection(nn.Module):
+    """What a FeatureProcessedEmbeddingBagCollection becomes under the
+    DMP: its processor, still a dense module, before the weighted
+    ShardedEmbeddingBagCollection that replaced its EBC. The attribute
+    names are the unsharded module's, so the parameter names stay.
+
+    `injected`: while set, `forward` returns it; the DMP's train step
+    sets it to the pooled values it computed before the dense forward.
+    """
+
+    def __init__(self, embedding_bag_collection: nn.Module,
+                 feature_processor: nn.Module):
+        super().__init__()
+        self.embedding_bag_collection = embedding_bag_collection
+        self.feature_processor = feature_processor
+        self.injected = None
+
+    def forward(self, features: SparseInput) -> KeyedTensor:
+        if self.injected is not None:
+            return self.injected
+        sebc = self.embedding_bag_collection
+        return sebc(self.feature_processor(
+            as_padded(features, sebc.max_feature_length)))

@@ -62,13 +62,9 @@ class ShardedEmbeddingCollection(ShardedEmbeddingModule):
     def forward(self, features: SparseInput,
                 as_jagged: bool = False) -> Dict[str, torch.Tensor]:
         """-> {embedding name: [B, L, D]} per-token rows (pad rows zero).
-        `as_jagged=True` raises, as in the unsharded module."""
-        if as_jagged:
-            raise NotImplementedError(
-                "ShardedEmbeddingCollection(as_jagged=True) needs "
-                "JaggedTensor.from_dense_lengths, which is not ported yet "
-                "(ROADMAP queue 1 item 6)"
-            )
+        `as_jagged` is accepted and ignored, as the JAX DMP's stand-in
+        for an EmbeddingCollection ignores it: the rows stay dense."""
+        del as_jagged
         if self.injected is not None:
             return self.injected
         sb = as_padded(features, self.max_feature_length)

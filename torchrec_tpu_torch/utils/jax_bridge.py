@@ -8,7 +8,12 @@ The JAX side hands over numpy arrays only, so this module imports no JAX:
   holds it (a Perceptron's `Dense_0` is its `linear`, an MLP's
   `Perceptron_<i>` its `perceptrons.<i>`, a DLRM arch's `MLP_0` its `mlp`,
   a BERT4Rec TransformerBlock's `Dense_0` / `Dense_1` its `ff_in` /
-  `ff_out`); other names are the attribute's own. A flax `kernel` [in...,
+  `ff_out`, a SwishLayerNorm's `LayerNorm_0` its `norm`, a DLRM's
+  `embedding_bag_collection`, where a FeatureProcessedEmbeddingBagCollection
+  keeps its `feature_processor`, its `sparse_arch.embedding_bag_collection`);
+  other names are the attribute's
+  own (a PositionWeightedModule's `position_weight_<key>`), and a name the
+  module does not have raises. A flax `kernel` [in...,
   out...] becomes the `nn.Linear.weight` [out, in], flattened row-major
   (DenseGeneral's [D, heads, head_dim] and [heads, head_dim, D] too); a
   LayerNorm `scale` becomes its `weight`; `bias` and other parameters (the
