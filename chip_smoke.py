@@ -8,8 +8,9 @@ Phases, each failing the run with a non-zero exit when it fails:
 
 1. Identify the card (name, count, power limit); TF32 is switched off.
 2. Build the kernels with nvcc for sm_90a, one nvcc per source, started
-   together: K1 (csrc/tbe_lookup.cu), K2-K7 (csrc/fused_update.cu) and K8
-   with the routed gather (csrc/gather_rows.cu).
+   together: K1 and K1h (csrc/tbe_lookup.cu), K2-K7, K3h and K4h
+   (csrc/fused_update.cu) and K8 with the routed gather
+   (csrc/gather_rows.cu).
 3. Serve the DLRM that bench.py and bench_config.py describe, at full
    width, through the port's DistributedModelParallel.make_eval_fn:
    26 fp32 tables of 100,000 x 128 (ROW_WISE on one device), dense arch
@@ -120,18 +121,45 @@ Phases, each failing the run with a non-zero exit when it fails:
    three.
 12. Gradients through the unsharded EmbeddingBagCollection (weighted,
    L=20, SUM and MEAN, D=128) and EmbeddingCollection on the card against
-   the CPU: d_W and the per-sample weights' gradient (rtol 1e-5, atol
-   1e-6). K1 launches once in the EBC's forward and K8 once in its
-   backward. The EC takes histories at their own lengths, so padding is
-   masked (a pad row summing hundreds of cotangents would differ by more
-   than 1e-5 in summation order alone).
+   the CPU: the EBC's d_W and the per-sample weights' gradient (rtol
+   1e-5, atol 1e-6), the EC's d_W bit for bit. K1 launches once in the
+   EBC's forward and K8 once in its backward. The EC takes histories at
+   their own lengths, so padding is masked, and cotangents on a 1/64 grid,
+   which sum exactly in any order: a popular item's hundred-token sum
+   otherwise depends on the order of the card's atomic adds by more than
+   1e-5 of its value.
+13. The bf16 DLRM: bench.py's DLRM with DataType.BF16 tables, as its
+   headline_bf16 suite runs it (one 2,600,064 x 128 bf16 shard; fused lr
+   0.1 with stochastic rounding on, dense SGD at 0.05). 3 requests at
+   B=8192 and 3 at B=256, each launching K1h once and K1 never, logits
+   finite, one B=256 request equal to a CPU copy's (rtol 1e-4, atol
+   1e-5). K1h held against its plain version on the served table at the
+   path's shape (bit-exact) and at L=20 with MEAN / per-sample
+   coefficients and ids >= R (rtol 1e-6), and on an fp16 copy, and timed
+   beside F.embedding_bag. Trained under EXACT_SGD and ROWWISE_ADAGRAD: 3
+   warm-up and 10 timed steps at B=8192, each launching K1h and K3h or
+   K4h once and no f32 kernel, losses finite. K3h and K4h held bit-exact
+   against their plain versions on the trained table with the last
+   step's run totals / dedup output at the step the run reached, under
+   both epilogues (stochastic rounding and to nearest), also on an fp16
+   copy, and K4h at BERT4Rec's shape (the trained [3712, 64] shard in
+   bf16, 2,048 tokens of a B=32 batch; run in 11); each timed. Stochastic
+   rounding shown on the card: 300 K3h steps of lr * g = 1e-4 on a bf16
+   table of ones drift the mean by 0.5-1.5x of 0.03 with it and not at
+   all without it. Card against CPU: a fresh card bf16 DMP and its CPU
+   copy take 2 steps at B=256 under EXACT_SGD, ROWWISE_ADAGRAD (both with
+   stochastic rounding) and ADAM: touched rows within one bf16 ulp, at
+   most 1 in 1,000 touched elements differing at all (the same SR bits on
+   both sides), momenta within rtol 1e-4 / atol 1e-5, untouched rows
+   equal.
 
 Kernel times are device times from torch.profiler (the kernel's own for a
 kernel, all device activity of the call for the plain version and the
 library call); the log gives each wrapper call's CUDA-event time beside
 it, which includes the host's time to make the call where that is longer.
 
-The line before the last is a JSON object with every kernel's numbers;
+The line before the last is a JSON object with every kernel's numbers
+(K1h, K3h and K4h with an "fp16" sub-entry, K4h with "bert4rec_shape");
 the last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 outside a checkout of the repository, it exits non-zero and prints no
 result.
@@ -219,6 +247,17 @@ KERNELS = {
     # torchrec_tpu/parallel/strategies.py:829 and the mask multiply fused in
     "K8r": ("routed_gather_rows", "torchrec_tpu_torch/csrc/gather_rows.cu",
             "torchrec_tpu/ops/pallas_embedding.py:91"),
+    # the half-table forms of K1, K3 and the fused K4, in place of what the
+    # JAX package runs in XLA for bf16 / fp16 tables (its Pallas kernels
+    # take f32 only): the gather + einsum pooling, and the SGD / rowwise
+    # Adagrad branches of apply_fused_update's XLA route
+    "K1h": ("tbe_lookup_pooled_half", "torchrec_tpu_torch/csrc/tbe_lookup.cu",
+            "torchrec_tpu/ops/embedding.py:103"),
+    "K3h": ("fused_update_sgd_half", "torchrec_tpu_torch/csrc/fused_update.cu",
+            "torchrec_tpu/ops/fused_update.py:534"),
+    "K4h": ("fused_update_rowwise_adagrad_half",
+            "torchrec_tpu_torch/csrc/fused_update.cu",
+            "torchrec_tpu/ops/fused_update.py:647"),
 }
 # launch counters beside the kernels': K4's scaled RMW, which the rowwise
 # routes other than the fused one launch, and the routed gather's
@@ -285,26 +324,28 @@ def _counted():
 def counts() -> dict:
     """Launches per kernel so far."""
     tl, fk, gr = _counted()
-    return {"K1": tl.LAUNCHES, "K8": gr.LAUNCHES,
+    return {"K1": tl.LAUNCHES, "K1h": tl.HALF_LAUNCHES, "K8": gr.LAUNCHES,
             "K8r": gr.ROUTED_LAUNCHES, ROUTE: gr.ROUTE_LAUNCHES,
             SCALED: fk.LAUNCHES[SCALED],
             **{k: fk.LAUNCHES[name] for k, (name, _, _) in KERNELS.items()
-               if k not in ("K1", "K8", "K8r")}}
+               if k not in ("K1", "K1h", "K8", "K8r")}}
 
 
 def reset_counts() -> None:
     tl, fk, gr = _counted()
-    tl.LAUNCHES = 0
+    tl.LAUNCHES = tl.HALF_LAUNCHES = 0
     gr.LAUNCHES = gr.ROUTED_LAUNCHES = gr.ROUTE_LAUNCHES = 0
     fk.reset_launches()
 
 
 def make_dmp(device: str, train: bool = False, optim=None,
-             fused_params=None, position_weighted: bool = False):
+             fused_params=None, position_weighted: bool = False,
+             data_type=None):
     """bench.py's DLRM (DLRMTrain when `train`) on `device`; `optim`
     defaults to the DMP's (ROWWISE_ADAGRAD). `position_weighted` wraps
     its EBC (weighted, L=PW_LEN) in a FeatureProcessedEmbeddingBagCollection
-    with a PositionWeightedModule of PW_LEN positions per feature."""
+    with a PositionWeightedModule of PW_LEN positions per feature.
+    `data_type` is the tables' DataType (default FP32)."""
     from torchrec_tpu_torch.models import DLRM, DLRMTrain
     from torchrec_tpu_torch.modules import (
         EmbeddingBagCollection,
@@ -320,9 +361,12 @@ def make_dmp(device: str, train: bool = False, optim=None,
         ShardingType,
     )
 
+    from torchrec_tpu_torch.modules.embedding_configs import DataType
+
     tables = [
         EmbeddingBagConfig(num_embeddings=ROWS, embedding_dim=DIM,
-                           name=f"t{i}", feature_names=[f"f{i}"])
+                           name=f"t{i}", feature_names=[f"f{i}"],
+                           data_type=data_type or DataType.FP32)
         for i in range(NUM_TABLES)
     ]
     if position_weighted:
@@ -421,9 +465,9 @@ def serve(dmp) -> dict:
             "request_ms": latencies, "forward_ms": fwd}
 
 
-def check_against_cpu(dmp, last) -> None:
+def check_against_cpu(dmp, last, data_type=None) -> None:
     dense, kjt, logits = last
-    cpu = make_dmp("cpu")
+    cpu = make_dmp("cpu", data_type=data_type)
     cpu.load_state_dict(dmp.state_dict())
     ref = cpu.make_eval_fn()(dense, kjt.to("cpu"))
     torch.testing.assert_close(logits, ref, rtol=1e-4, atol=1e-5)
@@ -517,7 +561,8 @@ def bound(weights, ids, coeff) -> dict:
     NB, Lk = ids.shape
     live = ids.clamp(0, R - 1)[coeff != 0]
     rows = int(torch.unique(live).numel())
-    nbytes = rows * D * 4 + ids.numel() * 4 + coeff.numel() * 4 + NB * D * 4
+    nbytes = (rows * D * weights.element_size() + ids.numel() * 4
+              + coeff.numel() * 4 + NB * D * 4)
     flops = 2 * int(live.numel()) * D
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
     return {"bytes": nbytes, "rows": rows, "flops": flops,
@@ -525,13 +570,12 @@ def bound(weights, ids, coeff) -> dict:
             "by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def check_kernel(dmp, tl) -> dict:
-    """K1 on the served table: main-path shape, then L=20."""
-    import torch.nn.functional as F
-
-    strat = dmp.sharded_ebcs[MODULE_KEY].strategies[0]
-    W = strat.weights[0]  # [2,600,064, 128]: 26 x 100,000 padded to 128
-    R, D = W.shape
+def lookup_inputs(strat) -> tuple:
+    """The served table's lookups as the main path makes them (one id per
+    bag, coefficient 1) and at L=20: per-sample weights, MEAN rows,
+    zero-padded slots, ids >= R. (ids, coeff, ids20, coeff20) on the
+    card."""
+    R = strat.weights.shape[1]
     rng = np.random.RandomState(SEED + 1)
     NB = NUM_TABLES * BENCH_BATCH
     offs = np.repeat(strat.local_offsets.astype(np.int32), BENCH_BATCH)
@@ -539,16 +583,6 @@ def check_kernel(dmp, tl) -> dict:
         (rng.randint(0, ROWS, size=NB).astype(np.int32) + offs)[:, None]
     ).to(DEVICE)
     coeff = torch.ones((NB, 1), device=DEVICE)
-    out = tl.tbe_lookup_pooled(W, ids, coeff)
-    ref = tl.tbe_lookup_pooled_reference(W, ids, coeff)
-    torch.cuda.synchronize()
-    if not torch.equal(out, ref):
-        raise AssertionError("K1 at L=1 is not bit-exact with its plain "
-                             "version")
-    err = (out - ref).abs().max().item()
-    log(f"K1 L=1 NB={NB} D={D}: bit-exact with the plain version")
-
-    # L=20: per-sample weights, MEAN rows, zero-padded slots, ids >= R
     L20 = 20
     ids20 = torch.from_numpy(
         rng.randint(0, R + 1000, size=(NB, L20)).astype(np.int32)).to(DEVICE)
@@ -559,6 +593,27 @@ def check_kernel(dmp, tl) -> dict:
     coeff20 = torch.where(
         torch.arange(NB, device=DEVICE)[:, None] % 2 == 0,
         mean, mask * psw).float().contiguous()
+    return ids, coeff, ids20, coeff20
+
+
+def check_kernel(dmp, tl) -> dict:
+    """K1 on the served table: main-path shape, then L=20."""
+    import torch.nn.functional as F
+
+    strat = dmp.sharded_ebcs[MODULE_KEY].strategies[0]
+    W = strat.weights[0]  # [2,600,064, 128]: 26 x 100,000 padded to 128
+    D = W.shape[1]
+    ids, coeff, ids20, coeff20 = lookup_inputs(strat)
+    NB = ids.shape[0]
+    out = tl.tbe_lookup_pooled(W, ids, coeff)
+    ref = tl.tbe_lookup_pooled_reference(W, ids, coeff)
+    torch.cuda.synchronize()
+    if not torch.equal(out, ref):
+        raise AssertionError("K1 at L=1 is not bit-exact with its plain "
+                             "version")
+    err = (out - ref).abs().max().item()
+    log(f"K1 L=1 NB={NB} D={D}: bit-exact with the plain version")
+
     out20 = tl.tbe_lookup_pooled(W, ids20, coeff20)
     ref20 = tl.tbe_lookup_pooled_reference(W, ids20, coeff20)
     torch.testing.assert_close(out20, ref20, rtol=1e-6, atol=1e-6)
@@ -718,12 +773,13 @@ def check_train_against_cpu(optim) -> None:
 
 
 def rows_bound(N: int, n_real: int, D: int, rows_moved: int,
-               extra_bytes: int = 0, flops_per_elem: int = 2) -> dict:
-    """Least time for a row kernel: the N ids, `rows_moved` f32 rows of D
-    per real slot (sentinel slots move only their id) and `extra_bytes`
-    over HBM rate, against `flops_per_elem` per moved element over the
-    fp32 rate."""
-    nbytes = N * 4 + n_real * D * 4 * rows_moved + extra_bytes
+               extra_bytes: int = 0, flops_per_elem: int = 2,
+               row_bytes: int = 4) -> dict:
+    """Least time for a row kernel: the N ids, `rows_moved` rows of D
+    elements of `row_bytes` (f32 by default) per real slot (sentinel slots
+    move only their id) and `extra_bytes` over HBM rate, against
+    `flops_per_elem` per moved element over the fp32 rate."""
+    nbytes = N * 4 + n_real * D * row_bytes * rows_moved + extra_bytes
     flops = n_real * D * flops_per_elem
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
     return {"bytes": nbytes, "ms": max(t_bytes, t_ops) * 1e3,
@@ -1474,12 +1530,13 @@ def check_routed_gather(trained, seqs, train_kjt) -> dict:
 
 def check_backward() -> None:
     """Gradients through the unsharded EBC (weighted, L=20, SUM and MEAN,
-    D=128) and EC on the card against the CPU: d_W and d_coeff (the
-    per-sample weights' gradient), rtol 1e-5 / atol 1e-6 (scatter-adds and
-    dot products sum in another order). K1 launches once in the EBC's
-    forward and K8 once in its backward; the EC launches K8 once in its
-    forward and nothing in its backward. Returns the K8 launches of these
-    paths."""
+    D=128) and EC on the card against the CPU: the EBC's d_W and d_coeff
+    (the per-sample weights' gradient) within rtol 1e-5 / atol 1e-6
+    (scatter-adds and dot products sum in another order), the EC's d_W
+    bit for bit (its cotangents sum exactly). K1 launches once in the
+    EBC's forward and K8 once in its backward; the EC launches K8 once in
+    its forward and nothing in its backward. Returns the K8 launches of
+    these paths."""
     from torchrec_tpu_torch.models import make_item_embedding_collection
     from torchrec_tpu_torch.modules import (
         EmbeddingBagCollection,
@@ -1533,14 +1590,18 @@ def check_backward() -> None:
     log("backward EBC: K1 once in each forward, K8 once in each backward")
 
     # B=32 histories at their own lengths (at most L), so the padding is
-    # masked and no row sums hundreds of pad tokens' cotangents
+    # masked and no row sums hundreds of pad tokens' cotangents. A popular
+    # item still sums about a hundred (115 for item 1), whose f32 sum
+    # depends on the order of the card's atomic adds by more than 1e-5 of
+    # its value; cotangents on a 1/64 grid sum exactly in any order, so the
+    # card's d_W must equal the CPU's bit for bit
     seqs = b4r_sequences(np.random.RandomState(SEED + 16))
     hist = [np.asarray(seqs[i][-B4R_LEN:], np.int32)
             for i in rng.randint(len(seqs), size=B4R_BATCH)]
     kjt = KeyedJaggedTensor.from_lengths(
         ["item"], np.concatenate(hist), [len(h) for h in hist])
-    cot = torch.from_numpy(
-        rng.randn(B4R_BATCH, B4R_LEN, B4R_DIM).astype(np.float32))
+    cot = torch.from_numpy(np.round(
+        rng.randn(B4R_BATCH, B4R_LEN, B4R_DIM) * 64).astype(np.float32) / 64)
     grads = {}
     for device in (DEVICE, "cpu"):
         ec = make_item_embedding_collection(B4R_VOCAB, B4R_DIM, B4R_LEN,
@@ -1560,11 +1621,12 @@ def check_backward() -> None:
                                      f"{counts()} in all")
             k8 += fwd["K8"]
         grads[device] = ec.embeddings["item_embedding"].grad.cpu()
-    torch.testing.assert_close(grads[DEVICE], grads["cpu"], rtol=1e-5,
-                               atol=1e-6)
-    log(f"backward EC: K8 once in the forward, nothing in the backward; "
-        f"card d_W within rtol 1e-5 / atol 1e-6 of the CPU (max abs diff "
-        f"{(grads[DEVICE] - grads['cpu']).abs().max().item():.3e})")
+    if not torch.equal(grads[DEVICE], grads["cpu"]):
+        raise AssertionError(
+            f"backward EC: card d_W differs from the CPU's by up to "
+            f"{(grads[DEVICE] - grads['cpu']).abs().max().item():.3e}")
+    log("backward EC: K8 once in the forward, nothing in the backward; "
+        "card d_W equal to the CPU's")
     return k8
 
 
@@ -1867,6 +1929,386 @@ def pw_train(tl, fk, optim) -> dict:
     return out
 
 
+# -- the bf16 DLRM ------------------------------------------------------------
+
+# the update kernel of each optimizer's bf16 train step, beside K1h
+HALF_STEP_KERNELS = {"EXACT_SGD": "K3h", "ROWWISE_ADAGRAD": "K4h"}
+# the card-against-CPU runs of the bf16 DLRM: two with stochastic rounding,
+# one whose rows round to nearest
+HALF_CPU_OPTIMS = ("EXACT_SGD", "ROWWISE_ADAGRAD", "ADAM")
+# test_low_precision.py's drift test at width: SR_STEPS K3h steps of
+# lr * g = 1e-4 on a [SR_ROWS, 128] bf16 table of ones
+SR_ROWS, SR_STEPS, SR_LR, SR_G = 4096, 300, 0.01, 0.01
+
+
+def _bf16():
+    from torchrec_tpu_torch.modules.embedding_configs import DataType
+
+    return DataType.BF16
+
+
+def bf16_serve(tl) -> dict:
+    """bench.py's DLRM with bf16 tables (one 2,600,064 x 128 bf16 shard)
+    served: REQUESTS_PER_BATCH requests at B=8192 and at B=256 through
+    make_eval_fn, each launching K1h once and K1 never; the logits finite
+    and one B=256 request's equal to a CPU copy's. Then K1h is held and
+    timed on the served table (check_half_lookup)."""
+    dmp = make_dmp(DEVICE, data_type=_bf16()).init(SEED)
+    strat = dmp.sharded_ebcs[MODULE_KEY].strategies[0]
+    if strat.weights.dtype != torch.bfloat16:
+        raise AssertionError(f"the bf16 DLRM's table is {strat.weights.dtype}")
+    eval_fn = dmp.make_eval_fn()
+    rng = np.random.RandomState(SEED + 30)
+    requests = [(b, *make_request(rng, b))
+                for b in [BENCH_BATCH] * REQUESTS_PER_BATCH
+                + [SERVE_BATCH] * REQUESTS_PER_BATCH]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    latencies = {BENCH_BATCH: [], SERVE_BATCH: []}
+    last = None
+    for batch, dense, kjt in requests:
+        before = counts()
+        t0 = time.perf_counter()
+        logits = eval_fn(dense.to(DEVICE), kjt.to(DEVICE)).cpu()
+        latencies[batch].append((time.perf_counter() - t0) * 1e3)
+        after = counts()
+        launched = {k: after[k] - before[k] for k in after}
+        if launched != expected(K1h=1):
+            raise AssertionError(f"a bf16 request launched {launched}")
+        if logits.shape != (batch, 1) or not torch.isfinite(logits).all():
+            raise AssertionError(f"bad bf16 logits at B={batch}")
+        last = (dense, kjt, logits)
+    launches = counts()["K1h"]
+    peak = torch.cuda.max_memory_allocated()
+    for batch, ms in latencies.items():
+        log(f"bf16 serve B={batch}: request ms (host clock, H2D + forward + "
+            f"D2H, first includes warm-up) {ms}")
+    log(f"bf16 serve: {len(requests)} requests, K1h launches {launches}, K1 "
+        f"none; max_memory_allocated {peak} B")
+    check_against_cpu(dmp, last, data_type=_bf16())
+    k1h = check_half_lookup(tl, strat)
+    return {"launches": launches, "request_ms": latencies,
+            "peak_bytes": peak, "k1h": k1h}
+
+
+def check_half_lookup(tl, strat) -> dict:
+    """K1h against its plain version on the served bf16 table and on an
+    fp16 copy of it: at the main path's shape (one id per bag), bit-exact,
+    and at L=20 with MEAN / per-sample coefficients (rounded to the
+    table's dtype, as pooled_lookup rounds them) and ids >= R within
+    rtol 1e-6; timed beside F.embedding_bag (sum, per-sample weights) on
+    the same table."""
+    import torch.nn.functional as F
+
+    ids, coeff, ids20, coeff20 = lookup_inputs(strat)
+    out = {}
+    for W in (strat.weights[0], strat.weights[0].half()):
+        tag = "bf16" if W.dtype == torch.bfloat16 else "fp16"
+        c1 = coeff.to(W.dtype).float()
+        c20 = coeff20.to(W.dtype).float()
+        got = tl.tbe_lookup_pooled(W, ids, c1)
+        ref = tl.tbe_lookup_pooled_reference(W, ids, c1)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            raise AssertionError(f"K1h ({tag}) at L=1 is not bit-exact with "
+                                 f"its plain version")
+        got20 = tl.tbe_lookup_pooled(W, ids20, c20)
+        ref20 = tl.tbe_lookup_pooled_reference(W, ids20, c20)
+        torch.testing.assert_close(got20, ref20, rtol=1e-6, atol=1e-6)
+        err = (got20 - ref20).abs().max().item()
+        del got, ref, got20, ref20
+        b = bound(W, ids, c1)
+        psw = c1.to(W.dtype)
+        t = timings(lambda: tl.tbe_lookup_pooled(W, ids, c1),
+                    "tbe_lookup_pooled_kernel", b["ms"],
+                    lambda: tl.tbe_lookup_pooled_reference(W, ids, c1),
+                    lambda: F.embedding_bag(ids, W, mode="sum",
+                                            per_sample_weights=psw))
+        log(f"K1h {tag} L=1: bit-exact; L=20 within rtol=atol=1e-6 (max abs "
+            f"err {err:.3e}); {t['ms']:.5f} ms on the device (call "
+            f"{t['call_ms']:.4f} ms); plain {t['plain_ms']:.4f} ms; "
+            f"F.embedding_bag {t['library_ms']:.4f} ms; bound "
+            f"{b['ms']:.5f} ms ({b['by']}: {b['bytes']} B with {b['rows']} "
+            f"distinct rows); kernel at {100 * b['ms'] / t['ms']:.1f}% of "
+            f"the bound")
+        out[tag] = {"max_abs_err": err, "ms": t["ms"],
+                    "plain_ms": t["plain_ms"], "library_ms": t["library_ms"],
+                    "bound_ms": b["ms"], "bound_by": b["by"]}
+        del W
+    return {**out["bf16"], "max_abs_err": max(r["max_abs_err"]
+                                              for r in out.values()),
+            "fp16": out["fp16"]}
+
+
+def bf16_train(fk, optim) -> dict:
+    """The bf16 DLRM trained as bench.py's headline_bf16 trains it (fused
+    lr 0.1, stochastic rounding on, dense SGD at 0.05): WARMUP_STEPS +
+    TIMED_STEPS steps at B=8192, each launching K1h once and K3h
+    (EXACT_SGD) or K4h (ROWWISE_ADAGRAD) once and no fp32 kernel, losses
+    finite. The last step's update inputs are captured, and the update
+    kernel held and timed on them (check_half_update)."""
+    name = optim.name
+    k = HALF_STEP_KERNELS[name]
+    update = KERNELS[k][0]
+    dmp = make_dmp(DEVICE, train=True, optim=optim,
+                   data_type=_bf16()).init(SEED)
+    step = dmp.make_train_step()
+    rng = np.random.RandomState(SEED + 31)
+    batches = [to_device(make_batch(rng, BENCH_BATCH))
+               for _ in range(WARMUP_STEPS + TIMED_STEPS)]
+    per_step = expected(K1h=1, **{k: 1})
+    seen: dict = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    ms, losses = [], []
+    for i, batch in enumerate(batches):
+        before = counts()
+        t0 = time.perf_counter()
+        with (capturing(fk, update, seen) if i == len(batches) - 1
+              else contextlib.nullcontext()):
+            loss, _ = step(*batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        after = counts()
+        launched = {c: after[c] - before[c] for c in after}
+        if launched != per_step:
+            raise AssertionError(f"bf16 {name} step {len(ms)} launched "
+                                 f"{launched}, expected {per_step}")
+        losses.append(loss.item())
+        if not math.isfinite(losses[-1]):
+            raise AssertionError(f"bf16 {name} step {len(ms)}: loss "
+                                 f"{losses[-1]}")
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    strat = dmp.sharded_ebcs[TRAIN_KEY].strategies[0]
+    if strat.weights.dtype != torch.bfloat16 or any(
+            p.dtype != torch.float32 for g in dmp.dense_optimizer.param_groups
+            for p in g["params"]):
+        raise AssertionError("the bf16 table changed dtype or reached the "
+                             "dense optimizer")
+    timed = ms[WARMUP_STEPS:]
+    log(f"bf16 train {name} B={BENCH_BATCH}: losses {losses}")
+    log(f"bf16 train {name}: warm-up step ms {ms[:WARMUP_STEPS]}; timed step "
+        f"ms (host clock, synchronized) {timed}; min {min(timed):.4f} max "
+        f"{max(timed):.4f} median {sorted(timed)[TIMED_STEPS // 2]:.4f}; "
+        f"launches per step {per_step}, in all {launches}; "
+        f"max_memory_allocated {peak} B")
+    held = check_half_update(fk, k, seen.pop(update), "the bf16 DLRM")
+    return {"launches": launches, "ms": timed, "peak_bytes": peak,
+            "held": held}
+
+
+def check_half_update(fk, k, args, what: str) -> dict:
+    """K3h (args: weights, uids, g, lr, step) or K4h (weights, momentum,
+    uids, g, lr, step) against its plain version, bit for bit, on clones
+    of the table (and momentum) with these ids and gradients at this step,
+    under both epilogues (stochastic rounding and to nearest), for the
+    table and an fp16 copy of it; then each timed with stochastic
+    rounding. No single PyTorch call updates scattered rows this way, so
+    there is no library yardstick."""
+    if k == "K3h":
+        W, uids, g, lr, step = args
+        moms = []
+
+        def kernel(ts, sr):
+            fk.fused_update_sgd_half(ts[0], uids, g, lr, step,
+                                     stochastic_rounding=sr)
+
+        def plain(ts, sr):
+            fk.fused_update_sgd_half_reference(ts[0], uids, g, lr, step,
+                                               stochastic_rounding=sr)
+    else:
+        W, M, uids, g, lr, step = args
+        moms = [M]
+
+        def kernel(ts, sr):
+            fk.fused_update_rowwise_adagrad_half(ts[0], ts[1], uids, g, lr,
+                                                 step, stochastic_rounding=sr)
+
+        def plain(ts, sr):
+            fk.fused_update_rowwise_adagrad_half_reference(
+                ts[0], ts[1], uids, g, lr, step, stochastic_rounding=sr)
+    name = "sgd_half_kernel" if k == "K3h" else "rowwise_adagrad_kernel"
+    R, D = W.shape
+    N, n_real = int(uids.numel()), int((uids < R).sum())
+    # a 2-byte row read and written, a 4-byte g row read (and K4h's
+    # momentum word read and written) per real slot
+    b = rows_bound(N, n_real, D, rows_moved=2, row_bytes=2,
+                   extra_bytes=n_real * D * 4 + len(moms) * 2 * n_real * 4,
+                   flops_per_elem=7 if moms else 4)
+    log(f"{k} {what}: N={N} slots, {n_real} distinct rows, step "
+        f"{int(step)}, W {tuple(W.shape)} {W.dtype}")
+    out = {}
+    for dtype in (W.dtype, torch.float16):
+        tag = "bf16" if dtype == torch.bfloat16 else "fp16"
+        base = [W.to(dtype)] + moms
+        errs = []
+        for sr in (True, False):
+            a = [t.clone() for t in base]
+            p = [t.clone() for t in base]
+            kernel(a, sr)
+            plain(p, sr)
+            errs.append(_hold(f"{k} ({tag}, stochastic_rounding={sr})",
+                              list(zip(a, p))))
+        t = timings(lambda: kernel(a, True), name, b["ms"],
+                    lambda: plain(p, True))
+        log(f"{k} {tag} {what}: bit-exact with its plain version under both "
+            f"epilogues; {t['ms']:.5f} ms on the device (call "
+            f"{t['call_ms']:.4f} ms); plain {t['plain_ms']:.4f} ms; library "
+            f"none; bound {b['ms']:.5f} ms ({b['by']}: {b['bytes']} B); "
+            f"kernel at {100 * b['ms'] / t['ms']:.1f}% of the bound")
+        out[tag] = {"max_abs_err": max(errs), "ms": t["ms"],
+                    "plain_ms": t["plain_ms"], "library_ms": None,
+                    "bound_ms": b["ms"], "bound_by": b["by"]}
+        del a, p, base
+    return {**out["bf16"], "max_abs_err": max(r["max_abs_err"]
+                                              for r in out.values()),
+            "fp16": out["fp16"]}
+
+
+def check_k4h_b4r(fk, trained, batch_ids) -> dict:
+    """K4h at BERT4Rec's shape: the trained [3712, 64] shard in bf16, its
+    momentum, and one batch's 2,048 tokens deduplicated with cotangents
+    drawn at 1e-3, as check_b4r_rowwise holds the fused K4."""
+    from torchrec_tpu_torch.ops import fused_update as fu
+
+    strat = trained.sharded_ebcs[B4R_KEY].strategies[0]
+    W, M = strat.weights[0].to(torch.bfloat16), strat.momentum1[0]
+    R, D = W.shape
+    ids = batch_ids.to(DEVICE, torch.int32).contiguous()
+    rng = np.random.RandomState(SEED + 32)
+    grads = torch.from_numpy(
+        (rng.randn(ids.numel(), D) * 1e-3).astype(np.float32)).to(DEVICE)
+    u_dd, g_dd = fu.dedup_row_grads(
+        ids, grads, torch.ones_like(ids, dtype=torch.bool), R)
+    step = torch.full((), START_STEP, dtype=torch.int32, device=DEVICE)
+    return check_half_update(fk, "K4h", (W, M, u_dd, g_dd, B4R_EMB_LR, step),
+                             "at BERT4Rec's shape")
+
+
+def check_sr_drift(fk) -> dict:
+    """test_low_precision.py's drift test at width on the card: SR_STEPS
+    K3h steps of lr * g = 1e-4, far below bf16's ulp at 1.0, on a bf16
+    table of ones, every row touched each step, the step tensor advancing
+    on the card. With stochastic rounding the mean drift must be within
+    0.5-1.5x of SR_STEPS * lr * g = 0.03; rounding to nearest keeps the
+    table at ones."""
+    ids = torch.arange(SR_ROWS, dtype=torch.int32, device=DEVICE)
+    g = torch.full((SR_ROWS, DIM), SR_G, device=DEVICE)
+    drift = {}
+    for sr in (True, False):
+        w = torch.ones((SR_ROWS, DIM), dtype=torch.bfloat16, device=DEVICE)
+        step = torch.zeros((), dtype=torch.int32, device=DEVICE)
+        for _ in range(SR_STEPS):
+            fk.fused_update_sgd_half(w, ids, g, SR_LR, step,
+                                     stochastic_rounding=sr)
+            step.add_(1)
+        drift[sr] = 1.0 - w.float().mean().item()
+    want = SR_STEPS * SR_LR * SR_G
+    if not 0.5 * want < drift[True] < 1.5 * want or drift[False] != 0.0:
+        raise AssertionError(f"SR drift {drift[True]} (want about {want}), "
+                             f"to nearest {drift[False]} (want 0)")
+    log(f"SR drift on the card: {SR_STEPS} K3h steps of lr * g = "
+        f"{SR_LR * SR_G:g} on a [{SR_ROWS}, {DIM}] bf16 table of ones: mean "
+        f"drift {drift[True]:.6f} with stochastic rounding (expected "
+        f"{want:g}), {drift[False]} to nearest")
+    return {"sr": drift[True], "nearest": drift[False], "expected": want}
+
+
+def check_half_train_against_cpu(optim) -> None:
+    """CPU_STEPS steps at B=256 of a fresh card bf16 DMP and its CPU copy,
+    from seeded momenta at step START_STEP, as check_train_against_cpu.
+    The f32 run totals are summed in another order on the two sides, so a
+    rounding may flip: touched rows agree within one bf16 ulp, and at most
+    one in 1,000 touched elements differs at all (with stochastic rounding
+    this shows that both sides drew the same bits); momenta within rtol
+    1e-4 / atol 1e-5; untouched rows equal."""
+    name = optim.name
+    gpu = make_dmp(DEVICE, train=True, optim=optim,
+                   data_type=_bf16()).init(SEED + 3)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
+    for strat in gpu.sharded_ebcs[TRAIN_KEY].strategies:
+        for m in (strat.momentum1, strat.momentum2):
+            if m is not None:
+                m.uniform_(0.0, 0.01, generator=gen)
+        strat.step.fill_(START_STEP)
+    cpu = make_dmp("cpu", train=True, optim=optim, data_type=_bf16())
+    cpu.load_state_dict(gpu.state_dict())
+    rng = np.random.RandomState(SEED + 33)
+    batches = [make_batch(rng, SERVE_BATCH) for _ in range(CPU_STEPS)]
+    step_g, step_c = gpu.make_train_step(), cpu.make_train_step()
+    for i, batch in enumerate(batches):
+        loss_g, _ = step_g(*to_device(batch))
+        loss_c, _ = step_c(*batch)
+        torch.testing.assert_close(loss_g.cpu(), loss_c, rtol=1e-4,
+                                   atol=1e-5)
+        log(f"bf16 train {name} B={SERVE_BATCH} step {i}: card loss "
+            f"{loss_g.item():.9g}, CPU loss {loss_c.item():.9g}")
+    pg = dict(gpu.module.named_parameters())
+    for pname, p in cpu.module.named_parameters():
+        torch.testing.assert_close(pg[pname].detach().cpu(), p.detach(),
+                                   rtol=1e-4, atol=1e-5)
+    sg = gpu.sharded_ebcs[TRAIN_KEY].strategies[0]
+    sc = cpu.sharded_ebcs[TRAIN_KEY].strategies[0]
+    touched = _touched(sc, batches)
+    a, b = sg.weights[0].cpu(), sc.weights[0]
+    if not torch.equal(a[~touched], b[~touched]):
+        raise AssertionError(f"bf16 {name}: untouched rows differ")
+    a, b = a[touched].float(), b[touched].float()
+    mag = torch.maximum(a.abs(), b.abs()).to(torch.bfloat16)
+    ulp = (torch.nextafter(mag, torch.full_like(mag, math.inf)).float()
+           - mag.float())
+    diff = (a - b).abs()
+    differ = int((diff > 0).sum())
+    if not bool((diff <= ulp).all()) or differ * 1000 > diff.numel():
+        raise AssertionError(f"bf16 {name}: {differ} of {diff.numel()} "
+                             f"touched elements differ from the CPU run, "
+                             f"max {float((diff / ulp).max())} ulps")
+    log(f"bf16 train {name}: {int(touched.sum())} touched rows within one "
+        f"bf16 ulp of the CPU run, {differ} of {diff.numel()} elements "
+        f"differ at all; the rest equal")
+    for what in ("momentum1", "momentum2"):
+        if getattr(sc, what) is None:
+            continue
+        ma, mb = getattr(sg, what)[0].cpu(), getattr(sc, what)[0]
+        torch.testing.assert_close(ma[touched], mb[touched], rtol=1e-4,
+                                   atol=1e-5)
+        if not torch.equal(ma[~touched], mb[~touched]):
+            raise AssertionError(f"bf16 {name}: untouched {what} differ")
+        log(f"bf16 train {name}: touched {what} within rtol 1e-4 / atol "
+            f"1e-5 of the CPU run (max abs diff "
+            f"{(ma[touched] - mb[touched]).abs().max().item():.3e})")
+    log(f"bf16 train {name}: dense parameters match the CPU run")
+
+
+def bf16_dlrm(tl, fk) -> dict:
+    """The bf16 DLRM phase: served, trained under EXACT_SGD and
+    ROWWISE_ADAGRAD with stochastic rounding, its kernels held and timed,
+    SR's drift shown, and card against CPU. Returns the launches of its
+    main paths and each kernel's numbers."""
+    from torchrec_tpu_torch.ops.fused_update import EmbOptimType
+
+    served = bf16_serve(tl)
+    trained = {o: bf16_train(fk, EmbOptimType[o]) for o in HALF_STEP_KERNELS}
+    drift = check_sr_drift(fk)
+    for o in HALF_CPU_OPTIMS:
+        check_half_train_against_cpu(EmbOptimType[o])
+    launches = {
+        "K1h": served["launches"] + sum(t["launches"]["K1h"]
+                                        for t in trained.values()),
+        **{k: trained[o]["launches"][k]
+           for o, k in HALF_STEP_KERNELS.items()}}
+    log(f"bf16 DLRM: launches on its paths {launches} (K1h: "
+        f"{served['launches']} requests and "
+        f"{2 * (WARMUP_STEPS + TIMED_STEPS)} train steps)")
+    return {"launches": launches, "drift": drift,
+            "results": {"K1h": served["k1h"],
+                        **{k: trained[o]["held"]
+                           for o, k in HALF_STEP_KERNELS.items()}}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -1924,6 +2366,7 @@ def main() -> int:
     b4r_trained = b4r_train(seqs)
     b4r_dmp = b4r_trained.pop("dmp")
     check_b4r_rowwise(fk, b4r_dmp, b4r_trained["batch_ids"])
+    k4h_b4r = check_k4h_b4r(fk, b4r_dmp, b4r_trained["batch_ids"])
     routed = check_routed_gather(b4r_dmp, seqs, b4r_trained["batch"])
     k8 = check_gather_kernel(b4r_dmp, b4r_trained["batch_ids"])
     del b4r_dmp
@@ -1943,6 +2386,14 @@ def main() -> int:
                                         held["max_abs_err"])
     unsharded_k8 = check_backward()
 
+    # the bf16 DLRM: K1h serving and training, K3h / K4h updating with
+    # stochastic rounding
+    bf16 = bf16_dlrm(tl, fk)
+    results.update(bf16["results"])
+    results["K4h"]["bert4rec_shape"] = k4h_b4r
+    results["K4h"]["max_abs_err"] = max(results["K4h"]["max_abs_err"],
+                                        k4h_b4r["max_abs_err"])
+
     launches = {k: trained[name]["launches"][k]
                 for name, ks in STEP_KERNELS.items() for k in ks}
     launches["K4"] += b4r_trained["launches"]["K4"]
@@ -1954,7 +2405,8 @@ def main() -> int:
         K3=launches["K3"] + pw_steps["K3"],
         K4=launches["K4"] + pw_steps["K4"],
         K5=sum(r["K5"] for r in routes), K8=unsharded_k8 + pw_steps["K8"],
-        K8r=b4r_served["launches"] + b4r_trained["launches"]["K8r"])
+        K8r=b4r_served["launches"] + b4r_trained["launches"]["K8r"],
+        **bf16["launches"])
     log(f"launches on the paths: K1 serving ({served_launches}), the "
         f"position-weighted DLRM's serving ({pw_served['launches']}) and "
         f"training ({pw_steps['K1']}), K3 EXACT_SGD training of the DLRM "
@@ -1972,7 +2424,9 @@ def main() -> int:
         f"({b4r_trained['launches']['K8r']}); K4's scaled RMW "
         f"{sum(r[SCALED] for r in routes)} in the mom_impl=xla step, the "
         f"routed gather's route-only mode {b4r_trained['launches'][ROUTE]} "
-        f"in BERT4Rec's updates: {launches}")
+        f"in BERT4Rec's updates, K1h the bf16 DLRM's serving and training, "
+        f"K3h its EXACT_SGD and K4h its ROWWISE_ADAGRAD training: "
+        f"{launches}")
     log(card["smi"])
     log(json.dumps({"kernels": [{
         "name": KERNELS[k][0],

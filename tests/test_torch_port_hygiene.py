@@ -137,28 +137,71 @@ def test_dmp_serves_on_cpu_when_asked():
 
 
 @pytest.mark.parametrize(
-    "case", ["no_plan", "table_wise", "uvm", "world_size", "update",
-             "bf16_train", "fused_param", "seq_table_wise",
-             "seq_data_parallel", "bf16_ec_train", "dropout"])
-def test_unported_parts_raise(case):
-    """`update`: an ADAM update of a bf16 table (stochastic rounding, not
-    ported) raises, from make_train_step before any step and from
-    apply_fused_update, and changes nothing."""
-    if case == "update":
-        optim = tfu.EmbOptimType.ADAM
-        dmp = DistributedModelParallel(_model("meta", DataType.BF16),
-                                       plan=_plan(), device="cpu",
-                                       fused_optim=optim)
-        with pytest.raises(NotImplementedError, match="stochastic rounding"):
-            dmp.make_train_step()
-        opt = tfu.init_fused_optimizer_state(10, 4, optim)
-        with pytest.raises(NotImplementedError, match="stochastic rounding"):
-            tfu.apply_fused_update(
-                torch.zeros(10, 4, dtype=torch.bfloat16), opt,
-                torch.zeros(2, dtype=torch.int32), torch.zeros(2, 4),
-                torch.ones(2, dtype=torch.bool), 0.1)
-        assert int(opt.step) == 0 and not opt.momentum1.any()
+    "case", ["adam_bf16", "adam_fp16", "bf16_train", "bf16_ec_train"])
+def test_half_tables_train(case):
+    """Half tables train (these raised while stochastic rounding was not
+    ported): an ADAM update of a bf16 / fp16 table, a bf16 DMP's train
+    step and a bf16 EC's, each changing the table and taking a step."""
+    if case.startswith("adam"):
+        dtype = torch.bfloat16 if case == "adam_bf16" else torch.float16
+        opt = tfu.init_fused_optimizer_state(10, 4, tfu.EmbOptimType.ADAM)
+        w = torch.zeros(10, 4, dtype=dtype)
+        tfu.apply_fused_update(w, opt, torch.tensor([3, 3], dtype=torch.int32),
+                               torch.ones(2, 4), torch.ones(2, dtype=torch.bool),
+                               0.1)
+        assert w.dtype == dtype and int(opt.step) == 1
+        assert w[3].ne(0).all() and not w[[0, 1, 2, 4]].any()
         return
+    if case == "bf16_train":
+        dmp = DistributedModelParallel(
+            _model("meta", DataType.BF16), plan=_plan(), device="cpu",
+            fused_optim=tfu.EmbOptimType.EXACT_SGD).init(0)
+        sebc = dmp.sharded_ebcs["sparse_arch/embedding_bag_collection"]
+        kjt = KeyedJaggedTensor.from_lengths(["f0", "f1"], [1, 2, 3, 4],
+                                             [1, 1, 1, 1])
+        args = (torch.ones(2, 3), kjt)
+        loss_fn = lambda logits: (logits.square().mean(), logits)  # noqa
+    else:
+        dmp = _bert4rec_dmp(device="cpu", data_type=DataType.BF16).init(0)
+        sebc = dmp.sharded_ebcs["model/ec"]
+        kjt = KeyedJaggedTensor.from_lengths(["item"], [1, 2, 3, 4], [4])
+        args = (kjt, torch.tensor([[0, 5, 0, 7]], dtype=torch.int32))
+        loss_fn = None  # BERT4RecTrain returns (loss, aux)
+    strat = sebc.strategies[0]
+    before = strat.weights.clone()
+    step = dmp.make_train_step(loss_fn)
+    loss, _ = step(*args)
+    assert torch.isfinite(loss)
+    assert strat.weights.dtype == torch.bfloat16
+    assert not torch.equal(strat.weights, before) and int(strat.step) == 1
+
+
+@pytest.mark.parametrize("params", [{"w_impl": "write"},
+                                    {"mom_impl": "xla"}],
+                         ids=["w_impl_write", "mom_impl_xla"])
+def test_half_tables_refuse_unported_routes(params):
+    """w_impl="write" and mom_impl="xla" are not ported for half tables:
+    make_train_step raises before any step and apply_fused_update before
+    it changes anything."""
+    optim = tfu.EmbOptimType.ROWWISE_ADAGRAD
+    dmp = DistributedModelParallel(_model("meta", DataType.BF16),
+                                   plan=_plan(), device="cpu",
+                                   fused_optim=optim, fused_params=params)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        dmp.make_train_step()
+    opt = tfu.init_fused_optimizer_state(10, 4, optim)
+    w = torch.zeros(10, 4, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        tfu.apply_fused_update(w, opt, torch.zeros(2, dtype=torch.int32),
+                               torch.ones(2, 4), torch.ones(2, dtype=torch.bool),
+                               0.1, **params)
+    assert int(opt.step) == 0 and not opt.momentum1.any() and not w.any()
+
+
+@pytest.mark.parametrize(
+    "case", ["no_plan", "table_wise", "uvm", "world_size", "fused_param",
+             "seq_table_wise", "seq_data_parallel", "dropout"])
+def test_unported_parts_raise(case):
     with pytest.raises(NotImplementedError):
         if case == "no_plan":
             DistributedModelParallel(_model("meta"), device="cpu")
@@ -171,10 +214,6 @@ def test_unported_parts_raise(case):
                 plan=_plan(compute_kernel=ComputeKernel.FUSED_UVM_CACHING))
         elif case == "world_size":
             ShardingEnv.from_devices(["cpu", "cpu"])
-        elif case == "bf16_train":  # bf16 tables train with SR, unported
-            DistributedModelParallel(
-                _model("meta", DataType.BF16), plan=_plan(), device="cpu",
-                fused_optim=tfu.EmbOptimType.EXACT_SGD).make_train_step()
         elif case == "fused_param":
             DistributedModelParallel(
                 _model("meta"), plan=_plan(), device="cpu",
@@ -183,9 +222,6 @@ def test_unported_parts_raise(case):
             _bert4rec_dmp(ShardingType.TABLE_WISE, device="cpu")
         elif case == "seq_data_parallel":
             _bert4rec_dmp(ShardingType.DATA_PARALLEL, device="cpu")
-        elif case == "bf16_ec_train":  # stochastic rounding
-            _bert4rec_dmp(device="cpu",
-                          data_type=DataType.BF16).make_train_step()
         else:  # dropout in training
             model = _bert4rec("cpu", dropout=0.1)
             model(KeyedJaggedTensor.from_lengths(["item"], [1, 2, 3, 4], [4]),

@@ -14,6 +14,8 @@
 //                            m[u] += mean(g * g); W += lr * -1 /
 //                            (sqrt(m[u]) + eps) * g, in one pass (its own
 //                            note is at rowwise_adagrad_kernel below)
+//   K3h, K4h                 K3 and the fused K4 on bf16 / fp16 tables
+//                            (their note is at "Half-precision tables")
 //
 // each for every slot t whose id is a real row (0 <= id < R). Slots whose id
 // is a sentinel (2^31 - 1 from run_total_row_grads, R + pos from
@@ -74,6 +76,8 @@
 // The kernels launch on the caller's stream, allocate nothing and do not
 // synchronise; each entry point returns cudaGetLastError() after its launch.
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -243,6 +247,188 @@ __global__ void rowwise_momentum_kernel(float* __restrict__ m,
   for (int64_t r = p; r < q; ++r) inv[r] = v;
 }
 
+// -- Half-precision tables: K3h and K4h ---------------------------------------
+//
+// K3h and K4h are K3 and the fused K4 on bf16 / fp16 tables. They replace
+// what the JAX package runs in XLA for such tables, since its Pallas
+// kernels take f32 only: `apply_fused_update`'s SGD / EXACT_SGD and
+// ROWWISE_ADAGRAD branches (torchrec_tpu/ops/fused_update.py:534-543,
+// :647-656) with `_sr_set` (:523-532) and `stochastic_round` (:254-275).
+// Each loads the row, computes exactly as its f32 form (the row widened to
+// f32, momenta and gradients f32), and writes the row back rounded by one
+// of two epilogues:
+//   SR  (stochastic_rounding, the default): x = w + upd in f32; add the low
+//       16 (bf16) or 13 (fp16) bits of sr_bits(seed, step, row, col) to x's
+//       bit pattern, clear them, convert (fp16 rounds to nearest-even again
+//       below its normal range and overflows to inf, as JAX's astype does);
+//   RNE (stochastic_rounding=False): half(w + half(upd)), JAX's
+//       `weights.at[uids].add(upd.astype(weights.dtype))`.
+// sr_bits is the port's counter-based generator (ops/stochastic_rounding.py
+// spells it out in torch ops, bit for bit): murmur3's fmix32 chained over
+// the seed, the step, the row and the column. The step is read from the
+// device step tensor, so no launch waits for the host. Keying by row and
+// column, not slot, makes the result independent of the slot order.
+//
+// Bound: bytes, as their f32 forms, with a 2-byte row: per real slot the
+// row is read and written (2 x 2 B per element) and g read (4 B), K4h also
+// reads and writes the row's 4-byte momentum word. The hash costs about ten
+// integer operations an element, well under the card's integer rate at
+// these bytes. A lane holds 4 columns: its row quad is one 8-byte load
+// (uint2, so a D=128 bf16 row is one 256-byte request per warp) beside the
+// 16-byte float4 of g's same 4 columns, so the f32 kernels' lane-to-column
+// map, and with it K4's summation order of g^2, is unchanged. Rows must be
+// 8-byte aligned with D % 4 == 0.
+
+constexpr uint32_t kGolden = 0x9E3779B9u;
+
+__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
+  h ^= h >> 16;
+  h *= 0x85EBCA6Bu;
+  h ^= h >> 13;
+  h *= 0xC2B2AE35u;
+  return h ^ (h >> 16);
+}
+
+// sr_bits(seed, step, row, col) = fmix32(row_key ^ col * kGolden) with
+// row_key = fmix32(step_key ^ row), step_key = fmix32(fmix32(seed +
+// kGolden) ^ step); unsigned arithmetic wraps mod 2^32
+__device__ __forceinline__ uint32_t sr_step_key(uint32_t seed, int32_t step) {
+  return fmix32(fmix32(seed + kGolden) ^ static_cast<uint32_t>(step));
+}
+
+__device__ __forceinline__ uint32_t sr_row_key(uint32_t step_key, int32_t row) {
+  return fmix32(step_key ^ static_cast<uint32_t>(row));
+}
+
+__device__ __forceinline__ uint32_t sr_bits(uint32_t row_key, int64_t col) {
+  return fmix32(row_key ^ (static_cast<uint32_t>(col) * kGolden));
+}
+
+// A half element as the low 16 bits of a word, widened exactly / rounded to
+// nearest-even (T only selects the format)
+template <typename T>
+__device__ __forceinline__ float from_bits(uint32_t b);
+template <>
+__device__ __forceinline__ float from_bits<__nv_bfloat16>(uint32_t b) {
+  return __uint_as_float(b << 16);
+}
+template <>
+__device__ __forceinline__ float from_bits<__half>(uint32_t b) {
+  return __half2float(__ushort_as_half(static_cast<unsigned short>(b)));
+}
+
+template <typename T>
+__device__ __forceinline__ uint32_t to_bits(float x);
+template <>
+__device__ __forceinline__ uint32_t to_bits<__nv_bfloat16>(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+template <>
+__device__ __forceinline__ uint32_t to_bits<__half>(float x) {
+  return __half_as_ushort(__float2half_rn(x));
+}
+
+template <typename T>
+struct LowBits;  // the f32 mantissa bits the SR epilogue drops
+template <>
+struct LowBits<__nv_bfloat16> {
+  static constexpr uint32_t kMask = (1u << 16) - 1u;
+};
+template <>
+struct LowBits<__half> {
+  static constexpr uint32_t kMask = (1u << 13) - 1u;
+};
+
+// What a row write needs beyond w and upd: the SR flag and the row's key.
+struct RowRound {
+  bool sr;
+  uint32_t key;
+};
+
+template <typename T>
+__device__ __forceinline__ uint32_t round_elem(float w, float upd, RowRound r,
+                                               int64_t col) {
+  if (r.sr) {
+    constexpr uint32_t kLow = LowBits<T>::kMask;
+    const uint32_t u =
+        __float_as_uint(__fadd_rn(w, upd)) + (sr_bits(r.key, col) & kLow);
+    return to_bits<T>(__uint_as_float(u & ~kLow));
+  }
+  return to_bits<T>(__fadd_rn(w, from_bits<T>(to_bits<T>(upd))));
+}
+
+// 4 consecutive elements of a row: f32 as one float4, halves as one uint2
+// (elements 0 and 1 in .x, low half first, 2 and 3 in .y)
+__device__ __forceinline__ float4 load_quad(const float* row, int64_t q) {
+  return reinterpret_cast<const float4*>(row)[q];
+}
+
+template <typename T>
+__device__ __forceinline__ float4 load_quad(const T* row, int64_t q) {
+  const uint2 h = reinterpret_cast<const uint2*>(row)[q];
+  return make_float4(from_bits<T>(h.x & 0xffffu), from_bits<T>(h.x >> 16),
+                     from_bits<T>(h.y & 0xffffu), from_bits<T>(h.y >> 16));
+}
+
+// row[q] = w + upd: f32 rounds the sum once; halves round by `r`
+__device__ __forceinline__ void store_quad(float* row, int64_t q, float4 w,
+                                           float4 upd, RowRound) {
+  reinterpret_cast<float4*>(row)[q] =
+      make_float4(__fadd_rn(w.x, upd.x), __fadd_rn(w.y, upd.y),
+                  __fadd_rn(w.z, upd.z), __fadd_rn(w.w, upd.w));
+}
+
+template <typename T>
+__device__ __forceinline__ void store_quad(T* row, int64_t q, float4 w,
+                                           float4 upd, RowRound r) {
+  const int64_t c = 4 * q;
+  reinterpret_cast<uint2*>(row)[q] = make_uint2(
+      round_elem<T>(w.x, upd.x, r, c) |
+          (round_elem<T>(w.y, upd.y, r, c + 1) << 16),
+      round_elem<T>(w.z, upd.z, r, c + 2) |
+          (round_elem<T>(w.w, upd.w, r, c + 3) << 16));
+}
+
+// K3h: W[id] = round(W[id] - lr * (g + wd * W[id])), K3's warp walk.
+template <typename T>
+__global__ void sgd_half_kernel(T* __restrict__ w,
+                                const int32_t* __restrict__ uids,
+                                const float* __restrict__ g,
+                                const int32_t* __restrict__ step, int64_t R,
+                                int64_t D, int64_t N, float lr, float wd,
+                                bool sr, uint32_t seed) {
+  const int lane = threadIdx.x & 31;
+  const int64_t warp =
+      static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int64_t base = warp * 32;
+  if (base >= N) return;  // whole warp leaves together
+  const int n = static_cast<int>(N - base < 32 ? N - base : 32);
+  const int32_t my_id = lane < n ? uids[base + lane] : -1;
+  const uint32_t step_key = sr ? sr_step_key(seed, __ldg(step)) : 0u;
+  const int64_t quads = D / 4;
+  for (int j = 0; j < n; ++j) {
+    const int32_t id = __shfl_sync(kFullMask, my_id, j);
+    if (!is_real(id, R)) continue;  // the same for the whole warp
+    const RowRound r{sr, sr ? sr_row_key(step_key, id) : 0u};
+    T* wrow = w + static_cast<int64_t>(id) * D;
+    const float4* grow = reinterpret_cast<const float4*>(g + (base + j) * D);
+    for (int64_t q = lane; q < quads; q += 32) {
+      float4 x = __ldg(grow + q);
+      const float4 wv = load_quad(wrow, q);
+      if (wd != 0.f) {
+        x.x = __fadd_rn(x.x, __fmul_rn(wd, wv.x));
+        x.y = __fadd_rn(x.y, __fmul_rn(wd, wv.y));
+        x.z = __fadd_rn(x.z, __fmul_rn(wd, wv.z));
+        x.w = __fadd_rn(x.w, __fmul_rn(wd, wv.w));
+      }
+      const float4 upd =
+          make_float4(-__fmul_rn(lr, x.x), -__fmul_rn(lr, x.y),
+                      -__fmul_rn(lr, x.z), -__fmul_rn(lr, x.w));
+      store_quad(wrow, q, wv, upd, r);
+    }
+  }
+}
+
 // K4 + K5 fused: the whole rowwise-Adagrad update in one pass.
 //
 // Replaces, on the route `momentum_stream=True, w_impl="rmw"` (what "auto"
@@ -292,32 +478,36 @@ __global__ void rowwise_momentum_kernel(float* __restrict__ m,
 //     used; then one rounded division by D. row_mean_sq in
 //     ops/fused_update_kernels.py spells out the same order in torch ops;
 //   * lane 0 reads and writes m[u] and broadcasts the scale.
-template <int kChunks>
+// T is the table's type: float, or K4h's __nv_bfloat16 / __half, whose row
+// quads are widened to float4 on load and rounded by `sr` on store (see
+// "Half-precision tables"); everything between is the same f32 arithmetic.
+template <int kChunks, typename T>
 __device__ __forceinline__ void load_slot(
-    const float* __restrict__ w, const float* __restrict__ m,
+    const T* __restrict__ w, const float* __restrict__ m,
     const float* __restrict__ g, int32_t id, int64_t slot, int64_t D,
     int lane, float4 (&gv)[kChunks], float4 (&wv)[kChunks], float& mv) {
   const float4* grow = reinterpret_cast<const float4*>(g + slot * D);
-  const float4* wrow =
-      reinterpret_cast<const float4*>(w + static_cast<int64_t>(id) * D);
+  const T* wrow = w + static_cast<int64_t>(id) * D;
 #pragma unroll
   for (int c = 0; c < kChunks; ++c) {
     const int64_t col = c * 32 + lane;
     if (col < D / 4) {
       gv[c] = __ldg(grow + col);
-      wv[c] = wrow[col];
+      wv[c] = load_quad(wrow, col);
     }
   }
   if (lane == 0) mv = m[id];
 }
 
-template <int kChunks>
-__global__ void rowwise_adagrad_kernel(float* __restrict__ w,
+template <int kChunks, typename T>
+__global__ void rowwise_adagrad_kernel(T* __restrict__ w,
                                        float* __restrict__ m,
                                        const int32_t* __restrict__ uids,
-                                       const float* __restrict__ g, int64_t R,
-                                       int64_t D, int64_t N, int slots,
-                                       float lr, float eps, float wd) {
+                                       const float* __restrict__ g,
+                                       const int32_t* __restrict__ step,
+                                       int64_t R, int64_t D, int64_t N,
+                                       int slots, float lr, float eps,
+                                       float wd, bool sr, uint32_t seed) {
   const int lane = threadIdx.x & 31;
   const int64_t warp =
       static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
@@ -328,6 +518,7 @@ __global__ void rowwise_adagrad_kernel(float* __restrict__ w,
   unsigned todo = __ballot_sync(kFullMask, is_real(my_id, R));
   if (todo == 0) return;  // the same for the whole warp
   const int64_t cols = D / 4;
+  const uint32_t step_key = sr ? sr_step_key(seed, __ldg(step)) : 0u;
   float4 gv[kChunks], wv[kChunks], gn[kChunks], wn[kChunks];
   float mv = 0.f, mn = 0.f;
   int j = __ffs(todo) - 1;
@@ -375,18 +566,17 @@ __global__ void rowwise_adagrad_kernel(float* __restrict__ w,
                     __fdiv_rn(-1.0f, __fadd_rn(__fsqrt_rn(m_new), eps)));
     }
     s = __shfl_sync(kFullMask, s, 0);
-    float4* wrow = reinterpret_cast<float4*>(w + static_cast<int64_t>(id) * D);
+    T* wrow = w + static_cast<int64_t>(id) * D;
+    const RowRound r{sr, sr ? sr_row_key(step_key, id) : 0u};
 #pragma unroll
     for (int c = 0; c < kChunks; ++c) {
       const int64_t col = c * 32 + lane;
       if (col < cols) {
         const float4 x = gv[c];
-        float4 v = wv[c];
-        v.x = __fadd_rn(v.x, __fmul_rn(s, x.x));
-        v.y = __fadd_rn(v.y, __fmul_rn(s, x.y));
-        v.z = __fadd_rn(v.z, __fmul_rn(s, x.z));
-        v.w = __fadd_rn(v.w, __fmul_rn(s, x.w));
-        wrow[col] = v;
+        store_quad(wrow, col, wv[c],
+                   make_float4(__fmul_rn(s, x.x), __fmul_rn(s, x.y),
+                               __fmul_rn(s, x.z), __fmul_rn(s, x.w)),
+                   r);
       }
     }
     if (!more) break;
@@ -400,18 +590,62 @@ __global__ void rowwise_adagrad_kernel(float* __restrict__ w,
   }
 }
 
-template <int kChunks>
+template <int kChunks, typename T>
 int launch_rowwise_adagrad(void* w, void* m, const void* uids, const void* g,
-                           int64_t R, int64_t D, int64_t N, int slots,
-                           float lr, float eps, float wd, void* stream) {
+                           const void* step, int64_t R, int64_t D, int64_t N,
+                           int slots, float lr, float eps, float wd, bool sr,
+                           uint32_t seed, void* stream) {
   const int64_t warps = (N + slots - 1) / slots;
   const dim3 grid(
       static_cast<unsigned>((warps + kWarpsPerBlock - 1) / kWarpsPerBlock));
-  rowwise_adagrad_kernel<kChunks><<<grid, 32 * kWarpsPerBlock, 0,
-                                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float*>(w), static_cast<float*>(m),
-      static_cast<const int32_t*>(uids), static_cast<const float*>(g), R, D,
-      N, slots, lr, eps, wd);
+  rowwise_adagrad_kernel<kChunks, T><<<grid, 32 * kWarpsPerBlock, 0,
+                                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<T*>(w), static_cast<float*>(m),
+      static_cast<const int32_t*>(uids), static_cast<const float*>(g),
+      static_cast<const int32_t*>(step), R, D, N, slots, lr, eps, wd, sr,
+      seed);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// D <= 512 (at most four 512-byte chunks of g per row in registers);
+// 1 <= slots <= 32 slots per warp
+template <typename T>
+int rowwise_adagrad(void* w, void* m, const void* uids, const void* g,
+                    const void* step, int64_t R, int64_t D, int64_t N,
+                    int slots, float lr, float eps, float wd, bool sr,
+                    uint32_t seed, void* stream) {
+  if (slots < 1 || slots > 32) return static_cast<int>(cudaErrorInvalidValue);
+  switch ((D + 127) / 128) {
+    case 1:
+      return launch_rowwise_adagrad<1, T>(w, m, uids, g, step, R, D, N, slots,
+                                          lr, eps, wd, sr, seed, stream);
+    case 2:
+      return launch_rowwise_adagrad<2, T>(w, m, uids, g, step, R, D, N, slots,
+                                          lr, eps, wd, sr, seed, stream);
+    case 3:
+      return launch_rowwise_adagrad<3, T>(w, m, uids, g, step, R, D, N, slots,
+                                          lr, eps, wd, sr, seed, stream);
+    case 4:
+      return launch_rowwise_adagrad<4, T>(w, m, uids, g, step, R, D, N, slots,
+                                          lr, eps, wd, sr, seed, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <typename T>
+int launch_sgd_half(void* w, const void* uids, const void* g,
+                    const void* step, int64_t R, int64_t D, int64_t N,
+                    float lr, float wd, bool sr, uint32_t seed,
+                    void* stream) {
+  const int64_t warps = (N + 31) / 32;
+  const dim3 grid(
+      static_cast<unsigned>((warps + kWarpsPerBlock - 1) / kWarpsPerBlock));
+  sgd_half_kernel<T><<<grid, 32 * kWarpsPerBlock, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<T*>(w), static_cast<const int32_t*>(uids),
+      static_cast<const float*>(g), static_cast<const int32_t*>(step), R, D,
+      N, lr, wd, sr, seed);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -489,23 +723,41 @@ int trt_fused_rowwise_adagrad_f32(void* w, void* m, const void* uids,
                                   const void* g, int64_t R, int64_t D,
                                   int64_t N, int slots, float lr, float eps,
                                   float wd, void* stream) {
-  if (slots < 1 || slots > 32) return static_cast<int>(cudaErrorInvalidValue);
-  switch ((D + 127) / 128) {
-    case 1:
-      return launch_rowwise_adagrad<1>(w, m, uids, g, R, D, N, slots, lr,
-                                       eps, wd, stream);
-    case 2:
-      return launch_rowwise_adagrad<2>(w, m, uids, g, R, D, N, slots, lr,
-                                       eps, wd, stream);
-    case 3:
-      return launch_rowwise_adagrad<3>(w, m, uids, g, R, D, N, slots, lr,
-                                       eps, wd, stream);
-    case 4:
-      return launch_rowwise_adagrad<4>(w, m, uids, g, R, D, N, slots, lr,
-                                       eps, wd, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return rowwise_adagrad<float>(w, m, uids, g, nullptr, R, D, N, slots, lr,
+                                eps, wd, false, 0u, stream);
+}
+
+// The half-table entry points: `half` 0 is bf16, 1 fp16; `sr` selects the
+// stochastic-rounding epilogue, whose bits take the step from device memory
+// at `step` (an int32, read before the caller increments it) and `seed`.
+// K4h: D <= 512, 1 <= slots <= 32.
+int trt_fused_rowwise_adagrad_half(void* w, void* m, const void* uids,
+                                   const void* g, const void* step,
+                                   int64_t R, int64_t D, int64_t N, int slots,
+                                   float lr, float eps, float wd, int half,
+                                   int sr, uint32_t seed, void* stream) {
+  if (half == 0)
+    return rowwise_adagrad<__nv_bfloat16>(w, m, uids, g, step, R, D, N,
+                                          slots, lr, eps, wd, sr != 0, seed,
+                                          stream);
+  if (half == 1)
+    return rowwise_adagrad<__half>(w, m, uids, g, step, R, D, N, slots, lr,
+                                   eps, wd, sr != 0, seed, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K3h
+int trt_fused_update_sgd_half(void* w, const void* uids, const void* g,
+                              const void* step, int64_t R, int64_t D,
+                              int64_t N, float lr, float wd, int half, int sr,
+                              uint32_t seed, void* stream) {
+  if (half == 0)
+    return launch_sgd_half<__nv_bfloat16>(w, uids, g, step, R, D, N, lr, wd,
+                                          sr != 0, seed, stream);
+  if (half == 1)
+    return launch_sgd_half<__half>(w, uids, g, step, R, D, N, lr, wd,
+                                   sr != 0, seed, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 int trt_fused_update_adagrad_f32(void* w, void* m, const void* uids,

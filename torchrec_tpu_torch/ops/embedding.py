@@ -11,12 +11,15 @@ MEAN.
 PoolingMode.NONE returns the per-token rows [..., L, D] times the mask
 instead: `lookup_rows`, the row gather of sequence models.
 
-Dispatch: an fp32 table goes to the K1 wrapper (ops/tbe_lookup.py) when
-pooled and to the K8 wrapper (ops/gather_rows.py) when not; each launches
-its CUDA kernel for CUDA tensors and takes its plain version for CPU
-tensors, and each is differentiable. bf16/fp16 tables take the plain
-expressions: pooled in fp32, as the JAX package does in XLA, and gathered
-in the table's dtype, as JAX's `weights[flat_ids]` keeps it.
+Dispatch: a pooled lookup goes to the K1 wrapper (ops/tbe_lookup.py), K1
+for an fp32 table and K1h for a bf16 / fp16 one (pooled in fp32, as the
+JAX package pools them in XLA, with the coefficient rounded to the table's
+dtype first as JAX's `_pool_coeff` rounds it); an unpooled one of an fp32
+table to the K8 wrapper (ops/gather_rows.py). Each launches its CUDA
+kernel for CUDA tensors and takes its plain version for CPU tensors, and
+each is differentiable. An unpooled lookup of a bf16 / fp16 table is a
+plain gather in the table's dtype, as JAX's `weights[flat_ids]` keeps it
+(K8 takes f32 tables only; ROADMAP queue 1 lists its half form).
 """
 
 from __future__ import annotations
@@ -41,26 +44,20 @@ def pooled_lookup(
 ) -> torch.Tensor:
     """Fused gather + pool: out[..., :] = sum_l coeff[..., l] * W[ids[..., l]].
 
-    weights [R, D]; ids [..., L] global row ids, clamped to [0, R-1] as the
-    TPU kernel clamps them (a negative id reads row 0); coeff [..., L]
-    pooling coefficients (0 where invalid). Returns [..., D] in fp32.
+    weights [R, D] f32, bf16 or fp16; ids [..., L] global row ids, clamped
+    to [0, R-1] as the TPU kernel clamps them (a negative id reads row 0);
+    coeff [..., L] pooling coefficients (0 where invalid), rounded to a
+    half table's dtype first. Returns [..., D] in fp32.
     """
     lead = ids.shape[:-1]
     L = ids.shape[-1]
     D = weights.shape[1]
-    if weights.dtype == torch.float32:
-        out = tbe_lookup_pooled(
-            weights,
-            ids.reshape(-1, L).to(torch.int32).contiguous(),
-            coeff.reshape(-1, L).to(torch.float32).contiguous(),
-        )
-        return out.reshape(*lead, D)
-    if weights.dtype not in (torch.bfloat16, torch.float16):
-        raise TypeError(f"unsupported table dtype {weights.dtype}")
-    # low-precision tables pool with fp32 accumulation and return fp32
-    rows = weights[ids.clamp(0, weights.shape[0] - 1).long()]
-    c = coeff.to(weights.dtype).float()
-    return torch.einsum("...ld,...l->...d", rows.float(), c)
+    out = tbe_lookup_pooled(
+        weights,
+        ids.reshape(-1, L).to(torch.int32).contiguous(),
+        coeff.reshape(-1, L).to(weights.dtype).to(torch.float32).contiguous(),
+    )
+    return out.reshape(*lead, D)
 
 
 def lookup_rows(weights: torch.Tensor, flat_ids: torch.Tensor) -> torch.Tensor:

@@ -7,20 +7,36 @@ ids in static shapes (sort + run totals, sentinels in place of `unique`,
 so nothing waits for the device) and updates only the touched rows, in
 place, through the kernels K2-K7 (ops/fused_update_kernels.py).
 
-Every EmbOptimType trains fp32 tables. SGD, EXACT_SGD, ROWWISE_ADAGRAD,
-ADAGRAD and ADAM route as the JAX package's Pallas route
-(`_apply_fused_update_pallas`) routes them, on the card and on the CPU
-alike (on the CPU each kernel wrapper takes its plain version).
+Every EmbOptimType trains fp32, bf16 and fp16 tables. On fp32 tables SGD,
+EXACT_SGD, ROWWISE_ADAGRAD, ADAGRAD and ADAM route as the JAX package's
+Pallas route (`_apply_fused_update_pallas`) routes them, on the card and
+on the CPU alike (on the CPU each kernel wrapper takes its plain version).
 PARTIAL_ROWWISE_ADAM, LAMB, PARTIAL_ROWWISE_LAMB and LARS_SGD have no
 Pallas kernel (the JAX package runs them in XLA on the TPU too): they are
 PyTorch ops on the same run-total form, masked as JAX's XLA route masks
-them. The fused_params keys are `eps`, `weight_decay`, `beta1`, `beta2`,
-`eta`, `momentum`, `stochastic_rounding` (no effect on fp32 tables, as in
-JAX), `w_impl` and `mom_impl`. Half-precision tables need stochastic
-rounding and raise NotImplementedError (ROADMAP queue 1, stochastic
-rounding). The JAX package's v5e cost-model levers (`compact`,
-`unique_entries`, `mom_block_fracs`, `mom_max_block_share`, the split
-momentum dispatch, wave sizes) are not ported: see ROADMAP.md.
+them.
+
+bf16 / fp16 tables follow JAX's XLA route, which is where the JAX package
+trains them (its Pallas kernels take f32 only): momenta and gradients stay
+f32 and each touched row is computed in f32 from its widened values. SGD
+and EXACT_SGD go to K3h and ROWWISE_ADAGRAD to K4h
+(ops/fused_update_kernels.py), which round the row stochastically when
+`stochastic_rounding` is on (the default; ops/stochastic_rounding.py) and
+to nearest, `half(w + half(upd))`, when it is off. The other six
+optimizers never round stochastically, as in JAX: they are the PyTorch ops
+of `_xla_update`, mirroring JAX's formulas, with the row written as
+`half(w + half(upd))`. Two differences from JAX stay, by design
+(ROADMAP.md section 3): SR-off SGD rounds each row's f32 total once where
+JAX's weight-decay-free fast path rounds once per duplicate token, and the
+SR bits are the port's own, one draw per (row, column) where JAX draws one
+per sorted slot. `w_impl="write"` and `mom_impl="xla"` are not ported for
+half tables.
+
+The fused_params keys are `eps`, `weight_decay`, `beta1`, `beta2`, `eta`,
+`momentum`, `stochastic_rounding` (no effect on fp32 tables, as in JAX),
+`w_impl` and `mom_impl`. The JAX package's v5e cost-model levers
+(`compact`, `unique_entries`, `mom_block_fracs`, `mom_max_block_share`,
+the split momentum dispatch, wave sizes) are not ported: see ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -29,6 +45,7 @@ import dataclasses
 import enum
 from typing import Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 
 from torchrec_tpu_torch.ops import fused_update_kernels as fk
@@ -128,18 +145,21 @@ def _mom_stream(mom_impl: str) -> bool:
 def check_trainable(dtype: torch.dtype, params: Mapping = ()) -> None:
     """Raise unless `apply_fused_update` takes this table dtype and these
     fused_params (checked before a train step changes anything); every
-    optimizer is ported."""
-    if dtype != torch.float32:
-        raise NotImplementedError(
-            f"training {dtype} tables needs stochastic rounding, which is "
-            "not ported yet (ROADMAP queue 1, stochastic rounding)")
+    optimizer is ported, for fp32, bf16 and fp16 tables."""
+    if dtype != torch.float32 and dtype not in fk.HALF_TYPES:
+        raise TypeError(f"tables train in fp32, bf16 or fp16, not {dtype}")
     unknown = sorted(set(params) - set(FUSED_PARAM_KEYS))
     if unknown:
         raise NotImplementedError(
             f"fused_params {unknown} are not ported; the port takes "
             f"{list(FUSED_PARAM_KEYS)} (see ROADMAP.md)")
-    _w_impl(params.get("w_impl", "auto"))
-    _mom_stream(params.get("mom_impl", "auto"))
+    w_impl = _w_impl(params.get("w_impl", "auto"))
+    stream = _mom_stream(params.get("mom_impl", "auto"))
+    if dtype in fk.HALF_TYPES and (w_impl == "write" or not stream):
+        raise NotImplementedError(
+            f"{dtype} tables train through K3h / K4h's read-modify-write "
+            "with the streamed momentum only: w_impl='write' and "
+            "mom_impl='xla' are not ported for them (ROADMAP queue 1)")
 
 
 def pooled_grad_to_row_grads(
@@ -231,33 +251,75 @@ def _add_rows(t: torch.Tensor, ids: torch.Tensor, fm: torch.Tensor,
     t.index_add_(0, ids, torch.where(mask, delta, 0.0))
 
 
+def _add_half_rows(weights: torch.Tensor, ids: torch.Tensor,
+                   fm: torch.Tensor, w_rows: torch.Tensor,
+                   upd: torch.Tensor) -> None:
+    """weights[ids[i]] = half(w_rows[i] + half(upd[i])) where fm[i], in
+    place: JAX's `weights.at[uids].add(upd.astype(weights.dtype))` on a
+    half table (w_rows: the rows widened to f32). Every slot writes, so
+    nothing waits for the device to count the real ones: a masked slot
+    writes what the first real slot writes (or, with none, row R - 1's own
+    value back), so all writers of a row agree."""
+    new = (w_rows + upd.to(weights.dtype).float()).to(weights.dtype)
+    new = torch.where(fm[:, None], new, weights[ids])
+    pos = torch.arange(ids.shape[0], device=ids.device)
+    rep = torch.where(fm, pos, fm.to(torch.uint8).argmax())
+    weights.index_put_((ids[rep],), new[rep])
+
+
 def _pow(beta: float, t: torch.Tensor) -> torch.Tensor:
     """beta**t in f32, as JAX raises a weak-typed Python float."""
     return torch.full_like(t, beta) ** t
 
 
-def _xla_only_update(weights, opt_state, uids, g, lr, eps, weight_decay,
-                     beta1, beta2, eta, momentum) -> None:
-    """PARTIAL_ROWWISE_ADAM, LAMB, PARTIAL_ROWWISE_LAMB and LARS_SGD, the
-    optimizers without a Pallas kernel, as PyTorch ops: JAX's XLA route
-    (fused_update.py:700-809) on the run-total form, whose real slots are
-    each touched row's first sorted position (JAX's `fm`)."""
+def _f32(*xs: float) -> float:
+    """The f32 product of Python floats, rounded at each step as JAX
+    multiplies an f32 scalar by weak-typed floats (a Python product would
+    round once, from double)."""
+    out = np.float32(xs[0])
+    for x in xs[1:]:
+        out = out * np.float32(x)
+    return float(out)
+
+
+def _xla_update(weights, opt_state, uids, g, lr, eps, weight_decay,
+                beta1, beta2, eta, momentum) -> None:
+    """The optimizers that run as PyTorch ops on the run-total form, whose
+    real slots are each touched row's first sorted position (JAX's `fm`):
+    PARTIAL_ROWWISE_ADAM, LAMB, PARTIAL_ROWWISE_LAMB and LARS_SGD on every
+    table, ADAGRAD and ADAM on bf16 / fp16 ones. JAX's XLA route
+    (fused_update.py:660-809) term for term: f32 rows, momenta and
+    gradients; an fp32 table takes the masked scatter-add of `upd`, a half
+    table `half(w + half(upd))`."""
     optim = opt_state.optim
     R = weights.shape[0]
     fm = uids < R
     ids = uids.clamp(max=R - 1).long()
-    w_rows = weights[ids]
+    w_rows = weights[ids].float()
+
+    def write(upd):
+        if weights.dtype == torch.float32:
+            _add_rows(weights, ids, fm, upd)
+        else:
+            _add_half_rows(weights, ids, fm, w_rows, upd)
+
     m1 = opt_state.momentum1
     m1_rows = m1[ids]
+    if optim in (EmbOptimType.ADAGRAD, EmbOptimType.ADAM) and weight_decay:
+        g = g + (weight_decay * fm.float())[:, None] * w_rows
+    if optim is EmbOptimType.ADAGRAD:
+        _add_rows(m1, ids, fm, g * g)
+        write(-lr * g / (torch.sqrt(m1[ids]) + eps))
+        return
     if optim is EmbOptimType.LARS_SGD:
         w_norm = torch.linalg.vector_norm(w_rows, dim=1)
         g_norm = torch.linalg.vector_norm(g, dim=1)
         denom = g_norm + weight_decay * w_norm
         lr_adj = torch.where((w_norm > 0) & (denom > 0),
-                             lr * eta * w_norm / (denom + eps), lr)
+                             _f32(lr, eta) * w_norm / (denom + eps), lr)
         new_m1 = momentum * m1_rows + lr_adj[:, None] * (
             g + weight_decay * w_rows)
-        _add_rows(weights, ids, fm, -new_m1)
+        write(-new_m1)
         _add_rows(m1, ids, fm, new_m1 - m1_rows)
         return
     rowwise = optim in (EmbOptimType.PARTIAL_ROWWISE_ADAM,
@@ -272,10 +334,12 @@ def _xla_only_update(weights, opt_state, uids, g, lr, eps, weight_decay,
     m2_hat = new_m2 / (1.0 - _pow(beta2, t))
     denom = torch.sqrt(m2_hat)
     denom = (denom[:, None] if rowwise else denom) + eps
-    if optim is EmbOptimType.PARTIAL_ROWWISE_ADAM:
+    if optim is EmbOptimType.ADAM:
+        upd = (-lr * fm.float())[:, None] * m1_hat / denom
+    elif optim is EmbOptimType.PARTIAL_ROWWISE_ADAM:
         upd = -lr * m1_hat / denom
         if weight_decay:
-            upd = upd - lr * weight_decay * w_rows
+            upd = upd - _f32(lr, weight_decay) * w_rows
     else:  # LAMB, PARTIAL_ROWWISE_LAMB: per-row trust ratio
         rt = m1_hat / denom
         if weight_decay:
@@ -285,7 +349,7 @@ def _xla_only_update(weights, opt_state, uids, g, lr, eps, weight_decay,
         trust = torch.where((w_norm > 0) & (r_norm > 0),
                             w_norm / (r_norm + eps), 1.0)
         upd = -lr * trust[:, None] * rt
-    _add_rows(weights, ids, fm, upd)
+    write(upd)
     _add_rows(m1, ids, fm, new_m1 - m1_rows)
     _add_rows(m2, ids, fm, new_m2 - m2_rows)
 
@@ -309,11 +373,11 @@ def apply_fused_update(
 ) -> Tuple[torch.Tensor, FusedOptimizerState]:
     """Apply one fused sparse optimizer step to the touched rows only.
 
-    weights [R, D] f32; flat_ids [N] row ids into `weights`; row_grads
-    [N, D] per-token gradients (before combining duplicates); valid [N]
-    bool; learning_rate a Python float. The JAX function returns new
-    arrays; this one updates `weights`, the momentum and the step IN PLACE
-    and returns the same objects.
+    weights [R, D] f32, bf16 or fp16; flat_ids [N] row ids into `weights`;
+    row_grads [N, D] per-token gradients (before combining duplicates),
+    taken in f32; valid [N] bool; learning_rate a Python float. The JAX
+    function returns new arrays; this one updates `weights`, the momentum
+    and the step IN PLACE and returns the same objects.
 
       SGD, EXACT_SGD:  w -= lr * (g + wd * w)
       ROWWISE_ADAGRAD: g += wd * w; m += mean(g^2);
@@ -332,14 +396,21 @@ def apply_fused_update(
     with g the total gradient of each row and m_hat = m / (1 - b**t) at
     the incremented step t. w_impl "auto"|"rmw"|"write" and mom_impl
     "auto"|"stream"|"xla" pick the kernels (see `_w_impl`,
-    `_mom_stream`). `stochastic_rounding` has no effect on fp32 tables.
+    `_mom_stream`). `stochastic_rounding` rounds a bf16 / fp16 table's
+    SGD, EXACT_SGD and ROWWISE_ADAGRAD rows stochastically (see the module
+    docstring) and has no effect on fp32 tables.
     """
     optim = opt_state.optim
     check_trainable(weights.dtype, {"w_impl": w_impl, "mom_impl": mom_impl})
     w_impl = _w_impl(w_impl)
     lr = float(learning_rate)
     R = weights.shape[0]
-    if optim is EmbOptimType.ROWWISE_ADAGRAD:
+    row_grads = row_grads.to(torch.float32)
+    if weights.dtype in fk.HALF_TYPES:
+        _half_update(weights, opt_state, flat_ids, row_grads, valid, lr,
+                     eps, weight_decay, beta1, beta2, eta, momentum,
+                     stochastic_rounding)
+    elif optim is EmbOptimType.ROWWISE_ADAGRAD:
         # the momentum step needs sorted compacted uids
         uids, g = dedup_row_grads(flat_ids, row_grads, valid, R)
         fk.fused_update_rowwise_adagrad(
@@ -383,7 +454,33 @@ def apply_fused_update(
                 fk.scatter_rows_write(dst, uids, rows)
     else:
         uids, g = run_total_row_grads(flat_ids, row_grads, valid, R)
-        _xla_only_update(weights, opt_state, uids, g, lr, eps, weight_decay,
-                         beta1, beta2, eta, momentum)
+        _xla_update(weights, opt_state, uids, g, lr, eps, weight_decay,
+                    beta1, beta2, eta, momentum)
     opt_state.step.add_(1)
     return weights, opt_state
+
+
+def _half_update(weights, opt_state, flat_ids, row_grads, valid, lr, eps,
+                 weight_decay, beta1, beta2, eta, momentum,
+                 stochastic_rounding) -> None:
+    """One step on a bf16 / fp16 table, before the step's increment: K4h
+    (ROWWISE_ADAGRAD) or K3h (SGD, EXACT_SGD), rounding stochastically
+    with the step's bits when `stochastic_rounding`, else to nearest; the
+    other optimizers through `_xla_update`, to nearest, as in JAX."""
+    optim = opt_state.optim
+    R = weights.shape[0]
+    if optim is EmbOptimType.ROWWISE_ADAGRAD:
+        uids, g = dedup_row_grads(flat_ids, row_grads, valid, R)
+        fk.fused_update_rowwise_adagrad_half(
+            weights, opt_state.momentum1, uids, g, lr, opt_state.step,
+            eps=eps, weight_decay=weight_decay,
+            stochastic_rounding=stochastic_rounding)
+        return
+    uids, g = run_total_row_grads(flat_ids, row_grads, valid, R)
+    if optim in (EmbOptimType.SGD, EmbOptimType.EXACT_SGD):
+        fk.fused_update_sgd_half(weights, uids, g, lr, opt_state.step,
+                                 weight_decay=weight_decay,
+                                 stochastic_rounding=stochastic_rounding)
+    else:
+        _xla_update(weights, opt_state, uids, g, lr, eps, weight_decay,
+                    beta1, beta2, eta, momentum)

@@ -13,6 +13,14 @@ with the same names and arguments minus the TPU's wave sizes (`T`, `TB`,
 * K6 `fused_update_adagrad` (:1033, `_adagrad_kernel` :503)
 * K7 `fused_update_adam`    (:1089, `_adam_kernel` :531)
 
+and the half-table forms of K3 and the fused K4, `fused_update_sgd_half`
+(K3h) and `fused_update_rowwise_adagrad_half` (K4h), which stand for what
+the JAX package runs in XLA for bf16 / fp16 tables
+(torchrec_tpu/ops/fused_update.py:534-543 and :647-656: `_sr_set` with
+`stochastic_round`, or a rounded scatter-add): the same f32 arithmetic on
+the widened rows, then the row written back rounded, stochastically with
+the port's counter-based bits (ops/stochastic_rounding.py) or to nearest.
+
 The kernels live in csrc/fused_update.cu, one library built with nvcc for
 sm_90a at first use and bound with ctypes (ops/cuda_build.py). All are
 bound by bytes: scattered 512-byte rows (K2-K4 move two or three per real
@@ -41,8 +49,16 @@ from typing import Callable, Dict, Tuple
 import torch
 
 from torchrec_tpu_torch.ops.cuda_build import CudaLibrary
+from torchrec_tpu_torch.ops.stochastic_rounding import (
+    SR_SEED,
+    sr_bits,
+    stochastic_round,
+)
 
 _P, _I64, _F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
+_INT, _U32 = ctypes.c_int, ctypes.c_uint32
+# the half table types the kernels take, by their entry points' code
+HALF_TYPES = {torch.bfloat16: 0, torch.float16: 1}
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -59,6 +75,12 @@ def _bind(lib: ctypes.CDLL) -> None:
             [_P, _P, _P, _P, _I64, _I64, _I64, _F32, _F32, _F32, _P],
         "trt_fused_update_adam_f32":
             [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64] + [_F32] * 7 + [_P],
+        "trt_fused_update_sgd_half":
+            [_P, _P, _P, _P, _I64, _I64, _I64, _F32, _F32, _INT, _INT, _U32,
+             _P],
+        "trt_fused_rowwise_adagrad_half":
+            [_P, _P, _P, _P, _P, _I64, _I64, _I64, _INT, _F32, _F32, _F32,
+             _INT, _INT, _U32, _P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
@@ -77,6 +99,8 @@ LAUNCHES: Dict[str, int] = {
     "rowwise_momentum_stream": 0,
     "fused_update_adagrad": 0,
     "fused_update_adam": 0,
+    "fused_update_sgd_half": 0,  # K3h
+    "fused_update_rowwise_adagrad_half": 0,  # K4h
 }
 
 
@@ -600,3 +624,159 @@ def fused_update_adam(
                 bc.data_ptr(), R, D, N, lr, eps, wd, beta1, 1.0 - beta1,
                 beta2, 1.0 - beta2, s))
     return weights, momentum1, momentum2
+
+
+# -- K3h and K4h: half-precision tables ----------------------------------------
+
+
+def round_rows(w32: torch.Tensor, upd: torch.Tensor, dtype: torch.dtype,
+               rows: torch.Tensor, step: torch.Tensor,
+               stochastic_rounding: bool = True) -> torch.Tensor:
+    """The half kernels' epilogue on rows [N, D]: w32 + upd rounded to
+    `dtype`, stochastically with sr_bits(step, rows[i], column)
+    (JAX's `stochastic_round(w + upd)`), or as JAX's deterministic
+    `w + upd.astype(dtype)`: upd rounded to `dtype`, added in f32, rounded
+    to nearest-even again."""
+    if stochastic_rounding:
+        return stochastic_round(w32 + upd, dtype,
+                                sr_bits(step, rows, w32.shape[1]))
+    return (w32 + upd.to(dtype).float()).to(dtype)
+
+
+def _check_half(weights: torch.Tensor, uids: torch.Tensor, g: torch.Tensor,
+                step: torch.Tensor) -> torch.device:
+    if weights.dtype not in HALF_TYPES or weights.dim() != 2:
+        raise TypeError(f"weights must be a 2-D bf16 or fp16 tensor, got "
+                        f"{weights.dtype} {tuple(weights.shape)}")
+    if not weights.is_contiguous():
+        raise ValueError("weights must be contiguous")
+    _check("uids", uids, torch.int32, 1)
+    _check("g", g, torch.float32, 2, uids.shape[0])
+    if g.shape[1] != weights.shape[1]:
+        raise ValueError(f"g has width {g.shape[1]}, weights "
+                         f"{weights.shape[1]}")
+    if step.dim() != 0 or step.dtype != torch.int32:
+        raise TypeError(f"step must be a 0-d int32 tensor, got {step.dtype} "
+                        f"{tuple(step.shape)}")
+    return _same_device(weights, uids, g, step)
+
+
+def _half_rows(weights: torch.Tensor, g: torch.Tensor) -> None:
+    """The half kernels move a row as 8-byte quads beside g's float4s."""
+    D = weights.shape[1]
+    if D % 4:
+        raise ValueError(f"the CUDA half kernels need D % 4 == 0, got D={D}")
+    if weights.data_ptr() % 8 or g.data_ptr() % 16:
+        raise ValueError("the CUDA half kernels need 8-byte aligned table "
+                         "rows and a 16-byte aligned g")
+
+
+def fused_update_sgd_half_reference(
+    weights: torch.Tensor, uids: torch.Tensor, g: torch.Tensor, lr: float,
+    step: torch.Tensor, weight_decay: float = 0.0,
+    stochastic_rounding: bool = True,
+) -> torch.Tensor:
+    """Plain version of K3h: W[id] = round(W[id] - lr * (g + wd * W[id]))
+    on the real slots, in place, with K3h's f32 arithmetic."""
+    sel = _real_slots(uids, weights.shape[0])
+    ids = uids[sel].long()
+    w, gg = weights[ids].float(), g[sel]
+    if weight_decay:
+        gg = gg + weight_decay * w
+    weights.index_copy_(0, ids, round_rows(
+        w, -(lr * gg), weights.dtype, ids, step, stochastic_rounding))
+    return weights
+
+
+def fused_update_sgd_half(
+    weights: torch.Tensor, uids: torch.Tensor, g: torch.Tensor, lr: float,
+    step: torch.Tensor, weight_decay: float = 0.0,
+    stochastic_rounding: bool = True,
+) -> torch.Tensor:
+    """K3h: K3 on a bf16 / fp16 table, in place. weights [R, D] bf16 or
+    fp16; uids [N] int32, unique among real slots (`run_total_row_grads`,
+    sentinels 2**31 - 1); g [N, D] f32; step the optimizer's 0-d int32
+    step tensor before its increment, on the table's device (read there by
+    the kernel, never by the host). Each touched row becomes
+    round(W - lr * (g + wd * W)) in f32, rounded stochastically with
+    sr_bits(step, row, column) or to nearest (`round_rows`).
+    Returns `weights`."""
+    dev = _check_half(weights, uids, g, step)
+    lr, weight_decay = float(lr), float(weight_decay)
+    if dev.type == "cpu":
+        return fused_update_sgd_half_reference(
+            weights, uids, g, lr, step, weight_decay, stochastic_rounding)
+    (R, D), N = weights.shape, uids.shape[0]
+    if N == 0 or D == 0:
+        return weights
+    _half_rows(weights, g)
+    _launch("fused_update_sgd_half", dev, lambda lib, s:
+            lib.trt_fused_update_sgd_half(
+                weights.data_ptr(), uids.data_ptr(), g.data_ptr(),
+                step.data_ptr(), R, D, N, lr, weight_decay,
+                HALF_TYPES[weights.dtype], int(stochastic_rounding),
+                SR_SEED, s))
+    return weights
+
+
+def _check_half_adagrad(weights, momentum, uids, g, step) -> torch.device:
+    dev = _check_half(weights, uids, g, step)
+    _check("momentum", momentum, torch.float32, 1, weights.shape[0])
+    _same_device(weights, momentum)
+    return dev
+
+
+def fused_update_rowwise_adagrad_half_reference(
+    weights: torch.Tensor, momentum: torch.Tensor, uids: torch.Tensor,
+    g: torch.Tensor, lr: float, step: torch.Tensor, eps: float = 1.0e-8,
+    weight_decay: float = 0.0, stochastic_rounding: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K4h, in place on the real slots, rounded where the
+    fused kernel rounds (g_sq in `row_mean_sq`'s order)."""
+    sel = _real_slots(uids, weights.shape[0])
+    ids = uids[sel].long()
+    w, gg = weights[ids].float(), g[sel]
+    if weight_decay:
+        gg = gg + weight_decay * w
+    m = momentum[ids] + row_mean_sq(gg)
+    momentum.index_copy_(0, ids, m)
+    scale = lr * _div(-1.0, torch.sqrt(m) + eps)
+    weights.index_copy_(0, ids, round_rows(
+        w, scale[:, None] * gg, weights.dtype, ids, step,
+        stochastic_rounding))
+    return weights, momentum
+
+
+def fused_update_rowwise_adagrad_half(
+    weights: torch.Tensor, momentum: torch.Tensor, uids: torch.Tensor,
+    g: torch.Tensor, lr: float, step: torch.Tensor, eps: float = 1.0e-8,
+    weight_decay: float = 0.0, stochastic_rounding: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4h: the fused rowwise Adagrad on a bf16 / fp16 table, in place.
+    weights [R, D] bf16 or fp16; momentum [R] f32; uids [N] int32 SORTED
+    unique (`dedup_row_grads`, sentinels R + pos); g [N, D] f32; step as
+    `fused_update_sgd_half`. The fused K4's f32 update, then each row
+    rounded as K3h rounds it. D <= FUSED_MAX_D on the card. Returns
+    (weights, momentum)."""
+    dev = _check_half_adagrad(weights, momentum, uids, g, step)
+    lr, eps, wd = float(lr), float(eps), float(weight_decay)
+    if dev.type == "cpu":
+        return fused_update_rowwise_adagrad_half_reference(
+            weights, momentum, uids, g, lr, step, eps, wd,
+            stochastic_rounding)
+    (R, D), N = weights.shape, uids.shape[0]
+    if D > FUSED_MAX_D:
+        raise NotImplementedError(
+            f"K4h holds rows of up to {FUSED_MAX_D} columns, got D={D} (see "
+            "ROADMAP.md)")
+    if N == 0 or D == 0:
+        return weights, momentum
+    _half_rows(weights, g)
+    slots = fused_slots_per_warp(N)
+    _launch("fused_update_rowwise_adagrad_half", dev, lambda lib, s:
+            lib.trt_fused_rowwise_adagrad_half(
+                weights.data_ptr(), momentum.data_ptr(), uids.data_ptr(),
+                g.data_ptr(), step.data_ptr(), R, D, N, slots, lr, eps, wd,
+                HALF_TYPES[weights.dtype], int(stochastic_rounding), SR_SEED,
+                s))
+    return weights, momentum

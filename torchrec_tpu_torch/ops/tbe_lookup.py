@@ -15,6 +15,14 @@ launch raises, nothing falls back. Its backward ports the Pallas VJP
 `d_coeff[b, l] = <W[clip(ids[b, l])], d_out[b]>` with the rows gathered
 through K8 (ops/gather_rows.py), as the Pallas VJP gathers them through
 its `gather_rows`. The ids get no gradient.
+
+K1h is the same kernel over bf16 / fp16 tables (the rows widened to f32,
+the sum and the output f32), where the JAX package pools such tables with
+an XLA gather and einsum (torchrec_tpu/ops/embedding.py:77-116). The same
+wrapper and Function take it: the table's dtype picks the kernel, each with
+its own launch counter. Its VJP is K1's; `d_coeff` gathers the half rows
+with plain torch indexing, since K8 takes f32 tables only, and `d_W`
+comes back in the table's dtype.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ import torch
 from torchrec_tpu_torch.ops.cuda_build import CudaLibrary
 from torchrec_tpu_torch.ops.gather_rows import (
     gather_rows_forward,
+    gather_rows_reference,
     scatter_add_rows,
 )
 
@@ -36,20 +45,30 @@ def _bind(lib: ctypes.CDLL) -> None:
         ctypes.c_void_p
     ]
     fn.restype = ctypes.c_int
+    fn = lib.trt_tbe_lookup_pooled_half
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 4 + [
+        ctypes.c_int, ctypes.c_void_p
+    ]
+    fn.restype = ctypes.c_int
 
 
 LIBRARY = CudaLibrary("tbe_lookup.cu", _bind)
 
-# Kernel launches made by `tbe_lookup_pooled` in this process.
+# the table dtypes the kernels take: K1 f32, K1h bf16 (code 0) and fp16 (1)
+HALF_TYPES = {torch.bfloat16: 0, torch.float16: 1}
+TABLE_TYPES = (torch.float32, *HALF_TYPES)
+# Kernel launches made by `tbe_lookup_pooled` in this process: K1 on f32
+# tables, K1h on bf16 / fp16 ones.
 LAUNCHES = 0
+HALF_LAUNCHES = 0
 
 
 def _check(weights: torch.Tensor, flat_ids: torch.Tensor,
            coeff: torch.Tensor) -> None:
-    if weights.dtype != torch.float32 or weights.dim() != 2:
+    if weights.dtype not in TABLE_TYPES or weights.dim() != 2:
         raise TypeError(
-            f"weights must be a 2-D float32 tensor, got {weights.dtype} "
-            f"{tuple(weights.shape)}"
+            f"weights must be a 2-D float32, bfloat16 or float16 tensor, got "
+            f"{weights.dtype} {tuple(weights.shape)}"
         )
     if flat_ids.dtype != torch.int32 or flat_ids.dim() != 2:
         raise TypeError(
@@ -77,18 +96,19 @@ def _check(weights: torch.Tensor, flat_ids: torch.Tensor,
 def tbe_lookup_pooled_reference(
     weights: torch.Tensor, flat_ids: torch.Tensor, coeff: torch.Tensor
 ) -> torch.Tensor:
-    """Plain PyTorch version: out[b] = sum_l coeff[b, l] * W[clip(ids)]."""
+    """Plain PyTorch version: out[b] = sum_l coeff[b, l] * W[clip(ids)],
+    half rows widened to f32."""
     R = weights.shape[0]
-    rows = weights[flat_ids.clamp(0, max(R - 1, 0)).long()]
+    rows = weights[flat_ids.clamp(0, max(R - 1, 0)).long()].float()
     return (rows * coeff[..., None]).sum(-2)
 
 
 def tbe_lookup_pooled_forward(
     weights: torch.Tensor, flat_ids: torch.Tensor, coeff: torch.Tensor
 ) -> torch.Tensor:
-    """The forward alone, outside autograd: K1 for CUDA tensors, the plain
-    version for CPU tensors."""
-    global LAUNCHES
+    """The forward alone, outside autograd: K1 (K1h for a half table) for
+    CUDA tensors, the plain version for CPU tensors."""
+    global LAUNCHES, HALF_LAUNCHES
     _check(weights, flat_ids, coeff)
     if weights.device.type == "cpu":
         return tbe_lookup_pooled_reference(weights, flat_ids, coeff)
@@ -99,13 +119,23 @@ def tbe_lookup_pooled_forward(
         return out
     lib = LIBRARY.load()
     stream = torch.cuda.current_stream(weights.device).cuda_stream
+    half = HALF_TYPES.get(weights.dtype)
     with torch.cuda.device(weights.device):
-        err = lib.trt_tbe_lookup_pooled_f32(
-            weights.data_ptr(), flat_ids.data_ptr(), coeff.data_ptr(),
-            out.data_ptr(), R, D, NB, L, stream,
-        )
+        if half is None:
+            err = lib.trt_tbe_lookup_pooled_f32(
+                weights.data_ptr(), flat_ids.data_ptr(), coeff.data_ptr(),
+                out.data_ptr(), R, D, NB, L, stream,
+            )
+        else:
+            err = lib.trt_tbe_lookup_pooled_half(
+                weights.data_ptr(), flat_ids.data_ptr(), coeff.data_ptr(),
+                out.data_ptr(), R, D, NB, L, half, stream,
+            )
     LIBRARY.check("tbe_lookup_pooled", err)
-    LAUNCHES += 1
+    if half is None:
+        LAUNCHES += 1
+    else:
+        HALF_LAUNCHES += 1
     return out
 
 
@@ -127,8 +157,12 @@ class TbeLookupPooled(torch.autograd.Function):
             row_grads = d_out[:, None, :] * coeff[:, :, None]
             d_w = scatter_add_rows(weights.shape[0], flat_ids.reshape(-1),
                                    row_grads.reshape(NB * L, -1))
+            d_w = d_w.to(weights.dtype)
         if ctx.needs_input_grad[2]:
-            rows = gather_rows_forward(weights, flat_ids.reshape(-1))
+            flat = flat_ids.reshape(-1)
+            rows = (gather_rows_forward(weights, flat)
+                    if weights.dtype == torch.float32
+                    else gather_rows_reference(weights, flat).float())
             d_coeff = (rows.reshape(NB, L, -1) * d_out[:, None, :]).sum(-1)
         return d_w, None, d_coeff
 
@@ -138,10 +172,11 @@ def tbe_lookup_pooled(
 ) -> torch.Tensor:
     """Fused gather + pool: out[b] = sum_l coeff[b, l] * W[clip(ids[b, l])].
 
-    weights [R, D] f32; flat_ids [NB, L] int32 global rows (clamped to
-    [0, R-1]); coeff [NB, L] f32 carrying the validity mask, per-sample
-    weights and 1/len for MEAN. Returns [NB, D] f32. CUDA tensors launch K1;
-    CPU tensors take `tbe_lookup_pooled_reference`. Slots whose coefficient
+    weights [R, D] f32, bf16 or fp16; flat_ids [NB, L] int32 global rows
+    (clamped to [0, R-1]); coeff [NB, L] f32 carrying the validity mask,
+    per-sample weights and 1/len for MEAN. Returns [NB, D] f32. CUDA
+    tensors launch K1 (K1h for a half table); CPU tensors take
+    `tbe_lookup_pooled_reference`. Slots whose coefficient
     is 0 are not read by the kernel, so with a non-finite row there the two
     differ (the reference gives 0 * inf = nan). Differentiable in `weights`
     and `coeff` (see `TbeLookupPooled`).

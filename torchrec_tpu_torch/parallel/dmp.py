@@ -38,10 +38,13 @@ through K1's VJP (`d_coeff`, rows gathered by K8) into the processor's
 parameters, and the fused update takes this step's weights, detached, as
 the JAX step passes `sb.replace(weights=w)`.
 
-Every fused optimizer trains fp32 tables. Not ported yet: training
-half-precision tables (stochastic rounding), the planner (a plan must be
-given), the prefetched and pipelined train steps, embedding towers and
-UVM-cached tables (an FP-EBC's too).
+Every fused optimizer trains fp32, bf16 and fp16 tables (half tables
+through K1h and K3h / K4h, rounding stochastically by default; see
+ops/fused_update.py). The tables are buffers, so the dense optimizer never
+sees one, and each sharded module's update takes an f32 cotangent. Not
+ported yet: the planner (a plan must be given), the prefetched and
+pipelined train steps, embedding towers and UVM-cached tables (an
+FP-EBC's too).
 """
 
 from __future__ import annotations
@@ -121,11 +124,13 @@ def _detach(x: Any) -> Any:
 
 
 def _grad(leaf: Any) -> Any:
-    """The gradient of a leaf or of each leaf of a dict; zeros where the
-    loss does not read it."""
+    """The gradient of a leaf or of each leaf of a dict, in f32 (a half
+    table's EC rows are half leaves); zeros where the loss does not read
+    it."""
     if isinstance(leaf, dict):
         return {n: _grad(t) for n, t in leaf.items()}
-    return leaf.grad if leaf.grad is not None else torch.zeros_like(leaf)
+    g = leaf.grad if leaf.grad is not None else torch.zeros_like(leaf)
+    return g.to(torch.float32)
 
 
 class DistributedModelParallel(nn.Module):
@@ -297,10 +302,10 @@ class DistributedModelParallel(nn.Module):
         the sparse batch (KeyedJaggedTensor or PaddedSparseBatch). The step
         updates the dense parameters, the tables and the fused optimizer
         state in place, where the JAX step returns a new DMPState; loss and
-        aux come back detached. Every EmbOptimType trains fp32 tables;
-        raises here, before any step, for half-precision tables (they
-        need stochastic rounding, not ported yet) or a fused_params key
-        the port does not take.
+        aux come back detached. Every EmbOptimType trains fp32, bf16 and
+        fp16 tables; raises here, before any step, for a fused_params key
+        or a route the port does not take (`w_impl="write"` and
+        `mom_impl="xla"` on half tables).
         """
         for sebc in self.sharded_ebcs.values():
             sebc.check_trainable()

@@ -12,8 +12,10 @@ psum_scatter over the batch; on the one device of this slice the
 collectives are identities. For an fp32 table the forward is one launch of
 the routed gather per group (ops/gather_rows.routed_gather_rows: route,
 mask and row gather in one kernel) and the update one launch of its
-route-only mode (`route_tokens`) before `apply_fused_update`; bf16 and
-fp16 tables compose the route, the gather and the mask from torch ops.
+route-only mode (`route_tokens`) before `apply_fused_update`. bf16 and
+fp16 tables compose the forward's route, gather and mask from torch ops
+(the routed gather is K8's, f32 only, as in JAX) and train as fp32 ones
+do, their update rounding each row in K4h / K3h.
 DATA_PARALLEL, TABLE_WISE and TABLE_ROW_WISE come with the multi-GPU slice
 (ROADMAP queue 1 item 8) and raise here.
 """

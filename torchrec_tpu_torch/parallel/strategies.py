@@ -62,6 +62,18 @@ class EmbeddingGroupState:
     opt: FusedOptimizerState
 
 
+def as_tensor(x: ArrayLike, device=None) -> torch.Tensor:
+    """A torch tensor of a numpy array or tensor, on `device`. numpy has no
+    bf16: JAX's bf16 arrays reach numpy as `ml_dtypes.bfloat16`, which torch
+    cannot read, so they go through f32, which holds them exactly."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    arr = np.asarray(x)
+    if arr.dtype.name == "bfloat16":
+        arr = arr.astype(np.float32)
+    return torch.tensor(arr, device=device)
+
+
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
@@ -156,15 +168,14 @@ class BaseEmbeddingShardingStrategy(nn.Module):
 
     def shard_from_dense(self, dense: Mapping[str, ArrayLike],
                          dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-        """Pack unsharded per-table [R_t, D] arrays (numpy or torch) into
-        this strategy's layout, in `dtype` (default: the table's; pass
-        torch.float32 for momenta, which never live in half precision)."""
+        """Pack unsharded per-table [R_t, D] arrays (numpy, including JAX's
+        `ml_dtypes.bfloat16`, or torch) into this strategy's layout, in
+        `dtype` (default: the table's; pass torch.float32 for momenta,
+        which never live in half precision)."""
         out = torch.zeros(self.weights_shape(), dtype=dtype or self.w_dtype,
                           device=self.weights.device)
         for i, t in enumerate(self.meta.tables):
-            table = dense[t.name]
-            table = (table.to(out.device) if isinstance(table, torch.Tensor)
-                     else torch.tensor(np.asarray(table), device=out.device))
+            table = as_tensor(dense[t.name], out.device)
             if tuple(table.shape) != (t.rows, t.dim):
                 raise ValueError(
                     f"table {t.name}: expected {(t.rows, t.dim)}, got "
@@ -326,7 +337,7 @@ class RwEmbeddingSharding(BaseEmbeddingShardingStrategy):
                           device=self.weights.device)
         for sr, off, t in zip(self.shard_rows, self.local_offsets,
                               self.meta.tables):
-            v = torch.tensor(np.asarray(per_table[t.name], np.float32))
+            v = as_tensor(per_table[t.name]).float()
             if tuple(v.shape) != (t.rows,):
                 raise ValueError(f"momentum of {t.name}: expected "
                                  f"({t.rows},), got {tuple(v.shape)}")

@@ -24,7 +24,9 @@ The JAX side hands over numpy arrays only, so this module imports no JAX:
 * `tables`: {table name -> [R, D]} as the JAX
   `ShardedEmbeddingBagCollection` / `ShardedEmbeddingCollection`
   `unshard_to_dense` returns it; each table goes to the port's sharded
-  module that holds a table of that name.
+  module that holds a table of that name. A bf16 table arrives as an
+  `ml_dtypes.bfloat16` array, which torch cannot read; it is loaded
+  through f32, which holds it exactly (so are bf16 leaves of `dense`).
 * `opt_state` (optional): the whole fused optimizer state per table, as
   the JAX strategies' `unshard_opt_to_tables` returns it: {table name ->
   {"m1__full" [R, D] | "m1__row" [R], "m2__full" | "m2__row", "step"}},
@@ -52,6 +54,7 @@ import torch
 from torch import nn
 
 from torchrec_tpu_torch.parallel.dmp import DistributedModelParallel
+from torchrec_tpu_torch.parallel.strategies import as_tensor
 
 # flax leaf name -> the port parameter's name
 _LEAF_NAMES = {"kernel": "weight", "scale": "weight"}
@@ -105,7 +108,7 @@ def load_flax_params(module: nn.Module, params: Mapping) -> None:
             f"unexpected {unexpected}"
         )
     for name, p in own.items():
-        p.copy_(torch.tensor(flat[name]))
+        p.copy_(as_tensor(flat[name]))
 
 
 def _per_module(dmp: DistributedModelParallel, what: str,
