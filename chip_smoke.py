@@ -79,7 +79,12 @@ Phases, each failing the run with a non-zero exit when it fails:
    copy of the trained DMP and the card agree on one B=256 request's
    logits and over 2 steps at B=256 (losses, position weights, dense
    parameters, touched rows and momenta within rtol 1e-4 / atol 1e-5;
-   untouched rows equal).
+   untouched rows equal; the last step's position weight gradients
+   within 1e-3 in norm). The CPU's sparse side (K1's VJP, the table's
+   update) takes the card's pooled cotangent, held within 0.1 of the
+   CPU's own in norm: where the two sides' ReLUs disagree on a
+   pre-activation within rounding of zero, one sample's cotangent
+   differs by a finite amount (check_pw_cotangent.py repeats this).
 9. Serve examples/bert4rec_main.py's BERT4Rec (--synthetic_ml1m defaults:
    vocab 3,708 = 3,706 items + pad 0 + MASK, L=64, D=64, 2 heads, 2
    blocks, dropout 0) through make_eval_fn, its item table ROW_WISE in a
@@ -153,6 +158,29 @@ Phases, each failing the run with a non-zero exit when it fails:
    both sides), momenta within rtol 1e-4 / atol 1e-5, untouched rows
    equal.
 
+14. SimpleDeepFMNN over bench.py's 26 tables (ROW_WISE, one id per
+   feature, 13 dense features) with 400-unit hidden layers, the DeepFM
+   paper's Criteo setting: dense arch 13 -> 400 -> 128, the deep part and
+   the FM over 128 + 26 x 128 = 3,456 columns, over arch 529 -> 1 and a
+   sigmoid. The fused lr comes from the ported warmup schedule (LINEAR to
+   step 8 from 0.1, then CONSTANT 0.5 to step 100; base 0.1), the dense
+   optimizer is the warmup of a NORM clip at 1.0 of Adam at 1e-3. 3
+   requests at B=8192 and 3 at B=256, K1 once each, probabilities finite
+   in [0, 1]; one B=256 request's FM scalar and probabilities equal a CPU
+   copy's within 1e-5 of (sum x)^2 + sum x^2 per row (the FM cancels).
+   Trained under EXACT_SGD and ROWWISE_ADAGRAD, 3 + 10 steps at B=8192,
+   each launching K1 and K3 or the fused K4 once and nothing else; the lr
+   each update kernel got equals the stages' formula, the warmup's count
+   the steps taken; the steps whose dense gradient norm reached the clip
+   are counted; 2 more steps profiled. Then, per optimizer, a fresh card
+   DMP at step 5 (mid-ramp, seeded fused momenta and Adam moments) hands
+   its KeyedOptimizer and CombinedOptimizer state_dicts to a CPU copy (a
+   load missing a key raises), and both take 2 steps at B=256: losses,
+   dense parameters, Adam's moments, touched rows and momenta within rtol
+   1e-4 / atol 1e-5, untouched rows equal. Last, the four cross nets at
+   N=3,456, B=8,192, 3 layers (low rank 64, 4 experts), forward and
+   backward on the card against the CPU, each timed.
+
 Kernel times are device times from torch.profiler (the kernel's own for a
 kernel, all device activity of the call for the plain version and the
 library call); the log gives each wrapper call's CUDA-event time beside
@@ -222,6 +250,11 @@ K1_BWD_IDS = 2048 * 20
 # the position-weighted DLRM: multi-hot, lengths uniform in 1..PW_LEN
 PW_LEN = 20
 PW_WARMUP_STEPS, PW_TIMED_STEPS, PW_PROFILED_STEPS = 1, 3, 2
+# how far the card's pooled cotangent may lie from the CPU's in norm when
+# the two sides' ReLUs disagree on a pre-activation within rounding of
+# zero (check_pw_cotangent.py on an H100: at most 7.9e-3 over 106
+# repetitions); a fault in the dense backward moves it by O(1)
+COTANGENT_REL = 0.1
 
 # kernel -> (wrapper name, source, the Pallas function it replaces)
 KERNELS = {
@@ -1653,6 +1686,40 @@ def capturing(module, name: str, seen: dict):
         setattr(module, name, orig)
 
 
+@contextlib.contextmanager
+def card_cotangent(tl, sebc, seen: dict, replace: bool = False):
+    """The pooled cotangent of a position-weighted train step goes two
+    ways: through K1's VJP into the position weights and through `sebc`'s
+    update into the table. While open, both keep the cotangent of their
+    call in seen["vjp"] / seen["update"] (on the CPU) or, with `replace`,
+    keep their own in seen["own_vjp"] / seen["own_update"] and run on the
+    kept ones instead."""
+    fn = tl.TbeLookupPooled
+    orig = fn.backward
+
+    def swap(what, d):
+        if replace:
+            seen["own_" + what] = d.detach().cpu()
+            return seen[what].to(d.device)
+        seen[what] = d.detach().cpu()
+        return d
+
+    def backward(ctx, d_out):
+        return orig(ctx, swap("vjp", d_out))
+
+    def update(features, d_values, *args, **kwargs):
+        return type(sebc).update(sebc, features, swap("update", d_values),
+                                 *args, **kwargs)
+
+    fn.backward = staticmethod(backward)
+    sebc.update = update
+    try:
+        yield
+    finally:
+        fn.backward = staticmethod(orig)
+        del sebc.update
+
+
 def profile_steps(step, batches, title: str) -> None:
     """One train step per batch under torch.profiler: the device time per
     kernel name, the busy share of the kernel span and each label's
@@ -1776,11 +1843,19 @@ def pw_serve(tl) -> dict:
         **{k: t[k] for k in ("ms", "plain_ms", "library_ms")}}}
 
 
-def check_pw_against_cpu(gpu, name: str) -> None:
+def check_pw_against_cpu(tl, gpu, name: str) -> None:
     """The trained card DMP and a CPU copy of its weights and optimizer
     state: logits of one B=256 request, then CPU_STEPS steps at B=256.
     Losses, position weights, dense parameters and touched rows and
-    momenta within rtol 1e-4 / atol 1e-5; untouched rows equal."""
+    momenta within rtol 1e-4 / atol 1e-5, untouched rows equal, the last
+    step's position weight gradients within 1e-3 of the CPU's in norm.
+    The CPU's sparse side (K1's VJP, the table's update) takes the card's
+    pooled cotangent at each step, which must lie within COTANGENT_REL of
+    the CPU's own in norm: the cotangent is not continuous in the inputs,
+    since a ReLU pre-activation within rounding of zero (card and CPU sum
+    in different orders) passes on one side only, and then one sample's
+    cotangent differs by a finite amount, which the rowwise update's
+    normalised step carries into its rows."""
     cpu = make_dmp("cpu", train=True, optim=gpu.fused_optim,
                    position_weighted=True)
     cpu.load_state_dict(gpu.state_dict())
@@ -1793,13 +1868,26 @@ def check_pw_against_cpu(gpu, name: str) -> None:
     log(f"pw {name} B={SERVE_BATCH}: card logits match the CPU run, max abs "
         f"diff {(logits_g.cpu() - logits_c).abs().max().item():.3e}")
     step_g, step_c = gpu.make_train_step(), cpu.make_train_step()
+    sebc_g, sebc_c = gpu.sharded_ebcs[TRAIN_KEY], cpu.sharded_ebcs[TRAIN_KEY]
     for i, batch in enumerate(batches[1:]):
-        loss_g, _ = step_g(*to_device(batch))
-        loss_c, _ = step_c(*batch)
+        seen: dict = {}
+        with card_cotangent(tl, sebc_g, seen):
+            loss_g, _ = step_g(*to_device(batch))
+        with card_cotangent(tl, sebc_c, seen, replace=True):
+            loss_c, _ = step_c(*batch)
         torch.testing.assert_close(loss_g.cpu(), loss_c, rtol=1e-4,
                                    atol=1e-5)
+        rels = {w: ((seen[w] - seen["own_" + w]).norm()
+                    / seen["own_" + w].norm()).item()
+                for w in ("vjp", "update")}
+        if not max(rels.values()) <= COTANGENT_REL:
+            raise AssertionError(f"pw {name} step {i}: the card's pooled "
+                                 f"cotangents differ from the CPU's by "
+                                 f"{rels} of their norm")
         log(f"pw {name} B={SERVE_BATCH} step {i}: card loss "
-            f"{loss_g.item():.9g}, CPU loss {loss_c.item():.9g}")
+            f"{loss_g.item():.9g}, CPU loss {loss_c.item():.9g}; the card's "
+            f"pooled cotangents within {rels['vjp']:.3e} (K1's VJP) and "
+            f"{rels['update']:.3e} (the update) of the CPU's own in norm")
     pg = dict(gpu.module.named_parameters())
     for pname, p in cpu.module.named_parameters():
         torch.testing.assert_close(pg[pname].detach().cpu(), p.detach(),
@@ -1925,7 +2013,7 @@ def pw_train(tl, fk, optim) -> dict:
     del held, seen
     profile_steps(step, batches[-PW_PROFILED_STEPS:],
                   f"pw train {name} B={BENCH_BATCH}, profiled")
-    check_pw_against_cpu(dmp, name)
+    check_pw_against_cpu(tl, dmp, name)
     return out
 
 
@@ -2309,6 +2397,492 @@ def bf16_dlrm(tl, fk) -> dict:
                            for o, k in HALF_STEP_KERNELS.items()}}}
 
 
+# -- SimpleDeepFMNN -----------------------------------------------------------
+
+# SimpleDeepFMNN over bench.py's tables: 400-unit hidden layers, the DeepFM
+# paper's Criteo setting (Guo et al., IJCAI 2017, section 3.1), since the
+# JAX package publishes no DeepFM configuration of its own
+DFM_HIDDEN = DFM_DEEP = 400
+DFM_KEY = "sparse_arch/embedding_bag_collection"
+DFM_TRAIN_KEY = "m/" + DFM_KEY  # the same EBC inside DeepFMTrain
+DFM_DENSE_LR, DFM_CLIP = 1e-3, 1.0
+DFM_STAGES = (("LINEAR", 8, 0.1), ("CONSTANT", 100, 0.5))
+DFM_EPS = 1e-7  # the BCE's clip of the probabilities
+DFM_PROFILED_STEPS = 2
+# the FM's tolerance: relative to (sum x)^2 + sum x^2 of its row
+FM_RTOL = 1e-5
+# the cross nets at the DeepFM's interaction width (this phase's choice:
+# no JAX model uses a cross net)
+CROSS_N = DIM + NUM_TABLES * DIM  # 3,456
+CROSS_LAYERS, CROSS_RANK, CROSS_EXPERTS = 3, 64, 4
+
+
+class DeepFMTrain(torch.nn.Module):
+    """SimpleDeepFMNN + a BCE on its probabilities clipped to [DFM_EPS,
+    1 - DFM_EPS], as the CPU tests train it (the JAX package has no DeepFM
+    train module)."""
+
+    def __init__(self, m):
+        super().__init__()
+        self.m = m
+
+    def forward(self, dense, sparse, labels):
+        p = self.m(dense, sparse)[:, 0]
+        pc = p.clamp(DFM_EPS, 1.0 - DFM_EPS)
+        loss = -torch.mean(labels * torch.log(pc)
+                           + (1.0 - labels) * torch.log1p(-pc))
+        return loss, (loss, p)
+
+
+def _dfm_stages():
+    from torchrec_tpu_torch.optim import WarmupPolicy, WarmupStage
+
+    return [WarmupStage(WarmupPolicy[p], m, v) for p, m, v in DFM_STAGES]
+
+
+def dfm_fused_lr(step: int) -> float:
+    """The fused lr of train step `step` from the stages' formulas in
+    float64, apart from the port's schedule: a ramp from 0.1 to 1 of the
+    base lr over steps 0..8, then half of it up to step 100."""
+    if step <= 8:
+        return FUSED_LR * (0.1 + 0.9 * step / 8)
+    return FUSED_LR * (0.5 if step <= 100 else 1.0)
+
+
+def make_dfm_dmp(device: str, train: bool = False, optim=None):
+    """SimpleDeepFMNN over bench.py's 26 tables (DeepFMTrain when `train`)
+    on `device`: fused lr from the warmup schedule (base 0.1), dense
+    optimizer warmup(clip NORM 1.0 (Adam 1e-3)) under the same stages;
+    `optim` defaults to ROWWISE_ADAGRAD."""
+    from torchrec_tpu_torch.models import SimpleDeepFMNN
+    from torchrec_tpu_torch.modules import (
+        EmbeddingBagCollection,
+        EmbeddingBagConfig,
+    )
+    from torchrec_tpu_torch.ops.fused_update import EmbOptimType
+    from torchrec_tpu_torch.optim import (
+        GradientClipping,
+        gradient_clipping,
+        make_warmup_schedule,
+        warmup_optimizer,
+    )
+    from torchrec_tpu_torch.parallel import (
+        DistributedModelParallel,
+        ParameterSharding,
+        ShardingPlan,
+        ShardingType,
+    )
+
+    tables = [EmbeddingBagConfig(num_embeddings=ROWS, embedding_dim=DIM,
+                                 name=f"t{i}", feature_names=[f"f{i}"])
+              for i in range(NUM_TABLES)]
+    model = SimpleDeepFMNN(
+        DENSE_IN, EmbeddingBagCollection(tables, max_feature_length=L,
+                                         device="meta"),
+        DFM_HIDDEN, DFM_DEEP, device="meta")
+    if train:
+        model = DeepFMTrain(model)
+    plan = ShardingPlan({DFM_TRAIN_KEY if train else DFM_KEY: {
+        t.name: ParameterSharding(ShardingType.ROW_WISE) for t in tables}})
+    return DistributedModelParallel(
+        model, plan=plan, device=device,
+        fused_optim=optim or EmbOptimType.ROWWISE_ADAGRAD,
+        fused_params={"learning_rate": FUSED_LR,
+                      "lr_schedule": make_warmup_schedule(_dfm_stages(),
+                                                          FUSED_LR)},
+        dense_optimizer=warmup_optimizer(gradient_clipping(
+            lambda p: torch.optim.Adam(p, lr=DFM_DENSE_LR),
+            GradientClipping.NORM, DFM_CLIP), _dfm_stages()))
+
+
+def _fm_inputs(model, seen: dict):
+    """A forward hook keeping the FM's output and its rows' (sum x)^2 +
+    sum x^2 (float64, on the CPU) in `seen`."""
+
+    def hook(module, args, out):
+        x = torch.cat([t.reshape(t.shape[0], -1) for t in args[0]],
+                      dim=1).double().cpu()
+        seen["fm"] = out.detach().cpu()
+        seen["size"] = x.sum(1, keepdim=True) ** 2 + (x * x).sum(
+            1, keepdim=True)
+
+    return model.inter_arch.fm.register_forward_hook(hook)
+
+
+def _hold_fm(what: str, got: torch.Tensor, ref: torch.Tensor,
+             size: torch.Tensor) -> float:
+    """|got - ref| <= FM_RTOL * ((sum x)^2 + sum x^2) per row; returns the
+    largest ratio of the difference to that size."""
+    diff = (got.double() - ref.double()).abs()
+    if not bool((diff <= FM_RTOL * size).all()):
+        raise AssertionError(f"{what}: card and CPU differ by "
+                             f"{diff.max().item():.3e}, over {FM_RTOL} of "
+                             f"(sum x)^2 + sum x^2")
+    return (diff / size).max().item()
+
+
+def dfm_serve() -> dict:
+    """REQUESTS_PER_BATCH requests at B=8192 and at B=256 through
+    make_eval_fn, each launching K1 once and nothing else of the port;
+    probabilities finite and in [0, 1]; one B=256 request's FM scalar and
+    probabilities equal to a CPU copy's within FM_RTOL of the FM's
+    (sum x)^2 + sum x^2 (the FM cancels: a tolerance relative to the
+    result would test the cancellation, not the port)."""
+    dmp = make_dfm_dmp(DEVICE).init(SEED)
+    eval_fn = dmp.make_eval_fn()
+    rng = np.random.RandomState(SEED + 40)
+    requests = [(b, *make_request(rng, b))
+                for b in [BENCH_BATCH] * REQUESTS_PER_BATCH
+                + [SERVE_BATCH] * REQUESTS_PER_BATCH]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    latencies = {BENCH_BATCH: [], SERVE_BATCH: []}
+    for batch, dense, kjt in requests:
+        before = counts()
+        t0 = time.perf_counter()
+        p = eval_fn(dense.to(DEVICE), kjt.to(DEVICE)).cpu()
+        latencies[batch].append((time.perf_counter() - t0) * 1e3)
+        after = counts()
+        launched = {k: after[k] - before[k] for k in after}
+        if launched != expected(K1=1):
+            raise AssertionError(f"a DeepFM request launched {launched}")
+        if (p.shape != (batch, 1) or not bool(torch.isfinite(p).all())
+                or not bool(((p >= 0) & (p <= 1)).all())):
+            raise AssertionError(f"bad DeepFM probabilities at B={batch}")
+    launches = counts()["K1"]
+    peak = torch.cuda.max_memory_allocated()
+    for batch, ms in latencies.items():
+        log(f"deepfm serve B={batch}: request ms (host clock, H2D + forward "
+            f"+ D2H, first includes warm-up) {ms}")
+    log(f"deepfm serve: {len(requests)} requests, K1 launches {launches}; "
+        f"max_memory_allocated {peak} B")
+    fwd = {}
+    for batch in (BENCH_BATCH, SERVE_BATCH):
+        dense, kjt = make_request(rng, batch)
+        dense, kjt = dense.to(DEVICE), kjt.to(DEVICE)
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eval_fn(dense, kjt)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        fwd[batch] = times
+        log(f"deepfm serve B={batch}: forward ms (host clock, synchronized) "
+            f"{times}")
+
+    # one more B=256 request on the card and on a CPU copy, the FM's
+    # inputs and output kept by a hook (not on the timed requests: it
+    # copies the [B, 3456] input to the host)
+    dense, kjt = make_request(rng, SERVE_BATCH)
+    seen: dict = {}
+    hook = _fm_inputs(dmp.module, seen)
+    p = eval_fn(dense.to(DEVICE), kjt.to(DEVICE)).cpu()
+    hook.remove()
+    fm = seen["fm"]
+    cpu = make_dfm_dmp("cpu")
+    cpu.load_state_dict(dmp.state_dict())
+    hook = _fm_inputs(cpu.module, seen)
+    ref = cpu.make_eval_fn()(dense, kjt)
+    hook.remove()
+    size = seen["size"]
+    r_fm = _hold_fm("deepfm FM scalar", fm, seen["fm"], size)
+    r_p = _hold_fm("deepfm probabilities", p, ref, size)
+    log(f"deepfm serve B={SERVE_BATCH}: card against CPU, FM scalar within "
+        f"{r_fm:.3e} and probabilities within {r_p:.3e} of (sum x)^2 + sum "
+        f"x^2 (allowed {FM_RTOL}; size {size.min().item():.4g}.."
+        f"{size.max().item():.4g}); probabilities max abs diff "
+        f"{(p - ref).abs().max().item():.3e}")
+    return {"launches": launches, "request_ms": latencies,
+            "forward_ms": fwd, "peak_bytes": peak}
+
+
+def dfm_train(optim) -> dict:
+    """WARMUP_STEPS + TIMED_STEPS train steps at B=8192, each launching K1
+    and K3 (EXACT_SGD) or the fused K4 (ROWWISE_ADAGRAD) once and nothing
+    else; the lr each update kernel got equals the stages' formula for the
+    step (dfm_fused_lr, rtol 1e-6) and the port's schedule exactly; the
+    warmup's count equals the steps taken; losses finite. Counts the steps
+    whose gradient norm reached the clip. Then DFM_PROFILED_STEPS steps
+    are profiled."""
+    from torchrec_tpu_torch.ops import fused_update_kernels as fk
+
+    name = optim.name
+    update = KERNELS[STEP_KERNELS[name][0]][0]
+    lr_arg = 3 if name == "EXACT_SGD" else 4  # lr's place in its arguments
+    dmp = make_dfm_dmp(DEVICE, train=True, optim=optim).init(SEED)
+    opt = dmp.dense_optimizer
+    step = dmp.make_train_step()
+    rng = np.random.RandomState(SEED + 41)
+    batches = [to_device(make_batch(rng, BENCH_BATCH))
+               for _ in range(WARMUP_STEPS + TIMED_STEPS
+                              + DFM_PROFILED_STEPS)]
+    per_step = expected(K1=1, **{k: 1 for k in STEP_KERNELS[name]})
+    seen: dict = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    ms, losses, lrs, norms = [], [], [], []
+    with capturing(fk, update, seen):
+        for i, batch in enumerate(batches[:WARMUP_STEPS + TIMED_STEPS]):
+            before = counts()
+            t0 = time.perf_counter()
+            loss, _ = step(*batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            after = counts()
+            launched = {k: after[k] - before[k] for k in after}
+            if launched != per_step:
+                raise AssertionError(f"deepfm {name} step {i} launched "
+                                     f"{launched}, expected {per_step}")
+            lr = float(seen.pop(update)[lr_arg])
+            if (lr != dmp.fused_lr_schedule(i)
+                    or not math.isclose(lr, dfm_fused_lr(i), rel_tol=1e-6)):
+                raise AssertionError(f"deepfm {name} step {i}: fused lr {lr}"
+                                     f", expected {dfm_fused_lr(i)}")
+            if opt.count != i + 1 or dmp.step != i + 1:
+                raise AssertionError(f"deepfm {name} step {i}: warmup count "
+                                     f"{opt.count}, DMP step {dmp.step}")
+            lrs.append(lr)
+            norms.append(opt.inner.last_norm.item())
+            losses.append(loss.item())
+            if not math.isfinite(losses[-1]):
+                raise AssertionError(f"deepfm {name} step {i}: loss "
+                                     f"{losses[-1]}")
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    timed = ms[WARMUP_STEPS:]
+    median = sorted(timed)[TIMED_STEPS // 2]
+    ex_per_s = TIMED_STEPS * BENCH_BATCH / (sum(timed) / 1e3)
+    clipped = sum(n >= DFM_CLIP for n in norms)
+    log(f"deepfm train {name} B={BENCH_BATCH}: losses {losses}")
+    log(f"deepfm train {name}: fused lr per step {lrs}; warmup count "
+        f"{opt.count}; dense gradient norms {norms}, the clip at "
+        f"{DFM_CLIP} engaged on {clipped} of {len(norms)} steps")
+    log(f"deepfm train {name}: warm-up step ms {ms[:WARMUP_STEPS]}; timed "
+        f"step ms (host clock, synchronized) {timed}; min {min(timed):.4f} "
+        f"max {max(timed):.4f} median {median:.4f}; {ex_per_s:.1f} "
+        f"examples/s; launches per step {per_step}, in all {launches}; "
+        f"max_memory_allocated {peak} B")
+    profile_steps(step, batches[-DFM_PROFILED_STEPS:],
+                  f"deepfm train {name} B={BENCH_BATCH}, profiled")
+    return {"launches": launches, "ms": timed, "median_ms": median,
+            "peak_bytes": peak, "clipped": clipped}
+
+
+def _keyed(dmp):
+    from torchrec_tpu_torch.optim import KeyedOptimizer
+
+    return KeyedOptimizer(dmp.dense_optimizer,
+                          dict(dmp.module.named_parameters()))
+
+
+def dfm_against_cpu(optim, strict_check: bool = False) -> None:
+    """A fresh card DeepFMTrain DMP at step START_STEP (fused momenta and
+    the dense Adam's moments drawn from U(0, 0.01), every count and step at
+    START_STEP: mid-ramp), its KeyedOptimizer and CombinedOptimizer
+    state_dicts taken on the card and loaded into a CPU copy (which must
+    then give the same CombinedOptimizer state_dict); with
+    `strict_check`, a load missing one key must raise KeyError. Then
+    CPU_STEPS steps at B=256 on both: losses, dense parameters, Adam's
+    moments and counts, and the touched rows and momenta within rtol
+    1e-4 / atol 1e-5, untouched rows equal."""
+    from torchrec_tpu_torch.optim import CombinedOptimizer
+
+    name = optim.name
+    gpu = make_dfm_dmp(DEVICE, train=True, optim=optim).init(SEED + 3)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 8)
+    sebc = gpu.sharded_ebcs[DFM_TRAIN_KEY]
+    for strat in sebc.strategies:
+        for m in (strat.momentum1, strat.momentum2):
+            if m is not None:
+                m.uniform_(0.0, 0.01, generator=gen)
+        strat.step.fill_(START_STEP)
+    keyed = _keyed(gpu)
+    for key, t in keyed.state_dict().items():
+        if key.endswith(("/exp_avg", "/exp_avg_sq")):
+            t.uniform_(0.0, 0.01, generator=gen)
+        else:  # Adam's steps and the warmup's count
+            t.fill_(START_STEP)
+    gpu.step = START_STEP
+    combined = CombinedOptimizer([("dense", keyed),
+                                  ("ebc", sebc)]).state_dict()
+
+    cpu = make_dfm_dmp("cpu", train=True, optim=optim)
+    cpu.load_state_dict(gpu.state_dict())
+    cpu.step = gpu.step
+    keyed_c = _keyed(cpu)
+    dense_sd = {k[len("dense/"):]: v for k, v in combined.items()
+                if k.startswith("dense/")}
+    if strict_check:
+        partial = dict(dense_sd)
+        partial.pop(next(iter(partial)))
+        try:
+            keyed_c.load_state_dict(partial)
+        except KeyError as e:
+            log(f"deepfm: a strict load missing a key raised KeyError {e}")
+        else:
+            raise AssertionError("a load missing a key did not raise")
+    keyed_c.load_state_dict(dense_sd)
+    combined_c = CombinedOptimizer(
+        [("dense", keyed_c), ("ebc", cpu.sharded_ebcs[DFM_TRAIN_KEY])]
+    ).state_dict()
+    if combined_c.keys() != combined.keys() or not all(
+            torch.equal(combined_c[k], v.cpu()) for k, v in combined.items()):
+        raise AssertionError("the CPU copy's CombinedOptimizer state differs")
+    if cpu.dense_optimizer.count != START_STEP:
+        raise AssertionError("the CPU copy's warmup count did not load")
+    fused = sorted(k for k in combined if not k.startswith("dense/"))
+    log(f"deepfm {name}: {len(combined)} CombinedOptimizer entries taken on "
+        f"the card ({fused} and {len(dense_sd)} dense ones) loaded into a "
+        f"CPU copy, equal")
+
+    rng = np.random.RandomState(SEED + 42)
+    batches = [make_batch(rng, SERVE_BATCH) for _ in range(CPU_STEPS)]
+    step_g, step_c = gpu.make_train_step(), cpu.make_train_step()
+    for i, batch in enumerate(batches):
+        loss_g, _ = step_g(*to_device(batch))
+        loss_c, _ = step_c(*batch)
+        torch.testing.assert_close(loss_g.cpu(), loss_c, rtol=1e-4,
+                                   atol=1e-5)
+        log(f"deepfm {name} B={SERVE_BATCH} step {START_STEP + i}: card loss "
+            f"{loss_g.item():.9g}, CPU loss {loss_c.item():.9g}")
+    pg = dict(gpu.module.named_parameters())
+    for pname, p in cpu.module.named_parameters():
+        torch.testing.assert_close(pg[pname].detach().cpu(), p.detach(),
+                                   rtol=1e-4, atol=1e-5)
+    sd_g, sd_c = _keyed(gpu).state_dict(), keyed_c.state_dict()
+    for key, t in sd_c.items():
+        torch.testing.assert_close(sd_g[key].cpu(), t, rtol=1e-4, atol=1e-5)
+    if not (gpu.dense_optimizer.count == cpu.dense_optimizer.count
+            == START_STEP + CPU_STEPS):
+        raise AssertionError("deepfm: the warmup counts differ")
+    sg, sc = sebc.strategies[0], cpu.sharded_ebcs[DFM_TRAIN_KEY].strategies[0]
+    touched = _touched(sc, batches)
+    pairs = [("table", sg.weights[0].cpu(), sc.weights[0])]
+    if sc.momentum1 is not None:
+        pairs.append(("momentum1", sg.momentum1[0].cpu(), sc.momentum1[0]))
+    for what, a, b in pairs:
+        torch.testing.assert_close(a[touched], b[touched], rtol=1e-4,
+                                   atol=1e-5)
+        if not torch.equal(a[~touched], b[~touched]):
+            raise AssertionError(f"deepfm {name}: untouched {what} differ")
+        log(f"deepfm {name}: {int(touched.sum())} touched {what} rows within "
+            f"rtol 1e-4 / atol 1e-5 of the CPU run (max abs diff "
+            f"{(a[touched] - b[touched]).abs().max().item():.3e}), the rest "
+            f"equal")
+    log(f"deepfm {name}: dense parameters and Adam's moments match the CPU "
+        f"run; warmup count {START_STEP + CPU_STEPS} on both")
+
+
+def check_cross_nets() -> dict:
+    """The four cross nets at N=3,456, B=8,192, 3 layers (low rank 64, 4
+    experts): forward and backward on the card against a CPU copy, each
+    timed on the card. The output and the input gradient hold to rtol
+    1e-4 and an atol of 1e-5 of their largest element, each parameter
+    gradient to 1e-4 of its largest element: each element is a sum of
+    3,456 (8,192 for a parameter) products run in another order, whose
+    rounding follows the size of the products, not of the sum."""
+    from torchrec_tpu_torch.modules import (
+        CrossNet,
+        LowRankCrossNet,
+        LowRankMixtureCrossNet,
+        VectorCrossNet,
+    )
+
+    makers = {
+        "CrossNet": lambda d: CrossNet(CROSS_N, CROSS_LAYERS, d),
+        "LowRankCrossNet": lambda d: LowRankCrossNet(
+            CROSS_N, CROSS_LAYERS, CROSS_RANK, d),
+        "VectorCrossNet": lambda d: VectorCrossNet(CROSS_N, CROSS_LAYERS, d),
+        "LowRankMixtureCrossNet": lambda d: LowRankMixtureCrossNet(
+            CROSS_N, CROSS_LAYERS, CROSS_EXPERTS, CROSS_RANK, d),
+    }
+    rng = np.random.RandomState(SEED + 43)
+    x0 = torch.from_numpy(
+        (0.5 * rng.randn(BENCH_BATCH, CROSS_N)).astype(np.float32))
+    cot = torch.from_numpy(rng.randn(BENCH_BATCH, CROSS_N).astype(np.float32))
+    out = {}
+    for name, make in makers.items():
+        gpu = make(DEVICE)
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 44)
+        for m in gpu.modules():
+            reset = getattr(m, "reset_parameters", None)
+            if reset is not None:
+                reset(generator=gen)
+        cpu = make("cpu")
+        cpu.load_state_dict(gpu.state_dict())
+        results = {}
+        for side, mod, dev in (("card", gpu, DEVICE), ("cpu", cpu, "cpu")):
+            # copies: x0 itself stays a constant, and no result aliases a
+            # gradient that the timing below accumulates into
+            x = x0.to(dev, copy=True).requires_grad_(True)
+            y = mod(x)
+            y.backward(cot.to(dev))
+            results[side] = (y.detach().cpu(), x.grad.cpu().clone(),
+                             {n: p.grad.cpu().clone()
+                              for n, p in mod.named_parameters()})
+        (yg, dxg, pgg), (yc, dxc, pgc) = results["card"], results["cpu"]
+        for a, b in ((yg, yc), (dxg, dxc)):
+            torch.testing.assert_close(a, b, rtol=1e-4,
+                                       atol=1e-5 * b.abs().max().item())
+        worst = 0.0
+        for pname, gc in pgc.items():
+            ratio = ((pgg[pname] - gc).abs().max()
+                     / gc.abs().max().clamp(min=1e-30)).item()
+            if ratio > 1e-4:
+                raise AssertionError(f"{name} {pname}: gradient off by "
+                                     f"{ratio:.3e} of its largest element")
+            worst = max(worst, ratio)
+        x = x0.to(DEVICE, copy=True).requires_grad_(True)
+        c = cot.to(DEVICE)
+
+        def fwd_bwd():
+            gpu.zero_grad(set_to_none=True)
+            gpu(x).backward(c)
+
+        with torch.no_grad():
+            fwd_ms = cuda_ms(lambda: gpu(x), iters=10, warmup=2)
+        both_ms = cuda_ms(fwd_bwd, iters=10, warmup=2)
+        n_params = sum(p.numel() for p in gpu.parameters())
+        log(f"cross net {name} N={CROSS_N} B={BENCH_BATCH} layers "
+            f"{CROSS_LAYERS}: {n_params} parameters; card against CPU: "
+            f"output max abs diff {(yg - yc).abs().max().item():.3e} (max "
+            f"{yc.abs().max().item():.3e}), input gradient "
+            f"{(dxg - dxc).abs().max().item():.3e} (max "
+            f"{dxc.abs().max().item():.3e}), parameter "
+            f"gradients within {worst:.3e} of their largest elements; "
+            f"forward {fwd_ms:.4f} ms, forward + backward {both_ms:.4f} ms "
+            f"on the card (CUDA events)")
+        out[name] = {"fwd_ms": fwd_ms, "fwd_bwd_ms": both_ms}
+        del gpu, cpu, results, x, c
+    return out
+
+
+def deepfm() -> dict:
+    """The DeepFM phase: served, trained under EXACT_SGD and
+    ROWWISE_ADAGRAD with the warmup schedule and the clipped dense Adam,
+    the optimizer state carried card to CPU and both trained on, and the
+    cross nets. Returns the launches of its main paths."""
+    from torchrec_tpu_torch.ops.fused_update import EmbOptimType
+
+    served = dfm_serve()
+    trained = {o: dfm_train(EmbOptimType[o])
+               for o in ("EXACT_SGD", "ROWWISE_ADAGRAD")}
+    for i, o in enumerate(trained):
+        dfm_against_cpu(EmbOptimType[o], strict_check=i == 0)
+    cross = check_cross_nets()
+    launches = {"K1": served["launches"] + sum(t["launches"]["K1"]
+                                               for t in trained.values()),
+                "K3": trained["EXACT_SGD"]["launches"]["K3"],
+                "K4": trained["ROWWISE_ADAGRAD"]["launches"]["K4"]}
+    log(f"deepfm: launches on its paths {launches} (K1: "
+        f"{served['launches']} requests and "
+        f"{2 * (WARMUP_STEPS + TIMED_STEPS)} train steps)")
+    return {"launches": launches, "cross": cross}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -2394,16 +2968,21 @@ def main() -> int:
     results["K4h"]["max_abs_err"] = max(results["K4h"]["max_abs_err"],
                                         k4h_b4r["max_abs_err"])
 
+    # SimpleDeepFMNN over bench.py's tables: K1 serving and training, K3 /
+    # the fused K4 updating, the warmup schedule and the clipped dense Adam
+    dfm = deepfm()
+
     launches = {k: trained[name]["launches"][k]
                 for name, ks in STEP_KERNELS.items() for k in ks}
     launches["K4"] += b4r_trained["launches"]["K4"]
     pw_steps = {k: sum(t["launches"][k] for t in pw_trained.values())
                 for k in ("K1", "K3", "K4", "K8")}
     launches.update(
-        K1=served_launches + pw_served["launches"] + pw_steps["K1"],
+        K1=(served_launches + pw_served["launches"] + pw_steps["K1"]
+            + dfm["launches"]["K1"]),
         K2=sum(r["K2"] for r in routes),
-        K3=launches["K3"] + pw_steps["K3"],
-        K4=launches["K4"] + pw_steps["K4"],
+        K3=launches["K3"] + pw_steps["K3"] + dfm["launches"]["K3"],
+        K4=launches["K4"] + pw_steps["K4"] + dfm["launches"]["K4"],
         K5=sum(r["K5"] for r in routes), K8=unsharded_k8 + pw_steps["K8"],
         K8r=b4r_served["launches"] + b4r_trained["launches"]["K8r"],
         **bf16["launches"])
@@ -2425,7 +3004,8 @@ def main() -> int:
         f"{sum(r[SCALED] for r in routes)} in the mom_impl=xla step, the "
         f"routed gather's route-only mode {b4r_trained['launches'][ROUTE]} "
         f"in BERT4Rec's updates, K1h the bf16 DLRM's serving and training, "
-        f"K3h its EXACT_SGD and K4h its ROWWISE_ADAGRAD training: "
+        f"K3h its EXACT_SGD and K4h its ROWWISE_ADAGRAD training; K1, K3 and "
+        f"K4 also the DeepFM's serving and training ({dfm['launches']}): "
         f"{launches}")
     log(card["smi"])
     log(json.dumps({"kernels": [{

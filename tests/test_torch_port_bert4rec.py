@@ -18,6 +18,9 @@ and not optax against torch Adam rounding; a separate test holds one
 `torch.optim.Adam` step to one `optax.adam` step (rtol 1e-5).
 """
 
+import inspect
+
+import flax.linen as fnn
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -276,8 +279,8 @@ def test_bert4rec_logits_match_jax():
     np.testing.assert_allclose(logits.numpy(), jlogits, **MODEL)
 
 
-def _jax_dmp(optim, dense_opt=None):
-    model = JBERT4RecTrain(model=_jax_model())
+def _jax_dmp(optim, dense_opt=None, dropout=0.0):
+    model = JBERT4RecTrain(model=_jax_model(dropout))
     return JDMP(model, env=JEnv.from_devices(jax.devices()[:1]),
                 plan=JPlan({KEY: {"item_embedding": JPS(JST.ROW_WISE)}}),
                 fused_optim=JOptim[optim],
@@ -285,9 +288,9 @@ def _jax_dmp(optim, dense_opt=None):
                 dense_optimizer=dense_opt or optax.sgd(DENSE_LR))
 
 
-def _port_dmp(optim, device="cpu"):
+def _port_dmp(optim, device="cpu", dropout=0.0):
     model = BERT4RecTrain(BERT4Rec(
-        V, L, D, H, NL, dropout=0.0,
+        V, L, D, H, NL, dropout=dropout,
         ec=make_item_embedding_collection(V, D, L, device="meta"),
         device="meta"))
     return DistributedModelParallel(
@@ -326,13 +329,13 @@ def _seeded_opt(jdmp, state, optim, seed):
     return state.replace(emb_states={KEY: groups})
 
 
-def _bridged(optim, seed=0):
+def _bridged(optim, seed=0, dropout=0.0):
     ids, labels = _batch(seed)
-    jdmp = _jax_dmp(optim)
+    jdmp = _jax_dmp(optim, dropout=dropout)
     state = jdmp.init(jax.random.PRNGKey(seed), _jsb(ids),
                       jnp.asarray(labels))
     state = _seeded_opt(jdmp, state, optim, seed)
-    dmp = _port_dmp(optim)
+    dmp = _port_dmp(optim, dropout=dropout)
     load_jax_weights(
         dmp, jax.tree.map(np.asarray, state.dense_params),
         jdmp.sharded_ebcs[KEY].unshard_to_dense(state.emb_states[KEY]),
@@ -355,7 +358,18 @@ def test_dmp_eval_matches_jax():
 
 @pytest.mark.parametrize("optim", ["ROWWISE_ADAGRAD", "EXACT_SGD", "ADAM"])
 def test_dmp_train_steps_match_jax(optim):
-    jdmp, state, dmp = _bridged(optim, seed=8)
+    _check_train_steps(optim, dropout=0.0)
+
+
+def test_dmps_train_deterministic_with_dropout():
+    """A BERT4Rec with dropout 0.1 under both DMPs: neither passes a
+    dropout rng (the models' default deterministic=True), so the three
+    steps agree as at dropout 0."""
+    _check_train_steps("ROWWISE_ADAGRAD", dropout=0.1)
+
+
+def _check_train_steps(optim, dropout):
+    jdmp, state, dmp = _bridged(optim, seed=8, dropout=dropout)
     jstep, step = jdmp.make_train_step(), dmp.make_train_step()
     start = dmp.sharded_ebcs[KEY].unshard_to_dense()["item_embedding"]
     launches = _launches()
@@ -484,3 +498,137 @@ def test_dmp_swaps_every_reference_to_the_ec():
     assert isinstance(model.ec, ShardedEmbeddingCollection)
     assert not any(isinstance(m, EmbeddingCollection)
                    for m in dmp.modules())
+
+
+# -- dropout -------------------------------------------------------------------
+
+
+def test_bert4rec_with_dropout_deterministic_matches_jax():
+    ids, _ = _batch(11)
+    jmodel = _jax_model(dropout=0.1)
+    params = jmodel.init(jax.random.PRNGKey(1), _jsb(ids))["params"]
+    jlogits = np.asarray(jmodel.apply({"params": params}, _jsb(ids),
+                                      deterministic=True))
+    model = BERT4Rec(V, L, D, H, NL, dropout=0.1, device="cpu")
+    load_flax_params(model, jax.tree.map(np.asarray, params))
+    with torch.no_grad():
+        logits = model(_kjt(ids))  # deterministic by default
+    np.testing.assert_allclose(logits.numpy(), jlogits, **MODEL)
+
+
+def _dropped(seed, deterministic=False):
+    model = BERT4Rec(V, L, D, H, NL, dropout=0.1, device="cpu")
+    load_flax_params(model, jax.tree.map(np.asarray, _jax_model(0.1).init(
+        jax.random.PRNGKey(2), _jsb(_batch(12)[0]))["params"]))
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        return model(_kjt(_batch(13)[0]), deterministic=deterministic,
+                     generator=gen)
+
+
+def test_dropout_same_seed_same_output():
+    a, b, c = _dropped(0), _dropped(0), _dropped(1)
+    det = _dropped(0, deterministic=True)
+    assert torch.equal(a, b)
+    assert not torch.equal(a, c) and not torch.equal(a, det)
+    assert torch.isfinite(a).all()
+    with pytest.raises(ValueError, match="Generator"):
+        BERT4Rec(V, L, D, H, NL, dropout=0.1, device="cpu")(
+            _kjt(_batch(13)[0]), deterministic=False)
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+def test_dropout_keeps_within_binomial_bounds(rate):
+    """Kept fraction within 5 sigma of 1 - rate over 2^18 draws, kept
+    values x / keep (the same float32 as flax's), dropped ones 0; flax's
+    Dropout on the same input gives the same two values."""
+    from torchrec_tpu_torch.models.bert4rec import dropout
+
+    n, keep = 1 << 18, 1.0 - rate
+    x = torch.full((n,), 0.7)
+    out = dropout(x, rate, False, torch.Generator().manual_seed(3))
+    kept = out != 0
+    sigma = (n * keep * (1 - keep)) ** 0.5
+    assert abs(int(kept.sum()) - n * keep) < 5 * sigma
+    want = np.float32(0.7) / np.float32(keep)
+    assert (out[kept] == torch.tensor(want)).all()
+    jout = np.asarray(fnn.Dropout(rate).apply(
+        {}, jnp.full((n,), 0.7, jnp.float32), deterministic=False,
+        rngs={"dropout": jax.random.PRNGKey(3)}))
+    assert set(np.unique(jout)) == {np.float32(0.0), want}
+    assert abs(int((jout != 0).sum()) - n * keep) < 5 * sigma
+    # no draw at rate 0 or when deterministic; all dropped at rate 1
+    assert dropout(x, 0.0, False, None) is x
+    assert dropout(x, rate, True, None) is x
+    assert not dropout(x, 1.0, False, torch.Generator()).any()
+    with pytest.raises(ValueError, match="Generator"):
+        dropout(x, rate, False, None)
+
+
+def test_attention_dropout_mask_is_shared_across_batch_and_heads():
+    """flax draws the attention dropout once per [L, L] and broadcasts it
+    over the batch and the heads (broadcast_dropout=True), multiplying the
+    weights by keep / keep_prob: recomputed here from the same generator
+    seed."""
+    from torchrec_tpu_torch.models.bert4rec import (
+        MultiHeadDotProductAttention,
+    )
+
+    rate, Bx = 0.3, 5
+    attn = MultiHeadDotProductAttention(H, D, D, rate, device="cpu")
+    for m in (attn.query, attn.key, attn.value, attn.out):
+        m.reset_parameters(torch.Generator().manual_seed(4))
+    rng = np.random.RandomState(5)
+    x = torch.from_numpy(rng.randn(Bx, L, D).astype(np.float32))
+    mask = torch.from_numpy(rng.rand(Bx, 1, 1, L) < 0.8).expand(Bx, 1, L, L)
+    with torch.no_grad():
+        got = attn(x, mask, False, torch.Generator().manual_seed(6))
+        keep = torch.rand((1, 1, L, L),
+                          generator=torch.Generator().manual_seed(6)) < (
+                              1 - rate)
+        assert 0 < int(keep.sum()) < L * L
+
+        def heads(t):
+            return t.reshape(Bx, L, H, -1)
+
+        q, k, v = (heads(m(x)) for m in (attn.query, attn.key, attn.value))
+        logits = torch.einsum("bqhd,bkhd->bhqk", q / (D // H) ** 0.5, k)
+        logits = torch.where(mask, logits, torch.finfo(torch.float32).min)
+        w = torch.softmax(logits, -1) * (keep.float() / (1 - rate))
+        want = attn.out(torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(
+            Bx, L, D))
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+def test_bert4rec_trains_with_seeded_dropout():
+    """Outside the DMP: three Adam steps of BERT4RecTrain with dropout 0.1
+    and a seeded generator; the same seed retraces them exactly, another
+    seed and deterministic training do not."""
+
+    def train(seed, deterministic=False):
+        model = BERT4RecTrain(BERT4Rec(V, L, D, H, NL, dropout=0.1,
+                                       device="cpu"))
+        gen = torch.Generator().manual_seed(0)
+        for m in model.modules():
+            reset = getattr(m, "reset_parameters", None)
+            if reset is not None and "generator" in inspect.signature(
+                    reset).parameters:
+                reset(generator=gen)
+        opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+        drop = torch.Generator().manual_seed(seed)
+        losses = []
+        for s in range(3):
+            ids, labels = _batch(30 + s)
+            loss, _ = model(_kjt(ids), torch.as_tensor(labels),
+                            deterministic=deterministic, generator=drop)
+            opt.zero_grad()
+            loss.backward()
+            opt.step()
+            losses.append(float(loss.detach()))
+        return losses, [p.detach().clone() for p in model.parameters()]
+
+    (la, pa), (lb, pb) = train(7), train(7)
+    (lc, _), (ld, _) = train(8), train(7, deterministic=True)
+    assert all(np.isfinite(la)) and la == lb
+    assert all(torch.equal(a, b) for a, b in zip(pa, pb))
+    assert la != lc and la != ld

@@ -14,6 +14,7 @@ from torchrec_tpu_torch.models import (
     DLRM,
     BERT4Rec,
     BERT4RecTrain,
+    SimpleDeepFMNN,
     make_item_embedding_collection,
 )
 from torchrec_tpu_torch.modules import (
@@ -22,6 +23,7 @@ from torchrec_tpu_torch.modules import (
     EmbeddingBagConfig,
     EmbeddingCollection,
     EmbeddingConfig,
+    LowRankMixtureCrossNet,
     PositionWeightedModule,
     SwishLayerNorm,
 )
@@ -42,6 +44,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "torchrec_tpu")
 PORT_FILES = sorted((ROOT / "torchrec_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "profile_serving.py",
     ROOT / "profile_train.py", ROOT / "profile_rowwise.py",
+    ROOT / "check_pw_cotangent.py",
 ]
 
 
@@ -99,7 +102,7 @@ def _bert4rec_dmp(sharding_type=ShardingType.ROW_WISE,
 @pytest.mark.parametrize("entry", [
     "env", "dmp", "mlp", "ebc", "train_step", "ec", "bert4rec",
     "bert4rec_dmp", "bert4rec_train_step", "position_weighted",
-    "swish_layer_norm"])
+    "swish_layer_norm", "deepfm", "crossnet"])
 def test_entry_points_refuse_cpu_without_asking(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -125,6 +128,11 @@ def test_entry_points_refuse_cpu_without_asking(entry, monkeypatch):
             PositionWeightedModule({"f0": 4})
         elif entry == "swish_layer_norm":
             SwishLayerNorm(8)
+        elif entry == "deepfm":
+            SimpleDeepFMNN(3, EmbeddingBagCollection(_tables(), device="meta"),
+                           4, 4)
+        elif entry == "crossnet":
+            LowRankMixtureCrossNet(8, 2, 2, 4)
         else:
             EmbeddingBagCollection(_tables())
 
@@ -200,7 +208,7 @@ def test_half_tables_refuse_unported_routes(params):
 
 @pytest.mark.parametrize(
     "case", ["no_plan", "table_wise", "uvm", "world_size", "fused_param",
-             "seq_table_wise", "seq_data_parallel", "dropout"])
+             "seq_table_wise", "seq_data_parallel"])
 def test_unported_parts_raise(case):
     with pytest.raises(NotImplementedError):
         if case == "no_plan":
@@ -220,12 +228,8 @@ def test_unported_parts_raise(case):
                 fused_params={"compact": "always"}).make_train_step()
         elif case == "seq_table_wise":  # sequence strategies but ROW_WISE
             _bert4rec_dmp(ShardingType.TABLE_WISE, device="cpu")
-        elif case == "seq_data_parallel":
+        else:  # sequence strategies but DATA_PARALLEL
             _bert4rec_dmp(ShardingType.DATA_PARALLEL, device="cpu")
-        else:  # dropout in training
-            model = _bert4rec("cpu", dropout=0.1)
-            model(KeyedJaggedTensor.from_lengths(["item"], [1, 2, 3, 4], [4]),
-                  torch.zeros(1, 4, dtype=torch.int32), deterministic=False)
 
 
 @pytest.mark.parametrize("wrapper", ["routed_gather_rows", "route_tokens"])

@@ -2,8 +2,11 @@
 
 The JAX package `torchrec_tpu` is the reference; each module here mirrors
 the module of the same path there. The port serves and trains a row-wise
-sharded DLRM (float tables, every fused optimizer) and BERT4Rec (its item
-table in a sharded EmbeddingCollection) on one GPU. Its TPU kernels are
+sharded DLRM (float and half tables, every fused optimizer, a
+position-weighted variant), BERT4Rec (its item table in a sharded
+EmbeddingCollection) and SimpleDeepFMNN on one GPU, with the optimizer
+stack of `optim/` (FQN-keyed state, warmup schedules, gradient
+clipping). Its TPU kernels are
 hand-written CUDA kernels: the pooled embedding lookup K1
 (csrc/tbe_lookup.cu, bound in ops/tbe_lookup.py), the fused embedding
 updates K2-K7 (csrc/fused_update.cu, bound in ops/fused_update_kernels.py)

@@ -13,3 +13,7 @@ from torchrec_tpu_torch.models.dlrm import (  # noqa: F401
     OverArch,
     SparseArch,
 )
+from torchrec_tpu_torch.models.deepfm import (  # noqa: F401
+    FMInteractionArch,
+    SimpleDeepFMNN,
+)

@@ -9,11 +9,11 @@ linear layers are plain PyTorch (`nn.Linear`, `torch.einsum`), as the JAX
 package leaves them to XLA outside any Pallas kernel. They compute what
 flax 0.12's layers compute:
 
-* `Dense` is flax's `nn.Dense` as an `nn.Linear`; the attention's q/k/v
-  and out `DenseGeneral` kernels [D, H, D/H] and [H, D/H, D] are
-  `nn.Linear(D, D)` weights (utils/jax_bridge.py reshapes them). Kernels
-  are drawn lecun_normal (a normal truncated at 2 sigma, scaled to
-  variance 1/fan_in), biases are zero.
+* `Dense` (modules/dense.py) is flax's `nn.Dense` as an `nn.Linear`; the
+  attention's q/k/v and out `DenseGeneral` kernels [D, H, D/H] and
+  [H, D/H, D] are `nn.Linear(D, D)` weights (utils/jax_bridge.py
+  reshapes them). Kernels are drawn lecun_normal (a normal truncated at 2
+  sigma, scaled to variance 1/fan_in), biases are zero.
 * `LayerNorm` (modules/activation.py) has epsilon 1e-6 (torch's default
   is 1e-5).
 * The GELU is the tanh approximation, `jax.nn.gelu`'s default.
@@ -22,9 +22,16 @@ flax 0.12's layers compute:
   are all masked (an all-pad sequence) gets a uniform softmax, not NaN.
 * The positional parameter [L, D] is drawn normal(1.0).
 
-Dropout with a rate above 0 and `deterministic=False` raises
-NotImplementedError: the JAX DMP never passes a dropout rng, so its train
-step runs deterministic too.
+Dropout runs where flax's does (after the history's LayerNorm, on the
+attention weights, on each residual branch and after the feed-forward's
+GELU) when `deterministic=False` and a `torch.Generator` is given; each
+mask is drawn from that generator, and the kept values are scaled by
+1/keep (flax's `nn.Dropout`). The attention mask is one [L, L] draw
+shared by every batch row and head, as flax's `broadcast_dropout=True`
+draws it; the others are drawn at full shape. torch's RNG is not JAX's,
+so the masks differ from flax's draws; their distribution is the same.
+The DMP's train step calls the model with its default
+`deterministic=True`, as the JAX DMP, which passes no dropout rng, does.
 
 `flax_names` on a module maps the flax auto-names of its children to its
 attributes, for the weight bridge.
@@ -40,6 +47,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from torchrec_tpu_torch.modules.activation import LayerNorm
+from torchrec_tpu_torch.modules.dense import Dense
 from torchrec_tpu_torch.modules.embedding_configs import EmbeddingConfig
 from torchrec_tpu_torch.modules.embedding_modules import (
     EmbeddingCollection,
@@ -48,35 +56,27 @@ from torchrec_tpu_torch.modules.embedding_modules import (
 )
 from torchrec_tpu_torch.utils.device import DeviceLike, resolve_device
 
-# flax's variance_scaling: the std of a standard normal truncated to
-# [-2, 2], by which the truncated draw is divided
-_TRUNCATED_STD = 0.87962566103423978
+def dropout(x: torch.Tensor, rate: float, deterministic: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax `nn.Dropout`: x / keep where a draw from `generator` keeps it,
+    0 elsewhere. No draw when deterministic or at rate 0; all zeros at
+    rate 1."""
+    if deterministic or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout needs a torch.Generator when "
+                         "deterministic=False")
+    if rate == 1.0:
+        return torch.zeros_like(x)
+    keep_prob = 1.0 - rate
+    keep = _keep_mask(x.shape, keep_prob, x.device, generator)
+    return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
-def _check_dropout(rate: float, deterministic: bool) -> None:
-    if rate > 0.0 and not deterministic:
-        raise NotImplementedError(
-            "dropout in training is not ported; pass deterministic=True "
-            "(the JAX DMP's train step runs deterministic) or dropout=0.0"
-        )
-
-
-class Dense(nn.Linear):
-    """flax `nn.Dense`: lecun_normal kernel, zero bias, fp32."""
-
-    def __init__(self, in_features: int, out_features: int,
-                 device: DeviceLike = None):
-        super().__init__(in_features, out_features,
-                         device=resolve_device(device), dtype=torch.float32)
-
-    @torch.no_grad()
-    def reset_parameters(
-        self, generator: Optional[torch.Generator] = None
-    ) -> None:
-        std = (1.0 / self.in_features) ** 0.5 / _TRUNCATED_STD
-        nn.init.trunc_normal_(self.weight, 0.0, std, -2.0 * std, 2.0 * std,
-                              generator=generator)
-        nn.init.zeros_(self.bias)
+def _keep_mask(shape, keep_prob: float, device: torch.device,
+               generator: torch.Generator) -> torch.Tensor:
+    """Bernoulli(keep_prob) draws, True where kept."""
+    return torch.rand(shape, device=device, generator=generator) < keep_prob
 
 
 class MultiHeadDotProductAttention(nn.Module):
@@ -86,8 +86,9 @@ class MultiHeadDotProductAttention(nn.Module):
     input width."""
 
     def __init__(self, num_heads: int, in_features: int, qkv_features: int,
-                 device: DeviceLike = None):
+                 dropout_rate: float = 0.0, device: DeviceLike = None):
         super().__init__()
+        self.dropout_rate = dropout_rate
         if qkv_features % num_heads:
             raise ValueError(f"qkv_features {qkv_features} is not a "
                              f"multiple of num_heads {num_heads}")
@@ -97,9 +98,14 @@ class MultiHeadDotProductAttention(nn.Module):
         self.value = Dense(in_features, qkv_features, device)
         self.out = Dense(qkv_features, in_features, device)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: torch.Tensor,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x [B, L, D]; mask [B, 1, L, L] bool, True where a query may
-        attend to a key. Returns [B, L, D]."""
+        attend to a key. Returns [B, L, D]. Unless deterministic, the
+        attention weights are dropped with one [L, L] mask for every batch
+        row and head, kept ones scaled by 1/keep (flax multiplies by
+        keep / keep_prob)."""
         B, L, _ = x.shape
         H = self.num_heads
 
@@ -112,6 +118,13 @@ class MultiHeadDotProductAttention(nn.Module):
         logits = torch.einsum("bqhd,bkhd->bhqk", q, k)
         logits = torch.where(mask, logits, torch.finfo(logits.dtype).min)
         attn = torch.softmax(logits, dim=-1)
+        if not deterministic and self.dropout_rate > 0.0:
+            if generator is None:
+                raise ValueError("dropout needs a torch.Generator when "
+                                 "deterministic=False")
+            keep_prob = 1.0 - self.dropout_rate
+            keep = _keep_mask((1, 1, L, L), keep_prob, x.device, generator)
+            attn = attn * (keep.to(attn.dtype) / keep_prob)
         out = torch.einsum("bhqk,bkhd->bqhd", attn, v)
         return self.out(out.reshape(B, L, -1))
 
@@ -134,18 +147,24 @@ class TransformerBlock(nn.Module):
         self.dropout = dropout
         self.attn_norm = LayerNorm(dim_model, device)
         self.attention = MultiHeadDotProductAttention(
-            num_heads, dim_model, dim_model, device)
+            num_heads, dim_model, dim_model, dropout, device)
         self.ff_norm = LayerNorm(dim_model, device)
         self.ff_in = Dense(dim_model, dim_ff, device)
         self.ff_out = Dense(dim_ff, dim_model, device)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor,
-                deterministic: bool = True) -> torch.Tensor:
-        """x [B, L, D]; mask [B, 1, L, L] bool. Returns [B, L, D]."""
-        _check_dropout(self.dropout, deterministic)
-        x = x + self.attention(self.attn_norm(x), mask)
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """x [B, L, D]; mask [B, 1, L, L] bool. Returns [B, L, D]. Unless
+        deterministic, drops from `generator` in flax's order: the
+        attention weights, the attention branch, after the GELU and the
+        feed-forward branch."""
+        rate = self.dropout
+        h = self.attention(self.attn_norm(x), mask, deterministic, generator)
+        x = x + dropout(h, rate, deterministic, generator)
         h = F.gelu(self.ff_in(self.ff_norm(x)), approximate="tanh")
-        return x + self.ff_out(h)
+        h = self.ff_out(dropout(h, rate, deterministic, generator))
+        return x + dropout(h, rate, deterministic, generator)
 
 
 def make_item_embedding_collection(
@@ -185,11 +204,13 @@ class HistoryArch(nn.Module):
         nn.init.normal_(self.positional, 0.0, 1.0, generator=generator)
 
     def forward(self, id_list_features: SparseInput,
-                deterministic: bool = True) -> torch.Tensor:
-        """Token embeddings [B, L, D]."""
-        _check_dropout(self.dropout, deterministic)
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Token embeddings [B, L, D], dropped after the LayerNorm unless
+        deterministic."""
         x = self.ec(id_list_features)["item"] + self.positional[None, :, :]
-        return self.layernorm(x)
+        return dropout(self.layernorm(x), self.dropout, deterministic,
+                       generator)
 
 
 class BERT4Rec(nn.Module):
@@ -215,17 +236,18 @@ class BERT4Rec(nn.Module):
         self.flax_names = {f"block_{i}": f"blocks.{i}"
                            for i in range(num_layers)}
 
-    def forward(self, input: SparseInput,
-                deterministic: bool = True) -> torch.Tensor:
+    def forward(self, input: SparseInput, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Per-position logits [B, L, vocab]; positions attend only to
-        keys whose item id is > 0 (not padding)."""
+        keys whose item id is > 0 (not padding). `generator` draws the
+        dropout masks when not deterministic."""
         sb = as_padded(input, self.max_len)
         ids = sb.ids[sb.keys.index("item")]  # [B, L]
         B, L = ids.shape
         mask = (ids > 0)[:, None, None, :].expand(B, 1, L, L)
-        x = self.history(sb, deterministic=deterministic)
+        x = self.history(sb, deterministic, generator)
         for block in self.blocks:
-            x = block(x, mask, deterministic=deterministic)
+            x = block(x, mask, deterministic, generator)
         return self.out(x)
 
 
@@ -241,9 +263,11 @@ class BERT4RecTrain(nn.Module):
     def forward(
         self, input: SparseInput, labels: torch.Tensor,
         deterministic: bool = True,
+        generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-        """labels [B, L]. Returns (loss, (loss, logits [B, L, vocab]))."""
-        logits = self.model(input, deterministic=deterministic)
+        """labels [B, L]. Returns (loss, (loss, logits [B, L, vocab]));
+        `generator` draws the dropout masks when not deterministic."""
+        logits = self.model(input, deterministic, generator)
         logp = torch.log_softmax(logits, dim=-1)
         picked = logp.gather(-1, labels[:, :, None].long())[:, :, 0]
         mask = (labels != self.pad_id).to(logits.dtype)

@@ -19,3 +19,14 @@ from torchrec_tpu_torch.modules.feature_processor import (  # noqa: F401
     PositionWeightedModule,
 )
 from torchrec_tpu_torch.modules.mlp import MLP, Perceptron  # noqa: F401
+from torchrec_tpu_torch.modules.dense import Dense  # noqa: F401
+from torchrec_tpu_torch.modules.deepfm import (  # noqa: F401
+    DeepFM,
+    FactorizationMachine,
+)
+from torchrec_tpu_torch.modules.crossnet import (  # noqa: F401
+    CrossNet,
+    LowRankCrossNet,
+    LowRankMixtureCrossNet,
+    VectorCrossNet,
+)

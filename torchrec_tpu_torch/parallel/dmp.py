@@ -19,8 +19,10 @@ the model on `device="meta"` and call `init(seed)` or load weights
 The train step follows the JAX DMP's: the sharded lookups run outside
 autograd, their values (an EBC's pooled KeyedTensor values, an EC's
 per-token rows) enter the dense model as leaves, one backward gives the
-dense gradients and the leaves' cotangents, the dense optimizer steps and
-each sharded module applies its fused optimizer to the touched rows. Where
+dense gradients and the leaves' cotangents, the dense optimizer steps
+(every dense parameter, with a zero gradient where the loss does not
+reach it, as JAX differentiates them all) and each sharded module
+applies its fused optimizer to the touched rows. Where
 the JAX step returns a new DMPState, this one updates the DMP's
 parameters, tables and optimizer state in place.
 
@@ -51,7 +53,7 @@ from __future__ import annotations
 
 import dataclasses
 import inspect
-from typing import Any, Callable, Dict, Iterable, List, Mapping, Optional
+from typing import Any, Callable, Dict, List, Mapping, Optional
 
 import torch
 from torch import nn
@@ -66,6 +68,7 @@ from torchrec_tpu_torch.modules.feature_processor import (
     FeatureProcessedEmbeddingBagCollection,
 )
 from torchrec_tpu_torch.ops.fused_update import EmbOptimType
+from torchrec_tpu_torch.optim.keyed import DenseOptimizerFactory
 from torchrec_tpu_torch.parallel.sharded_ebc import (
     ShardedEmbeddingBagCollection,
     ShardedEmbeddingModule,
@@ -80,10 +83,6 @@ from torchrec_tpu_torch.sparse.jagged import (
     PaddedSparseBatch,
 )
 from torchrec_tpu_torch.utils.device import DeviceLike
-
-DenseOptimizerFactory = Callable[[Iterable[nn.Parameter]],
-                                 torch.optim.Optimizer]
-
 
 def _replace_module(root: nn.Module, old: nn.Module, new: nn.Module) -> None:
     """Put `new` wherever a module of `root` holds `old` as a child."""
@@ -143,11 +142,14 @@ class DistributedModelParallel(nn.Module):
     EBC, EC and FP-EBC. fused_optim: the embedding tables' fused optimizer.
     fused_params: its `learning_rate` (default 0.01), an optional
     `lr_schedule` (step -> lr, evaluated on the host from the DMP's step
-    counter) and
+    counter; optim/warmup.make_warmup_schedule makes one) and
     the keys of ops/fused_update.apply_fused_update. dense_optimizer: a
     factory params -> torch.optim.Optimizer for the dense parameters
     (default: plain SGD at the fused learning rate, the update of the JAX
-    DMP's default optax.sgd).
+    DMP's default optax.sgd); optim/warmup.warmup_optimizer and
+    optim/clipping.gradient_clipping wrap one, and the clip covers a
+    feature processor's gradient too, which the train step adds before
+    the dense step.
     """
 
     def __init__(
@@ -246,7 +248,9 @@ class DistributedModelParallel(nn.Module):
         state. Each module whose `reset_parameters` takes a generator
         draws its parameters from the distribution of its JAX
         counterpart's initializer; raises for a parameter that no module
-        draws."""
+        draws. Clearing the dense optimizer's state also restarts a warmup
+        wrapper's count of updates, which lives there, as the JAX `init`
+        rebuilds the optax state with its count."""
         g = torch.Generator(device=self.env.device).manual_seed(seed)
         drawn = set()
         for m in self.module.modules():
@@ -369,6 +373,12 @@ class DistributedModelParallel(nn.Module):
                     if leaves[key].grad is not None:
                         pooled.backward(leaves[key].grad)
             with record_function("## train_dense_optimizer ##"):
+                # the JAX step differentiates every dense parameter, so one
+                # the loss does not reach gets a zero gradient, on which
+                # Adam still steps; torch's optimizers skip a None one
+                for p in self.module.parameters():
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
                 self.dense_optimizer.step()
             for key, sebc in self.sharded_ebcs.items():
                 sebc.update(batches[key], _grad(leaves[key]), lr)

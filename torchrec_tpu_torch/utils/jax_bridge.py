@@ -10,8 +10,11 @@ The JAX side hands over numpy arrays only, so this module imports no JAX:
   a BERT4Rec TransformerBlock's `Dense_0` / `Dense_1` its `ff_in` /
   `ff_out`, a SwishLayerNorm's `LayerNorm_0` its `norm`, a DLRM's
   `embedding_bag_collection`, where a FeatureProcessedEmbeddingBagCollection
-  keeps its `feature_processor`, its `sparse_arch.embedding_bag_collection`);
-  other names are the attribute's
+  keeps its `feature_processor`, its `sparse_arch.embedding_bag_collection`,
+  and a SimpleDeepFMNN's too; its arches' `Dense_<i>`, `inter_arch`'s
+  `Dense_0` being the layer of its DeepFM; a cross net's `cross_<i>`,
+  `V_<i>`, `W_<i>`, `weight_<i>`, `bias_<i>`, `V_<i>_<e>`, `C_<i>_<e>`,
+  `U_<i>_<e>` and `gate_<i>_<e>`); other names are the attribute's
   own (a PositionWeightedModule's `position_weight_<key>`), and a name the
   module does not have raises. A flax `kernel` [in...,
   out...] becomes the `nn.Linear.weight` [out, in], flattened row-major
@@ -34,6 +37,17 @@ The JAX side hands over numpy arrays only, so this module imports no JAX:
   unless they match the port's. `fused_optimizer_state` reads the port's
   back in the same form, which the JAX strategies'
   `shard_opt_from_tables` loads.
+* the dense optimizer's state: `optax_state_to_keyed` carries an
+  optax state (numpy leaves, the namedtuples as optax made them) into the
+  port's `KeyedOptimizer` state, {"<param fqn>/<name>": array}:
+  `ScaleByAdamState` (optax.adam / adamw) gives each parameter's "step"
+  (the count, as torch's float step), "exp_avg" (mu) and "exp_avg_sq"
+  (nu); `TraceState` (optax.sgd with momentum) its "momentum_buffer";
+  `ScaleByScheduleState` (the warmup) "__warmup/count"; `EmptyState`
+  (plain sgd, the clips, scale_by_learning_rate) nothing; any other state
+  raises. Moments take the parameters' port layouts, as the params do.
+  `keyed_to_optax_state` reads the port's state back into an optax
+  state shaped like a template.
 
 Usage, with `state` the JAX DMP state:
 
@@ -43,16 +57,21 @@ Usage, with `state` the JAX DMP state:
     for strat, group in zip(jax_sebc.strategies, state.emb_states[key]):
         opt.update(strat.unshard_opt_to_tables(group.opt))
     load_jax_weights(torch_dmp, dense, tables, opt_state=opt)
+    keyed = KeyedOptimizer(torch_dmp.dense_optimizer,
+                           dict(torch_dmp.module.named_parameters()))
+    keyed.load_state_dict(optax_state_to_keyed(
+        jax.tree.map(np.asarray, state.dense_opt), torch_dmp.module))
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
+from torchrec_tpu_torch.optim.warmup import WARMUP_KEY
 from torchrec_tpu_torch.parallel.dmp import DistributedModelParallel
 from torchrec_tpu_torch.parallel.strategies import as_tensor
 
@@ -160,3 +179,93 @@ def fused_optimizer_state(
     for sebc in dmp.sharded_ebcs.values():
         out.update(sebc.unshard_opt_to_tables())
     return out
+
+
+def _to_flax_tree(template: Mapping, module: nn.Module,
+                  flat: Mapping[str, Any], prefix: str = "") -> Dict:
+    """The inverse of flax_dense_to_state_dict: a tree shaped like
+    `template` (a flax param tree) with `flat`'s arrays, keyed by the
+    port's parameter names, in the flax layouts."""
+    out: Dict[str, Any] = {}
+    names = getattr(module, "flax_names", {})
+    for name, value in template.items():
+        if isinstance(value, Mapping):
+            attr = names.get(name, name)
+            out[name] = _to_flax_tree(value, module.get_submodule(attr),
+                                      flat, f"{prefix}{attr}.")
+            continue
+        pname = names.get(name, _LEAF_NAMES.get(name, name))
+        arr = np.asarray(torch.as_tensor(flat[prefix + pname]).cpu())
+        if name == "kernel":
+            arr = arr.T
+        out[name] = arr.reshape(np.shape(value))
+    return out
+
+
+def optax_state_to_keyed(opt_state: Any,
+                         module: nn.Module) -> Dict[str, np.ndarray]:
+    """An optax dense-optimizer state over `module`'s flax params (numpy
+    leaves) -> the port's KeyedOptimizer state {key: array}. Raises for an
+    optax state it does not know."""
+    out: Dict[str, np.ndarray] = {}
+
+    def walk(node):
+        kind = type(node).__name__
+        if kind == "ScaleByAdamState":
+            mu = flax_dense_to_state_dict(node.mu, module)
+            nu = flax_dense_to_state_dict(node.nu, module)
+            for name in mu:
+                out[f"{name}/step"] = np.asarray(node.count, np.float32)
+                out[f"{name}/exp_avg"] = mu[name]
+                out[f"{name}/exp_avg_sq"] = nu[name]
+        elif kind == "TraceState":
+            for name, t in flax_dense_to_state_dict(node.trace,
+                                                    module).items():
+                out[f"{name}/momentum_buffer"] = t
+        elif kind == "ScaleByScheduleState":
+            out[f"{WARMUP_KEY}/count"] = np.asarray(node.count, np.int32)
+        elif kind == "EmptyState":
+            pass
+        elif isinstance(node, tuple) and not hasattr(node, "_fields"):
+            for child in node:  # optax.chain's tuple of states
+                walk(child)
+        else:
+            raise ValueError(f"optax state {kind} has no port counterpart")
+
+    walk(opt_state)
+    return out
+
+
+def keyed_to_optax_state(flat: Mapping[str, Any], module: nn.Module,
+                         template: Any) -> Any:
+    """The port's KeyedOptimizer state -> an optax state shaped like
+    `template` (the optax state of the same chain, numpy leaves), its
+    leaves numpy arrays in the flax layouts."""
+
+    def per_param(tree, name):
+        return _to_flax_tree(tree, module, {
+            k[:-len(name) - 1]: v for k, v in flat.items()
+            if k.endswith("/" + name)})
+
+    def build(node):
+        kind = type(node).__name__
+        if kind == "ScaleByAdamState":
+            first = next(k for k in flat if k.endswith("/step"))
+            return node._replace(
+                count=np.asarray(torch.as_tensor(flat[first]).cpu(),
+                                 np.int32),
+                mu=per_param(node.mu, "exp_avg"),
+                nu=per_param(node.nu, "exp_avg_sq"))
+        if kind == "TraceState":
+            return node._replace(trace=per_param(node.trace,
+                                                 "momentum_buffer"))
+        if kind == "ScaleByScheduleState":
+            return node._replace(count=np.asarray(
+                torch.as_tensor(flat[f"{WARMUP_KEY}/count"]), np.int32))
+        if kind == "EmptyState":
+            return node
+        if isinstance(node, tuple) and not hasattr(node, "_fields"):
+            return tuple(build(child) for child in node)
+        raise ValueError(f"optax state {kind} has no port counterpart")
+
+    return build(template)
