@@ -9,8 +9,8 @@ Phases, each failing the run with a non-zero exit when it fails:
 1. Identify the card (name, count, power limit); TF32 is switched off.
 2. Build the kernels with nvcc for sm_90a, one nvcc per source, started
    together: K1 and K1h (csrc/tbe_lookup.cu), K2-K7, K3h and K4h
-   (csrc/fused_update.cu) and K8 with the routed gather
-   (csrc/gather_rows.cu).
+   (csrc/fused_update.cu), K8 with the routed gather
+   (csrc/gather_rows.cu) and Kq (csrc/quant_lookup.cu).
 3. Serve the DLRM that bench.py and bench_config.py describe, at full
    width, through the port's DistributedModelParallel.make_eval_fn:
    26 fp32 tables of 100,000 x 128 (ROW_WISE on one device), dense arch
@@ -180,6 +180,38 @@ Phases, each failing the run with a non-zero exit when it fails:
    1e-4 / atol 1e-5, untouched rows equal. Last, the four cross nets at
    N=3,456, B=8,192, 3 layers (low rank 64, 4 experts), forward and
    backward on the card against the CPU, each timed.
+15. Quantized serving. csrc/serving_queue.cpp is built with g++. bench.py's
+   DLRM (DLRMTrain) takes 3 EXACT_SGD steps at B=8192 (K1 and K3 once
+   each) and serves 3 requests at B=8192 and 3 at B=256 in f32 (K1 once
+   each; its peak memory is the f32 server's). quantize_embeddings makes
+   an int8 and an int4 PredictModule from it; their pooled values lie
+   within each row's bound of the f32 ones (half a step of the fp16
+   scale, plus the fp16 rounding of the shift and of the range), each is
+   saved to a temporary package, and Kq is held against its plain version
+   on the sharded form's packed group at the path's shape (B=8192, L=1,
+   pooled and unpooled: bit-exact) and timed beside its plain version,
+   PyTorch's quantized embedding bag on the group repacked into its fused
+   rows (embedding_bag_byte / _4bit_rowwise_offsets, held within rtol =
+   atol = 1e-6 of the plain version first) and K1 on the f32 table at the
+   same ids; off the path at L=20 with MEAN
+   and per-sample coefficients, zero lengths and ids outside [0, R), at
+   8, 4 and 2 bits and D = 128, 96, 64 and 66 (rtol 1e-6; unpooled
+   bit-exact). The f32 model is freed; each package is loaded with a
+   DMP on `meta` as scaffolding (its predictions equal the saved
+   module's bit for bit) and serves the same 6 requests through
+   PredictModule (26 Kq launches each, K1 never; one B=256 request
+   against a CPU load of the package within rtol 1e-4 / atol 1e-5; each
+   logit within 2x its first-order bound of the f32 logit, the sum over
+   its pooled elements of |d logit / d pooled| times the row's bound)
+   and through shard_quantized (1 Kq launch each, bit-exact with the
+   unsharded module). The int8 module also serves 64 ragged requests of
+   1..64 examples from 4 client threads through BatchingPredictServer and
+   NativePredictServer (server batch 256, the native one pipelined) and
+   8 of them over TCP through PredictClient: every result within rtol
+   1e-5 of a direct predict, 26 Kq launches per predict call, stop()
+   returning. Peak device memory of each quantized server, unsharded and
+   sharded, must lie at least 90 % of its tables' saving below the f32
+   server's.
 
 Kernel times are device times from torch.profiler (the kernel's own for a
 kernel, all device activity of the call for the plain version and the
@@ -187,7 +219,8 @@ library call); the log gives each wrapper call's CUDA-event time beside
 it, which includes the host's time to make the call where that is longer.
 
 The line before the last is a JSON object with every kernel's numbers
-(K1h, K3h and K4h with an "fp16" sub-entry, K4h with "bert4rec_shape");
+(K1h, K3h and K4h with an "fp16" sub-entry, K4h with "bert4rec_shape",
+Kq with "int4" and K1's time at the same ids);
 the last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 outside a checkout of the repository, it exits non-zero and prints no
 result.
@@ -197,10 +230,13 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -291,12 +327,17 @@ KERNELS = {
     "K4h": ("fused_update_rowwise_adagrad_half",
             "torchrec_tpu_torch/csrc/fused_update.cu",
             "torchrec_tpu/ops/fused_update.py:647"),
+    # the int-N dequantizing pooled lookup, in place of the XLA gather,
+    # unpack, dequantize and einsum of the quantized lookup
+    "Kq": ("quant_lookup_pooled", "torchrec_tpu_torch/csrc/quant_lookup.cu",
+           "torchrec_tpu/ops/quant.py:87"),
 }
 # launch counters beside the kernels': K4's scaled RMW, which the rowwise
 # routes other than the fused one launch, and the routed gather's
 # route-only mode, which the sharded EC's update launches
 SCALED = "scaled_row_update"
 ROUTE = "route_tokens"
+QROWS = "quant_lookup_rows"  # Kq's unpooled mode
 # the kernels of each optimizer's train step, beside K1 (once each)
 STEP_KERNELS = {"EXACT_SGD": ("K3",), "ROWWISE_ADAGRAD": ("K4",),
                 "ADAGRAD": ("K6",), "ADAM": ("K7",)}
@@ -343,31 +384,34 @@ def build_kernels(libraries) -> None:
 
 def expected(**launches) -> dict:
     """Launches per counter: those given, 0 for every other one."""
-    return {k: launches.get(k, 0) for k in (*KERNELS, SCALED, ROUTE)}
+    return {k: launches.get(k, 0) for k in (*KERNELS, SCALED, ROUTE, QROWS)}
 
 
 def _counted():
     from torchrec_tpu_torch.ops import fused_update_kernels as fk
     from torchrec_tpu_torch.ops import gather_rows as gr
+    from torchrec_tpu_torch.ops import quant_lookup as ql
     from torchrec_tpu_torch.ops import tbe_lookup as tl
 
-    return tl, fk, gr
+    return tl, fk, gr, ql
 
 
 def counts() -> dict:
     """Launches per kernel so far."""
-    tl, fk, gr = _counted()
+    tl, fk, gr, ql = _counted()
     return {"K1": tl.LAUNCHES, "K1h": tl.HALF_LAUNCHES, "K8": gr.LAUNCHES,
             "K8r": gr.ROUTED_LAUNCHES, ROUTE: gr.ROUTE_LAUNCHES,
-            SCALED: fk.LAUNCHES[SCALED],
+            SCALED: fk.LAUNCHES[SCALED], "Kq": ql.LAUNCHES,
+            QROWS: ql.ROWS_LAUNCHES,
             **{k: fk.LAUNCHES[name] for k, (name, _, _) in KERNELS.items()
-               if k not in ("K1", "K1h", "K8", "K8r")}}
+               if k not in ("K1", "K1h", "K8", "K8r", "Kq")}}
 
 
 def reset_counts() -> None:
-    tl, fk, gr = _counted()
+    tl, fk, gr, ql = _counted()
     tl.LAUNCHES = tl.HALF_LAUNCHES = 0
     gr.LAUNCHES = gr.ROUTED_LAUNCHES = gr.ROUTE_LAUNCHES = 0
+    ql.LAUNCHES = ql.ROWS_LAUNCHES = 0
     fk.reset_launches()
 
 
@@ -525,49 +569,50 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
 
 
 def device_ms(fn, kernel: str = "", bound_ms: float = 0.0, iters: int = 20,
-              warmup: int = 3, attempts: int = 3) -> float:
-    """Device time per call from torch.profiler over `iters` calls: for
-    each name of device activity (kernels, copies), its mean duration
-    times its launches per call, summed; only kernels whose name contains
-    `kernel` when it is given. Without lost events this is the window's
-    summed device time over `iters`.
+              warmup: int = 3, attempts: int = 6) -> float:
+    """Device time per call from torch.profiler over `iters` calls: the
+    summed duration of every device activity (kernels, copies) in the
+    window over `iters`; only kernels whose name contains `kernel` when it
+    is given.
 
-    The profiler now and then loses events: a window came back with none,
-    one with 18 of 20 launches of a kernel three times running, and one
-    timed a kernel at 6 % of its bound. So launches per call are rounded
-    from the events kept, and a window with no events, or with a time
-    under a quarter of `bound_ms` (no cache of the card serves bytes four
-    times as fast as its memory), is profiled again, up to `attempts`
-    times."""
+    The profiler loses events: with tracing started at the window, the
+    first few launches went missing (17 of 20 was common). So the window
+    follows one profiler warm-up step of `iters` calls, whose events are
+    dropped, and a window is whole only when every name's event count is
+    a multiple of `iters`, it has events, and its time is at least a
+    quarter of `bound_ms` (no cache of the card serves bytes four times as
+    fast as its memory). Anything else is profiled again, up to `attempts`
+    times, and then fails: a partial window is never rounded up."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     for _ in range(warmup):
         fn()
     for attempt in range(attempts):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
         durations = {}
         for e in prof.events():
             if (e.device_type == DeviceType.CUDA and not e.is_user_annotation
                     and kernel in e.name):
                 durations.setdefault(e.name, []).append(
                     e.time_range.elapsed_us())
-        ms = sum(sum(d) / len(d) * max(1, round(len(d) / iters))
-                 for d in durations.values()) / 1e3
+        ms = sum(sum(d) for d in durations.values()) / iters / 1e3
         counted = {n: len(d) for n, d in durations.items()}
-        if durations and ms >= bound_ms / 4:
-            if any(c % iters for c in counted.values()):
-                log(f"device_ms: events per name {counted} over {iters} "
-                    f"calls; launches per call rounded")
+        whole = not any(c % iters for c in counted.values())
+        if durations and whole and ms >= bound_ms / 4:
             return ms
         log(f"device_ms: {ms:.5f} ms from events {counted} for {kernel!r} "
             f"over {iters} calls, bound {bound_ms:.5f} ms (attempt "
-            f"{attempt + 1} of {attempts})")
+            f"{attempt + 1} of {attempts}): not a whole window")
     raise AssertionError(f"no whole profiler window for {kernel!r}")
 
 
@@ -2883,6 +2928,576 @@ def deepfm() -> dict:
     return {"launches": launches, "cross": cross}
 
 
+# -- quantized serving --------------------------------------------------------
+
+# the quantized types served (bits), and the request stream of the batching
+# servers: Q_CLIENT_REQUESTS ragged requests of 1..Q_MAX_EXAMPLES examples
+# from Q_CLIENTS threads, Q_TCP_REQUESTS of them also over TCP
+QUANT_TYPES = {"INT8": 8, "INT4": 4}
+Q_SERVER_BATCH = 256
+Q_CLIENT_REQUESTS, Q_MAX_EXAMPLES, Q_CLIENTS, Q_TCP_REQUESTS = 64, 64, 4, 8
+Q_TIMEOUT_S = 120.0  # every future and TCP answer, and stop()
+Q_TRAIN_STEPS = 3
+QUANT_KEYS = tuple(f"f{i}" for i in range(NUM_TABLES))
+# the logit distance from f32 is held within this multiple of its
+# first-order bound (see quant_bounds)
+Q_SLACK = 2.0
+FP16_REL = 2.0 ** -11  # fp16's relative rounding step (to nearest)
+
+
+def quant_requests(rng: np.random.RandomState) -> list:
+    """(batch, dense [B, 13] f32, ids [26, B, 1] i32) as numpy: 3 at
+    B=8192, then 3 at B=256."""
+    out = []
+    for b in ([BENCH_BATCH] * REQUESTS_PER_BATCH
+              + [SERVE_BATCH] * REQUESTS_PER_BATCH):
+        out.append((b, rng.randn(b, DENSE_IN).astype(np.float32),
+                    rng.randint(0, ROWS, size=(NUM_TABLES, b, L)).astype(
+                        np.int32)))
+    return out
+
+
+def quant_args(dense, ids, device=None):
+    """The predict module's (dense, PaddedSparseBatch, labels) for one
+    request, built by the servers' DLRM collate."""
+    from torchrec_tpu_torch.inference import make_dlrm_collate
+
+    return make_dlrm_collate(QUANT_KEYS, device or DEVICE)(
+        [(dense, ids)], dense.shape[0])
+
+
+def logits_of(out) -> torch.Tensor:
+    """DLRMTrain's (loss, (loss, logits, labels)) -> logits."""
+    return out[1][1]
+
+
+def quant_serve(predict, requests, what: str, per_request: dict) -> dict:
+    """`requests` through `predict`, each launching exactly
+    `per_request`; host-clock latency (copies in and out), logits on the
+    CPU, peak memory from a reset just before."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    logits, ms = [], {BENCH_BATCH: [], SERVE_BATCH: []}
+    for batch, dense, ids in requests:
+        before = counts()
+        t0 = time.perf_counter()
+        out = logits_of(predict(*quant_args(dense, ids))).cpu()
+        ms[batch].append((time.perf_counter() - t0) * 1e3)
+        after = counts()
+        launched = {k: after[k] - before[k] for k in after}
+        if launched != expected(**per_request):
+            raise AssertionError(f"{what} B={batch}: launched {launched}")
+        if out.shape != (batch,) or not torch.isfinite(out).all():
+            raise AssertionError(f"{what}: bad logits {tuple(out.shape)}")
+        logits.append(out)
+    peak = torch.cuda.max_memory_allocated()
+    for batch, t in ms.items():
+        log(f"{what} B={batch}: request ms (host clock, collate + H2D + "
+            f"predict + D2H, first includes warm-up) {t}")
+    log(f"{what}: {len(requests)} requests, launches {counts()}, "
+        f"max_memory_allocated {peak} B")
+    return {"logits": logits, "ms": ms, "peak_bytes": peak,
+            "launches": counts()}
+
+
+def quant_train():
+    """bench.py's DLRM trained Q_TRAIN_STEPS steps at B=8192 under
+    EXACT_SGD, each launching K1 and K3 once."""
+    from torchrec_tpu_torch.ops.fused_update import EmbOptimType
+
+    dmp = make_dmp(DEVICE, train=True,
+                   optim=EmbOptimType.EXACT_SGD).init(SEED)
+    step = dmp.make_train_step()
+    rng = np.random.RandomState(SEED + 20)
+    reset_counts()
+    losses = []
+    for _ in range(Q_TRAIN_STEPS):
+        loss, _ = step(*to_device(make_batch(rng, BENCH_BATCH)))
+        losses.append(loss.item())
+    if counts() != expected(K1=Q_TRAIN_STEPS, K3=Q_TRAIN_STEPS):
+        raise AssertionError(f"quantized phase's training launched "
+                             f"{counts()}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"quantized phase's training: losses {losses}")
+    dmp.dense_optimizer.zero_grad(set_to_none=True)
+    log(f"quant: trained {Q_TRAIN_STEPS} EXACT_SGD steps at B={BENCH_BATCH},"
+        f" losses {losses}, launches {counts()}")
+    return dmp
+
+
+def row_error_bound(tables: dict, bits: int) -> dict:
+    """Per table, each row's bound on |dequantized - f32| (any element):
+    half a step of the fp16-rounded scale, plus the shift's fp16 rounding
+    (at most |lo| 2^-11, or half fp16's smallest subnormal) and what a
+    scale rounded down loses at the top of the range ((hi - lo) 2^-11,
+    clipped to qmax)."""
+    qmax = (1 << bits) - 1
+    out = {}
+    for name, w in tables.items():
+        lo, hi = w.amin(1), w.amax(1)
+        scale = ((hi - lo) / qmax).half().float()
+        scale = torch.where(scale == 0, torch.ones_like(scale), scale)
+        out[name] = (scale / 2 + (lo.abs() + (hi - lo)) * FP16_REL
+                     + 2.0 ** -25)
+    return out
+
+
+def quant_bounds(dmp, requests) -> dict:
+    """For the B=256 requests and each quantized type: each example's
+    first-order bound on its logit's distance from the f32 model, the sum
+    over its pooled elements of |d logit / d pooled| times the row's error
+    bound; and the f32 pooled values with each element's bound, for the
+    embeddings' own check."""
+    sebc = dmp.sharded_ebcs[TRAIN_KEY]
+    tables = sebc.unshard_tables()
+    per_row = {name: row_error_bound(tables, bits)
+               for name, bits in QUANT_TYPES.items()}
+    out = {name: [] for name in QUANT_TYPES}
+    for batch, dense, ids in requests:
+        if batch != SERVE_BATCH:
+            continue
+        args = quant_args(dense, ids)
+        with torch.no_grad():
+            pooled = sebc(args[1])
+        leaf = pooled.values.detach().clone().requires_grad_(True)
+        sebc.injected = dataclasses.replace(pooled, values=leaf)
+        try:
+            logits_of(dmp.module(*args)).sum().backward()
+        finally:
+            sebc.injected = None
+        g = leaf.grad.reshape(batch, NUM_TABLES, DIM).abs().sum(-1)
+        rows = torch.from_numpy(ids[:, :, 0].T).to(DEVICE).long()  # [B, 26]
+        for name, bnd in per_row.items():
+            eps = torch.stack([bnd[f"t{i}"][rows[:, i]]
+                               for i in range(NUM_TABLES)], 1)
+            out[name].append({"logit": (g * eps).sum(1).cpu(),
+                              "pooled": pooled.values.detach(),
+                              "eps": eps.repeat_interleave(DIM, 1)})
+    dmp.dense_optimizer.zero_grad(set_to_none=True)
+    return out
+
+
+def quant_bound(bits: int, D: int, ids: torch.Tensor,
+                coeff: torch.Tensor) -> dict:
+    """Least time for Kq: each distinct row that a nonzero coefficient
+    reads once (its packed bytes, scale and shift), ids and coefficients
+    once, the output once, over the HBM rate; against 4 flops per live
+    slot and column (dequantize, scale, add) over the fp32 rate."""
+    live = ids[coeff != 0]
+    rows = int(torch.unique(live).numel())
+    NB = ids.shape[0]
+    nbytes = (rows * (D * bits // 8 + 8) + ids.numel() * 4
+              + coeff.numel() * 4 + NB * D * 4)
+    flops = 4 * int(live.numel()) * D
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return {"bytes": nbytes, "rows": rows, "ms": max(t_bytes, t_ops) * 1e3,
+            "by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def library_quant_lookup(sq, ids: torch.Tensor):
+    """PyTorch's own int-N pooled lookup over the same rows: the group
+    repacked once into its fused rows (the packed bytes, then scale and
+    shift inline: f32 for the byte op, fp16 for the 4-bit one, which holds
+    the fp16-rounded values exactly), one bag per id, SUM. Returns the
+    call; it is timed here and used nowhere in the port."""
+    R = sq.data.shape[0]
+    ty = torch.float32 if sq.bits == 8 else torch.float16
+    fused = torch.cat([sq.data] + [
+        v.to(ty).view(torch.uint8).reshape(R, -1)
+        for v in (sq.scale, sq.shift)], dim=1).contiguous()
+    op = (torch.ops.quantized.embedding_bag_byte_rowwise_offsets
+          if sq.bits == 8 else
+          torch.ops.quantized.embedding_bag_4bit_rowwise_offsets)
+    idx = ids.reshape(-1)
+    offsets = torch.arange(idx.numel() + 1, dtype=idx.dtype,
+                           device=idx.device)
+    return lambda: op(fused, idx, offsets, False, 0, False, None, None,
+                      True)
+
+
+def check_quant_kernel(ql, tl, sq, W, ids, what: str) -> dict:
+    """Kq on the sharded group `sq` at the path's shape (ids [NB, 1]
+    rebased, coefficient 1): bit-exact with its plain version, pooled and
+    unpooled; timed beside the plain version and K1 on the f32 table W
+    at the same ids."""
+    coeff = torch.ones(ids.shape, device=DEVICE)
+    args = (sq.data, sq.scale, sq.shift, ids, coeff, sq.bits)
+    out = ql.quant_lookup_pooled(*args)
+    ref = ql.quant_lookup_pooled_reference(*args)
+    rows = ql.quant_lookup_rows(*args[:3], ids.reshape(-1), sq.bits)
+    rows_ref = ql.quant_lookup_rows_reference(*args[:3], ids.reshape(-1),
+                                              sq.bits)
+    torch.cuda.synchronize()
+    if not (torch.equal(out, ref) and torch.equal(rows, rows_ref)):
+        raise AssertionError(f"Kq {what} at the path's shape is not "
+                             "bit-exact with its plain version")
+    b = quant_bound(sq.bits, sq.dim, ids, coeff)
+    lib = library_quant_lookup(sq, ids)
+    got = lib()
+    torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-6)
+    lib_err = (got - ref).abs().max().item()
+    t = timings(lambda: ql.quant_lookup_pooled(*args), "quant_lookup_kernel",
+                b["ms"], lambda: ql.quant_lookup_pooled_reference(*args),
+                lib)
+    kb = bound(W, ids, coeff)
+    k1 = device_ms(lambda: tl.tbe_lookup_pooled(W, ids, coeff),
+                   "tbe_lookup_pooled_kernel", kb["ms"])
+    log(f"Kq {what} L=1 NB={ids.shape[0]} D={sq.dim}: bit-exact with the "
+        f"plain version (pooled and unpooled); {t['ms']:.5f} ms on the "
+        f"device (call {t['call_ms']:.5f} ms); plain {t['plain_ms']:.4f} ms;"
+        f" PyTorch's quantized embedding bag {t['library_ms']:.5f} ms "
+        f"(within rtol=atol=1e-6 of the plain version, max abs err "
+        f"{lib_err:.3e});"
+        f" K1 on the f32 table at the same ids {k1:.5f} ms (bound "
+        f"{kb['ms']:.5f}); bound {b['ms']:.5f} ms ({b['by']}: {b['bytes']} B"
+        f" with {b['rows']} distinct rows); kernel at "
+        f"{100 * b['ms'] / t['ms']:.1f}% of the bound")
+    return {"max_abs_err": (out - ref).abs().max().item(), "ms": t["ms"],
+            "call_ms": t["call_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": b["ms"], "bound_by": b["by"],
+            "library_ms": t["library_ms"], "library_max_abs_err": lib_err,
+            "k1_same_ids_ms": k1, "k1_bound_ms": kb["ms"]}
+
+
+def check_quant_kernel_cases(ql) -> float:
+    """Kq against its plain version off the path: L=20 with MEAN and
+    per-sample coefficients, zero lengths, ids >= R and negative ids, at
+    8, 4 and 2 bits and D = 128, 96, 64 (and 66, the scalar path at 8
+    bits): rtol 1e-6; the unpooled mode with a coefficient bit for bit."""
+    from torchrec_tpu_torch.ops.quant import quantize_rowwise
+
+    rng = np.random.RandomState(SEED + 21)
+    R, NB, L20 = 50_000, 8192, 20
+    worst = 0.0
+    for bits, D in ((8, 128), (4, 128), (2, 128), (8, 96), (4, 96),
+                    (2, 64), (8, 66)):
+        w = torch.from_numpy(rng.randn(R, D).astype(np.float32)).to(DEVICE)
+        q = quantize_rowwise(w, bits)
+        ids = torch.from_numpy(rng.randint(-50, R + 50, size=(NB, L20)
+                                           ).astype(np.int32)).to(DEVICE)
+        lengths = torch.from_numpy(rng.randint(0, L20 + 1, size=NB)).to(
+            DEVICE)
+        mask = (torch.arange(L20, device=DEVICE)[None, :]
+                < lengths[:, None]).float()
+        psw = torch.from_numpy(rng.rand(NB, L20).astype(np.float32)).to(
+            DEVICE)
+        coeff = torch.where(
+            torch.arange(NB, device=DEVICE)[:, None] % 2 == 0,
+            mask / lengths.clamp(min=1)[:, None], mask * psw).contiguous()
+        args = (q.data, q.scale, q.shift, ids, coeff, bits)
+        out = ql.quant_lookup_pooled(*args)
+        ref = ql.quant_lookup_pooled_reference(*args)
+        torch.testing.assert_close(out, ref, rtol=1e-6, atol=1e-6)
+        flat, c = ids.reshape(-1), coeff.reshape(-1)
+        rows = ql.quant_lookup_rows(q.data, q.scale, q.shift, flat, bits, c)
+        rows_ref = ql.quant_lookup_rows_reference(q.data, q.scale, q.shift,
+                                                  flat, bits, c)
+        torch.cuda.synchronize()
+        if not torch.equal(rows, rows_ref):
+            raise AssertionError(f"Kq unpooled at {bits} bits, D={D}: not "
+                                 "bit-exact")
+        err = (out - ref).abs().max().item()
+        worst = max(worst, err)
+        log(f"Kq {bits} bits D={D} L={L20} (MEAN / weighted, ids in "
+            f"[-50, R+50)): within rtol=atol=1e-6, max abs err {err:.3e}, "
+            f"bit-exact {torch.equal(out, ref)}; unpooled bit-exact")
+    return worst
+
+
+def quant_servers(pm, reqs) -> dict:
+    """The batching servers at server batch Q_SERVER_BATCH over `pm`: the
+    Python BatchingPredictServer and the native NativePredictServer
+    (pipeline on) with Q_CLIENT_REQUESTS ragged requests from Q_CLIENTS
+    threads, Q_TCP_REQUESTS of them also over TCP; every result against
+    a direct predict (rtol 1e-5: another server batch can give the
+    GEMMs another cuBLAS algorithm) and the native server's against the
+    Python one's. Kq launches 26 per predict call, K1 never."""
+    from torchrec_tpu_torch.inference import (
+        BatchingPredictServer,
+        NativePredictServer,
+        PredictClient,
+        make_dlrm_collate,
+    )
+    from torchrec_tpu_torch.sparse import PaddedSparseBatch
+
+    B = Q_SERVER_BATCH
+    collate = make_dlrm_collate(QUANT_KEYS, DEVICE)
+    calls = {"n": 0}
+
+    def py_predict(*args):
+        calls["n"] += 1
+        return logits_of(pm.predict(*args))
+
+    lengths = torch.ones((NUM_TABLES, B), dtype=torch.int32, device=DEVICE)
+    labels = torch.zeros((B,), device=DEVICE)
+
+    def native_predict(dense, ids):
+        # numpy buffers of the server's: pageable, so each copy has read
+        # its source when .to() returns and the buffer may be refilled
+        calls["n"] += 1
+        sb = PaddedSparseBatch(ids=torch.from_numpy(ids).to(DEVICE),
+                               lengths=lengths, keys=QUANT_KEYS)
+        return pm.predict(torch.from_numpy(dense).to(DEVICE), sb, labels)
+
+    def drive(submit) -> list:
+        results = [None] * len(reqs)
+        errors = []
+
+        def client(k):
+            try:
+                for i in range(k, len(reqs), Q_CLIENTS):
+                    results[i] = submit(reqs[i]).result(Q_TIMEOUT_S)
+            except Exception as e:  # noqa: BLE001 - reported below
+                errors.append((k, repr(e)))
+
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(Q_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(Q_TIMEOUT_S)
+        if errors or any(t.is_alive() for t in threads):
+            raise AssertionError(f"clients failed: {errors}")
+        return results
+
+    def window(name, fn):
+        calls["n"] = 0
+        reset_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        sec = time.perf_counter() - t0
+        want = expected(Kq=NUM_TABLES * calls["n"])
+        if counts() != want:
+            raise AssertionError(f"{name}: launched {counts()} for "
+                                 f"{calls['n']} predict calls")
+        log(f"quant server {name}: {len(reqs)} requests in {sec:.3f} s, "
+            f"{calls['n']} predict calls, launches {counts()}")
+        return out, calls["n"]
+
+    py = BatchingPredictServer(py_predict, collate, B,
+                               n_examples=lambda r: r[0].shape[0],
+                               max_latency_s=0.005)
+    try:
+        py_out, py_calls = window("python", lambda: drive(py.submit))
+    finally:
+        py.stop()
+    nat = NativePredictServer(native_predict, B, DENSE_IN, NUM_TABLES, L,
+                              max_latency_s=0.005, device=DEVICE)
+    if nat._pipeline != (torch.device(DEVICE).type == "cuda"):
+        raise AssertionError("the native server's pipeline is not on "
+                             "exactly on a CUDA device")
+    try:
+        nat_out, nat_calls = window(
+            "native", lambda: drive(lambda r: nat.submit(*r)))
+        port = nat.serve_tcp(0)
+
+        def tcp():
+            cli = PredictClient(port, timeout_s=Q_TIMEOUT_S)
+            try:
+                return [cli.predict(*reqs[i]) for i in range(Q_TCP_REQUESTS)]
+            finally:
+                cli.close()
+
+        tcp_out, tcp_calls = window("tcp", tcp)
+    finally:
+        t0 = time.perf_counter()
+        nat.stop()
+        stop_s = time.perf_counter() - t0
+    if stop_s > Q_TIMEOUT_S or nat._exec.is_alive() or nat._drain.is_alive():
+        raise AssertionError(f"native server stop() took {stop_s:.3f} s")
+    # direct predicts, one request at a time through the same collate
+    worst = 0.0
+    for i, (dense, ids) in enumerate(reqs):
+        n = dense.shape[0]
+        want = logits_of(pm.predict(*collate([(dense, ids)], B)))[:n].cpu()
+        got = torch.as_tensor(py_out[i])
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+        nat_i = torch.from_numpy(nat_out[i]).reshape(-1)
+        torch.testing.assert_close(nat_i, got, rtol=1e-5, atol=1e-6)
+        if i < Q_TCP_REQUESTS:
+            torch.testing.assert_close(
+                torch.from_numpy(np.array(tcp_out[i])).reshape(-1), got,
+                rtol=1e-5,
+                atol=1e-6)
+        worst = max(worst, (got - want).abs().max().item(),
+                    (nat_i - got).abs().max().item())
+    log(f"quant servers: every result within rtol 1e-5 of a direct predict "
+        f"(largest difference {worst:.3e}); native stop() {stop_s:.4f} s")
+    return {"launches": NUM_TABLES * (py_calls + nat_calls + tcp_calls),
+            "worst": worst, "stop_s": stop_s}
+
+
+def quant_serving(ql, tl) -> dict:
+    """The quantized serving phase: bench.py's DLRM trained, quantized to
+    int8 and int4, packaged, loaded and served (see the module
+    docstring). Returns Kq's numbers and its launches on the phase's
+    paths, and the K1 / K3 launches of its training and f32 serving."""
+    import shutil
+    import tempfile
+
+    from torchrec_tpu_torch.inference import (
+        PredictModule,
+        quantize_embeddings,
+        shard_quantized,
+    )
+    from torchrec_tpu_torch.modules.embedding_configs import DataType
+    from torchrec_tpu_torch.utils.native import build_native_lib
+
+    t0 = time.perf_counter()
+    build_native_lib("serving_queue.cpp", force=True)
+    log(f"built csrc/serving_queue.cpp with g++ in "
+        f"{time.perf_counter() - t0:.2f} s")
+    requests = quant_requests(np.random.RandomState(SEED + 22))
+    dmp = quant_train()
+    trained_launches = counts()
+
+    # the f32 server: the trained DMP alone on the card
+    gc_cuda()
+    f32 = quant_serve(dmp.make_eval_fn(), requests, "f32 server",
+                      {"K1": 1})
+    bounds = quant_bounds(dmp, requests)
+
+    tmp = tempfile.mkdtemp(prefix="quant_pkg_")
+    results, saved = {}, {}
+    try:
+        b256 = next(r for r in requests if r[0] == SERVE_BATCH)
+        W = dmp.sharded_ebcs[TRAIN_KEY].strategies[0].weights[0]
+        offs = np.repeat(np.arange(NUM_TABLES, dtype=np.int32) * ROWS,
+                         BENCH_BATCH)
+        path_ids = torch.from_numpy(
+            (requests[0][2][:, :, 0].reshape(-1) + offs)[:, None]).to(DEVICE)
+        for name, bits in QUANT_TYPES.items():
+            pm = quantize_embeddings(dmp, DataType[name], DEVICE)
+            pm.save(os.path.join(tmp, name))
+            saved[name] = logits_of(pm.predict(*quant_args(*b256[1:]))).cpu()
+            # the pooled values against the f32 ones, element by element
+            qebc = pm._quant_ebcs[TRAIN_KEY]
+            for r, bnd in zip((r for r in requests
+                               if r[0] == SERVE_BATCH), bounds[name]):
+                qv = qebc(quant_args(*r[1:])[1]).values
+                over = ((qv - bnd["pooled"]).abs() - bnd["eps"]).max().item()
+                if over > 0:
+                    raise AssertionError(f"{name} pooled values beyond their "
+                                         f"bound by {over:.3e}")
+            sq = shard_quantized(pm)._sharded[TRAIN_KEY]
+            results[name] = check_quant_kernel(ql, tl, sq, W, path_ids, name)
+            del pm, sq, qebc
+        results["cases_max_abs_err"] = check_quant_kernel_cases(ql)
+        f32_bytes = 4 * NUM_TABLES * ROWS * DIM
+        del dmp, W
+        gc_cuda()
+
+        served = {}
+        for name, bits in QUANT_TYPES.items():
+            scaffold = make_dmp("meta", train=True)
+            path = os.path.join(tmp, name)
+            pm = PredictModule.load(path, scaffold, DEVICE)
+            got = logits_of(pm.predict(*quant_args(*b256[1:]))).cpu()
+            if not torch.equal(got, saved[name]):
+                raise AssertionError(f"{name}: the loaded package predicts "
+                                     "otherwise than the saved module")
+            gc_cuda()
+            un = quant_serve(pm.predict, requests, f"{name} PredictModule",
+                             {"Kq": NUM_TABLES})
+            cpu = PredictModule.load(path, scaffold, "cpu")
+            ref = logits_of(cpu.predict(*quant_args(*b256[1:], "cpu")))
+            torch.testing.assert_close(un["logits"][REQUESTS_PER_BATCH], ref,
+                                       rtol=1e-4, atol=1e-5)
+            log(f"{name}: B={SERVE_BATCH} logits match the CPU run of the "
+                f"package, max abs diff "
+                f"{(un['logits'][REQUESTS_PER_BATCH] - ref).abs().max():.3e}")
+            del cpu
+            # distance from the f32 model, per example against its bound
+            dist = []
+            for i, bnd in zip(range(REQUESTS_PER_BATCH, len(requests)),
+                              bounds[name]):
+                d = (un["logits"][i] - f32["logits"][i]).abs()
+                over = (d - Q_SLACK * bnd["logit"] - 1e-6).max().item()
+                if over > 0:
+                    raise AssertionError(f"{name}: logits beyond "
+                                         f"{Q_SLACK} x their bound by {over}")
+                dist.append((d.max().item(), bnd["logit"].max().item(),
+                             (d / bnd["logit"]).max().item()))
+            big = [(un["logits"][i] - f32["logits"][i]).abs().max().item()
+                   for i in range(REQUESTS_PER_BATCH)]
+            log(f"{name}: |logit - f32 logit| at B={SERVE_BATCH} (max, its "
+                f"first-order bound's max, largest ratio) {dist}; at "
+                f"B={BENCH_BATCH} max {big}")
+            servers = (quant_servers(pm, quant_server_requests())
+                       if name == "INT8" else None)
+            spm = shard_quantized(pm)
+            del pm
+            gc_cuda()
+            sh = quant_serve(spm.predict, requests,
+                             f"{name} ShardedPredictModule",
+                             {"Kq": 1})
+            for a, b in zip(sh["logits"], un["logits"]):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{name}: sharded and unsharded "
+                                         "modules differ")
+            log(f"{name}: sharded logits equal the unsharded ones bit for "
+                f"bit")
+            del spm
+            table_bytes = NUM_TABLES * ROWS * (DIM * bits // 8 + 8)
+            saving = f32_bytes - table_bytes
+            for form, r in (("unsharded", un), ("sharded", sh)):
+                below = f32["peak_bytes"] - r["peak_bytes"]
+                log(f"{name}: {form} serving peak {r['peak_bytes']} B "
+                    f"against the f32 server's {f32['peak_bytes']} B: "
+                    f"{below} B below it, {100 * below / saving:.1f}% of "
+                    f"the tables' saving {saving} B")
+                if below < 0.9 * saving:
+                    raise AssertionError(f"{name}: the {form} quantized "
+                                         f"server saves {below} B of the "
+                                         f"tables' {saving}")
+            served[name] = {"unsharded": un, "sharded": sh,
+                            "servers": servers, "distance": dist}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {"Kq": sum(s[k]["launches"]["Kq"] for s in served.values()
+                          for k in ("unsharded", "sharded"))
+                + served["INT8"]["servers"]["launches"],
+                "K1": trained_launches["K1"] + f32["launches"]["K1"],
+                "K3": trained_launches["K3"]}
+    log(f"quant: launches on its paths {launches} (Kq: "
+        f"{2 * len(requests)} PredictModule requests x {NUM_TABLES}, "
+        f"{2 * len(requests)} sharded requests x 1 and the servers' "
+        f"{served['INT8']['servers']['launches']}; K1 / K3 the "
+        f"{Q_TRAIN_STEPS} steps and {len(requests)} f32 requests)")
+    k = dict(results["INT8"])
+    k["int4"] = results["INT4"]
+    k["max_abs_err"] = max(results["INT8"]["max_abs_err"],
+                           results["INT4"]["max_abs_err"],
+                           results["cases_max_abs_err"])
+    return {"launches": launches, "Kq": k,
+            "peaks": {"f32": f32["peak_bytes"],
+                      **{n: s["unsharded"]["peak_bytes"]
+                         for n, s in served.items()}}}
+
+
+def quant_server_requests() -> list:
+    """The servers' ragged requests: 1..Q_MAX_EXAMPLES examples each."""
+    rng = np.random.RandomState(SEED + 23)
+    out = []
+    for _ in range(Q_CLIENT_REQUESTS):
+        n = int(rng.randint(1, Q_MAX_EXAMPLES + 1))
+        out.append((rng.randn(n, DENSE_IN).astype(np.float32),
+                    rng.randint(0, ROWS, size=(NUM_TABLES, n, L)).astype(
+                        np.int32)))
+    return out
+
+
+def gc_cuda() -> None:
+    """Free what Python no longer holds, so that the next peak counts only
+    what is alive."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -2890,11 +3505,12 @@ def main() -> int:
         return 1
     from torchrec_tpu_torch.ops import fused_update_kernels as fk
     from torchrec_tpu_torch.ops import gather_rows as gr
+    from torchrec_tpu_torch.ops import quant_lookup as ql
     from torchrec_tpu_torch.ops import tbe_lookup as tl
     from torchrec_tpu_torch.ops.fused_update import EmbOptimType
 
     card = identify()
-    build_kernels([tl.LIBRARY, fk.LIBRARY, gr.LIBRARY])
+    build_kernels([tl.LIBRARY, fk.LIBRARY, gr.LIBRARY, ql.LIBRARY])
     t0 = time.perf_counter()
     dmp = make_dmp(DEVICE).init(SEED)
     torch.cuda.synchronize()
@@ -2972,6 +3588,11 @@ def main() -> int:
     # the fused K4 updating, the warmup schedule and the clipped dense Adam
     dfm = deepfm()
 
+    # bench.py's DLRM trained, quantized to int8 and int4, packaged, loaded
+    # and served: Kq per request, directly and through both batching servers
+    quant = quant_serving(ql, tl)
+    results["Kq"] = quant["Kq"]
+
     launches = {k: trained[name]["launches"][k]
                 for name, ks in STEP_KERNELS.items() for k in ks}
     launches["K4"] += b4r_trained["launches"]["K4"]
@@ -2979,9 +3600,11 @@ def main() -> int:
                 for k in ("K1", "K3", "K4", "K8")}
     launches.update(
         K1=(served_launches + pw_served["launches"] + pw_steps["K1"]
-            + dfm["launches"]["K1"]),
+            + dfm["launches"]["K1"] + quant["launches"]["K1"]),
         K2=sum(r["K2"] for r in routes),
-        K3=launches["K3"] + pw_steps["K3"] + dfm["launches"]["K3"],
+        K3=(launches["K3"] + pw_steps["K3"] + dfm["launches"]["K3"]
+            + quant["launches"]["K3"]),
+        Kq=quant["launches"]["Kq"],
         K4=launches["K4"] + pw_steps["K4"] + dfm["launches"]["K4"],
         K5=sum(r["K5"] for r in routes), K8=unsharded_k8 + pw_steps["K8"],
         K8r=b4r_served["launches"] + b4r_trained["launches"]["K8r"],
@@ -3005,7 +3628,9 @@ def main() -> int:
         f"routed gather's route-only mode {b4r_trained['launches'][ROUTE]} "
         f"in BERT4Rec's updates, K1h the bf16 DLRM's serving and training, "
         f"K3h its EXACT_SGD and K4h its ROWWISE_ADAGRAD training; K1, K3 and "
-        f"K4 also the DeepFM's serving and training ({dfm['launches']}): "
+        f"K4 also the DeepFM's serving and training ({dfm['launches']}), K1 "
+        f"and K3 the quantized phase's training and f32 server, Kq its "
+        f"quantized requests and servers ({quant['launches']}): "
         f"{launches}")
     log(card["smi"])
     log(json.dumps({"kernels": [{

@@ -102,11 +102,36 @@ def _bert4rec_dmp(sharding_type=ShardingType.ROW_WISE,
 @pytest.mark.parametrize("entry", [
     "env", "dmp", "mlp", "ebc", "train_step", "ec", "bert4rec",
     "bert4rec_dmp", "bert4rec_train_step", "position_weighted",
-    "swish_layer_norm", "deepfm", "crossnet"])
-def test_entry_points_refuse_cpu_without_asking(entry, monkeypatch):
+    "swish_layer_norm", "deepfm", "crossnet", "quant_ebc",
+    "sharded_quant_ebc", "quantize_embeddings", "predict_module_load"])
+def test_entry_points_refuse_cpu_without_asking(entry, monkeypatch,
+                                                tmp_path):
+    from torchrec_tpu_torch.inference import (
+        PredictModule,
+        quantize_embeddings,
+    )
+    from torchrec_tpu_torch.parallel.quant_sharded import (
+        ShardedQuantEmbeddingBagCollection,
+    )
+    from torchrec_tpu_torch.quant import QuantEmbeddingBagCollection
+
+    cpu_dmp = (DistributedModelParallel(_model("meta"), plan=_plan(),
+                                        device="cpu").init(0)
+               if entry in ("quantize_embeddings", "predict_module_load")
+               else None)
+    weights = {t.name: torch.ones(10, 4) for t in _tables()}
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        if entry == "env":
+        if entry == "quant_ebc":
+            QuantEmbeddingBagCollection.from_float(_tables(), weights)
+        elif entry == "sharded_quant_ebc":
+            ShardedQuantEmbeddingBagCollection.from_float(
+                ShardingEnv(), _tables(), weights)
+        elif entry == "quantize_embeddings":
+            quantize_embeddings(cpu_dmp)
+        elif entry == "predict_module_load":
+            PredictModule.load(str(tmp_path), cpu_dmp)
+        elif entry == "env":
             ShardingEnv()
         elif entry == "dmp":
             DistributedModelParallel(_model("meta"), plan=_plan())
@@ -254,3 +279,79 @@ def test_routed_gather_raises_on_a_cuda_tensor_without_a_card(wrapper):
                 gr.routed_gather_rows(
                     torch.zeros(4, 8, device="cuda"), *args)
     assert (gr.LAUNCHES, gr.ROUTED_LAUNCHES, gr.ROUTE_LAUNCHES) == launches
+
+
+@pytest.mark.parametrize("wrapper", ["quant_lookup_pooled",
+                                     "quant_lookup_rows"])
+def test_kq_raises_when_its_library_does_not_build(wrapper, monkeypatch):
+    """A CUDA tensor launches Kq or raises: with the build failing, the
+    wrapper raises the build's error and does not take the plain version.
+    The tensors are fake CUDA tensors (metadata only)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from torchrec_tpu_torch.ops import quant_lookup as ql
+
+    def fail(force=False):
+        raise RuntimeError("nvcc failed (1): stand-in for a failed build")
+
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(ql.LIBRARY, "build", fail)
+    monkeypatch.setattr(ql.LIBRARY, "_lib", None)
+    monkeypatch.setattr(ql, "quant_lookup_pooled_reference", plain)
+    monkeypatch.setattr(ql, "quant_lookup_rows_reference", plain)
+    launches = (ql.LAUNCHES, ql.ROWS_LAUNCHES)
+    with FakeTensorMode():
+        data = torch.zeros(8, 4, dtype=torch.uint8, device="cuda")
+        scale = torch.ones(8, device="cuda")
+        shift = torch.zeros(8, device="cuda")
+        ids = torch.zeros(3, 2, dtype=torch.int32, device="cuda")
+        coeff = torch.ones(3, 2, device="cuda")
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            if wrapper == "quant_lookup_pooled":
+                ql.quant_lookup_pooled(data, scale, shift, ids, coeff, 8)
+            else:
+                ql.quant_lookup_rows(data, scale, shift, ids.reshape(-1), 8)
+    assert (ql.LAUNCHES, ql.ROWS_LAUNCHES) == launches
+
+
+def _code_strings(path):
+    """The string constants of a module that are not docstrings."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)):
+            body = node.body
+            if (body and isinstance(body[0], ast.Expr)
+                    and isinstance(body[0].value, ast.Constant)):
+                docs.add(id(body[0].value))
+    return [n.value for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str)
+            and id(n) not in docs]
+
+
+@pytest.mark.parametrize(
+    "path", sorted((ROOT / "torchrec_tpu_torch").rglob("*.py")),
+    ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_names_no_path_inside_the_jax_package(path):
+    """No string the port's code uses names a file or directory of the JAX
+    package: its sources build from torchrec_tpu_torch/csrc/."""
+    import re
+
+    bad = [s for s in _code_strings(path)
+           if re.search(r"(^|[/\\.])torchrec_tpu(?!_torch)($|[/\\.])", s)]
+    assert not bad, f"{path.name} names {bad}"
+
+
+def test_native_and_cuda_sources_build_from_the_port():
+    from torchrec_tpu_torch.ops import cuda_build
+    from torchrec_tpu_torch.utils import native
+
+    port = ROOT / "torchrec_tpu_torch"
+    for csrc in (native.CSRC, cuda_build.CSRC):
+        assert csrc.resolve() == (port / "csrc").resolve()
+    assert (native.CSRC / "serving_queue.cpp").exists()
+    assert native.native_lib_path("serving_queue.cpp").parent == (
+        port / "csrc" / "_build").resolve()

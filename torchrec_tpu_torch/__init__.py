@@ -6,9 +6,12 @@ sharded DLRM (float and half tables, every fused optimizer, a
 position-weighted variant), BERT4Rec (its item table in a sharded
 EmbeddingCollection) and SimpleDeepFMNN on one GPU, with the optimizer
 stack of `optim/` (FQN-keyed state, warmup schedules, gradient
-clipping). Its TPU kernels are
+clipping), and serves the DLRM quantized to int-N tables (`quant/`,
+`inference/`). Its TPU kernels are
 hand-written CUDA kernels: the pooled embedding lookup K1
 (csrc/tbe_lookup.cu, bound in ops/tbe_lookup.py), the fused embedding
 updates K2-K7 (csrc/fused_update.cu, bound in ops/fused_update_kernels.py)
-and the row gather K8 (csrc/gather_rows.cu, bound in ops/gather_rows.py).
+and the row gather K8 (csrc/gather_rows.cu, bound in ops/gather_rows.py);
+the quantized lookup Kq (csrc/quant_lookup.cu, bound in
+ops/quant_lookup.py) stands for the JAX package's XLA code.
 """

@@ -24,6 +24,16 @@ class DataType(enum.Enum):
     INT2 = "INT2"
 
 
+DATA_TYPE_NUM_BITS = {
+    DataType.FP32: 32,
+    DataType.FP16: 16,
+    DataType.BF16: 16,
+    DataType.INT8: 8,
+    DataType.INT4: 4,
+    DataType.INT2: 2,
+}
+
+
 class PoolingType(enum.Enum):
     SUM = "SUM"
     MEAN = "MEAN"
@@ -39,8 +49,8 @@ def pooling_type_to_mode(p: PoolingType) -> PoolingMode:
 
 
 def data_type_to_torch_dtype(dt: DataType) -> torch.dtype:
-    """Table storage dtype. The INT types belong to quantized serving,
-    which is not ported yet."""
+    """Table storage dtype for training. The INT types are quantized
+    serving's (quant/embedding_modules.py), not a table dtype."""
     m = {
         DataType.FP32: torch.float32,
         DataType.FP16: torch.float16,

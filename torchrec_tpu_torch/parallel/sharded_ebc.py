@@ -97,6 +97,14 @@ class ShardedEmbeddingModule(GroupedInputDistMixin, nn.Module):
             out.update(s.unshard_to_dense(st.weights))
         return out
 
+    def unshard_tables(self) -> Dict[str, torch.Tensor]:
+        """Per-table [R, D] tensors of the module's own weights, on its
+        device (views of the shards where the layout allows)."""
+        out: Dict[str, torch.Tensor] = {}
+        for s in self.strategies:
+            out.update(s.unshard_tensors(s.weights))
+        return out
+
     def unshard_opt_to_tables(self) -> Dict[str, Dict[str, np.ndarray]]:
         """Every table's fused optimizer state: {table: {"m1__full" |
         "m1__row", "m2__...", "step"}}, the JAX strategies' canonical

@@ -189,6 +189,12 @@ class BaseEmbeddingShardingStrategy(nn.Module):
         which holds them exactly: numpy has no bf16)."""
         raise NotImplementedError
 
+    def unshard_tensors(self, weights: torch.Tensor
+                        ) -> Dict[str, torch.Tensor]:
+        """Per-table [R, D] tensors of `weights`, on its device, in its
+        dtype (views where the layout allows)."""
+        raise NotImplementedError
+
     def unshard_rowwise(self, m: torch.Tensor) -> Dict[str, np.ndarray]:
         """Per-table [R] numpy view of a rowwise momentum array shaped
         weights_shape()[:-1]."""
@@ -312,16 +318,20 @@ class RwEmbeddingSharding(BaseEmbeddingShardingStrategy):
         blocks[: t.rows] = table
         out[:, off:off + sr] = blocks.reshape(self.n, sr, t.dim)
 
+    def unshard_tensors(self, weights):
+        out = {}
+        for sr, off, t in zip(self.shard_rows, self.local_offsets,
+                              self.meta.tables):
+            tbl = weights[:, int(off):int(off + sr), :].reshape(-1, t.dim)
+            out[t.name] = tbl[: t.rows]
+        return out
+
     def unshard_to_dense(self, weights):
         w = weights.detach().cpu()
         if w.dtype == torch.bfloat16:
             w = w.float()
-        out = {}
-        for sr, off, t in zip(self.shard_rows, self.local_offsets,
-                              self.meta.tables):
-            tbl = w[:, int(off):int(off + sr), :].reshape(-1, t.dim)
-            out[t.name] = tbl[: t.rows].numpy().copy()
-        return out
+        return {name: t.numpy().copy()
+                for name, t in self.unshard_tensors(w).items()}
 
     def unshard_rowwise(self, m):
         m = m.detach().cpu()

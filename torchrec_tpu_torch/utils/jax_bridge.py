@@ -48,6 +48,13 @@ The JAX side hands over numpy arrays only, so this module imports no JAX:
   raises. Moments take the parameters' port layouts, as the params do.
   `keyed_to_optax_state` reads the port's state back into an optax
   state shaped like a template.
+* a quantized predict package that the JAX `PredictModule.save` wrote
+  (`arrays.npz` + `manifest.json`): `load_jax_predict_package` takes its
+  three arrays per table as they are and its dense params through
+  `flax_dense_to_state_dict`. Its module keys are the JAX DMP's flax
+  paths (`dlrm/embedding_bag_collection`); each maps to the port's
+  sharded module that holds the same tables
+  (`dlrm/sparse_arch/embedding_bag_collection`).
 
 Usage, with `state` the JAX DMP state:
 
@@ -71,9 +78,16 @@ import numpy as np
 import torch
 from torch import nn
 
+from torchrec_tpu_torch.inference.modules import (
+    PredictModule,
+    quant_modules,
+    read_package,
+)
+
 from torchrec_tpu_torch.optim.warmup import WARMUP_KEY
 from torchrec_tpu_torch.parallel.dmp import DistributedModelParallel
 from torchrec_tpu_torch.parallel.strategies import as_tensor
+from torchrec_tpu_torch.utils.device import DeviceLike, resolve_device
 
 # flax leaf name -> the port parameter's name
 _LEAF_NAMES = {"kernel": "weight", "scale": "weight"}
@@ -269,3 +283,33 @@ def keyed_to_optax_state(flat: Mapping[str, Any], module: nn.Module,
         raise ValueError(f"optax state {kind} has no port counterpart")
 
     return build(template)
+
+
+def load_jax_predict_package(path: str, scaffold: DistributedModelParallel,
+                             device: DeviceLike = None) -> PredictModule:
+    """A PredictModule on `device` (default: the current CUDA card) from a
+    package that the JAX package's `PredictModule.save` wrote. `scaffold`
+    is the port's DMP of the same model, for its module tree and table
+    configs; build it on `device="meta"`. Raises unless every table and
+    dense parameter is matched."""
+    dev = resolve_device(device)
+    jax_quant, flat = read_package(path)
+    owner = {t.name: key for key, sebc in scaffold.sharded_ebcs.items()
+             for t in sebc.tables}
+    quant: Dict[str, Dict[str, tuple]] = {}
+    for jax_key, tabs in jax_quant.items():
+        keys = {owner.get(name) for name in tabs}
+        if len(keys) != 1 or None in keys:
+            raise ValueError(f"JAX module {jax_key!r}: tables {sorted(tabs)} "
+                             "are not the tables of one port module")
+        quant[keys.pop()] = tabs
+    tree: Dict[str, Any] = {}
+    for k, v in flat.items():
+        node = tree
+        parts = k.split("/")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = v
+    dense = flax_dense_to_state_dict(tree, scaffold.module)
+    return PredictModule.from_dmp(
+        scaffold, quant_modules(scaffold, quant, dev), dev, dense)
