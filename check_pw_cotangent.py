@@ -18,8 +18,9 @@ ways:
    zero on one side only in each step (hooks on the dense arches'
    Perceptrons);
 2. `chip_smoke.check_pw_against_cpu` itself, whose CPU side takes the
-   card's cotangent: passed or the error it raised, and the cotangents'
-   distance in norm.
+   card's cotangent and, at ReLU pre-activations within 1e-5 of zero, the
+   card's branch: passed or the error it raised, the cotangents' distance
+   in norm, and how many units took the card's branch.
 
 Each repetition is a line of chiprun_out/check_pw_cotangent.jsonl; the
 summary is the last line of standard output.
@@ -129,6 +130,10 @@ def main() -> int:
                 text.getvalue()) for x in pair]
             m = re.search(r"gradients within ([0-9.e+-]+) of", text.getvalue())
             rec["pw_grad_rel"] = float(m.group(1)) if m else None
+            m = re.search(r"ReLU branch at (\d+) of the (\d+)",
+                          text.getvalue())
+            rec["card_branches"] = ([int(m.group(1)), int(m.group(2))]
+                                    if m else None)
             reps.append(rec)
             f.write(json.dumps(rec) + "\n")
             f.flush()
@@ -146,6 +151,10 @@ def main() -> int:
         "check_pw_grad_rel_max": max(r["pw_grad_rel"] or 0.0 for r in reps),
         "check_cotangent_rel_max": max(max(r["cotangent_rel"], default=0.0)
                                        for r in reps),
+        "check_card_branches_taken": sum((r["card_branches"] or [0])[0]
+                                         for r in reps),
+        "check_reps_with_a_branch_taken": sum(
+            bool((r["card_branches"] or [0])[0]) for r in reps),
     }
     print(json.dumps(summary))
     return 0

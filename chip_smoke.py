@@ -84,7 +84,10 @@ Phases, each failing the run with a non-zero exit when it fails:
    update) takes the card's pooled cotangent, held within 0.1 of the
    CPU's own in norm: where the two sides' ReLUs disagree on a
    pre-activation within rounding of zero, one sample's cotangent
-   differs by a finite amount (check_pw_cotangent.py repeats this).
+   differs by a finite amount (check_pw_cotangent.py repeats this). For
+   the same reason each CPU ReLU whose pre-activation lies within 1e-5
+   (the logits' atol) of zero takes the card's branch in those steps; the
+   units whose branch that changed are counted and printed.
 9. Serve examples/bert4rec_main.py's BERT4Rec (--synthetic_ml1m defaults:
    vocab 3,708 = 3,706 items + pad 0 + MASK, L=64, D=64, 2 heads, 2
    blocks, dropout 0) through make_eval_fn, its item table ROW_WISE in a
@@ -212,6 +215,31 @@ Phases, each failing the run with a non-zero exit when it fails:
    returning. Peak device memory of each quantized server, unsharded and
    sharded, must lie at least 90 % of its tables' saving below the f32
    server's.
+16. The flat sharding strategies inside an NCCL process group of one rank
+   (its store a file in a temporary directory; the env from
+   ShardingEnv.from_process_group on the card), so every collective is a
+   real NCCL call (parallel/comm.py). bench.py's DLRM under a mixed plan,
+   tables 0-6 DATA_PARALLEL, 7-12 TABLE_WISE (rank 0), 13-19 COLUMN_WISE
+   and 20-25 ROW_WISE (four groups), from the same seed as the group-less
+   all-ROW_WISE DMP, which runs first (one DMP on the card at a time): 3
+   requests at B=8192 and 3 at B=256, each launching K1 exactly 4 times
+   (once) and making 3 all_gathers, 1 reduce_scatter and 2 all_to_alls
+   (none), logits equal bit for bit; 3 steps at B=8192 under EXACT_SGD and
+   ROWWISE_ADAGRAD (fused lr 0.1, dense SGD 0.05), each launching K1 and
+   K3 / the fused K4 exactly 4 times (once) and making 9 all_gathers, 1
+   reduce_scatter, 4 all_to_alls and 1 all_reduce of the dense gradients;
+   tables, optimizer state and dense parameters within rtol 1e-4 / atol
+   1e-5 of the ROW_WISE run's, untouched rows equal. Each group's calls
+   per forward and update are counted alone, and the COLUMN_WISE group
+   runs once without and once with the group: the same [1, R, 128]
+   layout and pooled values, bit for bit. Then BERT4Rec's item table
+   DATA_PARALLEL and TABLE_WISE inside the group against the group-less
+   ROW_WISE DMP: 3 requests at B=32 and 3 at B=1024, one routed gather
+   each (shard sizes that hold whole tables), logits equal as values; 3
+   steps at B=32 under ROWWISE_ADAGRAD, one routed gather and one fused K4
+   each, the table and momentum within rtol 1e-4 / atol 1e-5, the dense
+   parameters as phase 11 holds them. Request and step times are printed
+   beside the ROW_WISE runs'.
 
 Kernel times are device times from torch.profiler (the kernel's own for a
 kernel, all device activity of the call for the plain version and the
@@ -291,6 +319,9 @@ PW_WARMUP_STEPS, PW_TIMED_STEPS, PW_PROFILED_STEPS = 1, 3, 2
 # zero (check_pw_cotangent.py on an H100: at most 7.9e-3 over 106
 # repetitions); a fault in the dense backward moves it by O(1)
 COTANGENT_REL = 0.1
+# the forward's tolerance: a ReLU pre-activation within it of zero takes
+# the card's branch on the CPU in check_pw_against_cpu
+FWD_ATOL = 1e-5
 
 # kernel -> (wrapper name, source, the Pallas function it replaces)
 KERNELS = {
@@ -417,12 +448,15 @@ def reset_counts() -> None:
 
 def make_dmp(device: str, train: bool = False, optim=None,
              fused_params=None, position_weighted: bool = False,
-             data_type=None):
+             data_type=None, env=None, plan_types=None):
     """bench.py's DLRM (DLRMTrain when `train`) on `device`; `optim`
     defaults to the DMP's (ROWWISE_ADAGRAD). `position_weighted` wraps
     its EBC (weighted, L=PW_LEN) in a FeatureProcessedEmbeddingBagCollection
     with a PositionWeightedModule of PW_LEN positions per feature.
-    `data_type` is the tables' DataType (default FP32)."""
+    `data_type` is the tables' DataType (default FP32). `env` (default:
+    one device, no process group) and `plan_types`, the ShardingType name
+    of each table (default every table ROW_WISE; a TABLE_WISE one on rank
+    0)."""
     from torchrec_tpu_torch.models import DLRM, DLRMTrain
     from torchrec_tpu_torch.modules import (
         EmbeddingBagCollection,
@@ -458,10 +492,13 @@ def make_dmp(device: str, train: bool = False, optim=None,
     model = DLRM(sparse, DENSE_IN, DENSE_ARCH, OVER_ARCH, device="meta")
     if train:
         model = DLRMTrain(model)
+    types = plan_types or ("ROW_WISE",) * NUM_TABLES
     plan = ShardingPlan({TRAIN_KEY if train else MODULE_KEY: {
-        t.name: ParameterSharding(ShardingType.ROW_WISE) for t in tables}})
+        t.name: ParameterSharding(
+            ShardingType[st], ranks=[0] if st == "TABLE_WISE" else None)
+        for t, st in zip(tables, types)}})
     return DistributedModelParallel(
-        model, plan=plan, device=device,
+        model, env=env, plan=plan, device=device,
         fused_optim=optim or EmbOptimType.ROWWISE_ADAGRAD,
         fused_params={"learning_rate": FUSED_LR, **(fused_params or {})},
         dense_optimizer=lambda p: torch.optim.SGD(p, lr=DENSE_LR))
@@ -1117,10 +1154,11 @@ def check_moment_kernels(dmp, fk) -> dict:
 # -- BERT4Rec ----------------------------------------------------------------
 
 
-def make_b4r_dmp(device: str):
-    """The example's BERT4Rec through the DMP: the item table ROW_WISE in a
-    sharded EmbeddingCollection, ROWWISE_ADAGRAD at lr 0.01, dense Adam
-    at 1e-3, dropout 0.0."""
+def make_b4r_dmp(device: str, env=None, sharding: str = "ROW_WISE"):
+    """The example's BERT4Rec through the DMP: the item table in a sharded
+    EmbeddingCollection (ROW_WISE, or `sharding`, TABLE_WISE on rank 0),
+    ROWWISE_ADAGRAD at lr 0.01, dense Adam at 1e-3, dropout 0.0, on `env`
+    (default: one device, no process group)."""
     from torchrec_tpu_torch.models import (
         BERT4Rec,
         BERT4RecTrain,
@@ -1139,8 +1177,10 @@ def make_b4r_dmp(device: str):
                                           device="meta"),
         device="meta"))
     return DistributedModelParallel(
-        model, plan=ShardingPlan({B4R_KEY: {
-            "item_embedding": ParameterSharding(ShardingType.ROW_WISE)}}),
+        model, env=env, plan=ShardingPlan({B4R_KEY: {
+            "item_embedding": ParameterSharding(
+                ShardingType[sharding],
+                ranks=[0] if sharding == "TABLE_WISE" else None)}}),
         fused_params={"learning_rate": B4R_EMB_LR},
         dense_optimizer=lambda p: torch.optim.Adam(p, lr=B4R_DENSE_LR),
         device=device)
@@ -1261,6 +1301,34 @@ def b4r_serve(seqs) -> dict:
             "forward_ms": fwd, "peak_bytes": peak}
 
 
+def _b4r_dense(dmp) -> dict:
+    """{name: (value, gradient)} of the dense parameters, on the CPU."""
+    return {name: (p.detach().cpu(), p.grad.detach().cpu())
+            for name, p in dmp.module.named_parameters()}
+
+
+def hold_b4r_dense(got: dict, ref: dict, steps: int, what: str) -> None:
+    """Two BERT4Rec runs' dense parameters after `steps` equal Adam steps
+    (`_b4r_dense` of each) within rtol 1e-4 / atol 1e-5, but a parameter
+    whose gradient is zero up to rounding on both sides (the attention key
+    bias: softmax ignores a constant added to a query's logits), which
+    Adam moves by steps of order lr whichever way the noise points, each
+    run within Adam's reach: about (1 - b1) / sqrt(1 - b2) * lr = 3.2 * lr
+    per step."""
+    adam_reach = 3.2 * B4R_DENSE_LR * steps
+    for name, (a, ga) in got.items():
+        b, gb = ref[name]
+        if max(ga.abs().max().item(), gb.abs().max().item()) < 1e-6:
+            diff = (a - b).abs().max().item()
+            if diff > 2 * adam_reach:
+                raise AssertionError(f"{name}: {what} differ by {diff}")
+            log(f"bert4rec train: {name} has a zero gradient up to "
+                f"rounding; {what} differ by {diff:.3e}, within Adam's "
+                f"reach {2 * adam_reach:.3e}")
+            continue
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
 def _b4r_state(dmp) -> dict:
     strat = dmp.sharded_ebcs[B4R_KEY].strategies[0]
     return {"table": strat.weights[0].detach().cpu(),
@@ -1331,26 +1399,8 @@ def b4r_train(seqs) -> dict:
                                    atol=1e-5)
         log(f"bert4rec train B={B4R_BATCH} card-against-CPU step {i}: card "
             f"loss {loss_g.item():.9g}, CPU loss {loss_c.item():.9g}")
-    pc = dict(cpu.module.named_parameters())
-    # Adam moves an element by at most about (1 - b1) / sqrt(1 - b2) * lr
-    # = 3.2 * lr per step
-    adam_reach = 3.2 * B4R_DENSE_LR * CPU_STEPS
-    for name, p in dmp.module.named_parameters():
-        a, b = p.detach().cpu(), pc[name].detach()
-        if max(p.grad.abs().max().item(), pc[name].grad.abs().max().item()
-               ) < 1e-6:
-            # a gradient that is zero up to rounding (the attention key
-            # bias: softmax ignores a constant added to a query's logits);
-            # Adam scales the rounding noise up to steps of order lr, so
-            # the card and the CPU move it differently, each within reach
-            diff = (a - b).abs().max().item()
-            if diff > 2 * adam_reach:
-                raise AssertionError(f"{name}: card and CPU differ by {diff}")
-            log(f"bert4rec train: {name} has a zero gradient up to "
-                f"rounding; card and CPU differ by {diff:.3e}, within "
-                f"Adam's reach {2 * adam_reach:.3e}")
-            continue
-        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    hold_b4r_dense(_b4r_dense(dmp), _b4r_dense(cpu), CPU_STEPS,
+                   "card and CPU")
     sg, sc = _b4r_state(dmp), _b4r_state(cpu)
     for what in ("table", "momentum1"):
         a, b = sg[what], sc[what]
@@ -1765,6 +1815,52 @@ def card_cotangent(tl, sebc, seen: dict, replace: bool = False):
         del sebc.update
 
 
+@contextlib.contextmanager
+def card_relu_branches(gpu, cpu, seen: dict):
+    """While open, each ReLU Perceptron of the card DMP `gpu` keeps, per
+    call, which of its pre-activations were positive, and the same
+    Perceptron of the CPU DMP `cpu` takes the card's branch wherever its
+    own pre-activation lies within FWD_ATOL of zero (elsewhere its own),
+    in value and gradient. The card's step must come first. The card and
+    the CPU sum the GEMM in different orders, so a pre-activation within
+    rounding of zero may pass on one side only, and then one sample's
+    gradient differs by a finite amount; seen["flips"] counts the units
+    whose branch the card's mask changed, seen["near"] those within
+    FWD_ATOL of zero."""
+    from torchrec_tpu_torch.modules.mlp import Perceptron
+
+    seen.setdefault("flips", 0)
+    seen.setdefault("near", 0)
+    masks: dict = {}
+
+    def card(name):
+        def act(z):
+            masks.setdefault(name, []).append((z > 0).cpu())
+            return torch.relu(z)
+        return act
+
+    def host(name):
+        def act(z):
+            mine, near = z > 0, z.abs() <= FWD_ATOL
+            pos = torch.where(near, masks[name].pop(0), mine)
+            seen["flips"] += int((pos != mine).sum())
+            seen["near"] += int(near.sum())
+            return torch.where(pos, z, torch.zeros_like(z))
+        return act
+
+    patched = []
+    for dmp, wrap in ((gpu, card), (cpu, host)):
+        for name, m in dmp.module.named_modules():
+            if isinstance(m, Perceptron) and m.activation is torch.relu:
+                m.activation = wrap(name)
+                patched.append(m)
+    try:
+        yield
+    finally:
+        for m in patched:
+            m.activation = torch.relu
+
+
 def profile_steps(step, batches, title: str) -> None:
     """One train step per batch under torch.profiler: the device time per
     kernel name, the busy share of the kernel span and each label's
@@ -1900,7 +1996,10 @@ def check_pw_against_cpu(tl, gpu, name: str) -> None:
     since a ReLU pre-activation within rounding of zero (card and CPU sum
     in different orders) passes on one side only, and then one sample's
     cotangent differs by a finite amount, which the rowwise update's
-    normalised step carries into its rows."""
+    normalised step carries into its rows. The same jump reaches the
+    dense gradients, so in the steps each CPU ReLU whose pre-activation
+    lies within FWD_ATOL of zero takes the card's branch
+    (card_relu_branches), and the units it changed are counted."""
     cpu = make_dmp("cpu", train=True, optim=gpu.fused_optim,
                    position_weighted=True)
     cpu.load_state_dict(gpu.state_dict())
@@ -1914,12 +2013,14 @@ def check_pw_against_cpu(tl, gpu, name: str) -> None:
         f"diff {(logits_g.cpu() - logits_c).abs().max().item():.3e}")
     step_g, step_c = gpu.make_train_step(), cpu.make_train_step()
     sebc_g, sebc_c = gpu.sharded_ebcs[TRAIN_KEY], cpu.sharded_ebcs[TRAIN_KEY]
+    branches: dict = {}
     for i, batch in enumerate(batches[1:]):
         seen: dict = {}
-        with card_cotangent(tl, sebc_g, seen):
-            loss_g, _ = step_g(*to_device(batch))
-        with card_cotangent(tl, sebc_c, seen, replace=True):
-            loss_c, _ = step_c(*batch)
+        with card_relu_branches(gpu, cpu, branches):
+            with card_cotangent(tl, sebc_g, seen):
+                loss_g, _ = step_g(*to_device(batch))
+            with card_cotangent(tl, sebc_c, seen, replace=True):
+                loss_c, _ = step_c(*batch)
         torch.testing.assert_close(loss_g.cpu(), loss_c, rtol=1e-4,
                                    atol=1e-5)
         rels = {w: ((seen[w] - seen["own_" + w]).norm()
@@ -1933,6 +2034,9 @@ def check_pw_against_cpu(tl, gpu, name: str) -> None:
             f"{loss_g.item():.9g}, CPU loss {loss_c.item():.9g}; the card's "
             f"pooled cotangents within {rels['vjp']:.3e} (K1's VJP) and "
             f"{rels['update']:.3e} (the update) of the CPU's own in norm")
+    log(f"pw {name}: the CPU took the card's ReLU branch at "
+        f"{branches['flips']} of the {branches['near']} pre-activations "
+        f"within {FWD_ATOL} of zero in its {CPU_STEPS} steps")
     pg = dict(gpu.module.named_parameters())
     for pname, p in cpu.module.named_parameters():
         torch.testing.assert_close(pg[pname].detach().cpu(), p.detach(),
@@ -2237,32 +2341,36 @@ def check_half_update(fk, k, args, what: str) -> dict:
     """K3h (args: weights, uids, g, lr, step) or K4h (weights, momentum,
     uids, g, lr, step) against its plain version, bit for bit, on clones
     of the table (and momentum) with these ids and gradients at this step,
-    under both epilogues (stochastic rounding and to nearest), for the
-    table and an fp16 copy of it; then each timed with stochastic
-    rounding. No single PyTorch call updates scattered rows this way, so
+    under both epilogues (stochastic rounding, its bits keyed from row 0
+    and from row 3 R as rank 3 of a ROW_WISE group keys them, and to
+    nearest), for the table and an fp16 copy of it; then each timed with
+    stochastic rounding. No single PyTorch call updates scattered rows this way, so
     there is no library yardstick."""
     if k == "K3h":
         W, uids, g, lr, step = args
         moms = []
 
-        def kernel(ts, sr):
+        def kernel(ts, sr, base=0):
             fk.fused_update_sgd_half(ts[0], uids, g, lr, step,
-                                     stochastic_rounding=sr)
+                                     stochastic_rounding=sr, row_base=base)
 
-        def plain(ts, sr):
+        def plain(ts, sr, base=0):
             fk.fused_update_sgd_half_reference(ts[0], uids, g, lr, step,
-                                               stochastic_rounding=sr)
+                                               stochastic_rounding=sr,
+                                               row_base=base)
     else:
         W, M, uids, g, lr, step = args
         moms = [M]
 
-        def kernel(ts, sr):
+        def kernel(ts, sr, base=0):
             fk.fused_update_rowwise_adagrad_half(ts[0], ts[1], uids, g, lr,
-                                                 step, stochastic_rounding=sr)
+                                                 step, stochastic_rounding=sr,
+                                                 row_base=base)
 
-        def plain(ts, sr):
+        def plain(ts, sr, base=0):
             fk.fused_update_rowwise_adagrad_half_reference(
-                ts[0], ts[1], uids, g, lr, step, stochastic_rounding=sr)
+                ts[0], ts[1], uids, g, lr, step, stochastic_rounding=sr,
+                row_base=base)
     name = "sgd_half_kernel" if k == "K3h" else "rowwise_adagrad_kernel"
     R, D = W.shape
     N, n_real = int(uids.numel()), int((uids < R).sum())
@@ -2278,13 +2386,14 @@ def check_half_update(fk, k, args, what: str) -> dict:
         tag = "bf16" if dtype == torch.bfloat16 else "fp16"
         base = [W.to(dtype)] + moms
         errs = []
-        for sr in (True, False):
+        # the bits of rank 3's block at 3 R rows across the group as well
+        for sr, row_base in ((True, 0), (True, 3 * R), (False, 0)):
             a = [t.clone() for t in base]
             p = [t.clone() for t in base]
-            kernel(a, sr)
-            plain(p, sr)
-            errs.append(_hold(f"{k} ({tag}, stochastic_rounding={sr})",
-                              list(zip(a, p))))
+            kernel(a, sr, row_base)
+            plain(p, sr, row_base)
+            errs.append(_hold(f"{k} ({tag}, stochastic_rounding={sr}, "
+                              f"row_base={row_base})", list(zip(a, p))))
         t = timings(lambda: kernel(a, True), name, b["ms"],
                     lambda: plain(p, True))
         log(f"{k} {tag} {what}: bit-exact with its plain version under both "
@@ -3488,6 +3597,419 @@ def quant_server_requests() -> list:
     return out
 
 
+# -- the flat strategies inside a process group -------------------------------
+
+# bench.py's 26 tables under four strategies, four groups
+MIXED_PLAN = (("DATA_PARALLEL",) * 7 + ("TABLE_WISE",) * 6
+              + ("COLUMN_WISE",) * 7 + ("ROW_WISE",) * 6)
+MIXED_STEPS = 3
+# collective calls of one unweighted group per forward and per update
+# (parallel/comm.py): the ids and lengths travel in one all_gather
+GROUP_CALLS = {
+    "DATA_PARALLEL": ({}, {"all_gather": 2}),
+    "ROW_WISE": ({"all_gather": 1, "reduce_scatter": 1}, {"all_gather": 2}),
+    "TABLE_WISE": ({"all_gather": 1, "all_to_all": 1},
+                   {"all_gather": 1, "all_to_all": 1}),
+    "COLUMN_WISE": ({"all_gather": 1, "all_to_all": 1},
+                    {"all_gather": 1, "all_to_all": 1}),
+}
+# the sequence strategies of BERT4Rec's item table
+SEQ_CALLS = {
+    "DATA_PARALLEL": ({}, {"all_gather": 2}),
+    "TABLE_WISE": ({"all_gather": 1, "all_to_all": 1},
+                   {"all_gather": 1, "all_to_all": 1}),
+}
+
+
+def _add_calls(*parts: dict) -> dict:
+    out: dict = {}
+    for part in parts:
+        for k, v in part.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def step_calls(groups) -> tuple:
+    """(calls per request, calls per train step) of a DMP whose groups are
+    sharded as `groups` (GROUP_CALLS or SEQ_CALLS entries): each group's
+    forward per request; its forward and update, and the dense gradients'
+    one all_reduce, per step."""
+    return (_add_calls(*(g[0] for g in groups)),
+            _add_calls(*(g[0] for g in groups), *(g[1] for g in groups),
+                       {"all_reduce_mean": 1}))
+
+
+def comm_calls() -> dict:
+    from torchrec_tpu_torch.parallel import comm
+
+    return dict(comm.CALLS)
+
+
+def _moved(after: dict, before: dict) -> dict:
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+@contextlib.contextmanager
+def process_group_of_one():
+    """An env over a process group of one rank on the card: NCCL, its
+    store a file in a temporary directory. Destroyed on leaving."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+
+    from torchrec_tpu_torch.parallel import ShardingEnv
+
+    with tempfile.TemporaryDirectory() as tmp:
+        store = dist.FileStore(os.path.join(tmp, "store"), 1)
+        dist.init_process_group(
+            "nccl" if DEVICE == "cuda" else "gloo", store=store, rank=0,
+            world_size=1, timeout=datetime.timedelta(seconds=120))
+        try:
+            env = ShardingEnv.from_process_group(dist.group.WORLD, DEVICE)
+            log(f"process group: {dist.get_backend()} of "
+                f"{env.world_size} rank on {env.device}")
+            yield env
+        finally:
+            dist.destroy_process_group()
+
+
+def run_requests(dmp, requests, launches: dict, calls: dict, what: str,
+                 logits_of=lambda out: out) -> dict:
+    """Serve `requests`, (batch, arguments on the CPU) each, through
+    make_eval_fn, each launching exactly `launches` and making exactly
+    `calls`: the logits (`logits_of` the output, on the card) and the
+    request times."""
+    eval_fn = dmp.make_eval_fn()
+    logits, ms = [], {}
+    torch.cuda.synchronize()
+    for batch, args in requests:
+        before, c0 = counts(), comm_calls()
+        t0 = time.perf_counter()
+        out = logits_of(eval_fn(*(a.to(DEVICE) for a in args)))
+        torch.cuda.synchronize()
+        ms.setdefault(batch, []).append((time.perf_counter() - t0) * 1e3)
+        launched, made = _moved(counts(), before), _moved(comm_calls(), c0)
+        if launched != _moved(expected(**launches), expected()) or \
+                made != calls:
+            raise AssertionError(f"{what}: a B={batch} request launched "
+                                 f"{launched} and made {made}, expected "
+                                 f"{launches} and {calls}")
+        if out.shape[0] != batch or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"{what}: bad output at B={batch}")
+        logits.append(out)
+    return {"logits": logits, "ms": ms}
+
+
+def run_steps(dmp, batches, launches: dict, calls: dict, what: str) -> dict:
+    """Train steps on `batches`, each launching exactly `launches` and
+    making exactly `calls`: losses and step times."""
+    step = dmp.make_train_step()
+    losses, ms = [], []
+    torch.cuda.synchronize()
+    for batch in batches:
+        before, c0 = counts(), comm_calls()
+        t0 = time.perf_counter()
+        loss, _ = step(*batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        launched, made = _moved(counts(), before), _moved(comm_calls(), c0)
+        if launched != _moved(expected(**launches), expected()) or \
+                made != calls:
+            raise AssertionError(f"{what}: step {len(ms)} launched "
+                                 f"{launched} and made {made}, expected "
+                                 f"{launches} and {calls}")
+        losses.append(loss.item())
+        if not math.isfinite(losses[-1]):
+            raise AssertionError(f"{what}: step {len(ms)} loss {losses[-1]}")
+    return {"losses": losses, "ms": ms}
+
+
+def _snapshot(dmp, key: str) -> dict:
+    """Tables (clones on the card), fused optimizer state and dense
+    parameters of a trained DMP."""
+    sebc = dmp.sharded_ebcs[key]
+    return {"tables": {n: t.detach().clone()
+                       for n, t in sebc.unshard_tables().items()},
+            "opt": sebc.unshard_opt_to_tables(),
+            "dense": {n: p.detach().clone()
+                      for n, p in dmp.module.named_parameters()}}
+
+
+def hold_trained(got: dict, ref: dict, touched: dict, what: str,
+                 dense: bool = True) -> None:
+    """Two runs' tables, optimizer state (and dense parameters) within
+    rtol 1e-4 / atol 1e-5, the bound of the other train phases (the
+    segment sum's atomics reorder additions); the rows no batch touched
+    equal."""
+    worst = 0.0
+    for name, ref_t in ref["tables"].items():
+        a, t = got["tables"][name], touched[name]
+        torch.testing.assert_close(a[t], ref_t[t], rtol=1e-4, atol=1e-5)
+        if not torch.equal(a[~t], ref_t[~t]):
+            raise AssertionError(f"{what}: untouched rows of {name} differ")
+        worst = max(worst, (a[t] - ref_t[t]).abs().max().item())
+        for tag, v in ref["opt"][name].items():
+            # COLUMN_WISE keeps JAX's [1, R] rowwise form at n = 1
+            np.testing.assert_allclose(
+                np.reshape(got["opt"][name][tag], np.shape(v)), v,
+                rtol=1e-4, atol=1e-5, err_msg=f"{name} {tag}")
+    if dense:
+        for name, p in ref["dense"].items():
+            torch.testing.assert_close(got["dense"][name], p, rtol=1e-4,
+                                       atol=1e-5)
+    log(f"{what}: tables ({sum(int(t.sum()) for t in touched.values())} "
+        f"touched rows, max abs diff {worst:.3e}) and optimizer state"
+        f"{' and dense parameters' if dense else ''} within rtol 1e-4 / "
+        f"atol 1e-5 of the group-less ROW_WISE run; untouched rows equal")
+
+
+def _dlrm_touched(batches) -> dict:
+    """{table: [ROWS] bool} the batches' ids address (L=1)."""
+    out = {f"t{i}": torch.zeros(ROWS, dtype=torch.bool, device=DEVICE)
+           for i in range(NUM_TABLES)}
+    for _, kjt, _ in batches:
+        ids = kjt.values.reshape(NUM_TABLES, -1).long()
+        for i in range(NUM_TABLES):
+            out[f"t{i}"][ids[i]] = True
+    return out
+
+
+def probe_group_calls(sebc, kjt, lr: float) -> tuple:
+    """Each group's collective calls for one forward and one update of a
+    zero cotangent (a step of zero on SGD rows), by sharding type, and the
+    kernel launches the probe made."""
+    from torchrec_tpu_torch.modules.embedding_modules import as_padded
+
+    sb = as_padded(kjt, sebc.max_feature_length)
+    out, before = {}, counts()
+    for gi, (strat, group) in enumerate(zip(sebc.strategies, sebc.groups)):
+        sbg = sebc._group_batch(sb, gi)
+        c0 = comm_calls()
+        pooled = strat(sbg)
+        c1 = comm_calls()
+        with torch.no_grad():
+            strat.update(sbg, torch.zeros_like(pooled), lr)
+        out[group.sharding_type.name] = (_moved(c1, c0),
+                                         _moved(comm_calls(), c1))
+    return out, _moved(counts(), before)
+
+
+def check_column_split(sebc, kjt) -> dict:
+    """The DLRM's COLUMN_WISE group through the group-less path and through
+    the group: the same [n, R, D/n] layout at n = 1, the same pooled
+    values, bit for bit. The 4-rank split is the CPU tests' to check.
+    Returns the kernel launches the check made."""
+    from torchrec_tpu_torch.modules.embedding_modules import as_padded
+    from torchrec_tpu_torch.parallel import ShardingEnv
+    from torchrec_tpu_torch.parallel.strategies import (
+        create_sharding_strategy,
+    )
+
+    gi = [g.sharding_type.name for g in sebc.groups].index("COLUMN_WISE")
+    grouped = sebc.strategies[gi]
+    plain = create_sharding_strategy(ShardingEnv(DEVICE), sebc.groups[gi],
+                                     grouped.optim, grouped.optim_kwargs)
+    plain.weights = plain.shard_from_dense(
+        grouped.unshard_tensors(grouped.weights))
+    if not (torch.equal(plain.weights, grouped.weights)
+            and tuple(plain.weights.shape) == plain.local_shape()
+            == (1, grouped.total_rows, DIM)):
+        raise AssertionError("COLUMN_WISE layouts differ with and without "
+                             "the group")
+    sb = sebc._group_batch(as_padded(kjt, sebc.max_feature_length), gi)
+    before = counts()
+    a, b = plain(sb), grouped(sb)
+    launched = _moved(counts(), before)
+    if not torch.equal(a, b):
+        raise AssertionError("COLUMN_WISE forwards differ with and without "
+                             "the group")
+    log(f"COLUMN_WISE group ({len(sebc.groups[gi].tables)} tables): layout "
+        f"{tuple(grouped.weights.shape)} and pooled {tuple(a.shape)} equal "
+        f"bit for bit with and without the group")
+    return launched
+
+
+def mixed_dlrm(env) -> dict:
+    """bench.py's DLRM under MIXED_PLAN inside the group, against the
+    group-less all-ROW_WISE DMP from the same seed: 3 + 3 requests (B=8192,
+    B=256), 4 K1 launches each and logits equal bit for bit; MIXED_STEPS
+    steps at B=8192 under EXACT_SGD and ROWWISE_ADAGRAD, 4 K1 and 4 K3 /
+    4 fused K4 launches each, the trained state within the train phases'
+    bound. One DMP on the card at a time."""
+    from torchrec_tpu_torch.ops.fused_update import EmbOptimType
+
+    per_req, per_step = step_calls([GROUP_CALLS[t] for t in (
+        "DATA_PARALLEL", "TABLE_WISE", "COLUMN_WISE", "ROW_WISE")])
+    rng = np.random.RandomState(SEED + 40)
+    requests = [(b, make_request(rng, b))
+                for b in [BENCH_BATCH] * REQUESTS_PER_BATCH
+                + [SERVE_BATCH] * REQUESTS_PER_BATCH]
+    served = {}
+    for tag, kw, k1, calls in (
+            ("ROW_WISE", {}, 1, {}),
+            ("mixed", {"env": env, "plan_types": MIXED_PLAN}, 4, per_req)):
+        dmp = make_dmp(DEVICE, **kw).init(SEED)
+        if tag == "mixed":
+            groups = [g.sharding_type.name
+                      for g in dmp.sharded_ebcs[MODULE_KEY].groups]
+            if groups != ["DATA_PARALLEL", "TABLE_WISE", "COLUMN_WISE",
+                          "ROW_WISE"]:
+                raise AssertionError(f"mixed plan groups {groups}")
+        served[tag] = run_requests(dmp, requests, {"K1": k1}, calls,
+                                   f"mixed-plan phase, {tag} DLRM")
+        del dmp
+        gc_cuda()
+    for a, b in zip(served["mixed"]["logits"], served["ROW_WISE"]["logits"]):
+        if not torch.equal(a, b):
+            raise AssertionError(
+                "the mixed plan's logits differ from the ROW_WISE run's by "
+                f"{(a - b).abs().max().item()}")
+    for b in (BENCH_BATCH, SERVE_BATCH):
+        log(f"mixed-plan DLRM serve B={b}: request ms (host clock, H2D + "
+            f"forward, synchronized; first includes warm-up) "
+            f"{served['mixed']['ms'][b]} beside the group-less ROW_WISE "
+            f"run's {served['ROW_WISE']['ms'][b]}")
+    log(f"mixed-plan DLRM: {len(requests)} requests, 4 K1 launches and "
+        f"{per_req} collective calls each; logits equal the ROW_WISE run's "
+        f"bit for bit")
+
+    out = {"serve_ms": {t: r["ms"] for t, r in served.items()},
+           "launches": {"K1": 5 * len(requests), "K3": 0, "K4": 0},
+           "check_launches": {}}
+    rng = np.random.RandomState(SEED + 41)
+    batches = [to_device(make_batch(rng, BENCH_BATCH))
+               for _ in range(MIXED_STEPS)]
+    touched = _dlrm_touched(batches)
+    for optim in (EmbOptimType.EXACT_SGD, EmbOptimType.ROWWISE_ADAGRAD):
+        k = STEP_KERNELS[optim.name][0]
+        runs = {}
+        for tag, kw, n, calls in (
+                ("ROW_WISE", {}, 1, {}),
+                ("mixed", {"env": env, "plan_types": MIXED_PLAN}, 4,
+                 per_step)):
+            dmp = make_dmp(DEVICE, train=True, optim=optim, **kw).init(SEED)
+            runs[tag] = run_steps(dmp, batches, {"K1": n, k: n}, calls,
+                                  f"mixed-plan phase, {tag} {optim.name}")
+            runs[tag].update(_snapshot(dmp, TRAIN_KEY))
+            if tag == "mixed" and optim is EmbOptimType.EXACT_SGD:
+                sebc = dmp.sharded_ebcs[TRAIN_KEY]
+                probe, probed = probe_group_calls(sebc, batches[0][1],
+                                                  FUSED_LR)
+                if probe != GROUP_CALLS:
+                    raise AssertionError(f"collective calls per group "
+                                         f"{probe}, expected {GROUP_CALLS}")
+                log(f"mixed-plan DLRM: collective calls per group (forward, "
+                    f"update) {probe}")
+                out["check_launches"] = _add_calls(
+                    probed, check_column_split(sebc, batches[0][1]))
+            del dmp
+            gc_cuda()
+        log(f"mixed-plan DLRM train {optim.name} B={BENCH_BATCH}: losses "
+            f"{runs['mixed']['losses']} (ROW_WISE run "
+            f"{runs['ROW_WISE']['losses']}); step ms (host clock, "
+            f"synchronized, first includes warm-up) {runs['mixed']['ms']} "
+            f"beside the ROW_WISE run's {runs['ROW_WISE']['ms']}; 4 K1 and "
+            f"4 {k} launches and {per_step} collective calls per step")
+        hold_trained(runs["mixed"], runs["ROW_WISE"], touched,
+                     f"mixed-plan DLRM {optim.name}")
+        out["launches"]["K1"] += 5 * MIXED_STEPS
+        out["launches"][k] += 5 * MIXED_STEPS
+        out[f"step_ms_{optim.name}"] = {t: r["ms"] for t, r in runs.items()}
+        del runs
+    return out
+
+
+def mixed_b4r(env, seqs) -> dict:
+    """BERT4Rec's item table DATA_PARALLEL and TABLE_WISE inside the group
+    against the group-less ROW_WISE DMP from the same seed: 3 + 3 requests
+    (B=32, B=1024), one routed gather each, logits equal (as values);
+    MIXED_STEPS steps at B=32 under ROWWISE_ADAGRAD, one routed gather and
+    one fused K4 each, the trained state within the train phases' bound."""
+    rng = np.random.RandomState(SEED + 42)
+    requests = [(b, b4r_eval_batch(rng, seqs, b))
+                for b in [B4R_BATCH] * REQUESTS_PER_BATCH
+                + [B4R_RANK_BATCH] * REQUESTS_PER_BATCH]
+    batches = [b4r_train_batch(rng, seqs, B4R_BATCH)
+               for _ in range(MIXED_STEPS)]
+    batches = [(kjt.to(DEVICE), labels.to(DEVICE)) for kjt, labels in batches]
+    touched = torch.zeros(B4R_VOCAB, dtype=torch.bool, device=DEVICE)
+    for kjt, _ in batches:
+        touched[kjt.values.long()] = True
+    runs, out = {}, {"launches": {"K8r": 0, "K4": 0, ROUTE: 0}}
+    for st in ("ROW_WISE", "DATA_PARALLEL", "TABLE_WISE"):
+        kw = {} if st == "ROW_WISE" else {"env": env, "sharding": st}
+        per_req, per_step = ({}, {}) if st == "ROW_WISE" else \
+            step_calls([SEQ_CALLS[st]])
+        dmp = make_b4r_dmp(DEVICE, **kw).init(SEED)
+        served = run_requests(dmp, requests, {"K8r": 1}, per_req,
+                              f"BERT4Rec {st}", lambda out: out[1][1])
+        route = {ROUTE: 1} if st == "ROW_WISE" else {}
+        trained = run_steps(dmp, batches, {"K8r": 1, "K4": 1, **route},
+                            per_step, f"BERT4Rec {st}")
+        runs[st] = {"logits": served["logits"], "serve_ms": served["ms"],
+                    **trained, **_snapshot(dmp, B4R_KEY),
+                    "grads": _b4r_dense(dmp)}
+        out["launches"]["K8r"] += len(requests) + MIXED_STEPS
+        out["launches"]["K4"] += MIXED_STEPS
+        out["launches"][ROUTE] += MIXED_STEPS if route else 0
+        del dmp
+        gc_cuda()
+        if st == "ROW_WISE":
+            continue
+        ref = runs["ROW_WISE"]
+        for a, b in zip(runs[st]["logits"], ref["logits"]):
+            # +0.0 and -0.0 are equal as values
+            if not bool((a == b).all()):
+                raise AssertionError(
+                    f"BERT4Rec {st}: logits differ from the ROW_WISE run's "
+                    f"by {(a - b).abs().max().item()}")
+        hold_trained(runs[st], ref, {"item_embedding": touched},
+                     f"BERT4Rec {st}", dense=False)
+        hold_b4r_dense(runs[st]["grads"], ref["grads"], MIXED_STEPS,
+                       f"BERT4Rec {st} and ROW_WISE")
+        for b in (B4R_BATCH, B4R_RANK_BATCH):
+            log(f"BERT4Rec {st} serve B={b}: request ms (host clock, H2D + "
+                f"forward, synchronized; first includes warm-up) "
+                f"{runs[st]['serve_ms'][b]} beside the ROW_WISE run's "
+                f"{ref['serve_ms'][b]}")
+        log(f"BERT4Rec {st}: logits equal the ROW_WISE run's; {per_req} "
+            f"collective calls per request, {per_step} per step; train "
+            f"B={B4R_BATCH} losses {runs[st]['losses']} (ROW_WISE "
+            f"{ref['losses']}), step ms (host clock, synchronized) "
+            f"{runs[st]['ms']} beside {ref['ms']}")
+    out["step_ms"] = {st: r["ms"] for st, r in runs.items()}
+    return out
+
+
+def flat_strategies(seqs) -> dict:
+    """Phase 16: bench.py's DLRM under a mixed plan and BERT4Rec under
+    DATA_PARALLEL and TABLE_WISE, inside an NCCL process group of one
+    rank, against the group-less ROW_WISE runs (see the module
+    docstring). Returns the launches per kernel of the phase's requests
+    and steps, read from the counters: set to 0 before the phase and read
+    after it, less the launches of its checks, after checking that this
+    equals the sum of every request's and step's asserted launches."""
+    t0 = time.perf_counter()
+    reset_counts()
+    with process_group_of_one() as env:
+        dlrm = mixed_dlrm(env)
+        b4r = mixed_b4r(env, seqs)
+    moved = {k: v for k, v in counts().items() if v}
+    checks = dlrm["check_launches"]
+    launches = {k: v - checks.get(k, 0) for k, v in moved.items()}
+    want = _add_calls(dlrm["launches"], b4r["launches"])
+    if {k: v for k, v in launches.items() if v} != \
+            {k: v for k, v in want.items() if v}:
+        raise AssertionError(
+            f"flat-strategies phase: the counters moved {moved}, the checks "
+            f"{checks}; the requests and steps asserted {want}")
+    log(f"flat-strategies phase: {time.perf_counter() - t0:.2f} s; "
+        f"launches {launches} (the counters), besides {checks} in its "
+        f"checks")
+    return launches
+
+
 def gc_cuda() -> None:
     """Free what Python no longer holds, so that the next peak counts only
     what is alive."""
@@ -3593,6 +4115,11 @@ def main() -> int:
     quant = quant_serving(ql, tl)
     results["Kq"] = quant["Kq"]
 
+    # the flat strategies inside an NCCL group of one rank: the mixed-plan
+    # DLRM (K1, K3, K4) and BERT4Rec under DATA_PARALLEL and TABLE_WISE
+    # (the routed gather, K4)
+    flat = flat_strategies(seqs)
+
     launches = {k: trained[name]["launches"][k]
                 for name, ks in STEP_KERNELS.items() for k in ks}
     launches["K4"] += b4r_trained["launches"]["K4"]
@@ -3600,14 +4127,17 @@ def main() -> int:
                 for k in ("K1", "K3", "K4", "K8")}
     launches.update(
         K1=(served_launches + pw_served["launches"] + pw_steps["K1"]
-            + dfm["launches"]["K1"] + quant["launches"]["K1"]),
+            + dfm["launches"]["K1"] + quant["launches"]["K1"]
+            + flat.get("K1", 0)),
         K2=sum(r["K2"] for r in routes),
         K3=(launches["K3"] + pw_steps["K3"] + dfm["launches"]["K3"]
-            + quant["launches"]["K3"]),
+            + quant["launches"]["K3"] + flat.get("K3", 0)),
         Kq=quant["launches"]["Kq"],
-        K4=launches["K4"] + pw_steps["K4"] + dfm["launches"]["K4"],
+        K4=(launches["K4"] + pw_steps["K4"] + dfm["launches"]["K4"]
+            + flat.get("K4", 0)),
         K5=sum(r["K5"] for r in routes), K8=unsharded_k8 + pw_steps["K8"],
-        K8r=b4r_served["launches"] + b4r_trained["launches"]["K8r"],
+        K8r=(b4r_served["launches"] + b4r_trained["launches"]["K8r"]
+             + flat.get("K8r", 0)),
         **bf16["launches"])
     log(f"launches on the paths: K1 serving ({served_launches}), the "
         f"position-weighted DLRM's serving ({pw_served['launches']}) and "
@@ -3630,7 +4160,8 @@ def main() -> int:
         f"K3h its EXACT_SGD and K4h its ROWWISE_ADAGRAD training; K1, K3 and "
         f"K4 also the DeepFM's serving and training ({dfm['launches']}), K1 "
         f"and K3 the quantized phase's training and f32 server, Kq its "
-        f"quantized requests and servers ({quant['launches']}): "
+        f"quantized requests and servers ({quant['launches']}); K1, K3, K4 "
+        f"and the routed gather also the flat-strategies phase ({flat}): "
         f"{launches}")
     log(card["smi"])
     log(json.dumps({"kernels": [{

@@ -2,7 +2,7 @@
 
 Run from the repository root, on a machine with a CUDA card:
 
-    python3 profile_train.py [--trace_dir DIR] [--optim NAME ...]
+    python3 profile_train.py [--trace_dir DIR] [--optim NAME ...] [--mixed]
     python3 profile_train.py --bert4rec [--trace_dir DIR]
 
 Builds the model that chip_smoke.py trains (bench.py's DLRMTrain at full
@@ -18,12 +18,14 @@ host time of each phase of the step (`## train_* ##`, `## ebc_* ##` and
 --trace_dir. Times are taken with the profiler on, which slows the host
 side. With --bert4rec it profiles chip_smoke.py's BERT4Rec train step
 instead (the example's model, ROWWISE_ADAGRAD at 0.01 and dense Adam at
-1e-3, B=32).
+1e-3, B=32). With --mixed it trains the DLRM under chip_smoke.py's
+MIXED_PLAN inside an NCCL process group of one rank.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import time
 
@@ -57,14 +59,20 @@ def profile_steps(step, batches, title: str, trace: str,
     prof.export_chrome_trace(os.path.join(trace_dir, trace))
 
 
-def profile_optim(optim, trace_dir: str) -> None:
-    dmp = cs.make_dmp("cuda", train=True, optim=optim).init(cs.SEED)
-    rng = np.random.RandomState(cs.SEED + 2)
-    batches = [cs.to_device(cs.make_batch(rng, cs.BENCH_BATCH))
-               for _ in range(STEPS + 3)]
-    profile_steps(dmp.make_train_step(), batches,
-                  f"train {optim.name} B={cs.BENCH_BATCH}",
-                  f"train_trace_{optim.name}.json", trace_dir)
+def profile_optim(optim, trace_dir: str, mixed: bool = False) -> None:
+    with (cs.process_group_of_one() if mixed
+          else contextlib.nullcontext()) as env:
+        kw = {"env": env, "plan_types": cs.MIXED_PLAN} if mixed else {}
+        dmp = cs.make_dmp("cuda", train=True, optim=optim, **kw).init(
+            cs.SEED)
+        rng = np.random.RandomState(cs.SEED + 2)
+        batches = [cs.to_device(cs.make_batch(rng, cs.BENCH_BATCH))
+                   for _ in range(STEPS + 3)]
+        tag = "_mixed" if mixed else ""
+        profile_steps(dmp.make_train_step(), batches,
+                      f"train {optim.name} B={cs.BENCH_BATCH}"
+                      f"{' mixed plan' if mixed else ''}",
+                      f"train_trace{tag}_{optim.name}.json", trace_dir)
 
 
 def profile_bert4rec(trace_dir: str) -> None:
@@ -89,6 +97,9 @@ def main() -> None:
                    help="fused optimizers to profile")
     p.add_argument("--bert4rec", action="store_true",
                    help="profile the BERT4Rec train step instead")
+    p.add_argument("--mixed", action="store_true",
+                   help="train the DLRM under the mixed plan inside an "
+                        "NCCL group of one rank")
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: no CUDA device")
@@ -98,7 +109,7 @@ def main() -> None:
         profile_bert4rec(args.trace_dir)
     else:
         for optim in optims:
-            profile_optim(optim, args.trace_dir)
+            profile_optim(optim, args.trace_dir, args.mixed)
     print(card["smi"])
 
 

@@ -30,6 +30,7 @@ from torchrec_tpu_torch.modules import (
 from torchrec_tpu_torch.parallel import (
     DistributedModelParallel,
     ParameterSharding,
+    ShardedEmbeddingBag,
     ShardingEnv,
     ShardingPlan,
     ShardingType,
@@ -103,7 +104,8 @@ def _bert4rec_dmp(sharding_type=ShardingType.ROW_WISE,
     "env", "dmp", "mlp", "ebc", "train_step", "ec", "bert4rec",
     "bert4rec_dmp", "bert4rec_train_step", "position_weighted",
     "swish_layer_norm", "deepfm", "crossnet", "quant_ebc",
-    "sharded_quant_ebc", "quantize_embeddings", "predict_module_load"])
+    "sharded_quant_ebc", "quantize_embeddings", "predict_module_load",
+    "from_distributed", "sharded_embedding_bag"])
 def test_entry_points_refuse_cpu_without_asking(entry, monkeypatch,
                                                 tmp_path):
     from torchrec_tpu_torch.inference import (
@@ -158,6 +160,11 @@ def test_entry_points_refuse_cpu_without_asking(entry, monkeypatch,
                            4, 4)
         elif entry == "crossnet":
             LowRankMixtureCrossNet(8, 2, 2, 4)
+        elif entry == "from_distributed":
+            ShardingEnv.from_distributed()
+        elif entry == "sharded_embedding_bag":
+            ShardedEmbeddingBag(None, 10, 4,
+                                ParameterSharding(ShardingType.ROW_WISE))
         else:
             EmbeddingBagCollection(_tables())
 
@@ -231,16 +238,33 @@ def test_half_tables_refuse_unported_routes(params):
     assert int(opt.step) == 0 and not opt.momentum1.any() and not w.any()
 
 
+def _world_of_two():
+    """A CPU env that reports world size 2, for the refusals checked
+    before any collective runs (no process group is made)."""
+    env = ShardingEnv("cpu")
+    env.world_size = 2
+    return env
+
+
 @pytest.mark.parametrize(
-    "case", ["no_plan", "table_wise", "uvm", "world_size", "fused_param",
-             "seq_table_wise", "seq_data_parallel"])
+    "case", ["no_plan", "uvm", "world_size", "fused_param", "table_row_wise",
+             "table_column_wise", "seq_table_row_wise", "fp_ebc_world_size_2",
+             "quantize_world_size_2", "input_routing"])
 def test_unported_parts_raise(case):
+    """The parts the port does not take yet raise. Several devices in one
+    process raise for good: the port runs one process per rank."""
+    from torchrec_tpu_torch.inference import quantize_embeddings
+    from torchrec_tpu_torch.modules import (
+        FeatureProcessedEmbeddingBagCollection,
+    )
+
     with pytest.raises(NotImplementedError):
         if case == "no_plan":
             DistributedModelParallel(_model("meta"), device="cpu")
-        elif case == "table_wise":
-            DistributedModelParallel(_model("meta"), device="cpu",
-                                     plan=_plan(ShardingType.TABLE_WISE))
+        elif case in ("table_row_wise", "table_column_wise"):
+            DistributedModelParallel(
+                _model("meta"), device="cpu",
+                plan=_plan(ShardingType[case.upper()], host=0))
         elif case == "uvm":
             DistributedModelParallel(
                 _model("meta"), device="cpu",
@@ -251,10 +275,25 @@ def test_unported_parts_raise(case):
             DistributedModelParallel(
                 _model("meta"), plan=_plan(), device="cpu",
                 fused_params={"compact": "always"}).make_train_step()
-        elif case == "seq_table_wise":  # sequence strategies but ROW_WISE
-            _bert4rec_dmp(ShardingType.TABLE_WISE, device="cpu")
-        else:  # sequence strategies but DATA_PARALLEL
-            _bert4rec_dmp(ShardingType.DATA_PARALLEL, device="cpu")
+        elif case == "seq_table_row_wise":
+            _bert4rec_dmp(ShardingType.TABLE_ROW_WISE, device="cpu")
+        elif case == "fp_ebc_world_size_2":
+            fp = FeatureProcessedEmbeddingBagCollection(
+                EmbeddingBagCollection(_tables(), is_weighted=True,
+                                       max_feature_length=4, device="meta"),
+                PositionWeightedModule({"f0": 4, "f1": 4}, device="meta"))
+            DistributedModelParallel(
+                DLRM(fp, 3, (4,), (4, 1), device="meta"), plan=_plan(),
+                env=_world_of_two())
+        elif case == "quantize_world_size_2":
+            dmp = DistributedModelParallel(_model("meta"), plan=_plan(),
+                                           device="cpu").init(0)
+            dmp.env.world_size = 2
+            quantize_embeddings(dmp, device="cpu")
+        else:  # the a2a input dist of the hierarchical strategies
+            DistributedModelParallel(
+                _model("meta"), plan=_plan(), device="cpu",
+                fused_params={"input_routing": "a2a"})
 
 
 @pytest.mark.parametrize("wrapper", ["routed_gather_rows", "route_tokens"])

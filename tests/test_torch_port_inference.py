@@ -119,9 +119,9 @@ def _tlogits(out):
     return out[1][1].numpy()
 
 
-def _jax_model():
+def _jax_model(data_type=JDataType.FP32):
     tables = tuple(JConfig(num_embeddings=r, embedding_dim=D, name=f"t{i}",
-                           feature_names=[KEYS[i]])
+                           feature_names=[KEYS[i]], data_type=data_type)
                    for i, r in enumerate(ROWS))
     return tables, JDLRMTrain(dlrm=JDLRM(
         embedding_bag_collection=JEBC(tables=tables, max_feature_length=L),
@@ -129,9 +129,10 @@ def _jax_model():
         over_arch_layer_sizes=OVER_ARCH))
 
 
-def _port_dmp(device="cpu"):
+def _port_dmp(device="cpu", data_type=DataType.FP32):
     tables = [EmbeddingBagConfig(num_embeddings=r, embedding_dim=D,
-                                 name=f"t{i}", feature_names=[KEYS[i]])
+                                 name=f"t{i}", feature_names=[KEYS[i]],
+                                 data_type=data_type)
               for i, r in enumerate(ROWS)]
     model = DLRMTrain(DLRM(
         EmbeddingBagCollection(tables, max_feature_length=L, device="meta"),
@@ -188,6 +189,31 @@ def test_quantize_embeddings_matches_jax(quantized, name):
     assert tpm.batching_metadata() == jpm.batching_metadata() == {
         k: "sparse" for k in KEYS}
     assert tpm.result_metadata() == jpm.result_metadata() == "dense"
+
+
+@pytest.mark.parametrize("name", TYPES)
+@pytest.mark.parametrize("half", ["BF16", "FP16"])
+def test_quantize_embeddings_of_half_tables_matches_jax(half, name):
+    """A bf16 or fp16 DMP, its JAX initial state bridged into the port,
+    quantizes to JAX's bytes, scales and shifts bit for bit (the port
+    computes a half table's range in its dtype, as JAX does)."""
+    tables, model = _jax_model(JDataType[half])
+    jdmp = JDMP(model, env=JEnv.from_devices(jax.devices()[:1]),
+                plan=JPlan({JAX_KEY: {t.name: JPS(JST.ROW_WISE)
+                                      for t in tables}}))
+    state = jdmp.init(jax.random.PRNGKey(2), *_jargs(_request(0)))
+    dmp = _port_dmp(data_type=DataType[half])
+    load_jax_weights(
+        dmp, jax.tree.map(np.asarray, state.dense_params),
+        jdmp.sharded_ebcs[JAX_KEY].unshard_to_dense(state.emb_states[JAX_KEY]))
+    jq = j_quantize(jdmp, state, JDataType[name])._quant_ebcs[JAX_KEY]
+    tpm = quantize_embeddings(dmp, DataType[name], device="cpu")
+    for tname, q in tpm._quant_ebcs[PORT_KEY].quantized.items():
+        for part in ("data", "scale", "shift"):
+            np.testing.assert_array_equal(
+                getattr(q, part).numpy(),
+                np.asarray(getattr(jq.quantized[tname], part)),
+                err_msg=f"{tname} {part}")
 
 
 def test_predict_module_holds_no_float_table(quantized, trained):

@@ -60,6 +60,26 @@ def _pair(bits, seed=0):
             tq.quantize_rowwise(torch.from_numpy(w), bits))
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("bits", BITS)
+def test_quantize_rowwise_of_a_half_table_matches_jax(bits, dtype):
+    """A half table's min, max and range are taken in its dtype, as JAX
+    takes them: the bf16 row [0, 1, 0, 0] at int8 has scale
+    0.003936767578125 (1/255 rounded to bf16, then fp16) and stores 1.0
+    as 254. Random rows bit for bit at every width."""
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    one = np.asarray([[0, 1, 0, 0]], np.float32)
+    rows = np.concatenate([one, _weights(4)[:, :4]])
+    j = jq.quantize_rowwise(jnp.asarray(rows).astype(jdt), bits)
+    t = tq.quantize_rowwise(torch.from_numpy(rows).to(tdt), bits)
+    for part in ("data", "scale", "shift"):
+        np.testing.assert_array_equal(getattr(t, part).numpy(),
+                                      np.asarray(getattr(j, part)))
+    if bits == 8 and dtype == "bfloat16":
+        assert t.scale[0].item() == 0.003936767578125
+        assert t.data[0].tolist() == [0, 254, 0, 0]
+
+
 @pytest.mark.parametrize("bits", BITS)
 def test_quantize_rowwise_matches_jax_bit_for_bit(bits):
     j, t = _pair(bits)

@@ -296,8 +296,12 @@ __device__ __forceinline__ uint32_t sr_step_key(uint32_t seed, int32_t step) {
   return fmix32(fmix32(seed + kGolden) ^ static_cast<uint32_t>(step));
 }
 
-__device__ __forceinline__ uint32_t sr_row_key(uint32_t step_key, int32_t row) {
-  return fmix32(step_key ^ static_cast<uint32_t>(row));
+// `row` is the shard's local row; the key takes row_base + row, the row's
+// index across the group (rank * local rows), so that two shards' rows of
+// one local index draw different bits
+__device__ __forceinline__ uint32_t sr_row_key(uint32_t step_key, int32_t row,
+                                               int64_t row_base) {
+  return fmix32(step_key ^ static_cast<uint32_t>(row_base + row));
 }
 
 __device__ __forceinline__ uint32_t sr_bits(uint32_t row_key, int64_t col) {
@@ -396,7 +400,7 @@ __global__ void sgd_half_kernel(T* __restrict__ w,
                                 const float* __restrict__ g,
                                 const int32_t* __restrict__ step, int64_t R,
                                 int64_t D, int64_t N, float lr, float wd,
-                                bool sr, uint32_t seed) {
+                                bool sr, uint32_t seed, int64_t row_base) {
   const int lane = threadIdx.x & 31;
   const int64_t warp =
       static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
@@ -409,7 +413,7 @@ __global__ void sgd_half_kernel(T* __restrict__ w,
   for (int j = 0; j < n; ++j) {
     const int32_t id = __shfl_sync(kFullMask, my_id, j);
     if (!is_real(id, R)) continue;  // the same for the whole warp
-    const RowRound r{sr, sr ? sr_row_key(step_key, id) : 0u};
+    const RowRound r{sr, sr ? sr_row_key(step_key, id, row_base) : 0u};
     T* wrow = w + static_cast<int64_t>(id) * D;
     const float4* grow = reinterpret_cast<const float4*>(g + (base + j) * D);
     for (int64_t q = lane; q < quads; q += 32) {
@@ -507,7 +511,8 @@ __global__ void rowwise_adagrad_kernel(T* __restrict__ w,
                                        const int32_t* __restrict__ step,
                                        int64_t R, int64_t D, int64_t N,
                                        int slots, float lr, float eps,
-                                       float wd, bool sr, uint32_t seed) {
+                                       float wd, bool sr, uint32_t seed,
+                                       int64_t row_base) {
   const int lane = threadIdx.x & 31;
   const int64_t warp =
       static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
@@ -567,7 +572,7 @@ __global__ void rowwise_adagrad_kernel(T* __restrict__ w,
     }
     s = __shfl_sync(kFullMask, s, 0);
     T* wrow = w + static_cast<int64_t>(id) * D;
-    const RowRound r{sr, sr ? sr_row_key(step_key, id) : 0u};
+    const RowRound r{sr, sr ? sr_row_key(step_key, id, row_base) : 0u};
 #pragma unroll
     for (int c = 0; c < kChunks; ++c) {
       const int64_t col = c * 32 + lane;
@@ -594,7 +599,7 @@ template <int kChunks, typename T>
 int launch_rowwise_adagrad(void* w, void* m, const void* uids, const void* g,
                            const void* step, int64_t R, int64_t D, int64_t N,
                            int slots, float lr, float eps, float wd, bool sr,
-                           uint32_t seed, void* stream) {
+                           uint32_t seed, int64_t row_base, void* stream) {
   const int64_t warps = (N + slots - 1) / slots;
   const dim3 grid(
       static_cast<unsigned>((warps + kWarpsPerBlock - 1) / kWarpsPerBlock));
@@ -603,7 +608,7 @@ int launch_rowwise_adagrad(void* w, void* m, const void* uids, const void* g,
       static_cast<T*>(w), static_cast<float*>(m),
       static_cast<const int32_t*>(uids), static_cast<const float*>(g),
       static_cast<const int32_t*>(step), R, D, N, slots, lr, eps, wd, sr,
-      seed);
+      seed, row_base);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -613,21 +618,25 @@ template <typename T>
 int rowwise_adagrad(void* w, void* m, const void* uids, const void* g,
                     const void* step, int64_t R, int64_t D, int64_t N,
                     int slots, float lr, float eps, float wd, bool sr,
-                    uint32_t seed, void* stream) {
+                    uint32_t seed, int64_t row_base, void* stream) {
   if (slots < 1 || slots > 32) return static_cast<int>(cudaErrorInvalidValue);
   switch ((D + 127) / 128) {
     case 1:
       return launch_rowwise_adagrad<1, T>(w, m, uids, g, step, R, D, N, slots,
-                                          lr, eps, wd, sr, seed, stream);
+                                          lr, eps, wd, sr, seed, row_base,
+                                          stream);
     case 2:
       return launch_rowwise_adagrad<2, T>(w, m, uids, g, step, R, D, N, slots,
-                                          lr, eps, wd, sr, seed, stream);
+                                          lr, eps, wd, sr, seed, row_base,
+                                          stream);
     case 3:
       return launch_rowwise_adagrad<3, T>(w, m, uids, g, step, R, D, N, slots,
-                                          lr, eps, wd, sr, seed, stream);
+                                          lr, eps, wd, sr, seed, row_base,
+                                          stream);
     case 4:
       return launch_rowwise_adagrad<4, T>(w, m, uids, g, step, R, D, N, slots,
-                                          lr, eps, wd, sr, seed, stream);
+                                          lr, eps, wd, sr, seed, row_base,
+                                          stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -637,7 +646,7 @@ template <typename T>
 int launch_sgd_half(void* w, const void* uids, const void* g,
                     const void* step, int64_t R, int64_t D, int64_t N,
                     float lr, float wd, bool sr, uint32_t seed,
-                    void* stream) {
+                    int64_t row_base, void* stream) {
   const int64_t warps = (N + 31) / 32;
   const dim3 grid(
       static_cast<unsigned>((warps + kWarpsPerBlock - 1) / kWarpsPerBlock));
@@ -645,7 +654,7 @@ int launch_sgd_half(void* w, const void* uids, const void* g,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<T*>(w), static_cast<const int32_t*>(uids),
       static_cast<const float*>(g), static_cast<const int32_t*>(step), R, D,
-      N, lr, wd, sr, seed);
+      N, lr, wd, sr, seed, row_base);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -724,25 +733,27 @@ int trt_fused_rowwise_adagrad_f32(void* w, void* m, const void* uids,
                                   int64_t N, int slots, float lr, float eps,
                                   float wd, void* stream) {
   return rowwise_adagrad<float>(w, m, uids, g, nullptr, R, D, N, slots, lr,
-                                eps, wd, false, 0u, stream);
+                                eps, wd, false, 0u, 0, stream);
 }
 
 // The half-table entry points: `half` 0 is bf16, 1 fp16; `sr` selects the
 // stochastic-rounding epilogue, whose bits take the step from device memory
-// at `step` (an int32, read before the caller increments it) and `seed`.
+// at `step` (an int32, read before the caller increments it), `seed` and
+// `row_base`, the first row of this shard across the group.
 // K4h: D <= 512, 1 <= slots <= 32.
 int trt_fused_rowwise_adagrad_half(void* w, void* m, const void* uids,
                                    const void* g, const void* step,
                                    int64_t R, int64_t D, int64_t N, int slots,
                                    float lr, float eps, float wd, int half,
-                                   int sr, uint32_t seed, void* stream) {
+                                   int sr, uint32_t seed, int64_t row_base,
+                                   void* stream) {
   if (half == 0)
     return rowwise_adagrad<__nv_bfloat16>(w, m, uids, g, step, R, D, N,
                                           slots, lr, eps, wd, sr != 0, seed,
-                                          stream);
+                                          row_base, stream);
   if (half == 1)
     return rowwise_adagrad<__half>(w, m, uids, g, step, R, D, N, slots, lr,
-                                   eps, wd, sr != 0, seed, stream);
+                                   eps, wd, sr != 0, seed, row_base, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -750,13 +761,13 @@ int trt_fused_rowwise_adagrad_half(void* w, void* m, const void* uids,
 int trt_fused_update_sgd_half(void* w, const void* uids, const void* g,
                               const void* step, int64_t R, int64_t D,
                               int64_t N, float lr, float wd, int half, int sr,
-                              uint32_t seed, void* stream) {
+                              uint32_t seed, int64_t row_base, void* stream) {
   if (half == 0)
     return launch_sgd_half<__nv_bfloat16>(w, uids, g, step, R, D, N, lr, wd,
-                                          sr != 0, seed, stream);
+                                          sr != 0, seed, row_base, stream);
   if (half == 1)
     return launch_sgd_half<__half>(w, uids, g, step, R, D, N, lr, wd,
-                                   sr != 0, seed, stream);
+                                   sr != 0, seed, row_base, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -250,8 +250,8 @@ def shard_quantized(pm: PredictModule,
     """Shard a quantized PredictModule over an inference env (default: one
     device, the predict module's). At world size 1 every table lands on
     rank 0, which both the JAX planner and its round-robin fallback give;
-    placing tables over several GPUs waits for the multi-GPU strategies
-    and the planner (ROADMAP queue 1, items 8 and 9)."""
+    placing tables over several ranks waits for the next slice and the
+    planner (ROADMAP queue 1, items 8b and 9)."""
     return ShardedPredictModule(pm.module, pm._quant_ebcs,
                                 env or ShardingEnv(pm.device))
 
@@ -271,6 +271,11 @@ class PredictFactory(abc.ABC):
 
 def _check_quantizable(dmp) -> None:
     """Raise for the sharded modules quantized serving does not take."""
+    if dmp.env.world_size != 1:
+        raise NotImplementedError(
+            f"quantized serving of a DMP at world size {dmp.env.world_size}: "
+            "quantizing and placing its tables over the ranks comes with the "
+            "next slice (ROADMAP queue 1 item 8b)")
     if dmp._fp_ebcs:
         raise NotImplementedError(
             f"quantized serving of a FeatureProcessedEmbeddingBagCollection "

@@ -370,6 +370,7 @@ def apply_fused_update(
     stochastic_rounding: bool = True,
     mom_impl: str = "auto",
     w_impl: str = "auto",
+    sr_row_base: int = 0,
 ) -> Tuple[torch.Tensor, FusedOptimizerState]:
     """Apply one fused sparse optimizer step to the touched rows only.
 
@@ -398,7 +399,9 @@ def apply_fused_update(
     "auto"|"stream"|"xla" pick the kernels (see `_w_impl`,
     `_mom_stream`). `stochastic_rounding` rounds a bf16 / fp16 table's
     SGD, EXACT_SGD and ROWWISE_ADAGRAD rows stochastically (see the module
-    docstring) and has no effect on fp32 tables.
+    docstring) and has no effect on fp32 tables; its bits are keyed by
+    `sr_row_base` + the row, the row's index across the group (a sharded
+    strategy passes rank * its rows per shard, 0 on one device).
     """
     optim = opt_state.optim
     check_trainable(weights.dtype, {"w_impl": w_impl, "mom_impl": mom_impl})
@@ -409,7 +412,7 @@ def apply_fused_update(
     if weights.dtype in fk.HALF_TYPES:
         _half_update(weights, opt_state, flat_ids, row_grads, valid, lr,
                      eps, weight_decay, beta1, beta2, eta, momentum,
-                     stochastic_rounding)
+                     stochastic_rounding, sr_row_base)
     elif optim is EmbOptimType.ROWWISE_ADAGRAD:
         # the momentum step needs sorted compacted uids
         uids, g = dedup_row_grads(flat_ids, row_grads, valid, R)
@@ -462,7 +465,7 @@ def apply_fused_update(
 
 def _half_update(weights, opt_state, flat_ids, row_grads, valid, lr, eps,
                  weight_decay, beta1, beta2, eta, momentum,
-                 stochastic_rounding) -> None:
+                 stochastic_rounding, sr_row_base=0) -> None:
     """One step on a bf16 / fp16 table, before the step's increment: K4h
     (ROWWISE_ADAGRAD) or K3h (SGD, EXACT_SGD), rounding stochastically
     with the step's bits when `stochastic_rounding`, else to nearest; the
@@ -474,13 +477,14 @@ def _half_update(weights, opt_state, flat_ids, row_grads, valid, lr, eps,
         fk.fused_update_rowwise_adagrad_half(
             weights, opt_state.momentum1, uids, g, lr, opt_state.step,
             eps=eps, weight_decay=weight_decay,
-            stochastic_rounding=stochastic_rounding)
+            stochastic_rounding=stochastic_rounding, row_base=sr_row_base)
         return
     uids, g = run_total_row_grads(flat_ids, row_grads, valid, R)
     if optim in (EmbOptimType.SGD, EmbOptimType.EXACT_SGD):
         fk.fused_update_sgd_half(weights, uids, g, lr, opt_state.step,
                                  weight_decay=weight_decay,
-                                 stochastic_rounding=stochastic_rounding)
+                                 stochastic_rounding=stochastic_rounding,
+                                 row_base=sr_row_base)
     else:
         _xla_update(weights, opt_state, uids, g, lr, eps, weight_decay,
                     beta1, beta2, eta, momentum)

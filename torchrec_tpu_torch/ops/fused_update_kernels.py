@@ -77,10 +77,10 @@ def _bind(lib: ctypes.CDLL) -> None:
             [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64] + [_F32] * 7 + [_P],
         "trt_fused_update_sgd_half":
             [_P, _P, _P, _P, _I64, _I64, _I64, _F32, _F32, _INT, _INT, _U32,
-             _P],
+             _I64, _P],
         "trt_fused_rowwise_adagrad_half":
             [_P, _P, _P, _P, _P, _I64, _I64, _I64, _INT, _F32, _F32, _F32,
-             _INT, _INT, _U32, _P],
+             _INT, _INT, _U32, _I64, _P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
@@ -631,15 +631,17 @@ def fused_update_adam(
 
 def round_rows(w32: torch.Tensor, upd: torch.Tensor, dtype: torch.dtype,
                rows: torch.Tensor, step: torch.Tensor,
-               stochastic_rounding: bool = True) -> torch.Tensor:
+               stochastic_rounding: bool = True,
+               row_base: int = 0) -> torch.Tensor:
     """The half kernels' epilogue on rows [N, D]: w32 + upd rounded to
-    `dtype`, stochastically with sr_bits(step, rows[i], column)
-    (JAX's `stochastic_round(w + upd)`), or as JAX's deterministic
-    `w + upd.astype(dtype)`: upd rounded to `dtype`, added in f32, rounded
-    to nearest-even again."""
+    `dtype`, stochastically with sr_bits(step, row_base + rows[i], column)
+    (JAX's `stochastic_round(w + upd)`; `row_base` is the shard's first
+    row across the group, so that two shards' rows of one local index draw
+    different bits), or as JAX's deterministic `w + upd.astype(dtype)`:
+    upd rounded to `dtype`, added in f32, rounded to nearest-even again."""
     if stochastic_rounding:
         return stochastic_round(w32 + upd, dtype,
-                                sr_bits(step, rows, w32.shape[1]))
+                                sr_bits(step, rows + row_base, w32.shape[1]))
     return (w32 + upd.to(dtype).float()).to(dtype)
 
 
@@ -674,7 +676,7 @@ def _half_rows(weights: torch.Tensor, g: torch.Tensor) -> None:
 def fused_update_sgd_half_reference(
     weights: torch.Tensor, uids: torch.Tensor, g: torch.Tensor, lr: float,
     step: torch.Tensor, weight_decay: float = 0.0,
-    stochastic_rounding: bool = True,
+    stochastic_rounding: bool = True, row_base: int = 0,
 ) -> torch.Tensor:
     """Plain version of K3h: W[id] = round(W[id] - lr * (g + wd * W[id]))
     on the real slots, in place, with K3h's f32 arithmetic."""
@@ -684,14 +686,15 @@ def fused_update_sgd_half_reference(
     if weight_decay:
         gg = gg + weight_decay * w
     weights.index_copy_(0, ids, round_rows(
-        w, -(lr * gg), weights.dtype, ids, step, stochastic_rounding))
+        w, -(lr * gg), weights.dtype, ids, step, stochastic_rounding,
+        row_base))
     return weights
 
 
 def fused_update_sgd_half(
     weights: torch.Tensor, uids: torch.Tensor, g: torch.Tensor, lr: float,
     step: torch.Tensor, weight_decay: float = 0.0,
-    stochastic_rounding: bool = True,
+    stochastic_rounding: bool = True, row_base: int = 0,
 ) -> torch.Tensor:
     """K3h: K3 on a bf16 / fp16 table, in place. weights [R, D] bf16 or
     fp16; uids [N] int32, unique among real slots (`run_total_row_grads`,
@@ -699,13 +702,14 @@ def fused_update_sgd_half(
     step tensor before its increment, on the table's device (read there by
     the kernel, never by the host). Each touched row becomes
     round(W - lr * (g + wd * W)) in f32, rounded stochastically with
-    sr_bits(step, row, column) or to nearest (`round_rows`).
+    sr_bits(step, row_base + row, column) or to nearest (`round_rows`).
     Returns `weights`."""
     dev = _check_half(weights, uids, g, step)
     lr, weight_decay = float(lr), float(weight_decay)
     if dev.type == "cpu":
         return fused_update_sgd_half_reference(
-            weights, uids, g, lr, step, weight_decay, stochastic_rounding)
+            weights, uids, g, lr, step, weight_decay, stochastic_rounding,
+            row_base)
     (R, D), N = weights.shape, uids.shape[0]
     if N == 0 or D == 0:
         return weights
@@ -715,7 +719,7 @@ def fused_update_sgd_half(
                 weights.data_ptr(), uids.data_ptr(), g.data_ptr(),
                 step.data_ptr(), R, D, N, lr, weight_decay,
                 HALF_TYPES[weights.dtype], int(stochastic_rounding),
-                SR_SEED, s))
+                SR_SEED, int(row_base), s))
     return weights
 
 
@@ -730,6 +734,7 @@ def fused_update_rowwise_adagrad_half_reference(
     weights: torch.Tensor, momentum: torch.Tensor, uids: torch.Tensor,
     g: torch.Tensor, lr: float, step: torch.Tensor, eps: float = 1.0e-8,
     weight_decay: float = 0.0, stochastic_rounding: bool = True,
+    row_base: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of K4h, in place on the real slots, rounded where the
     fused kernel rounds (g_sq in `row_mean_sq`'s order)."""
@@ -743,7 +748,7 @@ def fused_update_rowwise_adagrad_half_reference(
     scale = lr * _div(-1.0, torch.sqrt(m) + eps)
     weights.index_copy_(0, ids, round_rows(
         w, scale[:, None] * gg, weights.dtype, ids, step,
-        stochastic_rounding))
+        stochastic_rounding, row_base))
     return weights, momentum
 
 
@@ -751,6 +756,7 @@ def fused_update_rowwise_adagrad_half(
     weights: torch.Tensor, momentum: torch.Tensor, uids: torch.Tensor,
     g: torch.Tensor, lr: float, step: torch.Tensor, eps: float = 1.0e-8,
     weight_decay: float = 0.0, stochastic_rounding: bool = True,
+    row_base: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K4h: the fused rowwise Adagrad on a bf16 / fp16 table, in place.
     weights [R, D] bf16 or fp16; momentum [R] f32; uids [N] int32 SORTED
@@ -763,7 +769,7 @@ def fused_update_rowwise_adagrad_half(
     if dev.type == "cpu":
         return fused_update_rowwise_adagrad_half_reference(
             weights, momentum, uids, g, lr, step, eps, wd,
-            stochastic_rounding)
+            stochastic_rounding, row_base)
     (R, D), N = weights.shape, uids.shape[0]
     if D > FUSED_MAX_D:
         raise NotImplementedError(
@@ -778,5 +784,5 @@ def fused_update_rowwise_adagrad_half(
                 weights.data_ptr(), momentum.data_ptr(), uids.data_ptr(),
                 g.data_ptr(), step.data_ptr(), R, D, N, slots, lr, eps, wd,
                 HALF_TYPES[weights.dtype], int(stochastic_rounding), SR_SEED,
-                s))
+                int(row_base), s))
     return weights, momentum

@@ -47,7 +47,11 @@ class QuantizedTable:
 
 
 def quantize_rowwise(weights: torch.Tensor, bits: int = 8) -> QuantizedTable:
-    """f32 [R, D] -> int-N row-wise quantized, on the weights' device."""
+    """[R, D] f32, bf16 or fp16 -> int-N row-wise quantized, on the
+    weights' device. As in JAX, the row's min, max and (max - min) / qmax
+    are taken in the table's dtype, so a bf16 table's scale rounds to bf16
+    and then to fp16 (an f32 or fp16 table's rounds once to fp16); the
+    codes are computed in f32."""
     if bits not in BITS:
         raise ValueError(f"bits must be 2/4/8, got {bits}")
     R, D = weights.shape
@@ -55,12 +59,13 @@ def quantize_rowwise(weights: torch.Tensor, bits: int = 8) -> QuantizedTable:
     if D % per_byte:
         raise ValueError(f"dim {D} not packable at {bits} bits")
     qmax = (1 << bits) - 1
-    w = weights.detach().to(torch.float32)
+    w = weights.detach()
     lo = w.amin(dim=1)
     hi = w.amax(dim=1)
     scale = ((hi - lo) / qmax).to(torch.float16).to(torch.float32)
     scale = torch.where(scale == 0, torch.ones_like(scale), scale)
     shift = lo.to(torch.float16).to(torch.float32)
+    w = w.to(torch.float32)
     q = torch.clamp(torch.round((w - shift[:, None]) / scale[:, None]), 0,
                     qmax).to(torch.uint8)
     if per_byte > 1:

@@ -14,3 +14,6 @@ from torchrec_tpu_torch.parallel.sharded_ec import (  # noqa: F401
 from torchrec_tpu_torch.parallel.dmp import (  # noqa: F401
     DistributedModelParallel,
 )
+from torchrec_tpu_torch.parallel.sharded_bag import (  # noqa: F401
+    ShardedEmbeddingBag,
+)

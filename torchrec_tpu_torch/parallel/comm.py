@@ -1,0 +1,115 @@
+"""The collectives of the sharded modules, as plain functions on tensors.
+
+The JAX package has no such module: its strategies call `lax` collectives
+inside `shard_map` over the mesh axis "dev". Here each rank is one process
+and each function is one `torch.distributed` call over the env's group,
+with the semantics of JAX's `tiled=True` form on the axis JAX names:
+
+    all_gather(env, x, axis)          lax.all_gather(x, axis=axis, tiled=True)
+    reduce_scatter(env, x, axis)      lax.psum_scatter(x, scatter_dimension=
+                                          axis, tiled=True)
+    all_to_all(env, x, split, concat) lax.all_to_all(x, split_axis=split,
+                                          concat_axis=concat, tiled=True)
+    all_reduce_mean(env, tensors)     the mean over ranks, in place (the
+                                      dense gradients JAX's jit averages)
+
+Rank r's block of a gathered or split axis is block r, as device r's in
+JAX. Each function is the identity when the env has no group, and a real
+call when it has one, even at world size 1, so that an NCCL group of one
+rank runs the card's collective path. NCCL's gather, reduce-scatter and
+all_to_all work on dim 0, so the axis moves to the front and the tensor is
+made contiguous first; bool tensors travel as uint8. The calls are
+`all_gather_into_tensor`, `reduce_scatter_tensor`, `all_to_all_single` and
+`all_reduce`, which every torch 2.x has (later versions deprecate the first
+two's names but keep them). `CALLS` counts the calls made to
+torch.distributed per function, as the kernel wrappers count their
+launches.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Sequence
+
+import torch
+import torch.distributed as dist
+
+# calls made to torch.distributed in this process, per function
+CALLS: Dict[str, int] = {"all_gather": 0, "reduce_scatter": 0,
+                         "all_to_all": 0, "all_reduce_mean": 0}
+
+
+def _front(x: torch.Tensor, axis: int) -> torch.Tensor:
+    """x with `axis` moved to dim 0, contiguous, bool as uint8."""
+    x = x.movedim(axis, 0)
+    if x.dtype == torch.bool:
+        x = x.to(torch.uint8)
+    return x.contiguous()
+
+
+def _back(y: torch.Tensor, axis: int, dtype: torch.dtype) -> torch.Tensor:
+    return y.movedim(0, axis).to(dtype)
+
+
+def all_gather(env, x: torch.Tensor, axis: int) -> torch.Tensor:
+    """Every rank's x concatenated along `axis` in rank order."""
+    if env.group is None:
+        return x
+    xs = _front(x, axis)
+    out = torch.empty((env.world_size * xs.shape[0], *xs.shape[1:]),
+                      dtype=xs.dtype, device=xs.device)
+    dist.all_gather_into_tensor(out, xs, group=env.group)
+    CALLS["all_gather"] += 1
+    return _back(out, axis, x.dtype)
+
+
+def reduce_scatter(env, x: torch.Tensor, axis: int) -> torch.Tensor:
+    """The sum of every rank's x, of which this rank keeps block `rank`
+    of `axis` (its size / n)."""
+    if env.group is None:
+        return x
+    xs = _front(x, axis)
+    n = env.world_size
+    if xs.shape[0] % n:
+        raise ValueError(f"axis {axis} of size {xs.shape[0]} does not split "
+                         f"over {n} ranks")
+    out = torch.empty((xs.shape[0] // n, *xs.shape[1:]), dtype=xs.dtype,
+                      device=xs.device)
+    dist.reduce_scatter_tensor(out, xs, op=dist.ReduceOp.SUM,
+                               group=env.group)
+    CALLS["reduce_scatter"] += 1
+    return _back(out, axis, x.dtype)
+
+
+def all_to_all(env, x: torch.Tensor, split_axis: int,
+               concat_axis: int) -> torch.Tensor:
+    """x split into n blocks along `split_axis`, block j sent to rank j;
+    the blocks received concatenated along `concat_axis` in rank order."""
+    if env.group is None:
+        return x
+    xs = _front(x, split_axis)
+    n = env.world_size
+    if xs.shape[0] % n:
+        raise ValueError(f"axis {split_axis} of size {xs.shape[0]} does not "
+                         f"split over {n} ranks")
+    out = torch.empty_like(xs)
+    dist.all_to_all_single(out, xs, group=env.group)
+    CALLS["all_to_all"] += 1
+    blocks = out.reshape(n, xs.shape[0] // n, *xs.shape[1:]).unbind(0)
+    return torch.cat([_back(b, split_axis, x.dtype) for b in blocks],
+                     dim=concat_axis)
+
+
+def all_reduce_mean(env, tensors: Sequence[torch.Tensor]) -> None:
+    """Replace each tensor by its mean over the ranks, in place, in one
+    call: the tensors travel flattened in one f32 buffer, summed, divided
+    by n."""
+    if env.group is None or not tensors:
+        return
+    flat = torch.cat([t.reshape(-1).to(torch.float32) for t in tensors])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=env.group)
+    CALLS["all_reduce_mean"] += 1
+    flat /= env.world_size
+    off = 0
+    for t in tensors:
+        t.copy_(flat[off:off + t.numel()].view_as(t))
+        off += t.numel()

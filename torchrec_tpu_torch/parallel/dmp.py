@@ -43,10 +43,21 @@ the JAX step passes `sb.replace(weights=w)`.
 Every fused optimizer trains fp32, bf16 and fp16 tables (half tables
 through K1h and K3h / K4h, rounding stochastically by default; see
 ops/fused_update.py). The tables are buffers, so the dense optimizer never
-sees one, and each sharded module's update takes an f32 cotangent. Not
-ported yet: the planner (a plan must be given), the prefetched and
-pipelined train steps, embedding towers and UVM-cached tables (an
-FP-EBC's too).
+sees one, and each sharded module's update takes an f32 cotangent.
+
+At world size n (an env over a process group, one process per rank) each
+rank feeds its own slice of the global batch, B_loc rows, and gets the
+outputs of that slice. The JAX step differentiates the mean loss of the
+global batch; here each rank differentiates the mean loss of its slice,
+whose gradient is n times its share of the global one. So after the
+backward the dense gradients are all_reduced as a mean over the ranks (one
+call; `init(seed)` draws the same dense parameters on every rank, and the
+equal steps keep them equal), and the sparse cotangents are divided by n
+before the sharded updates. The returned loss is the rank's own; the mean
+of the ranks' losses is JAX's. Not ported yet: the planner (a plan must be
+given), the prefetched and pipelined train steps, embedding towers,
+UVM-cached tables (an FP-EBC's too), and at world size > 1 the
+feature-processor branch (ROADMAP queue 1 item 8b).
 """
 
 from __future__ import annotations
@@ -69,6 +80,7 @@ from torchrec_tpu_torch.modules.feature_processor import (
 )
 from torchrec_tpu_torch.ops.fused_update import EmbOptimType
 from torchrec_tpu_torch.optim.keyed import DenseOptimizerFactory
+from torchrec_tpu_torch.parallel import comm
 from torchrec_tpu_torch.parallel.sharded_ebc import (
     ShardedEmbeddingBagCollection,
     ShardedEmbeddingModule,
@@ -132,6 +144,15 @@ def _grad(leaf: Any) -> Any:
     return g.to(torch.float32)
 
 
+def _scaled(g: Any, s: float) -> Any:
+    """g (a tensor or a dict of them) times s; g itself when s is 1."""
+    if s == 1.0:
+        return g
+    if isinstance(g, dict):
+        return {n: t * s for n, t in g.items()}
+    return g * s
+
+
 class DistributedModelParallel(nn.Module):
     """Wraps an authored model, shards its EmbeddingBagCollections,
     EmbeddingCollections and FeatureProcessedEmbeddingBagCollections per
@@ -149,7 +170,9 @@ class DistributedModelParallel(nn.Module):
     DMP's default optax.sgd); optim/warmup.warmup_optimizer and
     optim/clipping.gradient_clipping wrap one, and the clip covers a
     feature processor's gradient too, which the train step adds before
-    the dense step.
+    the dense step. sharders: parallel/sharders.py's ModuleSharders; each
+    one's `fused_params` are merged under the explicit `fused_params`, as
+    the JAX DMP merges them.
     """
 
     def __init__(
@@ -161,6 +184,7 @@ class DistributedModelParallel(nn.Module):
         fused_params: Optional[dict] = None,
         dense_optimizer: Optional[DenseOptimizerFactory] = None,
         device: DeviceLike = None,
+        sharders: Optional[list] = None,
     ):
         super().__init__()
         self.env = env or ShardingEnv(device)
@@ -183,7 +207,14 @@ class DistributedModelParallel(nn.Module):
                 "the sharding planner is not ported yet: pass a ShardingPlan"
             )
         self.fused_optim = fused_optim
-        fused_params = dict(fused_params or {})
+        # the sharders' fused_params under the explicit ones; without the
+        # planner (ROADMAP queue 1 item 9), which would plan within the
+        # sharding types a sharder declares, they do nothing else
+        merged: dict = {}
+        for sh in sharders or ():
+            merged.update(getattr(sh, "fused_params", None) or {})
+        merged.update(fused_params or {})
+        fused_params = merged
         self.learning_rate = fused_params.pop("learning_rate", 0.01)
         self.fused_lr_schedule: Optional[Callable[[int], float]] = (
             fused_params.pop("lr_schedule", None))
@@ -201,6 +232,12 @@ class DistributedModelParallel(nn.Module):
             if module_plan is None:
                 raise ValueError(f"the plan has no entry for module {key!r}")
             if isinstance(mod, FeatureProcessedEmbeddingBagCollection):
+                if self.env.world_size > 1:
+                    raise NotImplementedError(
+                        f"{key}: a FeatureProcessedEmbeddingBagCollection at "
+                        f"world size {self.env.world_size}: K1's d_coeff VJP "
+                        "would need the transpose of the ROW_WISE "
+                        "reduce_scatter (ROADMAP queue 1 item 8b)")
                 # the processor stays; the EBC is stubbed and sharded below
                 fp_ebc = ShardedFeatureProcessedEmbeddingBagCollection(
                     mod.embedding_bag_collection, mod.feature_processor)
@@ -309,7 +346,9 @@ class DistributedModelParallel(nn.Module):
         aux come back detached. Every EmbOptimType trains fp32, bf16 and
         fp16 tables; raises here, before any step, for a fused_params key
         or a route the port does not take (`w_impl="write"` and
-        `mom_impl="xla"` on half tables).
+        `mom_impl="xla"` on half tables). At world size n the dense
+        gradients are averaged over the ranks and the sparse cotangents
+        divided by n (see the module docstring).
         """
         for sebc in self.sharded_ebcs.values():
             sebc.check_trainable()
@@ -376,12 +415,17 @@ class DistributedModelParallel(nn.Module):
                 # the JAX step differentiates every dense parameter, so one
                 # the loss does not reach gets a zero gradient, on which
                 # Adam still steps; torch's optimizers skip a None one
-                for p in self.module.parameters():
+                params = list(self.module.parameters())
+                for p in params:
                     if p.grad is None:
                         p.grad = torch.zeros_like(p)
+                # the gradient of the global batch's mean loss
+                comm.all_reduce_mean(self.env, [p.grad for p in params])
                 self.dense_optimizer.step()
             for key, sebc in self.sharded_ebcs.items():
-                sebc.update(batches[key], _grad(leaves[key]), lr)
+                sebc.update(batches[key],
+                            _scaled(_grad(leaves[key]),
+                                    1.0 / self.env.world_size), lr)
             self.step += 1
             return loss.detach(), _detach(aux)
 

@@ -41,6 +41,7 @@ class ShardedTableMeta:
     pooling: PoolingMode
     feature_names: Tuple[str, ...]
     embedding_names: Tuple[str, ...]
+    rank: int = 0  # TABLE_WISE placement; the host of TWRW / TWCW
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,8 +97,11 @@ def group_tables(
     plan: Dict[str, ParameterSharding],
     is_weighted: bool = False,
 ) -> List[GroupMeta]:
-    """Partition tables into sharding groups, keeping table order within
-    each group (the sharded module restores the output feature order)."""
+    """Partition tables into sharding groups, in the order each group's
+    first table comes, keeping table order within each group (the sharded
+    module restores the output feature order). A table's `rank` is its
+    TABLE_WISE placement, `ranks[0]` (0 when unset), and otherwise its
+    plan's `host` (0 when unset), as the JAX function sets it."""
     groups: Dict[Tuple[ShardingType, int, DataType],
                  List[ShardedTableMeta]] = {}
     for cfg, enames in zip(tables, embedding_names_per_table):
@@ -117,6 +121,9 @@ def group_tables(
                 getattr(cfg, "pooling", PoolingType.SUM)),
             feature_names=tuple(cfg.feature_names),
             embedding_names=tuple(enames),
+            rank=((ps.ranks[0] if ps.ranks else 0)
+                  if ps.sharding_type is ShardingType.TABLE_WISE
+                  else (ps.host or 0)),
         )
         key = (ps.sharding_type, cfg.embedding_dim, cfg.data_type)
         groups.setdefault(key, []).append(meta)

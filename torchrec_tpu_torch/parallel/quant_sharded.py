@@ -9,9 +9,9 @@ pools every feature. MEAN folds 1 / length into the coefficient before
 the sum (`quant_sharded.py:203-204`), where the unsharded module divides
 the pooled sum, so the two agree bit for bit for SUM only; the port
 follows each module's own order. The JAX module's all_gather over
-devices is the identity here. Placement over several GPUs, with its
-per-device groups and routing, waits for the multi-GPU strategies
-(ROADMAP queue 1, item 8).
+devices is the identity here. Placement over several ranks, with its
+per-rank groups and routing, comes with the next slice (ROADMAP queue 1,
+item 8b).
 """
 
 from __future__ import annotations
@@ -64,9 +64,9 @@ class ShardedQuantEmbeddingBagCollection(nn.Module):
         super().__init__()
         if env.world_size != 1:
             raise NotImplementedError(
-                f"world_size={env.world_size}: the sharded quantized EBC "
-                "over several GPUs waits for the multi-GPU strategies "
-                "(ROADMAP queue 1, item 8)")
+                f"world_size={env.world_size}: the sharded quantized EBC's "
+                "table-wise placement over ranks and its output all_gather "
+                "come with the next slice (ROADMAP queue 1 item 8b)")
         self.env = env
         self.tables = tuple(tables)
         self.is_weighted = is_weighted

@@ -3,21 +3,37 @@
 Counterpart of torchrec_tpu/parallel/sequence_strategies.py. A sequence
 strategy keeps the storage layout of its pooled strategy (so sharding,
 unsharding and the optimizer state are inherited) and drops the pooling
-reduction: the forward returns per-token rows [F, B, L, D] with pad tokens
-and rows another shard owns zeroed, and the update takes the per-token
-cotangent [F, B, L, D] as the row gradients, unscaled.
+reduction: the forward returns per-token rows [F, B_loc, L, D] of the
+local batch with pad tokens zeroed, and the update takes the per-token
+cotangent [F, B_loc, L, D] as the row gradients, unscaled. The
+collectives are the pooled strategies' (parallel/comm.py):
 
-ROW_WISE on n devices is all_gather(ids) -> lookup of the owned rows ->
-psum_scatter over the batch; on the one device of this slice the
-collectives are identities. For an fp32 table the forward is one launch of
-the routed gather per group (ops/gather_rows.routed_gather_rows: route,
-mask and row gather in one kernel) and the update one launch of its
-route-only mode (`route_tokens`) before `apply_fused_update`. bf16 and
-fp16 tables compose the forward's route, gather and mask from torch ops
-(the routed gather is K8's, f32 only, as in JAX) and train as fp32 ones
-do, their update rounding each row in K4h / K3h.
-DATA_PARALLEL, TABLE_WISE and TABLE_ROW_WISE come with the multi-GPU slice
-(ROADMAP queue 1 item 8) and raise here.
+    ROW_WISE       all_gather(ids) -> the owned rows of the global batch,
+                   zeros elsewhere -> reduce_scatter over the batch; the
+                   update all_gathers ids and the cotangent;
+    TABLE_WISE     all_gather(ids) -> the rows of the rank's features ->
+                   all_to_all of the [f_max, B, L, D] rows (split batch,
+                   concat feature slots); the mirror all_to_all routes
+                   the cotangent back;
+    DATA_PARALLEL  the local batch's rows; the update all_gathers every
+                   rank's (ids, cotangent rows, valid).
+
+Kernels. An fp32 table's rows come from one launch of the routed gather
+(ops/gather_rows.routed_gather_rows: route, mask and row gather in one
+kernel). ROW_WISE routes by its row blocks. DATA_PARALLEL and TABLE_WISE
+give each feature (or feature slot) a shard of 2**31 - 1 rows, so that
+every id from 0 up routes to rank 0 at its table's row offset, and clip the
+row to the packed table as JAX's gather clips it: an id at or past its
+table's rows reads a later table's row, or the last packed row, in both
+packages. A negative id gives zeros here, where JAX's `w[gids]` reads
+row gids of the packed table (the row before the table's first for -1).
+The ROW_WISE update routes with one launch of the kernel's route-only
+mode (`route_tokens`). A masked token is +0.0 here and rows * 0 in JAX
+(-0.0 under a negative entry): equal as values. bf16 and fp16 tables
+compose the route, the gather and the mask from torch ops (the routed
+gather is K8's, f32 only, as in JAX) and train as fp32 ones do, their
+update rounding each row in K4h / K3h. TABLE_ROW_WISE comes with the
+next slice (ROADMAP queue 1 item 8b) and raises here.
 """
 
 from __future__ import annotations
@@ -31,45 +47,130 @@ from torchrec_tpu_torch.ops.fused_update import (
     EmbOptimType,
     apply_fused_update,
 )
-from torchrec_tpu_torch.ops.gather_rows import route_tokens, routed_gather_rows
+from torchrec_tpu_torch.ops.gather_rows import (
+    route_tokens,
+    route_tokens_reference,
+    routed_gather_rows,
+)
+from torchrec_tpu_torch.parallel import comm
 from torchrec_tpu_torch.parallel.embedding_sharding import GroupMeta
-from torchrec_tpu_torch.parallel.strategies import RwEmbeddingSharding
+from torchrec_tpu_torch.parallel.strategies import (
+    BaseEmbeddingShardingStrategy,
+    DpEmbeddingSharding,
+    RwEmbeddingSharding,
+    TwEmbeddingSharding,
+    _token_mask,
+)
 from torchrec_tpu_torch.parallel.types import ShardingEnv, ShardingType
-from torchrec_tpu_torch.sparse.jagged import PaddedSparseBatch
+
+# the shard size that holds every row of a table: ids 0 .. 2**31 - 2
+WHOLE_TABLE = 2**31 - 1
+
+
+def token_rows(w: torch.Tensor, ids: torch.Tensor, lengths: torch.Tensor,
+               shard_rows: torch.Tensor, local_off: torch.Tensor,
+               rank: int) -> torch.Tensor:
+    """[F, B, L, D] rows of the tokens `rank` owns (ops/gather_rows.py's
+    route), zero elsewhere: one routed gather for an fp32 table, the route,
+    the gather and the mask in torch ops for a half one."""
+    ids = ids.to(torch.int32).contiguous()
+    lengths = lengths.to(torch.int32).contiguous()
+    if w.dtype == torch.float32:
+        return routed_gather_rows(w, ids, lengths, shard_rows, local_off,
+                                  rank)
+    local, owned = route_tokens_reference(ids, lengths, shard_rows,
+                                          local_off, rank)
+    rows = lookup_rows(w, local.reshape(-1)).reshape(*local.shape,
+                                                     w.shape[-1])
+    return rows * owned.to(rows.dtype)[..., None]
+
+
+def _whole_tables(strat: BaseEmbeddingShardingStrategy, slots: int) -> None:
+    strat.register_buffer("whole_table", torch.full(
+        (slots,), WHOLE_TABLE, dtype=torch.int32, device=strat.env.device),
+        persistent=False)
+
+
+class DpSequenceEmbeddingSharding(DpEmbeddingSharding):
+    """Replicated table; the local batch's rows; the sparse gradient
+    synced by all_gather."""
+
+    def _build(self) -> None:
+        super()._build()
+        _whole_tables(self, len(self.meta.features))
+
+    def forward(self, sb):
+        return token_rows(self.weights, sb.ids, sb.lengths,
+                          self.whole_table, self.feat_row_off, 0)
+
+    def update(self, sb, d_tokens, learning_rate):
+        self._apply(self._gids(sb.ids),
+                    _token_mask(sb.lengths, sb.ids.shape[2]), d_tokens,
+                    learning_rate)
 
 
 class RwSequenceEmbeddingSharding(RwEmbeddingSharding):
-    """Row shards; each token's row comes from its owning shard (zeros
-    elsewhere), summed to the batch owner on n devices."""
+    """Row shards; each token's row comes from its owning rank (zeros
+    elsewhere), summed to the batch's rank by the reduce_scatter."""
 
-    def _route_args(self, sb: PaddedSparseBatch) -> tuple:
-        """The routed kernel's inputs: int32 ids and lengths, contiguous (no
-        copy for a batch from `to_padded`), the per-feature shard rows and
-        offsets, and this device's rank."""
-        return (sb.ids.to(torch.int32).contiguous(),
-                sb.lengths.to(torch.int32).contiguous(),
-                self.feat_shard_rows, self.feat_local_off, self.env.rank)
+    def forward(self, sb):
+        """Per-token rows [F, B_loc, L, D], zero where the token is
+        padding."""
+        ids_g, len_g, _ = self._gather_batch(sb)
+        rows = token_rows(self.weights[0], ids_g, len_g,
+                          self.feat_shard_rows, self.feat_local_off,
+                          self.rank)
+        if self.env.group is None or rows.dtype == torch.float32:
+            return comm.reduce_scatter(self.env, rows, 1)
+        # one rank's row and zeros: the f32 sum is exact
+        return comm.reduce_scatter(self.env, rows.float(), 1).to(rows.dtype)
 
-    def forward(self, sb: PaddedSparseBatch) -> torch.Tensor:
-        """Per-token rows [F, B, L, D], zero where the token is padding or
-        its row lives on another shard."""
-        w = self.weights[0]
-        if w.dtype == torch.float32:
-            return routed_gather_rows(w, *self._route_args(sb))
-        local, owned = self._route(sb.ids, sb.lengths, self.env.rank)
-        rows = lookup_rows(w, local.reshape(-1)).reshape(
-            *local.shape, w.shape[-1])
-        return rows * owned.to(rows.dtype)[..., None]
-
-    def update(self, sb: PaddedSparseBatch, d_tokens: torch.Tensor,
-               learning_rate: float) -> None:
-        """Fused optimizer step from the per-token cotangent [F, B, L, D],
-        in place, on the owned rows of the valid tokens."""
-        local, owned = route_tokens(*self._route_args(sb))
+    def update(self, sb, d_tokens, learning_rate):
+        """Fused optimizer step from the per-token cotangent [F, B_loc,
+        L, D], in place, on the owned rows of the valid tokens."""
+        ids_g, len_g, _ = self._gather_batch(sb)
+        d_g = comm.all_gather(self.env, d_tokens, 1)
+        local, owned = route_tokens(
+            ids_g.to(torch.int32).contiguous(),
+            len_g.to(torch.int32).contiguous(), self.feat_shard_rows,
+            self.feat_local_off, self.rank)
         apply_fused_update(
             self.weights[0], self._opt_local(), local.reshape(-1),
-            d_tokens.reshape(-1, self.dim), owned.reshape(-1),
-            learning_rate, **self.optim_kwargs)
+            d_g.reshape(-1, self.dim), owned.reshape(-1), learning_rate,
+            **self._fused_kwargs())
+
+
+class TwSequenceEmbeddingSharding(TwEmbeddingSharding):
+    """The table's rank looks up the global batch's tokens of its
+    features; the all_to_all returns the rows to the batch's ranks."""
+
+    def _build(self) -> None:
+        super()._build()
+        _whole_tables(self, self.f_max)
+
+    def forward(self, sb):
+        ids_g, len_g, _ = self._gather_batch(sb)
+        len_m = len_g[self.my_feats] * self.my_valid[:, None].to(len_g.dtype)
+        rows = token_rows(self.weights[0], ids_g[self.my_feats], len_m,
+                          self.whole_table, self.my_rowoff, 0)
+        slots = comm.all_to_all(self.env, rows, 1, 0)  # [n f_max, B_loc, ..]
+        return slots[self.out_pos]
+
+    def update(self, sb, d_tokens, learning_rate):
+        d_m = self._slots_back(d_tokens)  # [f_max, B, L, D]
+        ids_m, len_m, _ = self._mine(*self._gather_batch(sb))
+        apply_fused_update(
+            self.weights[0], self._opt_local(), ids_m.reshape(-1),
+            d_m.reshape(-1, self.dim),
+            _token_mask(len_m, sb.ids.shape[2]).reshape(-1), learning_rate,
+            **self._fused_kwargs())
+
+
+SEQUENCE_STRATEGY_REGISTRY = {
+    ShardingType.DATA_PARALLEL: DpSequenceEmbeddingSharding,
+    ShardingType.ROW_WISE: RwSequenceEmbeddingSharding,
+    ShardingType.TABLE_WISE: TwSequenceEmbeddingSharding,
+}
 
 
 def create_sequence_sharding_strategy(
@@ -77,11 +178,13 @@ def create_sequence_sharding_strategy(
     meta: GroupMeta,
     optim: EmbOptimType = EmbOptimType.ROWWISE_ADAGRAD,
     optim_kwargs: Optional[dict] = None,
-) -> RwSequenceEmbeddingSharding:
-    if meta.sharding_type is not ShardingType.ROW_WISE:
+) -> BaseEmbeddingShardingStrategy:
+    cls = SEQUENCE_STRATEGY_REGISTRY.get(meta.sharding_type)
+    if cls is None:
         raise NotImplementedError(
-            f"sequence sharding {meta.sharding_type.value}: only ROW_WISE "
-            "is ported; DATA_PARALLEL, TABLE_WISE and TABLE_ROW_WISE come "
-            "with the multi-GPU slice (ROADMAP queue 1 item 8)"
+            f"sequence sharding {meta.sharding_type.value}: DATA_PARALLEL, "
+            "ROW_WISE and TABLE_WISE are ported; TABLE_ROW_WISE comes with "
+            "the next slice (ROADMAP queue 1 item 8b), and an "
+            "EmbeddingCollection takes no other"
         )
-    return RwSequenceEmbeddingSharding(env, meta, optim, optim_kwargs)
+    return cls(env, meta, optim, optim_kwargs)

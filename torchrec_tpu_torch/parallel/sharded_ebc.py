@@ -4,7 +4,11 @@ ShardedEmbeddingCollection (parallel/sharded_ec.py).
 Counterpart of torchrec_tpu/parallel/sharded_ebc.py. Groups the tables by
 sharding type into one strategy each, hands each strategy its group's
 features and assembles the group outputs into one KeyedTensor in the
-unsharded module's feature order. Where the JAX module is functional over
+unsharded module's feature order. Groups of different strategies run
+their own forward and update, each with its own collectives. At world
+size n a rank feeds its slice of the global batch, B_loc rows, and gets
+the pooled values of that slice, [B_loc, sum(D)], as JAX's
+`out_specs=P(None, AXIS)` gives device r its block. Where the JAX module is functional over
 a tuple of group states, this one is an `nn.Module` whose strategies hold
 their shards and fused optimizer state as buffers; `init`,
 `shard_from_dense`, `unshard_to_dense` and `update` keep the JAX names, and

@@ -3,7 +3,8 @@
 Counterpart of torchrec_tpu/parallel/sharded_ec.py. The tables are grouped
 as the sharded EBC groups them, one sequence strategy per group
 (parallel/sequence_strategies.py); the output is {embedding name: [B, L,
-D]} per-token rows, pad tokens zero, the layout BERT4Rec consumes. It is an
+D]} per-token rows of the rank's slice of the batch (B_loc rows at world
+size n), pad tokens zero, the layout BERT4Rec consumes. It is an
 `nn.Module` that replaces the authored EmbeddingCollection, holding the
 shards and fused optimizer state as its strategies' buffers; `init`,
 `shard_from_dense`, `unshard_to_dense`, the optimizer state in and out and

@@ -32,11 +32,17 @@ The JAX side hands over numpy arrays only, so this module imports no JAX:
   through f32, which holds it exactly (so are bf16 leaves of `dense`).
 * `opt_state` (optional): the whole fused optimizer state per table, as
   the JAX strategies' `unshard_opt_to_tables` returns it: {table name ->
-  {"m1__full" [R, D] | "m1__row" [R], "m2__full" | "m2__row", "step"}},
-  with the momenta `fused_state_shapes` gives the optimizer. Raises
-  unless they match the port's. `fused_optimizer_state` reads the port's
-  back in the same form, which the JAX strategies'
+  {"m1__full" [R, D] | "m1__row" [R] | "m1__cwrow" [S, R], "m2__...",
+  "step"}}, with the momenta `fused_state_shapes` gives the optimizer.
+  Raises unless they match the port's. `fused_optimizer_state` reads the
+  port's back in the same form, which the JAX strategies'
   `shard_opt_from_tables` loads.
+
+Tables and state move per table, whatever the plan: a JAX state of any of
+the flat strategies, trained on a mesh of any size, loads into the port's
+DMP under any plan and world size (each rank keeps its own block), and a
+rowwise momentum saved by S column shards converts to the target's row
+space as JAX converts it (`_convert_rowspace` in parallel/strategies.py).
 * the dense optimizer's state: `optax_state_to_keyed` carries an
   optax state (numpy leaves, the namedtuples as optax made them) into the
   port's `KeyedOptimizer` state, {"<param fqn>/<name>": array}:
