@@ -240,6 +240,34 @@ Phases, each failing the run with a non-zero exit when it fails:
    each, the table and momentum within rtol 1e-4 / atol 1e-5, the dense
    parameters as phase 11 holds them. Request and step times are printed
    beside the ROW_WISE runs'.
+17. The hierarchical strategies inside an NCCL group of one rank, its env
+   of one host of one rank (H = 1, Lc = 1), whose intra- and cross-host
+   subgroups are NCCL communicators of their own. bench.py's DLRM with
+   tables 0-12 TABLE_ROW_WISE and 13-25 TABLE_COLUMN_WISE on host 0 under
+   input_routing="a2a" (two groups) against the group-less ROW_WISE DMP
+   from the same seed: 3 requests at B=8192 and 3 at B=256, each
+   launching K1 exactly twice and making 5 all_to_alls, 2 all_gathers and
+   1 reduce_scatter, logits equal bit for bit; 3 steps at B=8192 under
+   EXACT_SGD and ROWWISE_ADAGRAD, each launching K1 and K3 / the fused K4
+   twice and making 10 all_to_alls, 5 all_gathers, 1 reduce_scatter and 1
+   all_reduce, the trained state within rtol 1e-4 / atol 1e-5, untouched
+   rows equal; then the same ROWWISE_ADAGRAD steps through
+   make_prefetched_train_step and through SparseDistPipeline (from pinned
+   host batches, copied on its side stream): the same state within the
+   bound, and each step 2 all_to_alls and 2 all_gathers fewer (each
+   group's dist made once a step, for the next batch). BERT4Rec's item
+   table TABLE_ROW_WISE (sequence) against the ROW_WISE DMP: requests at
+   B=32 and 1024, one routed gather each, logits equal as values; 3 steps
+   at B=32, one routed gather, one route-only launch and one fused K4
+   each. The position-weighted DLRM (phase 8's, ROW_WISE with one
+   TABLE_WISE table) 3 EXACT_SGD steps at B=8192 against the group-less
+   ROW_WISE run, each launching K1, K8 (K1's d_coeff) and K3 twice, one
+   per group: its lookup's collectives differentiable in the position
+   weights, the position weights, dense parameters and tables within the
+   bound. Quantized serving: bench.py's DLRM at int8 through
+   `shard_quantized` over `ShardingEnv.from_local(1)` with explicit table
+   ranks, one Kq launch and one all_gather a request, logits equal bit
+   for bit to phase 15's group-less sharded module's.
 
 Kernel times are device times from torch.profiler (the kernel's own for a
 kernel, all device activity of the call for the plain version and the
@@ -3618,6 +3646,9 @@ SEQ_CALLS = {
     "DATA_PARALLEL": ({}, {"all_gather": 2}),
     "TABLE_WISE": ({"all_gather": 1, "all_to_all": 1},
                    {"all_gather": 1, "all_to_all": 1}),
+    "TABLE_ROW_WISE": ({"all_gather": 1, "reduce_scatter": 1,
+                        "all_to_all": 1},
+                       {"all_gather": 2, "all_to_all": 1}),
 }
 
 
@@ -3737,7 +3768,8 @@ def _snapshot(dmp, key: str) -> dict:
 
 
 def hold_trained(got: dict, ref: dict, touched: dict, what: str,
-                 dense: bool = True) -> None:
+                 dense: bool = True,
+                 ref_name: str = "the group-less ROW_WISE run") -> None:
     """Two runs' tables, optimizer state (and dense parameters) within
     rtol 1e-4 / atol 1e-5, the bound of the other train phases (the
     segment sum's atomics reorder additions); the rows no batch touched
@@ -3761,7 +3793,7 @@ def hold_trained(got: dict, ref: dict, touched: dict, what: str,
     log(f"{what}: tables ({sum(int(t.sum()) for t in touched.values())} "
         f"touched rows, max abs diff {worst:.3e}) and optimizer state"
         f"{' and dense parameters' if dense else ''} within rtol 1e-4 / "
-        f"atol 1e-5 of the group-less ROW_WISE run; untouched rows equal")
+        f"atol 1e-5 of {ref_name}; untouched rows equal")
 
 
 def _dlrm_touched(batches) -> dict:
@@ -3920,12 +3952,14 @@ def mixed_dlrm(env) -> dict:
     return out
 
 
-def mixed_b4r(env, seqs) -> dict:
-    """BERT4Rec's item table DATA_PARALLEL and TABLE_WISE inside the group
-    against the group-less ROW_WISE DMP from the same seed: 3 + 3 requests
-    (B=32, B=1024), one routed gather each, logits equal (as values);
-    MIXED_STEPS steps at B=32 under ROWWISE_ADAGRAD, one routed gather and
-    one fused K4 each, the trained state within the train phases' bound."""
+def mixed_b4r(env, seqs, strategies=("DATA_PARALLEL", "TABLE_WISE")) -> dict:
+    """BERT4Rec's item table under `strategies` inside the group (default
+    DATA_PARALLEL and TABLE_WISE) against the group-less ROW_WISE DMP from
+    the same seed: 3 + 3 requests (B=32, B=1024), one routed gather each,
+    logits equal (as values); MIXED_STEPS steps at B=32 under
+    ROWWISE_ADAGRAD, one routed gather and one fused K4 each (and one
+    route-only launch where the update routes), the trained state within
+    the train phases' bound."""
     rng = np.random.RandomState(SEED + 42)
     requests = [(b, b4r_eval_batch(rng, seqs, b))
                 for b in [B4R_BATCH] * REQUESTS_PER_BATCH
@@ -3937,14 +3971,14 @@ def mixed_b4r(env, seqs) -> dict:
     for kjt, _ in batches:
         touched[kjt.values.long()] = True
     runs, out = {}, {"launches": {"K8r": 0, "K4": 0, ROUTE: 0}}
-    for st in ("ROW_WISE", "DATA_PARALLEL", "TABLE_WISE"):
+    for st in ("ROW_WISE", *strategies):
         kw = {} if st == "ROW_WISE" else {"env": env, "sharding": st}
         per_req, per_step = ({}, {}) if st == "ROW_WISE" else \
             step_calls([SEQ_CALLS[st]])
         dmp = make_b4r_dmp(DEVICE, **kw).init(SEED)
         served = run_requests(dmp, requests, {"K8r": 1}, per_req,
                               f"BERT4Rec {st}", lambda out: out[1][1])
-        route = {ROUTE: 1} if st == "ROW_WISE" else {}
+        route = {ROUTE: 1} if st in ("ROW_WISE", "TABLE_ROW_WISE") else {}
         trained = run_steps(dmp, batches, {"K8r": 1, "K4": 1, **route},
                             per_step, f"BERT4Rec {st}")
         runs[st] = {"logits": served["logits"], "serve_ms": served["ms"],
@@ -4007,6 +4041,328 @@ def flat_strategies(seqs) -> dict:
     log(f"flat-strategies phase: {time.perf_counter() - t0:.2f} s; "
         f"launches {launches} (the counters), besides {checks} in its "
         f"checks")
+    return launches
+
+
+# -- the hierarchical strategies inside a process group -----------------------
+
+# bench.py's 26 tables: two groups on host 0
+HIER_PLAN = ("TABLE_ROW_WISE",) * 13 + ("TABLE_COLUMN_WISE",) * 13
+HIER_PARAMS = {"input_routing": "a2a"}
+# collective calls of one unweighted group under the a2a input dist, per
+# forward and per update: the dist (an all_to_all over the cross-host
+# group, an all_gather over the intra-host group) and the group's tail
+HIER_DIST = {"all_to_all": 1, "all_gather": 1}
+HIER_CALLS = {
+    "TABLE_ROW_WISE": ({"all_to_all": 2, "all_gather": 1,
+                        "reduce_scatter": 1},
+                       {"all_to_all": 2, "all_gather": 2}),
+    "TABLE_COLUMN_WISE": ({"all_to_all": 3, "all_gather": 1},
+                          {"all_to_all": 3, "all_gather": 1}),
+}
+# the position-weighted DLRM inside the group: 25 ROW_WISE tables and one
+# TABLE_WISE, per-sample weights travelling in calls of their own; the
+# processor's backward runs the transposes of the forward's float
+# collectives (reduce_scatter <- all_gather, all_gather <- reduce_scatter,
+# all_to_all <- all_to_all)
+PW_PLAN = ("ROW_WISE",) * (NUM_TABLES - 1) + ("TABLE_WISE",)
+PW_GROUP_STEP_CALLS = {"all_gather": 10, "reduce_scatter": 3,
+                       "all_to_all": 3, "all_reduce_mean": 1}
+
+
+def _less(a: dict, b: dict) -> dict:
+    return {k: v - b.get(k, 0) for k, v in a.items() if v - b.get(k, 0)}
+
+
+def _pinned(batch):
+    """A host batch with every tensor in pinned memory."""
+    from torchrec_tpu_torch.parallel.train_pipeline import _map_tensors
+
+    if DEVICE != "cuda":
+        return batch
+    return _map_tensors(batch, lambda t: t.pin_memory())
+
+
+def run_driven(dmp, batches, launches: dict, calls: list, what: str,
+               driver: str) -> dict:
+    """Train steps on `batches` through the prefetched step (its dists
+    primed before the first step) or SparseDistPipeline (host batches,
+    primed inside its first step), step i launching exactly `launches` and
+    making exactly calls[i]: losses and step times."""
+    from torchrec_tpu_torch.parallel.train_pipeline import SparseDistPipeline
+
+    if driver == "prefetched":
+        step = dmp.make_prefetched_train_step()
+        dists = [dmp.input_dist(batches[0][1])]
+
+        def run(i):
+            loss, _, dists[0] = step(
+                dists[0], batches[min(i + 1, len(batches) - 1)][1],
+                *batches[i])
+            return loss
+    else:
+        pipe = SparseDistPipeline(dmp, device=DEVICE)
+        it = iter(batches)
+
+        def run(i):
+            return pipe.progress(it)[0]
+    losses, ms = [], []
+    torch.cuda.synchronize()
+    for i in range(len(batches)):
+        before, c0 = counts(), comm_calls()
+        t0 = time.perf_counter()
+        loss = run(i)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        launched, made = _moved(counts(), before), _moved(comm_calls(), c0)
+        if launched != _moved(expected(**launches), expected()) or \
+                made != calls[i]:
+            raise AssertionError(f"{what}: step {i + 1} launched {launched}"
+                                 f" and made {made}, expected {launches} "
+                                 f"and {calls[i]}")
+        losses.append(loss.item())
+        if not math.isfinite(losses[-1]):
+            raise AssertionError(f"{what}: step {i + 1} loss {losses[-1]}")
+    return {"losses": losses, "ms": ms}
+
+
+def hier_dlrm(env) -> dict:
+    """bench.py's DLRM under HIER_PLAN inside the group against the
+    group-less ROW_WISE DMP from the same seed (see the module
+    docstring)."""
+    from torchrec_tpu_torch.ops.fused_update import EmbOptimType
+
+    groups = [HIER_CALLS[t] for t in ("TABLE_ROW_WISE", "TABLE_COLUMN_WISE")]
+    per_req, per_step = step_calls(groups)
+    dists = _add_calls(HIER_DIST, HIER_DIST)
+    prefetched_step = _less(per_step, dists)
+    hier = {"env": env, "plan_types": HIER_PLAN, "fused_params": HIER_PARAMS}
+    rng = np.random.RandomState(SEED + 50)
+    requests = [(b, make_request(rng, b))
+                for b in [BENCH_BATCH] * REQUESTS_PER_BATCH
+                + [SERVE_BATCH] * REQUESTS_PER_BATCH]
+    served = {}
+    for tag, kw, k1, calls in (("ROW_WISE", {}, 1, {}),
+                               ("hierarchical", hier, 2, per_req)):
+        dmp = make_dmp(DEVICE, **kw).init(SEED)
+        if tag != "ROW_WISE":
+            strats = dmp.sharded_ebcs[MODULE_KEY].strategies
+            got = [(type(s).__name__, s.input_routing, s.H, s.Lc)
+                   for s in strats]
+            if got != [("TwRwEmbeddingSharding", "a2a", 1, 1),
+                       ("TwCwEmbeddingSharding", "a2a", 1, 1)]:
+                raise AssertionError(f"hierarchical plan groups {got}")
+        served[tag] = run_requests(dmp, requests, {"K1": k1}, calls,
+                                   f"hierarchical phase, {tag} DLRM")
+        del dmp
+        gc_cuda()
+    for a, b in zip(served["hierarchical"]["logits"],
+                    served["ROW_WISE"]["logits"]):
+        if not torch.equal(a, b):
+            raise AssertionError(
+                "the hierarchical plan's logits differ from the ROW_WISE "
+                f"run's by {(a - b).abs().max().item()}")
+    for b in (BENCH_BATCH, SERVE_BATCH):
+        log(f"hierarchical DLRM serve B={b}: request ms (host clock, H2D + "
+            f"forward, synchronized; first includes warm-up) "
+            f"{served['hierarchical']['ms'][b]} beside the group-less "
+            f"ROW_WISE run's {served['ROW_WISE']['ms'][b]}")
+    log(f"hierarchical DLRM: {len(requests)} requests, 2 K1 launches and "
+        f"{per_req} collective calls each; logits equal the ROW_WISE run's "
+        f"bit for bit")
+    out = {"launches": {"K1": 3 * len(requests), "K3": 0, "K4": 0},
+           "serve_ms": {t: r["ms"] for t, r in served.items()}}
+    rng = np.random.RandomState(SEED + 51)
+    host = [make_batch(rng, BENCH_BATCH) for _ in range(MIXED_STEPS)]
+    batches = [to_device(b) for b in host]
+    touched = _dlrm_touched(batches)
+    for optim in (EmbOptimType.EXACT_SGD, EmbOptimType.ROWWISE_ADAGRAD):
+        k = STEP_KERNELS[optim.name][0]
+        runs = {}
+        for tag, kw, n in (("ROW_WISE", {}, 1), ("hierarchical", hier, 2)):
+            dmp = make_dmp(DEVICE, train=True, optim=optim, **kw).init(SEED)
+            runs[tag] = run_steps(dmp, batches, {"K1": n, k: n},
+                                  per_step if n == 2 else {},
+                                  f"hierarchical phase, {tag} {optim.name}")
+            runs[tag].update(_snapshot(dmp, TRAIN_KEY))
+            del dmp
+            gc_cuda()
+        hold_trained(runs["hierarchical"], runs["ROW_WISE"], touched,
+                     f"hierarchical DLRM {optim.name}")
+        out["launches"]["K1"] += 3 * MIXED_STEPS
+        out["launches"][k] += 3 * MIXED_STEPS
+        log(f"hierarchical DLRM train {optim.name} B={BENCH_BATCH}: losses "
+            f"{runs['hierarchical']['losses']} (ROW_WISE run "
+            f"{runs['ROW_WISE']['losses']}); step ms (host clock, "
+            f"synchronized, first includes warm-up) "
+            f"{runs['hierarchical']['ms']} beside the ROW_WISE run's "
+            f"{runs['ROW_WISE']['ms']}; 2 K1 and 2 {k} launches and "
+            f"{per_step} collective calls per step")
+        out[f"step_ms_{optim.name}"] = {t: r["ms"] for t, r in runs.items()}
+        if optim is not EmbOptimType.ROWWISE_ADAGRAD:
+            continue
+        # the same steps with each batch's dist made once, ahead
+        # the pipeline primes the first batch's dist inside its first step
+        for driver, data, first in (
+                ("prefetched", batches, prefetched_step),
+                ("pipeline", [_pinned(b) for b in host],
+                 _add_calls(prefetched_step, dists))):
+            dmp = make_dmp(DEVICE, train=True, optim=optim,
+                           **hier).init(SEED)
+            run = run_driven(dmp, data, {"K1": 2, k: 2},
+                             [first] + [prefetched_step] * (len(data) - 1),
+                             f"hierarchical phase, {driver}", driver)
+            run.update(_snapshot(dmp, TRAIN_KEY))
+            del dmp
+            gc_cuda()
+            hold_trained(run, runs["hierarchical"], touched,
+                         f"hierarchical DLRM {driver} step",
+                         ref_name="make_train_step's run")
+            out["launches"]["K1"] += 2 * MIXED_STEPS
+            out["launches"][k] += 2 * MIXED_STEPS
+            log(f"hierarchical DLRM {driver} B={BENCH_BATCH}: losses "
+                f"{run['losses']}; step ms (host clock, synchronized) "
+                f"{run['ms']}; {prefetched_step} collective calls per step "
+                f"(make_train_step's less {dists}, each group's dist made "
+                f"once a step); first step {first}")
+            out[f"step_ms_{driver}"] = run["ms"]
+        del runs
+    return out
+
+
+def _pw_touched(batches) -> dict:
+    """{table: [ROWS] bool} the position-weighted batches' ids address."""
+    out = {f"t{i}": torch.zeros(ROWS, dtype=torch.bool, device=DEVICE)
+           for i in range(NUM_TABLES)}
+    for _, kjt, _ in batches:
+        per = kjt.lengths.reshape(NUM_TABLES, -1).sum(1).tolist()
+        for i, ids in enumerate(torch.split(kjt.values.long(), per)):
+            out[f"t{i}"][ids] = True
+    return out
+
+
+def pw_group(env) -> dict:
+    """The position-weighted DLRM under PW_PLAN inside the group against
+    the group-less ROW_WISE run: MIXED_STEPS EXACT_SGD steps at B=8192, K1,
+    K8 (d_coeff) and K3 once per group each; position weights, dense
+    parameters and tables within the train phases' bound."""
+    from torchrec_tpu_torch.ops.fused_update import EmbOptimType
+
+    rng = np.random.RandomState(SEED + 52)
+    batches = [to_device(make_pw_batch(rng, BENCH_BATCH))
+               for _ in range(MIXED_STEPS)]
+    runs = {}
+    for tag, kw, n, calls in (
+            ("ROW_WISE", {}, 1, {}),
+            ("grouped", {"env": env, "plan_types": PW_PLAN}, 2,
+             PW_GROUP_STEP_CALLS)):
+        dmp = make_dmp(DEVICE, train=True, optim=EmbOptimType.EXACT_SGD,
+                       position_weighted=True, **kw).init(SEED)
+        runs[tag] = run_steps(dmp, batches, {"K1": n, "K8": n, "K3": n},
+                              calls, f"position-weighted phase 17, {tag}")
+        runs[tag].update(_snapshot(dmp, TRAIN_KEY))
+        # the last step's position-weight gradient: through the
+        # collectives' transposes in the group
+        runs[tag]["grad"] = _position_weights(dmp, grad=True)
+        del dmp
+        gc_cuda()
+    hold_trained(runs["grouped"], runs["ROW_WISE"], _pw_touched(batches),
+                 "position-weighted DLRM, ROW_WISE + TABLE_WISE in the group")
+    g, ref = runs["grouped"]["grad"], runs["ROW_WISE"]["grad"]
+    scale = ref.abs().max().item()
+    if not (bool(torch.isfinite(g).all()) and scale > 0):
+        raise AssertionError(f"position-weight gradient {scale}")
+    # relative to the gradient's scale: its steps fall under an ulp of the
+    # weights (ones), so the weights themselves may not move
+    torch.testing.assert_close(g, ref, rtol=1e-4, atol=1e-4 * scale)
+    log(f"position-weighted DLRM in the group B={BENCH_BATCH}: losses "
+        f"{runs['grouped']['losses']} (group-less {runs['ROW_WISE']['losses']}"
+        f"); step ms (host clock, synchronized) {runs['grouped']['ms']} "
+        f"beside {runs['ROW_WISE']['ms']}; {PW_GROUP_STEP_CALLS} collective "
+        f"calls per step; the last step's position-weight gradient (max "
+        f"{scale:.3e}) within rtol 1e-4 / atol 1e-4 x its max of the "
+        f"group-less run's, max abs diff {(g - ref).abs().max().item():.3e}")
+    return {"launches": {"K1": 3 * MIXED_STEPS, "K8": 3 * MIXED_STEPS,
+                         "K3": 3 * MIXED_STEPS}}
+
+
+def quant_group() -> dict:
+    """bench.py's DLRM at int8 through shard_quantized over
+    ShardingEnv.from_local(1) (the group) with explicit table ranks,
+    against phase 15's group-less sharded module: one Kq launch and one
+    all_gather a request, logits bit for bit."""
+    from torchrec_tpu_torch.inference import (
+        quantize_embeddings,
+        shard_quantized,
+    )
+    from torchrec_tpu_torch.modules.embedding_configs import DataType
+    from torchrec_tpu_torch.parallel import ShardingEnv
+
+    dmp = make_dmp(DEVICE, train=True).init(SEED)
+    pm = quantize_embeddings(dmp, DataType.INT8, DEVICE)
+    del dmp
+    gc_cuda()
+    env = ShardingEnv.from_local(1, DEVICE)
+    ranks = {TRAIN_KEY: {f"t{i}": 0 for i in range(NUM_TABLES)}}
+    modules = {"group-less": (shard_quantized(pm), {}),
+               "from_local(1)": (shard_quantized(pm, env, ranks),
+                                 {"all_gather": 1})}
+    del pm
+    requests = quant_requests(np.random.RandomState(SEED + 53))
+    logits, ms = {}, {}
+    for tag, (spm, calls) in modules.items():
+        logits[tag], ms[tag] = [], {BENCH_BATCH: [], SERVE_BATCH: []}
+        for batch, dense, ids in requests:
+            before, c0 = counts(), comm_calls()
+            t0 = time.perf_counter()
+            out = logits_of(spm.predict(*quant_args(dense, ids)))
+            torch.cuda.synchronize()
+            ms[tag][batch].append((time.perf_counter() - t0) * 1e3)
+            launched, made = _moved(counts(), before), _moved(comm_calls(),
+                                                                c0)
+            if launched != {"Kq": 1} or made != calls:
+                raise AssertionError(f"quantized {tag}: a B={batch} request "
+                                     f"launched {launched} and made {made}")
+            logits[tag].append(out)
+    for a, b in zip(logits["from_local(1)"], logits["group-less"]):
+        if not torch.equal(a, b):
+            raise AssertionError("the quantized module over from_local(1) "
+                                 "differs from the group-less one")
+    log(f"quantized int8 over from_local(1): {len(requests)} requests, 1 Kq "
+        f"launch and 1 all_gather each, logits equal the group-less sharded "
+        f"module's bit for bit; request ms (host clock, collate + H2D + "
+        f"predict) {ms['from_local(1)']} beside {ms['group-less']}")
+    return {"launches": {"Kq": 2 * len(requests)}}
+
+
+def hierarchical(seqs) -> dict:
+    """Phase 17: the hierarchical strategies, the prefetched step and its
+    pipeline, the feature processor and quantized serving inside an NCCL
+    process group of one rank (see the module docstring). Returns the
+    launches per kernel of the phase's requests and steps, read from the
+    counters (set to 0 before the phase), after checking that they equal
+    the sum of every request's and step's asserted launches."""
+    t0 = time.perf_counter()
+    reset_counts()
+    with process_group_of_one() as env:
+        intra, cross = env.subgroups()
+        if (env.local_size, env.num_hosts, intra.size(), cross.size()) != \
+                (1, 1, 1, 1):
+            raise AssertionError("the group's env is not one host of one "
+                                 "rank with subgroups of one")
+        dlrm = hier_dlrm(env)
+        b4r = mixed_b4r(env, seqs, ("TABLE_ROW_WISE",))
+        pw = pw_group(env)
+        quant = quant_group()
+    launches = {k: v for k, v in counts().items() if v}
+    want = _add_calls(dlrm["launches"], b4r["launches"], pw["launches"],
+                      quant["launches"])
+    if launches != {k: v for k, v in want.items() if v}:
+        raise AssertionError(f"hierarchical phase: the counters moved "
+                             f"{launches}; the requests and steps asserted "
+                             f"{want}")
+    log(f"hierarchical phase: {time.perf_counter() - t0:.2f} s; launches "
+        f"{launches} (the counters)")
     return launches
 
 
@@ -4120,6 +4476,13 @@ def main() -> int:
     # (the routed gather, K4)
     flat = flat_strategies(seqs)
 
+    # the hierarchical strategies, the prefetched step and its pipeline,
+    # the position-weighted DLRM and quantized serving inside an NCCL group
+    # of one rank (K1, K3, K4, K8, the routed gather, Kq)
+    hier = hierarchical(seqs)
+    for k, v in hier.items():
+        flat[k] = flat.get(k, 0) + v
+
     launches = {k: trained[name]["launches"][k]
                 for name, ks in STEP_KERNELS.items() for k in ks}
     launches["K4"] += b4r_trained["launches"]["K4"]
@@ -4132,10 +4495,11 @@ def main() -> int:
         K2=sum(r["K2"] for r in routes),
         K3=(launches["K3"] + pw_steps["K3"] + dfm["launches"]["K3"]
             + quant["launches"]["K3"] + flat.get("K3", 0)),
-        Kq=quant["launches"]["Kq"],
+        Kq=quant["launches"]["Kq"] + flat.get("Kq", 0),
         K4=(launches["K4"] + pw_steps["K4"] + dfm["launches"]["K4"]
             + flat.get("K4", 0)),
-        K5=sum(r["K5"] for r in routes), K8=unsharded_k8 + pw_steps["K8"],
+        K5=sum(r["K5"] for r in routes),
+        K8=unsharded_k8 + pw_steps["K8"] + flat.get("K8", 0),
         K8r=(b4r_served["launches"] + b4r_trained["launches"]["K8r"]
              + flat.get("K8r", 0)),
         **bf16["launches"])
@@ -4161,7 +4525,8 @@ def main() -> int:
         f"K4 also the DeepFM's serving and training ({dfm['launches']}), K1 "
         f"and K3 the quantized phase's training and f32 server, Kq its "
         f"quantized requests and servers ({quant['launches']}); K1, K3, K4 "
-        f"and the routed gather also the flat-strategies phase ({flat}): "
+        f"and the routed gather also the flat-strategies and hierarchical "
+        f"phases, with K8 and Kq the latter's ({flat}): "
         f"{launches}")
     log(card["smi"])
     log(json.dumps({"kernels": [{

@@ -105,7 +105,8 @@ def _bert4rec_dmp(sharding_type=ShardingType.ROW_WISE,
     "bert4rec_dmp", "bert4rec_train_step", "position_weighted",
     "swish_layer_norm", "deepfm", "crossnet", "quant_ebc",
     "sharded_quant_ebc", "quantize_embeddings", "predict_module_load",
-    "from_distributed", "sharded_embedding_bag"])
+    "from_distributed", "sharded_embedding_bag", "from_local",
+    "train_pipeline", "sparse_dist_pipeline"])
 def test_entry_points_refuse_cpu_without_asking(entry, monkeypatch,
                                                 tmp_path):
     from torchrec_tpu_torch.inference import (
@@ -117,9 +118,15 @@ def test_entry_points_refuse_cpu_without_asking(entry, monkeypatch,
     )
     from torchrec_tpu_torch.quant import QuantEmbeddingBagCollection
 
+    from torchrec_tpu_torch.parallel.train_pipeline import (
+        SparseDistPipeline,
+        TrainPipeline,
+    )
+
     cpu_dmp = (DistributedModelParallel(_model("meta"), plan=_plan(),
                                         device="cpu").init(0)
-               if entry in ("quantize_embeddings", "predict_module_load")
+               if entry in ("quantize_embeddings", "predict_module_load",
+                            "sparse_dist_pipeline")
                else None)
     weights = {t.name: torch.ones(10, 4) for t in _tables()}
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -162,6 +169,12 @@ def test_entry_points_refuse_cpu_without_asking(entry, monkeypatch,
             LowRankMixtureCrossNet(8, 2, 2, 4)
         elif entry == "from_distributed":
             ShardingEnv.from_distributed()
+        elif entry == "from_local":
+            ShardingEnv.from_local(1)
+        elif entry == "train_pipeline":
+            TrainPipeline(lambda *batch: batch)
+        elif entry == "sparse_dist_pipeline":
+            SparseDistPipeline(cpu_dmp)
         elif entry == "sharded_embedding_bag":
             ShardedEmbeddingBag(None, 10, 4,
                                 ParameterSharding(ShardingType.ROW_WISE))
@@ -247,24 +260,27 @@ def _world_of_two():
 
 
 @pytest.mark.parametrize(
-    "case", ["no_plan", "uvm", "world_size", "fused_param", "table_row_wise",
-             "table_column_wise", "seq_table_row_wise", "fp_ebc_world_size_2",
-             "quantize_world_size_2", "input_routing"])
+    "case", ["no_plan", "uvm", "world_size", "fused_param",
+             "shard_quantized_world_size_2"])
 def test_unported_parts_raise(case):
     """The parts the port does not take yet raise. Several devices in one
-    process raise for good: the port runs one process per rank."""
-    from torchrec_tpu_torch.inference import quantize_embeddings
-    from torchrec_tpu_torch.modules import (
-        FeatureProcessedEmbeddingBagCollection,
+    process raise for good: the port runs one process per rank. Sharding a
+    quantized model over several ranks without explicit `table_ranks`
+    needs the planner (ROADMAP item 9)."""
+    from torchrec_tpu_torch.inference import (
+        quantize_embeddings,
+        shard_quantized,
     )
 
     with pytest.raises(NotImplementedError):
         if case == "no_plan":
             DistributedModelParallel(_model("meta"), device="cpu")
-        elif case in ("table_row_wise", "table_column_wise"):
-            DistributedModelParallel(
-                _model("meta"), device="cpu",
-                plan=_plan(ShardingType[case.upper()], host=0))
+        elif case == "shard_quantized_world_size_2":
+            pm = quantize_embeddings(
+                DistributedModelParallel(_model("meta"), plan=_plan(),
+                                         device="cpu").init(0),
+                device="cpu")
+            shard_quantized(pm, _world_of_two())
         elif case == "uvm":
             DistributedModelParallel(
                 _model("meta"), device="cpu",
@@ -275,25 +291,80 @@ def test_unported_parts_raise(case):
             DistributedModelParallel(
                 _model("meta"), plan=_plan(), device="cpu",
                 fused_params={"compact": "always"}).make_train_step()
-        elif case == "seq_table_row_wise":
-            _bert4rec_dmp(ShardingType.TABLE_ROW_WISE, device="cpu")
-        elif case == "fp_ebc_world_size_2":
-            fp = FeatureProcessedEmbeddingBagCollection(
-                EmbeddingBagCollection(_tables(), is_weighted=True,
-                                       max_feature_length=4, device="meta"),
-                PositionWeightedModule({"f0": 4, "f1": 4}, device="meta"))
-            DistributedModelParallel(
-                DLRM(fp, 3, (4,), (4, 1), device="meta"), plan=_plan(),
-                env=_world_of_two())
-        elif case == "quantize_world_size_2":
-            dmp = DistributedModelParallel(_model("meta"), plan=_plan(),
-                                           device="cpu").init(0)
-            dmp.env.world_size = 2
-            quantize_embeddings(dmp, device="cpu")
-        else:  # the a2a input dist of the hierarchical strategies
-            DistributedModelParallel(
-                _model("meta"), plan=_plan(), device="cpu",
-                fused_params={"input_routing": "a2a"})
+
+
+@pytest.mark.parametrize(
+    "case", ["table_row_wise", "table_column_wise", "seq_table_row_wise",
+             "fp_ebc_world_size_2"])
+def test_hierarchical_plans_and_fp_ebc_at_n_build(case):
+    """What raised before the hierarchical strategies were ported builds:
+    a DLRM DMP under TABLE_ROW_WISE or TABLE_COLUMN_WISE and BERT4Rec's
+    under TABLE_ROW_WISE take a train step on the CPU (their numbers are
+    held to JAX in test_torch_port_strategies.py and
+    test_torch_port_hierarchical.py), and a feature-processed EBC's DMP at
+    world size 2 builds (it trains under gloo in
+    test_torch_port_hierarchical.py)."""
+    from torchrec_tpu_torch.modules import (
+        FeatureProcessedEmbeddingBagCollection,
+    )
+
+    if case == "fp_ebc_world_size_2":
+        fp = FeatureProcessedEmbeddingBagCollection(
+            EmbeddingBagCollection(_tables(), is_weighted=True,
+                                   max_feature_length=4, device="meta"),
+            PositionWeightedModule({"f0": 4, "f1": 4}, device="meta"))
+        dmp = DistributedModelParallel(
+            DLRM(fp, 3, (4,), (4, 1), device="meta"), plan=_plan(),
+            env=_world_of_two())
+        assert list(dmp._fp_ebcs) == ["sparse_arch/embedding_bag_collection"]
+        return
+    if case == "seq_table_row_wise":
+        dmp = _bert4rec_dmp(ShardingType.TABLE_ROW_WISE, device="cpu")
+        kjt = KeyedJaggedTensor.from_lengths(["item"], [1, 2, 3, 4], [4])
+        args = (kjt, torch.tensor([[0, 5, 0, 7]], dtype=torch.int32))
+        loss_fn = None
+    else:
+        dmp = DistributedModelParallel(
+            _model("meta"), device="cpu",
+            plan=_plan(ShardingType[case.upper()], host=0))
+        args = (torch.ones(2, 3), KeyedJaggedTensor.from_lengths(
+            ["f0", "f1"], [1, 2, 3, 4], [1, 1, 1, 1]))
+        loss_fn = lambda logits: (logits.square().mean(), logits)  # noqa
+    dmp.init(0)
+    (strat,) = next(iter(dmp.sharded_ebcs.values())).strategies
+    before = strat.weights.clone()
+    loss, _ = dmp.make_train_step(loss_fn)(*args)
+    assert torch.isfinite(loss) and int(strat.step) == 1
+    assert not torch.equal(strat.weights, before)
+
+
+def test_a2a_routing_on_flat_strategy_warns_and_falls_back():
+    """input_routing="a2a" on a flat strategy warns and all_gathers, as
+    JAX's does (tests/test_advice_fixes_r3.py), and the model still
+    trains; a hierarchical strategy takes it without a warning."""
+    import warnings
+
+    params = {"input_routing": "a2a"}
+    with pytest.warns(UserWarning, match="no routed input dist"):
+        dmp = DistributedModelParallel(_model("meta"), plan=_plan(),
+                                       device="cpu", fused_params=params)
+    (strat,) = dmp.sharded_ebcs["sparse_arch/embedding_bag_collection"] \
+        .strategies
+    assert strat.input_routing == "allgather"
+    dmp.init(0)
+    loss, _ = dmp.make_train_step(
+        lambda logits: (logits.square().mean(), logits))(
+        torch.ones(2, 3), KeyedJaggedTensor.from_lengths(
+            ["f0", "f1"], [1, 2, 3, 4], [1, 1, 1, 1]))
+    assert torch.isfinite(loss)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", UserWarning)
+        dmp = DistributedModelParallel(
+            _model("meta"), device="cpu", fused_params=params,
+            plan=_plan(ShardingType.TABLE_ROW_WISE, host=0))
+    (strat,) = dmp.sharded_ebcs["sparse_arch/embedding_bag_collection"] \
+        .strategies
+    assert strat.input_routing == "a2a"
 
 
 @pytest.mark.parametrize("wrapper", ["routed_gather_rows", "route_tokens"])

@@ -289,12 +289,13 @@ def test_sharded_predict_module_saves_the_same_package(quantized, tmp_path):
 
 
 def test_shard_quantized_refuses_several_devices(quantized):
-    """Placement over several GPUs waits for ROADMAP item 8."""
+    """Placement over several GPUs without explicit `table_ranks` waits
+    for the planner (ROADMAP item 9), which plans JAX's default."""
     class TwoDevices:
         world_size, rank, device = 2, 0, torch.device("cpu")
 
     _, tpm = quantized["INT8"]
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 9"):
         shard_quantized(tpm, TwoDevices())
 
 

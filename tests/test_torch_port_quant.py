@@ -360,14 +360,20 @@ def test_sharded_and_unsharded_mean_orders_differ():
 
 
 def test_sharded_quant_ebc_refuses_several_devices():
+    """Over two devices the module places tables round-robin (rank 0 packs
+    tables 0 and 2 only) and refuses a placement on a device outside the
+    world, as JAX's does."""
     class TwoDevices:
         world_size, rank, device = 2, 0, torch.device("cpu")
 
     _, tt = _configs(_tables())
     q = {c.name: tq.quantize_rowwise(torch.ones(c.num_embeddings, 16))
          for c in tt}
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ShardedQuantEmbeddingBagCollection(TwoDevices(), tt, q)
+    sq = ShardedQuantEmbeddingBagCollection(TwoDevices(), tt, q)
+    assert set(sq.quantized) == {tt[0].name, tt[2].name}
+    with pytest.raises(ValueError, match="outside"):
+        ShardedQuantEmbeddingBagCollection(
+            TwoDevices(), tt, q, {c.name: 2 for c in tt})
 
 
 def test_quant_ebc_refuses_float_types_and_unpooled_tables():

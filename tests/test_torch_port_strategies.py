@@ -109,6 +109,8 @@ ROWS = (50, 131, 77)
 D, B, L = 16, 8, 3
 POOLED = ("DATA_PARALLEL", "ROW_WISE", "TABLE_WISE", "COLUMN_WISE")
 SEQUENCE = ("DATA_PARALLEL", "ROW_WISE", "TABLE_WISE")
+# the hierarchical strategies at world size 1: one host of one rank
+HIERARCHICAL = ("TABLE_ROW_WISE", "TABLE_COLUMN_WISE")
 TOL = {"SGD": (1e-5, 1e-6), "EXACT_SGD": (1e-5, 1e-6),
        "ROWWISE_ADAGRAD": (1e-5, 1e-6), "ADAGRAD": (1e-5, 1e-6),
        "ADAM": (1e-4, 1e-6), "PARTIAL_ROWWISE_ADAM": (1e-5, 1e-6),
@@ -250,9 +252,9 @@ def _check_update(jstrat, state, strat, optim, ids, lengths, dense):
 
 
 @pytest.mark.parametrize("optim", [o.name for o in EmbOptimType])
-@pytest.mark.parametrize("st", POOLED)
+@pytest.mark.parametrize("st", POOLED + HIERARCHICAL)
 def test_pooled_strategy_matches_jax(st, optim):
-    weighted = st in ("ROW_WISE", "TABLE_WISE")
+    weighted = st in ("ROW_WISE", "TABLE_WISE", "TABLE_ROW_WISE")
     jstrat, state, strat, dense = _pair(st, optim, False, weighted)
     assert strat.weights_shape() == jstrat.weights_shape()
     np.testing.assert_array_equal(strat.weights.numpy(),
@@ -275,7 +277,7 @@ def test_pooled_strategy_matches_jax(st, optim):
 
 
 @pytest.mark.parametrize("optim", [o.name for o in EmbOptimType])
-@pytest.mark.parametrize("st", SEQUENCE)
+@pytest.mark.parametrize("st", SEQUENCE + HIERARCHICAL[:1])
 def test_sequence_strategy_matches_jax(st, optim):
     jstrat, state, strat, dense = _pair(st, optim, True)
     np.testing.assert_array_equal(strat.weights.numpy(),
@@ -425,6 +427,151 @@ def test_mixed_plan_dmp_matches_jax(optim):
             np.testing.assert_allclose(opt[name][tag],
                                        np.asarray(jopt[name][tag]),
                                        rtol=1e-4, atol=1e-7)
+
+
+PIPELINED = ("DATA_PARALLEL", "TABLE_ROW_WISE", "TABLE_COLUMN_WISE",
+             "ROW_WISE")
+
+
+def _dlrm_pair(optim, plan_types, fused_params=None):
+    """JAX's DLRMTrain DMP on one device and the port's on the CPU under
+    one plan, the port's loaded with JAX's initial state; the JAX state
+    and the first of four seeded requests."""
+    keys = [f"f{i}" for i in range(4)]
+    jtables = tuple(_dlrm_tables(False))
+    jdmp = JDMP(
+        JDLRMTrain(dlrm=JDLRM(
+            embedding_bag_collection=JEBC(tables=jtables,
+                                          max_feature_length=L),
+            dense_in_features=DENSE_IN, dense_arch_layer_sizes=(16, D),
+            over_arch_layer_sizes=(8, 1))),
+        env=JEnv.from_devices(jax.devices()[:1]),
+        plan=JPlan({JAX_KEY: {t.name: JPS(JST[s])
+                              for t, s in zip(jtables, plan_types)}}),
+        fused_optim=JOptim[optim],
+        fused_params={"learning_rate": 0.1, **(fused_params or {})},
+        dense_optimizer=optax.sgd(0.05))
+    tables = _dlrm_tables(True)
+    dmp = DistributedModelParallel(
+        DLRMTrain(DLRM(EmbeddingBagCollection(tables, max_feature_length=L,
+                                              device="meta"),
+                       DENSE_IN, (16, D), (8, 1), device="meta")),
+        plan=ShardingPlan({PORT_KEY: {t.name: ParameterSharding(
+            ShardingType[s]) for t, s in zip(tables, plan_types)}}),
+        device="cpu", fused_optim=EmbOptimType[optim],
+        fused_params={"learning_rate": 0.1, **(fused_params or {})},
+        dense_optimizer=lambda p: torch.optim.SGD(p, lr=0.05))
+    ids, lengths, dense, labels = _mixed_request(30)
+    sb0 = JKJT.from_lengths(keys, jnp.asarray(ids),
+                            jnp.asarray(lengths)).to_padded(L)
+    state = jdmp.init(jax.random.PRNGKey(0), jnp.asarray(dense), sb0,
+                      jnp.asarray(labels))
+    load_jax_weights(dmp, jax.tree.map(np.asarray, state.dense_params),
+                     jdmp.sharded_ebcs[JAX_KEY].unshard_to_dense(
+                         state.emb_states[JAX_KEY]))
+    return jdmp, state, dmp
+
+
+def _port_args(req):
+    ids, lengths, dense, labels = req
+    return (torch.as_tensor(dense), KeyedJaggedTensor.from_lengths(
+        [f"f{i}" for i in range(4)], ids, lengths), torch.as_tensor(labels))
+
+
+def _jax_args(req):
+    ids, lengths, dense, labels = req
+    return (jnp.asarray(dense), JKJT.from_lengths(
+        [f"f{i}" for i in range(4)], jnp.asarray(ids),
+        jnp.asarray(lengths)).to_padded(L), jnp.asarray(labels))
+
+
+@pytest.mark.parametrize("routing", ["allgather", "a2a"])
+@pytest.mark.parametrize("driver", ["prefetched_step", "sparse_dist"])
+def test_prefetched_step_and_pipeline_match_jax(driver, routing):
+    """The DMP's prefetched step, driven by hand or by SparseDistPipeline
+    on the CPU, over 3 batches of a plan with DATA_PARALLEL (no dist),
+    TABLE_ROW_WISE, TABLE_COLUMN_WISE and ROW_WISE groups, against JAX's
+    prefetched step from the same state: losses, dense parameters and
+    tables rtol 1e-4 / atol 1e-5 (test_torch_port_train.py's bound)."""
+    from torchrec_tpu_torch.parallel.train_pipeline import (
+        SparseDistPipeline,
+    )
+
+    fp = {"input_routing": routing} if routing == "a2a" else None
+    jdmp, state, dmp = _dlrm_pair("ROWWISE_ADAGRAD", PIPELINED, fp)
+    reqs = [_mixed_request(40 + s) for s in range(3)]
+    jstep = jdmp.make_prefetched_train_step()
+    jdists = jdmp.input_dist(_jax_args(reqs[0])[1])
+    jlosses = []
+    for i, req in enumerate(reqs):
+        nxt = _jax_args(reqs[min(i + 1, 2)])[1]
+        state, jloss, _, jdists = jstep(state, jdists, nxt, *_jax_args(req))
+        jlosses.append(float(jloss))
+    dists = dmp.input_dist(_port_args(reqs[0])[1])
+    assert list(dists) == [PORT_KEY]
+    assert [d is None for d in dists[PORT_KEY]] == [True, False, False,
+                                                     False]
+    if driver == "prefetched_step":
+        step, losses = dmp.make_prefetched_train_step(), []
+        for i, req in enumerate(reqs):
+            nxt = _port_args(reqs[min(i + 1, 2)])[1]
+            loss, _, dists = step(dists, nxt, *_port_args(req))
+            losses.append(float(loss))
+    else:
+        pipe = SparseDistPipeline(dmp, device="cpu")
+        it = iter([_port_args(r) for r in reqs])
+        losses = [float(pipe.progress(it)[0]) for _ in reqs]
+        with pytest.raises(StopIteration):
+            pipe.progress(it)
+    np.testing.assert_allclose(losses, jlosses, rtol=1e-4, atol=1e-5)
+    jdense = flax_dense_to_state_dict(
+        jax.tree.map(np.asarray, state.dense_params), dmp.module)
+    for name, p in dmp.module.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), jdense[name],
+                                   rtol=1e-4, atol=1e-5, err_msg=name)
+    jt = jdmp.sharded_ebcs[JAX_KEY].unshard_to_dense(
+        state.emb_states[JAX_KEY])
+    for name, t in dmp.sharded_ebcs[PORT_KEY].unshard_to_dense().items():
+        np.testing.assert_allclose(t, np.asarray(jt[name]), rtol=1e-4,
+                                   atol=1e-5, err_msg=name)
+
+
+def test_local_size_must_divide_the_world():
+    """A world that local_size does not divide raises, as JAX's
+    ShardingEnv does; the default is the whole world."""
+    with pytest.raises(ValueError, match="not divisible"):
+        ShardingEnv("cpu", local_size=2)
+    with pytest.raises(ValueError, match="not divisible"):
+        JEnv.from_devices(jax.devices()[:1], local_size=2)
+    env = ShardingEnv("cpu")
+    assert (env.local_size, env.num_hosts) == (1, 1)
+    assert env.subgroups() == (None, None)
+    assert env.subgroup_ranks() == ([[0]], [[0]])
+
+
+@pytest.mark.parametrize("case", ["host_outside", "dim_not_divisible"])
+def test_hierarchical_strategies_refuse_as_jax_does(case):
+    """A table pinned to a host outside the world's hosts, and TWCW with a
+    dim its local size does not divide, raise ValueError in both packages
+    (a group-less CPU env that reports 4 ranks of 2 hosts: the checks run
+    before any collective)."""
+    st, dim, host = (("TABLE_ROW_WISE", D, 2) if case == "host_outside"
+                     else ("TABLE_COLUMN_WISE", 15, 0))
+    cfg = EmbeddingBagConfig(num_embeddings=10, embedding_dim=dim, name="t",
+                             feature_names=["f"])
+    jcfg = JBagConfig(num_embeddings=10, embedding_dim=dim, name="t",
+                      feature_names=["f"])
+    (meta,) = group_tables([cfg], [["f"]], {"t": ParameterSharding(
+        ShardingType[st], host=host)})
+    (jmeta,) = j_group_tables([jcfg], [["f"]], {"t": JPS(JST[st],
+                                                         host=host)})
+    env = ShardingEnv("cpu")
+    env.world_size, env.local_size = 4, 2
+    with pytest.raises(ValueError):
+        create_sharding_strategy(env, meta, EmbOptimType.EXACT_SGD)
+    with pytest.raises(ValueError):
+        j_create(JEnv.from_devices(jax.devices()[:4], local_size=2), jmeta,
+                 JOptim.EXACT_SGD)
 
 
 def test_sharders_match_jax_and_merge_fused_params():

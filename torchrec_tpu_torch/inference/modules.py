@@ -221,16 +221,18 @@ def quant_modules(dmp, quant: Mapping[str, Mapping[str, tuple]],
 class ShardedPredictModule(PredictModule):
     """Quantized serving through `ShardedQuantEmbeddingBagCollection`s:
     each quantized EBC of `module` replaced by its table-wise sharded form
-    over `env` (all tables on rank 0 at world size 1), in a copy of the
-    dense part on `env`'s device. It keeps no reference to the unsharded
-    quantized tables; `save` writes the sharded modules' tables."""
+    over `env`, its tables placed by `table_ranks` ({module key -> {table
+    -> rank}}), in a copy of the dense part on `env`'s device. It keeps no
+    reference to the unsharded quantized tables; `save` writes the sharded
+    modules' tables, at world size n this rank's."""
 
     def __init__(self, module: nn.Module,
                  quant_ebcs: Mapping[str, QuantEmbeddingBagCollection],
-                 env: ShardingEnv):
+                 env: ShardingEnv,
+                 table_ranks: Mapping[str, Mapping[str, int]]):
         sharded = {
             key: ShardedQuantEmbeddingBagCollection(
-                env, q.tables, q.quantized,
+                env, q.tables, q.quantized, table_ranks[key],
                 is_weighted=q.is_weighted,
                 max_feature_length=q.max_feature_length)
             for key, q in quant_ebcs.items()}
@@ -244,16 +246,29 @@ class ShardedPredictModule(PredictModule):
         return self._env.device
 
 
-def shard_quantized(pm: PredictModule,
-                    env: Optional[ShardingEnv] = None
-                    ) -> ShardedPredictModule:
+def shard_quantized(
+    pm: PredictModule,
+    env: Optional[ShardingEnv] = None,
+    table_ranks: Optional[Mapping[str, Mapping[str, int]]] = None,
+) -> ShardedPredictModule:
     """Shard a quantized PredictModule over an inference env (default: one
-    device, the predict module's). At world size 1 every table lands on
-    rank 0, which both the JAX planner and its round-robin fallback give;
-    placing tables over several ranks waits for the next slice and the
-    planner (ROADMAP queue 1, items 8b and 9)."""
-    return ShardedPredictModule(pm.module, pm._quant_ebcs,
-                                env or ShardingEnv(pm.device))
+    device, the predict module's; `ShardingEnv.from_local(n)` for n ranks
+    of one host), each table on the rank `table_ranks` gives ({module key
+    -> {table -> rank}}, JAX's form). At world size 1 every table lands on
+    rank 0, which both the JAX planner and its round-robin fallback give.
+    At world size n > 1 `table_ranks` is required: JAX plans the default
+    placement with its planner, which is not ported (ROADMAP queue 1
+    item 9)."""
+    env = env or ShardingEnv(pm.device)
+    if table_ranks is None:
+        if env.world_size > 1:
+            raise NotImplementedError(
+                f"shard_quantized at world size {env.world_size} without "
+                "table_ranks: the planned default placement needs the "
+                "planner (ROADMAP queue 1 item 9); pass table_ranks")
+        table_ranks = {key: {t.name: 0 for t in q.tables}
+                       for key, q in pm._quant_ebcs.items()}
+    return ShardedPredictModule(pm.module, pm._quant_ebcs, env, table_ranks)
 
 
 class PredictFactory(abc.ABC):
@@ -271,11 +286,6 @@ class PredictFactory(abc.ABC):
 
 def _check_quantizable(dmp) -> None:
     """Raise for the sharded modules quantized serving does not take."""
-    if dmp.env.world_size != 1:
-        raise NotImplementedError(
-            f"quantized serving of a DMP at world size {dmp.env.world_size}: "
-            "quantizing and placing its tables over the ranks comes with the "
-            "next slice (ROADMAP queue 1 item 8b)")
     if dmp._fp_ebcs:
         raise NotImplementedError(
             f"quantized serving of a FeatureProcessedEmbeddingBagCollection "
@@ -296,7 +306,9 @@ def quantize_embeddings(
     device: DeviceLike = None,
 ) -> PredictModule:
     """Trained DMP -> quantized PredictModule on `device` (default: the
-    current CUDA card). Each table is quantized where the DMP holds it."""
+    current CUDA card). Each table is quantized where the DMP holds it; at
+    world size n every rank gathers every table first (`unshard_tables`,
+    a collective) and holds the whole quantized model."""
     dev = resolve_device(device)
     _check_quantizable(dmp)
     quant_ebcs = {

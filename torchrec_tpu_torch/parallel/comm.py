@@ -2,10 +2,14 @@
 
 The JAX package has no such module: its strategies call `lax` collectives
 inside `shard_map` over the mesh axis "dev". Here each rank is one process
-and each function is one `torch.distributed` call over the env's group,
-with the semantics of JAX's `tiled=True` form on the axis JAX names:
+and each function is one `torch.distributed` call over the env's group, or
+over one of its subgroups (`group=`, from `ShardingEnv.subgroups()`, JAX's
+`axis_index_groups`), with the semantics of JAX's form on the axis JAX
+names:
 
     all_gather(env, x, axis)          lax.all_gather(x, axis=axis, tiled=True)
+    all_gather(env, x, axis,          lax.all_gather(x, axis=axis,
+               tiled=False)               tiled=False): a new axis
     reduce_scatter(env, x, axis)      lax.psum_scatter(x, scatter_dimension=
                                           axis, tiled=True)
     all_to_all(env, x, split, concat) lax.all_to_all(x, split_axis=split,
@@ -13,22 +17,30 @@ with the semantics of JAX's `tiled=True` form on the axis JAX names:
     all_reduce_mean(env, tensors)     the mean over ranks, in place (the
                                       dense gradients JAX's jit averages)
 
-Rank r's block of a gathered or split axis is block r, as device r's in
-JAX. Each function is the identity when the env has no group, and a real
-call when it has one, even at world size 1, so that an NCCL group of one
-rank runs the card's collective path. NCCL's gather, reduce-scatter and
-all_to_all work on dim 0, so the axis moves to the front and the tensor is
-made contiguous first; bool tensors travel as uint8. The calls are
-`all_gather_into_tensor`, `reduce_scatter_tensor`, `all_to_all_single` and
-`all_reduce`, which every torch 2.x has (later versions deprecate the first
-two's names but keep them). `CALLS` counts the calls made to
-torch.distributed per function, as the kernel wrappers count their
-launches.
+Block j of a gathered or split axis is the group's j-th rank's, as a JAX
+group's blocks follow their position in the group's list (ascending in
+both packages). Each function is the identity when the env has no group,
+and a real call when it has one, even of one rank, so that an NCCL group
+of one rank runs the card's collective path. NCCL's gather, reduce-scatter
+and all_to_all work on dim 0, so the axis moves to the front and the
+tensor is made contiguous first; bool tensors travel as uint8. The calls
+are `all_gather_into_tensor`, `reduce_scatter_tensor`, `all_to_all_single`
+and `all_reduce`, which every torch 2.x has (later versions deprecate the
+first two's names but keep them).
+
+A float tensor that requires grad, with grad mode on, goes through a
+differentiable form (a `torch.autograd.Function`) of the same call: the
+backward of all_gather is reduce_scatter of the gradient, of
+reduce_scatter all_gather, of all_to_all the all_to_all with split and
+concat swapped, JAX's transposes. The feature-processed EBC's lookup at
+world size n runs through them. `CALLS` counts the calls made to
+torch.distributed per function, forward and backward alike, as the kernel
+wrappers count their launches.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -50,65 +62,137 @@ def _back(y: torch.Tensor, axis: int, dtype: torch.dtype) -> torch.Tensor:
     return y.movedim(0, axis).to(dtype)
 
 
-def all_gather(env, x: torch.Tensor, axis: int) -> torch.Tensor:
-    """Every rank's x concatenated along `axis` in rank order."""
-    if env.group is None:
-        return x
+def _group(env, group: Optional[dist.ProcessGroup]):
+    """(the process group, its size): `group`, else the env's."""
+    if group is None:
+        return env.group, env.world_size
+    return group, group.size()
+
+
+def _differentiable(x: torch.Tensor) -> bool:
+    return x.requires_grad and torch.is_grad_enabled()
+
+
+def _all_gather(pg, n: int, x: torch.Tensor, axis: int) -> torch.Tensor:
     xs = _front(x, axis)
-    out = torch.empty((env.world_size * xs.shape[0], *xs.shape[1:]),
-                      dtype=xs.dtype, device=xs.device)
-    dist.all_gather_into_tensor(out, xs, group=env.group)
+    out = torch.empty((n * xs.shape[0], *xs.shape[1:]), dtype=xs.dtype,
+                      device=xs.device)
+    dist.all_gather_into_tensor(out, xs, group=pg)
     CALLS["all_gather"] += 1
     return _back(out, axis, x.dtype)
 
 
-def reduce_scatter(env, x: torch.Tensor, axis: int) -> torch.Tensor:
-    """The sum of every rank's x, of which this rank keeps block `rank`
-    of `axis` (its size / n)."""
-    if env.group is None:
-        return x
+def _reduce_scatter(pg, n: int, x: torch.Tensor, axis: int) -> torch.Tensor:
     xs = _front(x, axis)
-    n = env.world_size
     if xs.shape[0] % n:
         raise ValueError(f"axis {axis} of size {xs.shape[0]} does not split "
                          f"over {n} ranks")
     out = torch.empty((xs.shape[0] // n, *xs.shape[1:]), dtype=xs.dtype,
                       device=xs.device)
-    dist.reduce_scatter_tensor(out, xs, op=dist.ReduceOp.SUM,
-                               group=env.group)
+    dist.reduce_scatter_tensor(out, xs, op=dist.ReduceOp.SUM, group=pg)
     CALLS["reduce_scatter"] += 1
     return _back(out, axis, x.dtype)
 
 
-def all_to_all(env, x: torch.Tensor, split_axis: int,
-               concat_axis: int) -> torch.Tensor:
-    """x split into n blocks along `split_axis`, block j sent to rank j;
-    the blocks received concatenated along `concat_axis` in rank order."""
-    if env.group is None:
-        return x
+def _all_to_all(pg, n: int, x: torch.Tensor, split_axis: int,
+                concat_axis: int) -> torch.Tensor:
     xs = _front(x, split_axis)
-    n = env.world_size
     if xs.shape[0] % n:
         raise ValueError(f"axis {split_axis} of size {xs.shape[0]} does not "
                          f"split over {n} ranks")
     out = torch.empty_like(xs)
-    dist.all_to_all_single(out, xs, group=env.group)
+    dist.all_to_all_single(out, xs, group=pg)
     CALLS["all_to_all"] += 1
     blocks = out.reshape(n, xs.shape[0] // n, *xs.shape[1:]).unbind(0)
     return torch.cat([_back(b, split_axis, x.dtype) for b in blocks],
                      dim=concat_axis)
 
 
-def all_reduce_mean(env, tensors: Sequence[torch.Tensor]) -> None:
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, pg, n, axis):
+        ctx.pg, ctx.n, ctx.axis = pg, n, axis
+        return _all_gather(pg, n, x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(ctx.pg, ctx.n, g, ctx.axis), None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, pg, n, axis):
+        ctx.pg, ctx.n, ctx.axis = pg, n, axis
+        return _reduce_scatter(pg, n, x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(ctx.pg, ctx.n, g, ctx.axis), None, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, pg, n, split_axis, concat_axis):
+        ctx.args = (pg, n, concat_axis, split_axis)
+        return _all_to_all(pg, n, x, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(*ctx.args[:2], g, *ctx.args[2:]), None, None, \
+            None, None
+
+
+def all_gather(env, x: torch.Tensor, axis: int, tiled: bool = True,
+               group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
+    """Every rank's x concatenated along `axis` in rank order; with
+    tiled=False stacked along a new axis `axis` instead."""
+    if not tiled:
+        x = x.unsqueeze(axis)
+    if env.group is None:
+        return x
+    pg, n = _group(env, group)
+    if _differentiable(x):
+        return _AllGather.apply(x, pg, n, axis)
+    return _all_gather(pg, n, x, axis)
+
+
+def reduce_scatter(env, x: torch.Tensor, axis: int,
+                   group: Optional[dist.ProcessGroup] = None
+                   ) -> torch.Tensor:
+    """The sum of every rank's x, of which this rank keeps block `rank`
+    of `axis` (its size / n)."""
+    if env.group is None:
+        return x
+    pg, n = _group(env, group)
+    if _differentiable(x):
+        return _ReduceScatter.apply(x, pg, n, axis)
+    return _reduce_scatter(pg, n, x, axis)
+
+
+def all_to_all(env, x: torch.Tensor, split_axis: int, concat_axis: int,
+               group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
+    """x split into n blocks along `split_axis`, block j sent to rank j;
+    the blocks received concatenated along `concat_axis` in rank order."""
+    if env.group is None:
+        return x
+    pg, n = _group(env, group)
+    if _differentiable(x):
+        return _AllToAll.apply(x, pg, n, split_axis, concat_axis)
+    return _all_to_all(pg, n, x, split_axis, concat_axis)
+
+
+def all_reduce_mean(env, tensors: Sequence[torch.Tensor],
+                    group: Optional[dist.ProcessGroup] = None) -> None:
     """Replace each tensor by its mean over the ranks, in place, in one
     call: the tensors travel flattened in one f32 buffer, summed, divided
     by n."""
     if env.group is None or not tensors:
         return
+    pg, n = _group(env, group)
     flat = torch.cat([t.reshape(-1).to(torch.float32) for t in tensors])
-    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=env.group)
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=pg)
     CALLS["all_reduce_mean"] += 1
-    flat /= env.world_size
+    flat /= n
     off = 0
     for t in tensors:
         t.copy_(flat[off:off + t.numel()].view_as(t))

@@ -54,17 +54,31 @@ backward the dense gradients are all_reduced as a mean over the ranks (one
 call; `init(seed)` draws the same dense parameters on every rank, and the
 equal steps keep them equal), and the sparse cotangents are divided by n
 before the sharded updates. The returned loss is the rank's own; the mean
-of the ranks' losses is JAX's. Not ported yet: the planner (a plan must be
-given), the prefetched and pipelined train steps, embedding towers,
-UVM-cached tables (an FP-EBC's too), and at world size > 1 the
-feature-processor branch (ROADMAP queue 1 item 8b).
+of the ranks' losses is JAX's. At world size n a feature processor's
+lookup runs through the differentiable collectives of parallel/comm.py:
+the backward of the rank's local loss reaches every rank's processed
+weights, so the processor's gradient on a rank is that of the sum of the
+ranks' local losses through its own weights, and the dense all_reduce's
+mean makes it the global mean loss's. It is not scaled by 1/n as the
+sparse cotangents are.
+
+`input_dist(batch)` is a batch's sparse input dist, computed ahead of its
+step: for each EBC and EC without a feature processor, each group's
+strategy's `input_dist` (the ids' all_gather, or the hierarchical
+strategies' routed views). `make_prefetched_train_step()` takes the
+batch's dists and returns the next batch's, so that a batch's forward and
+update share one dist: each group with a dist makes one all_gather of
+the ids per step where `make_train_step` makes two, with the same
+numerics (parallel/train_pipeline.SparseDistPipeline drives it). Not
+ported yet: the planner (a plan must be given), embedding towers and
+UVM-cached tables (an FP-EBC's too).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import inspect
-from typing import Any, Callable, Dict, List, Mapping, Optional
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
@@ -232,12 +246,6 @@ class DistributedModelParallel(nn.Module):
             if module_plan is None:
                 raise ValueError(f"the plan has no entry for module {key!r}")
             if isinstance(mod, FeatureProcessedEmbeddingBagCollection):
-                if self.env.world_size > 1:
-                    raise NotImplementedError(
-                        f"{key}: a FeatureProcessedEmbeddingBagCollection at "
-                        f"world size {self.env.world_size}: K1's d_coeff VJP "
-                        "would need the transpose of the ROW_WISE "
-                        "reduce_scatter (ROADMAP queue 1 item 8b)")
                 # the processor stays; the EBC is stubbed and sharded below
                 fp_ebc = ShardedFeatureProcessedEmbeddingBagCollection(
                     mod.embedding_bag_collection, mod.feature_processor)
@@ -335,6 +343,55 @@ class DistributedModelParallel(nn.Module):
             return float(self.fused_lr_schedule(self.step))
         return float(self.learning_rate)
 
+    def _dist_keys(self) -> Tuple[str, ...]:
+        """The modules whose input dist can be computed ahead of the step:
+        every sharded EBC and EC but a feature processor's, whose
+        per-sample weights the step computes from live parameters."""
+        return tuple(k for k in self.sharded_ebcs if k not in self._fp_ebcs)
+
+    @torch.no_grad()
+    def input_dist(self, sparse) -> Dict[str, tuple]:
+        """A batch's sparse input dist (a KeyedJaggedTensor or
+        PaddedSparseBatch on the env's device): {module key -> one dist per
+        group, None where the group gathers in the step}; modules with no
+        dist are absent. Collectives: every rank calls it."""
+        out = {}
+        for key in self._dist_keys():
+            sebc = self.sharded_ebcs[key]
+            dist = sebc.input_dist(as_padded(sparse,
+                                             sebc.max_feature_length))
+            if any(d is not None for d in dist):
+                out[key] = dist
+        return out
+
+    @staticmethod
+    def _sparse_arg(args) -> Any:
+        sparse = [a for a in args
+                  if isinstance(a, (KeyedJaggedTensor, PaddedSparseBatch))]
+        if len(sparse) != 1:
+            raise ValueError("train_step takes exactly one sparse batch "
+                             f"argument, got {len(sparse)}")
+        return sparse[0]
+
+    def make_prefetched_train_step(
+            self, loss_fn: Optional[Callable] = None) -> Callable:
+        """step(dists, next_sparse, *args) -> (loss, aux, next_dists): one
+        optimizer step of `make_train_step`'s on `args`, its sparse modules
+        fed `dists`, the batch's `input_dist` (prime with the first
+        batch's), then the input dist of the next batch's sparse batch.
+        Numerics equal `make_train_step`'s."""
+        self._check_trainable()
+
+        def step(dists, next_sparse, *args):
+            loss, aux = self._train_step(args, dists, loss_fn)
+            return loss, aux, self.input_dist(next_sparse)
+
+        return step
+
+    def _check_trainable(self) -> None:
+        for sebc in self.sharded_ebcs.values():
+            sebc.check_trainable()
+
     def make_train_step(self, loss_fn: Optional[Callable] = None) -> Callable:
         """train_step(*args) -> (loss, aux), one optimizer step.
 
@@ -350,83 +407,87 @@ class DistributedModelParallel(nn.Module):
         gradients are averaged over the ranks and the sparse cotangents
         divided by n (see the module docstring).
         """
-        for sebc in self.sharded_ebcs.values():
-            sebc.check_trainable()
+        self._check_trainable()
 
         def train_step(*args):
-            sparse = [a for a in args
-                      if isinstance(a, (KeyedJaggedTensor, PaddedSparseBatch))]
-            if len(sparse) != 1:
-                raise ValueError("train_step takes exactly one sparse batch "
-                                 f"argument, got {len(sparse)}")
-            lr = self._fused_lr()
-            # the sharded lookups' values enter the dense model as leaves:
-            # an EBC's pooled values, an EC's {name: per-token rows}
-            leaves: Dict[str, Any] = {}
-            # an FP-EBC's lookup runs inside autograd, differentiable in
-            # the processed weights only; its update takes them detached
-            batches = {key: sparse[0] for key in self.sharded_ebcs}
-            fp_pooled: Dict[str, torch.Tensor] = {}
-            with record_function("## train_feature_processor ##"):
-                for key, fp_ebc in self._fp_ebcs.items():
-                    sebc = self.sharded_ebcs[key]
-                    sb = fp_ebc.feature_processor(
-                        as_padded(sparse[0], sebc.max_feature_length))
-                    out = sebc(sb)
-                    fp_pooled[key] = out.values
-                    leaves[key] = out.values.detach().requires_grad_(True)
-                    fp_ebc.injected = dataclasses.replace(out,
-                                                          values=leaves[key])
-                    batches[key] = dataclasses.replace(
-                        sb, weights=sb.weights.detach())
-            # the other sharded lookups outside autograd
-            with torch.no_grad():
-                for key, sebc in self.sharded_ebcs.items():
-                    if key in leaves:
-                        continue
-                    out = sebc(sparse[0])
-                    if isinstance(sebc, ShardedEmbeddingCollection):
-                        leaves[key] = {n: t.detach().requires_grad_(True)
-                                       for n, t in out.items()}
-                        sebc.injected = leaves[key]
-                    else:
-                        leaves[key] = out.values.requires_grad_(True)
-                        sebc.injected = KeyedTensor(
-                            values=leaves[key], keys=out.keys,
-                            length_per_key=out.length_per_key)
-            try:
-                with record_function("## train_dense_forward ##"):
-                    out = self.module(*args)
-                    loss, aux = out if loss_fn is None else loss_fn(out)
-            finally:
-                for m in (*self.sharded_ebcs.values(),
-                          *self._fp_ebcs.values()):
-                    m.injected = None
-            self.dense_optimizer.zero_grad(set_to_none=True)
-            with record_function("## train_backward ##"):
-                loss.backward()
-            with record_function("## train_fp_backward ##"):
-                # the pooled cotangent back through K1's VJP in its
-                # coefficient into the processor's parameters
-                for key, pooled in fp_pooled.items():
-                    if leaves[key].grad is not None:
-                        pooled.backward(leaves[key].grad)
-            with record_function("## train_dense_optimizer ##"):
-                # the JAX step differentiates every dense parameter, so one
-                # the loss does not reach gets a zero gradient, on which
-                # Adam still steps; torch's optimizers skip a None one
-                params = list(self.module.parameters())
-                for p in params:
-                    if p.grad is None:
-                        p.grad = torch.zeros_like(p)
-                # the gradient of the global batch's mean loss
-                comm.all_reduce_mean(self.env, [p.grad for p in params])
-                self.dense_optimizer.step()
-            for key, sebc in self.sharded_ebcs.items():
-                sebc.update(batches[key],
-                            _scaled(_grad(leaves[key]),
-                                    1.0 / self.env.world_size), lr)
-            self.step += 1
-            return loss.detach(), _detach(aux)
+            return self._train_step(args, {}, loss_fn)
 
         return train_step
+
+    def _train_step(self, args, dists: Mapping[str, tuple],
+                    loss_fn: Optional[Callable]):
+        """One optimizer step on `args`; a module with an entry in
+        `dists` looks up and updates from it."""
+        sparse = self._sparse_arg(args)
+        lr = self._fused_lr()
+        # the sharded lookups' values enter the dense model as leaves:
+        # an EBC's pooled values, an EC's {name: per-token rows}
+        leaves: Dict[str, Any] = {}
+        # an FP-EBC's lookup runs inside autograd, differentiable in
+        # the processed weights only; its update takes them detached
+        batches = {key: sparse for key in self.sharded_ebcs}
+        fp_pooled: Dict[str, torch.Tensor] = {}
+        with record_function("## train_feature_processor ##"):
+            for key, fp_ebc in self._fp_ebcs.items():
+                sebc = self.sharded_ebcs[key]
+                sb = fp_ebc.feature_processor(
+                    as_padded(sparse, sebc.max_feature_length))
+                out = sebc(sb)
+                fp_pooled[key] = out.values
+                leaves[key] = out.values.detach().requires_grad_(True)
+                fp_ebc.injected = dataclasses.replace(out,
+                                                      values=leaves[key])
+                batches[key] = dataclasses.replace(
+                    sb, weights=sb.weights.detach())
+        # the other sharded lookups outside autograd
+        with torch.no_grad():
+            for key, sebc in self.sharded_ebcs.items():
+                if key in leaves:
+                    continue
+                out = sebc(sparse, dist=dists.get(key))
+                if isinstance(sebc, ShardedEmbeddingCollection):
+                    leaves[key] = {n: t.detach().requires_grad_(True)
+                                   for n, t in out.items()}
+                    sebc.injected = leaves[key]
+                else:
+                    leaves[key] = out.values.requires_grad_(True)
+                    sebc.injected = KeyedTensor(
+                        values=leaves[key], keys=out.keys,
+                        length_per_key=out.length_per_key)
+        try:
+            with record_function("## train_dense_forward ##"):
+                out = self.module(*args)
+                loss, aux = out if loss_fn is None else loss_fn(out)
+        finally:
+            for m in (*self.sharded_ebcs.values(),
+                      *self._fp_ebcs.values()):
+                m.injected = None
+        self.dense_optimizer.zero_grad(set_to_none=True)
+        with record_function("## train_backward ##"):
+            loss.backward()
+        with record_function("## train_fp_backward ##"):
+            # the pooled cotangent back through K1's VJP in its
+            # coefficient into the processor's parameters (with a group,
+            # on every rank: it makes collectives)
+            for key, pooled in fp_pooled.items():
+                if (leaves[key].grad is not None
+                        or self.env.group is not None):
+                    pooled.backward(_grad(leaves[key]))
+        with record_function("## train_dense_optimizer ##"):
+            # the JAX step differentiates every dense parameter, so one
+            # the loss does not reach gets a zero gradient, on which
+            # Adam still steps; torch's optimizers skip a None one
+            params = list(self.module.parameters())
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            # the gradient of the global batch's mean loss
+            comm.all_reduce_mean(self.env, [p.grad for p in params])
+            self.dense_optimizer.step()
+        for key, sebc in self.sharded_ebcs.items():
+            sebc.update(batches[key],
+                        _scaled(_grad(leaves[key]),
+                                1.0 / self.env.world_size), lr,
+                        dist=dists.get(key))
+        self.step += 1
+        return loss.detach(), _detach(aux)

@@ -81,14 +81,25 @@ class GroupMeta:
 
 
 class GroupedInputDistMixin:
-    """Per-group feature selection shared by the sharded modules (the host
-    class defines ``self.groups``)."""
+    """Per-group feature selection and input dist shared by the sharded
+    modules (the host class defines ``self.groups`` and
+    ``self.strategies``)."""
 
     def _group_batch(self, sb: PaddedSparseBatch,
                      group_idx: int) -> PaddedSparseBatch:
         feats = self.groups[group_idx].features
         key_index = {k: i for i, k in enumerate(sb.keys)}
         return sb.select_features([key_index[f] for f in feats])
+
+    def input_dist(self, sb: PaddedSparseBatch) -> Tuple:
+        """The batch's input dist, one per group: the strategy's
+        `input_dist` of the group's features, or None where the strategy
+        has none and gathers in the step (DATA_PARALLEL). Feed it to
+        `forward` / `update`'s `dist` to skip the in-step dist."""
+        return tuple(
+            strat.input_dist(self._group_batch(sb, gi))
+            if strat.supports_input_dist else None
+            for gi, strat in enumerate(self.strategies))
 
 
 def group_tables(

@@ -1,22 +1,23 @@
 """Sharded quantized EmbeddingBagCollection: TABLE_WISE int-N inference.
 
-Counterpart of torchrec_tpu/parallel/quant_sharded.py at world size 1,
-where every table lands on rank 0: the tables are row-concatenated into
-one packed data / scale / shift group ([rows, D * bits / 8], [rows],
-padded to ROW_TILE rows as the JAX module pads each device's rows), a
-feature's ids are rebased by its table's row offset, and one Kq launch
-pools every feature. MEAN folds 1 / length into the coefficient before
-the sum (`quant_sharded.py:203-204`), where the unsharded module divides
-the pooled sum, so the two agree bit for bit for SUM only; the port
-follows each module's own order. The JAX module's all_gather over
-devices is the identity here. Placement over several ranks, with its
-per-rank groups and routing, comes with the next slice (ROADMAP queue 1,
-item 8b).
+Counterpart of torchrec_tpu/parallel/quant_sharded.py. Each table lives
+whole on one rank, `table_ranks` (round-robin by default, JAX's class
+default); a rank packs only its own tables, row-concatenated into one
+data / scale / shift group ([rows_max, D * bits / 8], [rows_max], the
+largest rank's rows padded to ROW_TILE, as JAX's [n, rows_max, ...]
+layout holds on device r), in f_max feature slots (a pad slot reads
+feature 0 with its lengths 0). The batch is replicated: a request is one
+Kq launch over this rank's slots, one all_gather of the pooled slots over
+the ranks ([n f_max, B, D]) and the slots put in canonical feature order
+(`out_pos`); without a group the all_gather is the identity. MEAN folds
+1 / length into the coefficient before the sum (`quant_sharded.py:
+203-204`), where the unsharded module divides the pooled sum, so the two
+agree bit for bit for SUM only; the port follows each module's own order.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Sequence
+from typing import Dict, List, Mapping, Optional, Sequence
 
 import torch
 from torch import nn
@@ -34,6 +35,7 @@ from torchrec_tpu_torch.modules.embedding_modules import (
 from torchrec_tpu_torch.ops.embedding import PoolingMode
 from torchrec_tpu_torch.ops.quant import QuantizedTable, quantize_rowwise
 from torchrec_tpu_torch.ops.quant_lookup import quant_lookup_pooled
+from torchrec_tpu_torch.parallel import comm
 from torchrec_tpu_torch.parallel.strategies import (
     ArrayLike,
     _pad_rows_tile,
@@ -49,8 +51,9 @@ from torchrec_tpu_torch.sparse.jagged import KeyedTensor
 
 
 class ShardedQuantEmbeddingBagCollection(nn.Module):
-    """TW-sharded int-N inference EBC on `env`'s device, world size 1.
-    The packed group and each feature's row offset and MEAN flag are
+    """TW-sharded int-N inference EBC on `env`'s device. table_ranks:
+    {table name -> rank} (default: table i on rank i % n). This rank's
+    packed group and its slots' features, row offsets and MEAN flags are
     buffers."""
 
     def __init__(
@@ -58,19 +61,16 @@ class ShardedQuantEmbeddingBagCollection(nn.Module):
         env: ShardingEnv,
         tables: Sequence[EmbeddingBagConfig],
         quantized: Mapping[str, QuantizedTable],
+        table_ranks: Optional[Mapping[str, int]] = None,
         is_weighted: bool = False,
         max_feature_length: int = 1,
     ):
         super().__init__()
-        if env.world_size != 1:
-            raise NotImplementedError(
-                f"world_size={env.world_size}: the sharded quantized EBC's "
-                "table-wise placement over ranks and its output all_gather "
-                "come with the next slice (ROADMAP queue 1 item 8b)")
         self.env = env
         self.tables = tuple(tables)
         self.is_weighted = is_weighted
         self.max_feature_length = max_feature_length
+        n = env.world_size
         dims = {t.embedding_dim for t in tables}
         if len(dims) != 1:
             raise ValueError("tables must share embedding_dim")
@@ -84,39 +84,74 @@ class ShardedQuantEmbeddingBagCollection(nn.Module):
             nm for names in embedding_names_by_table(self.tables)
             for nm in names)
         self.features = [f for t in tables for f in t.feature_names]
+        ranks = dict(table_ranks or {t.name: i % n
+                                     for i, t in enumerate(tables)})
+        per_dev: List[List[int]] = [[] for _ in range(n)]
+        for ti, t in enumerate(tables):
+            r = ranks[t.name]
+            if not 0 <= r < n:
+                raise ValueError(f"table {t.name} rank {r} outside a world "
+                                 f"of {n} ranks")
+            per_dev[r].append(ti)
+        self.table_ranks = ranks
+        self.f_max = max((sum(len(tables[ti].feature_names) for ti in tids)
+                          for tids in per_dev), default=1) or 1
+        rows_max = _pad_rows_tile(max(
+            (sum(tables[ti].num_embeddings for ti in tids)
+             for tids in per_dev), default=1) or 1)
         device = env.device
-        rows = _pad_rows_tile(sum(t.num_embeddings for t in tables))
-        data = torch.zeros((rows, self.dim * self.bits // 8),
+        data = torch.zeros((rows_max, self.dim * self.bits // 8),
                            dtype=torch.uint8, device=device)
-        scale = torch.zeros((rows,), dtype=torch.float32, device=device)
+        scale = torch.zeros((rows_max,), dtype=torch.float32, device=device)
         shift = torch.zeros_like(scale)
+        feat_pos = {f: i for i, f in enumerate(self.features)}
+        out_pos = [0] * len(self.features)
+        feats, rowoff, mean = [], [], []
         self._offsets = {}
-        rowoff, mean = [], []
-        off = 0
-        for t in tables:
-            q = quantized[t.name]
-            part = slice(off, off + t.num_embeddings)
-            data[part] = q.data.to(device)
-            scale[part] = q.scale.to(device)
-            shift[part] = q.shift.to(device)
-            self._offsets[t.name] = off
-            is_mean = pooling_type_to_mode(t.pooling) is PoolingMode.MEAN
-            rowoff += [off] * len(t.feature_names)
-            mean += [is_mean] * len(t.feature_names)
-            off += t.num_embeddings
+        for d, tids in enumerate(per_dev):
+            slot = off = 0
+            for ti in tids:
+                t, mine = tables[ti], d == env.rank
+                is_mean = pooling_type_to_mode(t.pooling) is PoolingMode.MEAN
+                if mine:
+                    q = quantized[t.name]
+                    part = slice(off, off + t.num_embeddings)
+                    data[part] = q.data.to(device)
+                    scale[part] = q.scale.to(device)
+                    shift[part] = q.shift.to(device)
+                    self._offsets[t.name] = off
+                for f in t.feature_names:
+                    out_pos[feat_pos[f]] = d * self.f_max + slot
+                    slot += 1
+                    if mine:
+                        feats.append(feat_pos[f])
+                        rowoff.append(off)
+                        mean.append(is_mean)
+                off += t.num_embeddings
+        pad = self.f_max - len(feats)
+        # the gathered slots are the canonical features (one rank)
+        self._in_order = out_pos == list(range(len(out_pos)))
+        # the feature each of this rank's slots reads
+        self._slot_features = [self.features[f] for f in feats + [0] * pad]
         self.register_buffer("data", data)
         self.register_buffer("scale", scale)
         self.register_buffer("shift", shift)
-        self.register_buffer("feat_rowoff", torch.tensor(
-            rowoff, dtype=torch.int32, device=device), persistent=False)
-        self.register_buffer("feat_mean", torch.tensor(
-            mean, dtype=torch.bool, device=device), persistent=False)
+        for name, vals, dtype in (
+                ("feat_valid", [True] * len(feats) + [False] * pad,
+                 torch.bool),
+                ("feat_rowoff", rowoff + [0] * pad, torch.int32),
+                ("feat_mean", mean + [False] * pad, torch.bool),
+                ("out_pos", out_pos, torch.int64)):
+            self.register_buffer(name, torch.tensor(
+                vals, dtype=dtype, device=device), persistent=False)
 
     @property
     def quantized(self) -> Dict[str, QuantizedTable]:
-        """Each table's rows of the packed group (views), by name."""
+        """This rank's tables' rows of the packed group (views), by name."""
         out = {}
         for t in self.tables:
+            if t.name not in self._offsets:
+                continue
             part = slice(self._offsets[t.name],
                          self._offsets[t.name] + t.num_embeddings)
             out[t.name] = QuantizedTable(
@@ -142,14 +177,15 @@ class ShardedQuantEmbeddingBagCollection(nn.Module):
 
     def forward(self, features: SparseInput) -> KeyedTensor:
         """Replicated batch in, pooled KeyedTensor [B, sum(D)] out: one Kq
-        launch over the packed group."""
+        launch over this rank's slots, one all_gather of the slots."""
         sb = as_padded(features, self.max_feature_length)
         key_index = {k: i for i, k in enumerate(sb.keys)}
-        order = [key_index[f] for f in self.features]
-        F, B, L = len(order), sb.ids.shape[1], sb.ids.shape[2]
+        order = [key_index[f] for f in self._slot_features]
+        B, L = sb.ids.shape[1], sb.ids.shape[2]
         ids = (feature_rows(sb.ids, order).to(torch.int32)
                + self.feat_rowoff[:, None, None])
-        lengths = feature_rows(sb.lengths, order)
+        lengths = feature_rows(sb.lengths, order) * self.feat_valid[
+            :, None].to(sb.lengths.dtype)
         coeff = pool_coefficients(
             lengths, L, feature_rows(sb.weights, order)
             if self.is_weighted and sb.weights is not None else None)
@@ -157,9 +193,16 @@ class ShardedQuantEmbeddingBagCollection(nn.Module):
         coeff = torch.where(self.feat_mean[:, None, None], coeff / denom,
                             coeff)
         pooled = quant_lookup_pooled(
-            self.data, self.scale, self.shift, ids.reshape(F * B, L),
-            coeff.reshape(F * B, L), self.bits).reshape(F, B, self.dim)
-        values = pooled.permute(1, 0, 2).reshape(B, -1)
+            self.data, self.scale, self.shift,
+            ids.reshape(self.f_max * B, L),
+            coeff.reshape(self.f_max * B, L),
+            self.bits).reshape(self.f_max, B, self.dim)
+        slots = comm.all_gather(self.env, pooled, 0)  # [n f_max, B, D]
+        # the one copy of the output: [B, F, D] in canonical order
+        out = slots.permute(1, 0, 2)
+        if not self._in_order:
+            out = out[:, self.out_pos]
+        values = out.reshape(B, -1)
         return KeyedTensor(values=values, keys=self.embedding_names,
                            length_per_key=tuple(
                                self.dim for _ in self.embedding_names))

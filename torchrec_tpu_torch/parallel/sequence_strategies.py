@@ -16,7 +16,18 @@ collectives are the pooled strategies' (parallel/comm.py):
                    concat feature slots); the mirror all_to_all routes
                    the cotangent back;
     DATA_PARALLEL  the local batch's rows; the update all_gathers every
-                   rank's (ids, cotangent rows, valid).
+                   rank's (ids, cotangent rows, valid);
+    TABLE_ROW_WISE the host's slots of the staggered global batch (the
+                   pooled TWRW's input dist, either routing) -> the rows
+                   this local rank owns, zeros elsewhere -> reduce_scatter
+                   over the intra-host group -> all_to_all over the
+                   cross-host group; the update routes the cotangent back
+                   (cross all_to_all, intra all_gather).
+
+ROW_WISE, TABLE_WISE and TABLE_ROW_WISE take their pooled strategy's
+input dist; their `forward_from_dist` / `update_from_dist` replace the
+pooled bodies with the token ones, and `forward` / `update` run them on
+the batch's dist.
 
 Kernels. An fp32 table's rows come from one launch of the routed gather
 (ops/gather_rows.routed_gather_rows: route, mask and row gather in one
@@ -27,13 +38,13 @@ row to the packed table as JAX's gather clips it: an id at or past its
 table's rows reads a later table's row, or the last packed row, in both
 packages. A negative id gives zeros here, where JAX's `w[gids]` reads
 row gids of the packed table (the row before the table's first for -1).
-The ROW_WISE update routes with one launch of the kernel's route-only
-mode (`route_tokens`). A masked token is +0.0 here and rows * 0 in JAX
-(-0.0 under a negative entry): equal as values. bf16 and fp16 tables
-compose the route, the gather and the mask from torch ops (the routed
-gather is K8's, f32 only, as in JAX) and train as fp32 ones do, their
-update rounding each row in K4h / K3h. TABLE_ROW_WISE comes with the
-next slice (ROADMAP queue 1 item 8b) and raises here.
+TABLE_ROW_WISE routes by its host's row blocks with `my` its local rank.
+The ROW_WISE and TABLE_ROW_WISE updates route with one launch of the
+kernel's route-only mode (`route_tokens`). A masked token is +0.0 here and
+rows * 0 in JAX (-0.0 under a negative entry): equal as values. bf16 and
+fp16 tables compose the route, the gather and the mask from torch ops (the
+routed gather is K8's, f32 only, as in JAX) and train as fp32 ones do,
+their update rounding each row in K4h / K3h.
 """
 
 from __future__ import annotations
@@ -54,6 +65,9 @@ from torchrec_tpu_torch.ops.gather_rows import (
 )
 from torchrec_tpu_torch.parallel import comm
 from torchrec_tpu_torch.parallel.embedding_sharding import GroupMeta
+from torchrec_tpu_torch.parallel.hierarchical_strategies import (
+    TwRwEmbeddingSharding,
+)
 from torchrec_tpu_torch.parallel.strategies import (
     BaseEmbeddingShardingStrategy,
     DpEmbeddingSharding,
@@ -109,31 +123,40 @@ class DpSequenceEmbeddingSharding(DpEmbeddingSharding):
                     learning_rate)
 
 
+def _reduce_rows(env, rows: torch.Tensor, group=None) -> torch.Tensor:
+    """reduce_scatter of per-token rows over the batch axis: a half table's
+    in f32 (one rank's row and zeros: the f32 sum is exact)."""
+    if env.group is None or rows.dtype == torch.float32:
+        return comm.reduce_scatter(env, rows, 1, group=group)
+    return comm.reduce_scatter(env, rows.float(), 1, group=group).to(
+        rows.dtype)
+
+
+def _route(ids, lengths, shard_rows, local_off, my):
+    """The route-only launch on int32 copies of ids and lengths."""
+    return route_tokens(ids.to(torch.int32).contiguous(),
+                        lengths.to(torch.int32).contiguous(), shard_rows,
+                        local_off, my)
+
+
 class RwSequenceEmbeddingSharding(RwEmbeddingSharding):
     """Row shards; each token's row comes from its owning rank (zeros
     elsewhere), summed to the batch's rank by the reduce_scatter."""
 
-    def forward(self, sb):
-        """Per-token rows [F, B_loc, L, D], zero where the token is
-        padding."""
-        ids_g, len_g, _ = self._gather_batch(sb)
-        rows = token_rows(self.weights[0], ids_g, len_g,
+    def forward_from_dist(self, sb_g):
+        """Per-token rows [F, B_loc, L, D] from the global batch, zero
+        where the token is padding."""
+        rows = token_rows(self.weights[0], sb_g.ids, sb_g.lengths,
                           self.feat_shard_rows, self.feat_local_off,
                           self.rank)
-        if self.env.group is None or rows.dtype == torch.float32:
-            return comm.reduce_scatter(self.env, rows, 1)
-        # one rank's row and zeros: the f32 sum is exact
-        return comm.reduce_scatter(self.env, rows.float(), 1).to(rows.dtype)
+        return _reduce_rows(self.env, rows)
 
-    def update(self, sb, d_tokens, learning_rate):
+    def update_from_dist(self, sb_g, d_tokens, learning_rate):
         """Fused optimizer step from the per-token cotangent [F, B_loc,
         L, D], in place, on the owned rows of the valid tokens."""
-        ids_g, len_g, _ = self._gather_batch(sb)
         d_g = comm.all_gather(self.env, d_tokens, 1)
-        local, owned = route_tokens(
-            ids_g.to(torch.int32).contiguous(),
-            len_g.to(torch.int32).contiguous(), self.feat_shard_rows,
-            self.feat_local_off, self.rank)
+        local, owned = _route(sb_g.ids, sb_g.lengths, self.feat_shard_rows,
+                              self.feat_local_off, self.rank)
         apply_fused_update(
             self.weights[0], self._opt_local(), local.reshape(-1),
             d_g.reshape(-1, self.dim), owned.reshape(-1), learning_rate,
@@ -148,21 +171,50 @@ class TwSequenceEmbeddingSharding(TwEmbeddingSharding):
         super()._build()
         _whole_tables(self, self.f_max)
 
-    def forward(self, sb):
-        ids_g, len_g, _ = self._gather_batch(sb)
-        len_m = len_g[self.my_feats] * self.my_valid[:, None].to(len_g.dtype)
-        rows = token_rows(self.weights[0], ids_g[self.my_feats], len_m,
+    def forward_from_dist(self, sb_g):
+        len_m = sb_g.lengths[self.my_feats] * self.my_valid[:, None].to(
+            sb_g.lengths.dtype)
+        rows = token_rows(self.weights[0], sb_g.ids[self.my_feats], len_m,
                           self.whole_table, self.my_rowoff, 0)
         slots = comm.all_to_all(self.env, rows, 1, 0)  # [n f_max, B_loc, ..]
         return slots[self.out_pos]
 
-    def update(self, sb, d_tokens, learning_rate):
+    def update_from_dist(self, sb_g, d_tokens, learning_rate):
         d_m = self._slots_back(d_tokens)  # [f_max, B, L, D]
-        ids_m, len_m, _ = self._mine(*self._gather_batch(sb))
+        ids_m, len_m, _ = self._mine(sb_g.ids, sb_g.lengths, None)
         apply_fused_update(
             self.weights[0], self._opt_local(), ids_m.reshape(-1),
             d_m.reshape(-1, self.dim),
-            _token_mask(len_m, sb.ids.shape[2]).reshape(-1), learning_rate,
+            _token_mask(len_m, sb_g.ids.shape[2]).reshape(-1), learning_rate,
+            **self._fused_kwargs())
+
+
+class TwRwSequenceEmbeddingSharding(TwRwEmbeddingSharding):
+    """A table pinned to a host, its rows split over the host's local
+    ranks: the owning local rank gives each token of the host's slots its
+    row (zeros elsewhere), the intra-host reduce_scatter sums them, the
+    cross-host all_to_all returns the slots to the batch's ranks."""
+
+    def forward_from_dist(self, dist):
+        """Per-token rows [F, B_loc, L, D]: one routed gather over the
+        host's slots with my = l."""
+        ids_m, len_m, _ = dist
+        rows = token_rows(self.weights[0], ids_m, len_m, self.my_sr,
+                          self.my_off, self.l)  # [f_max, B, L, D]
+        return self._to_batch_owners(
+            _reduce_rows(self.env, rows, self.intra))
+
+    def update_from_dist(self, dist, d_tokens, learning_rate):
+        """Fused optimizer step from the per-token cotangent [F, B_loc, L,
+        D], in place: cross all_to_all, intra all_gather, the route-only
+        launch, the fused update of the owned rows."""
+        ids_m, len_m, _ = dist
+        d_full = comm.all_gather(self.env, self._slots_back(d_tokens), 1,
+                                 group=self.intra)  # [f_max, B, L, D]
+        local, owned = _route(ids_m, len_m, self.my_sr, self.my_off, self.l)
+        apply_fused_update(
+            self.weights[0], self._opt_local(), local.reshape(-1),
+            d_full.reshape(-1, self.dim), owned.reshape(-1), learning_rate,
             **self._fused_kwargs())
 
 
@@ -170,6 +222,7 @@ SEQUENCE_STRATEGY_REGISTRY = {
     ShardingType.DATA_PARALLEL: DpSequenceEmbeddingSharding,
     ShardingType.ROW_WISE: RwSequenceEmbeddingSharding,
     ShardingType.TABLE_WISE: TwSequenceEmbeddingSharding,
+    ShardingType.TABLE_ROW_WISE: TwRwSequenceEmbeddingSharding,
 }
 
 
@@ -182,9 +235,8 @@ def create_sequence_sharding_strategy(
     cls = SEQUENCE_STRATEGY_REGISTRY.get(meta.sharding_type)
     if cls is None:
         raise NotImplementedError(
-            f"sequence sharding {meta.sharding_type.value}: DATA_PARALLEL, "
-            "ROW_WISE and TABLE_WISE are ported; TABLE_ROW_WISE comes with "
-            "the next slice (ROADMAP queue 1 item 8b), and an "
-            "EmbeddingCollection takes no other"
+            f"sequence sharding {meta.sharding_type.value}: an "
+            "EmbeddingCollection takes DATA_PARALLEL, ROW_WISE, TABLE_WISE "
+            "and TABLE_ROW_WISE, as in the JAX package"
         )
     return cls(env, meta, optim, optim_kwargs)

@@ -173,17 +173,23 @@ class ShardedEmbeddingBagCollection(ShardedEmbeddingModule):
 
     # -- compute -------------------------------------------------------------
 
-    def forward(self, features: SparseInput) -> KeyedTensor:
-        """-> KeyedTensor [B, sum(D)]."""
+    def forward(self, features: Optional[SparseInput],
+                dist: Optional[Sequence] = None) -> KeyedTensor:
+        """-> KeyedTensor [B, sum(D)]. `dist`: the batch's `input_dist`;
+        a group with one looks up from it, the others from `features`
+        (which may be None when every group has a dist)."""
         if self.injected is not None:
             return self.injected
-        sb = as_padded(features, self.max_feature_length)
+        sb = (None if features is None
+              else as_padded(features, self.max_feature_length))
         per_name: Dict[str, torch.Tensor] = {}
         for gi, (strat, group) in enumerate(zip(self.strategies,
                                                 self.groups)):
+            d = None if dist is None else dist[gi]
             with torch.profiler.record_function(
                     f"## ebc_fwd_{group.sharding_type.value}_g{gi} ##"):
-                out = strat(self._group_batch(sb, gi))  # [F_g, B, D_g]
+                out = (strat(self._group_batch(sb, gi)) if d is None
+                       else strat.forward_from_dist(d))  # [F_g, B, D_g]
             for j, ename in enumerate(group.embedding_names):
                 per_name[ename] = out[j]
         values = torch.cat([per_name[n] for n in self.embedding_names], dim=1)
@@ -191,21 +197,28 @@ class ShardedEmbeddingBagCollection(ShardedEmbeddingModule):
                            length_per_key=self.length_per_key)
 
     @torch.no_grad()
-    def update(self, features: SparseInput, d_values: torch.Tensor,
-               learning_rate: float) -> Tuple[EmbeddingGroupState, ...]:
+    def update(self, features: Optional[SparseInput], d_values: torch.Tensor,
+               learning_rate: float, dist: Optional[Sequence] = None
+               ) -> Tuple[EmbeddingGroupState, ...]:
         """Fused optimizer step, in place, from the cotangent of the
         forward's KeyedTensor.values [B, sum(D)]: each group gets its
-        features' [F_g, B, D_g] slices by embedding name."""
-        sb = as_padded(features, self.max_feature_length)
+        features' [F_g, B, D_g] slices by embedding name, and its dist
+        where `dist` has one, as in `forward`."""
+        sb = (None if features is None
+              else as_padded(features, self.max_feature_length))
         for gi, (strat, group) in enumerate(zip(self.strategies,
                                                 self.groups)):
             d_pooled = torch.stack([
                 d_values[:, slice(*self._out_slice[n])]
                 for n in group.embedding_names])
+            d = None if dist is None else dist[gi]
             with torch.profiler.record_function(
                     f"## ebc_update_{group.sharding_type.value}_g{gi} ##"):
-                strat.update(self._group_batch(sb, gi), d_pooled,
-                             learning_rate)
+                if d is None:
+                    strat.update(self._group_batch(sb, gi), d_pooled,
+                                 learning_rate)
+                else:
+                    strat.update_from_dist(d, d_pooled, learning_rate)
         return self.states
 
 

@@ -60,35 +60,48 @@ class ShardedEmbeddingCollection(ShardedEmbeddingModule):
             for g in self.groups
         )
 
-    def forward(self, features: SparseInput,
-                as_jagged: bool = False) -> Dict[str, torch.Tensor]:
+    def forward(self, features: Optional[SparseInput],
+                as_jagged: bool = False,
+                dist: Optional[Sequence] = None) -> Dict[str, torch.Tensor]:
         """-> {embedding name: [B, L, D]} per-token rows (pad rows zero).
         `as_jagged` is accepted and ignored, as the JAX DMP's stand-in
-        for an EmbeddingCollection ignores it: the rows stay dense."""
+        for an EmbeddingCollection ignores it: the rows stay dense.
+        `dist`: the batch's `input_dist`, as the sharded EBC takes it."""
         del as_jagged
         if self.injected is not None:
             return self.injected
-        sb = as_padded(features, self.max_feature_length)
+        sb = (None if features is None
+              else as_padded(features, self.max_feature_length))
         out: Dict[str, torch.Tensor] = {}
         for gi, (strat, group) in enumerate(zip(self.strategies,
                                                 self.groups)):
+            d = None if dist is None else dist[gi]
             with torch.profiler.record_function(
                     f"## ec_fwd_{group.sharding_type.value}_g{gi} ##"):
-                rows = strat(self._group_batch(sb, gi))  # [F_g, B, L, D]
+                rows = (strat(self._group_batch(sb, gi)) if d is None
+                        else strat.forward_from_dist(d))  # [F_g, B, L, D]
             out.update(zip(group.embedding_names, rows.unbind(0)))
         return out
 
     @torch.no_grad()
-    def update(self, features: SparseInput,
+    def update(self, features: Optional[SparseInput],
                d_tokens: Mapping[str, torch.Tensor],
-               learning_rate: float) -> Tuple[EmbeddingGroupState, ...]:
+               learning_rate: float, dist: Optional[Sequence] = None
+               ) -> Tuple[EmbeddingGroupState, ...]:
         """Fused optimizer step, in place, from the cotangents of the
-        forward's outputs, {embedding name: [B, L, D]}."""
-        sb = as_padded(features, self.max_feature_length)
+        forward's outputs, {embedding name: [B, L, D]}, from each group's
+        dist where `dist` has one."""
+        sb = (None if features is None
+              else as_padded(features, self.max_feature_length))
         for gi, (strat, group) in enumerate(zip(self.strategies,
                                                 self.groups)):
             d = torch.stack([d_tokens[n] for n in group.embedding_names])
+            dg = None if dist is None else dist[gi]
             with torch.profiler.record_function(
                     f"## ec_update_{group.sharding_type.value}_g{gi} ##"):
-                strat.update(self._group_batch(sb, gi), d, learning_rate)
+                if dg is None:
+                    strat.update(self._group_batch(sb, gi), d,
+                                 learning_rate)
+                else:
+                    strat.update_from_dist(dg, d, learning_rate)
         return self.states

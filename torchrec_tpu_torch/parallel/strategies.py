@@ -47,6 +47,16 @@ Each forward is one K1 launch per group and each update one
 `apply_fused_update`. Without a process group every collective is the
 identity; with one, even of one rank, each is a torch.distributed call.
 The ids and lengths of a batch travel in one all_gather.
+
+The input dist. RW, TW and CW split each forward and update into the
+batch's dist, `input_dist(sb)` (the all_gather of the ids, lengths and
+per-sample weights: a PaddedSparseBatch of the global batch, which depends
+on nothing but the batch), and the rest, `forward_from_dist(dist)` /
+`update_from_dist(dist, d, lr)`; `forward(sb)` is
+`forward_from_dist(input_dist(sb))`. The DMP's prefetched step computes a
+batch's dist once, ahead of its step, for its forward and its update
+(JAX's cross-batch input-dist prefetch). DATA_PARALLEL looks up its local
+batch and has none (`supports_input_dist` False), as in JAX.
 """
 
 from __future__ import annotations
@@ -145,10 +155,13 @@ class BaseEmbeddingShardingStrategy(nn.Module):
     and `step`.
 
     optim / optim_kwargs: the fused optimizer and its fused_params (see
-    ops/fused_update.apply_fused_update). `input_routing` raises: its a2a
-    choice serves the hierarchical strategies (ROADMAP queue 1 item 8b),
-    and the flat ones always all_gather the ids.
+    ops/fused_update.apply_fused_update), and `input_routing`: "allgather"
+    (the default) or "a2a", the routed input dist of the hierarchical
+    strategies (parallel/hierarchical_strategies.py). A flat strategy has
+    none: it warns and all_gathers the ids, as the JAX strategies do.
     """
+
+    supports_input_dist = False
 
     def __init__(
         self,
@@ -162,11 +175,17 @@ class BaseEmbeddingShardingStrategy(nn.Module):
         self.meta = meta
         self.optim = optim
         self.optim_kwargs = dict(optim_kwargs or {})
-        if "input_routing" in self.optim_kwargs:
-            raise NotImplementedError(
-                "fused_params input_routing: the a2a input dist of the "
-                "hierarchical strategies is not ported (ROADMAP queue 1 "
-                "item 8b); the flat strategies all_gather the ids")
+        self.input_routing = self.optim_kwargs.pop("input_routing",
+                                                   "allgather")
+        if self.input_routing != "allgather" and not hasattr(
+                self, "_route_inputs"):
+            warnings.warn(
+                f"input_routing={self.input_routing!r} requested but "
+                f"{type(self).__name__} has no routed input dist: flat "
+                "strategies always all_gather ids; only the hierarchical "
+                "strategies (TWRW / TWCW and TWRW sequence) route a2a. "
+                "Falling back to allgather.", stacklevel=2)
+            self.input_routing = "allgather"
         self.n = env.world_size
         self.rank = env.rank
         self.dim = meta.dim
@@ -457,15 +476,36 @@ class BaseEmbeddingShardingStrategy(nn.Module):
                else comm.all_gather(self.env, sb.weights, 1))
         return ints[:, :, :L], ints[:, :, L].to(sb.lengths.dtype), psw
 
+    def input_dist(self, sb: PaddedSparseBatch) -> PaddedSparseBatch:
+        """The batch's input dist: the global batch, its ids, lengths and
+        per-sample weights all_gathered (replicated on every rank)."""
+        ids_g, len_g, psw_g = self._gather_batch(sb)
+        return PaddedSparseBatch(ids=ids_g, lengths=len_g, keys=sb.keys,
+                                 weights=psw_g)
+
+    def forward_from_dist(self, sb_g: PaddedSparseBatch) -> torch.Tensor:
+        """forward() on the input dist of its batch: the strategy's
+        forward body (`_fwd_gathered`) on the global batch."""
+        return self._fwd_gathered(self.weights, sb_g.ids, sb_g.lengths,
+                                  sb_g.weights, sb_g.ids.shape[2])
+
+    def update_from_dist(self, sb_g: PaddedSparseBatch,
+                         d_pooled: torch.Tensor,
+                         learning_rate: float) -> None:
+        """update() on the input dist of its batch: the strategy's update
+        body (`_upd_gathered`) on the global batch."""
+        self._upd_gathered(sb_g.ids, sb_g.lengths, sb_g.weights, d_pooled,
+                           learning_rate, sb_g.ids.shape[2])
+
     def forward(self, sb: PaddedSparseBatch) -> torch.Tensor:
         """The local batch's pooled output [F, B_loc, D] fp32."""
-        raise NotImplementedError
+        return self.forward_from_dist(self.input_dist(sb))
 
     def update(self, sb: PaddedSparseBatch, d_pooled: torch.Tensor,
                learning_rate: float) -> None:
         """Fused optimizer step from the cotangent of the local batch's
         pooled output [F, B_loc, D], in place."""
-        raise NotImplementedError
+        self.update_from_dist(self.input_dist(sb), d_pooled, learning_rate)
 
 
 def _row_offsets(meta: GroupMeta) -> np.ndarray:
@@ -594,12 +634,13 @@ class RwEmbeddingSharding(BaseEmbeddingShardingStrategy):
         coeff = coeff * owned.to(w.dtype)
         return pooled_lookup(w[0], local, coeff)
 
-    def forward(self, sb: PaddedSparseBatch) -> torch.Tensor:
-        """Pooled output [F, B_loc, D]: all_gather of the batch, the
-        partial sums of the owned rows, reduce_scatter over the batch."""
-        ids_g, len_g, psw_g = self._gather_batch(sb)
-        part = self._fwd_gathered(self.weights, ids_g, len_g, psw_g,
-                                  sb.ids.shape[2])
+    supports_input_dist = True
+
+    def forward_from_dist(self, sb_g: PaddedSparseBatch) -> torch.Tensor:
+        """Pooled output [F, B_loc, D] from the global batch: the partial
+        sums of the owned rows, reduce_scatter over the batch."""
+        part = self._fwd_gathered(self.weights, sb_g.ids, sb_g.lengths,
+                                  sb_g.weights, sb_g.ids.shape[2])
         return comm.reduce_scatter(self.env, part, 1)
 
     def _upd_gathered(self, ids_g, len_g, psw_g, d_g, lr, L) -> None:
@@ -615,14 +656,13 @@ class RwEmbeddingSharding(BaseEmbeddingShardingStrategy):
             row_grads.reshape(-1, self.dim), owned.reshape(-1), lr,
             **self._fused_kwargs())
 
-    def update(self, sb, d_pooled, learning_rate):
-        """Fused optimizer step from the cotangent of the local batch's
-        pooled output [F, B_loc, D], in place: the batch and the cotangent
-        all_gathered, the owned rows updated."""
-        ids_g, len_g, psw_g = self._gather_batch(sb)
+    def update_from_dist(self, sb_g, d_pooled, learning_rate):
+        """Fused optimizer step from the global batch and the cotangent of
+        the local batch's pooled output [F, B_loc, D], in place: the
+        cotangent all_gathered, the owned rows updated."""
         d_g = comm.all_gather(self.env, d_pooled, 1)
-        self._upd_gathered(ids_g, len_g, psw_g, d_g, learning_rate,
-                           sb.ids.shape[2])
+        self._upd_gathered(sb_g.ids, sb_g.lengths, sb_g.weights, d_g,
+                           learning_rate, sb_g.ids.shape[2])
 
 
 class TwEmbeddingSharding(BaseEmbeddingShardingStrategy):
@@ -699,12 +739,14 @@ class TwEmbeddingSharding(BaseEmbeddingShardingStrategy):
         psw_m = None if psw_g is None else psw_g[self.my_feats]
         return ids_m, len_m, psw_m
 
-    def forward(self, sb):
-        L = sb.ids.shape[2]
-        ids_m, len_m, psw_m = self._mine(*self._gather_batch(sb))
-        coeff = _pool_coeff(len_m, L, self.my_mean, psw_m,
-                            self.weights.dtype)
-        pooled = pooled_lookup(self.weights[0], ids_m, coeff)
+    supports_input_dist = True
+
+    def _fwd_gathered(self, w, ids_g, len_g, psw_g, L):
+        """Forward body on the global batch: this rank's features pooled,
+        the feature slots all_to_all'ed to the batch's ranks."""
+        ids_m, len_m, psw_m = self._mine(ids_g, len_g, psw_g)
+        coeff = _pool_coeff(len_m, L, self.my_mean, psw_m, w.dtype)
+        pooled = pooled_lookup(w[0], ids_m, coeff)
         slots = comm.all_to_all(self.env, pooled, 1, 0)  # [n f_max, B_loc, D]
         return slots[self.out_pos]
 
@@ -716,19 +758,18 @@ class TwEmbeddingSharding(BaseEmbeddingShardingStrategy):
         slots[self.out_pos] = d
         return comm.all_to_all(self.env, slots, 0, 1)
 
-    def update(self, sb, d_pooled, learning_rate):
-        L = sb.ids.shape[2]
+    def _upd_gathered(self, ids_g, len_g, psw_g, d_pooled, lr, L):
+        """Update body on the global batch (d_pooled: the local batch's
+        cotangent [F, B_loc, D], routed back to this rank's features)."""
         d_m = self._slots_back(d_pooled)  # [f_max, B, D]
-        ids_m, len_m, psw_m = self._mine(*self._gather_batch(sb))
+        ids_m, len_m, psw_m = self._mine(ids_g, len_g, psw_g)
         coeff = _pool_coeff(len_m, L, self.my_mean, psw_m,
                             self.weights.dtype)
         row_grads = d_m[:, :, None, :] * coeff[:, :, :, None]
         apply_fused_update(
             self.weights[0], self._opt_local(), ids_m.reshape(-1),
             row_grads.reshape(-1, self.dim),
-            _token_mask(len_m, L).reshape(-1), learning_rate,
-            **self._fused_kwargs())
-
+            _token_mask(len_m, L).reshape(-1), lr, **self._fused_kwargs())
 
 class CwEmbeddingSharding(BaseEmbeddingShardingStrategy):
     """Column-wise: each table's columns split into n equal blocks; rank j
@@ -782,20 +823,21 @@ class CwEmbeddingSharding(BaseEmbeddingShardingStrategy):
         return {t.name: m[:, int(off):int(off) + t.rows]
                 for off, t in zip(self.row_offsets, self.meta.tables)}
 
-    def forward(self, sb):
-        L = sb.ids.shape[2]
-        ids_g, len_g, psw_g = self._gather_batch(sb)
-        coeff = _pool_coeff(len_g, L, self.feat_mean, psw_g,
-                            self.weights.dtype)
-        pooled = pooled_lookup(self.weights[0],
-                               ids_g + self.feat_row_off[:, None, None],
-                               coeff)  # [F, B, D / n]
+    supports_input_dist = True
+
+    def _fwd_gathered(self, w, ids_g, len_g, psw_g, L):
+        """Forward body on the global batch: the local columns pooled, the
+        batch split and the columns concatenated by one all_to_all."""
+        coeff = _pool_coeff(len_g, L, self.feat_mean, psw_g, w.dtype)
+        pooled = pooled_lookup(
+            w[0], ids_g + self.feat_row_off[:, None, None],
+            coeff)  # [F, B, D / n]
         return comm.all_to_all(self.env, pooled, 1, 2)  # [F, B_loc, D]
 
-    def update(self, sb, d_pooled, learning_rate):
-        L = sb.ids.shape[2]
+    def _upd_gathered(self, ids_g, len_g, psw_g, d_pooled, lr, L):
+        """Update body on the global batch (d_pooled: the local batch's
+        cotangent [F, B_loc, D], its columns split back)."""
         d_g = comm.all_to_all(self.env, d_pooled, 2, 1)  # [F, B, D / n]
-        ids_g, len_g, psw_g = self._gather_batch(sb)
         coeff = _pool_coeff(len_g, L, self.feat_mean, psw_g,
                             self.weights.dtype)
         row_grads = d_g[:, :, None, :] * coeff[:, :, :, None]
@@ -803,9 +845,7 @@ class CwEmbeddingSharding(BaseEmbeddingShardingStrategy):
             self.weights[0], self._opt_local(),
             (ids_g + self.feat_row_off[:, None, None]).reshape(-1),
             row_grads.reshape(-1, self.cols_loc),
-            _token_mask(len_g, L).reshape(-1), learning_rate,
-            **self._fused_kwargs())
-
+            _token_mask(len_g, L).reshape(-1), lr, **self._fused_kwargs())
 
 STRATEGY_REGISTRY = {
     ShardingType.DATA_PARALLEL: DpEmbeddingSharding,
@@ -821,11 +861,14 @@ def create_sharding_strategy(
     optim: EmbOptimType = EmbOptimType.ROWWISE_ADAGRAD,
     optim_kwargs: Optional[dict] = None,
 ) -> BaseEmbeddingShardingStrategy:
-    cls = STRATEGY_REGISTRY.get(meta.sharding_type)
-    if cls is None:
-        raise NotImplementedError(
-            f"sharding type {meta.sharding_type.value}: the hierarchical "
-            "strategies (TABLE_ROW_WISE, TABLE_COLUMN_WISE) come with the "
-            "next slice (ROADMAP queue 1 item 8b)"
-        )
+    # the hierarchical strategies import this module
+    from torchrec_tpu_torch.parallel.hierarchical_strategies import (
+        TwCwEmbeddingSharding,
+        TwRwEmbeddingSharding,
+    )
+
+    cls = {**STRATEGY_REGISTRY,
+           ShardingType.TABLE_ROW_WISE: TwRwEmbeddingSharding,
+           ShardingType.TABLE_COLUMN_WISE: TwCwEmbeddingSharding,
+           }[meta.sharding_type]
     return cls(env, meta, optim, optim_kwargs)
