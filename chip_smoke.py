@@ -268,6 +268,40 @@ Phases, each failing the run with a non-zero exit when it fails:
    `shard_quantized` over `ShardingEnv.from_local(1)` with explicit table
    ranks, one Kq launch and one all_gather a request, logits equal bit
    for bit to phase 15's group-less sharded module's.
+18. The sharding planner, embedding towers and variable batches. First
+   bench.py's tables are planned on 1, 2, 4 and 8 H100s (one host, the
+   bench batch split over them) under the card's cost model, and under it
+   with a whole-shard stream term added to the update, and the plans
+   printed. (a) bench.py's DLRM (DLRMTrain) given no plan: the plan (each
+   table's type, kernel, ranks and estimates) and the planner's wall
+   time are printed, the DMP's plan must be the planner's; 3 requests at
+   B=8192 and 3 at B=256 and 3 steps at B=8192 under EXACT_SGD and
+   ROWWISE_ADAGRAD beside the ROW_WISE DMP from the same seed: K1 once a
+   request, K1 and K3 / the fused K4 once a step, logits and trained
+   state within rtol 1e-4 / atol 1e-5 (whether bit for bit is printed).
+   (c) The planned DLRM under a masked_bce_with_logits wrapper takes one
+   EXACT_SGD step on a VariableBatch of 6,000 real rows padded to 8,192:
+   its loss and state equal the step on the 6,000 rows alone within the
+   bound; the pad rows pool to zeros and their pooled values take a
+   gradient of exactly 0. Inside an NCCL group of one rank: (b) the tower
+   DLRM, tests/test_tower_dmp.py's TowerModel over bench.py's tables
+   (two towers of 13 tables, each interaction an MLP 1,664 -> 512 -> 256,
+   a Dense(1) head, BCE), given no plan (the planner with one dependency
+   tag per tower), group-less and in the group: 3 + 3 requests (K1 once;
+   1 all_gather and 1 all_to_all in the group; logits equal bit for bit)
+   and 3 steps at B=8192 under EXACT_SGD and ROWWISE_ADAGRAD (K1 and K3 /
+   the fused K4 once; 1 all_gather, 2 all_to_alls, 1 all_reduce of the
+   interactions' gradients and 1 of the dense ones in the group), states
+   within the bound; a CPU copy of the group-less EXACT_SGD run agrees on
+   a B=256 request and 2 steps at B=256. (d) shard_quantized over
+   from_local(1) without table_ranks: the planner's placement (every
+   table on rank 0), 1 Kq and 1 all_gather a request, logits equal the
+   explicit placement's bit for bit. Last, the planner's H100 costs are
+   re-measured and printed (held to nothing): K1's device time per slot
+   at B=8192, and the whole of apply_fused_update under ROWWISE_ADAGRAD
+   and EXACT_SGD at B=8192 and B=1024 of bench.py's features: a per-row
+   cost from its device time at the two sizes and a fixed cost, its host
+   time per call (planner/constants.py holds the numbers).
 
 Kernel times are device times from torch.profiler (the kernel's own for a
 kernel, all device activity of the call for the plain version and the
@@ -476,7 +510,7 @@ def reset_counts() -> None:
 
 def make_dmp(device: str, train: bool = False, optim=None,
              fused_params=None, position_weighted: bool = False,
-             data_type=None, env=None, plan_types=None):
+             data_type=None, env=None, plan_types=None, wrap=None):
     """bench.py's DLRM (DLRMTrain when `train`) on `device`; `optim`
     defaults to the DMP's (ROWWISE_ADAGRAD). `position_weighted` wraps
     its EBC (weighted, L=PW_LEN) in a FeatureProcessedEmbeddingBagCollection
@@ -484,7 +518,9 @@ def make_dmp(device: str, train: bool = False, optim=None,
     `data_type` is the tables' DataType (default FP32). `env` (default:
     one device, no process group) and `plan_types`, the ShardingType name
     of each table (default every table ROW_WISE; a TABLE_WISE one on rank
-    0)."""
+    0), or "planned": no plan, the DMP's planner places the tables.
+    `wrap` (train only) builds the trained module from the DLRM in place
+    of DLRMTrain."""
     from torchrec_tpu_torch.models import DLRM, DLRMTrain
     from torchrec_tpu_torch.modules import (
         EmbeddingBagCollection,
@@ -519,12 +555,13 @@ def make_dmp(device: str, train: bool = False, optim=None,
                                         device="meta")
     model = DLRM(sparse, DENSE_IN, DENSE_ARCH, OVER_ARCH, device="meta")
     if train:
-        model = DLRMTrain(model)
+        model = (wrap or DLRMTrain)(model)
     types = plan_types or ("ROW_WISE",) * NUM_TABLES
-    plan = ShardingPlan({TRAIN_KEY if train else MODULE_KEY: {
-        t.name: ParameterSharding(
-            ShardingType[st], ranks=[0] if st == "TABLE_WISE" else None)
-        for t, st in zip(tables, types)}})
+    plan = None if types == "planned" else ShardingPlan({
+        TRAIN_KEY if train else MODULE_KEY: {
+            t.name: ParameterSharding(
+                ShardingType[st], ranks=[0] if st == "TABLE_WISE" else None)
+            for t, st in zip(tables, types)}})
     return DistributedModelParallel(
         model, env=env, plan=plan, device=device,
         fused_optim=optim or EmbOptimType.ROWWISE_ADAGRAD,
@@ -4366,6 +4403,567 @@ def hierarchical(seqs) -> dict:
     return launches
 
 
+# -- phase 18: the planner, embedding towers and variable batches -----------
+
+TOWER_KEY = "etc"
+TOWER_SPLIT = 13  # tower 0 takes features 0-12, tower 1 features 13-25
+TOWER_LAYERS = (512, 256)  # bench.py's dense widths
+# collective calls of the tower collection (both towers on rank 0) per
+# request, and per step with the dense gradients' all_reduce; the update
+# reuses the forward's pooled rows, so its ids all_gather is the forward's
+TOWER_REQ_CALLS = {"all_gather": 1, "all_to_all": 1}
+TOWER_STEP_CALLS = {"all_gather": 1, "all_to_all": 2, "all_reduce_sum": 1,
+                    "all_reduce_mean": 1}
+VB_REAL = 6000  # real rows of the variable batch, padded to BENCH_BATCH
+PLAN_WORLDS = (1, 2, 4, 8)
+# the planner's update cost is measured at one B=8192 and one B=1024
+# batch of bench.py's 26 features
+COST_BATCHES = (BENCH_BATCH, 1024)
+
+
+def bench_tables():
+    from torchrec_tpu_torch.modules import EmbeddingBagConfig
+
+    return [EmbeddingBagConfig(num_embeddings=ROWS, embedding_dim=DIM,
+                               name=f"t{i}", feature_names=[f"f{i}"])
+            for i in range(NUM_TABLES)]
+
+
+def plan_directly(tables, sharder, dependencies=None, world_size=1,
+                  local=None, **topology):
+    """The sharding planner as the DMP calls it for a module given no
+    plan: (the planner, its plan, its wall time in s)."""
+    from torchrec_tpu_torch.planner import (
+        EmbeddingShardingPlanner,
+        ParameterConstraints,
+        Topology,
+    )
+
+    planner = EmbeddingShardingPlanner(
+        Topology(world_size, local_world_size=local, **topology),
+        constraints={t.name: ParameterConstraints(
+            sharding_types=sharder.sharding_types(),
+            dependency=(dependencies or {}).get(t.name)) for t in tables})
+    t0 = time.perf_counter()
+    plan = planner.plan(tables, module_path="m").plan["m"]
+    return planner, plan, time.perf_counter() - t0
+
+
+def log_plan(what: str, planner, seconds: float) -> None:
+    """Each table's sharding type, kernel and ranks, and each shard's
+    estimated time and device bytes."""
+    log(f"{what}: planned in {seconds * 1e3:.3f} ms (host clock); "
+        f"{planner.last_stats.splitlines()[0]}")
+    for opt in planner.last_plan:
+        log(f"  {opt.name}: {opt.sharding_type.name} "
+            f"{opt.compute_kernel.name} ranks "
+            f"{[s.rank for s in opt.shards]} perf "
+            f"{[s.perf for s in opt.shards]} s hbm "
+            f"{[s.storage.hbm for s in opt.shards]} B")
+
+
+def bench_plans() -> None:
+    """bench.py's tables planned on 1, 2, 4 and 8 cards (one host, the
+    bench's global batch split over them) under the card's cost model, and
+    under the same model with a whole-shard stream term (2 x the shard's
+    bytes at the HBM rate) added to the update, as the JAX planner's
+    scatter model has one."""
+    import collections
+
+    from torchrec_tpu_torch.parallel.sharders import (
+        EmbeddingBagCollectionSharder,
+    )
+    from torchrec_tpu_torch.planner import constants as pc
+
+    def streamed(rows, shard_bytes):
+        return (pc.h100_update_s(rows, shard_bytes)
+                + 2.0 * shard_bytes / pc.H100_SXM.hbm_bw)
+
+    for tag, cost in (("card", pc.H100_COSTS), ("card + stream term",
+                      dataclasses.replace(pc.H100_COSTS,
+                                          update_s=streamed))):
+        for n in PLAN_WORLDS:
+            planner, plan, secs = plan_directly(
+                bench_tables(), EmbeddingBagCollectionSharder(),
+                world_size=n, local=min(n, 8),
+                batch_size=BENCH_BATCH // n, cost_model=cost)
+            kinds = collections.Counter(
+                f"{p.sharding_type.name} {p.compute_kernel.name} ranks "
+                f"{p.ranks}" for p in plan.values())
+            log(f"bench.py's tables on {n} H100s ({tag}): {dict(kinds)}; "
+                f"{planner.last_stats.splitlines()[0]}; "
+                f"{secs * 1e3:.3f} ms")
+
+
+def planned_dlrm() -> dict:
+    """Phase 18 (a): bench.py's DLRM given no plan against the group-less
+    ROW_WISE DMP from the same seed: 3 + 3 requests, 3 steps under
+    EXACT_SGD and ROWWISE_ADAGRAD."""
+    from torchrec_tpu_torch.ops.fused_update import EmbOptimType
+    from torchrec_tpu_torch.parallel.sharders import (
+        EmbeddingBagCollectionSharder,
+    )
+
+    planner, want, secs = plan_directly(bench_tables(),
+                                        EmbeddingBagCollectionSharder())
+    log_plan("bench.py's DLRM on one H100, no plan given", planner, secs)
+    rng = np.random.RandomState(SEED + 60)
+    requests = [(b, make_batch(rng, b))
+                for b in [BENCH_BATCH] * REQUESTS_PER_BATCH
+                + [SERVE_BATCH] * REQUESTS_PER_BATCH]
+    batches = [to_device(make_batch(rng, BENCH_BATCH))
+               for _ in range(MIXED_STEPS)]
+    touched = _dlrm_touched(batches)
+    out = {"launches": {"K1": 0, "K3": 0, "K4": 0}}
+    for optim in (EmbOptimType.EXACT_SGD, EmbOptimType.ROWWISE_ADAGRAD):
+        k = STEP_KERNELS[optim.name][0]
+        runs = {}
+        for tag, types in (("ROW_WISE", None), ("planned", "planned")):
+            dmp = make_dmp(DEVICE, train=True, optim=optim,
+                           plan_types=types).init(SEED)
+            if tag == "planned" and dmp.plan.plan[TRAIN_KEY] != want:
+                raise AssertionError(f"the DMP's plan {dmp.plan} is not the "
+                                     f"planner's {want}")
+            runs[tag] = {}
+            if optim is EmbOptimType.EXACT_SGD:
+                runs[tag]["served"] = run_requests(
+                    dmp, requests, {"K1": 1}, {},
+                    f"planned phase, {tag} DLRM", logits_of)
+                out["launches"]["K1"] += len(requests)
+            runs[tag].update(run_steps(dmp, batches, {"K1": 1, k: 1}, {},
+                                       f"planned phase, {tag} {optim.name}"))
+            runs[tag].update(_snapshot(dmp, TRAIN_KEY))
+            out["launches"]["K1"] += MIXED_STEPS
+            out["launches"][k] += MIXED_STEPS
+            del dmp
+            gc_cuda()
+        if optim is EmbOptimType.EXACT_SGD:
+            same = [torch.equal(a, b) for a, b in zip(
+                runs["planned"]["served"]["logits"],
+                runs["ROW_WISE"]["served"]["logits"])]
+            for a, b in zip(runs["planned"]["served"]["logits"],
+                            runs["ROW_WISE"]["served"]["logits"]):
+                torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+            for b in (BENCH_BATCH, SERVE_BATCH):
+                log(f"planned DLRM serve B={b}: request ms (host clock, H2D "
+                    f"+ forward, synchronized; first includes warm-up) "
+                    f"{runs['planned']['served']['ms'][b]} beside the "
+                    f"ROW_WISE run's {runs['ROW_WISE']['served']['ms'][b]}")
+            log(f"planned DLRM: logits within rtol 1e-4 / atol 1e-5 of the "
+                f"ROW_WISE run's; bit for bit: {all(same)}")
+            out["serve_ms"] = {t: r["served"]["ms"] for t, r in runs.items()}
+        hold_trained(runs["planned"], runs["ROW_WISE"], touched,
+                     f"planned DLRM {optim.name}")
+        bitwise = all(torch.equal(runs["planned"]["tables"][t],
+                                  runs["ROW_WISE"]["tables"][t])
+                      for t in runs["ROW_WISE"]["tables"])
+        log(f"planned DLRM train {optim.name} B={BENCH_BATCH}: losses "
+            f"{runs['planned']['losses']} (ROW_WISE {runs['ROW_WISE']['losses']}"
+            f"); step ms (host clock, synchronized, first includes warm-up) "
+            f"{runs['planned']['ms']} beside the ROW_WISE run's "
+            f"{runs['ROW_WISE']['ms']}; tables bit for bit: {bitwise}")
+        out[f"step_ms_{optim.name}"] = {t: r["ms"] for t, r in runs.items()}
+    return out
+
+
+class TowerDLRM(torch.nn.Module):
+    """tests/test_tower_dmp.py's TowerModel: the towers' outputs, a
+    Dense(1) head and the mean BCE with logits; (loss, (loss, logits,
+    labels)) as DLRMTrain."""
+
+    def __init__(self, etc, head):
+        super().__init__()
+        self.etc = etc
+        self.head = head
+
+    def forward(self, sparse, labels):
+        logits = self.head(self.etc(sparse))[:, 0]
+        labels = labels.to(logits.dtype)
+        loss = torch.mean(torch.clamp(logits, min=0) - logits * labels
+                          + torch.log1p(torch.exp(-torch.abs(logits))))
+        return loss, (loss, logits, labels)
+
+
+def make_tower_dmp(device: str, optim, env=None):
+    """bench.py's tables in two towers (features 0-12 and 13-25, L=1),
+    each interaction an MLP 1,664 -> 512 -> 256, then TowerDLRM's head;
+    no plan given."""
+    from torchrec_tpu_torch.modules import MLP, Dense, EmbeddingBagCollection
+    from torchrec_tpu_torch.modules.embedding_tower import (
+        EmbeddingTower,
+        EmbeddingTowerCollection,
+    )
+    from torchrec_tpu_torch.parallel import DistributedModelParallel
+
+    tables = bench_tables()
+    towers = [EmbeddingTower(
+        EmbeddingBagCollection(tables[lo:hi], max_feature_length=L,
+                               device="meta"),
+        MLP((hi - lo) * DIM, TOWER_LAYERS, device="meta"))
+        for lo, hi in ((0, TOWER_SPLIT), (TOWER_SPLIT, NUM_TABLES))]
+    model = TowerDLRM(EmbeddingTowerCollection(towers),
+                      Dense(2 * TOWER_LAYERS[-1], 1, device="meta"))
+    return DistributedModelParallel(
+        model, env=env, device=device, fused_optim=optim,
+        fused_params={"learning_rate": FUSED_LR},
+        dense_optimizer=lambda p: torch.optim.SGD(p, lr=DENSE_LR))
+
+
+def tower_batch(rng: np.random.RandomState, batch: int):
+    """(KeyedJaggedTensor of 26 features x B x 1, labels) on the CPU."""
+    _, kjt, labels = make_batch(rng, batch)
+    return kjt, labels
+
+
+def _cpu(snapshot: dict) -> dict:
+    return {"tables": {k: v.cpu() for k, v in snapshot["tables"].items()},
+            "opt": snapshot["opt"],
+            "dense": {k: v.cpu() for k, v in snapshot["dense"].items()}}
+
+
+def tower_against_cpu(dmp, optim) -> int:
+    """The tower DMP's state copied into a CPU DMP: one B=256 request and
+    CPU_STEPS steps at B=256 on both within the bound of the other train
+    phases. Returns the card's K1 launches."""
+    cpu = make_tower_dmp("cpu", optim)
+    cpu.load_state_dict(dmp.state_dict())
+    rng = np.random.RandomState(SEED + 63)
+    kjt, labels = tower_batch(rng, SERVE_BATCH)
+    got = logits_of(dmp.make_eval_fn()(kjt.to(DEVICE), labels.to(DEVICE)))
+    ref = logits_of(cpu.make_eval_fn()(kjt, labels))
+    torch.testing.assert_close(got.cpu(), ref, rtol=1e-4, atol=1e-5)
+    batches = [tower_batch(rng, SERVE_BATCH) for _ in range(CPU_STEPS)]
+    on_card = [(k.to(DEVICE), y.to(DEVICE)) for k, y in batches]
+    gstep, cstep = dmp.make_train_step(), cpu.make_train_step()
+    for (kc, yc), (kg, yg) in zip(batches, on_card):
+        lc, lg = cstep(kc, yc)[0], gstep(kg, yg)[0]
+        torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-5)
+    touched = {f"t{i}": torch.zeros(ROWS, dtype=torch.bool)
+               for i in range(NUM_TABLES)}
+    for kjt, _ in batches:
+        ids = kjt.values.reshape(NUM_TABLES, -1).long()
+        for i in range(NUM_TABLES):
+            touched[f"t{i}"][ids[i]] = True
+    hold_trained(_cpu(_snapshot(dmp, TOWER_KEY)), _snapshot(cpu, TOWER_KEY),
+                 touched, f"tower DLRM {optim.name} card against the CPU",
+                 ref_name="the CPU run")
+    log(f"tower DLRM: a B={SERVE_BATCH} request's logits and {CPU_STEPS} "
+        f"steps at B={SERVE_BATCH} equal a CPU copy's within rtol 1e-4 / "
+        f"atol 1e-5")
+    return 1 + CPU_STEPS
+
+
+def tower_dlrm(env) -> dict:
+    """Phase 18 (b): the tower DLRM given no plan, group-less and inside
+    the group of one rank."""
+    from torchrec_tpu_torch.ops.fused_update import EmbOptimType
+    from torchrec_tpu_torch.parallel.sharders import (
+        EmbeddingTowerCollectionSharder,
+    )
+
+    tables = bench_tables()
+    deps = {t.name: f"tower_{int(i >= TOWER_SPLIT)}"
+            for i, t in enumerate(tables)}
+    planner, want, secs = plan_directly(
+        tables, EmbeddingTowerCollectionSharder(), deps)
+    log_plan("the tower DLRM on one H100, no plan given", planner, secs)
+    rng = np.random.RandomState(SEED + 61)
+    requests = [(b, tower_batch(rng, b))
+                for b in [BENCH_BATCH] * REQUESTS_PER_BATCH
+                + [SERVE_BATCH] * REQUESTS_PER_BATCH]
+    batches = [tuple(t.to(DEVICE) for t in tower_batch(rng, BENCH_BATCH))
+               for _ in range(MIXED_STEPS)]
+    touched = _dlrm_touched([(None, k, y) for k, y in batches])
+    out = {"launches": {"K1": 0, "K3": 0, "K4": 0}}
+    for optim in (EmbOptimType.EXACT_SGD, EmbOptimType.ROWWISE_ADAGRAD):
+        k = STEP_KERNELS[optim.name][0]
+        runs = {}
+        for tag, e, req_calls, step_calls_ in (
+                ("group-less", None, {}, {}),
+                ("group", env, TOWER_REQ_CALLS, TOWER_STEP_CALLS)):
+            dmp = make_tower_dmp(DEVICE, optim, e).init(SEED)
+            if dmp.plan.plan[TOWER_KEY] != want:
+                raise AssertionError(f"the tower DMP's plan {dmp.plan} is "
+                                     f"not the planner's {want}")
+            tc = dmp.sharded_ebcs[TOWER_KEY]
+            if tag == "group-less" and optim is EmbOptimType.EXACT_SGD:
+                log(f"tower DLRM: its tables' block {tuple(tc.weights.shape)}"
+                    f" f32, {tc.weights.numel() * 4} B on the card")
+            runs[tag] = {}
+            if optim is EmbOptimType.EXACT_SGD:
+                runs[tag]["served"] = run_requests(
+                    dmp, requests, {"K1": 1}, req_calls,
+                    f"tower phase, {tag}", logits_of)
+                out["launches"]["K1"] += len(requests)
+            runs[tag].update(run_steps(dmp, batches, {"K1": 1, k: 1},
+                                       step_calls_,
+                                       f"tower phase, {tag} {optim.name}"))
+            runs[tag].update(_snapshot(dmp, TOWER_KEY))
+            out["launches"]["K1"] += MIXED_STEPS
+            out["launches"][k] += MIXED_STEPS
+            if tag == "group-less" and optim is EmbOptimType.EXACT_SGD:
+                n = tower_against_cpu(dmp, optim)
+                out["launches"]["K1"] += n
+                out["launches"][k] += CPU_STEPS
+            del dmp
+            gc_cuda()
+        if optim is EmbOptimType.EXACT_SGD:
+            for a, b in zip(runs["group"]["served"]["logits"],
+                            runs["group-less"]["served"]["logits"]):
+                if not torch.equal(a, b):
+                    raise AssertionError(
+                        "the tower DLRM's logits in the group differ from "
+                        f"the group-less run's by {(a - b).abs().max()}")
+            for b in (BENCH_BATCH, SERVE_BATCH):
+                log(f"tower DLRM serve B={b}: request ms (host clock, H2D + "
+                    f"forward, synchronized; first includes warm-up) "
+                    f"group-less {runs['group-less']['served']['ms'][b]}, in "
+                    f"the group {runs['group']['served']['ms'][b]}")
+            log(f"tower DLRM: {len(requests)} requests, 1 K1 launch and "
+                f"{TOWER_REQ_CALLS} collective calls each in the group; "
+                f"logits equal the group-less run's bit for bit")
+            out["serve_ms"] = {t: r["served"]["ms"] for t, r in runs.items()}
+        hold_trained(runs["group"], runs["group-less"], touched,
+                     f"tower DLRM {optim.name} in the group",
+                     ref_name="the group-less run")
+        bitwise = all(torch.equal(runs["group"]["tables"][t],
+                                  runs["group-less"]["tables"][t])
+                      for t in runs["group"]["tables"])
+        log(f"tower DLRM train {optim.name} B={BENCH_BATCH}: losses "
+            f"{runs['group-less']['losses']} (group {runs['group']['losses']}"
+            f"); step ms (host clock, synchronized, first includes warm-up) "
+            f"group-less {runs['group-less']['ms']}, in the group "
+            f"{runs['group']['ms']}; 1 K1 and 1 {k} a step, "
+            f"{TOWER_STEP_CALLS} collective calls a step in the group; "
+            f"tables bit for bit: {bitwise}")
+        out[f"step_ms_{optim.name}"] = {t: r["ms"] for t, r in runs.items()}
+    return out
+
+
+class MaskedDLRM(torch.nn.Module):
+    """bench.py's DLRM under masked_bce_with_logits: the variable-batch
+    loss."""
+
+    def __init__(self, dlrm):
+        super().__init__()
+        self.dlrm = dlrm
+
+    def forward(self, dense, sparse, labels, example_mask):
+        from torchrec_tpu_torch.parallel.variable_batch import (
+            masked_bce_with_logits,
+        )
+
+        logits = self.dlrm(dense, sparse).squeeze(-1)
+        loss = masked_bce_with_logits(logits, labels, example_mask)
+        return loss, (loss, logits, labels)
+
+
+@contextlib.contextmanager
+def returning(module, name: str, seen: dict):
+    """While open, `module.name` keeps the value of its last call in
+    seen[name]."""
+    orig = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        seen[name] = orig(*args, **kwargs)
+        return seen[name]
+
+    setattr(module, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def variable_batch_step() -> dict:
+    """Phase 18 (c): the planned DLRM under MaskedDLRM, one EXACT_SGD step
+    on a VariableBatch of VB_REAL rows padded to BENCH_BATCH against one
+    on the VB_REAL rows alone."""
+    from torchrec_tpu_torch.ops.fused_update import EmbOptimType
+    from torchrec_tpu_torch.parallel.variable_batch import VariableBatch
+
+    rng = np.random.RandomState(SEED + 62)
+    dense, kjt, labels = make_batch(rng, VB_REAL)
+    vb = VariableBatch.from_ragged([kjt.to_padded(L)], [dense], [labels],
+                                   batch_size=BENCH_BATCH, device=DEVICE)
+    if (int(vb.example_mask.sum()), vb.example_mask.shape[0]) != (
+            VB_REAL, BENCH_BATCH):
+        raise AssertionError("the variable batch's mask")
+    runs = {}
+    for tag, args in (
+            ("padded", (vb.dense, vb.sparse, vb.labels, vb.example_mask)),
+            ("unpadded", (dense.to(DEVICE), kjt.to(DEVICE),
+                          labels.to(DEVICE),
+                          torch.ones(VB_REAL, device=DEVICE)))):
+        dmp = make_dmp(DEVICE, train=True, optim=EmbOptimType.EXACT_SGD,
+                       plan_types="planned", wrap=MaskedDLRM).init(SEED)
+        sebc, seen = dmp.sharded_ebcs[TRAIN_KEY], {}
+        with returning(sebc, "forward", seen), \
+                capturing(sebc, "update", seen):
+            runs[tag] = run_steps(dmp, [args], {"K1": 1, "K3": 1}, {},
+                                  f"variable batch, {tag}")
+        runs[tag].update(_snapshot(dmp, TRAIN_KEY))
+        runs[tag]["pooled"] = seen["forward"].values
+        runs[tag]["d_pooled"] = seen["update"][1]
+        del dmp
+        gc_cuda()
+    pad = runs["padded"]
+    if pad["pooled"][VB_REAL:].abs().max().item() != 0.0:
+        raise AssertionError("a pad row pooled to something")
+    if pad["d_pooled"][VB_REAL:].abs().max().item() != 0.0:
+        raise AssertionError("a pad row's pooled values took a gradient")
+    np.testing.assert_allclose(pad["losses"], runs["unpadded"]["losses"],
+                               rtol=1e-4, atol=1e-5)
+    touched = _dlrm_touched([(None, kjt.to(DEVICE), None)])
+    hold_trained(pad, runs["unpadded"], touched,
+                 f"variable batch ({VB_REAL} rows padded to {BENCH_BATCH})",
+                 ref_name=f"the {VB_REAL}-row step")
+    log(f"variable batch: loss {pad['losses']} against "
+        f"{runs['unpadded']['losses']} unpadded; the {BENCH_BATCH - VB_REAL} "
+        f"pad rows pool to zeros and their pooled values' gradient is "
+        f"exactly 0; step ms {pad['ms']} (padded), "
+        f"{runs['unpadded']['ms']} (unpadded)")
+    return {"launches": {"K1": 2, "K3": 2}}
+
+
+def planned_quant(env) -> dict:
+    """Phase 18 (d): shard_quantized over `ShardingEnv.from_local(1)`
+    inside the group without table_ranks (the planner's placement) against
+    the explicit placement: one Kq and one all_gather a request, logits
+    bit for bit."""
+    from torchrec_tpu_torch.inference import (
+        quantize_embeddings,
+        shard_quantized,
+    )
+    from torchrec_tpu_torch.modules.embedding_configs import DataType
+    from torchrec_tpu_torch.parallel import ShardingEnv
+
+    dmp = make_dmp(DEVICE, train=True).init(SEED)
+    pm = quantize_embeddings(dmp, DataType.INT8, DEVICE)
+    del dmp
+    gc_cuda()
+    local = ShardingEnv.from_local(1, DEVICE)
+    ranks = {TRAIN_KEY: {f"t{i}": 0 for i in range(NUM_TABLES)}}
+    modules = {"explicit": shard_quantized(pm, local, ranks),
+               "planned": shard_quantized(pm, local)}
+    del pm
+    planned = {k: dict(m.table_ranks)
+               for k, m in modules["planned"]._sharded.items()}
+    if planned != ranks:
+        raise AssertionError(f"the planned placement {planned}")
+    requests = quant_requests(np.random.RandomState(SEED + 64))
+    logits = {}
+    for tag, spm in modules.items():
+        logits[tag] = []
+        for batch, dense, ids in requests:
+            before, c0 = counts(), comm_calls()
+            out = logits_of(spm.predict(*quant_args(dense, ids)))
+            torch.cuda.synchronize()
+            launched, made = _moved(counts(), before), _moved(comm_calls(),
+                                                                c0)
+            if launched != {"Kq": 1} or made != {"all_gather": 1}:
+                raise AssertionError(f"planned quantized {tag}: a B={batch} "
+                                     f"request launched {launched} and made "
+                                     f"{made}")
+            logits[tag].append(out)
+    for a, b in zip(logits["planned"], logits["explicit"]):
+        if not torch.equal(a, b):
+            raise AssertionError("the planned quantized placement's logits "
+                                 "differ from the explicit one's")
+    log(f"planned quantized int8 over from_local(1): every table on rank 0 "
+        f"as planned; {len(requests)} requests, 1 Kq and 1 all_gather each, "
+        f"logits equal the explicit placement's bit for bit")
+    return {"launches": {"Kq": 2 * len(requests)}}
+
+
+def measure_costs() -> dict:
+    """The H100 costs of the planner's cost model (planner/constants.py),
+    re-measured on bench.py's packed tables (the planned DLRM's
+    DATA_PARALLEL group, 2,600,064 x 128): K1's device time per slot over
+    one B=8192 batch, and the whole of apply_fused_update (sort, segment
+    sum and kernel) under ROWWISE_ADAGRAD and EXACT_SGD at COST_BATCHES:
+    its device time (torch.profiler, every kernel of the call) at the two
+    sizes gives a cost per row, and its host time per call at the smaller
+    one the fixed cost each call adds. Printed only."""
+    from torchrec_tpu_torch.ops.embedding import pooled_lookup
+    from torchrec_tpu_torch.ops.fused_update import (
+        EmbOptimType,
+        apply_fused_update,
+        init_fused_optimizer_state,
+    )
+
+    dmp = make_dmp(DEVICE, train=True, plan_types="planned").init(SEED)
+    (strat,) = dmp.sharded_ebcs[TRAIN_KEY].strategies
+    W = strat.weights
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 65)
+    offsets = torch.arange(NUM_TABLES, device=DEVICE, dtype=torch.int32) \
+        * ROWS
+    out, dev, host = {}, {}, {}
+    for b in COST_BATCHES:
+        ids = (torch.randint(0, ROWS, (NUM_TABLES, b, L), generator=gen,
+                             device=DEVICE, dtype=torch.int32)
+               + offsets[:, None, None])
+        n = ids.numel()
+        if b == BENCH_BATCH:
+            coeff = torch.ones(ids.shape, device=DEVICE)
+            ms = device_ms(lambda: pooled_lookup(W, ids, coeff))
+            out["lookup_ns_per_slot"] = ms * 1e6 / n
+            log(f"planner costs: K1 over {n} slots {ms:.5f} ms (device), "
+                f"{out['lookup_ns_per_slot']:.5f} ns a slot")
+        grads = torch.randn((n, DIM), generator=gen, device=DEVICE) * 1e-3
+        valid = torch.ones(n, dtype=torch.bool, device=DEVICE)
+        flat = ids.reshape(-1)
+        for optim in (EmbOptimType.ROWWISE_ADAGRAD, EmbOptimType.EXACT_SGD):
+            opt = init_fused_optimizer_state(W.shape[0], DIM, optim,
+                                             device=DEVICE)
+
+            def update():
+                apply_fused_update(W, opt, flat, grads, valid, FUSED_LR)
+
+            dev[optim.name, n] = device_ms(update)
+            host[optim.name, n] = host_ms(update, iters=50)
+    n1, n2 = sorted({k[1] for k in dev}, reverse=True)
+    for optim in ("ROWWISE_ADAGRAD", "EXACT_SGD"):
+        per_row = (dev[optim, n1] - dev[optim, n2]) / (n1 - n2) * 1e6
+        out[optim] = {"device_ms": {n1: dev[optim, n1], n2: dev[optim, n2]},
+                      "host_ms": {n1: host[optim, n1], n2: host[optim, n2]},
+                      "ns_per_row": per_row,
+                      "fixed_s": host[optim, n2] * 1e-3}
+        log(f"planner costs: apply_fused_update {optim}: device "
+            f"{dev[optim, n1]:.5f} ms at {n1} slots, {dev[optim, n2]:.5f} "
+            f"ms at {n2}: {per_row:.5f} ns a row (device); host "
+            f"{host[optim, n1]:.5f} / {host[optim, n2]:.5f} ms a call")
+    del dmp, W
+    gc_cuda()
+    return out
+
+
+def planner_towers() -> dict:
+    """Phase 18: the planner, embedding towers, a variable batch and the
+    planned quantized placement (see the module docstring). Returns the
+    launches per kernel of the phase's requests and steps, read from the
+    counters (set to 0 before them), after checking that they equal the
+    sum of every request's and step's asserted launches."""
+    t0 = time.perf_counter()
+    bench_plans()
+    reset_counts()
+    planned = planned_dlrm()
+    vb = variable_batch_step()
+    with process_group_of_one() as env:
+        towers = tower_dlrm(env)
+        quant = planned_quant(env)
+    launches = {k: v for k, v in counts().items() if v}
+    want = _add_calls(planned["launches"], vb["launches"],
+                      towers["launches"], quant["launches"])
+    if launches != {k: v for k, v in want.items() if v}:
+        raise AssertionError(f"planner phase: the counters moved {launches};"
+                             f" the requests and steps asserted {want}")
+    log(f"planner phase: {time.perf_counter() - t0:.2f} s; launches "
+        f"{launches} (the counters)")
+    measure_costs()
+    return launches
+
+
 def gc_cuda() -> None:
     """Free what Python no longer holds, so that the next peak counts only
     what is alive."""
@@ -4483,6 +5081,12 @@ def main() -> int:
     for k, v in hier.items():
         flat[k] = flat.get(k, 0) + v
 
+    # the planner (bench.py's DLRM given no plan), the tower DLRM
+    # group-less and inside an NCCL group of one rank, a variable batch
+    # and the planned quantized placement (K1, K3, K4, Kq)
+    for k, v in planner_towers().items():
+        flat[k] = flat.get(k, 0) + v
+
     launches = {k: trained[name]["launches"][k]
                 for name, ks in STEP_KERNELS.items() for k in ks}
     launches["K4"] += b4r_trained["launches"]["K4"]
@@ -4526,7 +5130,8 @@ def main() -> int:
         f"and K3 the quantized phase's training and f32 server, Kq its "
         f"quantized requests and servers ({quant['launches']}); K1, K3, K4 "
         f"and the routed gather also the flat-strategies and hierarchical "
-        f"phases, with K8 and Kq the latter's ({flat}): "
+        f"phases, with K8 and Kq the latter's, and K1, K3, K4 and Kq the "
+        f"planner phase's ({flat}): "
         f"{launches}")
     log(card["smi"])
     log(json.dumps({"kernels": [{

@@ -171,3 +171,29 @@ def test_port_init_draws_within_table_bounds():
     again = _port_dmp(L=1, mean=False).init(seed=3)
     for a, b in zip(dmp.state_dict().values(), again.state_dict().values()):
         assert torch.equal(a, b)
+
+
+def test_dlrm_train_loss_gradient_at_a_zero_logit_matches_jax():
+    """DLRMTrain's BCE takes JAX's gradient at a logit of exactly 0 (-y:
+    jnp.maximum splits the slope there and jnp.abs takes +1), where
+    torch.clamp / torch.abs gave 1 - y."""
+    import flax.linen as fnn
+
+    class Logits(torch.nn.Module):
+        def forward(self, dense, sparse):
+            return dense
+
+    class JLogits(fnn.Module):
+        def __call__(self, dense, sparse):
+            return dense
+
+    labels = np.asarray([1.0, 0.0, 1.0], np.float32)
+    x = np.asarray([[0.0], [0.0], [0.5]], np.float32)
+    z = torch.tensor(x, requires_grad=True)
+    DLRMTrain(Logits())(z, None, torch.tensor(labels))[0].backward()
+    jtrain = JDLRMTrain(dlrm=JLogits())
+    jgrad = jax.grad(lambda v: jtrain.apply({}, v, None,
+                                            jnp.asarray(labels))[0])(
+        jnp.asarray(x))
+    np.testing.assert_allclose(z.grad.numpy(), np.asarray(jgrad), rtol=1e-6)
+    assert z.grad[:2, 0].tolist() == [np.float32(-1.0 / 3), 0.0]

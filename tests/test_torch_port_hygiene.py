@@ -106,7 +106,8 @@ def _bert4rec_dmp(sharding_type=ShardingType.ROW_WISE,
     "swish_layer_norm", "deepfm", "crossnet", "quant_ebc",
     "sharded_quant_ebc", "quantize_embeddings", "predict_module_load",
     "from_distributed", "sharded_embedding_bag", "from_local",
-    "train_pipeline", "sparse_dist_pipeline"])
+    "train_pipeline", "sparse_dist_pipeline", "planned_dmp",
+    "tower_collection", "tower_dmp", "variable_batch"])
 def test_entry_points_refuse_cpu_without_asking(entry, monkeypatch,
                                                 tmp_path):
     from torchrec_tpu_torch.inference import (
@@ -118,10 +119,16 @@ def test_entry_points_refuse_cpu_without_asking(entry, monkeypatch,
     )
     from torchrec_tpu_torch.quant import QuantEmbeddingBagCollection
 
+    from torchrec_tpu_torch.modules.embedding_tower import EmbeddingTower
+    from torchrec_tpu_torch.parallel.tower_sharding import (
+        ShardedEmbeddingTowerCollection,
+        TowerSpec,
+    )
     from torchrec_tpu_torch.parallel.train_pipeline import (
         SparseDistPipeline,
         TrainPipeline,
     )
+    from torchrec_tpu_torch.parallel.variable_batch import VariableBatch
 
     cpu_dmp = (DistributedModelParallel(_model("meta"), plan=_plan(),
                                         device="cpu").init(0)
@@ -175,6 +182,18 @@ def test_entry_points_refuse_cpu_without_asking(entry, monkeypatch,
             TrainPipeline(lambda *batch: batch)
         elif entry == "sparse_dist_pipeline":
             SparseDistPipeline(cpu_dmp)
+        elif entry == "planned_dmp":
+            DistributedModelParallel(_model("meta"))
+        elif entry == "tower_collection":
+            ShardedEmbeddingTowerCollection(ShardingEnv(), [TowerSpec(
+                tuple(_tables()), MLP(8, (2,), device="meta"), 0, 2)])
+        elif entry == "tower_dmp":
+            DistributedModelParallel(EmbeddingTower(
+                EmbeddingBagCollection(_tables(), device="meta"),
+                MLP(8, (2,), device="meta")))
+        elif entry == "variable_batch":
+            VariableBatch.from_ragged([KeyedJaggedTensor.from_lengths(
+                ["f0"], [1, 2], [1, 1]).to_padded(1)])
         elif entry == "sharded_embedding_bag":
             ShardedEmbeddingBag(None, 10, 4,
                                 ParameterSharding(ShardingType.ROW_WISE))
@@ -263,25 +282,43 @@ def _world_of_two():
     "case", ["no_plan", "uvm", "world_size", "fused_param",
              "shard_quantized_world_size_2"])
 def test_unported_parts_raise(case):
-    """The parts the port does not take yet raise. Several devices in one
-    process raise for good: the port runs one process per rank. Sharding a
-    quantized model over several ranks without explicit `table_ranks`
-    needs the planner (ROADMAP item 9)."""
+    """The parts the port does not take yet raise: UVM-cached tables (ROADMAP
+    item 11) and unknown fused_params. Several devices in one process raise
+    for good: the port runs one process per rank. The planner (item 9) is
+    ported, so its two cases, which raised before it, now assert what it
+    does: a DMP given no plan plans every table and trains, and
+    shard_quantized over two ranks without `table_ranks` places each table
+    whole on one of them."""
     from torchrec_tpu_torch.inference import (
         quantize_embeddings,
         shard_quantized,
     )
 
+    if case == "no_plan":
+        dmp = DistributedModelParallel(_model("meta"), device="cpu").init(0)
+        plan = dmp.plan.plan["sparse_arch/embedding_bag_collection"]
+        assert sorted(plan) == ["t0", "t1"]
+        # tables of 10 rows on one device: the planner replicates them
+        assert {p.sharding_type for p in plan.values()} == {
+            ShardingType.DATA_PARALLEL}
+        loss, _ = dmp.make_train_step(
+            lambda logits: (logits.square().mean(), logits))(
+            torch.ones(2, 3), KeyedJaggedTensor.from_lengths(
+                ["f0", "f1"], [1, 2, 3, 4], [1, 1, 1, 1]))
+        assert torch.isfinite(loss)
+        return
+    if case == "shard_quantized_world_size_2":
+        pm = quantize_embeddings(
+            DistributedModelParallel(_model("meta"), plan=_plan(),
+                                     device="cpu").init(0),
+            device="cpu")
+        spm = shard_quantized(pm, _world_of_two())
+        (sq,) = spm._sharded.values()
+        assert sorted(sq.table_ranks) == ["t0", "t1"]
+        assert sorted(sq.table_ranks.values()) == [0, 1]
+        return
     with pytest.raises(NotImplementedError):
-        if case == "no_plan":
-            DistributedModelParallel(_model("meta"), device="cpu")
-        elif case == "shard_quantized_world_size_2":
-            pm = quantize_embeddings(
-                DistributedModelParallel(_model("meta"), plan=_plan(),
-                                         device="cpu").init(0),
-                device="cpu")
-            shard_quantized(pm, _world_of_two())
-        elif case == "uvm":
+        if case == "uvm":
             DistributedModelParallel(
                 _model("meta"), device="cpu",
                 plan=_plan(compute_kernel=ComputeKernel.FUSED_UVM_CACHING))

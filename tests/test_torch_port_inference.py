@@ -289,14 +289,37 @@ def test_sharded_predict_module_saves_the_same_package(quantized, tmp_path):
 
 
 def test_shard_quantized_refuses_several_devices(quantized):
-    """Placement over several GPUs without explicit `table_ranks` waits
-    for the planner (ROADMAP item 9), which plans JAX's default."""
-    class TwoDevices:
-        world_size, rank, device = 2, 0, torch.device("cpu")
+    """Placement over several GPUs without explicit `table_ranks` (which
+    raised until the planner was ported) now plans, as JAX does: the port's
+    `_plan_quant_ranks` equals JAX's on JAX's topology, and on the card's
+    own it places each table whole on one of the two ranks; rank 0's
+    sharded module holds the tables placed on it."""
+    from torchrec_tpu.inference.modules import _plan_quant_ranks as j_ranks
+    from torchrec_tpu.ops import cost_model as jcm
+    from torchrec_tpu.planner import constants as JC
+    from torchrec_tpu_torch.inference.modules import _plan_quant_ranks
+    from torchrec_tpu_torch.planner import CostModel, DeviceSpec, Topology
 
-    _, tpm = quantized["INT8"]
-    with pytest.raises(NotImplementedError, match="item 9"):
-        shard_quantized(tpm, TwoDevices())
+    class TwoDevices:
+        world_size, rank, device, group = 2, 0, torch.device("cpu"), None
+
+    jpm, tpm = quantized["INT8"]
+    cap, hbm, ici, dcn = JC.TPU_SPECS["v5e"]
+    v5e = Topology(2, device=DeviceSpec(
+        "v5e", cap, hbm * 1024**3, ici * 1024**3, dcn * 1024**3,
+        JC.DDR_MEM_BW, JC.HOST_DDR_CAP), cost_model=CostModel(
+        jcm.fused_lookup_s, jcm.fused_update_s, JC.FUSED_KERNEL_BW_FRACTION,
+        JC.DENSE_KERNEL_BW_FRACTION, JC.QUANT_KERNEL_BW_FRACTION))
+    want = j_ranks(TwoDevices(), jpm._quant_ebcs)[JAX_KEY]
+    assert _plan_quant_ranks(TwoDevices(), tpm._quant_ebcs,
+                             topology=v5e)[PORT_KEY] == want
+    planned = _plan_quant_ranks(TwoDevices(), tpm._quant_ebcs)[PORT_KEY]
+    assert sorted(planned) == ["t0", "t1", "t2"]
+    assert set(planned.values()) == {0, 1}
+    spm = shard_quantized(tpm, TwoDevices())
+    (sq,) = spm._sharded.values()
+    assert sorted(sq.quantized) == sorted(t for t, r in planned.items()
+                                          if r == 0)
 
 
 @pytest.mark.parametrize("name", TYPES)

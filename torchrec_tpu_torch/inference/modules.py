@@ -246,6 +246,41 @@ class ShardedPredictModule(PredictModule):
         return self._env.device
 
 
+def _plan_quant_ranks(env, quant_ebcs: Mapping[str, Any], *,
+                      topology=None) -> Dict[str, Dict[str, int]]:
+    """The planned TABLE_WISE placement of each quantized module's tables:
+    the sharding planner under the quantized sharder's sharding types, on
+    `topology` (default: the env's world size on the card's spec), as the
+    JAX function plans it; round-robin over the ranks where the planner
+    finds no plan."""
+    from torchrec_tpu_torch.parallel.sharders import (
+        QuantEmbeddingBagCollectionSharder,
+    )
+    from torchrec_tpu_torch.planner import (
+        EmbeddingShardingPlanner,
+        ParameterConstraints,
+        PlannerError,
+        Topology,
+    )
+
+    sharder = QuantEmbeddingBagCollectionSharder()
+    out: Dict[str, Dict[str, int]] = {}
+    for key, q in quant_ebcs.items():
+        try:
+            topo = topology or Topology(world_size=env.world_size)
+            constraints = {t.name: ParameterConstraints(
+                sharding_types=sharder.sharding_types()) for t in q.tables}
+            plan = EmbeddingShardingPlanner(
+                topo, constraints=constraints).plan(
+                    q.tables, module_path="m").plan["m"]
+            out[key] = {name: (ps.ranks[0] if ps.ranks else 0)
+                        for name, ps in plan.items()}
+        except PlannerError:
+            out[key] = {t.name: i % env.world_size
+                        for i, t in enumerate(q.tables)}
+    return out
+
+
 def shard_quantized(
     pm: PredictModule,
     env: Optional[ShardingEnv] = None,
@@ -254,20 +289,12 @@ def shard_quantized(
     """Shard a quantized PredictModule over an inference env (default: one
     device, the predict module's; `ShardingEnv.from_local(n)` for n ranks
     of one host), each table on the rank `table_ranks` gives ({module key
-    -> {table -> rank}}, JAX's form). At world size 1 every table lands on
-    rank 0, which both the JAX planner and its round-robin fallback give.
-    At world size n > 1 `table_ranks` is required: JAX plans the default
-    placement with its planner, which is not ported (ROADMAP queue 1
-    item 9)."""
+    -> {table -> rank}}, JAX's form), by default the sharding planner's
+    TABLE_WISE placement (`_plan_quant_ranks`, as JAX plans it; at world
+    size 1 every table lands on rank 0)."""
     env = env or ShardingEnv(pm.device)
     if table_ranks is None:
-        if env.world_size > 1:
-            raise NotImplementedError(
-                f"shard_quantized at world size {env.world_size} without "
-                "table_ranks: the planned default placement needs the "
-                "planner (ROADMAP queue 1 item 9); pass table_ranks")
-        table_ranks = {key: {t.name: 0 for t in q.tables}
-                       for key, q in pm._quant_ebcs.items()}
+        table_ranks = _plan_quant_ranks(env, pm._quant_ebcs)
     return ShardedPredictModule(pm.module, pm._quant_ebcs, env, table_ranks)
 
 

@@ -185,8 +185,11 @@ class DLRMTrain(nn.Module):
         """Returns (loss, (loss, logits, labels))."""
         logits = self.dlrm(dense_features, sparse_features).squeeze(-1)
         labels = labels.to(logits.dtype)
+        # JAX's gradient at a logit of 0: jnp.maximum splits it, as
+        # torch.maximum does, and jnp.abs takes the slope +1 there
+        abs_z = torch.where(logits >= 0, logits, -logits)
         loss = torch.mean(
-            torch.clamp(logits, min=0) - logits * labels
-            + torch.log1p(torch.exp(-torch.abs(logits)))
+            torch.maximum(logits, logits.new_zeros(())) - logits * labels
+            + torch.log1p(torch.exp(-abs_z))
         )
         return loss, (loss, logits, labels)

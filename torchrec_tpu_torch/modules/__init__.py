@@ -30,3 +30,7 @@ from torchrec_tpu_torch.modules.crossnet import (  # noqa: F401
     LowRankMixtureCrossNet,
     VectorCrossNet,
 )
+from torchrec_tpu_torch.modules.embedding_tower import (  # noqa: F401
+    EmbeddingTower,
+    EmbeddingTowerCollection,
+)

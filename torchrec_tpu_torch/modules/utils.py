@@ -13,7 +13,8 @@ tensors, so it allocates nothing and computes nothing, as the JAX version
 from __future__ import annotations
 
 import copy
-from typing import Any, Callable, Optional, Sequence, Tuple, Union
+import inspect
+from typing import Any, Callable, List, Optional, Sequence, Set, Tuple, Union
 
 import torch
 from torch import nn
@@ -130,3 +131,37 @@ def convert_list_of_modules_to_modulelist(
         )
         for i in range(sizes[0])
     )
+
+
+def seeded_reset(m: nn.Module) -> Optional[Callable]:
+    """m.reset_parameters when it takes a `generator`, else None."""
+    reset = getattr(m, "reset_parameters", None)
+    if reset is None or "generator" not in inspect.signature(
+            reset).parameters:
+        return None
+    return reset
+
+
+def drawn_by(m: nn.Module) -> List[nn.Parameter]:
+    """The parameters a module's seeded reset_parameters draws: its own and
+    those of the descendants that have no seeded reset of their own (a
+    Perceptron's nn.Linear)."""
+    out = list(m.parameters(recurse=False))
+    for child in m.children():
+        if seeded_reset(child) is None:
+            out.extend(drawn_by(child))
+    return out
+
+
+def reset_seeded(module: nn.Module,
+                 generator: Optional[torch.Generator]) -> Set[int]:
+    """Call the seeded reset_parameters of `module` and of each of its
+    descendants, in `modules()` order, with `generator`; the ids of the
+    parameters they drew."""
+    drawn: Set[int] = set()
+    for m in module.modules():
+        reset = seeded_reset(m)
+        if reset is not None:
+            reset(generator=generator)
+            drawn.update(id(p) for p in drawn_by(m))
+    return drawn

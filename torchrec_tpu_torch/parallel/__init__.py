@@ -17,3 +17,13 @@ from torchrec_tpu_torch.parallel.dmp import (  # noqa: F401
 from torchrec_tpu_torch.parallel.sharded_bag import (  # noqa: F401
     ShardedEmbeddingBag,
 )
+from torchrec_tpu_torch.parallel.tower_sharding import (  # noqa: F401
+    ShardedEmbeddingTower,
+    ShardedEmbeddingTowerCollection,
+    TowerSpec,
+)
+from torchrec_tpu_torch.parallel.variable_batch import (  # noqa: F401
+    VariableBatch,
+    masked_bce_with_logits,
+    masked_mean,
+)

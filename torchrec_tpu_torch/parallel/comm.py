@@ -16,6 +16,8 @@ names:
                                           concat_axis=concat, tiled=True)
     all_reduce_mean(env, tensors)     the mean over ranks, in place (the
                                       dense gradients JAX's jit averages)
+    all_reduce_sum(env, tensors)      lax.psum, in place (the tower
+                                      interactions' gradients)
 
 Block j of a gathered or split axis is the group's j-th rank's, as a JAX
 group's blocks follow their position in the group's list (ascending in
@@ -47,7 +49,8 @@ import torch.distributed as dist
 
 # calls made to torch.distributed in this process, per function
 CALLS: Dict[str, int] = {"all_gather": 0, "reduce_scatter": 0,
-                         "all_to_all": 0, "all_reduce_mean": 0}
+                         "all_to_all": 0, "all_reduce_mean": 0,
+                         "all_reduce_sum": 0}
 
 
 def _front(x: torch.Tensor, axis: int) -> torch.Tensor:
@@ -181,19 +184,32 @@ def all_to_all(env, x: torch.Tensor, split_axis: int, concat_axis: int,
     return _all_to_all(pg, n, x, split_axis, concat_axis)
 
 
-def all_reduce_mean(env, tensors: Sequence[torch.Tensor],
-                    group: Optional[dist.ProcessGroup] = None) -> None:
-    """Replace each tensor by its mean over the ranks, in place, in one
-    call: the tensors travel flattened in one f32 buffer, summed, divided
-    by n."""
+def _all_reduce(env, tensors: Sequence[torch.Tensor],
+                group: Optional[dist.ProcessGroup], mean: bool) -> None:
     if env.group is None or not tensors:
         return
     pg, n = _group(env, group)
     flat = torch.cat([t.reshape(-1).to(torch.float32) for t in tensors])
     dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=pg)
-    CALLS["all_reduce_mean"] += 1
-    flat /= n
+    CALLS["all_reduce_mean" if mean else "all_reduce_sum"] += 1
+    if mean:
+        flat /= n
     off = 0
     for t in tensors:
         t.copy_(flat[off:off + t.numel()].view_as(t))
         off += t.numel()
+
+
+def all_reduce_mean(env, tensors: Sequence[torch.Tensor],
+                    group: Optional[dist.ProcessGroup] = None) -> None:
+    """Replace each tensor by its mean over the ranks, in place, in one
+    call: the tensors travel flattened in one f32 buffer, summed, divided
+    by n."""
+    _all_reduce(env, tensors, group, mean=True)
+
+
+def all_reduce_sum(env, tensors: Sequence[torch.Tensor],
+                   group: Optional[dist.ProcessGroup] = None) -> None:
+    """Replace each tensor by its sum over the ranks, in place, in one
+    call (one flattened f32 buffer)."""
+    _all_reduce(env, tensors, group, mean=False)

@@ -69,15 +69,32 @@ strategies' routed views). `make_prefetched_train_step()` takes the
 batch's dists and returns the next batch's, so that a batch's forward and
 update share one dist: each group with a dist makes one all_gather of
 the ids per step where `make_train_step` makes two, with the same
-numerics (parallel/train_pipeline.SparseDistPipeline drives it). Not
-ported yet: the planner (a plan must be given), embedding towers and
-UVM-cached tables (an FP-EBC's too).
+numerics (parallel/train_pipeline.SparseDistPipeline drives it).
+
+An EmbeddingTower or EmbeddingTowerCollection becomes a
+ShardedEmbeddingTowerCollection (parallel/tower_sharding.py), which
+returns the towers' outputs [B, sum(d_out)] and holds their tables and
+interaction modules. Its plan must put every tower's tables TABLE_WISE on
+one rank. Its interaction parameters step inside its update, by SGD at the
+base fused learning rate (`learning_rate`, unscheduled, as the JAX DMP
+builds the collection), so the dense optimizer does not take them; the
+train step feeds it the cotangent of its output, divided by n as the
+other sparse cotangents.
+
+A module the plan has no entry for (or every module, without a plan) is
+planned by the sharding planner (planner/) under its sharder's sharding
+types, on a Topology of the env's world size and local size and the
+card's spec: an EBC, an EC and an FP-EBC's EBC each on their own, a
+tower module with one dependency tag per tower, so that each tower's
+tables plan TABLE_WISE on one rank. Where the planner finds no plan, the
+JAX DMP's fallbacks: towers round-robin over the ranks by tag, else
+DATA_PARALLEL under 64 rows and ROW_WISE above. Not ported yet:
+UVM-cached tables (a FUSED_UVM_CACHING plan raises).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import inspect
 from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import torch
@@ -89,8 +106,17 @@ from torchrec_tpu_torch.modules.embedding_modules import (
     EmbeddingCollection,
     as_padded,
 )
+from torchrec_tpu_torch.modules.embedding_tower import (
+    EmbeddingTower,
+    EmbeddingTowerCollection,
+)
 from torchrec_tpu_torch.modules.feature_processor import (
     FeatureProcessedEmbeddingBagCollection,
+)
+from torchrec_tpu_torch.modules.utils import (
+    drawn_by,
+    get_module_output_dimension,
+    seeded_reset,
 )
 from torchrec_tpu_torch.ops.fused_update import EmbOptimType
 from torchrec_tpu_torch.optim.keyed import DenseOptimizerFactory
@@ -101,8 +127,24 @@ from torchrec_tpu_torch.parallel.sharded_ebc import (
     ShardedFeatureProcessedEmbeddingBagCollection,
 )
 from torchrec_tpu_torch.parallel.sharded_ec import ShardedEmbeddingCollection
+from torchrec_tpu_torch.parallel.sharders import (
+    EmbeddingBagCollectionSharder,
+    EmbeddingCollectionSharder,
+    EmbeddingTowerCollectionSharder,
+    ModuleSharder,
+)
 from torchrec_tpu_torch.parallel.strategies import ArrayLike
-from torchrec_tpu_torch.parallel.types import ShardingEnv, ShardingPlan
+from torchrec_tpu_torch.parallel.tower_sharding import (
+    ShardedEmbeddingTowerCollection,
+    TowerSpec,
+)
+from torchrec_tpu_torch.parallel.types import (
+    ComputeKernel,
+    ParameterSharding,
+    ShardingEnv,
+    ShardingPlan,
+    ShardingType,
+)
 from torchrec_tpu_torch.sparse.jagged import (
     KeyedJaggedTensor,
     KeyedTensor,
@@ -118,24 +160,59 @@ def _replace_module(root: nn.Module, old: nn.Module, new: nn.Module) -> None:
                 setattr(m, name, new)
 
 
-def _seeded_reset(m: nn.Module) -> Optional[Callable]:
-    """m.reset_parameters when it takes a `generator`, else None."""
-    reset = getattr(m, "reset_parameters", None)
-    if reset is None or "generator" not in inspect.signature(
-            reset).parameters:
-        return None
-    return reset
+def _tower_d_in(tower: EmbeddingTower) -> int:
+    """A tower's interaction input width: one pooled [D] block per (table,
+    feature)."""
+    return sum(t.embedding_dim * len(t.feature_names)
+               for t in tower.embedding_module.tables)
 
 
-def _drawn_by(m: nn.Module) -> List[nn.Parameter]:
-    """The parameters a module's seeded reset_parameters draws: its own and
-    those of the descendants that have no seeded reset of their own (a
-    Perceptron's nn.Linear)."""
-    out = list(m.parameters(recurse=False))
-    for child in m.children():
-        if _seeded_reset(child) is None:
-            out.extend(_drawn_by(child))
-    return out
+def _tower_d_out(tower: EmbeddingTower) -> int:
+    """A tower's interaction output width, from a run on `meta`."""
+    return get_module_output_dimension(tower.interaction_module,
+                                       _tower_d_in(tower))
+
+
+def _default_plan(tables, env: ShardingEnv, sharder: ModuleSharder,
+                  dependencies: Optional[Mapping[str, str]] = None, *,
+                  topology=None) -> Dict[str, ParameterSharding]:
+    """The plan of a module given none: the sharding planner under the
+    sharder's sharding types, on `topology` (default: the env's world size
+    and local size on the card's spec). `dependencies` maps tables to
+    co-location tags (one per embedding tower). Where the planner finds no
+    plan, JAX's fallbacks: whole dependency groups round-robin over the
+    ranks (TABLE_WISE), else DATA_PARALLEL under 64 rows and ROW_WISE
+    above."""
+    from torchrec_tpu_torch.planner import (
+        EmbeddingShardingPlanner,
+        ParameterConstraints,
+        PlannerError,
+        Topology,
+    )
+
+    dependencies = dependencies or {}
+    try:
+        topo = topology or Topology(world_size=env.world_size,
+                                    local_world_size=env.local_size)
+        constraints = {
+            t.name: ParameterConstraints(
+                sharding_types=sharder.sharding_types(),
+                dependency=dependencies.get(t.name))
+            for t in tables}
+        planner = EmbeddingShardingPlanner(topo, constraints=constraints)
+        return planner.plan(tables, module_path="m").plan["m"]
+    except PlannerError:
+        if dependencies:
+            tags = sorted({dependencies.get(t.name, t.name) for t in tables})
+            rank_of = {tag: i % env.world_size for i, tag in enumerate(tags)}
+            return {t.name: ParameterSharding(
+                        ShardingType.TABLE_WISE,
+                        ranks=[rank_of[dependencies.get(t.name, t.name)]])
+                    for t in tables}
+        return {cfg.name: ParameterSharding(
+                    ShardingType.DATA_PARALLEL if cfg.num_embeddings < 64
+                    else ShardingType.ROW_WISE)
+                for cfg in tables}
 
 
 def _detach(x: Any) -> Any:
@@ -169,12 +246,15 @@ def _scaled(g: Any, s: float) -> Any:
 
 class DistributedModelParallel(nn.Module):
     """Wraps an authored model, shards its EmbeddingBagCollections,
-    EmbeddingCollections and FeatureProcessedEmbeddingBagCollections per
-    the plan, and serves and trains it on the env's device.
+    EmbeddingCollections, FeatureProcessedEmbeddingBagCollections and
+    embedding towers per the plan, and serves and trains it on the env's
+    device.
 
     env: where to run (default: ShardingEnv(device), and `device` defaults
-    to the current CUDA card). plan: ShardingPlan with an entry for every
-    EBC, EC and FP-EBC. fused_optim: the embedding tables' fused optimizer.
+    to the current CUDA card). plan: a ShardingPlan keyed by module path;
+    a module it has no entry for, or every module when it is None, is
+    planned by the sharding planner (the plan used is `self.plan`).
+    fused_optim: the embedding tables' fused optimizer.
     fused_params: its `learning_rate` (default 0.01), an optional
     `lr_schedule` (step -> lr, evaluated on the host from the DMP's step
     counter; optim/warmup.make_warmup_schedule makes one) and
@@ -186,7 +266,8 @@ class DistributedModelParallel(nn.Module):
     feature processor's gradient too, which the train step adds before
     the dense step. sharders: parallel/sharders.py's ModuleSharders; each
     one's `fused_params` are merged under the explicit `fused_params`, as
-    the JAX DMP merges them.
+    the JAX DMP merges them, and the sharding types of its module kind
+    bound the planner's.
     """
 
     def __init__(
@@ -202,30 +283,32 @@ class DistributedModelParallel(nn.Module):
     ):
         super().__init__()
         self.env = env or ShardingEnv(device)
-        # module path -> EBC, EC or FP-EBC; named_modules lists an FP-EBC
-        # before the EBC it wraps, which is sharded as part of it
+        # module path -> EBC, EC, FP-EBC, tower or tower collection;
+        # named_modules lists a wrapper before the modules it wraps, which
+        # are sharded as part of it
         found: Dict[str, nn.Module] = {}
         wrapped = set()
         for name, m in module.named_modules():
-            if isinstance(m, FeatureProcessedEmbeddingBagCollection):
+            if id(m) in wrapped:
+                continue
+            if isinstance(m, (EmbeddingTower, EmbeddingTowerCollection)):
+                found[name] = m
+                wrapped.update(id(x) for x in m.modules())
+            elif isinstance(m, FeatureProcessedEmbeddingBagCollection):
                 found[name] = m
                 wrapped.add(id(m.embedding_bag_collection))
-            elif (isinstance(m, (EmbeddingBagCollection, EmbeddingCollection))
-                  and id(m) not in wrapped):
+            elif isinstance(m, (EmbeddingBagCollection, EmbeddingCollection)):
                 found[name] = m
         if not found:
             raise ValueError("no EmbeddingBagCollection or "
                              "EmbeddingCollection found in module")
-        if plan is None:
-            raise NotImplementedError(
-                "the sharding planner is not ported yet: pass a ShardingPlan"
-            )
         self.fused_optim = fused_optim
-        # the sharders' fused_params under the explicit ones; without the
-        # planner (ROADMAP queue 1 item 9), which would plan within the
-        # sharding types a sharder declares, they do nothing else
+        # the sharders' fused_params under the explicit ones; a sharder of
+        # a module kind also bounds the sharding types the planner gives
+        # that kind
+        self._sharders = list(sharders or ())
         merged: dict = {}
-        for sh in sharders or ():
+        for sh in self._sharders:
             merged.update(getattr(sh, "fused_params", None) or {})
         merged.update(fused_params or {})
         fused_params = merged
@@ -240,11 +323,25 @@ class DistributedModelParallel(nn.Module):
         # module key -> what replaced an FP-EBC
         self._fp_ebcs: Dict[
             str, ShardedFeatureProcessedEmbeddingBagCollection] = {}
+        plans: Dict[str, Dict[str, ParameterSharding]] = {}
         for name, mod in found.items():
             key = name.replace(".", "/")
-            module_plan = plan.get_plan_for_module(key)
+            module_plan = (None if plan is None
+                           else plan.get_plan_for_module(key))
+            if isinstance(mod, (EmbeddingTower, EmbeddingTowerCollection)):
+                sharded[key], plans[key] = self._tower_module(
+                    mod, module_plan, fused_optim, fused_params)
+                stubs[key] = nn.Identity()
+                _replace_module(module, mod, stubs[key])
+                continue
             if module_plan is None:
-                raise ValueError(f"the plan has no entry for module {key!r}")
+                inner = (mod.embedding_bag_collection if isinstance(
+                    mod, FeatureProcessedEmbeddingBagCollection) else mod)
+                kind = "ec" if isinstance(inner, EmbeddingCollection) \
+                    else "ebc"
+                module_plan = _default_plan(inner.tables, self.env,
+                                            self._sharder(kind))
+            plans[key] = module_plan
             if isinstance(mod, FeatureProcessedEmbeddingBagCollection):
                 # the processor stays; the EBC is stubbed and sharded below
                 fp_ebc = ShardedFeatureProcessedEmbeddingBagCollection(
@@ -278,13 +375,81 @@ class DistributedModelParallel(nn.Module):
             _replace_module(module, stub, sharded[key])
         self.module = module
         self.sharded_ebcs = sharded
+        # the plan the modules were sharded by, planned entries included
+        self.plan = ShardingPlan(plans)
         self.dense_optimizer = (dense_optimizer or self._default_dense_opt)(
-            list(module.parameters()))
+            self._dense_parameters())
         # train steps taken: the fused lr_schedule's argument
         self.step = 0
 
     def _default_dense_opt(self, params) -> torch.optim.Optimizer:
         return torch.optim.SGD(params, lr=self.learning_rate)
+
+    def _sharder(self, kind: str) -> ModuleSharder:
+        """The sharder given for a module kind, else the default one."""
+        return next((s for s in self._sharders
+                     if getattr(s, "module_kind", None) == kind), None) or {
+            "ebc": EmbeddingBagCollectionSharder,
+            "ec": EmbeddingCollectionSharder,
+            "tower": EmbeddingTowerCollectionSharder}[kind]()
+
+    def _tower_module(self, mod: nn.Module,
+                      module_plan: Optional[Dict[str, ParameterSharding]],
+                      fused_optim: EmbOptimType, fused_params: dict):
+        """(the ShardedEmbeddingTowerCollection of a tower or tower
+        collection, its plan): each tower's tables TABLE_WISE on one rank,
+        planned with one dependency tag per tower when `module_plan` is
+        None; raises for any other placement, as the JAX DMP does."""
+        towers = (list(mod.towers) if isinstance(mod, EmbeddingTowerCollection)
+                  else [mod])
+        tables = [t for tw in towers for t in tw.embedding_module.tables]
+        if module_plan is None:
+            module_plan = _default_plan(
+                tables, self.env, self._sharder("tower"),
+                dependencies={t.name: f"tower_{i}"
+                              for i, tw in enumerate(towers)
+                              for t in tw.embedding_module.tables})
+        specs = []
+        for i, tw in enumerate(towers):
+            ranks = set()
+            for t in tw.embedding_module.tables:
+                ps = module_plan[t.name]
+                if ps.compute_kernel is ComputeKernel.FUSED_UVM_CACHING:
+                    raise NotImplementedError(
+                        f"tower table {t.name}: FUSED_UVM_CACHING "
+                        "(host-resident tables with a device row cache) is "
+                        "not ported yet")
+                if ps.sharding_type is not ShardingType.TABLE_WISE:
+                    raise ValueError(
+                        f"tower table {t.name} planned {ps.sharding_type}; "
+                        "tower tables must be TABLE_WISE (co-located with "
+                        "their interaction module on one device)")
+                ranks.add(ps.ranks[0] if ps.ranks else 0)
+            if len(ranks) != 1:
+                raise ValueError(
+                    f"tower {i} tables placed on multiple ranks "
+                    f"{sorted(ranks)}; a tower must be co-located")
+            specs.append(TowerSpec(
+                tables=tuple(tw.embedding_module.tables),
+                interaction=tw.interaction_module, device=ranks.pop(),
+                d_out=_tower_d_out(tw)))
+        sharded = ShardedEmbeddingTowerCollection(
+            self.env, specs, optim=fused_optim, optim_kwargs=fused_params,
+            interaction_lr=self.learning_rate,
+            max_feature_length=max(tw.embedding_module.max_feature_length
+                                   for tw in towers))
+        return sharded, module_plan
+
+    def _towers(self) -> List[ShardedEmbeddingTowerCollection]:
+        return [m for m in self.sharded_ebcs.values()
+                if isinstance(m, ShardedEmbeddingTowerCollection)]
+
+    def _dense_parameters(self) -> List[nn.Parameter]:
+        """The parameters the dense optimizer steps: the module's, less
+        the tower interactions', which step inside their collection."""
+        inside = {id(p) for tc in self._towers()
+                  for p in tc.parameters()}
+        return [p for p in self.module.parameters() if id(p) not in inside]
 
     @torch.no_grad()
     def init(self, seed: int = 0) -> "DistributedModelParallel":
@@ -297,12 +462,14 @@ class DistributedModelParallel(nn.Module):
         wrapper's count of updates, which lives there, as the JAX `init`
         rebuilds the optax state with its count."""
         g = torch.Generator(device=self.env.device).manual_seed(seed)
-        drawn = set()
+        # the towers' interactions are drawn by their collections' init
+        inside = {id(m) for tc in self._towers() for m in tc.modules()}
+        drawn = {id(p) for tc in self._towers() for p in tc.parameters()}
         for m in self.module.modules():
-            reset = _seeded_reset(m)
+            reset = None if id(m) in inside else seeded_reset(m)
             if reset is not None:
                 reset(generator=g)
-                drawn.update(id(p) for p in _drawn_by(m))
+                drawn.update(id(p) for p in drawn_by(m))
         missing = [n for n, p in self.module.named_parameters()
                    if id(p) not in drawn]
         if missing:
@@ -321,9 +488,15 @@ class DistributedModelParallel(nn.Module):
     ) -> None:
         """Load unsharded per-table weights: {module key -> {table ->
         [R, D] array}}. The loaded modules' fused optimizer state restarts
-        at zero momenta and step 0, as the JAX DMP's does."""
+        at zero momenta and step 0, as the JAX DMP's does. A tower module
+        takes a subset of its tables and keeps its interaction
+        parameters."""
         for key, dense in tables.items():
-            self.sharded_ebcs[key].shard_from_dense(dense)
+            sebc = self.sharded_ebcs[key]
+            if isinstance(sebc, ShardedEmbeddingTowerCollection):
+                sebc.load_tables(dense)
+            else:
+                sebc.shard_from_dense(dense)
 
     def forward(self, *args):
         """Eval forward of the wrapped model on the env's device."""
@@ -346,8 +519,11 @@ class DistributedModelParallel(nn.Module):
     def _dist_keys(self) -> Tuple[str, ...]:
         """The modules whose input dist can be computed ahead of the step:
         every sharded EBC and EC but a feature processor's, whose
-        per-sample weights the step computes from live parameters."""
-        return tuple(k for k in self.sharded_ebcs if k not in self._fp_ebcs)
+        per-sample weights the step computes from live parameters (towers
+        have none)."""
+        return tuple(k for k, m in self.sharded_ebcs.items()
+                     if k not in self._fp_ebcs and not isinstance(
+                         m, ShardedEmbeddingTowerCollection))
 
     @torch.no_grad()
     def input_dist(self, sparse) -> Dict[str, tuple]:
@@ -445,7 +621,10 @@ class DistributedModelParallel(nn.Module):
                 if key in leaves:
                     continue
                 out = sebc(sparse, dist=dists.get(key))
-                if isinstance(sebc, ShardedEmbeddingCollection):
+                if isinstance(sebc, ShardedEmbeddingTowerCollection):
+                    leaves[key] = out.requires_grad_(True)
+                    sebc.injected = leaves[key]
+                elif isinstance(sebc, ShardedEmbeddingCollection):
                     leaves[key] = {n: t.detach().requires_grad_(True)
                                    for n, t in out.items()}
                     sebc.injected = leaves[key]
@@ -477,7 +656,7 @@ class DistributedModelParallel(nn.Module):
             # the JAX step differentiates every dense parameter, so one
             # the loss does not reach gets a zero gradient, on which
             # Adam still steps; torch's optimizers skip a None one
-            params = list(self.module.parameters())
+            params = self._dense_parameters()
             for p in params:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)

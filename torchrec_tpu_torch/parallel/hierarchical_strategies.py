@@ -67,6 +67,7 @@ from torchrec_tpu_torch.parallel.strategies import (
     _pad_rows_tile,
     _pool_coeff,
     _token_mask,
+    gather_batch,
 )
 from torchrec_tpu_torch.sparse.jagged import PaddedSparseBatch
 
@@ -211,7 +212,7 @@ class TwRwEmbeddingSharding(BaseEmbeddingShardingStrategy):
         global batch (see the module docstring), under either routing."""
         if self.input_routing == "a2a":
             return self._route_inputs(sb)
-        ids_g, len_g, psw_g = self._gather_batch(sb)
+        ids_g, len_g, psw_g = gather_batch(self.env, sb)
         ids_m = self._stagger(ids_g[self.my_feats], 1)
         len_m = self._stagger(len_g[self.my_feats], 1) * self.my_valid[
             :, None].to(len_g.dtype)

@@ -3,9 +3,10 @@
 Counterpart of torchrec_tpu/parallel/sharders.py. A sharder declares the
 sharding types and compute kernels a module kind supports and carries the
 `fused_params` handed to its fused optimizer. The DMP merges each
-sharder's `fused_params` under its explicit ones; the declarations are for
-the planner (ROADMAP queue 1 item 9), which is not ported, so nothing
-reads them yet. `device_type` defaults to "cuda".
+sharder's `fused_params` under its explicit ones and plans a module given
+no plan under its kind's sharder's sharding types (the tower sharder's
+TABLE_WISE with one dependency tag per tower; the quantized sharder's
+TABLE_WISE in inference/modules.py). `device_type` defaults to "cuda".
 """
 
 from __future__ import annotations

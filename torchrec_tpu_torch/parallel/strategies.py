@@ -147,6 +147,22 @@ def _pool_coeff(
     return torch.where(mean_flags[:, None, None], coeff / denom, coeff)
 
 
+def gather_batch(env: ShardingEnv, sb: PaddedSparseBatch) -> Tuple[
+        torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """(ids, lengths, per-sample weights) of the global batch, each
+    all_gathered over the batch axis 1; ids and lengths travel in one
+    call."""
+    if env.group is None:
+        return sb.ids, sb.lengths, sb.weights
+    L = sb.ids.shape[2]
+    ints = torch.cat([sb.ids, sb.lengths.to(sb.ids.dtype)[:, :, None]],
+                     dim=2)
+    ints = comm.all_gather(env, ints, 1)
+    psw = (None if sb.weights is None
+           else comm.all_gather(env, sb.weights, 1))
+    return ints[:, :, :L], ints[:, :, L].to(sb.lengths.dtype), psw
+
+
 class BaseEmbeddingShardingStrategy(nn.Module):
     """One table group sharded one way. Holds this rank's block of the
     group's shard as the buffer `weights` and the fused optimizer state as
@@ -461,25 +477,10 @@ class BaseEmbeddingShardingStrategy(nn.Module):
 
     # -- compute --------------------------------------------------------------
 
-    def _gather_batch(self, sb: PaddedSparseBatch) -> Tuple[
-            torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
-        """(ids, lengths, per-sample weights) of the global batch, each
-        all_gathered over the batch axis 1; ids and lengths travel in one
-        call."""
-        if self.env.group is None:
-            return sb.ids, sb.lengths, sb.weights
-        L = sb.ids.shape[2]
-        ints = torch.cat([sb.ids, sb.lengths.to(sb.ids.dtype)[:, :, None]],
-                         dim=2)
-        ints = comm.all_gather(self.env, ints, 1)
-        psw = (None if sb.weights is None
-               else comm.all_gather(self.env, sb.weights, 1))
-        return ints[:, :, :L], ints[:, :, L].to(sb.lengths.dtype), psw
-
     def input_dist(self, sb: PaddedSparseBatch) -> PaddedSparseBatch:
         """The batch's input dist: the global batch, its ids, lengths and
         per-sample weights all_gathered (replicated on every rank)."""
-        ids_g, len_g, psw_g = self._gather_batch(sb)
+        ids_g, len_g, psw_g = gather_batch(self.env, sb)
         return PaddedSparseBatch(ids=ids_g, lengths=len_g, keys=sb.keys,
                                  weights=psw_g)
 

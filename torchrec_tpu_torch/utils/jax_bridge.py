@@ -27,7 +27,9 @@ The JAX side hands over numpy arrays only, so this module imports no JAX:
 * `tables`: {table name -> [R, D]} as the JAX
   `ShardedEmbeddingBagCollection` / `ShardedEmbeddingCollection`
   `unshard_to_dense` returns it; each table goes to the port's sharded
-  module that holds a table of that name. A bf16 table arrives as an
+  module that holds a table of that name (a tower collection's tables
+  too; its towers' flax interaction parameters come as
+  `interaction_params`). A bf16 table arrives as an
   `ml_dtypes.bfloat16` array, which torch cannot read; it is loaded
   through f32, which holds it exactly (so are bf16 leaves of `dense`).
 * `opt_state` (optional): the whole fused optimizer state per table, as
@@ -93,6 +95,9 @@ from torchrec_tpu_torch.inference.modules import (
 from torchrec_tpu_torch.optim.warmup import WARMUP_KEY
 from torchrec_tpu_torch.parallel.dmp import DistributedModelParallel
 from torchrec_tpu_torch.parallel.strategies import as_tensor
+from torchrec_tpu_torch.parallel.tower_sharding import (
+    ShardedEmbeddingTowerCollection,
+)
 from torchrec_tpu_torch.utils.device import DeviceLike, resolve_device
 
 # flax leaf name -> the port parameter's name
@@ -134,11 +139,14 @@ def flax_dense_to_state_dict(
 
 
 @torch.no_grad()
-def load_flax_params(module: nn.Module, params: Mapping) -> None:
+def load_flax_params(module: nn.Module, params: Mapping,
+                     exclude=frozenset()) -> None:
     """Copy a flax param tree (numpy leaves) into `module`'s parameters.
-    Raises unless every parameter of the module is matched."""
+    Raises unless every parameter of the module but those whose ids are in
+    `exclude` is matched."""
     flat = flax_dense_to_state_dict(params, module)
-    own = dict(module.named_parameters())
+    own = {n: p for n, p in module.named_parameters()
+           if id(p) not in exclude}
     missing = sorted(set(own) - set(flat))
     unexpected = sorted(set(flat) - set(own))
     if missing or unexpected:
@@ -175,12 +183,30 @@ def load_jax_weights(
     dense_params: Mapping,
     tables: Mapping[str, np.ndarray],
     opt_state: Optional[Mapping[str, Mapping[str, np.ndarray]]] = None,
+    interaction_params: Optional[Mapping[str, Any]] = None,
 ) -> None:
     """Load the JAX DMP's dense params, unsharded tables and (optionally)
     fused optimizer state into `dmp`; without `opt_state` the optimizer
-    state restarts at zero, as after the JAX DMP's `load_tables`. Raises
-    unless every dense parameter and every table is matched."""
-    load_flax_params(dmp.module, dense_params)
+    state restarts at zero, as after the JAX DMP's `load_tables`.
+    `interaction_params`: {tower module key -> one flax param tree per
+    tower}, the JAX tower collection's `interaction_params`, each loaded
+    into its tower's interaction module. Raises unless every dense
+    parameter, every interaction parameter and every table is matched."""
+    towers = {key: m for key, m in dmp.sharded_ebcs.items()
+              if isinstance(m, ShardedEmbeddingTowerCollection)}
+    interaction_params = interaction_params or {}
+    if set(interaction_params) != set(towers):
+        raise ValueError(f"interaction params for {sorted(interaction_params)}"
+                         f", the DMP's towers are {sorted(towers)}")
+    load_flax_params(dmp.module, dense_params, exclude={
+        id(p) for tc in towers.values() for p in tc.parameters()})
+    for key, per_tower in interaction_params.items():
+        inters = towers[key].interactions
+        if len(per_tower) != len(inters):
+            raise ValueError(f"{key}: {len(per_tower)} interaction trees for "
+                             f"{len(inters)} towers")
+        for inter, tree in zip(inters, per_tower):
+            load_flax_params(inter, tree)
     dmp.load_tables(_per_module(dmp, "tables", tables))
     # after the tables: load_tables restarts the optimizer state
     if opt_state is not None:
