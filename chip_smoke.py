@@ -302,6 +302,40 @@ Phases, each failing the run with a non-zero exit when it fails:
    and EXACT_SGD at B=8192 and B=1024 of bench.py's features: a per-row
    cost from its device time at the two sizes and a fixed cost, its host
    time per call (planner/constants.py holds the numbers).
+19. Host-resident (FUSED_UVM_CACHING) tables and reshardable checkpoints.
+   (a) The reference's MLPerf DLRM at full width: 26 tables at D=128
+   (MLPERF_CARDINALITIES, 97.36 GiB), bench.py's dense arches; its five
+   40,000,000-row tables in pinned host memory, each with an 8,000,000-row
+   cache on the card, the other 21 ROW_WISE on the card. When
+   MemAvailable is under 1.25 x the host tables' bytes (with momenta and
+   directories) the five are cut evenly to fit, and the log says
+   "reduced" and why. Built (host tables allocated and pinned) and drawn
+   (1 GiB chunks from the card), each part timed; 3 requests at B=8192 of
+   uniform ids, then 1 + 5 steps under ROWWISE_ADAGRAD, then a new DMP
+   and the same under EXACT_SGD (fused lr 0.1, dense SGD 0.05). Every
+   request launches K1 6 times (the device group and one per UVM
+   feature) and K2 5 times (the misses staged into each cache), every
+   step also K3 or the fused K4 6 times; a flush K8 once a table, and
+   once more a momentum. The UVM columns of the last request equal the
+   host rows of its ids bit for bit; after one step, each UVM table's
+   touched rows and momenta equal the plain apply_fused_update on the CPU
+   over copies taken before the step, with the step's cotangent (rtol
+   1e-6, and 1e-6 of the tensor's scale near zero), and 100,000 seeded
+   untouched rows a table are unchanged. Times, cache stats and the peak
+   device memory beside the tables' bytes are printed. (b) bench.py's DLRM with tables 13-25 in host memory
+   (20,000-row caches) beside the all-device ROW_WISE DMP with the same
+   weights: 3 requests at B=8192 (logits bit for bit) and 10 steps under
+   ROWWISE_ADAGRAD and EXACT_SGD (losses, tables and momenta within rtol
+   1e-6; whether bit for bit is printed), both runs under
+   torch.use_deterministic_algorithms (atomic sums of duplicate ids round
+   apart, and a ReLU within rounding of zero then moves a row far); the cache stats and every
+   request's and step's K2 and K8 launches equal a replay of the
+   directories on the CPU. Then save_reshardable from the UVM plan,
+   load_reshardable into the all-device ROW_WISE plan and into the
+   planner's default (all DATA_PARALLEL on one card), and 2 steps on each
+   equal 2 more steps of the saved DMP; save_state / restore_state
+   resumes bit for bit. The file sizes and save and load times are
+   printed.
 
 Kernel times are device times from torch.profiler (the kernel's own for a
 kernel, all device activity of the call for the plain version and the
@@ -684,7 +718,11 @@ def device_ms(fn, kernel: str = "", bound_ms: float = 0.0, iters: int = 20,
     a multiple of `iters`, it has events, and its time is at least a
     quarter of `bound_ms` (no cache of the card serves bytes four times as
     fast as its memory). Anything else is profiled again, up to `attempts`
-    times, and then fails: a partial window is never rounded up."""
+    times: a partial window is never rounded up. When no attempt gives a
+    whole window (a card's profiler has lost events in every attempt), the
+    time is taken by CUDA events instead (queued_ms): all of a call's
+    device work, not only the kernels named `kernel`, so never less than
+    the profiler's time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -715,7 +753,31 @@ def device_ms(fn, kernel: str = "", bound_ms: float = 0.0, iters: int = 20,
         log(f"device_ms: {ms:.5f} ms from events {counted} for {kernel!r} "
             f"over {iters} calls, bound {bound_ms:.5f} ms (attempt "
             f"{attempt + 1} of {attempts}): not a whole window")
-    raise AssertionError(f"no whole profiler window for {kernel!r}")
+    ms = queued_ms(fn, iters)
+    log(f"device_ms: no whole profiler window for {kernel!r} in {attempts} "
+        f"attempts; {ms:.5f} ms per call from CUDA events around {iters} "
+        f"queued calls (all of the call's device work) used instead")
+    return ms
+
+
+def queued_ms(fn, iters: int = 20, warmup: int = 3,
+              spin_cycles: int = 100_000_000) -> float:
+    """Device time per call from CUDA events around `iters` calls that the
+    host queues while the card spins (torch.cuda._sleep, about 50 ms), so
+    that the card runs them back to back and the host's launch time does
+    not count, unless a call waits for the card."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(spin_cycles)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def timings(kernel_fn, kernel: str, bound_ms: float, plain_fn,
@@ -4964,6 +5026,593 @@ def planner_towers() -> dict:
     return launches
 
 
+# -- phase 19: host-resident (UVM) tables and reshardable checkpoints -------
+
+# the reference's MLPerf DLRM (bench_config.MLPERF_CARDINALITIES, copied):
+# 26 tables at D=128, 97.36 GiB of fp32
+MLPERF_CARDINALITIES = (
+    40000000, 39060, 17295, 7424, 20265, 3, 7122, 1543, 63, 40000000,
+    3067956, 405282, 10, 2209, 11938, 155, 4, 976, 14, 40000000,
+    40000000, 40000000, 590152, 12973, 108, 36,
+)
+MLPERF_BIG = 40_000_000  # its five largest tables go to host memory
+MLPERF_REQUESTS, MLPERF_WARMUP, MLPERF_STEPS = 3, 1, 5
+UVM_SAMPLE = 100_000  # untouched rows checked a table after a step
+# host memory a UVM table row takes beyond its weights: the momentum and
+# the directory (slot_of int32), and a cache slot's (row_in_slot and
+# last_use int64, dirty bool) at a cache of 0.2 R
+UVM_ROW_EXTRA = 4 + 4 + 0.2 * 17
+UVM_HOST_MARGIN = 1.25  # MemAvailable over the UVM part's bytes
+UVM_BENCH_SPLIT = 13  # bench.py's tables 13-25 in host memory
+UVM_BENCH_REQUESTS, UVM_BENCH_STEPS, UVM_CKPT_STEPS = 3, 10, 2
+UVM_RTOL = 1e-6
+
+
+def mem_available() -> int:
+    """/proc/meminfo's MemAvailable, in bytes."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def make_uvm_dmp(rows, uvm: set, optim, device=None):
+    """DLRMTrain over tables of `rows` x DIM (bench.py's dense arches), the
+    tables in `uvm` FUSED_UVM_CACHING (TABLE_WISE on rank 0, in host
+    memory), the others ROW_WISE on the card."""
+    from torchrec_tpu_torch.models import DLRM, DLRMTrain
+    from torchrec_tpu_torch.modules import (
+        EmbeddingBagCollection,
+        EmbeddingBagConfig,
+    )
+    from torchrec_tpu_torch.parallel import (
+        ComputeKernel,
+        DistributedModelParallel,
+        ParameterSharding,
+        ShardingPlan,
+        ShardingType,
+    )
+
+    tables = [EmbeddingBagConfig(num_embeddings=int(r), embedding_dim=DIM,
+                                 name=f"t{i}", feature_names=[f"f{i}"])
+              for i, r in enumerate(rows)]
+    model = DLRMTrain(DLRM(EmbeddingBagCollection(
+        tables, max_feature_length=L, device="meta"), DENSE_IN, DENSE_ARCH,
+        OVER_ARCH, device="meta"))
+    plan = ShardingPlan({TRAIN_KEY: {t.name: (ParameterSharding(
+        ShardingType.TABLE_WISE, ranks=[0],
+        compute_kernel=ComputeKernel.FUSED_UVM_CACHING) if i in uvm
+        else ParameterSharding(ShardingType.ROW_WISE))
+        for i, t in enumerate(tables)}})
+    return DistributedModelParallel(
+        model, plan=plan, device=device or DEVICE, fused_optim=optim,
+        fused_params={"learning_rate": FUSED_LR},
+        dense_optimizer=lambda p: torch.optim.SGD(p, lr=DENSE_LR))
+
+
+def uvm_batch(rng: np.random.RandomState, rows, batch: int):
+    """(dense, KeyedJaggedTensor, labels) on the CPU, one id per feature,
+    uniform over each table's rows."""
+    from torchrec_tpu_torch.sparse import KeyedJaggedTensor
+
+    ids = np.concatenate([rng.randint(0, r, size=batch)
+                          for r in rows]).astype(np.int32)
+    kjt = KeyedJaggedTensor.from_lengths(
+        [f"f{i}" for i in range(len(rows))], ids,
+        np.ones(len(rows) * batch, np.int32))
+    dense = rng.randn(batch, DENSE_IN).astype(np.float32)
+    labels = rng.randint(0, 2, size=batch).astype(np.float32)
+    return torch.from_numpy(dense), kjt, torch.from_numpy(labels)
+
+
+class Ops:
+    """Runs the phase's operations, each with its launches read from the
+    counters and held to a prediction where one is given; `total` sums
+    them."""
+
+    def __init__(self):
+        self.total: dict = {}
+
+    def __call__(self, what: str, fn, want: dict = None):
+        before = counts()
+        t0 = time.perf_counter()
+        out = fn()
+        if DEVICE == "cuda":
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = _moved(counts(), before)
+        if want is not None and got != {k: v for k, v in want.items() if v}:
+            raise AssertionError(f"{what}: launched {got}, predicted {want}")
+        self.total = _add_calls(self.total, got)
+        return out, ms, got
+
+
+def uvm_split(dmp):
+    return dmp.sharded_ebcs[TRAIN_KEY]
+
+
+def watch_uvm(dmp, seen: dict) -> None:
+    """Record the UVM collection's last forward values and ids and the
+    last cotangent its update took."""
+    coll = uvm_split(dmp).uvm
+    fwd, upd = coll.forward, coll.update
+
+    def forward(sb, host=None):
+        out = fwd(sb, host)
+        seen["values"], seen["ids"] = out.values, host[0]
+        return out
+
+    def update(sb, d_values, lr, host=None):
+        seen["d"], seen["update_ids"] = d_values.cpu(), host[0]
+        return upd(sb, d_values, lr, host)
+
+    coll.forward, coll.update = forward, update
+
+
+def check_uvm_serving(dmp, seen: dict) -> None:
+    """The UVM columns of the last request equal the host rows of its ids
+    (a flush first: there is nothing dirty to write while serving)."""
+    coll = uvm_split(dmp).uvm
+    coll.flush()
+    vals = seen["values"].cpu()
+    for j, t in enumerate(coll.tables):
+        host = coll._uvm[t.name].table
+        want = host[torch.from_numpy(seen["ids"][j, :, 0]).long()]
+        got = vals[:, j * DIM:(j + 1) * DIM]
+        if not torch.equal(got, want):
+            raise AssertionError(f"UVM table {t.name}: pooled values differ "
+                                 f"from its host rows by "
+                                 f"{(got - want).abs().max().item():.3e}")
+    log(f"uvm serving: the {len(coll.tables)} UVM tables' pooled values "
+        "equal their host rows bit for bit")
+
+
+def uvm_rows_before(dmp, ids: np.ndarray, seed: int) -> dict:
+    """Copies of each UVM table's rows (and momentum) the step's `ids`
+    touch, and of UVM_SAMPLE seeded rows it does not, after a flush."""
+    coll = uvm_split(dmp).uvm
+    coll.flush()
+    rng = np.random.RandomState(seed)
+    out = {}
+    for j, t in enumerate(coll.tables):
+        c = coll._uvm[t.name]
+        touched = np.unique(ids[j])
+        sample = rng.randint(0, c.R, size=UVM_SAMPLE)
+        sample = np.setdiff1d(sample, touched)
+        out[t.name] = {
+            "touched": touched, "sample": sample,
+            "rows": c.table[torch.from_numpy(touched).long()].clone(),
+            "m1": None if c.host_momentum1 is None else
+            c.host_momentum1[torch.from_numpy(touched).long()].clone(),
+            "sample_rows": c.table[torch.from_numpy(sample).long()].clone(),
+            "step": int(c.step)}
+    return out
+
+
+def check_uvm_step(dmp, before: dict, seen: dict, optim) -> float:
+    """After one step: each UVM table's touched rows and momenta equal the
+    plain apply_fused_update on the CPU over the copies taken before it,
+    with the step's cotangent (rtol UVM_RTOL, and UVM_RTOL of the tensor's
+    scale near zero); the sampled untouched rows
+    are unchanged. Returns the largest difference."""
+    from torchrec_tpu_torch.ops.fused_update import (
+        FusedOptimizerState,
+        apply_fused_update,
+    )
+
+    coll = uvm_split(dmp).uvm
+    coll.flush()
+    worst = 0.0
+    for j, t in enumerate(coll.tables):
+        b, c = before[t.name], coll._uvm[t.name]
+        ids = seen["update_ids"][j].reshape(-1)
+        slot = torch.from_numpy(np.searchsorted(b["touched"], ids)
+                                .astype(np.int32))
+        w, m1 = b["rows"].clone(), None if b["m1"] is None else b["m1"].clone()
+        apply_fused_update(
+            w, FusedOptimizerState(
+                momentum1=m1, momentum2=None,
+                step=torch.tensor(b["step"], dtype=torch.int32), optim=optim),
+            slot, seen["d"][:, j * DIM:(j + 1) * DIM].contiguous(),
+            torch.ones(len(ids), dtype=torch.bool), dmp.learning_rate)
+        idx = torch.from_numpy(b["touched"]).long()
+        # rtol UVM_RTOL of each tensor's scale: near zero an element's own
+        # scale is below an ulp of the row's (the init bound for rows)
+        torch.testing.assert_close(c.table[idx], w, rtol=UVM_RTOL,
+                                   atol=UVM_RTOL * t.get_weight_init_max())
+        worst = max(worst, (c.table[idx] - w).abs().max().item())
+        if m1 is not None:
+            torch.testing.assert_close(
+                c.host_momentum1[idx], m1, rtol=UVM_RTOL,
+                atol=UVM_RTOL * m1.abs().max().item())
+            worst = max(worst, (c.host_momentum1[idx] - m1).abs().max().item())
+        if not torch.equal(c.table[torch.from_numpy(b["sample"]).long()],
+                           b["sample_rows"]):
+            raise AssertionError(f"UVM table {t.name}: an untouched row moved")
+    return worst
+
+
+def mlperf_rows() -> tuple:
+    """MLPERF_CARDINALITIES, the big tables cut evenly where the host
+    cannot hold UVM_HOST_MARGIN times their bytes (with their momenta and
+    directories), and the reason."""
+    avail = mem_available()
+    n_big = MLPERF_CARDINALITIES.count(MLPERF_BIG)
+    per_row = DIM * 4 + UVM_ROW_EXTRA
+    need = n_big * MLPERF_BIG * per_row
+    rows = MLPERF_BIG
+    reason = None
+    if UVM_HOST_MARGIN * need > avail:
+        rows = int(avail / UVM_HOST_MARGIN / (n_big * per_row))
+        reason = (f"reduced: MemAvailable {avail} B < {UVM_HOST_MARGIN} x "
+                  f"{need:.0f} B of the {n_big} host tables at "
+                  f"{MLPERF_BIG} rows, so each keeps {rows} rows")
+    log(f"mlperf: MemAvailable {avail} B; host tables {n_big} x {rows} rows "
+        f"x {DIM} ({n_big * rows * DIM * 4} B of weights); "
+        f"{reason or 'full size'}")
+    return tuple(rows if r == MLPERF_BIG else r
+                 for r in MLPERF_CARDINALITIES), reason
+
+
+def mlperf_dlrm(ops: Ops, optim, rows) -> None:
+    """The MLPerf DLRM with its big tables in host memory: built (host
+    tables allocated and pinned), drawn (1 GiB chunks from the card),
+    served and trained, every request and step's launches predicted and
+    the UVM rows checked against plain versions."""
+    from torchrec_tpu_torch.ops.fused_update import (
+        EmbOptimType,
+        fused_state_shapes,
+    )
+
+    uvm = {i for i, r in enumerate(MLPERF_CARDINALITIES) if r == MLPERF_BIG}
+    n_uvm = len(uvm)
+    upd = STEP_KERNELS[optim.name][0]
+    moms = sum(k != "none" for k in fused_state_shapes(optim))
+    gc_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dmp = make_uvm_dmp(rows, uvm, optim)
+    pin_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dmp.init(SEED)
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    coll = uvm_split(dmp).uvm
+    log(f"mlperf {optim.name}: DMP built (host tables allocated and pinned) "
+        f"in {pin_s:.2f} s, drawn (1 GiB chunks from the card) in "
+        f"{fill_s:.2f} s; caches "
+        f"{[c.C for c in coll._uvm.values()]} rows")
+    seen: dict = {}
+    watch_uvm(dmp, seen)
+    rng = np.random.RandomState(SEED + 19)
+    eval_fn = dmp.make_eval_fn()
+    per_request = expected(K1=1 + n_uvm, K2=n_uvm)
+    req_ms = []
+    for _ in range(MLPERF_REQUESTS):
+        dense, kjt, labels = uvm_batch(rng, rows, BENCH_BATCH)
+        (loss, (_, logits, _)), ms, _ = ops(
+            "mlperf request", lambda: eval_fn(dense.to(DEVICE),
+                                              kjt.to(DEVICE),
+                                              labels.to(DEVICE)),
+            per_request)
+        if logits.shape != (BENCH_BATCH,) or not torch.isfinite(
+                logits).all():
+            raise AssertionError("mlperf: bad logits")
+        req_ms.append(ms)
+    check_uvm_serving(dmp, seen)
+    step = dmp.make_train_step()
+    per_step = expected(K1=1 + n_uvm, K2=n_uvm, **{upd: 1 + n_uvm})
+    flush = expected(K8=n_uvm * (1 + moms))
+    step_ms, worst = [], 0.0
+    for s in range(MLPERF_WARMUP + MLPERF_STEPS):
+        batch = [x.to(DEVICE) for x in uvm_batch(rng, rows, BENCH_BATCH)]
+        check = s == MLPERF_WARMUP
+        if check:
+            host_ids = batch[1].to_padded(L).ids.cpu().numpy()[sorted(uvm)]
+            before, _, _ = ops("mlperf flush", lambda: uvm_rows_before(
+                dmp, host_ids, SEED + s), flush if s else None)
+        (loss, _), ms, _ = ops("mlperf step", lambda: step(*batch), per_step)
+        if not torch.isfinite(loss):
+            raise AssertionError("mlperf: non-finite loss")
+        step_ms.append(ms)
+        if check:
+            worst, _, _ = ops("mlperf flush", lambda: check_uvm_step(
+                dmp, before, seen, optim), flush)
+    stats = coll.cache_stats()
+    peak = torch.cuda.max_memory_allocated()
+    table_bytes = sum(r * DIM * 4 for r in rows)
+    host_bytes = sum(rows[i] * DIM * 4 for i in uvm)
+    card = torch.cuda.get_device_properties(0).total_memory
+    for c in coll._uvm.values():  # no row was ever evicted
+        if c._next_free >= c.C:
+            raise AssertionError("mlperf: a cache filled up")
+    log(f"mlperf {optim.name}: request ms (host clock, first includes "
+        f"warm-up) {req_ms}; step ms {step_ms}; cache_stats {stats}; "
+        f"max_memory_allocated {peak} B beside {table_bytes} B of tables "
+        f"({host_bytes} B in host memory) and the card's {card} B; the "
+        f"checked step's UVM rows within {worst:.3e} of the plain update "
+        f"on the CPU, {UVM_SAMPLE} sampled untouched rows a table "
+        f"unchanged")
+    del dmp, coll, eval_fn, step
+    gc_cuda()
+
+
+class CacheReplay:
+    """The caches' directories replayed on the CPU (D=4 host tables of
+    zeros, the same ids): their cache_stats, and the K2 and K8 launches
+    the card's prepares and flushes make (one K2 a prepare that misses,
+    one K8 for the rows and one a momentum a write-back of dirty rows)."""
+
+    def __init__(self, coll, moms: int):
+        from torchrec_tpu_torch.ops.fused_update import EmbOptimType
+        from torchrec_tpu_torch.ops.uvm_cache import UvmCachedEmbedding
+
+        self.moms = moms
+        self.k2 = self.k8 = 0
+        self.caches = []
+        for t in coll.tables:
+            c = UvmCachedEmbedding(np.zeros((t.num_embeddings, 4), np.float32),
+                                   coll._uvm[t.name].C,
+                                   optim=EmbOptimType.EXACT_SGD,
+                                   device="cpu")
+            stage, back = c._stage_rows, c._sync_back
+
+            def staged(rows, slots, stage=stage):
+                self.k2 += 1
+                stage(rows, slots)
+
+            def synced(slots, back=back):
+                self.k8 += 1 + self.moms
+                back(slots)
+
+            c._stage_rows, c._sync_back = staged, synced
+            self.caches.append(c)
+
+    def launches(self, fn) -> dict:
+        k2, k8 = self.k2, self.k8
+        fn()
+        return {"K2": self.k2 - k2, "K8": self.k8 - k8}
+
+    def prepare(self, ids: np.ndarray, update: bool = False) -> dict:
+        """A forward's prepare (and with `update`, the update's prepare
+        and dirty marks) of the UVM features' ids [T, B, L]."""
+        def run():
+            for c, x in zip(self.caches, ids):
+                slots = c.prepare(x)
+                if update:
+                    slots = c.prepare(x)
+                    c.dirty[np.unique(slots)] = True
+        return self.launches(run)
+
+    def flush(self) -> dict:
+        return self.launches(lambda: [c.flush() for c in self.caches])
+
+    def stats(self) -> dict:
+        return {f"t{UVM_BENCH_SPLIT + j}": {"hits": c.hits,
+                                            "misses": c.misses}
+                for j, c in enumerate(self.caches)}
+
+
+def bench_uvm(ops: Ops, optim, tmp: str) -> None:
+    """bench.py's DLRM with tables 13-25 in host memory (20,000-row caches)
+    beside the all-device ROW_WISE DMP with the same weights: requests and
+    steps against it, the cache stats and the K2 / K8 launches against a
+    replay of the directories; then (ROWWISE_ADAGRAD) the reshardable
+    checkpoint loaded into the all-device and the planned plans and 2 more
+    steps each, and the exact resume."""
+    from torchrec_tpu_torch.ops.fused_update import fused_state_shapes
+    from torchrec_tpu_torch.parallel.uvm_ebc import (
+        UvmSplitEmbeddingBagCollection,
+    )
+    from torchrec_tpu_torch.utils.checkpoint import (
+        load_dense,
+        load_reshardable,
+        restore_state,
+        save_reshardable,
+        save_state,
+    )
+    from torchrec_tpu_torch.utils.jax_bridge import fused_optimizer_state
+
+    rows = (ROWS,) * NUM_TABLES
+    uvm = set(range(UVM_BENCH_SPLIT, NUM_TABLES))
+    n_uvm = len(uvm)
+    upd = STEP_KERNELS[optim.name][0]
+    moms = sum(k != "none" for k in fused_state_shapes(optim))
+    dmp = make_uvm_dmp(rows, uvm, optim).init(SEED)
+    ref = make_dmp(DEVICE, train=True, optim=optim)
+    sd = dmp.unsharded_state_dict()
+    load_dense(ref, {k: v.numpy() for k, v in sd["dense"].items()})
+    ref.load_tables({TRAIN_KEY: sd[f"embeddings/{TRAIN_KEY}"]})
+    replay = CacheReplay(uvm_split(dmp).uvm, moms)
+    rng = np.random.RandomState(SEED + 190)
+
+    def uvm_ids(kjt):
+        return kjt.to_padded(L).ids.cpu().numpy()[sorted(uvm)]
+
+    req_ms = []
+    for _ in range(UVM_BENCH_REQUESTS):
+        dense, kjt, labels = [x.to(DEVICE) for x in
+                              uvm_batch(rng, rows, BENCH_BATCH)]
+        want = expected(K1=1 + n_uvm, **replay.prepare(uvm_ids(kjt)))
+        (_, (_, logits, _)), ms, _ = ops(
+            "bench uvm request",
+            lambda: dmp.make_eval_fn()(dense, kjt, labels), want)
+        (_, (_, ref_logits, _)), _, _ = ops(
+            "bench request", lambda: ref.make_eval_fn()(dense, kjt, labels),
+            expected(K1=1))
+        if not torch.equal(logits, ref_logits):
+            raise AssertionError("bench uvm: logits differ from the "
+                                 "all-device run's")
+        req_ms.append(ms)
+    log(f"bench uvm {optim.name}: {UVM_BENCH_REQUESTS} requests at "
+        f"B={BENCH_BATCH}, logits equal the all-device run's bit for bit; "
+        f"request ms {req_ms}")
+
+    def steps(batches, dmps, what, replay=None):
+        """Each batch's step on each DMP: [(losses, ms)] a batch. With a
+        replay, the launches of every step are predicted: the UVM DMP's
+        from the replay's directories, the all-device DMPs' K1 and the
+        update once."""
+        out = []
+        fns = [d.make_train_step() for d in dmps]
+        for batch in batches:
+            losses, times = [], []
+            for d, fn in zip(dmps, fns):
+                want = None
+                if replay is not None and isinstance(
+                        uvm_split(d), UvmSplitEmbeddingBagCollection):
+                    want = expected(K1=1 + n_uvm, **{upd: 1 + n_uvm},
+                                    **replay.prepare(uvm_ids(batch[1]), True))
+                elif replay is not None:
+                    want = expected(K1=1, **{upd: 1})
+                (loss, _), ms, _ = ops(what, lambda: fn(*batch), want)
+                losses.append(loss)
+                times.append(ms)
+            out.append((losses, times))
+        return out
+
+    def batches(n):
+        return [[x.to(DEVICE) for x in uvm_batch(rng, rows, BENCH_BATCH)]
+                for _ in range(n)]
+
+    def held(a, b, what) -> float:
+        sa, sb = a.unsharded_state_dict(), b.unsharded_state_dict()
+        worst = 0.0
+        for name, w in sa[f"embeddings/{TRAIN_KEY}"].items():
+            wb = sb[f"embeddings/{TRAIN_KEY}"][name]
+            np.testing.assert_allclose(w, wb, rtol=UVM_RTOL, atol=1e-12,
+                                       err_msg=f"{what} {name}")
+            worst = max(worst, float(np.abs(w - wb).max()))
+        oa, ob = fused_optimizer_state(a), fused_optimizer_state(b)
+        for name, entry in oa.items():
+            for tag, v in entry.items():
+                np.testing.assert_allclose(v, ob[name][tag], rtol=UVM_RTOL,
+                                           atol=1e-12,
+                                           err_msg=f"{what} {name} {tag}")
+                worst = max(worst, float(np.abs(v - ob[name][tag]).max()))
+        return worst
+
+    ran = steps(batches(UVM_BENCH_STEPS), [dmp, ref], "bench uvm step",
+                replay)
+    for s, (losses, _) in enumerate(ran):
+        torch.testing.assert_close(losses[0], losses[1], rtol=UVM_RTOL,
+                                   atol=0)
+    bitwise = all(torch.equal(*ls) for ls, _ in ran)
+    ops("bench uvm flush", lambda: uvm_split(dmp).uvm.flush(),
+        expected(**replay.flush()))
+    worst = held(dmp, ref, "bench uvm against the all-device run")
+    if uvm_split(dmp).cache_stats() != replay.stats():
+        raise AssertionError(f"cache_stats {uvm_split(dmp).cache_stats()} "
+                             f"differ from the replay's {replay.stats()}")
+    log(f"bench uvm {optim.name}: {UVM_BENCH_STEPS} steps, losses equal the "
+        f"all-device run's {'bit for bit' if bitwise else 'within rtol'}, "
+        f"tables and momenta within {worst:.3e}; step ms "
+        f"{[t[0] for _, t in ran]} (all-device {[t[1] for _, t in ran]}); "
+        f"cache_stats {uvm_split(dmp).cache_stats()} equal the CPU replay's")
+    del ref
+    if optim.name != "ROWWISE_ADAGRAD":
+        del dmp
+        gc_cuda()
+        return
+
+    # the reshardable checkpoint into the all-device and the planned plans
+    path = os.path.join(tmp, "uvm_dlrm.npz")
+    _, save_ms, _ = ops("save_reshardable", lambda: save_reshardable(
+        path, dmp), expected(**replay.flush()))
+    loaded = {}
+    for what, types in (("all-device ROW_WISE", None),
+                        ("planned", "planned")):
+        d = make_dmp(DEVICE, train=True, optim=optim, plan_types=types)
+        d.init(SEED + 1)
+        _, load_ms, _ = ops(f"load_reshardable ({what})",
+                            lambda: load_reshardable(path, d))
+        loaded[what] = (d, load_ms)
+    planned = loaded["planned"][0].plan.plan[TRAIN_KEY]
+    log(f"checkpoint: {os.path.getsize(path)} B written in {save_ms:.1f} ms,"
+        f" loaded in {[round(v[1], 1) for v in loaded.values()]} ms; the "
+        f"planned plan is "
+        f"{sorted({p.sharding_type.name for p in planned.values()})}")
+    ran = steps(batches(UVM_CKPT_STEPS),
+                [dmp, *[d for d, _ in loaded.values()]], "checkpoint step",
+                replay)
+    for losses, _ in ran:
+        for other in losses[1:]:
+            torch.testing.assert_close(other, losses[0], rtol=UVM_RTOL,
+                                       atol=0)
+    ops("bench uvm flush", lambda: uvm_split(dmp).uvm.flush(),
+        expected(**replay.flush()))
+    ck_worst = max(held(dmp, d, f"checkpoint into {what}")
+                   for what, (d, _) in loaded.items())
+    log(f"checkpoint: {UVM_CKPT_STEPS} steps on each plan equal the saved "
+        f"DMP's within {ck_worst:.3e} (losses rtol {UVM_RTOL})")
+    del loaded
+
+    # the exact resume
+    spath = os.path.join(tmp, "uvm_dlrm.pt")
+    _, ssave_ms, _ = ops("save_state", lambda: save_state(spath, dmp))
+    resume = batches(UVM_CKPT_STEPS)
+    golden = steps(resume, [dmp], "resume step")
+    again = make_uvm_dmp(rows, uvm, optim).init(SEED + 2)
+    _, sload_ms, _ = ops("restore_state", lambda: restore_state(spath,
+                                                                again))
+    # the restored caches start cold, so their K2 / K8 differ: the
+    # launches are counted, not predicted
+    resumed = steps(resume, [again], "resume step")
+    if not all(torch.equal(g[0][0], r[0][0])
+               for g, r in zip(golden, resumed)):
+        raise AssertionError("restore_state: the resumed losses differ")
+    (sa, sb), _, _ = ops("flush (resume)", lambda: (
+        dmp.unsharded_state_dict(), again.unsharded_state_dict()))
+    for name, w in sa[f"embeddings/{TRAIN_KEY}"].items():
+        if not np.array_equal(w, sb[f"embeddings/{TRAIN_KEY}"][name]):
+            raise AssertionError(f"restore_state: table {name} differs")
+    log(f"exact resume: {os.path.getsize(spath)} B saved in {ssave_ms:.1f} "
+        f"ms, restored in {sload_ms:.1f} ms; {UVM_CKPT_STEPS} steps equal "
+        "the uninterrupted run's bit for bit")
+    del dmp, again
+    gc_cuda()
+
+
+def uvm_phase() -> dict:
+    """Phase 19 (see the module docstring). Returns the launches per
+    kernel of the phase, read from the counters (set to 0 before it),
+    after checking that they equal the sum of its operations'."""
+    import tempfile
+
+    from torchrec_tpu_torch.ops.fused_update import EmbOptimType
+
+    t0 = time.perf_counter()
+    reset_counts()
+    ops = Ops()
+    rows, reason = mlperf_rows()
+    for optim in (EmbOptimType.ROWWISE_ADAGRAD, EmbOptimType.EXACT_SGD):
+        mlperf_dlrm(ops, optim, rows)
+    t1 = time.perf_counter()
+    # the runs held to each other take deterministic segment sums and
+    # scatters: with atomics, duplicate ids' sums round apart, and from the
+    # second step a ReLU within rounding of zero flips and moves a row far
+    # (measured on one H100: 810 rows of t0 up to 8.1e-3 apart after
+    # 10 ROWWISE_ADAGRAD steps, the losses within 1e-6)
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for optim in (EmbOptimType.ROWWISE_ADAGRAD,
+                          EmbOptimType.EXACT_SGD):
+                bench_uvm(ops, optim, tmp)
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+    launches = {k: v for k, v in counts().items() if v}
+    if launches != {k: v for k, v in ops.total.items() if v}:
+        raise AssertionError(f"uvm phase: the counters moved {launches}; "
+                             f"its operations {ops.total}")
+    log(f"uvm phase: {time.perf_counter() - t0:.2f} s (mlperf "
+        f"{t1 - t0:.2f} s{', ' + reason if reason else ''}); launches "
+        f"{launches} (the counters)")
+    return launches
+
+
 def gc_cuda() -> None:
     """Free what Python no longer holds, so that the next peak counts only
     what is alive."""
@@ -5087,6 +5736,13 @@ def main() -> int:
     for k, v in planner_towers().items():
         flat[k] = flat.get(k, 0) + v
 
+    # host-resident (UVM) tables: the MLPerf DLRM with its five 40M-row
+    # tables in pinned host memory, bench.py's DLRM with 13 of them beside
+    # the all-device run, its reshardable checkpoint across plans and the
+    # exact resume (K1, K2, K3, K4, K8)
+    for k, v in uvm_phase().items():
+        flat[k] = flat.get(k, 0) + v
+
     launches = {k: trained[name]["launches"][k]
                 for name, ks in STEP_KERNELS.items() for k in ks}
     launches["K4"] += b4r_trained["launches"]["K4"]
@@ -5096,7 +5752,7 @@ def main() -> int:
         K1=(served_launches + pw_served["launches"] + pw_steps["K1"]
             + dfm["launches"]["K1"] + quant["launches"]["K1"]
             + flat.get("K1", 0)),
-        K2=sum(r["K2"] for r in routes),
+        K2=sum(r["K2"] for r in routes) + flat.get("K2", 0),
         K3=(launches["K3"] + pw_steps["K3"] + dfm["launches"]["K3"]
             + quant["launches"]["K3"] + flat.get("K3", 0)),
         Kq=quant["launches"]["Kq"] + flat.get("Kq", 0),
@@ -5130,8 +5786,9 @@ def main() -> int:
         f"and K3 the quantized phase's training and f32 server, Kq its "
         f"quantized requests and servers ({quant['launches']}); K1, K3, K4 "
         f"and the routed gather also the flat-strategies and hierarchical "
-        f"phases, with K8 and Kq the latter's, and K1, K3, K4 and Kq the "
-        f"planner phase's ({flat}): "
+        f"phases, with K8 and Kq the latter's, K1, K3, K4 and Kq the "
+        f"planner phase's, and K1, K2 (staging), K3, K4 and K8 (write-back) "
+        f"the UVM phase's ({flat}): "
         f"{launches}")
     log(card["smi"])
     log(json.dumps({"kernels": [{

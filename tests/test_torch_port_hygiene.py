@@ -107,7 +107,8 @@ def _bert4rec_dmp(sharding_type=ShardingType.ROW_WISE,
     "sharded_quant_ebc", "quantize_embeddings", "predict_module_load",
     "from_distributed", "sharded_embedding_bag", "from_local",
     "train_pipeline", "sparse_dist_pipeline", "planned_dmp",
-    "tower_collection", "tower_dmp", "variable_batch"])
+    "tower_collection", "tower_dmp", "variable_batch", "uvm_cache",
+    "uvm_ebc", "uvm_dmp"])
 def test_entry_points_refuse_cpu_without_asking(entry, monkeypatch,
                                                 tmp_path):
     from torchrec_tpu_torch.inference import (
@@ -197,6 +198,21 @@ def test_entry_points_refuse_cpu_without_asking(entry, monkeypatch,
         elif entry == "sharded_embedding_bag":
             ShardedEmbeddingBag(None, 10, 4,
                                 ParameterSharding(ShardingType.ROW_WISE))
+        elif entry == "uvm_cache":
+            from torchrec_tpu_torch.ops.uvm_cache import UvmCachedEmbedding
+
+            UvmCachedEmbedding(torch.ones(10, 4), cache_rows=4)
+        elif entry == "uvm_ebc":
+            from torchrec_tpu_torch.parallel.uvm_ebc import (
+                UvmEmbeddingBagCollection,
+            )
+
+            UvmEmbeddingBagCollection(_tables(), weights)
+        elif entry == "uvm_dmp":
+            DistributedModelParallel(
+                _model("meta"), plan=_plan(
+                    ShardingType.TABLE_WISE, ranks=[0],
+                    compute_kernel=ComputeKernel.FUSED_UVM_CACHING))
         else:
             EmbeddingBagCollection(_tables())
 
@@ -282,13 +298,14 @@ def _world_of_two():
     "case", ["no_plan", "uvm", "world_size", "fused_param",
              "shard_quantized_world_size_2"])
 def test_unported_parts_raise(case):
-    """The parts the port does not take yet raise: UVM-cached tables (ROADMAP
-    item 11) and unknown fused_params. Several devices in one process raise
-    for good: the port runs one process per rank. The planner (item 9) is
-    ported, so its two cases, which raised before it, now assert what it
-    does: a DMP given no plan plans every table and trains, and
+    """The parts the port does not take raise: unknown fused_params.
+    Several devices in one process raise for good: the port runs one
+    process per rank. The planner (item 9) and UVM-cached tables (item
+    11) are ported, so their cases, which raised before, now assert what
+    they do: a DMP given no plan plans every table and trains;
     shard_quantized over two ranks without `table_ranks` places each table
-    whole on one of them."""
+    whole on one of them; a FUSED_UVM_CACHING plan builds the EBC's UVM
+    module, its tables in host memory with a row cache each, and trains."""
     from torchrec_tpu_torch.inference import (
         quantize_embeddings,
         shard_quantized,
@@ -317,12 +334,29 @@ def test_unported_parts_raise(case):
         assert sorted(sq.table_ranks) == ["t0", "t1"]
         assert sorted(sq.table_ranks.values()) == [0, 1]
         return
+    if case == "uvm":
+        from torchrec_tpu_torch.parallel.uvm_ebc import (
+            UvmSplitEmbeddingBagCollection,
+        )
+
+        dmp = DistributedModelParallel(
+            _model("meta"), device="cpu",
+            plan=_plan(ShardingType.TABLE_WISE, ranks=[0],
+                       compute_kernel=ComputeKernel.FUSED_UVM_CACHING)).init(0)
+        (sebc,) = dmp.sharded_ebcs.values()
+        assert isinstance(sebc, UvmSplitEmbeddingBagCollection)
+        assert sebc.device_part is None
+        assert [t.name for t in sebc.uvm_tables] == ["t0", "t1"]
+        loss, _ = dmp.make_train_step(
+            lambda logits: (logits.square().mean(), logits))(
+            torch.ones(2, 3), KeyedJaggedTensor.from_lengths(
+                ["f0", "f1"], [1, 2, 3, 4], [1, 1, 1, 1]))
+        assert torch.isfinite(loss)
+        assert dmp.cache_stats()[
+            "sparse_arch/embedding_bag_collection"]["t0"]["misses"] == 2
+        return
     with pytest.raises(NotImplementedError):
-        if case == "uvm":
-            DistributedModelParallel(
-                _model("meta"), device="cpu",
-                plan=_plan(compute_kernel=ComputeKernel.FUSED_UVM_CACHING))
-        elif case == "world_size":
+        if case == "world_size":
             ShardingEnv.from_devices(["cpu", "cpu"])
         elif case == "fused_param":
             DistributedModelParallel(

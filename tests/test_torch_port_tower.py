@@ -500,18 +500,58 @@ def test_interaction_lr_stays_at_the_base_lr_under_a_fused_schedule():
 @pytest.mark.parametrize("case", ["row_wise", "split_tower", "uvm"])
 def test_tower_plans_that_are_not_co_located_raise(case):
     """A tower planned other than TABLE_WISE, or split over ranks, raises
-    JAX's ValueError; a UVM-cached tower table raises until UVM is
-    ported."""
+    JAX's ValueError. A tower table planned FUSED_UVM_CACHING stays on the
+    device, as in JAX, whose tower branch reads only the sharding type and
+    the ranks: both DMPs build a tower collection, and the port's run
+    equals the FUSED plan's bit for bit."""
+    from torchrec_tpu.parallel import ParameterSharding as JPS
+    from torchrec_tpu.parallel import ShardingPlan as JPlan
+    from torchrec_tpu.parallel import ShardingType as JST
+    from torchrec_tpu.parallel.types import ComputeKernel as JCK
     from torchrec_tpu_torch.parallel.types import ComputeKernel
 
     if case == "uvm":
-        plan = {n: ParameterSharding(
-            ShardingType.TABLE_WISE, ranks=[0],
-            compute_kernel=ComputeKernel.FUSED_UVM_CACHING)
-            for n in ("a0", "a1", "b0")}
-        with pytest.raises(NotImplementedError, match="FUSED_UVM_CACHING"):
-            DistributedModelParallel(TowerModel(), device="cpu",
-                                     plan=ShardingPlan({PORT_KEY: plan}))
+        def plan(kernel):
+            return ShardingPlan({PORT_KEY: {n: ParameterSharding(
+                ShardingType.TABLE_WISE, ranks=[0], compute_kernel=kernel)
+                for n in ("a0", "a1", "b0")}})
+
+        jdmp = JDMP(
+            JTowerModel(etc=JEmbeddingTowerCollection(towers=_jax_towers())),
+            env=JEnv.from_devices(jax.devices()[:1]),
+            plan=JPlan({PORT_KEY: {n: JPS(JST.TABLE_WISE, ranks=[0],
+                                          compute_kernel=JCK.FUSED_UVM_CACHING)
+                                   for n in ("a0", "a1", "b0")}}),
+            fused_optim=JOptim.EXACT_SGD, fused_params={"learning_rate": LR},
+            dense_optimizer=optax.sgd(LR))
+        assert jdmp._kinds[PORT_KEY] == "tower" and not jdmp._uvm_split
+        state = jdmp.init(jax.random.PRNGKey(1), *_jbatch())
+        runs = []
+        for kernel in (ComputeKernel.FUSED, ComputeKernel.FUSED_UVM_CACHING):
+            dmp = DistributedModelParallel(
+                TowerModel(), device="cpu", plan=plan(kernel),
+                fused_optim=EmbOptimType.EXACT_SGD,
+                fused_params={"learning_rate": LR},
+                dense_optimizer=lambda p: torch.optim.SGD(p, lr=LR))
+            load_jax_weights(
+                dmp, jax.tree.map(np.asarray, state.dense_params),
+                jdmp.sharded_ebcs[PORT_KEY].unshard_to_dense(
+                    state.emb_states[PORT_KEY]),
+                interaction_params={PORT_KEY: [
+                    jax.tree.map(np.asarray, dict(p)) for p in
+                    state.emb_states[PORT_KEY].interaction_params]})
+            assert isinstance(dmp.sharded_ebcs[PORT_KEY],
+                              ShardedEmbeddingTowerCollection)
+            step = dmp.make_train_step()
+            losses = [float(step(*_tbatch(i))[0]) for i in range(2)]
+            runs.append((losses, dmp.sharded_ebcs[PORT_KEY].unshard_to_dense()))
+        jstep = jdmp.make_train_step(donate=False)
+        for i in range(2):
+            state, _, _ = jstep(state, *_jbatch(i))
+        _hold(jdmp, state, dmp, PORT_KEY)
+        assert runs[0][0] == runs[1][0]
+        for name, t in runs[0][1].items():
+            np.testing.assert_array_equal(runs[1][1][name], t)
         return
     if case == "row_wise":
         plan = {n: ParameterSharding(ShardingType.ROW_WISE)

@@ -325,6 +325,14 @@ def _check_quantizable(dmp) -> None:
         raise NotImplementedError(
             f"quantized EmbeddingCollection inference ({ecs}): the JAX "
             "package has none either")
+    uvm = [k for k, m in dmp.sharded_ebcs.items()
+           if getattr(m, "uvm_tables", ())]
+    if uvm:
+        raise NotImplementedError(
+            f"quantized serving of FUSED_UVM_CACHING tables ({uvm}): the JAX "
+            "package's quantize_embeddings reads only a module's device "
+            "part, so it drops the host-resident tables' columns (and an "
+            "all-UVM module); the port does not copy that")
 
 
 def quantize_embeddings(

@@ -18,6 +18,10 @@ names:
                                       dense gradients JAX's jit averages)
     all_reduce_sum(env, tensors)      lax.psum, in place (the tower
                                       interactions' gradients)
+    broadcast_host(env, x, shape,     the owner's host array on every rank
+                   dtype, src)        (a UVM table in the DMP's state
+                                      dict; JAX's single controller holds
+                                      it already)
 
 Block j of a gathered or split axis is the group's j-th rank's, as a JAX
 group's blocks follow their position in the group's list (ascending in
@@ -50,7 +54,7 @@ import torch.distributed as dist
 # calls made to torch.distributed in this process, per function
 CALLS: Dict[str, int] = {"all_gather": 0, "reduce_scatter": 0,
                          "all_to_all": 0, "all_reduce_mean": 0,
-                         "all_reduce_sum": 0}
+                         "all_reduce_sum": 0, "broadcast": 0}
 
 
 def _front(x: torch.Tensor, axis: int) -> torch.Tensor:
@@ -213,3 +217,28 @@ def all_reduce_sum(env, tensors: Sequence[torch.Tensor],
     """Replace each tensor by its sum over the ranks, in place, in one
     call (one flattened f32 buffer)."""
     _all_reduce(env, tensors, group, mean=False)
+
+
+# bytes a host array crosses the device in, per broadcast call
+BROADCAST_CHUNK_BYTES = 1 << 28
+
+
+def broadcast_host(env, x, shape, dtype, src: int):
+    """Rank `src`'s host array `x` (None on the other ranks) as a numpy
+    array of `shape` and `dtype` on every rank: in chunks of at most
+    BROADCAST_CHUNK_BYTES through the env's device, one call each (one
+    call for an empty or 0-d array)."""
+    import numpy as np
+
+    out = np.asarray(x) if env.rank == src else np.empty(shape, dtype)
+    out = np.ascontiguousarray(out).copy()
+    if env.group is None:
+        return out
+    flat = out.reshape(-1).view(np.uint8)
+    step = BROADCAST_CHUNK_BYTES
+    for lo in range(0, max(flat.size, 1), step):
+        part = torch.from_numpy(flat[lo:lo + step]).to(env.device)
+        dist.broadcast(part, src=src, group=env.group)
+        CALLS["broadcast"] += 1
+        flat[lo:lo + step] = part.cpu().numpy()
+    return out

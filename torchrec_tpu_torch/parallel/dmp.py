@@ -88,8 +88,26 @@ card's spec: an EBC, an EC and an FP-EBC's EBC each on their own, a
 tower module with one dependency tag per tower, so that each tower's
 tables plan TABLE_WISE on one rank. Where the planner finds no plan, the
 JAX DMP's fallbacks: towers round-robin over the ranks by tag, else
-DATA_PARALLEL under 64 rows and ROW_WISE above. Not ported yet:
-UVM-cached tables (a FUSED_UVM_CACHING plan raises).
+DATA_PARALLEL under 64 rows and ROW_WISE above.
+
+An EmbeddingBagCollection with FUSED_UVM_CACHING tables becomes a
+UvmSplitEmbeddingBagCollection (parallel/uvm_ebc.py): a
+ShardedEmbeddingBagCollection over its other tables and the UVM tables in
+pinned host memory with a row cache on the device each, on one rank,
+which serves the global batch; its output is in the module's column
+order, so the train step needs no case of its own. Its lookups and
+updates are driven from the host, so it has no input dist ahead of the
+step: `make_prefetched_train_step` raises for such a plan, as JAX's does,
+and the pipelines gather it in the step (SparseDistPipeline included).
+An FP-EBC over UVM tables raises NotImplementedError, as in JAX; a tower
+table or an EC table planned FUSED_UVM_CACHING stays on the device, as in
+JAX, whose tower and EC branches do not read the compute kernel.
+
+`unsharded_state_dict()` is the JAX DMP's `state_dict(state)`: the dense
+parameters by FQN and every table unsharded by module key, gathered to
+the host one table at a time, UVM tables (flushed) and their momenta
+included. `nn.Module.state_dict` keeps torch's meaning: the sharded
+buffers (utils/checkpoint.save_state).
 """
 
 from __future__ import annotations
@@ -138,8 +156,11 @@ from torchrec_tpu_torch.parallel.tower_sharding import (
     ShardedEmbeddingTowerCollection,
     TowerSpec,
 )
+from torchrec_tpu_torch.parallel.uvm_ebc import (
+    UvmSplitEmbeddingBagCollection,
+    uvm_tables_of,
+)
 from torchrec_tpu_torch.parallel.types import (
-    ComputeKernel,
     ParameterSharding,
     ShardingEnv,
     ShardingPlan,
@@ -343,6 +364,11 @@ class DistributedModelParallel(nn.Module):
                                             self._sharder(kind))
             plans[key] = module_plan
             if isinstance(mod, FeatureProcessedEmbeddingBagCollection):
+                if uvm_tables_of(module_plan, mod.embedding_bag_collection
+                                 .tables):
+                    raise NotImplementedError(
+                        "FeatureProcessedEmbeddingBagCollection with "
+                        "FUSED_UVM_CACHING tables is not supported")
                 # the processor stays; the EBC is stubbed and sharded below
                 fp_ebc = ShardedFeatureProcessedEmbeddingBagCollection(
                     mod.embedding_bag_collection, mod.feature_processor)
@@ -361,7 +387,11 @@ class DistributedModelParallel(nn.Module):
                     optim=fused_optim, optim_kwargs=fused_params,
                 )
             else:
-                sharded[key] = ShardedEmbeddingBagCollection(
+                # FUSED_UVM_CACHING tables split out to the host
+                cls = (UvmSplitEmbeddingBagCollection
+                       if uvm_tables_of(module_plan, mod.tables)
+                       else ShardedEmbeddingBagCollection)
+                sharded[key] = cls(
                     self.env, mod.tables, module_plan,
                     is_weighted=mod.is_weighted,
                     max_feature_length=mod.max_feature_length,
@@ -399,7 +429,9 @@ class DistributedModelParallel(nn.Module):
         """(the ShardedEmbeddingTowerCollection of a tower or tower
         collection, its plan): each tower's tables TABLE_WISE on one rank,
         planned with one dependency tag per tower when `module_plan` is
-        None; raises for any other placement, as the JAX DMP does."""
+        None; raises for any other placement, as the JAX DMP does. As in
+        JAX, the compute kernel is not read: a table planned
+        FUSED_UVM_CACHING stays on the device."""
         towers = (list(mod.towers) if isinstance(mod, EmbeddingTowerCollection)
                   else [mod])
         tables = [t for tw in towers for t in tw.embedding_module.tables]
@@ -414,11 +446,6 @@ class DistributedModelParallel(nn.Module):
             ranks = set()
             for t in tw.embedding_module.tables:
                 ps = module_plan[t.name]
-                if ps.compute_kernel is ComputeKernel.FUSED_UVM_CACHING:
-                    raise NotImplementedError(
-                        f"tower table {t.name}: FUSED_UVM_CACHING "
-                        "(host-resident tables with a device row cache) is "
-                        "not ported yet")
                 if ps.sharding_type is not ShardingType.TABLE_WISE:
                     raise ValueError(
                         f"tower table {t.name} planned {ps.sharding_type}; "
@@ -483,20 +510,63 @@ class DistributedModelParallel(nn.Module):
         self.step = 0
         return self
 
+    def _uvm_modules(self) -> Dict[str, UvmSplitEmbeddingBagCollection]:
+        return {k: m for k, m in self.sharded_ebcs.items()
+                if isinstance(m, UvmSplitEmbeddingBagCollection)}
+
     def load_tables(
-        self, tables: Mapping[str, Mapping[str, ArrayLike]]
+        self, tables: Mapping[str, Mapping[str, ArrayLike]],
+        uvm_momentum: Optional[Mapping[str, Mapping[str, ArrayLike]]] = None,
     ) -> None:
         """Load unsharded per-table weights: {module key -> {table ->
         [R, D] array}}. The loaded modules' fused optimizer state restarts
         at zero momenta and step 0, as the JAX DMP's does. A tower module
         takes a subset of its tables and keeps its interaction
-        parameters."""
+        parameters. A module with UVM tables takes them as JAX's rebuilt
+        UVM collection does (the tables given replace theirs; every cache,
+        momentum and step starts fresh), then `uvm_momentum` {module key ->
+        `uvm_momentum/<key>` of `unsharded_state_dict`}, where given, for
+        an exact resume."""
         for key, dense in tables.items():
             sebc = self.sharded_ebcs[key]
             if isinstance(sebc, ShardedEmbeddingTowerCollection):
                 sebc.load_tables(dense)
-            else:
-                sebc.shard_from_dense(dense)
+                continue
+            sebc.shard_from_dense(dense)
+            if (isinstance(sebc, UvmSplitEmbeddingBagCollection)
+                    and uvm_momentum and key in uvm_momentum
+                    and sebc.uvm is not None
+                    and {t.name for t in sebc.uvm_tables} & set(dense)):
+                sebc.uvm.load_momentum(uvm_momentum[key])
+
+    def cache_stats(self) -> Dict[str, Dict[str, Dict[str, int]]]:
+        """{module key -> {UVM table -> {"hits", "misses"}}} of the UVM
+        modules this rank holds."""
+        return {k: m.cache_stats() for k, m in self._uvm_modules().items()
+                if m.uvm is not None}
+
+    @torch.no_grad()
+    def unsharded_state_dict(self) -> Dict[str, Any]:
+        """The JAX DMP's `state_dict(state)`: {"dense": {fqn: tensor on the
+        host}, "embeddings/<key>": {table: [R, D] numpy}, and
+        "uvm_momentum/<key>": the UVM collection's `momentum_dict` where it
+        keeps one}. Every table is unsharded, gathered to the host one at
+        a time (a collective per table at world size n; the UVM tables
+        flushed and broadcast from their rank), so that the whole layout
+        never lands on a card. The tower interactions step inside their
+        collection and are left out, as JAX keeps them out of its dense
+        parameters."""
+        inside = {id(p) for tc in self._towers() for p in tc.parameters()}
+        out: Dict[str, Any] = {"dense": {
+            n: p.detach().cpu().clone()
+            for n, p in self.module.named_parameters() if id(p) not in inside}}
+        for key, sebc in self.sharded_ebcs.items():
+            out[f"embeddings/{key}"] = sebc.unshard_to_dense()
+            if isinstance(sebc, UvmSplitEmbeddingBagCollection):
+                mom = sebc.uvm_momentum_dict()
+                if mom:
+                    out[f"uvm_momentum/{key}"] = mom
+        return out
 
     def forward(self, *args):
         """Eval forward of the wrapped model on the env's device."""
@@ -523,7 +593,8 @@ class DistributedModelParallel(nn.Module):
         have none)."""
         return tuple(k for k, m in self.sharded_ebcs.items()
                      if k not in self._fp_ebcs and not isinstance(
-                         m, ShardedEmbeddingTowerCollection))
+                         m, (ShardedEmbeddingTowerCollection,
+                             UvmSplitEmbeddingBagCollection)))
 
     @torch.no_grad()
     def input_dist(self, sparse) -> Dict[str, tuple]:
@@ -555,7 +626,19 @@ class DistributedModelParallel(nn.Module):
         optimizer step of `make_train_step`'s on `args`, its sparse modules
         fed `dists`, the batch's `input_dist` (prime with the first
         batch's), then the input dist of the next batch's sparse batch.
-        Numerics equal `make_train_step`'s."""
+        Numerics equal `make_train_step`'s. Raises ValueError for a plan
+        with FUSED_UVM_CACHING tables, as JAX's does (their step is driven
+        from the host)."""
+        if self._uvm_modules():
+            raise ValueError(
+                "prefetched train step does not support FUSED_UVM_CACHING "
+                "tables (the step is host-orchestrated)")
+        return self._prefetched_step(loss_fn)
+
+    def _prefetched_step(self, loss_fn: Optional[Callable]) -> Callable:
+        """make_prefetched_train_step's step without its UVM refusal: a
+        UVM module has no dist and gathers in the step (SparseDistPipeline
+        drives it)."""
         self._check_trainable()
 
         def step(dists, next_sparse, *args):

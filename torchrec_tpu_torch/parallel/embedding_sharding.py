@@ -24,7 +24,6 @@ from torchrec_tpu_torch.modules.embedding_configs import (
 )
 from torchrec_tpu_torch.ops.embedding import PoolingMode
 from torchrec_tpu_torch.parallel.types import (
-    ComputeKernel,
     ParameterSharding,
     ShardingType,
 )
@@ -112,18 +111,16 @@ def group_tables(
     first table comes, keeping table order within each group (the sharded
     module restores the output feature order). A table's `rank` is its
     TABLE_WISE placement, `ranks[0]` (0 when unset), and otherwise its
-    plan's `host` (0 when unset), as the JAX function sets it."""
+    plan's `host` (0 when unset), as the JAX function sets it. The compute
+    kernel is not read: the DMP splits an EBC's FUSED_UVM_CACHING tables
+    out before grouping (parallel/uvm_ebc.py), and a tower's or an EC's
+    such table stays on the device, as in JAX."""
     groups: Dict[Tuple[ShardingType, int, DataType],
                  List[ShardedTableMeta]] = {}
     for cfg, enames in zip(tables, embedding_names_per_table):
         ps = plan.get(cfg.name)
         if ps is None:
             raise ValueError(f"no sharding plan entry for table {cfg.name}")
-        if ps.compute_kernel is ComputeKernel.FUSED_UVM_CACHING:
-            raise NotImplementedError(
-                f"table {cfg.name}: FUSED_UVM_CACHING (host-resident tables "
-                "with a device row cache) is not ported yet"
-            )
         meta = ShardedTableMeta(
             name=cfg.name,
             rows=cfg.num_embeddings,

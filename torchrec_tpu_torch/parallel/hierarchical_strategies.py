@@ -171,6 +171,19 @@ class TwRwEmbeddingSharding(BaseEmbeddingShardingStrategy):
                 .reshape(-1, *w.shape[2:])[:t.rows]
                 for ti, t in enumerate(self.meta.tables)}
 
+    def _table_span(self, i):
+        off = self.table_local_off[i]
+        return off, off + self._table_rows_loc(i)
+
+    def _host_span(self, g: torch.Tensor, i: int) -> torch.Tensor:
+        """Table i's host's ranks of `g`, a span of every rank's block."""
+        h = self.meta.tables[i].rank
+        return g[h * self.Lc:(h + 1) * self.Lc]
+
+    def _table_of_span(self, g, i, rowwise):
+        return self._host_span(g, i).reshape(
+            -1, *g.shape[2:])[:self.meta.tables[i].rows]
+
     # -- the input dist -------------------------------------------------------
 
     def _stagger(self, x: torch.Tensor, axis: int) -> torch.Tensor:
@@ -307,6 +320,13 @@ class TwCwEmbeddingSharding(TwRwEmbeddingSharding):
         return {t.name: self._host_block(w, ti, t.rows).permute(1, 0, 2)
                 .reshape(t.rows, self.dim)
                 for ti, t in enumerate(self.meta.tables)}
+
+    def _table_of_span(self, g, i, rowwise):
+        block = self._host_span(g, i)
+        if rowwise:
+            return block  # [Lc, R]
+        return block.permute(1, 0, 2).reshape(self.meta.tables[i].rows,
+                                              self.dim)
 
     def _place_rowwise(self, out, i, v):
         t = self.meta.tables[i]

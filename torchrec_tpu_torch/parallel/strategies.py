@@ -321,15 +321,39 @@ class BaseEmbeddingShardingStrategy(nn.Module):
         allows; a collective at world size > 1)."""
         return self._tables_of(self._global(weights))
 
+    def _table_span(self, i: int) -> Tuple[int, int]:
+        """The rows [lo, hi) of a block's axis 1 that table i takes in the
+        ranks that hold it (a sharded layout)."""
+        raise NotImplementedError
+
+    def _table_of_span(self, g: torch.Tensor, i: int,
+                       rowwise: bool) -> torch.Tensor:
+        """Table i from `g` [n, hi - lo, ...], its span of every rank's
+        block: [R, D], or a rowwise momentum's canonical [R] / [S, R]."""
+        return g.reshape(-1, *g.shape[2:])[:self.meta.tables[i].rows]
+
+    def unshard_table_to_host(self, t: torch.Tensor, i: int,
+                              rowwise: bool = False) -> np.ndarray:
+        """Table i of this rank's block `t` (the weights, a full momentum
+        or, with rowwise, a rowwise momentum) and the other ranks', as a
+        numpy array on the host. At world size n one all_gather of table
+        i's span of the blocks, never the whole layout (bf16 tables come
+        back as fp32, which holds them exactly: numpy has no bf16)."""
+        if not self.sharded or self.n == 1:
+            of = self._rowwise_of if rowwise else self._tables_of
+            v = of(t)[self.meta.tables[i].name]
+        else:
+            lo, hi = self._table_span(i)
+            g = comm.all_gather(self.env, t[:, lo:hi].contiguous(), 0)
+            v = self._table_of_span(g, i, rowwise)
+        v = v.detach().cpu()
+        return (v.float() if v.dtype == torch.bfloat16 else v).numpy().copy()
+
     def unshard_to_dense(self, weights: torch.Tensor) -> Dict[str, np.ndarray]:
-        """Per-table [R, D] numpy arrays (bf16 tables come back as fp32,
-        which holds them exactly: numpy has no bf16)."""
-        out = {}
-        for name, t in self.unshard_tensors(weights).items():
-            t = t.detach().cpu()
-            out[name] = (t.float() if t.dtype == torch.bfloat16
-                         else t).numpy().copy()
-        return out
+        """Per-table [R, D] numpy arrays, gathered one table at a time
+        (`unshard_table_to_host`)."""
+        return {t.name: self.unshard_table_to_host(weights, i)
+                for i, t in enumerate(self.meta.tables)}
 
     def rowwise_shards(self) -> int:
         """Column shards that carry a rowwise momentum of their own (1: the
@@ -339,9 +363,9 @@ class BaseEmbeddingShardingStrategy(nn.Module):
     def unshard_rowwise(self, m: torch.Tensor) -> Dict[str, np.ndarray]:
         """Per-table canonical numpy form of a rowwise momentum block
         shaped like `weights` without its last axis: [R], or [S, R] for
-        S = rowwise_shards() column shards."""
-        return {name: v.detach().cpu().numpy().copy()
-                for name, v in self._rowwise_of(self._global(m)).items()}
+        S = rowwise_shards() column shards; one table at a time."""
+        return {t.name: self.unshard_table_to_host(m, i, rowwise=True)
+                for i, t in enumerate(self.meta.tables)}
 
     def shard_rowwise(self, per_table: Mapping[str, ArrayLike]) -> torch.Tensor:
         """Inverse of unshard_rowwise: this rank's rowwise momentum block."""
@@ -620,6 +644,10 @@ class RwEmbeddingSharding(BaseEmbeddingShardingStrategy):
                 for sr, off, t in zip(self.shard_rows, self.local_offsets,
                                       self.meta.tables)}
 
+    def _table_span(self, i):
+        off = int(self.local_offsets[i])
+        return off, off + int(self.shard_rows[i])
+
     def _route(self, ids_g: torch.Tensor, lengths_g: torch.Tensor,
                my: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """Local row of each gathered id, and whether rank `my` owns it
@@ -732,6 +760,13 @@ class TwEmbeddingSharding(BaseEmbeddingShardingStrategy):
         return {t.name: w[t.rank, int(off):int(off) + t.rows]
                 for off, t in zip(self.table_dev_rowoff, self.meta.tables)}
 
+    def _table_span(self, i):
+        off = int(self.table_dev_rowoff[i])
+        return off, off + self.meta.tables[i].rows
+
+    def _table_of_span(self, g, i, rowwise):
+        return g[self.meta.tables[i].rank]
+
     def _mine(self, ids_g, len_g, psw_g):
         """This rank's feature slots of the global batch: ids rebased to
         the rank's packed rows, lengths (0 in pad slots), weights."""
@@ -809,6 +844,15 @@ class CwEmbeddingSharding(BaseEmbeddingShardingStrategy):
         full = w.transpose(0, 1).reshape(self.total_rows, self.dim)
         return {t.name: full[int(off):int(off) + t.rows]
                 for off, t in zip(self.row_offsets, self.meta.tables)}
+
+    def _table_span(self, i):
+        off = int(self.row_offsets[i])
+        return off, off + self.meta.tables[i].rows
+
+    def _table_of_span(self, g, i, rowwise):
+        if rowwise:
+            return g  # [n, R]: each column shard's own accumulator
+        return g.transpose(0, 1).reshape(self.meta.tables[i].rows, self.dim)
 
     def _place_rowwise(self, out, i, v):
         t = self.meta.tables[i]

@@ -264,11 +264,25 @@ class ShardedEmbeddingTowerCollection(nn.Module):
                 for t in self.tables
                 for d, off in (self.table_rowoff[t.name],)}
 
+    def _table_to_host(self, block: torch.Tensor, name: str) -> np.ndarray:
+        """Table `name` of `block` (the weights or a momentum, leading rank
+        axis) as a host array: at world size n one all_gather of the
+        table's rows of every rank's block, never the whole layout."""
+        d, off = self.table_rowoff[name]
+        rows = next(t.num_embeddings for t in self.tables if t.name == name)
+        part = block[:, off:off + rows]
+        if self.env.world_size > 1:
+            part = comm.all_gather(self.env, part.contiguous(), 0)
+        else:
+            d = 0
+        return part[d].detach().cpu().numpy().copy()
+
     def unshard_to_dense(self, weights: Optional[torch.Tensor] = None
                          ) -> Dict[str, np.ndarray]:
-        """`unshard_tables` as numpy arrays."""
-        return {k: v.detach().cpu().numpy().copy()
-                for k, v in self.unshard_tables(weights).items()}
+        """Per-table [R, D] numpy arrays of `weights` (default: the
+        module's block), gathered one table at a time."""
+        w = self.weights if weights is None else weights
+        return {t.name: self._table_to_host(w, t.name) for t in self.tables}
 
     def unshard_opt_to_tables(self) -> Dict[str, Dict[str, np.ndarray]]:
         """The fused optimizer state per table, in the form of the
@@ -280,13 +294,8 @@ class ShardedEmbeddingTowerCollection(nn.Module):
             if kind == "none":
                 continue
             m = getattr(self, f"momentum{tag[1]}")
-            if kind == "row":
-                per = {k: v[:, 0] for k, v in self.unshard_tables(
-                    m[..., None]).items()}
-            else:
-                per = self.unshard_tables(m)
-            for name, v in per.items():
-                out[name][f"{tag}__{kind}"] = v.detach().cpu().numpy().copy()
+            for t in self.tables:
+                out[t.name][f"{tag}__{kind}"] = self._table_to_host(m, t.name)
         step = np.asarray(self.step.item(), np.int32)
         for entry in out.values():
             entry["step"] = step

@@ -19,7 +19,10 @@ pinned are pinned first.
     SparseDistPipeline  the DMP's prefetched step: batch i's step takes
                         the input dist computed at the end of step i - 1
                         and computes batch i + 1's, primed with batch 0's
-                        (JAX's three-stage pipeline);
+                        (JAX's three-stage pipeline); modules with no dist
+                        (feature processors, towers, UVM tables) gather in
+                        the step. JAX's raises for a UVM plan, through the
+                        prefetched step's refusal; this one takes it;
     EvalPipeline        eval_step(*batch) -> output, the same prefetch.
 """
 
@@ -144,7 +147,7 @@ class SparseDistPipeline(TrainPipeline):
     def __init__(self, dmp, loss_fn: Optional[Callable] = None,
                  prefetch_depth: int = 3, device: DeviceLike = None):
         # batch i + 1 must be on the device for step i to dist it
-        super().__init__(dmp.make_prefetched_train_step(loss_fn),
+        super().__init__(dmp._prefetched_step(loss_fn),
                          max(2, prefetch_depth), device)
         if self.device != dmp.env.device:
             raise ValueError(f"pipeline on {self.device}, DMP on "

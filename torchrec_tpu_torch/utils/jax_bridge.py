@@ -56,6 +56,20 @@ space as JAX converts it (`_convert_rowspace` in parallel/strategies.py).
   raises. Moments take the parameters' port layouts, as the params do.
   `keyed_to_optax_state` reads the port's state back into an optax
   state shaped like a template.
+* UVM tables (FUSED_UVM_CACHING): JAX's `dmp.state_dict(state)` holds
+  them under `embeddings/<key>` with the other tables, which `tables`
+  takes, and their momenta under `uvm_momentum/<key>` (the UVM
+  collection's `momentum_dict`: `<table>`, `<table>.m2`, `<table>.step`),
+  which `load_jax_weights`' `uvm_momentum` takes, merged over the modules;
+  both enter through the port DMP's `load_tables(..., uvm_momentum=)`.
+  `fused_optimizer_state` gives a UVM table's momenta in the canonical
+  form too ("m1__row" / "m1__full", "m2__...", "step"), and
+  `load_jax_weights`' `opt_state` takes them so.
+* a reshardable checkpoint that JAX's `save_reshardable` wrote:
+  `load_jax_reshardable` maps its flax dense paths and JAX module keys
+  onto the port's (`dlrm/embedding_bag_collection` ->
+  `dlrm/sparse_arch/embedding_bag_collection`, each module by the tables
+  it holds) and loads it through utils/checkpoint.
 * a quantized predict package that the JAX `PredictModule.save` wrote
   (`arrays.npz` + `manifest.json`): `load_jax_predict_package` takes its
   three arrays per table as they are and its dense params through
@@ -92,11 +106,16 @@ from torchrec_tpu_torch.inference.modules import (
     read_package,
 )
 
+from torchrec_tpu_torch.ops.fused_update import fused_state_shapes
 from torchrec_tpu_torch.optim.warmup import WARMUP_KEY
 from torchrec_tpu_torch.parallel.dmp import DistributedModelParallel
 from torchrec_tpu_torch.parallel.strategies import as_tensor
 from torchrec_tpu_torch.parallel.tower_sharding import (
     ShardedEmbeddingTowerCollection,
+)
+from torchrec_tpu_torch.parallel.uvm_ebc import (
+    canonical_to_momentum,
+    table_of_entry,
 )
 from torchrec_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -158,13 +177,23 @@ def load_flax_params(module: nn.Module, params: Mapping,
         p.copy_(as_tensor(flat[name]))
 
 
+def _owners(dmp: DistributedModelParallel) -> Dict[str, str]:
+    """{table -> the key of the port module that holds it}."""
+    return {t.name: key for key, sebc in dmp.sharded_ebcs.items()
+            for t in sebc.tables}
+
+
+def _uvm_names(dmp: DistributedModelParallel) -> set:
+    return {t.name for m in dmp._uvm_modules().values()
+            for t in m.uvm_tables}
+
+
 def _per_module(dmp: DistributedModelParallel, what: str,
-                per_table: Mapping[str, np.ndarray],
+                per_table: Mapping[str, np.ndarray], exclude=frozenset(),
                 ) -> Dict[str, Dict[str, np.ndarray]]:
     """Split {table -> array} by the sharded module that holds each table;
-    raises unless the tables match the DMP's exactly."""
-    owner = {t.name: key for key, sebc in dmp.sharded_ebcs.items()
-             for t in sebc.tables}
+    raises unless the tables match the DMP's (less `exclude`) exactly."""
+    owner = {t: key for t, key in _owners(dmp).items() if t not in exclude}
     unknown = sorted(set(per_table) - set(owner))
     absent = sorted(set(owner) - set(per_table))
     if unknown or absent:
@@ -184,10 +213,15 @@ def load_jax_weights(
     tables: Mapping[str, np.ndarray],
     opt_state: Optional[Mapping[str, Mapping[str, np.ndarray]]] = None,
     interaction_params: Optional[Mapping[str, Any]] = None,
+    uvm_momentum: Optional[Mapping[str, np.ndarray]] = None,
 ) -> None:
     """Load the JAX DMP's dense params, unsharded tables and (optionally)
     fused optimizer state into `dmp`; without `opt_state` the optimizer
-    state restarts at zero, as after the JAX DMP's `load_tables`.
+    state restarts at zero, as after the JAX DMP's `load_tables`. UVM
+    tables come with the others in `tables`; their momenta as JAX's
+    `uvm_momentum/<key>` entries merged ({`<table>`, `<table>.m2`,
+    `<table>.step` -> array}) in `uvm_momentum`, or in `opt_state` in the
+    canonical form.
     `interaction_params`: {tower module key -> one flax param tree per
     tower}, the JAX tower collection's `interaction_params`, each loaded
     into its tower's interaction module. Raises unless every dense
@@ -207,11 +241,20 @@ def load_jax_weights(
                              f"{len(inters)} towers")
         for inter, tree in zip(inters, per_tower):
             load_flax_params(inter, tree)
-    dmp.load_tables(_per_module(dmp, "tables", tables))
+    uvm = _uvm_names(dmp)
+    moms: Dict[str, Dict[str, np.ndarray]] = {}
+    for name, m in dict(uvm_momentum or {}).items():
+        moms.setdefault(_owners(dmp)[table_of_entry(name)], {})[name] = m
+    opt_state = dict(opt_state or {})
+    for name in uvm & set(opt_state):
+        moms.setdefault(_owners(dmp)[name], {}).update(
+            canonical_to_momentum(name, opt_state.pop(name)))
+    dmp.load_tables(_per_module(dmp, "tables", tables),
+                    uvm_momentum=moms or None)
     # after the tables: load_tables restarts the optimizer state
-    if opt_state is not None:
-        for key, st in _per_module(dmp, "optimizer states",
-                                   opt_state).items():
+    if opt_state:
+        for key, st in _per_module(dmp, "optimizer states", opt_state,
+                                   exclude=uvm).items():
             dmp.sharded_ebcs[key].shard_opt_from_tables(st)
 
 
@@ -220,11 +263,62 @@ def fused_optimizer_state(
 ) -> Dict[str, Dict[str, np.ndarray]]:
     """{table -> {"m1__...", "m2__...", "step"}}: the port's fused
     optimizer state in the form of the JAX strategies'
-    `unshard_opt_to_tables`."""
+    `unshard_opt_to_tables`; a UVM table's flushed host momenta
+    ({"m1__row" | "m1__full", "m2__...", "step"}) included."""
     out: Dict[str, Dict[str, np.ndarray]] = {}
     for sebc in dmp.sharded_ebcs.values():
         out.update(sebc.unshard_opt_to_tables())
+    for m in dmp._uvm_modules().values():
+        mom, steps = m.uvm_momentum_dict(), m.uvm_steps()
+        for t in m.uvm_tables:
+            entry = {"step": np.asarray(steps[t.name], np.int32)}
+            for tag, suffix, kind in zip(("m1", "m2"), ("", ".m2"),
+                                         fused_state_shapes(m.optim)):
+                if kind != "none":
+                    entry[f"{tag}__{kind}"] = mom[t.name + suffix]
+            out[t.name] = entry
     return out
+
+
+def load_jax_reshardable(npz_path: str,
+                         dmp: DistributedModelParallel) -> None:
+    """Load a `.npz` that JAX's `save_reshardable` wrote into `dmp` under
+    its plan and world size: the flax dense paths become the port's
+    parameter names (`flax_dense_to_state_dict`), each JAX module key the
+    key of the port module that holds its tables, then
+    utils/checkpoint.load_reshardable_arrays. Raises for a table the DMP
+    does not hold."""
+    from torchrec_tpu_torch.utils.checkpoint import load_reshardable_arrays
+
+    with np.load(npz_path) as f:
+        data = {k: f[k] for k in f.files}
+    owner = _owners(dmp)
+    tree: Dict[str, Any] = {}
+    out: Dict[str, np.ndarray] = {"step": data["step"]}
+    for k, v in data.items():
+        if k.startswith("dense/"):
+            node = tree
+            parts = k[len("dense/"):].split("/")
+            for part in parts[:-1]:
+                node = node.setdefault(part, {})
+            node[parts[-1]] = v
+            continue
+        for prefix in ("tables/", "opt/", "uvmopt/"):
+            if not k.startswith(prefix):
+                continue
+            rest = k[len(prefix):]
+            if prefix == "opt/":
+                _, tname, tag = rest.rsplit("/", 2)
+                tail = f"{tname}/{tag}"
+            else:
+                tail = rest.rsplit("/", 1)[1]
+                tname = table_of_entry(tail)
+            if tname not in owner:
+                raise ValueError(f"{k}: the DMP holds no table {tname!r}")
+            out[f"{prefix}{owner[tname]}/{tail}"] = v
+    for name, arr in flax_dense_to_state_dict(tree, dmp.module).items():
+        out[f"dense/{name}"] = arr
+    load_reshardable_arrays(dmp, out)
 
 
 def _to_flax_tree(template: Mapping, module: nn.Module,
