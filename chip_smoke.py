@@ -336,6 +336,37 @@ Phases, each failing the run with a non-zero exit when it fails:
    equal 2 more steps of the saved DMP; save_state / restore_state
    resumes bit for bit. The file sizes and save and load times are
    printed.
+20. The port's examples through their main(argv) (torchrec_tpu_torch/
+   examples/), every train step, eval call and predict call held to its
+   launches, the counters' total to their sum. The model is the examples'
+   DLRM (D=64, dense 13 -> 512-256-64, over 512-512-256-1,
+   ROWWISE_ADAGRAD) over the 26 Criteo Kaggle tables uncapped
+   (33,762,577 rows, 8.64 GB of fp32), drawn on the card by the DMP's
+   init, at B=8192. (1) A 100,000-line Criteo TSV from seeded numpy,
+   parsed by the native parser (csrc/criteo_parser.cpp, g++) and its
+   plain version (equal arrays, both rates printed), both preproc CLIs
+   run on it; 1,204,224 SyntheticCriteoDataset rows (the ground truth's
+   labels) written as three day_* npy triples; the in-memory loader's
+   batches/s through the C++ stager (csrc/batch_stager.cpp) into pinned
+   tensors and through the numpy route. (2) dlrm_main
+   --in_memory_binary_criteo_path over the days under --train_pipeline
+   base and sparse_dist: each step one K1 and one fused K4 per sharding
+   group of the planner's plan, each eval batch one K1 per group; the
+   validation AUROC above the same model's untrained (same seed, same
+   validation batches); examples/s and the peak device memory. (3)
+   dlrm_main --synthetic_criteo, generated on the card, 50 timed steps
+   after a warm-up, examples/s, with (4) --save_dir and --package_dir
+   (int8), then dlrm_predict over the package, B=256: direct,
+   --serve_batching and --serve_native (one Kq a request); the last
+   direct request's logits within 2x the first-order int8 bound of the
+   f32 model's, that model loaded from the checkpoint. (5)
+   bert4rec_main --synthetic_ml1m in --mode dmp (a step launches the
+   routed gather, its route-only mode and K4 once each, an eval batch the
+   routed gather) and --mode dp (the routed gather and K4). (6)
+   device_latent_score on the card bit for bit with numpy's on edge and
+   1 M random ids, the card-made RandomRecDataset and
+   SyntheticCriteoDataset batches in range. Each step's seconds and the
+   numbers are printed ("examples numbers: {...}").
 
 Kernel times are device times from torch.profiler (the kernel's own for a
 kernel, all device activity of the call for the plain version and the
@@ -5613,6 +5644,593 @@ def uvm_phase() -> dict:
     return launches
 
 
+# -- phase 20: the port's examples on the card --------------------------------
+
+# the examples' DLRM (their defaults: D=64, dense 13 -> 512-256-64, over
+# 512-512-256-1, ROWWISE_ADAGRAD at lr 1.0, dense SGD at 0.1) over the 26
+# Criteo Kaggle tables uncapped: --max_ind_range at the largest table
+# leaves every cardinality as published, 33,762,577 rows
+EX_MAX_IND = 10_131_227
+EX_TSV_LINES = 100_000
+EX_DAYS = 3
+EX_DAY_BATCHES = 49  # 3 days x 49 x 8,192 = 1,204,224 rows
+EX_SYNTH_STEPS = 50
+# enough requests and steps that a p99 is not the maximum: 500 requests
+# give it five samples above it (a few seconds a route at 2-10 ms each)
+EX_REQUESTS = 500
+EX_B4R_STEPS = 200
+EX_D = 64  # the examples' --embedding_dim default
+# phase 20's bound of the card's train step against the plain update on
+# the CPU (of each tensor's scale near zero): the duplicate rows' gradient
+# sums add in another order
+EX_RTOL = 1e-5
+EX_SAMPLE = 4096  # untouched rows checked, as many again past 2^31
+EX_PAST = 2**31  # the block's element the held step must read beyond
+
+
+def ex_cards() -> tuple:
+    """The Kaggle cardinalities capped at EX_MAX_IND (--max_ind_range)."""
+    from torchrec_tpu_torch.datasets.synthetic_criteo import (
+        CRITEO_KAGGLE_CARDINALITIES,
+    )
+
+    return tuple(min(c, EX_MAX_IND) for c in CRITEO_KAGGLE_CARDINALITIES)
+
+
+def write_criteo_tsv(path: str, lines: int, seed: int) -> None:
+    """A Criteo-format TSV from seeded numpy: a label, 13 ints in
+    [-2, 5000) (one in ten empty) and 26 32-bit hex ids (one in twenty
+    empty), tab-separated."""
+    rng = np.random.RandomState(seed)
+    labels = rng.randint(0, 2, lines).astype(str)[:, None]
+    ints = np.where(rng.rand(lines, 13) < 0.1, "",
+                    rng.randint(-2, 5000, (lines, 13)).astype(str))
+    cats = np.where(rng.rand(lines, 26) < 0.05, "",
+                    np.char.mod("%08x", rng.randint(0, 2**32, (lines, 26),
+                                                    dtype=np.int64)))
+    rows = np.concatenate([labels, ints, cats], 1).tolist()
+    with open(path, "w") as f:
+        f.write("\n".join("\t".join(r) for r in rows) + "\n")
+
+
+def example_files(tmp: str) -> dict:
+    """Step 1: a 100,000-line TSV parsed by the native parser and its
+    plain version (equal arrays, both rates), both preproc CLIs run on
+    it, and 1.2 M rows of SyntheticCriteoDataset host batches (the Kaggle
+    cardinalities, the ground truth's labels) written as three day_*
+    npy triples. Returns the days' directory and the rates."""
+    from torchrec_tpu_torch.datasets import criteo
+    from torchrec_tpu_torch.datasets.scripts import (
+        contiguous_preproc_criteo,
+        npy_preproc_criteo,
+    )
+    from torchrec_tpu_torch.datasets.synthetic_criteo import (
+        SyntheticCriteoDataset,
+    )
+
+    out = {}
+    raw, npy, contig, days = (os.path.join(tmp, d) for d in
+                              ("raw", "npy", "contig", "days"))
+    for d in (raw, npy, days):
+        os.makedirs(d)
+    tsv = os.path.join(raw, "day_0")
+    t0 = time.perf_counter()
+    write_criteo_tsv(tsv, EX_TSV_LINES, SEED + 50)
+    t1 = time.perf_counter()
+    criteo._native_parser()  # the g++ build, outside the timed parse
+    t2 = time.perf_counter()
+    native = criteo.parse_criteo_tsv(tsv)
+    t3 = time.perf_counter()
+    plain = criteo._parse_tsv_numpy(tsv)
+    t4 = time.perf_counter()
+    for a, b in zip(native, plain):
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            raise AssertionError("the native parser and its plain version "
+                                 "disagree")
+    out["parse_lines_per_s"] = {"native": EX_TSV_LINES / (t3 - t2),
+                                "numpy": EX_TSV_LINES / (t4 - t3)}
+    log(f"examples: wrote a {EX_TSV_LINES}-line Criteo TSV in "
+        f"{t1 - t0:.3f} s ({os.path.getsize(tsv)} B); g++ build of the "
+        f"parser {t2 - t1:.3f} s; parsed natively in {t3 - t2:.4f} s, by "
+        f"its plain version in {t4 - t3:.3f} s, equal arrays; lines/s "
+        f"(host clock) {out['parse_lines_per_s']}")
+    npy_preproc_criteo.main(["--input_dir", raw, "--output_dir", npy])
+    t5 = time.perf_counter()
+    contiguous_preproc_criteo.main(["--input_dir", npy, "--output_dir",
+                                    contig, "--frequency_threshold", "3"])
+    t6 = time.perf_counter()
+    ids = np.load(os.path.join(contig, "day_0_sparse_contig_freq.npy"))
+    if ids.shape != (EX_TSV_LINES, 26) or ids.min() < 1:
+        raise AssertionError(f"contiguous ids {ids.shape} min {ids.min()}")
+    log(f"examples: npy_preproc_criteo {t5 - t4:.3f} s, "
+        f"contiguous_preproc_criteo {t6 - t5:.3f} s ({ids.max()} the "
+        f"largest contiguous id)")
+    ds = SyntheticCriteoDataset(batch_size=BENCH_BATCH,
+                                cardinalities=ex_cards(),
+                                num_batches=EX_DAYS * EX_DAY_BATCHES,
+                                manual_seed=SEED + 51)
+    it = iter(ds)
+    for d in range(EX_DAYS):
+        part = [next(it) for _ in range(EX_DAY_BATCHES)]
+        np.save(os.path.join(days, f"day_{d}_dense.npy"), np.concatenate(
+            [b.dense_features.numpy() for b in part]))
+        np.save(os.path.join(days, f"day_{d}_sparse.npy"), np.concatenate(
+            [b.sparse_features.ids[:, :, 0].numpy().T for b in part]))
+        np.save(os.path.join(days, f"day_{d}_labels.npy"), np.concatenate(
+            [b.labels.numpy() for b in part]).astype(np.int32)[:, None])
+    log(f"examples: {EX_DAYS} days of {EX_DAY_BATCHES * BENCH_BATCH} "
+        f"SyntheticCriteoDataset rows written in "
+        f"{time.perf_counter() - t6:.3f} s")
+    out["days"] = days
+    return out
+
+
+def loader_rates(days: str) -> dict:
+    """The in-memory loader over the days at B=8192: batches/s through the
+    C++ stager into pinned tensors (which it must give), and through the
+    numpy route, host clock, one pass each in turns (stager, numpy,
+    stager, numpy: the first pass also fills the pinned allocator's
+    cache)."""
+    from torchrec_tpu_torch.datasets import criteo
+
+    paths = [sorted(os.path.join(days, f) for f in os.listdir(days)
+                    if f.endswith(f"_{k}.npy"))
+             for k in ("dense", "sparse", "labels")]
+    pipe = criteo.InMemoryBinaryCriteoIterDataPipe(
+        *paths, batch_size=BENCH_BATCH, hashes=ex_cards(),
+        pin_memory=DEVICE == "cuda")
+    criteo._native_stager()  # the g++ build, outside the timed pass
+    rates: dict = {"native": [], "numpy": []}
+    native_route = pipe.native_route
+    for route in ("native", "numpy", "native", "numpy"):
+        pipe.native_route = (native_route if route == "native"
+                             else lambda: False)
+        n, t0 = 0, time.perf_counter()
+        for b in pipe:
+            n += 1
+            pinned = DEVICE != "cuda" or all(
+                t.is_pinned() for t in (b.dense_features, b.labels,
+                                        b.sparse_features.ids))
+            if not pinned or b.sparse_features.ids.dtype != torch.int32:
+                raise AssertionError(f"loader ({route}): batch not pinned "
+                                     "int32")
+        rates[route].append(n / (time.perf_counter() - t0))
+    log(f"examples: the loader's batches/s at B={BENCH_BATCH} (host clock, "
+        f"{pipe.num_batches} batches, pinned) {rates}")
+    return rates
+
+
+def hold_example_step(dmp, batch) -> dict:
+    """One dlrm_main train step (the DMP's step, as the base pipeline takes
+    it) on a loader batch, held against the plain versions: K1's pooled
+    output against the plain pooled lookup over copies of the rows it
+    read; the touched rows and momenta after the fused K4 against the
+    plain rowwise Adagrad update (apply_fused_update on the CPU) of those
+    copies with the step's row gradients, within EX_RTOL; EX_SAMPLE seeded
+    untouched rows, and as many past element 2^31 of the block, unchanged.
+    The batch must address rows past element 2^31 (tables 23-25 at D=64):
+    their slots are counted a feature."""
+    from torchrec_tpu_torch.ops import tbe_lookup as tl
+    from torchrec_tpu_torch.ops.fused_update import (
+        FusedOptimizerState,
+        apply_fused_update,
+    )
+    from torchrec_tpu_torch.parallel import strategies
+
+    (strat,) = dmp.sharded_ebcs[TRAIN_KEY].strategies
+    if not isinstance(strat, strategies.DpEmbeddingSharding):
+        raise AssertionError(f"examples: the plan's group is "
+                             f"{type(strat).__name__}, not DATA_PARALLEL")
+    W, M = strat.weights, strat.momentum1
+    D = W.shape[1]
+    n_rows = int(strat.row_offsets[-1]) + strat.meta.tables[-1].rows
+    first_past = EX_PAST // D  # the first row at element 2^31 or beyond
+    seen: dict = {}
+    lookup, update = strategies.pooled_lookup, strategies.apply_fused_update
+
+    def watched_lookup(weights, ids, coeff):
+        if weights is W and "out" not in seen:
+            uniq = torch.unique(ids.reshape(-1).long())
+            seen.update(ids=ids.cpu(), coeff=coeff.cpu(), uniq=uniq.cpu(),
+                        rows=W[uniq].cpu(), m1=M[uniq].cpu())
+            out = lookup(weights, ids, coeff)
+            seen["out"] = out.cpu()
+            return out
+        return lookup(weights, ids, coeff)
+
+    def watched_update(weights, opt, ids, grads, valid, lr, **kw):
+        if weights is W and "grads" not in seen:
+            seen.update(flat=ids.cpu(), grads=grads.cpu(), valid=valid.cpu(),
+                        lr=lr, kw=kw, step=int(opt.step))
+        return update(weights, opt, ids, grads, valid, lr, **kw)
+
+    rng = np.random.RandomState(SEED + 53)
+    sample = torch.from_numpy(np.concatenate([
+        rng.randint(0, n_rows, EX_SAMPLE),
+        rng.randint(first_past, n_rows, EX_SAMPLE)])).to(DEVICE)
+    sample_before = W[sample].cpu()
+    args = batch.to(DEVICE).batch_args()
+    step = dmp.make_train_step()
+    strategies.pooled_lookup = watched_lookup
+    strategies.apply_fused_update = watched_update
+    try:
+        torch.cuda.synchronize()
+        before = counts()
+        loss, _ = step(*args)
+        torch.cuda.synchronize()
+        launched = _moved(counts(), before)
+    finally:
+        strategies.pooled_lookup, strategies.apply_fused_update = (
+            lookup, update)
+    if launched != {"K1": 1, "K4": 1} or not math.isfinite(float(loss)):
+        raise AssertionError(f"examples: the held step launched {launched}, "
+                             f"loss {float(loss)}")
+    if "out" not in seen or "grads" not in seen:
+        raise AssertionError("examples: the held step's lookup or update "
+                             "was not seen")
+    uniq = seen["uniq"]
+    ids = seen["ids"].long()
+    past = ids * D >= EX_PAST
+    past_by_feature = {f: int(past[f].sum()) for f in range(ids.shape[0])
+                       if past[f].any()}
+    if not past_by_feature:
+        raise AssertionError("examples: the held step read no row past "
+                             "element 2^31")
+
+    # K1: the plain pooled lookup over the rows it read
+    slots = torch.searchsorted(uniq, ids).to(torch.int32)
+    L = ids.shape[-1]
+    ref = tl.tbe_lookup_pooled_reference(
+        seen["rows"], slots.reshape(-1, L).contiguous(),
+        seen["coeff"].reshape(-1, L).contiguous()).reshape(seen["out"].shape)
+    torch.testing.assert_close(seen["out"], ref, rtol=1e-6, atol=1e-6)
+    pooled_err = (seen["out"] - ref).abs().max().item()
+
+    # the fused K4: the plain rowwise Adagrad update of the same rows
+    w_ref, m_ref = seen["rows"].clone(), seen["m1"].clone()
+    apply_fused_update(
+        w_ref, FusedOptimizerState(
+            momentum1=m_ref, momentum2=None,
+            step=torch.tensor(seen["step"], dtype=torch.int32),
+            optim=strat.optim),
+        torch.searchsorted(uniq, seen["flat"].long()).to(torch.int32),
+        seen["grads"], seen["valid"], seen["lr"], **seen["kw"])
+    idx = uniq.to(DEVICE)
+    w_got, m_got = W[idx].cpu(), M[idx].cpu()
+    torch.testing.assert_close(w_got, w_ref, rtol=EX_RTOL,
+                               atol=EX_RTOL * w_ref.abs().max().item())
+    torch.testing.assert_close(m_got, m_ref, rtol=EX_RTOL,
+                               atol=EX_RTOL * m_ref.abs().max().item())
+    moved = ~torch.isin(sample.cpu(), uniq)
+    if not torch.equal(W[sample].cpu()[moved], sample_before[moved]):
+        raise AssertionError("examples: an untouched row moved in the held "
+                             "step")
+    out = {"slots": int(ids.numel()), "rows": int(uniq.numel()),
+           "rows_past_2_31": int((uniq >= first_past).sum()),
+           "slots_past_2_31_by_feature": past_by_feature,
+           "pooled_max_abs_err": pooled_err,
+           "rows_max_abs_err": (w_got - w_ref).abs().max().item(),
+           "momenta_max_abs_err": (m_got - m_ref).abs().max().item(),
+           "untouched_checked": int(moved.sum())}
+    log(f"examples: one dlrm_main step on a loader batch (launched "
+        f"{launched}) held against the plain versions: pooled output within "
+        f"rtol=atol=1e-6 of the plain lookup, rows and momenta within rtol "
+        f"{EX_RTOL} of the plain rowwise Adagrad update on the CPU, "
+        f"untouched rows equal: {out}")
+    return out
+
+
+@contextlib.contextmanager
+def watch_example_calls(tally: dict):
+    """Hold each call the examples make to its launches: a DLRM train
+    step one K1 and one fused K4 per sharding group of its EBC, an eval
+    call one K1 per group; a BERT4Rec step one routed gather and one fused
+    K4 (and one route-only launch where the item table is ROW_WISE), an
+    eval call one routed gather; a predict call one Kq. `tally` gets the
+    calls by kind and the sum of their launches."""
+    from torchrec_tpu_torch.inference.modules import PredictModule
+    from torchrec_tpu_torch.parallel.dmp import DistributedModelParallel
+    from torchrec_tpu_torch.parallel.sharded_ec import (
+        ShardedEmbeddingCollection,
+    )
+    from torchrec_tpu_torch.parallel.types import ShardingType
+
+    tally.setdefault("calls", {})
+    tally.setdefault("launches", {})
+
+    def rule(dmp, kind: str) -> dict:
+        (sebc,) = dmp.sharded_ebcs.values()
+        if isinstance(sebc, ShardedEmbeddingCollection):
+            if kind == "eval":
+                return {"K8r": 1}
+            routed = dmp.plan.plan[B4R_KEY]["item_embedding"] \
+                .sharding_type is ShardingType.ROW_WISE
+            return {"K8r": 1, "K4": 1, **({ROUTE: 1} if routed else {})}
+        groups = len(sebc.strategies)
+        return {"K1": groups} if kind == "eval" else {"K1": groups,
+                                                      "K4": groups}
+
+    def checked(call, want: dict, what: str):
+        before = counts()
+        out = call()
+        moved = _moved(counts(), before)
+        n = tally["calls"].get(what, 0) + 1
+        if moved != want:
+            raise AssertionError(f"examples: {what} {n} launched {moved}, "
+                                 f"expected {want}")
+        tally["calls"][what] = n
+        for k, v in want.items():
+            tally["launches"][k] = tally["launches"].get(k, 0) + v
+        return out
+
+    DMP = DistributedModelParallel
+    saved = (DMP._train_step, DMP.make_eval_fn, PredictModule.predict)
+
+    def train_step(self, *args, **kw):
+        return checked(lambda: saved[0](self, *args, **kw),
+                       rule(self, "step"), "train step")
+
+    def make_eval_fn(self):
+        fn, want = saved[1](self), rule(self, "eval")
+        return lambda *args: checked(lambda: fn(*args), want, "eval call")
+
+    def predict(self, *args):
+        return checked(lambda: saved[2](self, *args), {"Kq": 1},
+                       "predict call")
+
+    DMP._train_step, DMP.make_eval_fn, PredictModule.predict = (
+        train_step, make_eval_fn, predict)
+    try:
+        yield tally
+    finally:
+        DMP._train_step, DMP.make_eval_fn, PredictModule.predict = saved
+
+
+def hold_package_logits(train_argv, ckpt: str, lasts: dict) -> dict:
+    """The int8 package's logits of dlrm_predict's last request on each
+    route (`lasts`: route -> (dense, ids, logits)) against the f32
+    model's, the trained DMP loaded from its reshardable checkpoint:
+    within Q_SLACK x the first-order bound of phase 15 (quant_bounds),
+    each example's sum over its pooled elements of |d logit / d pooled|
+    times its row's int8 error bound."""
+    from torchrec_tpu_torch.examples import dlrm_main
+    from torchrec_tpu_torch.sparse import PaddedSparseBatch
+    from torchrec_tpu_torch.utils.checkpoint import load_reshardable
+
+    args = dlrm_main.parse_args(train_argv)
+    env = dlrm_main.make_env(args)
+    dmp = dlrm_main.build_dmp(args, env, dlrm_main.table_rows(args))
+    t0 = time.perf_counter()
+    load_reshardable(ckpt + ".npz", dmp)
+    load_s = time.perf_counter() - t0
+    sebc = dmp.sharded_ebcs[TRAIN_KEY]
+    per_row = row_error_bound(sebc.unshard_tables(), 8)
+    out = {"load_s": load_s}
+    for route, (dense, ids, logits) in lasts.items():
+        B, F = dense.shape[0], ids.shape[0]
+        sb = PaddedSparseBatch(
+            ids=torch.from_numpy(ids).to(DEVICE),
+            lengths=torch.ones((F, B), dtype=torch.int32, device=DEVICE),
+            keys=tuple(f"cat_{i}" for i in range(F)))
+        targs = (torch.from_numpy(dense).to(DEVICE), sb,
+                 torch.zeros(B, device=DEVICE))
+        with torch.no_grad():
+            pooled = sebc(sb)
+        leaf = pooled.values.detach().clone().requires_grad_(True)
+        sebc.injected = dataclasses.replace(pooled, values=leaf)
+        try:
+            f32 = logits_of(dmp.module(*targs))
+            f32.sum().backward()
+        finally:
+            sebc.injected = None
+        g = leaf.grad.reshape(B, F, EX_D).abs().sum(-1)
+        rows = torch.from_numpy(ids[:, :, 0].T).to(DEVICE).long()
+        eps = torch.stack([per_row[f"t_cat_{i}"][rows[:, i]]
+                           for i in range(F)], 1)
+        bnd = (g * eps).sum(1)
+        d = (logits.reshape(-1).to(DEVICE) - f32.detach()).abs()
+        over = (d - Q_SLACK * bnd - 1e-6).max().item()
+        if over > 0 or not torch.isfinite(f32).all():
+            raise AssertionError(f"examples: the package's logits ({route}) "
+                                 f"beyond {Q_SLACK} x their bound by {over}")
+        out[route] = {"examples": B, "max_abs": d.max().item(),
+                      "bound_max": bnd.max().item(),
+                      "ratio_max": (d / bnd).max().item()}
+    log(f"examples: the int8 package's logits of each route's last request "
+        f"against the f32 model loaded from the checkpoint ({load_s:.3f} s)"
+        f": {out}")
+    return out
+
+
+def check_device_generators() -> dict:
+    """device_latent_score on the card bit for bit with numpy's
+    latent_score (edge ids and 1 M random ones), and the on-card batches
+    of RandomRecDataset and SyntheticCriteoDataset in range and shape."""
+    from torchrec_tpu_torch.datasets.random import RandomRecDataset, step_seed
+    from torchrec_tpu_torch.datasets.synthetic_criteo import (
+        CRITEO_KAGGLE_CARDINALITIES,
+        SyntheticCriteoDataset,
+        device_latent_score,
+        latent_score,
+    )
+
+    rng = np.random.RandomState(SEED + 52)
+    last = np.asarray(CRITEO_KAGGLE_CARDINALITIES) - 1
+    ids = np.concatenate([[0, 2**31 - 1, 1, 65535, 65536, -1, -2**31],
+                          last, rng.randint(0, 2**31 - 1, 1_000_000)])
+    feats = np.concatenate([[0, 25, 25, 3, 25, 7, 25], np.arange(26),
+                            rng.randint(0, 26, 1_000_000)])
+    want = latent_score(feats, ids).view(np.uint32)
+    got = device_latent_score(
+        torch.from_numpy(feats.astype(np.int32)).to(DEVICE),
+        torch.from_numpy(ids.astype(np.int32)).to(DEVICE)).cpu().numpy()
+    if not np.array_equal(got.view(np.uint32), want):
+        raise AssertionError("device_latent_score differs from numpy's "
+                             f"at {int((got.view(np.uint32) != want).sum())} "
+                             "ids")
+    cards = np.asarray(ex_cards())
+    b = SyntheticCriteoDataset(batch_size=BENCH_BATCH, cardinalities=cards
+                               ).device_batch_fn(DEVICE)(step_seed(SEED))
+    r = next(iter(RandomRecDataset(
+        [f"cat_{i}" for i in range(26)], BENCH_BATCH, hash_sizes=cards,
+        ids_per_feature=1, on_device=True, device=DEVICE, num_batches=1)))
+    for name, batch in (("SyntheticCriteoDataset", b),
+                        ("RandomRecDataset", r)):
+        x = batch.sparse_features.ids[:, :, 0]
+        ok = (x.shape == (26, BENCH_BATCH) and x.device.type == DEVICE
+              and batch.dense_features.shape == (BENCH_BATCH, 13)
+              and int(x.min()) >= 0
+              and bool((x.max(1).values.cpu().numpy() < cards).all())
+              and bool(torch.isfinite(batch.dense_features).all()))
+        if not ok:
+            raise AssertionError(f"{name}: a card-made batch out of range")
+    ctr = b.labels.mean().item()
+    if abs(ctr - 0.2562) > 0.03:
+        raise AssertionError(f"SyntheticCriteoDataset on the card: CTR {ctr}")
+    log(f"examples: device_latent_score equals numpy's bit for bit on "
+        f"{ids.size} ids on the card; card-made SyntheticCriteoDataset and "
+        f"RandomRecDataset batches in range (CTR {ctr:.4f})")
+    return {"ctr": ctr}
+
+
+def examples_phase() -> dict:
+    """Phase 20 (see the module docstring): the port's examples through
+    their main(argv). Returns the launches per kernel of the examples'
+    runs, read from the counters (set to 0 before them), after checking
+    that they equal the sum of every train step's, eval call's and
+    predict call's asserted launches."""
+    import shutil
+    import tempfile
+
+    from torchrec_tpu_torch.examples import (
+        bert4rec_main,
+        dlrm_main,
+        dlrm_predict,
+    )
+
+    t_phase = time.perf_counter()
+    numbers: dict = {}
+    dev = ["--device", DEVICE]
+    with tempfile.TemporaryDirectory(prefix="examples_") as tmp:
+        log(f"examples: scratch {shutil.disk_usage(tmp)}")
+        t = time.perf_counter()
+        files = example_files(tmp)
+        numbers["parse_lines_per_s"] = files["parse_lines_per_s"]
+        numbers["loader_batches_per_s"] = loader_rates(files["days"])
+        log(f"examples step 1 (files): {time.perf_counter() - t:.2f} s")
+
+        file_argv = ["--in_memory_binary_criteo_path", files["days"],
+                     "--num_embeddings_per_feature",
+                     ",".join(map(str, ex_cards())),
+                     "--batch_size", str(BENCH_BATCH), *dev]
+        # the untrained model (the same seed) on the validation batches
+        t = time.perf_counter()
+        args = dlrm_main.parse_args(file_argv)
+        env = dlrm_main.make_env(args)
+        rows = dlrm_main.table_rows(args)
+        dmp = dlrm_main.build_dmp(args, env, rows)
+        untrained = dlrm_main.validate(
+            dmp, dlrm_main.make_loader(args, "val", env, rows), env)
+        types = sorted({ps.sharding_type.name
+                        for ps in dmp.plan.plan[TRAIN_KEY].values()})
+        log(f"examples: the untrained DLRM ({sum(rows)} rows, planned "
+            f"{types}) on the validation batches: {untrained} "
+            f"({time.perf_counter() - t:.2f} s)")
+        t = time.perf_counter()
+        numbers["held_step"] = hold_example_step(dmp, next(iter(
+            dlrm_main.make_loader(args, "train", env, rows))))
+        del dmp
+        gc_cuda()
+        log(f"examples step 2 (one step held against the plain versions): "
+            f"{time.perf_counter() - t:.2f} s")
+
+        tally: dict = {}
+        ckpt, pkg = os.path.join(tmp, "ckpt"), os.path.join(tmp, "pkg")
+        synth_argv = ["--synthetic_criteo", "--max_ind_range",
+                      str(EX_MAX_IND), "--batch_size", str(BENCH_BATCH),
+                      "--num_batches", str(EX_SYNTH_STEPS), "--save_dir",
+                      ckpt, "--package_dir", pkg, *dev]
+        reset_counts()
+        with watch_example_calls(tally):
+            for pipeline in ("base", "sparse_dist"):
+                t = time.perf_counter()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                r = dlrm_main.main([*file_argv, "--train_pipeline",
+                                    pipeline])
+                peak = torch.cuda.max_memory_allocated()
+                if not r["auroc"] > untrained["auroc"]:
+                    raise AssertionError(
+                        f"dlrm_main ({pipeline}): validation AUROC "
+                        f"{r['auroc']} not above the untrained model's "
+                        f"{untrained['auroc']}")
+                numbers[f"files_{pipeline}"] = {
+                    "examples_per_s": r["throughput"], "auroc": r["auroc"],
+                    "untrained_auroc": untrained["auroc"],
+                    "steps": r["steps"], "groups": r["groups"],
+                    "peak_bytes": peak}
+                gc_cuda()
+                log(f"examples step 2 (dlrm_main from files, {pipeline}): "
+                    f"{time.perf_counter() - t:.2f} s; {r}; "
+                    f"max_memory_allocated {peak} B")
+            t = time.perf_counter()
+            torch.cuda.reset_peak_memory_stats()
+            r = dlrm_main.main(synth_argv)
+            peak = torch.cuda.max_memory_allocated()
+            numbers["synthetic_criteo"] = {
+                "examples_per_s": r["throughput"], "auroc": r["auroc"],
+                "steps": r["steps"], "peak_bytes": peak,
+                "checkpoint_bytes": os.path.getsize(ckpt + ".npz"),
+                "package_bytes": os.path.getsize(
+                    os.path.join(pkg, "arrays.npz"))}
+            gc_cuda()
+            log(f"examples steps 3-4 (dlrm_main --synthetic_criteo, "
+                f"{EX_SYNTH_STEPS} timed steps, --save_dir, --package_dir):"
+                f" {time.perf_counter() - t:.2f} s; {r}; "
+                f"{numbers['synthetic_criteo']}")
+            served = {}
+            for mode in ("direct", "--serve_batching", "--serve_native"):
+                t = time.perf_counter()
+                served[mode] = dlrm_predict.main(
+                    ["--package_dir", pkg, "--batch_size", str(SERVE_BATCH),
+                     "--num_requests", str(EX_REQUESTS), *dev,
+                     *([] if mode == "direct" else [mode])])
+                key = "predict_" + mode.lstrip("-")
+                numbers[key] = {k: served[mode][k] for k in (
+                    "qps", "predictions_per_sec", "latency")}
+                gc_cuda()
+                log(f"examples step 4 (dlrm_predict {mode}): "
+                    f"{time.perf_counter() - t:.2f} s; {numbers[key]}")
+            for mode in ("dmp", "dp"):
+                t = time.perf_counter()
+                r = bert4rec_main.main(["--synthetic_ml1m", "--num_batches",
+                                        str(EX_B4R_STEPS), "--mode", mode,
+                                        *dev])
+                numbers[f"bert4rec_{mode}"] = {
+                    **r, "step_ms": B4R_BATCH / r["throughput"] * 1e3}
+                gc_cuda()
+                log(f"examples step 5 (bert4rec_main --synthetic_ml1m "
+                    f"--mode {mode}): {time.perf_counter() - t:.2f} s; {r}")
+        launches = {k: v for k, v in counts().items() if v}
+        if launches != {k: v for k, v in tally["launches"].items() if v}:
+            raise AssertionError(f"examples: the counters moved {launches}; "
+                                 f"the calls asserted {tally}")
+        t = time.perf_counter()
+        numbers["package_logits"] = hold_package_logits(
+            synth_argv, ckpt, {m: r["last"] for m, r in served.items()})
+        gc_cuda()
+        log(f"examples step 4 (package against the f32 model): "
+            f"{time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    check_device_generators()
+    log(f"examples step 6 (card-made batches): "
+        f"{time.perf_counter() - t:.2f} s")
+    log(f"examples phase: {time.perf_counter() - t_phase:.2f} s; calls "
+        f"{tally['calls']}; launches {launches} (the counters)")
+    log("examples numbers: " + json.dumps(numbers))
+    return launches
+
+
 def gc_cuda() -> None:
     """Free what Python no longer holds, so that the next peak counts only
     what is alive."""
@@ -5743,6 +6361,12 @@ def main() -> int:
     for k, v in uvm_phase().items():
         flat[k] = flat.get(k, 0) + v
 
+    # the port's examples: the Criteo Kaggle DLRM trained from files and
+    # from card-made data, packaged and served, BERT4Rec sharded and
+    # data-parallel (K1, K4, the routed gather, Kq)
+    for k, v in examples_phase().items():
+        flat[k] = flat.get(k, 0) + v
+
     launches = {k: trained[name]["launches"][k]
                 for name, ks in STEP_KERNELS.items() for k in ks}
     launches["K4"] += b4r_trained["launches"]["K4"]
@@ -5788,7 +6412,8 @@ def main() -> int:
         f"and the routed gather also the flat-strategies and hierarchical "
         f"phases, with K8 and Kq the latter's, K1, K3, K4 and Kq the "
         f"planner phase's, and K1, K2 (staging), K3, K4 and K8 (write-back) "
-        f"the UVM phase's ({flat}): "
+        f"the UVM phase's, and K1, K4, the routed gather and Kq the "
+        f"examples' ({flat}): "
         f"{launches}")
     log(card["smi"])
     log(json.dumps({"kernels": [{

@@ -108,7 +108,8 @@ def _bert4rec_dmp(sharding_type=ShardingType.ROW_WISE,
     "from_distributed", "sharded_embedding_bag", "from_local",
     "train_pipeline", "sparse_dist_pipeline", "planned_dmp",
     "tower_collection", "tower_dmp", "variable_batch", "uvm_cache",
-    "uvm_ebc", "uvm_dmp"])
+    "uvm_ebc", "uvm_dmp", "dlrm_main", "dlrm_predict", "bert4rec_main",
+    "random_rec_on_device", "synthetic_criteo_device"])
 def test_entry_points_refuse_cpu_without_asking(entry, monkeypatch,
                                                 tmp_path):
     from torchrec_tpu_torch.inference import (
@@ -208,6 +209,28 @@ def test_entry_points_refuse_cpu_without_asking(entry, monkeypatch,
             )
 
             UvmEmbeddingBagCollection(_tables(), weights)
+        elif entry == "dlrm_main":
+            from torchrec_tpu_torch.examples import dlrm_main
+
+            dlrm_main.main(["--synthetic", "--num_batches", "1"])
+        elif entry == "dlrm_predict":
+            from torchrec_tpu_torch.examples import dlrm_predict
+
+            dlrm_predict.main(["--package_dir", str(tmp_path)])
+        elif entry == "bert4rec_main":
+            from torchrec_tpu_torch.examples import bert4rec_main
+
+            bert4rec_main.main(["--synthetic", "--num_batches", "1"])
+        elif entry == "random_rec_on_device":
+            from torchrec_tpu_torch.datasets import RandomRecDataset
+
+            RandomRecDataset(["f0"], 4, on_device=True)
+        elif entry == "synthetic_criteo_device":
+            from torchrec_tpu_torch.datasets.synthetic_criteo import (
+                SyntheticCriteoDataset,
+            )
+
+            SyntheticCriteoDataset(4, max_ind_range=10).device_batch_fn()
         elif entry == "uvm_dmp":
             DistributedModelParallel(
                 _model("meta"), plan=_plan(
@@ -536,3 +559,66 @@ def test_native_and_cuda_sources_build_from_the_port():
     assert (native.CSRC / "serving_queue.cpp").exists()
     assert native.native_lib_path("serving_queue.cpp").parent == (
         port / "csrc" / "_build").resolve()
+
+
+# JAX modules with no file at the same path in the port, and why
+NOT_AT_THE_SAME_PATH = {
+    "ops/pallas_embedding.py": (
+        "its eight pl.pallas_calls are hand-written CUDA kernels: "
+        "csrc/tbe_lookup.cu, csrc/fused_update.cu and csrc/gather_rows.cu, "
+        "bound in ops/tbe_lookup.py, ops/fused_update_kernels.py and "
+        "ops/gather_rows.py"),
+    "ops/cost_model.py": (
+        "not to port (ROADMAP.md): the v5e cost model; the planner costs "
+        "the H100 through planner/constants.py's H100_COSTS"),
+}
+
+
+def test_every_jax_module_has_a_counterpart():
+    """Every .py and .cpp file of the JAX package has a file at the same
+    path in the port, or an entry with its reason above (whose port
+    files exist)."""
+    jax_pkg, port = ROOT / "torchrec_tpu", ROOT / "torchrec_tpu_torch"
+    missing = sorted(
+        str(p.relative_to(jax_pkg)) for p in jax_pkg.rglob("*")
+        if p.suffix in (".py", ".cpp") and "_build" not in p.parts
+        and not (port / p.relative_to(jax_pkg)).exists())
+    assert missing == sorted(NOT_AT_THE_SAME_PATH)
+    for src in ("tbe_lookup.cu", "fused_update.cu", "gather_rows.cu"):
+        assert (port / "csrc" / src).exists()
+
+
+def _exported_names(path):
+    """The names an __init__.py imports from its package, the public
+    functions and classes it defines, and the names its module-level
+    __getattr__ compares against."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    names = {a.asname or a.name for node in tree.body
+             if isinstance(node, ast.ImportFrom)
+             and (node.module or "").startswith("torchrec_tpu")
+             for a in node.names}
+    names |= {node.name for node in tree.body
+              if isinstance(node, (ast.FunctionDef, ast.ClassDef))
+              and not node.name.startswith("_")}
+    for node in tree.body:
+        if isinstance(node, ast.FunctionDef) and node.name == "__getattr__":
+            names |= {n.value for n in ast.walk(node)
+                      if isinstance(n, ast.Constant)
+                      and isinstance(n.value, str) and n.value.isidentifier()}
+    return names
+
+
+@pytest.mark.parametrize(
+    "init", sorted(str(p.relative_to(ROOT / "torchrec_tpu"))
+                   for p in (ROOT / "torchrec_tpu").rglob("__init__.py")))
+def test_exports_match_the_jax_package(init):
+    """Every name a JAX __init__.py exports (read by AST) is an attribute
+    of the port's package at the same path."""
+    import importlib
+
+    want = _exported_names(ROOT / "torchrec_tpu" / init)
+    mod = importlib.import_module(
+        "torchrec_tpu_torch" + "".join(
+            "." + part for part in pathlib.Path(init).parent.parts))
+    missing = sorted(n for n in want if not hasattr(mod, n))
+    assert not missing, f"{init}: the port does not export {missing}"

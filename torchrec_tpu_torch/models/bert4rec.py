@@ -105,7 +105,12 @@ class MultiHeadDotProductAttention(nn.Module):
         attend to a key. Returns [B, L, D]. Unless deterministic, the
         attention weights are dropped with one [L, L] mask for every batch
         row and head, kept ones scaled by 1/keep (flax multiplies by
-        keep / keep_prob)."""
+        keep / keep_prob).
+
+        Args:
+            x, mask, deterministic: as above.
+            generator: draws the dropout mask when not deterministic.
+        """
         B, L, _ = x.shape
         H = self.num_heads
 
@@ -207,7 +212,13 @@ class HistoryArch(nn.Module):
                 deterministic: bool = True,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Token embeddings [B, L, D], dropped after the LayerNorm unless
-        deterministic."""
+        deterministic.
+
+        Args:
+            id_list_features: the item ids, [1, B, L] padded or jagged.
+            deterministic: no dropout.
+            generator: draws the dropout mask when not deterministic.
+        """
         x = self.ec(id_list_features)["item"] + self.positional[None, :, :]
         return dropout(self.layernorm(x), self.dropout, deterministic,
                        generator)
@@ -239,8 +250,13 @@ class BERT4Rec(nn.Module):
     def forward(self, input: SparseInput, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Per-position logits [B, L, vocab]; positions attend only to
-        keys whose item id is > 0 (not padding). `generator` draws the
-        dropout masks when not deterministic."""
+        keys whose item id is > 0 (not padding).
+
+        Args:
+            input: the item ids, [1, B, L] padded or jagged.
+            deterministic: no dropout.
+            generator: draws the dropout masks when not deterministic.
+        """
         sb = as_padded(input, self.max_len)
         ids = sb.ids[sb.keys.index("item")]  # [B, L]
         B, L = ids.shape
@@ -265,8 +281,14 @@ class BERT4RecTrain(nn.Module):
         deterministic: bool = True,
         generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-        """labels [B, L]. Returns (loss, (loss, logits [B, L, vocab]));
-        `generator` draws the dropout masks when not deterministic."""
+        """Returns (loss, (loss, logits [B, L, vocab])).
+
+        Args:
+            input: the item ids, [1, B, L] padded or jagged.
+            labels: [B, L], the masked positions' items, 0 elsewhere.
+            deterministic: no dropout.
+            generator: draws the dropout masks when not deterministic.
+        """
         logits = self.model(input, deterministic, generator)
         logp = torch.log_softmax(logits, dim=-1)
         picked = logp.gather(-1, labels[:, :, None].long())[:, :, 0]

@@ -79,6 +79,12 @@ class FMInteractionArch(nn.Module):
 
     def forward(self, dense_features: torch.Tensor,
                 sparse_features: KeyedTensor) -> torch.Tensor:
+        """The dense input beside the FM terms of the selected keys.
+
+        Args:
+            dense_features: [B, d] dense arch output.
+            sparse_features: the pooled embeddings, one key a feature.
+        """
         if not self.sparse_feature_names:
             return dense_features
         # one split, not a slice per key: a slice's backward writes its
@@ -140,6 +146,12 @@ class SimpleDeepFMNN(nn.Module):
 
     def forward(self, dense_features: torch.Tensor,
                 sparse_features: SparseInput) -> torch.Tensor:
+        """Logits [B, 1].
+
+        Args:
+            dense_features: [B, num_dense_features].
+            sparse_features: the [F, B, L] batch, padded or jagged.
+        """
         embedded_dense = self.dense_arch(dense_features)
         embedded_sparse = self.sparse_arch(sparse_features)
         concatenated = self.inter_arch(embedded_dense, embedded_sparse)

@@ -76,6 +76,12 @@ class InteractionArch(nn.Module):
     def forward(
         self, dense_features: torch.Tensor, sparse_features: torch.Tensor
     ) -> torch.Tensor:
+        """The dense input beside the pairwise dot products.
+
+        Args:
+            dense_features: [B, D] dense arch output.
+            sparse_features: [B, F, D] pooled embeddings.
+        """
         F = self.num_sparse_features
         if F <= 0:
             return dense_features
@@ -182,7 +188,13 @@ class DLRMTrain(nn.Module):
         sparse_features: SparseInput,
         labels: torch.Tensor,
     ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
-        """Returns (loss, (loss, logits, labels))."""
+        """Returns (loss, (loss, logits, labels)).
+
+        Args:
+            dense_features: [B, d_in].
+            sparse_features: the [F, B, L] batch, padded or jagged.
+            labels: [B] in {0, 1}.
+        """
         logits = self.dlrm(dense_features, sparse_features).squeeze(-1)
         labels = labels.to(logits.dtype)
         # JAX's gradient at a logit of 0: jnp.maximum splits it, as

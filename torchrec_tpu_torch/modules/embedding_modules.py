@@ -200,7 +200,12 @@ class EmbeddingCollection(nn.Module):
     ) -> Dict[str, Union[torch.Tensor, JaggedTensor]]:
         """-> {embedding name: [B, L, D]}; with `as_jagged=True`
         {embedding name: JaggedTensor.from_dense_lengths(rows, lengths)},
-        each row's valid tokens first in B*L slots."""
+        each row's valid tokens first in B*L slots.
+
+        Args:
+            features: the [F, B, L] batch, padded or jagged.
+            as_jagged: return JaggedTensors.
+        """
         sb = as_padded(features, self.max_feature_length)
         key_index = {k: i for i, k in enumerate(sb.keys)}
         out: Dict[str, Union[torch.Tensor, JaggedTensor]] = {}

@@ -7,4 +7,12 @@ from torchrec_tpu_torch.ops.embedding import (  # noqa: F401
     pooled_lookup,
     sequence_embedding_lookup,
 )
-from torchrec_tpu_torch.ops.fused_update import EmbOptimType  # noqa: F401
+from torchrec_tpu_torch.ops.fused_update import (  # noqa: F401
+    EmbOptimType,
+    FusedOptimizerState,
+    apply_fused_update,
+    dedup_row_grads,
+    init_fused_optimizer_state,
+    pooled_grad_to_row_grads,
+    run_total_row_grads,
+)

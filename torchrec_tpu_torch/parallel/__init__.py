@@ -27,3 +27,23 @@ from torchrec_tpu_torch.parallel.variable_batch import (  # noqa: F401
     masked_bce_with_logits,
     masked_mean,
 )
+from torchrec_tpu_torch.parallel.sharders import (  # noqa: F401
+    EmbeddingBagCollectionSharder,
+    EmbeddingCollectionSharder,
+    ModuleSharder,
+    QuantEmbeddingBagCollectionSharder,
+    get_default_sharders,
+)
+
+
+def __getattr__(name):
+    """ShardedQuantEmbeddingBagCollection, imported on first use: its
+    module imports quant/, which imports this package's strategies."""
+    if name == "ShardedQuantEmbeddingBagCollection":
+        from torchrec_tpu_torch.parallel.quant_sharded import (
+            ShardedQuantEmbeddingBagCollection,
+        )
+
+        return ShardedQuantEmbeddingBagCollection
+    raise AttributeError(
+        f"module 'torchrec_tpu_torch.parallel' has no attribute {name!r}")

@@ -86,5 +86,12 @@ class ShardedEmbeddingBag(nn.Module):
     def update(self, ids: torch.Tensor, lengths: torch.Tensor,
                d_pooled: torch.Tensor, learning_rate: float,
                per_sample_weights: Optional[torch.Tensor] = None):
+        """Fused optimizer step, in place.
+
+        Args:
+            ids, lengths, per_sample_weights: the forward's inputs.
+            d_pooled: the cotangent of the forward's output.
+            learning_rate: the fused optimizer's.
+        """
         return self.ebc.update(self._batch(ids, lengths, per_sample_weights),
                                d_pooled, learning_rate)

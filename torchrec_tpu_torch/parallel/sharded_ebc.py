@@ -72,8 +72,11 @@ class ShardedEmbeddingModule(GroupedInputDistMixin, nn.Module):
         self, generator: Optional[torch.Generator] = None
     ) -> Tuple[EmbeddingGroupState, ...]:
         """Draw every table afresh (see BaseEmbeddingShardingStrategy
-        .init_weights) and zero the optimizer state."""
+        .init_weights) and zero the optimizer state. Each group's old block
+        is dropped before its new one is drawn, so that a card holds one
+        block of a table set, not two."""
         for s in self.strategies:
+            s.weights = s.weights.new_empty((0,))
             s.weights = s.init_weights(generator)
             s.reset_opt()
         return self.states
@@ -84,8 +87,10 @@ class ShardedEmbeddingModule(GroupedInputDistMixin, nn.Module):
     ) -> Tuple[EmbeddingGroupState, ...]:
         """Load unsharded per-table [R, D] weights into the shards and
         zero the fused optimizer state, as the JAX module builds every
-        group with a fresh `init_opt()`."""
+        group with a fresh `init_opt()`. The old block is dropped first,
+        as in `init`."""
         for s in self.strategies:
+            s.weights = s.weights.new_empty((0,))
             s.weights = s.shard_from_dense(dense)
             s.reset_opt()
         return self.states

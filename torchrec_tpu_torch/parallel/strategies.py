@@ -528,8 +528,13 @@ class BaseEmbeddingShardingStrategy(nn.Module):
 
     def update(self, sb: PaddedSparseBatch, d_pooled: torch.Tensor,
                learning_rate: float) -> None:
-        """Fused optimizer step from the cotangent of the local batch's
-        pooled output [F, B_loc, D], in place."""
+        """Fused optimizer step, in place.
+
+        Args:
+            sb: the local batch.
+            d_pooled: the cotangent of its pooled output [F, B_loc, D].
+            learning_rate: the fused optimizer's.
+        """
         self.update_from_dist(self.input_dist(sb), d_pooled, learning_rate)
 
 

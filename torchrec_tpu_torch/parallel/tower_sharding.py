@@ -343,7 +343,12 @@ class ShardedEmbeddingTowerCollection(nn.Module):
 
     def forward(self, features: SparseInput,
                 dist: Optional[Any] = None) -> torch.Tensor:
-        """-> [B_loc, sum(d_out)], the towers' outputs in tower order."""
+        """-> [B_loc, sum(d_out)], the towers' outputs in tower order.
+
+        Args:
+            features: the local batch, padded or jagged.
+            dist: ignored (towers have no input dist ahead of the step).
+        """
         del dist  # towers have no input dist ahead of the step
         if self.injected is not None:
             return self.injected
@@ -371,7 +376,14 @@ class ShardedEmbeddingTowerCollection(nn.Module):
         """One fused step, in place, from the cotangent of the forward's
         output [B_loc, sum(d_out)]: the tables under the fused optimizer at
         `learning_rate`, the interaction parameters under SGD at
-        `interaction_lr` (default: `learning_rate`)."""
+        `interaction_lr` (default: `learning_rate`).
+
+        Args:
+            features: the forward's batch.
+            d_out: the cotangent of its output.
+            learning_rate: the fused optimizer's.
+            dist: ignored.
+        """
         del dist
         saved, self._saved = self._saved, None
         if saved is not None and saved[0] is features:

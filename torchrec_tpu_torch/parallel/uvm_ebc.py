@@ -540,7 +540,12 @@ class UvmSplitEmbeddingBagCollection(nn.Module):
 
     def forward(self, features: SparseInput,
                 dist: Optional[Sequence] = None) -> KeyedTensor:
-        """-> KeyedTensor [B_loc, sum(D)] in the module's column order."""
+        """-> KeyedTensor [B_loc, sum(D)] in the module's column order.
+
+        Args:
+            features: the local batch, padded or jagged.
+            dist: ignored (a UVM module gathers in the step).
+        """
         del dist  # a UVM module gathers in the step
         if self.injected is not None:
             return self.injected
@@ -569,7 +574,14 @@ class UvmSplitEmbeddingBagCollection(nn.Module):
         [B_loc, sum(D)]: the device columns through the device part, the
         UVM ones to the owner and through the UVM collection. Reuses the
         global batch of the forward just before it on the same batch
-        object; else gathers it again."""
+        object; else gathers it again.
+
+        Args:
+            features: the forward's batch.
+            d_values: the cotangent of its values.
+            learning_rate: the fused optimizer's.
+            dist: ignored.
+        """
         del dist
         d = d_values[:, self.inv_perm]
         if self.device_part is not None:
