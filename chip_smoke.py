@@ -367,6 +367,39 @@ Phases, each failing the run with a non-zero exit when it fails:
    1 M random ids, the card-made RandomRecDataset and
    SyntheticCriteoDataset batches in range. Each step's seconds and the
    numbers are printed ("examples numbers: {...}").
+21. Every table width. (1) The update kernels against their plain
+   versions, every one bit for bit, on 4,096-row tables with 3,072 tokens
+   (hot rows repeated, 15 % invalid) at D = 1, 3, 10, 130, 516, 1030 and
+   4096, and on two unaligned views (an odd row of a D=10 block; a D=128
+   table one element into its storage), weight decay 0.01: K2, K3, K4's
+   scaled RMW, the fused K4 (its wide path past 512 columns), K5 on the
+   unfused route, K6 and K7 on f32 tables, K3h and K4h on bf16 and fp16
+   ones under both epilogues; the rowwise routes' momenta bit for bit
+   with each other, their rows bit for bit within a momentum route. (2)
+   The main path, its launches counted from 0: SimpleDeepFMNN over the 26
+   Criteo Kaggle tables at D=10 (33,762,577 rows, 1.35 GB of fp32; BARS'
+   Criteo_x1 DeepFM, FuxiCTR's embedding size), dense arch 13 -> 400 ->
+   10, deep width 400, fused lr 0.1, dense Adam 1e-3, B=8192. Served
+   given no plan (the planner's), under a ROW_WISE plan and with bf16
+   tables: 3 requests at B=8192 and 3 at B=256, K1 (K1h) once each on
+   its scalar path. Trained given no plan under EXACT_SGD (K3),
+   ROWWISE_ADAGRAD on its default route (the fused K4), with mom_impl=
+   "xla" (the scaled RMW) and with w_impl="write" (K5 and K2), ADAGRAD
+   (K6), ADAM (K7), and with bf16 tables under EXACT_SGD (K3h) and
+   ROWWISE_ADAGRAD (K4h), and under the ROW_WISE plan for EXACT_SGD and
+   ROWWISE_ADAGRAD: 3 warm-up and 10 timed steps, each launching one K1
+   (K1h) and its route's update and nothing else, losses finite, then one
+   step held against the plain versions (K1's pooled output over the rows
+   it read; the touched rows and momenta against apply_fused_update on
+   the CPU at their own row ids, f32 within EX_RTOL, half rows within one
+   ulp; untouched rows equal). The counters must equal the requests' and
+   steps' sum. (3) Each default route's kernel held bit-exact and timed
+   on its held step's ids and gradients (K3, the fused K4 in turns with
+   the unfused composition, K5, K6, K7, K3h and K4h with fp16 copies);
+   K1, K1h, K8, the routed gather and Kq (8 and 4 bits) at D=10 on a
+   [33,762,577, 10] table and one batch of the Kaggle features; the wide
+   rowwise path at D=1030 (100,000 rows, 65,536 ids) in f32, in turns
+   with the unfused composition, and as K4h in bf16 and fp16.
 
 Kernel times are device times from torch.profiler (the kernel's own for a
 kernel, all device activity of the call for the plain version and the
@@ -375,7 +408,9 @@ it, which includes the host's time to make the call where that is longer.
 
 The line before the last is a JSON object with every kernel's numbers
 (K1h, K3h and K4h with an "fp16" sub-entry, K4h with "bert4rec_shape",
-Kq with "int4" and K1's time at the same ids);
+Kq with "int4" and K1's time at the same ids; phase 21's under
+"widths", "d10_shape" and "wide_d1030", the scaled RMW's under K4's
+"scaled_rmw");
 the last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 outside a checkout of the repository, it exits non-zero and prints no
 result.
@@ -450,6 +485,9 @@ COTANGENT_REL = 0.1
 # the card's branch on the CPU in check_pw_against_cpu
 FWD_ATOL = 1e-5
 
+# the fused rowwise kernels' names as the profiler prints them: rows of up
+# to 512 columns (rowwise_adagrad_kernel) and wider (..._wide_kernel)
+ROWWISE_KERNELS = "rowwise_adagrad_"
 # kernel -> (wrapper name, source, the Pallas function it replaces)
 KERNELS = {
     "K1": ("tbe_lookup_pooled", "torchrec_tpu_torch/csrc/tbe_lookup.cu",
@@ -1215,12 +1253,12 @@ def check_rowwise(fk, W, M, u_dd, g_dd, lr, what: str = "DLRM") -> dict:
         fk.rowwise_adagrad_unfused(W3, M3, u_dd, g_dd, lr)
 
     k4 = {"max_abs_err": max(errs), "bound": b4,
-          **timings(fused, "rowwise_adagrad_kernel", b4["ms"],
+          **timings(fused, ROWWISE_KERNELS, b4["ms"],
                     lambda: fk.fused_update_rowwise_adagrad_reference(
                         W2, M2, u_dd, g_dd, lr, momentum_stream=True))}
     # in turns: fused (above), unfused, unfused, fused
     unfused_ms = [device_ms(unfused, bound_ms=b4["ms"]) for _ in range(2)]
-    fused_ms = [k4["ms"], device_ms(fused, "rowwise_adagrad_kernel",
+    fused_ms = [k4["ms"], device_ms(fused, ROWWISE_KERNELS,
                                     b4["ms"])]
     k4["ms"] = sum(fused_ms) / 2
     k4["unfused_ms"] = sum(unfused_ms) / 2
@@ -1268,17 +1306,25 @@ def check_moment_kernels(dmp, fk) -> dict:
 
     strat = dmp.sharded_ebcs[TRAIN_KEY].strategies[0]
     adam = strat.optim is fu.EmbOptimType.ADAM
-    k = "K7" if adam else "K6"
     state = [strat.weights[0], strat.momentum1[0]] + (
         [strat.momentum2[0]] if adam else [])
-    R, D = state[0].shape
-    lr = FUSED_LR
     flat, valid, row_grads = batch_grads(strat)
-    u_rt, g_rt = fu.run_total_row_grads(flat, row_grads, valid, R)
+    u_rt, g_rt = fu.run_total_row_grads(flat, row_grads, valid,
+                                        state[0].shape[0])
     del flat, valid, row_grads
+    return report(hold_moments(fk, "K7" if adam else "K6", state, u_rt,
+                               g_rt, FUSED_LR, strat.step + 1))
+
+
+def hold_moments(fk, k: str, state, u_rt, g_rt, lr: float, step,
+                 what: str = "") -> dict:
+    """K6 (state [W, m]) or K7 ([W, m1, m2]) against its plain version on
+    clones of the state with these run totals at this step, bit-exact at
+    weight decay 0 and 0.01, then timed; `report`'s input."""
+    adam = k == "K7"
+    R, D = state[0].shape
     N, n_real = int(u_rt.numel()), int((u_rt < R).sum())
-    step = strat.step + 1
-    log(f"{k}: N={N} slots, {n_real} distinct rows, step {int(step)}; "
+    log(f"{k}{what}: N={N} slots, {n_real} distinct rows, step {int(step)}; "
         f"{len(state)} tensors of {tuple(state[0].shape)}")
 
     def kernel(ts, wd=0.0):
@@ -1303,11 +1349,10 @@ def check_moment_kernels(dmp, fk) -> dict:
     # read W, the momenta and g, write W and the momenta: 5 or 7 rows
     bound_ = rows_bound(N, n_real, D, rows_moved=2 * len(state) + 1,
                         flops_per_elem=14 if adam else 7)
-    out = {k: {"max_abs_err": max(errs), "bound": bound_,
-               **timings(lambda: kernel(a), "moment_update_kernel",
-                         bound_["ms"],
-                         lambda: plain(b))}}
-    return report(out)
+    return {k: {"max_abs_err": max(errs), "bound": bound_,
+                **timings(lambda: kernel(a), "moment_update_kernel",
+                          bound_["ms"],
+                          lambda: plain(b))}}
 
 # -- BERT4Rec ----------------------------------------------------------------
 
@@ -2529,7 +2574,7 @@ def check_half_update(fk, k, args, what: str) -> dict:
             fk.fused_update_rowwise_adagrad_half_reference(
                 ts[0], ts[1], uids, g, lr, step, stochastic_rounding=sr,
                 row_base=base)
-    name = "sgd_half_kernel" if k == "K3h" else "rowwise_adagrad_kernel"
+    name = "sgd_half_kernel" if k == "K3h" else ROWWISE_KERNELS
     R, D = W.shape
     N, n_real = int(uids.numel()), int((uids < R).sum())
     # a 2-byte row read and written, a 4-byte g row read (and K4h's
@@ -5802,14 +5847,57 @@ def loader_rates(days: str) -> dict:
 
 def hold_example_step(dmp, batch) -> dict:
     """One dlrm_main train step (the DMP's step, as the base pipeline takes
-    it) on a loader batch, held against the plain versions: K1's pooled
-    output against the plain pooled lookup over copies of the rows it
-    read; the touched rows and momenta after the fused K4 against the
-    plain rowwise Adagrad update (apply_fused_update on the CPU) of those
-    copies with the step's row gradients, within EX_RTOL; EX_SAMPLE seeded
-    untouched rows, and as many past element 2^31 of the block, unchanged.
-    The batch must address rows past element 2^31 (tables 23-25 at D=64):
-    their slots are counted a feature."""
+    it) on a loader batch, held against the plain versions by
+    hold_train_step: one K1 and one fused K4, EX_SAMPLE seeded untouched
+    rows and as many past element 2^31 of the block unchanged. The batch
+    must address rows past element 2^31 (tables 23-25 at D=64): their
+    slots are counted a feature."""
+    from torchrec_tpu_torch.parallel import strategies
+
+    (strat,) = dmp.sharded_ebcs[TRAIN_KEY].strategies
+    if not isinstance(strat, strategies.DpEmbeddingSharding):
+        raise AssertionError(f"examples: the plan's group is "
+                             f"{type(strat).__name__}, not DATA_PARALLEL")
+    D = strat.weights.shape[1]
+    n_rows = int(strat.row_offsets[-1]) + strat.meta.tables[-1].rows
+    first_past = EX_PAST // D  # the first row at element 2^31 or beyond
+    rng = np.random.RandomState(SEED + 53)
+    sample = torch.from_numpy(np.concatenate([
+        rng.randint(0, n_rows, EX_SAMPLE),
+        rng.randint(first_past, n_rows, EX_SAMPLE)])).to(DEVICE)
+    held = hold_train_step(dmp.make_train_step(),
+                           batch.to(DEVICE).batch_args(),
+                           expected(K1=1, K4=1), "examples", sample=sample)
+    ids = held["ids"]
+    past = ids * D >= EX_PAST
+    past_by_feature = {f: int(past[f].sum()) for f in range(ids.shape[0])
+                       if past[f].any()}
+    if not past_by_feature:
+        raise AssertionError("examples: the held step read no row past "
+                             "element 2^31")
+    return {**held["held"],
+            "rows_past_2_31": int((held["rows"] >= first_past).sum()),
+            "slots_past_2_31_by_feature": past_by_feature}
+
+
+def hold_train_step(step, batch, per_step: dict, what: str,
+                    capture: str = "", sample=None) -> dict:
+    """One train step, which must launch `per_step`, held against the
+    plain versions: the pooled output of its first lookup against the
+    plain pooled lookup over the rows it read (rtol = atol = 1e-6); the
+    rows and momenta its first update touched against apply_fused_update
+    on the CPU, run on the step's own ids and row gradients over CPU
+    tables holding copies of those rows taken before the step (at their
+    own row ids, so stochastic rounding draws the same bits): f32 rows and
+    every momentum within EX_RTOL (and EX_RTOL of the tensor's scale near
+    zero), half rows within one ulp of the table's dtype (the duplicate
+    rows' gradient sums add in another order, and stochastic rounding may
+    then take the other neighbour); the rows of `sample` (default
+    EX_SAMPLE seeded rows of the table) that it did not touch unchanged.
+    With `capture`, that fk wrapper's positional arguments are kept.
+    Returns {"held": the numbers, "args": the captured arguments, "ids":
+    the lookup's ids, "rows": the rows the update touched}."""
+    from torchrec_tpu_torch.ops import fused_update_kernels as fk
     from torchrec_tpu_torch.ops import tbe_lookup as tl
     from torchrec_tpu_torch.ops.fused_update import (
         FusedOptimizerState,
@@ -5817,107 +5905,117 @@ def hold_example_step(dmp, batch) -> dict:
     )
     from torchrec_tpu_torch.parallel import strategies
 
-    (strat,) = dmp.sharded_ebcs[TRAIN_KEY].strategies
-    if not isinstance(strat, strategies.DpEmbeddingSharding):
-        raise AssertionError(f"examples: the plan's group is "
-                             f"{type(strat).__name__}, not DATA_PARALLEL")
-    W, M = strat.weights, strat.momentum1
-    D = W.shape[1]
-    n_rows = int(strat.row_offsets[-1]) + strat.meta.tables[-1].rows
-    first_past = EX_PAST // D  # the first row at element 2^31 or beyond
     seen: dict = {}
     lookup, update = strategies.pooled_lookup, strategies.apply_fused_update
+    rng = np.random.RandomState(SEED + 63)
 
     def watched_lookup(weights, ids, coeff):
-        if weights is W and "out" not in seen:
+        out = lookup(weights, ids, coeff)
+        if "out" not in seen:
             uniq = torch.unique(ids.reshape(-1).long())
-            seen.update(ids=ids.cpu(), coeff=coeff.cpu(), uniq=uniq.cpu(),
-                        rows=W[uniq].cpu(), m1=M[uniq].cpu())
-            out = lookup(weights, ids, coeff)
-            seen["out"] = out.cpu()
-            return out
-        return lookup(weights, ids, coeff)
+            seen.update(ids=ids.cpu(), coeff=coeff.cpu(), l_uniq=uniq.cpu(),
+                        l_rows=weights[uniq].cpu(), out=out.cpu())
+        return out
 
     def watched_update(weights, opt, ids, grads, valid, lr, **kw):
-        if weights is W and "grads" not in seen:
-            seen.update(flat=ids.cpu(), grads=grads.cpu(), valid=valid.cpu(),
-                        lr=lr, kw=kw, step=int(opt.step))
+        if "grads" not in seen:
+            uniq = torch.unique(ids[valid].long())
+            rows = sample
+            if rows is None:
+                rows = torch.from_numpy(rng.randint(
+                    0, weights.shape[0], EX_SAMPLE)).to(weights.device)
+            seen.update(
+                W=weights, opt=opt, uniq=uniq, flat=ids.cpu(),
+                grads=grads.cpu(), valid=valid.cpu(), lr=lr, kw=kw,
+                step=int(opt.step), rows=weights[uniq].cpu(),
+                moms={n: getattr(opt, n)[uniq].cpu()
+                      for n in ("momentum1", "momentum2")
+                      if getattr(opt, n) is not None},
+                sample=rows, sample_before=weights[rows].cpu())
         return update(weights, opt, ids, grads, valid, lr, **kw)
 
-    rng = np.random.RandomState(SEED + 53)
-    sample = torch.from_numpy(np.concatenate([
-        rng.randint(0, n_rows, EX_SAMPLE),
-        rng.randint(first_past, n_rows, EX_SAMPLE)])).to(DEVICE)
-    sample_before = W[sample].cpu()
-    args = batch.to(DEVICE).batch_args()
-    step = dmp.make_train_step()
     strategies.pooled_lookup = watched_lookup
     strategies.apply_fused_update = watched_update
     try:
-        torch.cuda.synchronize()
-        before = counts()
-        loss, _ = step(*args)
-        torch.cuda.synchronize()
-        launched = _moved(counts(), before)
+        with (capturing(fk, capture, seen) if capture
+              else contextlib.nullcontext()):
+            torch.cuda.synchronize()
+            before = counts()
+            loss, _ = step(*batch)
+            torch.cuda.synchronize()
+            after = counts()
     finally:
         strategies.pooled_lookup, strategies.apply_fused_update = (
             lookup, update)
-    if launched != {"K1": 1, "K4": 1} or not math.isfinite(float(loss)):
-        raise AssertionError(f"examples: the held step launched {launched}, "
+    launched = {k: after[k] - before[k] for k in after}
+    if launched != per_step or not math.isfinite(float(loss)):
+        raise AssertionError(f"{what}: the held step launched {launched}, "
                              f"loss {float(loss)}")
     if "out" not in seen or "grads" not in seen:
-        raise AssertionError("examples: the held step's lookup or update "
-                             "was not seen")
-    uniq = seen["uniq"]
-    ids = seen["ids"].long()
-    past = ids * D >= EX_PAST
-    past_by_feature = {f: int(past[f].sum()) for f in range(ids.shape[0])
-                       if past[f].any()}
-    if not past_by_feature:
-        raise AssertionError("examples: the held step read no row past "
-                             "element 2^31")
+        raise AssertionError(f"{what}: the held step's lookup or update was "
+                             f"not seen")
 
-    # K1: the plain pooled lookup over the rows it read
-    slots = torch.searchsorted(uniq, ids).to(torch.int32)
-    L = ids.shape[-1]
+    # the lookup: the plain pooled lookup over the rows it read
+    ids = seen["ids"].long()
+    Lk = ids.shape[-1]
+    slots = torch.searchsorted(seen["l_uniq"], ids).to(torch.int32)
     ref = tl.tbe_lookup_pooled_reference(
-        seen["rows"], slots.reshape(-1, L).contiguous(),
-        seen["coeff"].reshape(-1, L).contiguous()).reshape(seen["out"].shape)
+        seen["l_rows"], slots.reshape(-1, Lk).contiguous(),
+        seen["coeff"].reshape(-1, Lk).contiguous()).reshape(seen["out"].shape)
     torch.testing.assert_close(seen["out"], ref, rtol=1e-6, atol=1e-6)
     pooled_err = (seen["out"] - ref).abs().max().item()
 
-    # the fused K4: the plain rowwise Adagrad update of the same rows
-    w_ref, m_ref = seen["rows"].clone(), seen["m1"].clone()
+    # the update: the plain apply_fused_update on the CPU
+    W, opt, uniq = seen["W"], seen["opt"], seen["uniq"]
+    u = uniq.cpu()
+    w_ref = torch.zeros(W.shape, dtype=W.dtype)
+    w_ref[u] = seen["rows"]
+    moms = {}
+    for n, rows in seen["moms"].items():
+        moms[n] = torch.zeros(getattr(opt, n).shape, dtype=torch.float32)
+        moms[n][u] = rows
     apply_fused_update(
         w_ref, FusedOptimizerState(
-            momentum1=m_ref, momentum2=None,
+            momentum1=moms.get("momentum1"), momentum2=moms.get("momentum2"),
             step=torch.tensor(seen["step"], dtype=torch.int32),
-            optim=strat.optim),
-        torch.searchsorted(uniq, seen["flat"].long()).to(torch.int32),
-        seen["grads"], seen["valid"], seen["lr"], **seen["kw"])
-    idx = uniq.to(DEVICE)
-    w_got, m_got = W[idx].cpu(), M[idx].cpu()
-    torch.testing.assert_close(w_got, w_ref, rtol=EX_RTOL,
-                               atol=EX_RTOL * w_ref.abs().max().item())
-    torch.testing.assert_close(m_got, m_ref, rtol=EX_RTOL,
-                               atol=EX_RTOL * m_ref.abs().max().item())
-    moved = ~torch.isin(sample.cpu(), uniq)
-    if not torch.equal(W[sample].cpu()[moved], sample_before[moved]):
-        raise AssertionError("examples: an untouched row moved in the held "
-                             "step")
-    out = {"slots": int(ids.numel()), "rows": int(uniq.numel()),
-           "rows_past_2_31": int((uniq >= first_past).sum()),
-           "slots_past_2_31_by_feature": past_by_feature,
+            optim=opt.optim),
+        seen["flat"], seen["grads"], seen["valid"], seen["lr"], **seen["kw"])
+    got, want = W[uniq].cpu(), w_ref[u]
+    if W.dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=EX_RTOL,
+                                   atol=EX_RTOL * want.abs().max().item())
+        off_ulp = None
+    else:
+        ulp = (torch.nextafter(want, torch.full_like(want, math.inf)).float()
+               - want.float())
+        diff = (got.float() - want.float()).abs()
+        if not bool((diff <= ulp).all()):
+            raise AssertionError(f"{what}: a touched half row is more than "
+                                 f"an ulp from the CPU's update")
+        off_ulp = int((got != want).sum())
+    mom_err = 0.0
+    for n, m in moms.items():
+        g_m, w_m = getattr(opt, n)[uniq].cpu(), m[u]
+        torch.testing.assert_close(g_m, w_m, rtol=EX_RTOL,
+                                   atol=EX_RTOL * w_m.abs().max().item())
+        mom_err = max(mom_err, (g_m - w_m).abs().max().item())
+    checked = seen["sample"]
+    moved = ~torch.isin(checked, uniq)
+    if not torch.equal(W[checked][moved].cpu(),
+                       seen["sample_before"][moved.cpu()]):
+        raise AssertionError(f"{what}: an untouched row moved in the held "
+                             f"step")
+    out = {"slots": int(seen["flat"].numel()), "rows": int(u.numel()),
            "pooled_max_abs_err": pooled_err,
-           "rows_max_abs_err": (w_got - w_ref).abs().max().item(),
-           "momenta_max_abs_err": (m_got - m_ref).abs().max().item(),
+           "rows_max_abs_err": (got.float() - want.float()).abs().max()
+           .item(), "momenta_max_abs_err": mom_err,
            "untouched_checked": int(moved.sum())}
-    log(f"examples: one dlrm_main step on a loader batch (launched "
-        f"{launched}) held against the plain versions: pooled output within "
-        f"rtol=atol=1e-6 of the plain lookup, rows and momenta within rtol "
-        f"{EX_RTOL} of the plain rowwise Adagrad update on the CPU, "
-        f"untouched rows equal: {out}")
-    return out
+    if off_ulp is not None:
+        out["elements_one_ulp_off"] = off_ulp
+    nonzero = {k: v for k, v in launched.items() if v}
+    log(f"{what}: one step (launched {nonzero}) held against the plain "
+        f"versions on the CPU: {out}")
+    return {"held": out, "args": seen.get(capture), "ids": ids, "rows": u}
 
 
 @contextlib.contextmanager
@@ -6231,6 +6329,571 @@ def examples_phase() -> dict:
     return launches
 
 
+# -- phase 21: every table width ---------------------------------------------
+
+# the update kernels' widths: 1 and 3 (column-wise shards: COLUMN_WISE asks
+# only that a width divide by the world size), 10 (the DeepFM below), 130
+# (a masked second chunk), 516, 1030 and 4096 (the fused rowwise kernel's
+# wide path); each on a table of WIDTH_ROWS rows and WIDTH_TOKENS tokens
+WIDTHS = (1, 3, 10, 130, 516, 1030, 4096)
+WIDTH_ROWS, WIDTH_TOKENS = 4096, 3072
+# the unaligned views: (D, elements into the storage) — an odd row of a
+# D=10 block, and a D=128 table one element in (whole quads, unaligned)
+WIDTH_VIEWS = ((10, 10), (128, 1))
+# the wide rowwise path timed at a bytes-bound shape
+WIDE_D, WIDE_ROWS, WIDE_TOKENS = 1030, 100_000, 65_536
+# SimpleDeepFMNN over the 26 Criteo Kaggle tables (33,762,577 rows) at
+# embedding size 10: the DeepFM of the open CTR benchmark BARS on
+# Criteo_x1 (FuxiCTR's configuration, embedding_dim 10); dense arch
+# 13 -> 400 -> 10 and deep width 400, phase 14's
+KD_DIM = 10
+# (optimizer, fused_params, the tables' DataType, the update's launches
+# per group and step); each trained under the planner's plan
+KD_ROUTES = (
+    ("EXACT_SGD", {}, "FP32", {"K3": 1}),
+    ("ROWWISE_ADAGRAD", {}, "FP32", {"K4": 1}),
+    ("ROWWISE_ADAGRAD", {"mom_impl": "xla"}, "FP32", {SCALED: 1}),
+    ("ROWWISE_ADAGRAD", {"w_impl": "write"}, "FP32", {"K5": 1, "K2": 1}),
+    ("ADAGRAD", {}, "FP32", {"K6": 1}),
+    ("ADAM", {}, "FP32", {"K7": 1}),
+    ("EXACT_SGD", {}, "BF16", {"K3h": 1}),
+    ("ROWWISE_ADAGRAD", {}, "BF16", {"K4h": 1}),
+)
+# the routes trained again under one ROW_WISE plan
+KD_ROW_WISE = (0, 1)
+
+
+def _placed(t: torch.Tensor, offset: int) -> torch.Tensor:
+    """A contiguous copy of t that starts `offset` elements into its
+    storage (0: an aligned copy)."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    out = buf[offset:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def check_width(fk, D: int, offset: int, rng) -> dict:
+    """Every update kernel against its plain version on a [WIDTH_ROWS, D]
+    table whose tensors start `offset` elements into their storage, with
+    WIDTH_TOKENS tokens (hot rows repeated, 15 % invalid) combined as the
+    routes combine them, at weight decay 0.01: K2, K3, K4's scaled RMW, the
+    fused K4, K5 on the unfused route, K6 and K7 on f32 tables, K3h and K4h
+    on bf16 and fp16 ones under both epilogues, every one bit for bit. The
+    rowwise routes against each other: the momentum bit for bit on all
+    four, the rows bit for bit between the two row writes of a momentum
+    route and within rtol 1e-6 / atol 1e-7 between the two momentum routes
+    (lr * inv against -lr / (...), test_k4_routes_agree_on_momentum's
+    bound). Returns each kernel's largest difference."""
+    from torchrec_tpu_torch.ops import fused_update as fu
+
+    R, T, lr, wd = WIDTH_ROWS, WIDTH_TOKENS, FUSED_LR, 0.01
+    dev = torch.device(DEVICE)
+
+    def put(a):
+        return _placed(torch.from_numpy(np.ascontiguousarray(a)).to(dev),
+                       offset)
+
+    flat = rng.randint(0, R, size=T).astype(np.int32)
+    flat[:T // 4] = rng.randint(0, 20, size=T // 4)
+    valid = torch.from_numpy(rng.rand(T) > 0.15).to(dev)
+    grads = torch.from_numpy(
+        (rng.randn(T, D) * 1e-2).astype(np.float32)).to(dev)
+    flat = torch.from_numpy(flat).to(dev)
+    u_rt, g_rt = fu.run_total_row_grads(flat, grads, valid, R)
+    u_dd, g_dd = fu.dedup_row_grads(flat, grads, valid, R)
+    g_rt, g_dd = _placed(g_rt, offset), _placed(g_dd, offset)
+    W = put((rng.randn(R, D) * 0.1).astype(np.float32))
+    M = put(rng.rand(R).astype(np.float32))
+    M1 = put((rng.rand(R, D) * 0.01).astype(np.float32))
+    M2 = put((rng.rand(R, D) * 0.01).astype(np.float32))
+    step = torch.full((), START_STEP + 1, dtype=torch.int32, device=dev)
+    errs = {}
+
+    def hold(k, kernel, plain, *state):
+        a = [_placed(t, offset) for t in state]
+        b = [_placed(t, offset) for t in state]
+        kernel(*a)
+        plain(*b)
+        errs[k] = max(errs.get(k, 0.0), _hold(
+            f"{k} at D={D} (offset {offset})", list(zip(a, b))))
+        return a, b
+
+    rows = _placed(W[u_rt.clamp(max=R - 1).long()] - lr * g_rt, offset)
+    hold("K2", lambda w: fk.scatter_rows_write(w, u_rt, rows),
+         lambda w: fk.scatter_rows_write_reference(w, u_rt, rows), W)
+    hold("K3", lambda w: fk.fused_update_sgd(w, u_rt, g_rt, lr, wd),
+         lambda w: fk.fused_update_sgd_reference(w, u_rt, g_rt, lr, wd), W)
+    g_sq = fk.row_mean_sq(g_dd) * (u_dd < R).to(torch.float32)
+    _, inv, _ = fk.rowwise_momentum_stream_reference(M.clone(), u_dd, g_sq)
+    scale = lr * inv
+    hold(SCALED, lambda w: fk.scaled_row_update(w, u_dd, g_dd, scale),
+         lambda w: fk.scaled_row_update_reference(w, u_dd, g_dd, scale), W)
+    # the rowwise routes, each against the plain default route
+    routes = {}
+    for stream, w_impl in ((True, "rmw"), (True, "write"), (False, "rmw")):
+        k = {(True, "rmw"): "K5", (True, "write"): "K5",
+             (False, "rmw"): SCALED}[stream, w_impl]
+        a, b = hold(k, lambda w, m: fk.rowwise_adagrad_unfused(
+            w, m, u_dd, g_dd, lr, weight_decay=wd, momentum_stream=stream,
+            w_impl=w_impl),
+            lambda w, m: fk.fused_update_rowwise_adagrad_reference(
+                w, m, u_dd, g_dd, lr, weight_decay=wd,
+                momentum_stream=stream, w_impl=w_impl), W, M)
+        routes[stream, w_impl] = a
+    fused, _ = hold("K4", lambda w, m: fk.fused_update_rowwise_adagrad(
+        w, m, u_dd, g_dd, lr, weight_decay=wd, momentum_stream=True),
+        lambda w, m: fk.fused_update_rowwise_adagrad_reference(
+            w, m, u_dd, g_dd, lr, weight_decay=wd, momentum_stream=True),
+        W, M)
+    for (stream, w_impl), (w, m) in routes.items():
+        _hold(f"the rowwise momentum at D={D}, route {stream}/{w_impl}",
+              [(m, fused[1])])
+        if stream:
+            _hold(f"the rowwise rows at D={D}, route {w_impl}",
+                  [(w, fused[0])])
+        else:
+            torch.testing.assert_close(w, fused[0], rtol=1e-6, atol=1e-7)
+    hold("K6", lambda w, m: fk.fused_update_adagrad(
+        w, m, u_rt, g_rt, lr, weight_decay=wd),
+        lambda w, m: fk.fused_update_adagrad_reference(
+            w, m, u_rt, g_rt, lr, weight_decay=wd), W, M1)
+    hold("K7", lambda w, m1, m2: fk.fused_update_adam(
+        w, m1, m2, u_rt, g_rt, lr, step, weight_decay=wd),
+        lambda w, m1, m2: fk.fused_update_adam_reference(
+            w, m1, m2, u_rt, g_rt, lr, step, weight_decay=wd), W, M1, M2)
+    for dtype in (torch.bfloat16, torch.float16):
+        Wh = _placed(W.to(dtype), offset)
+        for sr, base in ((True, 0), (True, 3 * R), (False, 0)):
+            kw = dict(weight_decay=wd, stochastic_rounding=sr, row_base=base)
+            hold("K3h", lambda w: fk.fused_update_sgd_half(
+                w, u_rt, g_rt, lr, step, **kw),
+                lambda w: fk.fused_update_sgd_half_reference(
+                    w, u_rt, g_rt, lr, step, **kw), Wh)
+            hold("K4h", lambda w, m: fk.fused_update_rowwise_adagrad_half(
+                w, m, u_dd, g_dd, lr, step, **kw),
+                lambda w, m: fk.fused_update_rowwise_adagrad_half_reference(
+                    w, m, u_dd, g_dd, lr, step, **kw), Wh, M)
+    return errs
+
+
+def check_widths(fk) -> dict:
+    """check_width at every width of WIDTHS and at the unaligned views of
+    WIDTH_VIEWS. Returns per kernel the cases held and the largest
+    difference (0: every case bit for bit)."""
+    rng = np.random.RandomState(SEED + 60)
+    cases = [(D, 0) for D in WIDTHS] + list(WIDTH_VIEWS)
+    out: dict = {}
+    for D, offset in cases:
+        for k, err in check_width(fk, D, offset, rng).items():
+            r = out.setdefault(k, {"cases": 0, "max_abs_err": 0.0})
+            r["cases"] += 1
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+    log(f"widths: K2, K3, K4's scaled RMW, the fused K4, K5, K6, K7, K3h and "
+        f"K4h (bf16 and fp16, both epilogues) bit for bit with their plain "
+        f"versions at D in {WIDTHS} and at the views (D, elements in) "
+        f"{WIDTH_VIEWS}; the rowwise routes agree (momentum bit for bit): "
+        f"{out}")
+    return out
+
+
+def kd_cards() -> tuple:
+    from torchrec_tpu_torch.datasets.synthetic_criteo import (
+        CRITEO_KAGGLE_CARDINALITIES,
+    )
+
+    return tuple(CRITEO_KAGGLE_CARDINALITIES)
+
+
+def make_kd_dmp(device: str, train: bool = False, optim=None,
+                fused_params=None, data_type: str = "FP32",
+                planned: bool = True):
+    """The Criteo Kaggle SimpleDeepFMNN at D=KD_DIM (DeepFMTrain when
+    `train`) on `device`: fused lr 0.1 (`optim`, default ROWWISE_ADAGRAD,
+    with `fused_params`), dense Adam at 1e-3; its tables of `data_type`
+    planned by the DMP's planner, or all ROW_WISE."""
+    from torchrec_tpu_torch.models import SimpleDeepFMNN
+    from torchrec_tpu_torch.modules import (
+        EmbeddingBagCollection,
+        EmbeddingBagConfig,
+    )
+    from torchrec_tpu_torch.modules.embedding_configs import DataType
+    from torchrec_tpu_torch.ops.fused_update import EmbOptimType
+    from torchrec_tpu_torch.parallel import (
+        DistributedModelParallel,
+        ParameterSharding,
+        ShardingPlan,
+        ShardingType,
+    )
+
+    tables = [EmbeddingBagConfig(num_embeddings=c, embedding_dim=KD_DIM,
+                                 name=f"t{i}", feature_names=[f"f{i}"],
+                                 data_type=DataType[data_type])
+              for i, c in enumerate(kd_cards())]
+    model = SimpleDeepFMNN(
+        DENSE_IN, EmbeddingBagCollection(tables, max_feature_length=L,
+                                         device="meta"),
+        DFM_HIDDEN, DFM_DEEP, device="meta")
+    if train:
+        model = DeepFMTrain(model)
+    plan = None if planned else ShardingPlan({
+        DFM_TRAIN_KEY if train else DFM_KEY: {
+            t.name: ParameterSharding(ShardingType.ROW_WISE)
+            for t in tables}})
+    return DistributedModelParallel(
+        model, plan=plan, device=device,
+        fused_optim=optim or EmbOptimType.ROWWISE_ADAGRAD,
+        fused_params={"learning_rate": FUSED_LR, **(fused_params or {})},
+        dense_optimizer=lambda p: torch.optim.Adam(p, lr=DFM_DENSE_LR))
+
+
+def kd_request(rng: np.random.RandomState, batch: int):
+    """(dense [B, 13] f32, KeyedJaggedTensor of 26 features x B x 1), each
+    feature's ids uniform over its table's rows."""
+    from torchrec_tpu_torch.sparse import KeyedJaggedTensor
+
+    cards = kd_cards()
+    ids = np.concatenate([rng.randint(0, c, size=batch)
+                          for c in cards]).astype(np.int32)
+    kjt = KeyedJaggedTensor.from_lengths(
+        [f"f{i}" for i in range(len(cards))], ids,
+        np.ones(len(cards) * batch, np.int32))
+    dense = rng.randn(batch, DENSE_IN).astype(np.float32)
+    return torch.from_numpy(dense), kjt
+
+
+def _kd_groups(dmp, key: str) -> tuple:
+    """(sharding groups, the plan's sharding types)."""
+    return (len(dmp.sharded_ebcs[key].strategies),
+            sorted({ps.sharding_type.name
+                    for ps in dmp.plan.plan[key].values()}))
+
+
+def kd_serve(data_type: str, planned: bool) -> dict:
+    """REQUESTS_PER_BATCH requests at B=8192 and at B=256 through
+    make_eval_fn, each launching K1 (K1h on half tables) once per
+    sharding group and nothing else; probabilities finite in [0, 1]."""
+    what = (f"deepfm D={KD_DIM} {data_type} "
+            f"({'planned' if planned else 'ROW_WISE'})")
+    dmp = make_kd_dmp(DEVICE, data_type=data_type,
+                      planned=planned).init(SEED)
+    groups, types = _kd_groups(dmp, DFM_KEY)
+    want = expected(**{"K1" if data_type == "FP32" else "K1h": groups})
+    eval_fn = dmp.make_eval_fn()
+    rng = np.random.RandomState(SEED + 61)
+    requests = [(b, *kd_request(rng, b))
+                for b in [BENCH_BATCH] * REQUESTS_PER_BATCH
+                + [SERVE_BATCH] * REQUESTS_PER_BATCH]
+    latencies = {BENCH_BATCH: [], SERVE_BATCH: []}
+    torch.cuda.synchronize()
+    for batch, dense, kjt in requests:
+        before = counts()
+        t0 = time.perf_counter()
+        p = eval_fn(dense.to(DEVICE), kjt.to(DEVICE)).cpu()
+        latencies[batch].append((time.perf_counter() - t0) * 1e3)
+        after = counts()
+        launched = {k: after[k] - before[k] for k in after}
+        if launched != want:
+            raise AssertionError(f"{what}: a request launched {launched}, "
+                                 f"expected {want}")
+        if (p.shape != (batch, 1) or not bool(torch.isfinite(p).all())
+                or not bool(((p >= 0) & (p <= 1)).all())):
+            raise AssertionError(f"{what}: bad probabilities at B={batch}")
+    for batch, ms in latencies.items():
+        log(f"{what} serve B={batch}: request ms (host clock, H2D + forward "
+            f"+ D2H, first includes warm-up) {ms}")
+    log(f"{what} serve: plan {types}, {groups} group(s), launches per "
+        f"request {({k: v for k, v in want.items() if v})}")
+    return {"request_ms": latencies, "plan": types}
+
+
+def kd_train(route: int, planned: bool = True) -> dict:
+    """KD_ROUTES[route]: WARMUP_STEPS + TIMED_STEPS train steps at B=8192,
+    each launching K1 (K1h) and the route's update once per group and
+    nothing else, losses finite; then one step held (hold_train_step), whose
+    update kernel's arguments are kept on the default routes under the
+    planner's plan."""
+    from torchrec_tpu_torch.ops.fused_update import EmbOptimType
+
+    name, params, data_type, update = KD_ROUTES[route]
+    what = (f"deepfm D={KD_DIM} {data_type} {name}"
+            f"{' ' + str(params) if params else ''} "
+            f"({'planned' if planned else 'ROW_WISE'})")
+    dmp = make_kd_dmp(DEVICE, train=True, optim=EmbOptimType[name],
+                      fused_params=params, data_type=data_type,
+                      planned=planned).init(SEED)
+    groups, types = _kd_groups(dmp, DFM_TRAIN_KEY)
+    lookup = "K1" if data_type == "FP32" else "K1h"
+    per_step = expected(**{lookup: groups},
+                        **{k: v * groups for k, v in update.items()})
+    step = dmp.make_train_step()
+    rng = np.random.RandomState(SEED + 62)
+    batches = []
+    for _ in range(WARMUP_STEPS + TIMED_STEPS + 1):
+        dense, kjt = kd_request(rng, BENCH_BATCH)
+        labels = torch.from_numpy(
+            rng.randint(0, 2, size=BENCH_BATCH).astype(np.float32))
+        batches.append(to_device((dense, kjt, labels)))
+    torch.cuda.synchronize()
+    ms, losses = [], []
+    for i, batch in enumerate(batches[:-1]):
+        before = counts()
+        t0 = time.perf_counter()
+        loss, _ = step(*batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        after = counts()
+        launched = {k: after[k] - before[k] for k in after}
+        losses.append(loss.item())
+        if launched != per_step or not math.isfinite(losses[-1]):
+            raise AssertionError(f"{what} step {i} launched {launched} "
+                                 f"(expected {per_step}), loss {losses[-1]}")
+    timed = ms[WARMUP_STEPS:]
+    median = sorted(timed)[TIMED_STEPS // 2]
+    log(f"{what} B={BENCH_BATCH}: plan {types}, {groups} group(s); losses "
+        f"{losses}")
+    log(f"{what}: warm-up step ms {ms[:WARMUP_STEPS]}; timed step ms (host "
+        f"clock, synchronized) {timed}; min {min(timed):.4f} max "
+        f"{max(timed):.4f} median {median:.4f}; "
+        f"{TIMED_STEPS * BENCH_BATCH / (sum(timed) / 1e3):.1f} examples/s; "
+        f"launches per step {({k: v for k, v in per_step.items() if v})}")
+    capture = ""
+    if planned and not params:
+        capture = KERNELS[next(iter(update))][0]
+    held = hold_train_step(step, batches[-1], per_step, what, capture)
+    return {"ms": timed, "median_ms": median, "held": held["held"],
+            "args": held["args"], "steps": len(batches)}
+
+
+def kd_kernels(captured) -> dict:
+    """Each default route's update kernel held and timed on its held step's
+    arguments (`captured`: (kernel, arguments) pairs), at the D=10
+    DeepFM's shape: K3 (check_sgd), the fused K4 (check_rowwise, with K5
+    and the unfused composition), K6 / K7 (hold_moments), K3h / K4h
+    (check_half_update)."""
+    from torchrec_tpu_torch.ops import fused_update_kernels as fk
+
+    what = f" the D={KD_DIM} DeepFM"
+    out = {}
+    for k, args in captured:
+        if k == "K3":
+            W, uids, g, lr = args
+            out.update(report(check_sgd(fk, W, uids, g, lr), what))
+        elif k == "K4":
+            W, M, uids, g, lr = args
+            rw = check_rowwise(fk, W, M, uids, g, lr, what.strip())
+            out.update(report(rw, what))
+            out["K4"]["unfused_ms"] = rw["K4"]["unfused_ms"]
+        elif k in ("K6", "K7"):  # (W, m1[, m2], uids, g, lr[, step])
+            n = 2 if k == "K6" else 3
+            uids, g, lr = args[n:n + 3]
+            step = args[n + 3] if k == "K7" else 0
+            out.update(report(hold_moments(fk, k, list(args[:n]), uids, g,
+                                           lr, step, what), what))
+        else:
+            out[k] = check_half_update(fk, k, args, what.strip())
+    return out
+
+
+def time_wide(fk) -> dict:
+    """The fused rowwise kernel's wide path at D=WIDE_D on a bytes-bound
+    shape (a [WIDE_ROWS, WIDE_D] table, WIDE_TOKENS uniform ids
+    deduplicated): the f32 kernel through check_rowwise (bit-exact, timed
+    in turns with the unfused composition it replaces there), K4h on a
+    bf16 copy and an fp16 one through check_half_update."""
+    from torchrec_tpu_torch.ops import fused_update as fu
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 65)
+    R, D, T = WIDE_ROWS, WIDE_D, WIDE_TOKENS
+    W = torch.randn((R, D), generator=gen, device=DEVICE) * 0.1
+    M = torch.rand((R,), generator=gen, device=DEVICE)
+    flat = torch.randint(0, R, (T,), generator=gen, device=DEVICE,
+                         dtype=torch.int32)
+    grads = torch.randn((T, D), generator=gen, device=DEVICE) * 1e-3
+    u_dd, g_dd = fu.dedup_row_grads(
+        flat, grads, torch.ones(T, dtype=torch.bool, device=DEVICE), R)
+    del grads
+    what = f" at D={D} (the wide path)"
+    rw = check_rowwise(fk, W, M, u_dd, g_dd, FUSED_LR, what.strip())
+    k4 = report({"K4": rw["K4"]}, what)["K4"]
+    k4["unfused_ms"] = rw["K4"]["unfused_ms"]
+    step = torch.full((), START_STEP, dtype=torch.int32, device=DEVICE)
+    k4h = check_half_update(fk, "K4h", (W.to(torch.bfloat16), M, u_dd, g_dd,
+                                        FUSED_LR, step), what.strip())
+    return {"K4": k4, "K4h": k4h}
+
+
+def check_lookups_d10(tl, gr, ql) -> dict:
+    """The lookups at D=KD_DIM, on a [33,762,577, 10] table drawn on the
+    card and one B=8192 batch of the Kaggle features (one id each, ids
+    uniform over each table's rows): K1 and K1h (bf16) bit-exact with their
+    plain versions and timed beside F.embedding_bag; K8 through
+    check_gather; the routed gather on a rank that owns every row (ids [26,
+    8192, 1] local to each table) equal by value; Kq at 8 and 4 bits,
+    pooled and unpooled, bit-exact. Each on its scalar path."""
+    import torch.nn.functional as F
+
+    from torchrec_tpu_torch.ops.quant import quantize_rowwise
+
+    cards = kd_cards()
+    offs = np.concatenate([[0], np.cumsum(cards)[:-1]]).astype(np.int64)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 66)
+    W = torch.randn((sum(cards), KD_DIM), generator=gen, device=DEVICE)
+    W *= 0.05
+    rng = np.random.RandomState(SEED + 66)
+    local = np.stack([rng.randint(0, c, size=BENCH_BATCH)
+                      for c in cards]).astype(np.int32)  # [F, B]
+    ids = torch.from_numpy(
+        (local + offs[:, None]).reshape(-1, 1).astype(np.int32)).to(DEVICE)
+    coeff = torch.ones(ids.shape, device=DEVICE)
+    out = {}
+    for tag, Wt in (("K1", W), ("K1h", W.to(torch.bfloat16))):
+        got = tl.tbe_lookup_pooled(Wt, ids, coeff)
+        err = _hold(f"{tag} at D={KD_DIM}",
+                    [(got, tl.tbe_lookup_pooled_reference(Wt, ids, coeff))])
+        b = bound(Wt, ids, coeff)
+        psw = coeff.to(Wt.dtype)
+        t = timings(lambda: tl.tbe_lookup_pooled(Wt, ids, coeff),
+                    "tbe_lookup_pooled_kernel", b["ms"],
+                    lambda: tl.tbe_lookup_pooled_reference(Wt, ids, coeff),
+                    lambda: F.embedding_bag(ids, Wt, mode="sum",
+                                            per_sample_weights=psw))
+        out[tag] = {"max_abs_err": err, "ms": t["ms"],
+                    "plain_ms": t["plain_ms"], "library_ms": t["library_ms"],
+                    "bound_ms": b["ms"], "bound_by": b["by"]}
+        log(f"{tag} D={KD_DIM} NB={ids.shape[0]}: bit-exact with its plain "
+            f"version; {t['ms']:.5f} ms on the device (call "
+            f"{t['call_ms']:.4f} ms); plain {t['plain_ms']:.4f} ms; "
+            f"F.embedding_bag {t['library_ms']:.4f} ms; bound "
+            f"{b['ms']:.5f} ms ({b['by']}: {b['bytes']} B with {b['rows']} "
+            f"distinct rows); kernel at {100 * b['ms'] / t['ms']:.1f}% of "
+            f"the bound")
+    k8 = check_gather(W, ids.reshape(-1), f"at D={KD_DIM}")
+    out["K8"] = {k: v for k, v in k8.items() if k != "call_ms"}
+    F_, B_ = local.shape
+    ids3 = torch.from_numpy(local.reshape(F_, B_, 1)).to(DEVICE)
+    lengths = torch.ones((F_, B_), dtype=torch.int32, device=DEVICE)
+    shard_rows = torch.tensor(cards, dtype=torch.int32, device=DEVICE)
+    local_off = torch.from_numpy(offs.astype(np.int32)).to(DEVICE)
+    route = (ids3, lengths, shard_rows, local_off, 0)
+    got = gr.routed_gather_rows(W, *route)
+    err = _hold(f"the routed gather at D={KD_DIM}",
+                [(got, gr.routed_gather_rows_reference(W, *route))])
+    b = gather_bound(int(ids3.numel()), int(torch.unique(ids).numel()),
+                     KD_DIM)
+    t = timings(lambda: gr.routed_gather_rows(W, *route),
+                "routed_gather_kernel", b["ms"],
+                lambda: gr.routed_gather_rows_reference(W, *route))
+    out["K8r"] = {"max_abs_err": err, "ms": t["ms"],
+                  "plain_ms": t["plain_ms"], "library_ms": None,
+                  "bound_ms": b["ms"], "bound_by": b["by"]}
+    log(f"K8r D={KD_DIM}: {F_} x {B_} tokens, equal to its plain version; "
+        f"{t['ms']:.5f} ms on the device; plain {t['plain_ms']:.4f} ms; "
+        f"bound {b['ms']:.5f} ms; kernel at {100 * b['ms'] / t['ms']:.1f}% "
+        f"of the bound")
+    for bits in (8, 4):
+        q = quantize_rowwise(W, bits)
+        args = (q.data, q.scale, q.shift, ids, coeff, bits)
+        got = ql.quant_lookup_pooled(*args)
+        rows = ql.quant_lookup_rows(*args[:3], ids.reshape(-1), bits)
+        err = _hold(f"Kq at {bits} bits, D={KD_DIM}", [
+            (got, ql.quant_lookup_pooled_reference(*args)),
+            (rows, ql.quant_lookup_rows_reference(*args[:3],
+                                                  ids.reshape(-1), bits))])
+        b = quant_bound(bits, KD_DIM, ids, coeff)
+        t = timings(lambda: ql.quant_lookup_pooled(*args),
+                    "quant_lookup_kernel", b["ms"],
+                    lambda: ql.quant_lookup_pooled_reference(*args))
+        out[f"Kq{bits}"] = {"max_abs_err": err, "ms": t["ms"],
+                            "plain_ms": t["plain_ms"], "library_ms": None,
+                            "bound_ms": b["ms"], "bound_by": b["by"]}
+        log(f"Kq {bits} bits D={KD_DIM}: bit-exact with its plain version "
+            f"(pooled and unpooled); {t['ms']:.5f} ms on the device; plain "
+            f"{t['plain_ms']:.4f} ms; bound {b['ms']:.5f} ms; kernel at "
+            f"{100 * b['ms'] / t['ms']:.1f}% of the bound")
+        del q
+    q8, q4 = out.pop("Kq8"), out.pop("Kq4")
+    out["Kq"] = {**q8, "max_abs_err": max(q8["max_abs_err"],
+                                          q4["max_abs_err"]), "int4": q4}
+    return out
+
+
+def widths_phase() -> dict:
+    """Phase 21 (see the module docstring). Returns {"launches": the D=10
+    DeepFM path's launches per counter, read from the counters set to 0
+    just before it (checked against the sum of every request's and step's
+    asserted launches), "results": per kernel, this phase's numbers}."""
+    from torchrec_tpu_torch.ops import fused_update_kernels as fk
+    from torchrec_tpu_torch.ops import gather_rows as gr
+    from torchrec_tpu_torch.ops import quant_lookup as ql
+    from torchrec_tpu_torch.ops import tbe_lookup as tl
+
+    t_phase = time.perf_counter()
+    widths = check_widths(fk)
+    gc_cuda()
+    log(f"widths step 1 (the update kernels at every width): "
+        f"{time.perf_counter() - t_phase:.2f} s")
+
+    # the main path: the D=10 DeepFM served and trained, counted from 0
+    t = time.perf_counter()
+    reset_counts()
+    served = {(dt, planned): kd_serve(dt, planned) for dt, planned in (
+        ("FP32", True), ("FP32", False), ("BF16", True))}
+    gc_cuda()
+    trained = {}
+    for route, planned in ([(r, True) for r in range(len(KD_ROUTES))]
+                           + [(r, False) for r in KD_ROW_WISE]):
+        trained[route, planned] = kd_train(route, planned)
+        gc_cuda()
+    launches = {k: v for k, v in counts().items() if v}
+    want: dict = {}
+    for dt, _ in served:
+        k = "K1" if dt == "FP32" else "K1h"
+        want[k] = want.get(k, 0) + 2 * REQUESTS_PER_BATCH
+    for (route, _), r in trained.items():
+        _, _, dt, update = KD_ROUTES[route]
+        for k, v in {"K1" if dt == "FP32" else "K1h": 1, **update}.items():
+            want[k] = want.get(k, 0) + v * r["steps"]
+    if launches != want:
+        raise AssertionError(f"widths: the DeepFM path launched {launches}, "
+                             f"its requests and steps {want} (one group "
+                             f"each)")
+    log(f"widths step 2 (the D={KD_DIM} DeepFM served and trained): "
+        f"{time.perf_counter() - t:.2f} s; launches {launches} (the "
+        f"counters)")
+
+    t = time.perf_counter()
+    d10 = kd_kernels([(next(iter(KD_ROUTES[r][3])), v.pop("args"))
+                      for (r, _), v in trained.items()
+                      if v["args"] is not None])
+    gc_cuda()
+    d10.update(check_lookups_d10(tl, gr, ql))
+    gc_cuda()
+    wide = time_wide(fk)
+    gc_cuda()
+    log(f"widths step 3 (the kernels at D={KD_DIM} and the wide path "
+        f"timed): {time.perf_counter() - t:.2f} s")
+    numbers = {
+        "serve_request_ms": {f"{dt} {'planned' if p else 'ROW_WISE'}":
+                             r["request_ms"] for (dt, p), r in served.items()},
+        "train_median_ms": {
+            f"{KD_ROUTES[r][2]} {KD_ROUTES[r][0]} {KD_ROUTES[r][1] or ''} "
+            f"{'planned' if p else 'ROW_WISE'}": v["median_ms"]
+            for (r, p), v in trained.items()},
+        "held": {f"{KD_ROUTES[r][2]} {KD_ROUTES[r][0]} "
+                 f"{KD_ROUTES[r][1] or ''} {'planned' if p else 'ROW_WISE'}":
+                 v["held"] for (r, p), v in trained.items()}}
+    log("widths numbers: " + json.dumps(numbers))
+    log(f"widths phase: {time.perf_counter() - t_phase:.2f} s")
+    results = {k: {"widths": v} for k, v in widths.items()}
+    for k, v in d10.items():
+        results.setdefault(k, {})["d10_shape"] = v
+    for k, v in wide.items():
+        results.setdefault(k, {})["wide_d1030"] = v
+    return {"launches": launches, "results": results}
+
+
 def gc_cuda() -> None:
     """Free what Python no longer holds, so that the next peak counts only
     what is alive."""
@@ -6367,6 +7030,22 @@ def main() -> int:
     for k, v in examples_phase().items():
         flat[k] = flat.get(k, 0) + v
 
+    # every table width: the update kernels at D = 1 to 4096 and on
+    # unaligned views, then the Criteo Kaggle DeepFM at D=10 served and
+    # trained on every fused route (K1, K2-K7, K1h, K3h, K4h), its kernels
+    # and lookups held and timed at D=10, the wide rowwise path at D=1030
+    widths = widths_phase()
+    for k, v in widths["launches"].items():
+        flat[k] = flat.get(k, 0) + v
+    for k, v in widths["results"].items():
+        key = k if k in KERNELS else "K4"  # the scaled RMW's under K4
+        into = results[key] if k in KERNELS else results[key].setdefault(
+            "scaled_rmw", {})
+        into.update(v)
+        for sub in v.values():
+            results[key]["max_abs_err"] = max(results[key]["max_abs_err"],
+                                              sub["max_abs_err"])
+
     launches = {k: trained[name]["launches"][k]
                 for name, ks in STEP_KERNELS.items() for k in ks}
     launches["K4"] += b4r_trained["launches"]["K4"]
@@ -6377,16 +7056,18 @@ def main() -> int:
             + dfm["launches"]["K1"] + quant["launches"]["K1"]
             + flat.get("K1", 0)),
         K2=sum(r["K2"] for r in routes) + flat.get("K2", 0),
+        K6=launches["K6"] + flat.get("K6", 0),
+        K7=launches["K7"] + flat.get("K7", 0),
         K3=(launches["K3"] + pw_steps["K3"] + dfm["launches"]["K3"]
             + quant["launches"]["K3"] + flat.get("K3", 0)),
         Kq=quant["launches"]["Kq"] + flat.get("Kq", 0),
         K4=(launches["K4"] + pw_steps["K4"] + dfm["launches"]["K4"]
             + flat.get("K4", 0)),
-        K5=sum(r["K5"] for r in routes),
+        K5=sum(r["K5"] for r in routes) + flat.get("K5", 0),
         K8=unsharded_k8 + pw_steps["K8"] + flat.get("K8", 0),
         K8r=(b4r_served["launches"] + b4r_trained["launches"]["K8r"]
              + flat.get("K8r", 0)),
-        **bf16["launches"])
+        **{k: v + flat.get(k, 0) for k, v in bf16["launches"].items()})
     log(f"launches on the paths: K1 serving ({served_launches}), the "
         f"position-weighted DLRM's serving ({pw_served['launches']}) and "
         f"training ({pw_steps['K1']}), K3 EXACT_SGD training of the DLRM "
@@ -6412,8 +7093,9 @@ def main() -> int:
         f"and the routed gather also the flat-strategies and hierarchical "
         f"phases, with K8 and Kq the latter's, K1, K3, K4 and Kq the "
         f"planner phase's, and K1, K2 (staging), K3, K4 and K8 (write-back) "
-        f"the UVM phase's, and K1, K4, the routed gather and Kq the "
-        f"examples' ({flat}): "
+        f"the UVM phase's, K1, K4, the routed gather and Kq the "
+        f"examples', and K1, K1h, K2-K7, K3h, K4h and the scaled RMW the "
+        f"D={KD_DIM} DeepFM's ({flat}): "
         f"{launches}")
     log(card["smi"])
     log(json.dumps({"kernels": [{

@@ -9,7 +9,7 @@ Builds csrc/fused_update.cu, then:
 1. holds the fused kernel (`fused_update_rowwise_adagrad` on its default
    route) bit-exact against its plain version at D = 4, 64, 96, 128, 256,
    384 and 512 (one to four 512-byte chunks per row) and D = 640 (the
-   composed route: K5 and the scaled RMW), at weight decay 0 and 0.01, on
+   wide path: each row read in two passes), at weight decay 0 and 0.01, on
    5,000-row tables and 3,000 slots deduplicated from random ids;
 2. launches the kernel with 1, 2, 4, 8, 16 and 32 slots per warp at three
    shapes, each value held bit-exact first, and prints the device time of

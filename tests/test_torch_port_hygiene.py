@@ -45,7 +45,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "torchrec_tpu")
 PORT_FILES = sorted((ROOT / "torchrec_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "profile_serving.py",
     ROOT / "profile_train.py", ROOT / "profile_rowwise.py",
-    ROOT / "check_pw_cotangent.py",
+    ROOT / "check_pw_cotangent.py", ROOT / "compare_update_kernels.py",
 ]
 
 

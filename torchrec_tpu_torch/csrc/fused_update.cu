@@ -35,8 +35,8 @@
 // They compute the same functions. None of the TPU's machinery is carried
 // over: the DMA waves capped by 256 semaphores, the SMEM id budget, and
 // K5's one-hot MXU matmuls over [TB, 128] momentum tiles with their
-// contribution windows and `overflowed` fallback. Any N, R and D % 4 == 0
-// are taken, and K5 cannot overflow.
+// contribution windows and `overflowed` fallback. Any N, R and D >= 1 are
+// taken, and K5 cannot overflow.
 //
 // Bound: bytes. K2-K4 move whole 512-byte rows of a D=128 f32 table at
 // random places and do 1-4 flops per element moved; K6 and K7 move five and
@@ -51,6 +51,9 @@
 //     with every lane holding one 16-byte float4 of each tensor, so a
 //     512-byte row is one coalesced request per tensor (wider rows loop over
 //     512-byte chunks). A sentinel slot costs only its 4-byte id.
+//   * Any width: a row whose float4s would not be whole or aligned (D % 4
+//     != 0, or a table view that starts mid-row) takes the masked path,
+//     which the launcher picks from D and the pointers (see "Row access").
 //   * K7's bias corrections bc = [1 / (1 - b1^t), 1 / (1 - b2^t)] are read
 //     from device memory (the caller computes them from the device step), so
 //     no launch waits for the host to learn the step. 1 - b1 and 1 - b2 are
@@ -76,10 +79,13 @@
 // The kernels launch on the caller's stream, allocate nothing and do not
 // synchronise; each entry point returns cudaGetLastError() after its launch.
 
+
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -87,11 +93,115 @@ constexpr int kWarpsPerBlock = 8;
 constexpr int kMomentumThreads = 256;
 constexpr unsigned kFullMask = 0xffffffffu;
 
-enum class RowOp { kWrite, kSgd, kScaled };
-
 __device__ __forceinline__ bool is_real(int32_t id, int64_t R) {
   return id >= 0 && static_cast<int64_t>(id) < R;
 }
+
+// A half element as the low 16 bits of a word, widened exactly / rounded to
+// nearest-even (T only selects the format)
+template <typename T>
+__device__ __forceinline__ float from_bits(uint32_t b);
+template <>
+__device__ __forceinline__ float from_bits<__nv_bfloat16>(uint32_t b) {
+  return __uint_as_float(b << 16);
+}
+template <>
+__device__ __forceinline__ float from_bits<__half>(uint32_t b) {
+  return __half2float(__ushort_as_half(static_cast<unsigned short>(b)));
+}
+
+template <typename T>
+__device__ __forceinline__ uint32_t to_bits(float x);
+template <>
+__device__ __forceinline__ uint32_t to_bits<__nv_bfloat16>(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+template <>
+__device__ __forceinline__ uint32_t to_bits<__half>(float x) {
+  return __half_as_ushort(__float2half_rn(x));
+}
+
+// -- Row access: the vector path and the masked path --------------------------
+//
+// A lane holds a row's elements four at a time: quad q is columns 4q .. 4q+3,
+// and lane l of the warp takes quads l, l + 32, l + 64, ... (chunk c's quad
+// 32c + l). On the vector path each quad is one load and one store: a 16-byte
+// float4 of an f32 row, an 8-byte uint2 of a half row (elements 0 and 1 in
+// .x, low half first, 2 and 3 in .y). That needs D % 4 == 0 and rows aligned
+// to those sizes. Every other table (D % 4 != 0, or a view that starts
+// mid-row) takes the masked path, which each launcher picks from D and the
+// pointers: the same lanes hold the same quads, each element read with a
+// scalar load, zeros taken past D, and only the columns below D written. So
+// the lane-to-column map, with it the rowwise kernels' order of the g^2 sum
+// (a +0.0 past D leaves a partial as it was) and the stochastic-rounding
+// bits keyed by (row, column), are the vector path's. At D % 4 == 0 with
+// aligned rows the vector path runs unchanged.
+
+bool aligned(const void* p, uintptr_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+// Element c of a row, widened to f32
+template <typename T>
+__device__ __forceinline__ float elem(const T* row, int64_t c) {
+  if constexpr (std::is_same<T, float>::value) {
+    return row[c];
+  } else {
+    return from_bits<T>(reinterpret_cast<const unsigned short*>(row)[c]);
+  }
+}
+
+// Quad q of a table row (read and written by the kernel), widened to f32
+template <bool kMasked, typename T>
+__device__ __forceinline__ float4 load4(const T* row, int64_t q, int64_t D) {
+  if constexpr (!kMasked) {
+    if constexpr (std::is_same<T, float>::value) {
+      return reinterpret_cast<const float4*>(row)[q];
+    } else {
+      const uint2 h = reinterpret_cast<const uint2*>(row)[q];
+      return make_float4(from_bits<T>(h.x & 0xffffu), from_bits<T>(h.x >> 16),
+                         from_bits<T>(h.y & 0xffffu), from_bits<T>(h.y >> 16));
+    }
+  } else {
+    const int64_t c = 4 * q;  // < D: q < ceil(D / 4)
+    return make_float4(elem(row, c), c + 1 < D ? elem(row, c + 1) : 0.f,
+                       c + 2 < D ? elem(row, c + 2) : 0.f,
+                       c + 3 < D ? elem(row, c + 3) : 0.f);
+  }
+}
+
+// Quad q of a read-only f32 row (g, K2's rows), through the read-only cache
+template <bool kMasked>
+__device__ __forceinline__ float4 load_g4(const float* row, int64_t q,
+                                          int64_t D) {
+  if constexpr (!kMasked) {
+    return __ldg(reinterpret_cast<const float4*>(row) + q);
+  } else {
+    const int64_t c = 4 * q;
+    return make_float4(__ldg(row + c), c + 1 < D ? __ldg(row + c + 1) : 0.f,
+                       c + 2 < D ? __ldg(row + c + 2) : 0.f,
+                       c + 3 < D ? __ldg(row + c + 3) : 0.f);
+  }
+}
+
+// row[4q .. 4q + 3] = v, the columns below D only on the masked path
+template <bool kMasked>
+__device__ __forceinline__ void store4(float* row, int64_t q, float4 v,
+                                       int64_t D) {
+  if constexpr (!kMasked) {
+    reinterpret_cast<float4*>(row)[q] = v;
+  } else {
+    const int64_t c = 4 * q;
+    row[c] = v.x;
+    if (c + 1 < D) row[c + 1] = v.y;
+    if (c + 2 < D) row[c + 2] = v.z;
+    if (c + 3 < D) row[c + 3] = v.w;
+  }
+}
+
+// -- K2-K4: row writes --------------------------------------------------------
+
+enum class RowOp { kWrite, kSgd, kScaled };
 
 template <RowOp kOp>
 __device__ __forceinline__ float row_op(float w, float x, float lr, float wd,
@@ -103,7 +213,7 @@ __device__ __forceinline__ float row_op(float w, float x, float lr, float wd,
 }
 
 // src is `rows` (K2) or `g` (K3, K4), [N, D]; scale is K4's [N].
-template <RowOp kOp>
+template <RowOp kOp, bool kMasked>
 __global__ void row_update_kernel(float* __restrict__ w,
                                   const int32_t* __restrict__ uids,
                                   const float* __restrict__ src,
@@ -121,29 +231,31 @@ __global__ void row_update_kernel(float* __restrict__ w,
     my_id = uids[base + lane];
     if (kOp == RowOp::kScaled && is_real(my_id, R)) my_s = scale[base + lane];
   }
-  const int64_t cols = D / 4;
+  const int64_t quads = (D + 3) / 4;
   for (int j = 0; j < n; ++j) {
     const int32_t id = __shfl_sync(kFullMask, my_id, j);
     const float s = __shfl_sync(kFullMask, my_s, j);
     if (!is_real(id, R)) continue;  // the same for the whole warp
-    float4* wrow = reinterpret_cast<float4*>(w + static_cast<int64_t>(id) * D);
-    const float4* srow = reinterpret_cast<const float4*>(src + (base + j) * D);
-    for (int64_t c = lane; c < cols; c += 32) {
-      const float4 x = __ldg(srow + c);
+    float* wrow = w + static_cast<int64_t>(id) * D;
+    const float* srow = src + (base + j) * D;
+    for (int64_t q = lane; q < quads; q += 32) {
+      const float4 x = load_g4<kMasked>(srow, q, D);
       float4 v;
       if (kOp == RowOp::kWrite) {
         v = x;
       } else {
-        v = wrow[c];
+        v = load4<kMasked>(wrow, q, D);
         v.x = row_op<kOp>(v.x, x.x, lr, wd, s);
         v.y = row_op<kOp>(v.y, x.y, lr, wd, s);
         v.z = row_op<kOp>(v.z, x.z, lr, wd, s);
         v.w = row_op<kOp>(v.w, x.w, lr, wd, s);
       }
-      wrow[c] = v;
+      store4<kMasked>(wrow, q, v, D);
     }
   }
 }
+
+// -- K6, K7: elementwise moments ----------------------------------------------
 
 enum class Moment { kAdagrad, kAdam };
 
@@ -175,7 +287,7 @@ __device__ __forceinline__ void moment_step(float& w, float& m1, float& m2,
 
 // K6 / K7: w, m1 (and K7's m2) [R, D], g [N, D]; bc is K7's [2] bias
 // corrections (unused by K6).
-template <Moment kOpt>
+template <Moment kOpt, bool kMasked>
 __global__ void moment_update_kernel(float* __restrict__ w,
                                      float* __restrict__ m1,
                                      float* __restrict__ m2,
@@ -195,32 +307,33 @@ __global__ void moment_update_kernel(float* __restrict__ w,
     bc1 = __ldg(bc);
     bc2 = __ldg(bc + 1);
   }
-  const int64_t cols = D / 4;
+  const int64_t quads = (D + 3) / 4;
   for (int j = 0; j < n; ++j) {
     const int32_t id = __shfl_sync(kFullMask, my_id, j);
     if (!is_real(id, R)) continue;  // the same for the whole warp
     const int64_t row = static_cast<int64_t>(id) * D;
-    float4* wrow = reinterpret_cast<float4*>(w + row);
-    float4* m1row = reinterpret_cast<float4*>(m1 + row);
-    float4* m2row =
-        kOpt == Moment::kAdam ? reinterpret_cast<float4*>(m2 + row) : nullptr;
-    const float4* grow = reinterpret_cast<const float4*>(g + (base + j) * D);
-    for (int64_t c = lane; c < cols; c += 32) {
-      const float4 x = __ldg(grow + c);
-      float4 wv = wrow[c];
-      float4 av = m1row[c];
+    float* wrow = w + row;
+    float* m1row = m1 + row;
+    float* m2row = kOpt == Moment::kAdam ? m2 + row : nullptr;
+    const float* grow = g + (base + j) * D;
+    for (int64_t q = lane; q < quads; q += 32) {
+      const float4 x = load_g4<kMasked>(grow, q, D);
+      float4 wv = load4<kMasked>(wrow, q, D);
+      float4 av = load4<kMasked>(m1row, q, D);
       float4 bv = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (kOpt == Moment::kAdam) bv = m2row[c];
+      if (kOpt == Moment::kAdam) bv = load4<kMasked>(m2row, q, D);
       moment_step<kOpt>(wv.x, av.x, bv.x, x.x, a, bc1, bc2);
       moment_step<kOpt>(wv.y, av.y, bv.y, x.y, a, bc1, bc2);
       moment_step<kOpt>(wv.z, av.z, bv.z, x.z, a, bc1, bc2);
       moment_step<kOpt>(wv.w, av.w, bv.w, x.w, a, bc1, bc2);
-      wrow[c] = wv;
-      m1row[c] = av;
-      if (kOpt == Moment::kAdam) m2row[c] = bv;
+      store4<kMasked>(wrow, q, wv, D);
+      store4<kMasked>(m1row, q, av, D);
+      if (kOpt == Moment::kAdam) store4<kMasked>(m2row, q, bv, D);
     }
   }
 }
+
+// -- K5 -----------------------------------------------------------------------
 
 __global__ void rowwise_momentum_kernel(float* __restrict__ m,
                                         const int32_t* __restrict__ uids,
@@ -276,8 +389,9 @@ __global__ void rowwise_momentum_kernel(float* __restrict__ m,
 // these bytes. A lane holds 4 columns: its row quad is one 8-byte load
 // (uint2, so a D=128 bf16 row is one 256-byte request per warp) beside the
 // 16-byte float4 of g's same 4 columns, so the f32 kernels' lane-to-column
-// map, and with it K4's summation order of g^2, is unchanged. Rows must be
-// 8-byte aligned with D % 4 == 0.
+// map, and with it K4's summation order of g^2, is unchanged. Rows that are
+// not 8-byte aligned quads (D % 4 != 0, a view that starts mid-row) take the
+// masked path ("Row access").
 
 constexpr uint32_t kGolden = 0x9E3779B9u;
 
@@ -306,30 +420,6 @@ __device__ __forceinline__ uint32_t sr_row_key(uint32_t step_key, int32_t row,
 
 __device__ __forceinline__ uint32_t sr_bits(uint32_t row_key, int64_t col) {
   return fmix32(row_key ^ (static_cast<uint32_t>(col) * kGolden));
-}
-
-// A half element as the low 16 bits of a word, widened exactly / rounded to
-// nearest-even (T only selects the format)
-template <typename T>
-__device__ __forceinline__ float from_bits(uint32_t b);
-template <>
-__device__ __forceinline__ float from_bits<__nv_bfloat16>(uint32_t b) {
-  return __uint_as_float(b << 16);
-}
-template <>
-__device__ __forceinline__ float from_bits<__half>(uint32_t b) {
-  return __half2float(__ushort_as_half(static_cast<unsigned short>(b)));
-}
-
-template <typename T>
-__device__ __forceinline__ uint32_t to_bits(float x);
-template <>
-__device__ __forceinline__ uint32_t to_bits<__nv_bfloat16>(float x) {
-  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
-}
-template <>
-__device__ __forceinline__ uint32_t to_bits<__half>(float x) {
-  return __half_as_ushort(__float2half_rn(x));
 }
 
 template <typename T>
@@ -361,40 +451,50 @@ __device__ __forceinline__ uint32_t round_elem(float w, float upd, RowRound r,
   return to_bits<T>(__fadd_rn(w, from_bits<T>(to_bits<T>(upd))));
 }
 
-// 4 consecutive elements of a row: f32 as one float4, halves as one uint2
-// (elements 0 and 1 in .x, low half first, 2 and 3 in .y)
-__device__ __forceinline__ float4 load_quad(const float* row, int64_t q) {
-  return reinterpret_cast<const float4*>(row)[q];
-}
-
-template <typename T>
-__device__ __forceinline__ float4 load_quad(const T* row, int64_t q) {
-  const uint2 h = reinterpret_cast<const uint2*>(row)[q];
-  return make_float4(from_bits<T>(h.x & 0xffffu), from_bits<T>(h.x >> 16),
-                     from_bits<T>(h.y & 0xffffu), from_bits<T>(h.y >> 16));
-}
-
-// row[q] = w + upd: f32 rounds the sum once; halves round by `r`
-__device__ __forceinline__ void store_quad(float* row, int64_t q, float4 w,
-                                           float4 upd, RowRound) {
-  reinterpret_cast<float4*>(row)[q] =
-      make_float4(__fadd_rn(w.x, upd.x), __fadd_rn(w.y, upd.y),
-                  __fadd_rn(w.z, upd.z), __fadd_rn(w.w, upd.w));
-}
-
-template <typename T>
+// row quad q = w + upd: f32 rounds the sum once; halves round by `r`
+template <bool kMasked, typename T>
 __device__ __forceinline__ void store_quad(T* row, int64_t q, float4 w,
-                                           float4 upd, RowRound r) {
-  const int64_t c = 4 * q;
-  reinterpret_cast<uint2*>(row)[q] = make_uint2(
-      round_elem<T>(w.x, upd.x, r, c) |
-          (round_elem<T>(w.y, upd.y, r, c + 1) << 16),
-      round_elem<T>(w.z, upd.z, r, c + 2) |
-          (round_elem<T>(w.w, upd.w, r, c + 3) << 16));
+                                           float4 upd, RowRound r, int64_t D) {
+  if constexpr (std::is_same<T, float>::value) {
+    store4<kMasked>(row, q,
+                    make_float4(__fadd_rn(w.x, upd.x), __fadd_rn(w.y, upd.y),
+                                __fadd_rn(w.z, upd.z), __fadd_rn(w.w, upd.w)),
+                    D);
+  } else {
+    const int64_t c = 4 * q;
+    const uint32_t e0 = round_elem<T>(w.x, upd.x, r, c);
+    const uint32_t e1 = round_elem<T>(w.y, upd.y, r, c + 1);
+    const uint32_t e2 = round_elem<T>(w.z, upd.z, r, c + 2);
+    const uint32_t e3 = round_elem<T>(w.w, upd.w, r, c + 3);
+    if constexpr (!kMasked) {
+      reinterpret_cast<uint2*>(row)[q] =
+          make_uint2(e0 | (e1 << 16), e2 | (e3 << 16));
+    } else {
+      unsigned short* h = reinterpret_cast<unsigned short*>(row);
+      h[c] = static_cast<unsigned short>(e0);
+      if (c + 1 < D) h[c + 1] = static_cast<unsigned short>(e1);
+      if (c + 2 < D) h[c + 2] = static_cast<unsigned short>(e2);
+      if (c + 3 < D) h[c + 3] = static_cast<unsigned short>(e3);
+    }
+  }
+}
+
+// g' = g + wd * W, FBGEMM's weight decay fold (pallas_embedding.py:647-654)
+__device__ __forceinline__ float4 fold_wd(float4 x, float4 w, float wd) {
+  if (wd == 0.f) return x;
+  return make_float4(__fadd_rn(x.x, __fmul_rn(wd, w.x)),
+                     __fadd_rn(x.y, __fmul_rn(wd, w.y)),
+                     __fadd_rn(x.z, __fmul_rn(wd, w.z)),
+                     __fadd_rn(x.w, __fmul_rn(wd, w.w)));
+}
+
+__device__ __forceinline__ float4 scale4(float s, float4 x) {
+  return make_float4(__fmul_rn(s, x.x), __fmul_rn(s, x.y), __fmul_rn(s, x.z),
+                     __fmul_rn(s, x.w));
 }
 
 // K3h: W[id] = round(W[id] - lr * (g + wd * W[id])), K3's warp walk.
-template <typename T>
+template <typename T, bool kMasked>
 __global__ void sgd_half_kernel(T* __restrict__ w,
                                 const int32_t* __restrict__ uids,
                                 const float* __restrict__ g,
@@ -409,26 +509,20 @@ __global__ void sgd_half_kernel(T* __restrict__ w,
   const int n = static_cast<int>(N - base < 32 ? N - base : 32);
   const int32_t my_id = lane < n ? uids[base + lane] : -1;
   const uint32_t step_key = sr ? sr_step_key(seed, __ldg(step)) : 0u;
-  const int64_t quads = D / 4;
+  const int64_t quads = (D + 3) / 4;
   for (int j = 0; j < n; ++j) {
     const int32_t id = __shfl_sync(kFullMask, my_id, j);
     if (!is_real(id, R)) continue;  // the same for the whole warp
     const RowRound r{sr, sr ? sr_row_key(step_key, id, row_base) : 0u};
     T* wrow = w + static_cast<int64_t>(id) * D;
-    const float4* grow = reinterpret_cast<const float4*>(g + (base + j) * D);
+    const float* grow = g + (base + j) * D;
     for (int64_t q = lane; q < quads; q += 32) {
-      float4 x = __ldg(grow + q);
-      const float4 wv = load_quad(wrow, q);
-      if (wd != 0.f) {
-        x.x = __fadd_rn(x.x, __fmul_rn(wd, wv.x));
-        x.y = __fadd_rn(x.y, __fmul_rn(wd, wv.y));
-        x.z = __fadd_rn(x.z, __fmul_rn(wd, wv.z));
-        x.w = __fadd_rn(x.w, __fmul_rn(wd, wv.w));
-      }
+      const float4 wv = load4<kMasked>(wrow, q, D);
+      const float4 x = fold_wd(load_g4<kMasked>(grow, q, D), wv, wd);
       const float4 upd =
           make_float4(-__fmul_rn(lr, x.x), -__fmul_rn(lr, x.y),
                       -__fmul_rn(lr, x.z), -__fmul_rn(lr, x.w));
-      store_quad(wrow, q, wv, upd, r);
+      store_quad<kMasked>(wrow, q, wv, upd, r, D);
     }
   }
 }
@@ -466,44 +560,75 @@ __global__ void sgd_half_kernel(T* __restrict__ w,
 //     real slots only, so a run of sentinels costs no iterations. The walk
 //     is a chain of memory latencies, one per real slot, so the caller
 //     gives each warp fewer slots when N is small (see the wrapper);
-//   * the 32 lanes hold a row, one 16-byte float4 per lane for each 512-byte
-//     chunk, kChunks = ceil(D / 128) chunks in registers (at D = 64 half the
-//     lanes idle, which keeps one summation order for every D);
+//   * the 32 lanes hold a row, one quad per lane for each 128-column chunk
+//     ("Row access"), kChunks = ceil(D / 128) chunks in registers (at D = 64
+//     half the lanes idle, which keeps one summation order for every D);
 //   * the next real slot's g and W chunks and its momentum word are loaded
 //     before the current slot is reduced and stored, so two rows are in
 //     flight per warp across the reduction's latency. This relies on the
 //     real ids being unique (dedup_row_grads' output is sorted and unique):
 //     the row loaded ahead is never the row being written;
 //   * g_sq: lane l's partial is the running sum, over the chunks c in
-//     ascending order, of ((x*x + y*y) + z*z) + w*w of float4 c * 32 + l
-//     (lanes past D add nothing); then a xor butterfly of __shfl_xor_sync
-//     over 16, 8, 4, 2, 1, after which every lane holds bitwise the same
-//     total (a + b == b + a in IEEE arithmetic), and no shared memory is
-//     used; then one rounded division by D. row_mean_sq in
-//     ops/fused_update_kernels.py spells out the same order in torch ops;
-//   * lane 0 reads and writes m[u] and broadcasts the scale.
+//     ascending order, of ((x*x + y*y) + z*z) + w*w of quad c * 32 + l
+//     (lanes past D add nothing, or +0.0 on the masked path); then a xor
+//     butterfly of __shfl_xor_sync over 16, 8, 4, 2, 1, after which every
+//     lane holds bitwise the same total (a + b == b + a in IEEE arithmetic),
+//     and no shared memory is used; then one rounded division by D.
+//     row_mean_sq in ops/fused_update_kernels.py spells out the same order
+//     in torch ops;
+//   * lane 0 reads and writes m[u] and broadcasts the scale;
+//   * a row wider than four chunks (D > 512) does not fit the registers: the
+//     wide kernel below walks it twice instead, with the same sums.
 // T is the table's type: float, or K4h's __nv_bfloat16 / __half, whose row
-// quads are widened to float4 on load and rounded by `sr` on store (see
+// quads are widened to f32 on load and rounded by `sr` on store (see
 // "Half-precision tables"); everything between is the same f32 arithmetic.
-template <int kChunks, typename T>
+
+// ((x*x + y*y) + z*z) + w*w, a lane's share of a quad of g'^2
+__device__ __forceinline__ float sum_sq(float4 x) {
+  return __fadd_rn(
+      __fadd_rn(__fadd_rn(__fmul_rn(x.x, x.x), __fmul_rn(x.y, x.y)),
+                __fmul_rn(x.z, x.z)),
+      __fmul_rn(x.w, x.w));
+}
+
+// The row's momentum step from the lanes' partials: the xor butterfly, then
+// lane 0 adds the mean to its momentum word mv and writes m[id]; every lane
+// gets the scale lr * (-1 / (sqrt(m_new) + eps))
+__device__ __forceinline__ float rowwise_scale(float part, float* m,
+                                               int32_t id, float mv, int64_t D,
+                                               float lr, float eps, int lane) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    part = __fadd_rn(part, __shfl_xor_sync(kFullMask, part, off));
+  float s = 0.f;
+  if (lane == 0) {
+    const float m_new = __fadd_rn(mv, __fdiv_rn(part, static_cast<float>(D)));
+    m[id] = m_new;
+    s = __fmul_rn(lr, __fdiv_rn(-1.0f, __fadd_rn(__fsqrt_rn(m_new), eps)));
+  }
+  return __shfl_sync(kFullMask, s, 0);
+}
+
+template <int kChunks, bool kMasked, typename T>
 __device__ __forceinline__ void load_slot(
     const T* __restrict__ w, const float* __restrict__ m,
     const float* __restrict__ g, int32_t id, int64_t slot, int64_t D,
     int lane, float4 (&gv)[kChunks], float4 (&wv)[kChunks], float& mv) {
-  const float4* grow = reinterpret_cast<const float4*>(g + slot * D);
+  const float* grow = g + slot * D;
   const T* wrow = w + static_cast<int64_t>(id) * D;
+  const int64_t quads = (D + 3) / 4;
 #pragma unroll
   for (int c = 0; c < kChunks; ++c) {
-    const int64_t col = c * 32 + lane;
-    if (col < D / 4) {
-      gv[c] = __ldg(grow + col);
-      wv[c] = load_quad(wrow, col);
+    const int64_t q = c * 32 + lane;
+    if (q < quads) {
+      gv[c] = load_g4<kMasked>(grow, q, D);
+      wv[c] = load4<kMasked>(wrow, q, D);
     }
   }
   if (lane == 0) mv = m[id];
 }
 
-template <int kChunks, typename T>
+template <int kChunks, typename T, bool kMasked>
 __global__ void rowwise_adagrad_kernel(T* __restrict__ w,
                                        float* __restrict__ m,
                                        const int32_t* __restrict__ uids,
@@ -522,14 +647,14 @@ __global__ void rowwise_adagrad_kernel(T* __restrict__ w,
   const int32_t my_id = lane < n ? uids[base + lane] : -1;
   unsigned todo = __ballot_sync(kFullMask, is_real(my_id, R));
   if (todo == 0) return;  // the same for the whole warp
-  const int64_t cols = D / 4;
+  const int64_t quads = (D + 3) / 4;
   const uint32_t step_key = sr ? sr_step_key(seed, __ldg(step)) : 0u;
   float4 gv[kChunks], wv[kChunks], gn[kChunks], wn[kChunks];
   float mv = 0.f, mn = 0.f;
   int j = __ffs(todo) - 1;
   todo &= todo - 1;
   int32_t id = __shfl_sync(kFullMask, my_id, j);
-  load_slot<kChunks>(w, m, g, id, base + j, D, lane, gv, wv, mv);
+  load_slot<kChunks, kMasked>(w, m, g, id, base + j, D, lane, gv, wv, mv);
   while (true) {
     // the next real slot's loads go out before this slot's reduction
     const bool more = todo != 0;  // the same for the whole warp
@@ -538,51 +663,25 @@ __global__ void rowwise_adagrad_kernel(T* __restrict__ w,
       const int jn = __ffs(todo) - 1;
       todo &= todo - 1;
       next = __shfl_sync(kFullMask, my_id, jn);
-      load_slot<kChunks>(w, m, g, next, base + jn, D, lane, gn, wn, mn);
+      load_slot<kChunks, kMasked>(w, m, g, next, base + jn, D, lane, gn, wn,
+                                  mn);
     }
     float part = 0.f;
 #pragma unroll
     for (int c = 0; c < kChunks; ++c) {
-      if (c * 32 + lane < cols) {
-        float4 x = gv[c];
-        if (wd != 0.f) {
-          x.x = __fadd_rn(x.x, __fmul_rn(wd, wv[c].x));
-          x.y = __fadd_rn(x.y, __fmul_rn(wd, wv[c].y));
-          x.z = __fadd_rn(x.z, __fmul_rn(wd, wv[c].z));
-          x.w = __fadd_rn(x.w, __fmul_rn(wd, wv[c].w));
-          gv[c] = x;
-        }
-        const float sq = __fadd_rn(
-            __fadd_rn(__fadd_rn(__fmul_rn(x.x, x.x), __fmul_rn(x.y, x.y)),
-                      __fmul_rn(x.z, x.z)),
-            __fmul_rn(x.w, x.w));
-        part = __fadd_rn(part, sq);
+      if (c * 32 + lane < quads) {
+        gv[c] = fold_wd(gv[c], wv[c], wd);
+        part = __fadd_rn(part, sum_sq(gv[c]));
       }
     }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      part = __fadd_rn(part, __shfl_xor_sync(kFullMask, part, off));
-    float s = 0.f;
-    if (lane == 0) {
-      const float m_new =
-          __fadd_rn(mv, __fdiv_rn(part, static_cast<float>(D)));
-      m[id] = m_new;
-      s = __fmul_rn(lr,
-                    __fdiv_rn(-1.0f, __fadd_rn(__fsqrt_rn(m_new), eps)));
-    }
-    s = __shfl_sync(kFullMask, s, 0);
+    const float s = rowwise_scale(part, m, id, mv, D, lr, eps, lane);
     T* wrow = w + static_cast<int64_t>(id) * D;
     const RowRound r{sr, sr ? sr_row_key(step_key, id, row_base) : 0u};
 #pragma unroll
     for (int c = 0; c < kChunks; ++c) {
-      const int64_t col = c * 32 + lane;
-      if (col < cols) {
-        const float4 x = gv[c];
-        store_quad(wrow, col, wv[c],
-                   make_float4(__fmul_rn(s, x.x), __fmul_rn(s, x.y),
-                               __fmul_rn(s, x.z), __fmul_rn(s, x.w)),
-                   r);
-      }
+      const int64_t q = c * 32 + lane;
+      if (q < quads)
+        store_quad<kMasked>(wrow, q, wv[c], scale4(s, gv[c]), r, D);
     }
     if (!more) break;
     id = next;
@@ -595,54 +694,128 @@ __global__ void rowwise_adagrad_kernel(T* __restrict__ w,
   }
 }
 
-template <int kChunks, typename T>
-int launch_rowwise_adagrad(void* w, void* m, const void* uids, const void* g,
-                           const void* step, int64_t R, int64_t D, int64_t N,
-                           int slots, float lr, float eps, float wd, bool sr,
-                           uint32_t seed, int64_t row_base, void* stream) {
-  const int64_t warps = (N + slots - 1) / slots;
-  const dim3 grid(
-      static_cast<unsigned>((warps + kWarpsPerBlock - 1) / kWarpsPerBlock));
-  rowwise_adagrad_kernel<kChunks, T><<<grid, 32 * kWarpsPerBlock, 0,
-                                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<T*>(w), static_cast<float*>(m),
-      static_cast<const int32_t*>(uids), static_cast<const float*>(g),
-      static_cast<const int32_t*>(step), R, D, N, slots, lr, eps, wd, sr,
-      seed, row_base);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// D <= 512 (at most four 512-byte chunks of g per row in registers);
-// 1 <= slots <= 32 slots per warp
-template <typename T>
-int rowwise_adagrad(void* w, void* m, const void* uids, const void* g,
-                    const void* step, int64_t R, int64_t D, int64_t N,
-                    int slots, float lr, float eps, float wd, bool sr,
-                    uint32_t seed, int64_t row_base, void* stream) {
-  if (slots < 1 || slots > 32) return static_cast<int>(cudaErrorInvalidValue);
-  switch ((D + 127) / 128) {
-    case 1:
-      return launch_rowwise_adagrad<1, T>(w, m, uids, g, step, R, D, N, slots,
-                                          lr, eps, wd, sr, seed, row_base,
-                                          stream);
-    case 2:
-      return launch_rowwise_adagrad<2, T>(w, m, uids, g, step, R, D, N, slots,
-                                          lr, eps, wd, sr, seed, row_base,
-                                          stream);
-    case 3:
-      return launch_rowwise_adagrad<3, T>(w, m, uids, g, step, R, D, N, slots,
-                                          lr, eps, wd, sr, seed, row_base,
-                                          stream);
-    case 4:
-      return launch_rowwise_adagrad<4, T>(w, m, uids, g, step, R, D, N, slots,
-                                          lr, eps, wd, sr, seed, row_base,
-                                          stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+// The fused rowwise Adagrad for rows wider than four chunks (D > 512), any
+// T: the warp walks its real slots as rowwise_adagrad_kernel does, one at a
+// time, and each row twice. Pass 1 reads g's and W's quads chunk by chunk in
+// ascending order, folds the weight decay and sums g'^2 into each lane's
+// partial in the same order as the kernel above; then the same momentum
+// step. Pass 2 reads the quads again, folds again (the same rounding) and
+// writes W through the same epilogue. So it equals the plain version bit
+// for bit at any D; a row costs one more read of g and W than the bound.
+template <typename T, bool kMasked>
+__global__ void rowwise_adagrad_wide_kernel(T* __restrict__ w,
+                                            float* __restrict__ m,
+                                            const int32_t* __restrict__ uids,
+                                            const float* __restrict__ g,
+                                            const int32_t* __restrict__ step,
+                                            int64_t R, int64_t D, int64_t N,
+                                            int slots, float lr, float eps,
+                                            float wd, bool sr, uint32_t seed,
+                                            int64_t row_base) {
+  const int lane = threadIdx.x & 31;
+  const int64_t warp =
+      static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int64_t base = warp * slots;
+  if (base >= N) return;  // whole warp leaves together
+  const int n = static_cast<int>(N - base < slots ? N - base : slots);
+  const int32_t my_id = lane < n ? uids[base + lane] : -1;
+  unsigned todo = __ballot_sync(kFullMask, is_real(my_id, R));
+  const int64_t quads = (D + 3) / 4;
+  const uint32_t step_key =
+      sr && todo != 0 ? sr_step_key(seed, __ldg(step)) : 0u;
+  while (todo != 0) {  // the same for the whole warp
+    const int j = __ffs(todo) - 1;
+    todo &= todo - 1;
+    const int32_t id = __shfl_sync(kFullMask, my_id, j);
+    const float* grow = g + (base + j) * D;
+    T* wrow = w + static_cast<int64_t>(id) * D;
+    const float mv = lane == 0 ? m[id] : 0.f;
+    float part = 0.f;
+    for (int64_t q = lane; q < quads; q += 32)
+      part = __fadd_rn(part, sum_sq(fold_wd(load_g4<kMasked>(grow, q, D),
+                                            load4<kMasked>(wrow, q, D), wd)));
+    const float s = rowwise_scale(part, m, id, mv, D, lr, eps, lane);
+    const RowRound r{sr, sr ? sr_row_key(step_key, id, row_base) : 0u};
+    for (int64_t q = lane; q < quads; q += 32) {
+      const float4 wv = load4<kMasked>(wrow, q, D);
+      const float4 x = fold_wd(load_g4<kMasked>(grow, q, D), wv, wd);
+      store_quad<kMasked>(wrow, q, wv, scale4(s, x), r, D);
+    }
   }
 }
 
+// -- Launchers: each picks the vector or the masked path ----------------------
+
+// The rowwise kernels' arguments, as the entry points receive them
+struct RowwiseCall {
+  void* w;
+  void* m;
+  const void* uids;
+  const void* g;
+  const void* step;
+  int64_t R, D, N;
+  int slots;
+  float lr, eps, wd;
+  bool sr;
+  uint32_t seed;
+  int64_t row_base;
+  void* stream;
+};
+
+// kChunks 1-4: rowwise_adagrad_kernel; 0: the wide kernel
+template <int kChunks, typename T, bool kMasked>
+int launch_rowwise_adagrad(const RowwiseCall& c) {
+  const int64_t warps = (c.N + c.slots - 1) / c.slots;
+  const dim3 grid(
+      static_cast<unsigned>((warps + kWarpsPerBlock - 1) / kWarpsPerBlock));
+  const auto s = static_cast<cudaStream_t>(c.stream);
+  T* w = static_cast<T*>(c.w);
+  float* m = static_cast<float*>(c.m);
+  const auto* uids = static_cast<const int32_t*>(c.uids);
+  const auto* g = static_cast<const float*>(c.g);
+  const auto* step = static_cast<const int32_t*>(c.step);
+  if constexpr (kChunks == 0) {
+    rowwise_adagrad_wide_kernel<T, kMasked><<<grid, 32 * kWarpsPerBlock, 0,
+                                              s>>>(
+        w, m, uids, g, step, c.R, c.D, c.N, c.slots, c.lr, c.eps, c.wd, c.sr,
+        c.seed, c.row_base);
+  } else {
+    rowwise_adagrad_kernel<kChunks, T, kMasked><<<grid, 32 * kWarpsPerBlock,
+                                                  0, s>>>(
+        w, m, uids, g, step, c.R, c.D, c.N, c.slots, c.lr, c.eps, c.wd, c.sr,
+        c.seed, c.row_base);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool kMasked>
+int rowwise_adagrad_path(const RowwiseCall& c) {
+  switch ((c.D + 127) / 128) {
+    case 1:
+      return launch_rowwise_adagrad<1, T, kMasked>(c);
+    case 2:
+      return launch_rowwise_adagrad<2, T, kMasked>(c);
+    case 3:
+      return launch_rowwise_adagrad<3, T, kMasked>(c);
+    case 4:
+      return launch_rowwise_adagrad<4, T, kMasked>(c);
+    default:
+      return launch_rowwise_adagrad<0, T, kMasked>(c);
+  }
+}
+
+// any D >= 1; 1 <= slots <= 32 slots per warp
 template <typename T>
+int rowwise_adagrad(const RowwiseCall& c) {
+  if (c.slots < 1 || c.slots > 32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool masked =
+      c.D % 4 != 0 || !aligned(c.w, 4 * sizeof(T)) || !aligned(c.g, 16);
+  return masked ? rowwise_adagrad_path<T, true>(c)
+                : rowwise_adagrad_path<T, false>(c);
+}
+
+template <typename T, bool kMasked>
 int launch_sgd_half(void* w, const void* uids, const void* g,
                     const void* step, int64_t R, int64_t D, int64_t N,
                     float lr, float wd, bool sr, uint32_t seed,
@@ -650,11 +823,37 @@ int launch_sgd_half(void* w, const void* uids, const void* g,
   const int64_t warps = (N + 31) / 32;
   const dim3 grid(
       static_cast<unsigned>((warps + kWarpsPerBlock - 1) / kWarpsPerBlock));
-  sgd_half_kernel<T><<<grid, 32 * kWarpsPerBlock, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
+  sgd_half_kernel<T, kMasked><<<grid, 32 * kWarpsPerBlock, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
       static_cast<T*>(w), static_cast<const int32_t*>(uids),
       static_cast<const float*>(g), static_cast<const int32_t*>(step), R, D,
       N, lr, wd, sr, seed, row_base);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int sgd_half(void* w, const void* uids, const void* g, const void* step,
+             int64_t R, int64_t D, int64_t N, float lr, float wd, bool sr,
+             uint32_t seed, int64_t row_base, void* stream) {
+  const bool masked = D % 4 != 0 || !aligned(w, 8) || !aligned(g, 16);
+  return masked ? launch_sgd_half<T, true>(w, uids, g, step, R, D, N, lr, wd,
+                                           sr, seed, row_base, stream)
+                : launch_sgd_half<T, false>(w, uids, g, step, R, D, N, lr,
+                                            wd, sr, seed, row_base, stream);
+}
+
+template <RowOp kOp, bool kMasked>
+int launch_rows_path(void* w, const void* uids, const void* src,
+                     const void* scale, int64_t R, int64_t D, int64_t N,
+                     float lr, float wd, void* stream) {
+  const int64_t warps = (N + 31) / 32;
+  const dim3 grid(
+      static_cast<unsigned>((warps + kWarpsPerBlock - 1) / kWarpsPerBlock));
+  row_update_kernel<kOp, kMasked><<<grid, 32 * kWarpsPerBlock, 0,
+                                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(w), static_cast<const int32_t*>(uids),
+      static_cast<const float*>(src), static_cast<const float*>(scale), R, D,
+      N, lr, wd);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -662,14 +861,26 @@ template <RowOp kOp>
 int launch_rows(void* w, const void* uids, const void* src, const void* scale,
                 int64_t R, int64_t D, int64_t N, float lr, float wd,
                 void* stream) {
+  const bool masked = D % 4 != 0 || !aligned(w, 16) || !aligned(src, 16);
+  return masked ? launch_rows_path<kOp, true>(w, uids, src, scale, R, D, N,
+                                              lr, wd, stream)
+                : launch_rows_path<kOp, false>(w, uids, src, scale, R, D, N,
+                                               lr, wd, stream);
+}
+
+template <Moment kOpt, bool kMasked>
+int launch_moments_path(void* w, void* m1, void* m2, const void* uids,
+                        const void* g, const void* bc, int64_t R, int64_t D,
+                        int64_t N, MomentArgs a, void* stream) {
   const int64_t warps = (N + 31) / 32;
   const dim3 grid(
       static_cast<unsigned>((warps + kWarpsPerBlock - 1) / kWarpsPerBlock));
-  row_update_kernel<kOp><<<grid, 32 * kWarpsPerBlock, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float*>(w), static_cast<const int32_t*>(uids),
-      static_cast<const float*>(src), static_cast<const float*>(scale), R, D,
-      N, lr, wd);
+  moment_update_kernel<kOpt, kMasked><<<grid, 32 * kWarpsPerBlock, 0,
+                                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(w), static_cast<float*>(m1),
+      static_cast<float*>(m2), static_cast<const int32_t*>(uids),
+      static_cast<const float*>(g), static_cast<const float*>(bc), R, D, N,
+      a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -677,16 +888,12 @@ template <Moment kOpt>
 int launch_moments(void* w, void* m1, void* m2, const void* uids,
                    const void* g, const void* bc, int64_t R, int64_t D,
                    int64_t N, MomentArgs a, void* stream) {
-  const int64_t warps = (N + 31) / 32;
-  const dim3 grid(
-      static_cast<unsigned>((warps + kWarpsPerBlock - 1) / kWarpsPerBlock));
-  moment_update_kernel<kOpt><<<grid, 32 * kWarpsPerBlock, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float*>(w), static_cast<float*>(m1),
-      static_cast<float*>(m2), static_cast<const int32_t*>(uids),
-      static_cast<const float*>(g), static_cast<const float*>(bc), R, D, N,
-      a);
-  return static_cast<int>(cudaGetLastError());
+  const bool masked = D % 4 != 0 || !aligned(w, 16) || !aligned(m1, 16) ||
+                      (m2 != nullptr && !aligned(m2, 16)) || !aligned(g, 16);
+  return masked ? launch_moments_path<kOpt, true>(w, m1, m2, uids, g, bc, R,
+                                                  D, N, a, stream)
+                : launch_moments_path<kOpt, false>(w, m1, m2, uids, g, bc, R,
+                                                   D, N, a, stream);
 }
 
 }  // namespace
@@ -726,34 +933,31 @@ int trt_rowwise_momentum_f32(void* m, const void* uids, const void* g_sq,
   return static_cast<int>(cudaGetLastError());
 }
 
-// D <= 512 (at most four 512-byte chunks per row in registers);
+// any D >= 1 (up to 512 columns in registers, wider rows in two passes);
 // 1 <= slots <= 32 slots per warp
 int trt_fused_rowwise_adagrad_f32(void* w, void* m, const void* uids,
                                   const void* g, int64_t R, int64_t D,
                                   int64_t N, int slots, float lr, float eps,
                                   float wd, void* stream) {
-  return rowwise_adagrad<float>(w, m, uids, g, nullptr, R, D, N, slots, lr,
-                                eps, wd, false, 0u, 0, stream);
+  return rowwise_adagrad<float>({w, m, uids, g, nullptr, R, D, N, slots, lr,
+                                 eps, wd, false, 0u, 0, stream});
 }
 
 // The half-table entry points: `half` 0 is bf16, 1 fp16; `sr` selects the
 // stochastic-rounding epilogue, whose bits take the step from device memory
 // at `step` (an int32, read before the caller increments it), `seed` and
 // `row_base`, the first row of this shard across the group.
-// K4h: D <= 512, 1 <= slots <= 32.
+// K4h: any D >= 1, 1 <= slots <= 32.
 int trt_fused_rowwise_adagrad_half(void* w, void* m, const void* uids,
                                    const void* g, const void* step,
                                    int64_t R, int64_t D, int64_t N, int slots,
                                    float lr, float eps, float wd, int half,
                                    int sr, uint32_t seed, int64_t row_base,
                                    void* stream) {
-  if (half == 0)
-    return rowwise_adagrad<__nv_bfloat16>(w, m, uids, g, step, R, D, N,
-                                          slots, lr, eps, wd, sr != 0, seed,
-                                          row_base, stream);
-  if (half == 1)
-    return rowwise_adagrad<__half>(w, m, uids, g, step, R, D, N, slots, lr,
-                                   eps, wd, sr != 0, seed, row_base, stream);
+  const RowwiseCall c{w,  m,   uids, g,  step,    R,    D,        N,
+                      slots, lr, eps, wd, sr != 0, seed, row_base, stream};
+  if (half == 0) return rowwise_adagrad<__nv_bfloat16>(c);
+  if (half == 1) return rowwise_adagrad<__half>(c);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -763,11 +967,11 @@ int trt_fused_update_sgd_half(void* w, const void* uids, const void* g,
                               int64_t N, float lr, float wd, int half, int sr,
                               uint32_t seed, int64_t row_base, void* stream) {
   if (half == 0)
-    return launch_sgd_half<__nv_bfloat16>(w, uids, g, step, R, D, N, lr, wd,
-                                          sr != 0, seed, row_base, stream);
-  if (half == 1)
-    return launch_sgd_half<__half>(w, uids, g, step, R, D, N, lr, wd,
+    return sgd_half<__nv_bfloat16>(w, uids, g, step, R, D, N, lr, wd,
                                    sr != 0, seed, row_base, stream);
+  if (half == 1)
+    return sgd_half<__half>(w, uids, g, step, R, D, N, lr, wd, sr != 0, seed,
+                            row_base, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -145,7 +145,8 @@ def _mom_stream(mom_impl: str) -> bool:
 def check_trainable(dtype: torch.dtype, params: Mapping = ()) -> None:
     """Raise unless `apply_fused_update` takes this table dtype and these
     fused_params (checked before a train step changes anything); every
-    optimizer is ported, for fp32, bf16 and fp16 tables."""
+    optimizer is ported, for fp32, bf16 and fp16 tables of any width D,
+    on the card as on the CPU."""
     if dtype != torch.float32 and dtype not in fk.HALF_TYPES:
         raise TypeError(f"tables train in fp32, bf16 or fp16, not {dtype}")
     unknown = sorted(set(params) - set(FUSED_PARAM_KEYS))

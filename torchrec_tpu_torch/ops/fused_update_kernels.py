@@ -29,9 +29,11 @@ per element; the source says how each one moves its bytes.
 
 The JAX functions return new arrays; these update `weights` and the
 momenta IN PLACE and return the same tensors, so callers port one to one.
-CUDA tensors launch the kernel, which needs D % 4 == 0 and 16-byte aligned
-rows and raises otherwise; CPU tensors take the plain PyTorch version
-(`*_reference`), which takes any D. Nothing falls back.
+CUDA tensors launch the kernel, at any D >= 1: rows that are whole aligned
+quads (D % 4 == 0, aligned tensors) move as vectors, every other table by
+the masked path, which the launcher picks from D and the pointers; CPU
+tensors take the plain PyTorch version (`*_reference`). Nothing falls
+back: a failed build or launch raises.
 
 Slots whose id is not a real row (0 <= id < R) are skipped: the sentinels
 are 2**31 - 1 (`run_total_row_grads`) and R + pos (`dedup_row_grads`).
@@ -144,15 +146,6 @@ def _check_rows(weights: torch.Tensor, uids: torch.Tensor,
     return _same_device(weights, uids, src)
 
 
-def _vector_rows(*ts: torch.Tensor) -> None:
-    """The CUDA row kernels move rows as 16-byte float4s."""
-    D = ts[0].shape[1]
-    if D % 4:
-        raise ValueError(f"the CUDA row kernels need D % 4 == 0, got D={D}")
-    if any(t.data_ptr() % 16 for t in ts):
-        raise ValueError("the CUDA row kernels need 16-byte aligned rows")
-
-
 def _launch(name: str, device: torch.device, call: Callable) -> None:
     lib = LIBRARY.load()
     with torch.cuda.device(device):
@@ -197,7 +190,6 @@ def scatter_rows_write(weights: torch.Tensor, uids: torch.Tensor,
     (R, D), N = weights.shape, uids.shape[0]
     if N == 0 or D == 0:
         return weights
-    _vector_rows(weights, rows)
     _launch("scatter_rows_write", dev, lambda lib, s:
             lib.trt_scatter_rows_write_f32(
                 weights.data_ptr(), uids.data_ptr(), rows.data_ptr(),
@@ -236,7 +228,6 @@ def fused_update_sgd(weights: torch.Tensor, uids: torch.Tensor,
     (R, D), N = weights.shape, uids.shape[0]
     if N == 0 or D == 0:
         return weights
-    _vector_rows(weights, g)
     _launch("fused_update_sgd", dev, lambda lib, s:
             lib.trt_fused_update_sgd_f32(
                 weights.data_ptr(), uids.data_ptr(), g.data_ptr(),
@@ -262,7 +253,7 @@ def scaled_row_update(weights: torch.Tensor, uids: torch.Tensor,
                       g: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """K4's scaled RMW: W[id] += scale[t] * g[t] in place for unique real
     ids; the row write of the rowwise routes the fused kernel does not
-    take (`mom_impl="xla"`, D > FUSED_MAX_D)."""
+    take (`mom_impl="xla"`)."""
     dev = _check_rows(weights, uids, g, "g")
     _check("scale", scale, torch.float32, 1, uids.shape[0])
     _same_device(weights, scale)
@@ -271,7 +262,6 @@ def scaled_row_update(weights: torch.Tensor, uids: torch.Tensor,
     (R, D), N = weights.shape, uids.shape[0]
     if N == 0 or D == 0:
         return weights
-    _vector_rows(weights, g)
     _launch("scaled_row_update", dev, lambda lib, s:
             lib.trt_scaled_row_update_f32(
                 weights.data_ptr(), uids.data_ptr(), g.data_ptr(),
@@ -331,10 +321,6 @@ def rowwise_momentum_stream(
 
 
 # -- K4 ------------------------------------------------------------------------
-
-# the widest row the fused kernel holds in registers (four 512-byte chunks)
-FUSED_MAX_D = 512
-
 
 def fused_slots_per_warp(N: int) -> int:
     """Slots each warp of the fused kernel walks, one after another: the
@@ -454,11 +440,13 @@ def fused_update_rowwise_adagrad(
     updated in place and returned; uids [N] int32 SORTED unique
     (`dedup_row_grads` output, sentinels R + pos); g [N, D] f32 total
     row gradients. Weight decay folds into g before g_sq. On the default
-    route (`momentum_stream=True`, `w_impl="rmw"`, D <= FUSED_MAX_D) one
-    kernel does the whole update, K5's momentum step included. Otherwise
-    the momentum step runs through K5 (`momentum_stream=True`) or torch
-    index ops, and the rows are written by the scaled RMW (`"rmw"`) or
-    gathered, scaled and written by K2 (`"write"`).
+    route (`momentum_stream=True`, `w_impl="rmw"`) one kernel does the
+    whole update, K5's momentum step included, at any D: a row of up to
+    512 columns in registers, a wider one in two passes with the same
+    sums. Otherwise the momentum step runs through K5
+    (`momentum_stream=True`) or torch index ops, and the rows are written
+    by the scaled RMW (`"rmw"`) or gathered, scaled and written by K2
+    (`"write"`).
     """
     dev = _check_adagrad(weights, momentum, uids, g, w_impl)
     lr, eps, wd = float(lr), float(eps), float(weight_decay)
@@ -466,12 +454,11 @@ def fused_update_rowwise_adagrad(
         return fused_update_rowwise_adagrad_reference(
             weights, momentum, uids, g, lr, eps, wd, momentum_stream, w_impl)
     (R, D), N = weights.shape, uids.shape[0]
-    if not momentum_stream or w_impl != "rmw" or D > FUSED_MAX_D:
+    if not momentum_stream or w_impl != "rmw":
         return rowwise_adagrad_unfused(weights, momentum, uids, g, lr, eps,
                                        wd, momentum_stream, w_impl)
     if N == 0 or D == 0:
         return weights, momentum
-    _vector_rows(weights, g)
     slots = fused_slots_per_warp(N)
     _launch("fused_update_rowwise_adagrad", dev, lambda lib, s:
             lib.trt_fused_rowwise_adagrad_f32(
@@ -565,7 +552,6 @@ def fused_update_adagrad(
     (R, D), N = weights.shape, uids.shape[0]
     if N == 0 or D == 0:
         return weights, momentum
-    _vector_rows(weights, momentum, g)
     _launch("fused_update_adagrad", dev, lambda lib, s:
             lib.trt_fused_update_adagrad_f32(
                 weights.data_ptr(), momentum.data_ptr(), uids.data_ptr(),
@@ -615,7 +601,6 @@ def fused_update_adam(
     (R, D), N = weights.shape, uids.shape[0]
     if N == 0 or D == 0:
         return weights, momentum1, momentum2
-    _vector_rows(weights, momentum1, momentum2, g)
     bc = adam_bias_correction(step, beta1, beta2)
     _launch("fused_update_adam", dev, lambda lib, s:
             lib.trt_fused_update_adam_f32(
@@ -663,16 +648,6 @@ def _check_half(weights: torch.Tensor, uids: torch.Tensor, g: torch.Tensor,
     return _same_device(weights, uids, g, step)
 
 
-def _half_rows(weights: torch.Tensor, g: torch.Tensor) -> None:
-    """The half kernels move a row as 8-byte quads beside g's float4s."""
-    D = weights.shape[1]
-    if D % 4:
-        raise ValueError(f"the CUDA half kernels need D % 4 == 0, got D={D}")
-    if weights.data_ptr() % 8 or g.data_ptr() % 16:
-        raise ValueError("the CUDA half kernels need 8-byte aligned table "
-                         "rows and a 16-byte aligned g")
-
-
 def fused_update_sgd_half_reference(
     weights: torch.Tensor, uids: torch.Tensor, g: torch.Tensor, lr: float,
     step: torch.Tensor, weight_decay: float = 0.0,
@@ -713,7 +688,6 @@ def fused_update_sgd_half(
     (R, D), N = weights.shape, uids.shape[0]
     if N == 0 or D == 0:
         return weights
-    _half_rows(weights, g)
     _launch("fused_update_sgd_half", dev, lambda lib, s:
             lib.trt_fused_update_sgd_half(
                 weights.data_ptr(), uids.data_ptr(), g.data_ptr(),
@@ -762,7 +736,7 @@ def fused_update_rowwise_adagrad_half(
     weights [R, D] bf16 or fp16; momentum [R] f32; uids [N] int32 SORTED
     unique (`dedup_row_grads`, sentinels R + pos); g [N, D] f32; step as
     `fused_update_sgd_half`. The fused K4's f32 update, then each row
-    rounded as K3h rounds it. D <= FUSED_MAX_D on the card. Returns
+    rounded as K3h rounds it, at any D as the fused K4. Returns
     (weights, momentum)."""
     dev = _check_half_adagrad(weights, momentum, uids, g, step)
     lr, eps, wd = float(lr), float(eps), float(weight_decay)
@@ -771,13 +745,8 @@ def fused_update_rowwise_adagrad_half(
             weights, momentum, uids, g, lr, step, eps, wd,
             stochastic_rounding, row_base)
     (R, D), N = weights.shape, uids.shape[0]
-    if D > FUSED_MAX_D:
-        raise NotImplementedError(
-            f"K4h holds rows of up to {FUSED_MAX_D} columns, got D={D} (see "
-            "ROADMAP.md)")
     if N == 0 or D == 0:
         return weights, momentum
-    _half_rows(weights, g)
     slots = fused_slots_per_warp(N)
     _launch("fused_update_rowwise_adagrad_half", dev, lambda lib, s:
             lib.trt_fused_rowwise_adagrad_half(
