@@ -382,7 +382,7 @@ Phases, each failing the run with a non-zero exit when it fails:
    10, deep width 400, fused lr 0.1, dense Adam 1e-3, B=8192. Served
    given no plan (the planner's), under a ROW_WISE plan and with bf16
    tables: 3 requests at B=8192 and 3 at B=256, K1 (K1h) once each on
-   its scalar path. Trained given no plan under EXACT_SGD (K3),
+   its narrow path (eight bags a warp at D=10, phase 22). Trained given no plan under EXACT_SGD (K3),
    ROWWISE_ADAGRAD on its default route (the fused K4), with mom_impl=
    "xla" (the scaled RMW) and with w_impl="write" (K5 and K2), ADAGRAD
    (K6), ADAM (K7), and with bf16 tables under EXACT_SGD (K3h) and
@@ -400,6 +400,22 @@ Phases, each failing the run with a non-zero exit when it fails:
    [33,762,577, 10] table and one batch of the Kaggle features; the wide
    rowwise path at D=1030 (100,000 rows, 65,536 ids) in f32, in turns
    with the unfused composition, and as K4h in bf16 and fp16.
+22. Narrow rows. K1 / K1h and the row kernel of K2, K3 and K4's scaled
+   RMW give a row of D columns G lanes, the smallest power of two covering
+   its ceil(D / 4) quads (ops/lane_groups.py), so a warp holds 32 / G
+   rows at D <= 64. (1) Every lane group held against the plain versions
+   on 4,096-row tables at D = 1, 2, 3, 4, 5, 6, 8, 10, 12, 16, 17, 18, 32,
+   33, 34, 63, 64 and 128, aligned and one element into their storage
+   (whole quads, pairs and single elements): K1 (f32)
+   and K1h (bf16, fp16) over 3,001 bags, bit for bit at L=1 and within
+   rtol = atol = 1e-6 at L=20 (MEAN and per-sample coefficients, padded
+   slots, ids below 0 and past R); K2, K3 (weight decay 0 and 0.01) and
+   the scaled RMW over 3,001 tokens' run totals and dedup output, bit for
+   bit at every slot count a warp. (2) At D=10 and D=64 on the 26 Criteo
+   Kaggle tables and one B=8192 batch (212,992 bags and slots): K1, K1h,
+   K3, K2 and the scaled RMW held bit-exact and timed beside their
+   bounds, plain versions and PyTorch calls (F.embedding_bag, index_add_,
+   index_copy_, index_add_ of the pre-scaled rows).
 
 Kernel times are device times from torch.profiler (the kernel's own for a
 kernel, all device activity of the call for the plain version and the
@@ -488,6 +504,9 @@ FWD_ATOL = 1e-5
 # the fused rowwise kernels' names as the profiler prints them: rows of up
 # to 512 columns (rowwise_adagrad_kernel) and wider (..._wide_kernel)
 ROWWISE_KERNELS = "rowwise_adagrad_"
+# K1's and K1h's kernels as the profiler prints them: rows of up to 64
+# columns (tbe_lookup_narrow_kernel) and wider (tbe_lookup_pooled_kernel)
+K1_KERNELS = "tbe_lookup_"
 # kernel -> (wrapper name, source, the Pallas function it replaces)
 KERNELS = {
     "K1": ("tbe_lookup_pooled", "torchrec_tpu_torch/csrc/tbe_lookup.cu",
@@ -935,7 +954,7 @@ def check_kernel(dmp, tl) -> dict:
 
     b = bound(W, ids, coeff)
     t = timings(lambda: tl.tbe_lookup_pooled(W, ids, coeff),
-                "tbe_lookup_pooled_kernel", b["ms"],
+                K1_KERNELS, b["ms"],
                 lambda: tl.tbe_lookup_pooled_reference(W, ids, coeff),
                 lambda: F.embedding_bag(ids, W, mode="sum",
                                         per_sample_weights=coeff))
@@ -946,7 +965,7 @@ def check_kernel(dmp, tl) -> dict:
         f"{100 * b['ms'] / t['ms']:.1f}% of the bound")
     b20 = bound(W, ids20, coeff20)
     ms20 = device_ms(lambda: tl.tbe_lookup_pooled(W, ids20, coeff20),
-                     "tbe_lookup_pooled_kernel", b20["ms"])
+                     K1_KERNELS, b20["ms"])
     log(f"K1 L=20: {ms20:.4f} ms; bound {b20['ms']:.4f} ms ({b20['by']}); "
         f"kernel at {100 * b20['ms'] / ms20:.1f}% of the bound")
     return {"max_abs_err": max(err, err20), "ms": t["ms"],
@@ -1167,31 +1186,36 @@ def check_update_kernels(dmp, fk) -> dict:
     u_rt, g_rt = fu.run_total_row_grads(flat, row_grads, valid, R)
     u_dd, g_dd = fu.dedup_row_grads(flat, row_grads, valid, R)
     N = int(flat.numel())
-    real_rt = u_rt < R
-    n_real = int(real_rt.sum())
-    ids_real = u_rt[real_rt].long()
+    n_real = int((u_rt < R).sum())
     log(f"update kernels: N={N} slots, {n_real} distinct rows, "
         f"{int((u_rt == fu.RUN_SENTINEL).sum())} run sentinels, "
         f"{int((u_dd >= R).sum())} dedup sentinels; W {tuple(W.shape)}")
     out = check_sgd(fk, W, u_rt, g_rt, lr)
+    out.update(check_k2(fk, W, u_rt, g_rt, lr))
+    out.update(check_rowwise(fk, W, M, u_dd, g_dd, lr))
+    return report(out)
 
-    # K2: the rows of the write form of the SGD update
+
+def check_k2(fk, W, u_rt, g_rt, lr) -> dict:
+    """K2 on clones of a table, writing the rows of the write form of the
+    SGD update at one batch's run totals: bit-exact with its plain version,
+    then timed beside index_copy_ on the real slots."""
+    R, D = W.shape
+    real = u_rt < R
     rows = W[u_rt.clamp(max=R - 1).long()] - lr * g_rt
     W1, W2 = W.clone(), W.clone()
     fk.scatter_rows_write(W1, u_rt, rows)
     fk.scatter_rows_write_reference(W2, u_rt, rows)
-    rows_real = rows[real_rt]
-    b = rows_bound(N, n_real, D, rows_moved=2, flops_per_elem=0)
-    out["K2"] = {
+    ids_real, rows_real = u_rt[real].long(), rows[real]
+    b = rows_bound(int(u_rt.numel()), int(real.sum()), D, rows_moved=2,
+                   flops_per_elem=0)
+    return {"K2": {
         "max_abs_err": _hold("K2", [(W1, W2)]), "bound": b,
         **timings(lambda: fk.scatter_rows_write(W1, u_rt, rows),
                   "row_update_kernel", b["ms"],
                   lambda: fk.scatter_rows_write_reference(W2, u_rt, rows),
                   lambda: W2.index_copy_(0, ids_real, rows_real)),
-    }
-    del rows, rows_real
-    out.update(check_rowwise(fk, W, M, u_dd, g_dd, lr))
-    return report(out)
+    }}
 
 
 def k5_bound(N: int, n_uniq: int) -> dict:
@@ -1285,7 +1309,8 @@ def report(out: dict, what: str = "") -> dict:
                else f"{r['library_ms']:.4f} ms")
         unfused = ("" if "unfused_ms" not in r
                    else f"; unfused composition {r['unfused_ms']:.5f} ms")
-        log(f"{k} {KERNELS[k][0]}{what}: bit-exact with its plain version; "
+        label = f"{k} {KERNELS[k][0]}" if k in KERNELS else k
+        log(f"{label}{what}: bit-exact with its plain version; "
             f"{r['ms']:.5f} ms on the device (call {r['call_ms']:.4f} ms); "
             f"plain {r['plain_ms']:.4f} ms; library "
             f"{lib}{unfused}; bound {r['bound']['ms']:.5f} ms "
@@ -2170,7 +2195,7 @@ def pw_serve(tl) -> dict:
     del out, ref
     b = bound(W, ids, coeff)
     t = timings(lambda: tl.tbe_lookup_pooled(W, ids, coeff),
-                "tbe_lookup_pooled_kernel", b["ms"],
+                K1_KERNELS, b["ms"],
                 lambda: tl.tbe_lookup_pooled_reference(W, ids, coeff),
                 lambda: F.embedding_bag(ids, W, mode="sum",
                                         per_sample_weights=coeff))
@@ -2461,7 +2486,7 @@ def check_half_lookup(tl, strat) -> dict:
         b = bound(W, ids, c1)
         psw = c1.to(W.dtype)
         t = timings(lambda: tl.tbe_lookup_pooled(W, ids, c1),
-                    "tbe_lookup_pooled_kernel", b["ms"],
+                    K1_KERNELS, b["ms"],
                     lambda: tl.tbe_lookup_pooled_reference(W, ids, c1),
                     lambda: F.embedding_bag(ids, W, mode="sum",
                                             per_sample_weights=psw))
@@ -3454,7 +3479,7 @@ def check_quant_kernel(ql, tl, sq, W, ids, what: str) -> dict:
                 lib)
     kb = bound(W, ids, coeff)
     k1 = device_ms(lambda: tl.tbe_lookup_pooled(W, ids, coeff),
-                   "tbe_lookup_pooled_kernel", kb["ms"])
+                   K1_KERNELS, kb["ms"])
     log(f"Kq {what} L=1 NB={ids.shape[0]} D={sq.dim}: bit-exact with the "
         f"plain version (pooled and unpooled); {t['ms']:.5f} ms on the "
         f"device (call {t['call_ms']:.5f} ms); plain {t['plain_ms']:.4f} ms;"
@@ -6723,52 +6748,68 @@ def time_wide(fk) -> dict:
     return {"K4": k4, "K4h": k4h}
 
 
-def check_lookups_d10(tl, gr, ql) -> dict:
-    """The lookups at D=KD_DIM, on a [33,762,577, 10] table drawn on the
-    card and one B=8192 batch of the Kaggle features (one id each, ids
-    uniform over each table's rows): K1 and K1h (bf16) bit-exact with their
-    plain versions and timed beside F.embedding_bag; K8 through
-    check_gather; the routed gather on a rank that owns every row (ids [26,
-    8192, 1] local to each table) equal by value; Kq at 8 and 4 bits,
-    pooled and unpooled, bit-exact. Each on its scalar path."""
-    import torch.nn.functional as F
-
-    from torchrec_tpu_torch.ops.quant import quantize_rowwise
-
+def kaggle_lookup(D: int, seed: int) -> tuple:
+    """A [33,762,577, D] table of the 26 Criteo Kaggle tables drawn on the
+    card and one B=8192 batch of their features, one id each, uniform over
+    each table's rows: (W, ids [26 * 8192, 1] global, coefficients 1,
+    local ids [26, 8192], the tables' first rows)."""
     cards = kd_cards()
     offs = np.concatenate([[0], np.cumsum(cards)[:-1]]).astype(np.int64)
     gen = torch.Generator(device=DEVICE)
-    gen.manual_seed(SEED + 66)
-    W = torch.randn((sum(cards), KD_DIM), generator=gen, device=DEVICE)
+    gen.manual_seed(seed)
+    W = torch.randn((sum(cards), D), generator=gen, device=DEVICE)
     W *= 0.05
-    rng = np.random.RandomState(SEED + 66)
+    rng = np.random.RandomState(seed)
     local = np.stack([rng.randint(0, c, size=BENCH_BATCH)
                       for c in cards]).astype(np.int32)  # [F, B]
     ids = torch.from_numpy(
         (local + offs[:, None]).reshape(-1, 1).astype(np.int32)).to(DEVICE)
-    coeff = torch.ones(ids.shape, device=DEVICE)
+    return W, ids, torch.ones(ids.shape, device=DEVICE), local, offs
+
+
+def hold_lookups(tl, W, ids, coeff) -> dict:
+    """K1 on the f32 table W and K1h on a bf16 copy: bit-exact with their
+    plain versions, timed beside F.embedding_bag."""
+    import torch.nn.functional as F
+
+    D = W.shape[1]
     out = {}
     for tag, Wt in (("K1", W), ("K1h", W.to(torch.bfloat16))):
         got = tl.tbe_lookup_pooled(Wt, ids, coeff)
-        err = _hold(f"{tag} at D={KD_DIM}",
+        err = _hold(f"{tag} at D={D}",
                     [(got, tl.tbe_lookup_pooled_reference(Wt, ids, coeff))])
         b = bound(Wt, ids, coeff)
         psw = coeff.to(Wt.dtype)
         t = timings(lambda: tl.tbe_lookup_pooled(Wt, ids, coeff),
-                    "tbe_lookup_pooled_kernel", b["ms"],
+                    K1_KERNELS, b["ms"],
                     lambda: tl.tbe_lookup_pooled_reference(Wt, ids, coeff),
                     lambda: F.embedding_bag(ids, Wt, mode="sum",
                                             per_sample_weights=psw))
         out[tag] = {"max_abs_err": err, "ms": t["ms"],
                     "plain_ms": t["plain_ms"], "library_ms": t["library_ms"],
                     "bound_ms": b["ms"], "bound_by": b["by"]}
-        log(f"{tag} D={KD_DIM} NB={ids.shape[0]}: bit-exact with its plain "
+        log(f"{tag} D={D} NB={ids.shape[0]}: bit-exact with its plain "
             f"version; {t['ms']:.5f} ms on the device (call "
             f"{t['call_ms']:.4f} ms); plain {t['plain_ms']:.4f} ms; "
             f"F.embedding_bag {t['library_ms']:.4f} ms; bound "
             f"{b['ms']:.5f} ms ({b['by']}: {b['bytes']} B with {b['rows']} "
             f"distinct rows); kernel at {100 * b['ms'] / t['ms']:.1f}% of "
             f"the bound")
+    return out
+
+
+def check_lookups_d10(tl, gr, ql) -> dict:
+    """The lookups at D=KD_DIM on kaggle_lookup's table and batch: K1 and
+    K1h (bf16) through hold_lookups (their narrow path); K8 through
+    check_gather; the routed gather on a rank that owns every row (ids [26,
+    8192, 1] local to each table) equal by value; Kq at 8 and 4 bits,
+    pooled and unpooled, bit-exact. K8, the routed gather and Kq on their
+    scalar paths."""
+    from torchrec_tpu_torch.ops.quant import quantize_rowwise
+
+    cards = kd_cards()
+    W, ids, coeff, local, offs = kaggle_lookup(KD_DIM, SEED + 66)
+    out = hold_lookups(tl, W, ids, coeff)
     k8 = check_gather(W, ids.reshape(-1), f"at D={KD_DIM}")
     out["K8"] = {k: v for k, v in k8.items() if k != "call_ms"}
     F_, B_ = local.shape
@@ -6892,6 +6933,231 @@ def widths_phase() -> dict:
     for k, v in wide.items():
         results.setdefault(k, {})["wide_d1030"] = v
     return {"launches": launches, "results": results}
+
+
+# -- phase 22: narrow rows ---------------------------------------------------
+
+# every lane group at its ends and inside (G = 1: D 1-4, 2: 5-8, 4: 9-16,
+# 8: 17-32, 16: 33-64; ops/lane_groups.py), odd widths and even ones that
+# are not whole quads (the row kernel's pairs) at each, and D=128 (a row a
+# warp)
+NARROW_WIDTHS = (1, 2, 3, 4, 5, 6, 8, 10, 12, 16, 17, 18, 32, 33, 34, 63,
+                 64, 128)
+# each table aligned, and one element into its storage (no whole quads)
+NARROW_OFFSETS = (0, 1)
+# [NARROW_ROWS, D] tables; 3,001 bags and tokens leave the last warp
+# partial at every lane group
+NARROW_ROWS, NARROW_BAGS, NARROW_TOKENS = 4096, 3001, 3001
+NARROW_L = 20
+# the widths timed: the D=10 DeepFM's (phase 21) and the Kaggle DLRM's
+# (phase 20)
+NARROW_TIMED = (10, 64)
+
+
+@contextlib.contextmanager
+def row_slots(fk, slots: int):
+    """The row kernel of K2, K3 and K4's scaled RMW takes `slots` slots a
+    warp while open (the wrappers read fk.row_slots_per_warp at each
+    call)."""
+    saved = fk.row_slots_per_warp
+    fk.row_slots_per_warp = lambda D: slots
+    try:
+        yield
+    finally:
+        fk.row_slots_per_warp = saved
+
+
+def slot_counts(D: int) -> list:
+    """The slots a warp of the row kernel can take at width D: the powers of
+    two from its lane groups' count up to 32 (32 alone past 64 columns)."""
+    from torchrec_tpu_torch.ops.lane_groups import rows_per_warp
+
+    if rows_per_warp(D) == 1:
+        return [32]
+    out, slots = [], rows_per_warp(D)
+    while slots <= 32:
+        out.append(slots)
+        slots *= 2
+    return out
+
+
+def check_narrow_width(tl, fk, D: int, offset: int, rng) -> dict:
+    """K1 (f32), K1h (bf16 and fp16), K2, K3 and K4's scaled RMW against
+    their plain versions on a [NARROW_ROWS, D] table that starts `offset`
+    elements into its storage. The lookups over NARROW_BAGS bags at L=1
+    (one id, coefficient 1: bit for bit) and at L=NARROW_L (MEAN
+    coefficients on even bags, per-sample weights on odd ones, zero-padded
+    slots, ids below 0 and past R: within rtol = atol = 1e-6, phase 4's
+    tolerance). The row kernels over NARROW_TOKENS tokens (hot rows
+    repeated, 15 % invalid) as run totals (K2, K3 at weight decay 0 and
+    0.01) and dedup output (the scaled RMW), bit for bit at every slot
+    count of slot_counts(D). Returns each kernel's largest difference."""
+    from torchrec_tpu_torch.ops import fused_update as fu
+
+    R, NB, T, lr, Lk = NARROW_ROWS, NARROW_BAGS, NARROW_TOKENS, FUSED_LR, \
+        NARROW_L
+    dev = torch.device(DEVICE)
+    W = torch.from_numpy((rng.randn(R, D) * 0.1).astype(np.float32)).to(dev)
+    errs: dict = {}
+
+    def note(k, err):
+        errs[k] = max(errs.get(k, 0.0), err)
+
+    ids1 = torch.from_numpy(
+        rng.randint(0, R, size=(NB, 1)).astype(np.int32)).to(dev)
+    c1 = torch.ones((NB, 1), device=dev)
+    ids20 = torch.from_numpy(
+        rng.randint(-5, R + 100, size=(NB, Lk)).astype(np.int32)).to(dev)
+    lengths = torch.from_numpy(rng.randint(0, Lk + 1, size=NB)).to(dev)
+    mask = torch.arange(Lk, device=dev)[None, :] < lengths[:, None]
+    psw = torch.from_numpy(rng.rand(NB, Lk).astype(np.float32)).to(dev)
+    mean = mask / lengths.clamp(min=1)[:, None]
+    c20 = torch.where(torch.arange(NB, device=dev)[:, None] % 2 == 0, mean,
+                      mask * psw).float().contiguous()
+    for k, dtype in (("K1", torch.float32), ("K1h", torch.bfloat16),
+                     ("K1h", torch.float16)):
+        Wt = _placed(W.to(dtype), offset)
+        what = f"{k} ({dtype}) at D={D} (offset {offset})"
+        note(k, _hold(f"{what}, L=1", [
+            (tl.tbe_lookup_pooled(Wt, ids1, c1),
+             tl.tbe_lookup_pooled_reference(Wt, ids1, c1))]))
+        got = tl.tbe_lookup_pooled(Wt, ids20, c20)
+        ref = tl.tbe_lookup_pooled_reference(Wt, ids20, c20)
+        try:
+            torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-6)
+        except AssertionError as e:
+            raise AssertionError(f"{what}, L={Lk}: {e}") from None
+        note(k, (got - ref).abs().max().item())
+
+    flat = rng.randint(0, R, size=T).astype(np.int32)
+    flat[:T // 4] = rng.randint(0, 20, size=T // 4)
+    valid = torch.from_numpy(rng.rand(T) > 0.15).to(dev)
+    grads = torch.from_numpy(
+        (rng.randn(T, D) * 1e-2).astype(np.float32)).to(dev)
+    flat = torch.from_numpy(flat).to(dev)
+    u_rt, g_rt = fu.run_total_row_grads(flat, grads, valid, R)
+    u_dd, g_dd = fu.dedup_row_grads(flat, grads, valid, R)
+    g_rt, g_dd = _placed(g_rt, offset), _placed(g_dd, offset)
+    rows = _placed(W[u_rt.clamp(max=R - 1).long()] - lr * g_rt, offset)
+    scale = torch.from_numpy(
+        (rng.rand(u_dd.numel()) * -1e-3).astype(np.float32)).to(dev)
+    cases = [
+        ("K2", lambda w: fk.scatter_rows_write(w, u_rt, rows),
+         lambda w: fk.scatter_rows_write_reference(w, u_rt, rows)),
+        *[("K3", lambda w, wd=wd: fk.fused_update_sgd(w, u_rt, g_rt, lr, wd),
+           lambda w, wd=wd: fk.fused_update_sgd_reference(w, u_rt, g_rt, lr,
+                                                          wd))
+          for wd in (0.0, 0.01)],
+        (SCALED, lambda w: fk.scaled_row_update(w, u_dd, g_dd, scale),
+         lambda w: fk.scaled_row_update_reference(w, u_dd, g_dd, scale)),
+    ]
+    for slots in slot_counts(D):
+        for k, kernel, plain in cases:
+            a, b = _placed(W, offset), _placed(W, offset)
+            with row_slots(fk, slots):
+                kernel(a)
+            plain(b)
+            note(k, _hold(f"{k} at D={D} (offset {offset}, {slots} slots a "
+                          f"warp)", [(a, b)]))
+    return errs
+
+
+def check_narrow(tl, fk) -> dict:
+    """check_narrow_width at every width of NARROW_WIDTHS and offset of
+    NARROW_OFFSETS. Returns per kernel the largest difference."""
+    rng = np.random.RandomState(SEED + 70)
+    out: dict = {}
+    for D in NARROW_WIDTHS:
+        for offset in NARROW_OFFSETS:
+            for k, err in check_narrow_width(tl, fk, D, offset, rng).items():
+                out[k] = max(out.get(k, 0.0), err)
+    log(f"narrow rows: K1 and K1h (bf16, fp16) bit for bit with their plain "
+        f"versions at L=1 and within rtol = atol = 1e-6 at L={NARROW_L} "
+        f"(MEAN and per-sample coefficients, padded slots, ids out of "
+        f"range); K2, K3 (weight decay 0 and 0.01) and the scaled RMW bit "
+        f"for bit at every slot count a warp; at D in {NARROW_WIDTHS}, "
+        f"offsets {NARROW_OFFSETS}: largest differences {out}")
+    return out
+
+
+def check_scaled(fk, W, u_dd, g_dd, scale) -> dict:
+    """K4's scaled RMW on clones of a table at one batch's dedup output:
+    bit-exact with its plain version, then timed beside index_add_ of the
+    pre-scaled rows on the real slots (the multiply outside the timing)."""
+    R, D = W.shape
+    real = u_dd < R
+    n_real = int(real.sum())
+    W1, W2 = W.clone(), W.clone()
+    fk.scaled_row_update(W1, u_dd, g_dd, scale)
+    fk.scaled_row_update_reference(W2, u_dd, g_dd, scale)
+    ids_real = u_dd[real].long()
+    sg_real = (scale[:, None] * g_dd)[real]
+    b = rows_bound(int(u_dd.numel()), n_real, D, rows_moved=3,
+                   extra_bytes=n_real * 4)
+    return {SCALED: {
+        "max_abs_err": _hold(SCALED, [(W1, W2)]), "bound": b,
+        **timings(lambda: fk.scaled_row_update(W1, u_dd, g_dd, scale),
+                  "row_update_kernel", b["ms"],
+                  lambda: fk.scaled_row_update_reference(W2, u_dd, g_dd,
+                                                         scale),
+                  lambda: W2.index_add_(0, ids_real, sg_real)),
+    }}
+
+
+def time_narrow(tl, fk, D: int) -> dict:
+    """K1, K1h (bf16), K3, K2 and K4's scaled RMW at width D on
+    kaggle_lookup's table and batch (212,992 bags; the same ids as one
+    update's 212,992 slots, run totals and dedup output, gradients of
+    1e-3): each bit-exact with its plain version and timed beside its
+    bound, its plain version and its PyTorch call (F.embedding_bag,
+    index_add_, index_copy_)."""
+    from torchrec_tpu_torch.ops import fused_update as fu
+
+    W, ids, coeff, _, _ = kaggle_lookup(D, SEED + 71)
+    R = W.shape[0]
+    out = hold_lookups(tl, W, ids, coeff)
+    flat = ids.reshape(-1)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 72)
+    grads = torch.randn((flat.numel(), D), generator=gen, device=DEVICE)
+    grads *= 1e-3
+    valid = torch.ones(flat.numel(), dtype=torch.bool, device=DEVICE)
+    u_rt, g_rt = fu.run_total_row_grads(flat, grads, valid, R)
+    u_dd, g_dd = fu.dedup_row_grads(flat, grads, valid, R)
+    del grads
+    scale = torch.rand(u_dd.numel(), generator=gen, device=DEVICE) * -1e-3
+    log(f"narrow D={D}: {flat.numel()} slots, {int((u_rt < R).sum())} "
+        f"distinct rows; the row kernel's lanes and slots a warp "
+        f"{fk.row_geometry(D)}")
+    rows = check_sgd(fk, W, u_rt, g_rt, FUSED_LR)
+    rows.update(check_k2(fk, W, u_rt, g_rt, FUSED_LR))
+    rows.update(check_scaled(fk, W, u_dd, g_dd, scale))
+    out.update(report(rows, f" at D={D} (narrow rows)"))
+    return out
+
+
+def narrow_phase() -> dict:
+    """Phase 22 (see the module docstring). Returns per kernel (K1, K1h,
+    K2, K3 and the scaled RMW) this phase's numbers: {"narrow": the
+    largest difference over the widths, "narrow_d10" / "narrow_d64": the
+    held and timed kernel}."""
+    from torchrec_tpu_torch.ops import fused_update_kernels as fk
+    from torchrec_tpu_torch.ops import tbe_lookup as tl
+
+    t = time.perf_counter()
+    errs = check_narrow(tl, fk)
+    gc_cuda()
+    log(f"narrow step 1 (K1, K1h and the row kernel at every lane group): "
+        f"{time.perf_counter() - t:.2f} s")
+    results = {k: {"narrow": {"max_abs_err": e,
+                              "widths": list(NARROW_WIDTHS)}}
+               for k, e in errs.items()}
+    for D in NARROW_TIMED:
+        for k, v in time_narrow(tl, fk, D).items():
+            results[k][f"narrow_d{D}"] = v
+        gc_cuda()
+    log(f"narrow phase: {time.perf_counter() - t:.2f} s")
+    return results
 
 
 def gc_cuda() -> None:
@@ -7037,14 +7303,19 @@ def main() -> int:
     widths = widths_phase()
     for k, v in widths["launches"].items():
         flat[k] = flat.get(k, 0) + v
-    for k, v in widths["results"].items():
-        key = k if k in KERNELS else "K4"  # the scaled RMW's under K4
-        into = results[key] if k in KERNELS else results[key].setdefault(
-            "scaled_rmw", {})
-        into.update(v)
-        for sub in v.values():
-            results[key]["max_abs_err"] = max(results[key]["max_abs_err"],
-                                              sub["max_abs_err"])
+
+    # narrow rows: K1, K1h and the row kernel of K2, K3 and the scaled RMW
+    # held at every lane group and timed at D=10 and D=64
+    narrow = narrow_phase()
+    for part in (widths["results"], narrow):
+        for k, v in part.items():
+            key = k if k in KERNELS else "K4"  # the scaled RMW's under K4
+            into = results[key] if k in KERNELS else results[
+                key].setdefault("scaled_rmw", {})
+            into.update(v)
+            for sub in v.values():
+                results[key]["max_abs_err"] = max(
+                    results[key]["max_abs_err"], sub["max_abs_err"])
 
     launches = {k: trained[name]["launches"][k]
                 for name, ks in STEP_KERNELS.items() for k in ks}

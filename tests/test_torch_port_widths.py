@@ -240,10 +240,12 @@ def test_rowwise_routes_agree_at_any_width(dim):
 # -- no width refused on the card ---------------------------------------------
 
 # (kernel, D): the f32 row kernels and both half kernels at a width that is
-# not a multiple of 4, the fused rowwise kernels past 512 columns
+# not a multiple of 4, the fused rowwise kernels past 512 columns, K1 and
+# K1h at narrow widths (lane groups of 1, 4 and 16 lanes)
 CUDA_WIDTH_CASES = [(k, 3) for k in ("K2", "K3", "scaled", "K4", "K6", "K7",
                                      "K3h", "K4h")] + [("K4", 1030),
-                                                       ("K4h", 1030)]
+                                                       ("K4h", 1030)] + [
+    (k, d) for k in ("K1", "K1h") for d in (3, 10, 64)]
 
 
 @pytest.mark.parametrize("kernel,dim", CUDA_WIDTH_CASES)
@@ -251,16 +253,20 @@ def test_update_kernels_take_any_width_on_a_cuda_tensor(kernel, dim):
     """A CUDA tensor of any width goes to the launch: with no card and no
     nvcc here the wrapper raises from the kernel's build, never a refusal
     of the width (ValueError for D % 4 != 0, NotImplementedError for K4h
-    past 512 columns, as before), and takes no plain version. The tensors
-    are fake CUDA tensors (metadata only), which a CPU build can make."""
+    past 512 columns, as before), and takes no plain version. K1 and K1h
+    pick their lane group from D before the build, as the row kernels do.
+    The tensors are fake CUDA tensors (metadata only), which a CPU build
+    can make."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
-    launches = dict(fk.LAUNCHES)
+    launches = (dict(fk.LAUNCHES), tl.LAUNCHES, tl.HALF_LAUNCHES)
     with FakeTensorMode():
         dev = "cuda"
         f32 = torch.zeros(8, dim, device=dev)
         half = torch.zeros(8, dim, dtype=torch.bfloat16, device=dev)
         uids = torch.zeros(2, dtype=torch.int32, device=dev)
+        bags = torch.zeros(5, 2, dtype=torch.int32, device=dev)
+        coeff = torch.ones(5, 2, device=dev)
         g = torch.zeros(2, dim, device=dev)
         m_row = torch.zeros(8, device=dev)
         step = torch.zeros((), dtype=torch.int32, device=dev)
@@ -279,11 +285,13 @@ def test_update_kernels_take_any_width_on_a_cuda_tensor(kernel, dim):
             "K3h": lambda: fk.fused_update_sgd_half(half, uids, g, LR, step),
             "K4h": lambda: fk.fused_update_rowwise_adagrad_half(
                 half, m_row, uids, g, LR, step),
+            "K1": lambda: tl.tbe_lookup_pooled(f32, bags, coeff),
+            "K1h": lambda: tl.tbe_lookup_pooled(half, bags, coeff),
         }[kernel]
         with pytest.raises(RuntimeError) as raised:
             call()
     assert not isinstance(raised.value, NotImplementedError)
-    assert fk.LAUNCHES == launches
+    assert (fk.LAUNCHES, tl.LAUNCHES, tl.HALF_LAUNCHES) == launches
 
 
 # -- row_mean_sq at any width -------------------------------------------------

@@ -45,12 +45,26 @@
 // K5 moves 4-byte momentum words and does a sqrt and a divide per row. All
 // are far below the card's ~20 fp32 flops per byte, so the least time is
 // the bytes over the memory rate. What the design does about it:
-//   * K2-K4, K6, K7: one warp takes 32 consecutive slots. Lane i loads slot
-//     i's id (and K4's scale) once; the warp walks the 32 slots,
+//   * K2-K4, K6, K7: one warp takes up to 32 consecutive slots. Lane i
+//     loads slot i's id (and K4's scale) once; the warp walks the slots,
 //     broadcasting each id with a shuffle, and moves each real slot's rows
 //     with every lane holding one 16-byte float4 of each tensor, so a
 //     512-byte row is one coalesced request per tensor (wider rows loop over
 //     512-byte chunks). A sentinel slot costs only its 4-byte id.
+//   * Narrow rows (K2, K3 and K4's scaled RMW, `row_update_kernel`): a row
+//     of quads = ceil(D / 4) quads takes G lanes, the smallest power of two
+//     >= quads, at most 32, picked by the wrapper from D
+//     (ops/lane_groups.py). Below 65 columns (G < 32) the warp's P = 32 / G
+//     lane groups walk disjoint slots, group p slots p, p + P, p + 2P, ...
+//     of the warp's `slots` (a multiple of P the wrapper picks from G), so
+//     P rows are in flight at once: at D=10 (G = 4) 8 rows, each group
+//     walking 2 of the warp's 16 slots. Lane l of a group holds quad l, as
+//     the vector or masked path below has it, so each column's arithmetic
+//     is the one-row-a-warp layout's; an even narrow row whose quads are
+//     not whole (D=10) moves its quads as pairs of float2s ("Access").
+//     Every group runs the same number of steps, so every lane reaches
+//     each full-mask shuffle; the sentinels are skipped after it. At G = 32
+//     (D > 64) this is the one-row-a-warp walk of 32 slots.
 //   * Any width: a row whose float4s would not be whole or aligned (D % 4
 //     != 0, or a table view that starts mid-row) takes the masked path,
 //     which the launcher picks from D and the pointers (see "Row access").
@@ -199,6 +213,45 @@ __device__ __forceinline__ void store4(float* row, int64_t q, float4 v,
   }
 }
 
+// Narrow rows whose quads are not whole but whose pairs are (D % 2 == 0,
+// rows aligned to 8 bytes) take a third path in the row kernel of K2, K3
+// and K4's scaled RMW: a quad as two float2s, the second only below D, the
+// same columns and arithmetic as the masked path, half its loads and
+// stores. At D=10 a row is two whole quads and a pair.
+enum class Access { kVector, kPairs, kMasked };
+
+// Quad q of an f32 row: kReadOnly rows (g, K2's rows) through the read-only
+// cache, as load_g4; table rows as load4
+template <Access kAcc, bool kReadOnly>
+__device__ __forceinline__ float4 row_load(const float* row, int64_t q,
+                                           int64_t D) {
+  if constexpr (kAcc == Access::kPairs) {
+    const int64_t c = 4 * q;
+    const float2* p = reinterpret_cast<const float2*>(row + c);
+    const float2 a = kReadOnly ? __ldg(p) : p[0];
+    float2 b = make_float2(0.f, 0.f);
+    if (c + 2 < D) b = kReadOnly ? __ldg(p + 1) : p[1];
+    return make_float4(a.x, a.y, b.x, b.y);
+  } else if constexpr (kReadOnly) {
+    return load_g4<kAcc == Access::kMasked>(row, q, D);
+  } else {
+    return load4<kAcc == Access::kMasked>(row, q, D);
+  }
+}
+
+template <Access kAcc>
+__device__ __forceinline__ void row_store(float* row, int64_t q, float4 v,
+                                          int64_t D) {
+  if constexpr (kAcc == Access::kPairs) {
+    const int64_t c = 4 * q;
+    float2* p = reinterpret_cast<float2*>(row + c);
+    p[0] = make_float2(v.x, v.y);
+    if (c + 2 < D) p[1] = make_float2(v.z, v.w);
+  } else {
+    store4<kAcc == Access::kMasked>(row, q, v, D);
+  }
+}
+
 // -- K2-K4: row writes --------------------------------------------------------
 
 enum class RowOp { kWrite, kSgd, kScaled };
@@ -212,19 +265,24 @@ __device__ __forceinline__ float row_op(float w, float x, float lr, float wd,
   return __fsub_rn(w, __fmul_rn(lr, g));
 }
 
-// src is `rows` (K2) or `g` (K3, K4), [N, D]; scale is K4's [N].
-template <RowOp kOp, bool kMasked>
+// src is `rows` (K2) or `g` (K3, K4), [N, D]; scale is K4's [N]. kGroup
+// lanes hold a row; a warp takes `slots` consecutive slots, a multiple of
+// its 32 / kGroup groups, and group p walks slots p, p + 32 / kGroup, ...
+template <RowOp kOp, Access kAcc, int kGroup>
 __global__ void row_update_kernel(float* __restrict__ w,
                                   const int32_t* __restrict__ uids,
                                   const float* __restrict__ src,
                                   const float* __restrict__ scale, int64_t R,
-                                  int64_t D, int64_t N, float lr, float wd) {
+                                  int64_t D, int64_t N, int slots, float lr,
+                                  float wd) {
+  constexpr int kRows = 32 / kGroup;  // rows in flight per warp
   const int lane = threadIdx.x & 31;
+  const int sub = lane % kGroup;
   const int64_t warp =
       static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
-  const int64_t base = warp * 32;
+  const int64_t base = warp * slots;
   if (base >= N) return;  // whole warp leaves together
-  const int n = static_cast<int>(N - base < 32 ? N - base : 32);
+  const int n = static_cast<int>(N - base < slots ? N - base : slots);
   int32_t my_id = -1;
   float my_s = 0.f;
   if (lane < n) {
@@ -232,25 +290,28 @@ __global__ void row_update_kernel(float* __restrict__ w,
     if (kOp == RowOp::kScaled && is_real(my_id, R)) my_s = scale[base + lane];
   }
   const int64_t quads = (D + 3) / 4;
-  for (int j = 0; j < n; ++j) {
+  // the same trip count in every group; j < slots <= 32 (lanes from n on
+  // hold -1, a sentinel)
+  for (int step = 0; step < n; step += kRows) {
+    const int j = step + lane / kGroup;
     const int32_t id = __shfl_sync(kFullMask, my_id, j);
     const float s = __shfl_sync(kFullMask, my_s, j);
-    if (!is_real(id, R)) continue;  // the same for the whole warp
+    if (!is_real(id, R)) continue;  // the same for the whole group
     float* wrow = w + static_cast<int64_t>(id) * D;
     const float* srow = src + (base + j) * D;
-    for (int64_t q = lane; q < quads; q += 32) {
-      const float4 x = load_g4<kMasked>(srow, q, D);
+    for (int64_t q = sub; q < quads; q += kGroup) {
+      const float4 x = row_load<kAcc, true>(srow, q, D);
       float4 v;
       if (kOp == RowOp::kWrite) {
         v = x;
       } else {
-        v = load4<kMasked>(wrow, q, D);
+        v = row_load<kAcc, false>(wrow, q, D);
         v.x = row_op<kOp>(v.x, x.x, lr, wd, s);
         v.y = row_op<kOp>(v.y, x.y, lr, wd, s);
         v.z = row_op<kOp>(v.z, x.z, lr, wd, s);
         v.w = row_op<kOp>(v.w, x.w, lr, wd, s);
       }
-      store4<kMasked>(wrow, q, v, D);
+      row_store<kAcc>(wrow, q, v, D);
     }
   }
 }
@@ -842,30 +903,67 @@ int sgd_half(void* w, const void* uids, const void* g, const void* step,
                                             wd, sr, seed, row_base, stream);
 }
 
-template <RowOp kOp, bool kMasked>
-int launch_rows_path(void* w, const void* uids, const void* src,
-                     const void* scale, int64_t R, int64_t D, int64_t N,
-                     float lr, float wd, void* stream) {
-  const int64_t warps = (N + 31) / 32;
+// What the row kernels' launchers share: the tensors, the sizes, the lane
+// groups and slots per warp the wrapper picked, K3's lr and weight decay.
+struct RowsCall {
+  void* w;
+  const void* uids;
+  const void* src;
+  const void* scale;
+  int64_t R, D, N;
+  int group, slots;
+  float lr, wd;
+  void* stream;
+};
+
+template <RowOp kOp, Access kAcc, int kGroup>
+int launch_rows_path(const RowsCall& c) {
+  const int64_t warps = (c.N + c.slots - 1) / c.slots;
   const dim3 grid(
       static_cast<unsigned>((warps + kWarpsPerBlock - 1) / kWarpsPerBlock));
-  row_update_kernel<kOp, kMasked><<<grid, 32 * kWarpsPerBlock, 0,
-                                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float*>(w), static_cast<const int32_t*>(uids),
-      static_cast<const float*>(src), static_cast<const float*>(scale), R, D,
-      N, lr, wd);
+  row_update_kernel<kOp, kAcc, kGroup>
+      <<<grid, 32 * kWarpsPerBlock, 0, static_cast<cudaStream_t>(c.stream)>>>(
+          static_cast<float*>(c.w), static_cast<const int32_t*>(c.uids),
+          static_cast<const float*>(c.src),
+          static_cast<const float*>(c.scale), c.R, c.D, c.N, c.slots, c.lr,
+          c.wd);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <RowOp kOp, Access kAcc>
+int launch_rows_group(const RowsCall& c) {
+  switch (c.group) {
+    case 1:
+      return launch_rows_path<kOp, kAcc, 1>(c);
+    case 2:
+      return launch_rows_path<kOp, kAcc, 2>(c);
+    case 4:
+      return launch_rows_path<kOp, kAcc, 4>(c);
+    case 8:
+      return launch_rows_path<kOp, kAcc, 8>(c);
+    case 16:
+      return launch_rows_path<kOp, kAcc, 16>(c);
+    default:
+      return launch_rows_path<kOp, kAcc, 32>(c);
+  }
+}
+
+// `group` lanes per row: 32, or a power of two of at least ceil(D / 4);
+// `slots` per warp: a multiple of 32 / group, at most 32
 template <RowOp kOp>
-int launch_rows(void* w, const void* uids, const void* src, const void* scale,
-                int64_t R, int64_t D, int64_t N, float lr, float wd,
-                void* stream) {
-  const bool masked = D % 4 != 0 || !aligned(w, 16) || !aligned(src, 16);
-  return masked ? launch_rows_path<kOp, true>(w, uids, src, scale, R, D, N,
-                                              lr, wd, stream)
-                : launch_rows_path<kOp, false>(w, uids, src, scale, R, D, N,
-                                               lr, wd, stream);
+int launch_rows(const RowsCall& c) {
+  const bool group_ok = c.group >= 1 && c.group <= 32 &&
+                        (c.group & (c.group - 1)) == 0 &&
+                        (c.group == 32 || c.group >= (c.D + 3) / 4);
+  if (!group_ok || c.slots < 1 || c.slots > 32 ||
+      c.slots % (32 / c.group) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (c.D % 4 == 0 && aligned(c.w, 16) && aligned(c.src, 16))
+    return launch_rows_group<kOp, Access::kVector>(c);
+  // pairs on narrow rows (G < 32); wider rows take the masked path
+  if (c.group < 32 && c.D % 2 == 0 && aligned(c.w, 8) && aligned(c.src, 8))
+    return launch_rows_group<kOp, Access::kPairs>(c);
+  return launch_rows_group<kOp, Access::kMasked>(c);
 }
 
 template <Moment kOpt, bool kMasked>
@@ -900,25 +998,27 @@ int launch_moments(void* w, void* m1, void* m2, const void* uids,
 
 extern "C" {
 
+// K2, K3 and K4's scaled RMW: `group` lanes per row and `slots` per warp,
+// both picked by the wrapper (ops/lane_groups.py, row_slots_per_warp)
 int trt_scatter_rows_write_f32(void* w, const void* uids, const void* rows,
-                               int64_t R, int64_t D, int64_t N,
-                               void* stream) {
-  return launch_rows<RowOp::kWrite>(w, uids, rows, nullptr, R, D, N, 0.f,
-                                    0.f, stream);
+                               int64_t R, int64_t D, int64_t N, int group,
+                               int slots, void* stream) {
+  return launch_rows<RowOp::kWrite>(
+      {w, uids, rows, nullptr, R, D, N, group, slots, 0.f, 0.f, stream});
 }
 
 int trt_fused_update_sgd_f32(void* w, const void* uids, const void* g,
-                             int64_t R, int64_t D, int64_t N, float lr,
-                             float wd, void* stream) {
-  return launch_rows<RowOp::kSgd>(w, uids, g, nullptr, R, D, N, lr, wd,
-                                  stream);
+                             int64_t R, int64_t D, int64_t N, int group,
+                             int slots, float lr, float wd, void* stream) {
+  return launch_rows<RowOp::kSgd>(
+      {w, uids, g, nullptr, R, D, N, group, slots, lr, wd, stream});
 }
 
 int trt_scaled_row_update_f32(void* w, const void* uids, const void* g,
                               const void* scale, int64_t R, int64_t D,
-                              int64_t N, void* stream) {
-  return launch_rows<RowOp::kScaled>(w, uids, g, scale, R, D, N, 0.f, 0.f,
-                                     stream);
+                              int64_t N, int group, int slots, void* stream) {
+  return launch_rows<RowOp::kScaled>(
+      {w, uids, g, scale, R, D, N, group, slots, 0.f, 0.f, stream});
 }
 
 int trt_rowwise_momentum_f32(void* m, const void* uids, const void* g_sq,

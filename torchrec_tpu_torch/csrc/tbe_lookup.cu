@@ -15,11 +15,28 @@
 // therefore the bytes over the memory rate.
 //
 // What the design does about it:
-//   * One warp per bag and column chunk. With D % 4 == 0 each lane moves one
-//     16-byte float4 of a row, so a warp reads 512 contiguous bytes of a
-//     row in one coalesced request (a D=128 f32 row is exactly 512 bytes).
-//   * The L coefficients and ids of a bag are loaded once by the warp, 32
-//     at a time (one per lane), and broadcast with shuffles.
+//   * A row has quads = ceil(D / 4) quads of 4 columns and gets G lanes:
+//     the smallest power of two >= quads, at most 32. The wrapper picks G
+//     from D (ops/lane_groups.py) and passes it in.
+//   * Rows wider than 64 columns (G = 32): one warp per bag and column
+//     chunk. With D % 4 == 0 each lane moves one 16-byte float4 of a row,
+//     so a warp reads 512 contiguous bytes of a row in one coalesced
+//     request (a D=128 f32 row is exactly 512 bytes); otherwise each lane
+//     moves one float of a 32-column chunk (blockIdx.y).
+//   * Narrow rows (D <= 64, G < 32): a warp takes P = 32 / G bags, one per
+//     lane group; lane l of a group holds quad l of its bag's rows, as a
+//     vector (D % 4 == 0, aligned rows), as two pairs (D % 2 == 0, rows
+//     aligned to a pair) or element by element, zeros past D, only the
+//     columns below D written. At D=10 (G = 4) a
+//     warp pools 8 bags and at D=64 (G = 16) two, so a warp's lanes are
+//     busy and the launch has P times fewer warps than bags. Every output
+//     element gets the same operations in the same order as on the wide
+//     paths (acc += c * v, slot by slot).
+//   * The L coefficients and ids of a bag are loaded once, G at a time (one
+//     per lane of its group; 32 at a time on the wide paths), and broadcast
+//     with shuffles within the group. L is the same for every bag, so
+//     every group runs the same number of shuffles and every lane of the
+//     warp reaches each full-mask shuffle; a group past NB loads nothing.
 //   * The sum stays in registers; each output element is written once.
 //   * A slot whose coefficient is 0 (padding, the empty bag of a MEAN
 //     feature, a row another shard owns) is not read: those bytes are not
@@ -124,22 +141,157 @@ __global__ void tbe_lookup_pooled_kernel(const T* __restrict__ w,
   }
 }
 
+// 2 consecutive row elements: a float2 for f32, a 4-byte word for halves
+__device__ __forceinline__ float2 load2(const float* p) {
+  return __ldg(reinterpret_cast<const float2*>(p));
+}
+
+template <typename T>
+__device__ __forceinline__ float2 load2(const T* p) {
+  const uint32_t h = __ldg(reinterpret_cast<const unsigned int*>(p));
+  return make_float2(widen(h & 0xffffu, p), widen(h >> 16, p));
+}
+
+// How the narrow kernel moves a quad of a row: whole (D % 4 == 0, aligned
+// rows), as two pairs (D % 2 == 0, rows aligned to a pair), or element by
+// element; past D it reads zeros and writes nothing.
+enum class Access { kQuad, kPair, kElem };
+
+template <Access kAcc, typename T>
+__device__ __forceinline__ float4 load_quad(const T* row, int q, int64_t D) {
+  const int64_t c = 4 * (int64_t)q;  // < D: q < ceil(D / 4)
+  if constexpr (kAcc == Access::kQuad) {
+    return load4(row + c);
+  } else if constexpr (kAcc == Access::kPair) {
+    const float2 a = load2(row + c);
+    const float2 b = c + 2 < D ? load2(row + c + 2) : make_float2(0.f, 0.f);
+    return make_float4(a.x, a.y, b.x, b.y);
+  } else {
+    return make_float4(load1(row + c), c + 1 < D ? load1(row + c + 1) : 0.f,
+                       c + 2 < D ? load1(row + c + 2) : 0.f,
+                       c + 3 < D ? load1(row + c + 3) : 0.f);
+  }
+}
+
+// Narrow rows: kGroup lanes per bag, 32 / kGroup bags per warp; lane `sub`
+// of a group holds quad `sub` of its bag (see the note at the top).
+template <typename T, Access kAcc, int kGroup>
+__global__ void tbe_lookup_narrow_kernel(const T* __restrict__ w,
+                                         const int32_t* __restrict__ ids,
+                                         const float* __restrict__ coeff,
+                                         float* __restrict__ out, int64_t R,
+                                         int64_t D, int64_t NB, int64_t L) {
+  constexpr int kBags = 32 / kGroup;
+  const int lane = threadIdx.x & 31;
+  const int sub = lane % kGroup;
+  const int64_t first =
+      ((int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5)) * kBags;
+  if (first >= NB) return;  // whole warp leaves together
+  const int64_t bag = first + lane / kGroup;
+  const bool live = bag < NB;
+  const bool active = live && sub < (D + 3) / 4;
+
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int64_t slot0 = bag * L;
+  for (int64_t base = 0; base < L; base += kGroup) {
+    // the same n in every group: L is every bag's length
+    const int n = (int)(L - base < kGroup ? L - base : kGroup);
+    int64_t my_id = 0;
+    float my_c = 0.f;
+    if (live && sub < n) {
+      const int64_t id = ids[slot0 + base + sub];
+      my_id = id < 0 ? 0 : (id >= R ? R - 1 : id);
+      my_c = coeff[slot0 + base + sub];
+    }
+    for (int j = 0; j < n; ++j) {
+      const float c = __shfl_sync(kFullMask, my_c, j, kGroup);
+      const int64_t row = __shfl_sync(kFullMask, my_id, j, kGroup);
+      if (c == 0.f || !active) continue;
+      const float4 v = load_quad<kAcc>(w + row * D, sub, D);
+      acc.x += c * v.x;
+      acc.y += c * v.y;
+      acc.z += c * v.z;
+      acc.w += c * v.w;
+    }
+  }
+  if (!active) return;
+  float* o = out + bag * D + 4 * sub;
+  const int64_t c = 4 * (int64_t)sub;
+  if constexpr (kAcc == Access::kQuad) {
+    *reinterpret_cast<float4*>(o) = acc;
+  } else if constexpr (kAcc == Access::kPair) {
+    *reinterpret_cast<float2*>(o) = make_float2(acc.x, acc.y);
+    if (c + 2 < D) {
+      *reinterpret_cast<float2*>(o + 2) = make_float2(acc.z, acc.w);
+    }
+  } else {
+    o[0] = acc.x;
+    if (c + 1 < D) o[1] = acc.y;
+    if (c + 2 < D) o[2] = acc.z;
+    if (c + 3 < D) o[3] = acc.w;
+  }
+}
+
+template <typename T, int kGroup>
+int launch_narrow(bool vec, const T* w, const int32_t* ids, const float* cf,
+                  float* out, int64_t R, int64_t D, int64_t NB, int64_t L,
+                  cudaStream_t s) {
+  constexpr int kBags = 32 / kGroup;
+  const int64_t warps = (NB + kBags - 1) / kBags;
+  const dim3 grid((unsigned)((warps + kWarpsPerBlock - 1) / kWarpsPerBlock));
+  const dim3 block(32 * kWarpsPerBlock);
+  // pairs: 8 bytes of f32 or 4 of a half type, aligned to their size
+  const bool pairs = (D % 2 == 0) && ((uintptr_t)w % (2 * sizeof(T)) == 0) &&
+                     ((uintptr_t)out % 8 == 0);
+  if (vec) {
+    tbe_lookup_narrow_kernel<T, Access::kQuad, kGroup>
+        <<<grid, block, 0, s>>>(w, ids, cf, out, R, D, NB, L);
+  } else if (pairs) {
+    tbe_lookup_narrow_kernel<T, Access::kPair, kGroup>
+        <<<grid, block, 0, s>>>(w, ids, cf, out, R, D, NB, L);
+  } else {
+    tbe_lookup_narrow_kernel<T, Access::kElem, kGroup>
+        <<<grid, block, 0, s>>>(w, ids, cf, out, R, D, NB, L);
+  }
+  return (int)cudaGetLastError();
+}
+
+// `group` is G, the lanes a row takes: 32 for the wide paths, a power of
+// two of at least ceil(D / 4) below it for the narrow one.
 template <typename T>
 int launch(const void* w, const void* ids, const void* coeff, void* out,
-           int64_t R, int64_t D, int64_t NB, int64_t L, void* stream) {
+           int64_t R, int64_t D, int64_t NB, int64_t L, int group,
+           void* stream) {
   // the vector path reads 4 row elements at once: 16 bytes of f32 or 8 of
   // a half type, aligned to their size
   const bool vec = (D % 4 == 0) && ((uintptr_t)w % (4 * sizeof(T)) == 0) &&
                    ((uintptr_t)out % 16 == 0);
-  const int64_t cols = vec ? D / 4 : D;
-  dim3 grid((unsigned)((NB + kWarpsPerBlock - 1) / kWarpsPerBlock),
-            (unsigned)((cols + 31) / 32));
-  dim3 block(32 * kWarpsPerBlock);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const T* wt = static_cast<const T*>(w);
   const int32_t* idp = static_cast<const int32_t*>(ids);
   const float* cf = static_cast<const float*>(coeff);
   float* of = static_cast<float*>(out);
+  if (group != 32 && (D + 3) / 4 > group) return (int)cudaErrorInvalidValue;
+  switch (group) {
+    case 1:
+      return launch_narrow<T, 1>(vec, wt, idp, cf, of, R, D, NB, L, s);
+    case 2:
+      return launch_narrow<T, 2>(vec, wt, idp, cf, of, R, D, NB, L, s);
+    case 4:
+      return launch_narrow<T, 4>(vec, wt, idp, cf, of, R, D, NB, L, s);
+    case 8:
+      return launch_narrow<T, 8>(vec, wt, idp, cf, of, R, D, NB, L, s);
+    case 16:
+      return launch_narrow<T, 16>(vec, wt, idp, cf, of, R, D, NB, L, s);
+    case 32:
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  const int64_t cols = vec ? D / 4 : D;
+  dim3 grid((unsigned)((NB + kWarpsPerBlock - 1) / kWarpsPerBlock),
+            (unsigned)((cols + 31) / 32));
+  dim3 block(32 * kWarpsPerBlock);
   if (vec) {
     tbe_lookup_pooled_kernel<T, true><<<grid, block, 0, s>>>(wt, idp, cf, of,
                                                              R, D, NB, L);
@@ -155,21 +307,24 @@ int launch(const void* w, const void* ids, const void* coeff, void* out,
 extern "C" {
 
 // Returns cudaGetLastError() after the launch (0 on success).
+// `group`: lanes per row, from D (ops/lane_groups.py).
 int trt_tbe_lookup_pooled_f32(const void* w, const void* ids,
                               const void* coeff, void* out, int64_t R,
-                              int64_t D, int64_t NB, int64_t L,
+                              int64_t D, int64_t NB, int64_t L, int group,
                               void* stream) {
-  return launch<float>(w, ids, coeff, out, R, D, NB, L, stream);
+  return launch<float>(w, ids, coeff, out, R, D, NB, L, group, stream);
 }
 
 // K1h: `half` 0 for bf16 rows, 1 for fp16 rows; out is f32.
 int trt_tbe_lookup_pooled_half(const void* w, const void* ids,
                                const void* coeff, void* out, int64_t R,
-                               int64_t D, int64_t NB, int64_t L, int half,
-                               void* stream) {
+                               int64_t D, int64_t NB, int64_t L, int group,
+                               int half, void* stream) {
   if (half == 0)
-    return launch<__nv_bfloat16>(w, ids, coeff, out, R, D, NB, L, stream);
-  if (half == 1) return launch<__half>(w, ids, coeff, out, R, D, NB, L, stream);
+    return launch<__nv_bfloat16>(w, ids, coeff, out, R, D, NB, L, group,
+                                 stream);
+  if (half == 1)
+    return launch<__half>(w, ids, coeff, out, R, D, NB, L, group, stream);
   return (int)cudaErrorInvalidValue;
 }
 

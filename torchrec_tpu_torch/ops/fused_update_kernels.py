@@ -31,8 +31,11 @@ The JAX functions return new arrays; these update `weights` and the
 momenta IN PLACE and return the same tensors, so callers port one to one.
 CUDA tensors launch the kernel, at any D >= 1: rows that are whole aligned
 quads (D % 4 == 0, aligned tensors) move as vectors, every other table by
-the masked path, which the launcher picks from D and the pointers; CPU
-tensors take the plain PyTorch version (`*_reference`). Nothing falls
+the masked path, which the launcher picks from D and the pointers. The
+row kernel of K2, K3 and K4's scaled RMW gives a row `lanes_per_row(D)`
+lanes (ops/lane_groups.py), so a warp moves several rows of up to 64
+columns at once (`row_geometry`). CPU tensors take the plain PyTorch
+version (`*_reference`). Nothing falls
 back: a failed build or launch raises.
 
 Slots whose id is not a real row (0 <= id < R) are skipped: the sentinels
@@ -51,6 +54,7 @@ from typing import Callable, Dict, Tuple
 import torch
 
 from torchrec_tpu_torch.ops.cuda_build import CudaLibrary
+from torchrec_tpu_torch.ops.lane_groups import lanes_per_row
 from torchrec_tpu_torch.ops.stochastic_rounding import (
     SR_SEED,
     sr_bits,
@@ -65,10 +69,12 @@ HALF_TYPES = {torch.bfloat16: 0, torch.float16: 1}
 
 def _bind(lib: ctypes.CDLL) -> None:
     sigs = {
-        "trt_scatter_rows_write_f32": [_P, _P, _P, _I64, _I64, _I64, _P],
+        "trt_scatter_rows_write_f32":
+            [_P, _P, _P, _I64, _I64, _I64, _INT, _INT, _P],
         "trt_fused_update_sgd_f32":
-            [_P, _P, _P, _I64, _I64, _I64, _F32, _F32, _P],
-        "trt_scaled_row_update_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _P],
+            [_P, _P, _P, _I64, _I64, _I64, _INT, _INT, _F32, _F32, _P],
+        "trt_scaled_row_update_f32":
+            [_P, _P, _P, _P, _I64, _I64, _I64, _INT, _INT, _P],
         "trt_rowwise_momentum_f32": [_P, _P, _P, _P, _I64, _I64, _F32, _P],
         "trt_fused_rowwise_adagrad_f32":
             [_P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_int, _F32, _F32, _F32,
@@ -166,6 +172,30 @@ def _div(num: float, den: torch.Tensor) -> torch.Tensor:
     return torch.full_like(den, num) / den
 
 
+# -- K2, K3 and K4's scaled RMW: the row kernel's geometry ---------------------
+
+
+# Slots a warp of the row kernel takes, by lanes per row: the fastest of
+# the powers of two from the warp's lane groups to 32 in a sweep on an
+# H100 at 212,992 slots (compare_update_kernels.py --sweep, D = 8, 10, 32
+# and 64 on the Criteo Kaggle tables; PERF.md). A group walks its share of
+# the slots one after another: one to four steps here.
+ROW_SLOTS = {1: 32, 2: 32, 4: 16, 8: 16, 16: 8, 32: 32}
+
+
+def row_slots_per_warp(D: int) -> int:
+    """Slots a warp of the row kernel takes at width D: ROW_SLOTS by
+    `lanes_per_row(D)`, a multiple of the warp's lane groups; 32 on the
+    one-row-a-warp path (D > 64)."""
+    return ROW_SLOTS[lanes_per_row(D)]
+
+
+def row_geometry(D: int) -> Tuple[int, int]:
+    """(lanes per row, slots per warp) of the row kernel of K2, K3 and
+    K4's scaled RMW (csrc/fused_update.cu, `row_update_kernel`)."""
+    return lanes_per_row(D), row_slots_per_warp(D)
+
+
 # -- K2 ------------------------------------------------------------------------
 
 
@@ -190,10 +220,11 @@ def scatter_rows_write(weights: torch.Tensor, uids: torch.Tensor,
     (R, D), N = weights.shape, uids.shape[0]
     if N == 0 or D == 0:
         return weights
+    group, slots = row_geometry(D)
     _launch("scatter_rows_write", dev, lambda lib, s:
             lib.trt_scatter_rows_write_f32(
                 weights.data_ptr(), uids.data_ptr(), rows.data_ptr(),
-                R, D, N, s))
+                R, D, N, group, slots, s))
     return weights
 
 
@@ -228,10 +259,11 @@ def fused_update_sgd(weights: torch.Tensor, uids: torch.Tensor,
     (R, D), N = weights.shape, uids.shape[0]
     if N == 0 or D == 0:
         return weights
+    group, slots = row_geometry(D)
     _launch("fused_update_sgd", dev, lambda lib, s:
             lib.trt_fused_update_sgd_f32(
                 weights.data_ptr(), uids.data_ptr(), g.data_ptr(),
-                R, D, N, lr, weight_decay, s))
+                R, D, N, group, slots, lr, weight_decay, s))
     return weights
 
 
@@ -262,10 +294,11 @@ def scaled_row_update(weights: torch.Tensor, uids: torch.Tensor,
     (R, D), N = weights.shape, uids.shape[0]
     if N == 0 or D == 0:
         return weights
+    group, slots = row_geometry(D)
     _launch("scaled_row_update", dev, lambda lib, s:
             lib.trt_scaled_row_update_f32(
                 weights.data_ptr(), uids.data_ptr(), g.data_ptr(),
-                scale.data_ptr(), R, D, N, s))
+                scale.data_ptr(), R, D, N, group, slots, s))
     return weights
 
 

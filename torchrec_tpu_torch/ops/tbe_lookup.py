@@ -4,7 +4,9 @@ Counterpart of `tbe_lookup_pooled` in torchrec_tpu/ops/pallas_embedding.py
 (:298-372, the Pallas body `_lookup_kernel` at :235). The CUDA source is
 csrc/tbe_lookup.cu; it is compiled with `nvcc` for sm_90a into a shared
 library with a plain C interface on first use and bound with `ctypes`
-(ops/cuda_build.py).
+(ops/cuda_build.py). A row takes `lanes_per_row(D)` lanes
+(ops/lane_groups.py): at D <= 64 a warp pools several bags, one per lane
+group; wider rows take a warp each.
 
 `tbe_lookup_pooled` is a `torch.autograd.Function`. Its forward launches
 the kernel for CUDA tensors and takes the plain PyTorch version,
@@ -37,17 +39,18 @@ from torchrec_tpu_torch.ops.gather_rows import (
     gather_rows_reference,
     scatter_add_rows,
 )
+from torchrec_tpu_torch.ops.lane_groups import lanes_per_row
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.trt_tbe_lookup_pooled_f32
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 4 + [
-        ctypes.c_void_p
+        ctypes.c_int, ctypes.c_void_p
     ]
     fn.restype = ctypes.c_int
     fn = lib.trt_tbe_lookup_pooled_half
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 4 + [
-        ctypes.c_int, ctypes.c_void_p
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p
     ]
     fn.restype = ctypes.c_int
 
@@ -117,6 +120,7 @@ def tbe_lookup_pooled_forward(
     out = torch.empty((NB, D), dtype=torch.float32, device=weights.device)
     if NB == 0 or D == 0:
         return out
+    group = lanes_per_row(D)
     lib = LIBRARY.load()
     stream = torch.cuda.current_stream(weights.device).cuda_stream
     half = HALF_TYPES.get(weights.dtype)
@@ -124,12 +128,12 @@ def tbe_lookup_pooled_forward(
         if half is None:
             err = lib.trt_tbe_lookup_pooled_f32(
                 weights.data_ptr(), flat_ids.data_ptr(), coeff.data_ptr(),
-                out.data_ptr(), R, D, NB, L, stream,
+                out.data_ptr(), R, D, NB, L, group, stream,
             )
         else:
             err = lib.trt_tbe_lookup_pooled_half(
                 weights.data_ptr(), flat_ids.data_ptr(), coeff.data_ptr(),
-                out.data_ptr(), R, D, NB, L, half, stream,
+                out.data_ptr(), R, D, NB, L, group, half, stream,
             )
     LIBRARY.check("tbe_lookup_pooled", err)
     if half is None:
