@@ -400,22 +400,30 @@ Phases, each failing the run with a non-zero exit when it fails:
    [33,762,577, 10] table and one batch of the Kaggle features; the wide
    rowwise path at D=1030 (100,000 rows, 65,536 ids) in f32, in turns
    with the unfused composition, and as K4h in bf16 and fp16.
-22. Narrow rows. K1 / K1h and the row kernel of K2, K3 and K4's scaled
-   RMW give a row of D columns G lanes, the smallest power of two covering
-   its ceil(D / 4) quads (ops/lane_groups.py), so a warp holds 32 / G
-   rows at D <= 64. (1) Every lane group held against the plain versions
-   on 4,096-row tables at D = 1, 2, 3, 4, 5, 6, 8, 10, 12, 16, 17, 18, 32,
-   33, 34, 63, 64 and 128, aligned and one element into their storage
-   (whole quads, pairs and single elements): K1 (f32)
-   and K1h (bf16, fp16) over 3,001 bags, bit for bit at L=1 and within
-   rtol = atol = 1e-6 at L=20 (MEAN and per-sample coefficients, padded
-   slots, ids below 0 and past R); K2, K3 (weight decay 0 and 0.01) and
-   the scaled RMW over 3,001 tokens' run totals and dedup output, bit for
-   bit at every slot count a warp. (2) At D=10 and D=64 on the 26 Criteo
-   Kaggle tables and one B=8192 batch (212,992 bags and slots): K1, K1h,
-   K3, K2 and the scaled RMW held bit-exact and timed beside their
-   bounds, plain versions and PyTorch calls (F.embedding_bag, index_add_,
-   index_copy_, index_add_ of the pre-scaled rows).
+22. Narrow rows. K1 / K1h, the row kernel of K2, K3 and K4's scaled RMW,
+   the fused K4 / K4h and K6 / K7 give a row of D columns G lanes, the
+   smallest power of two covering its ceil(D / 4) quads
+   (ops/lane_groups.py), so a warp holds 32 / G rows at D <= 64. (1)
+   Every lane group held against the plain versions on 4,096-row tables
+   at D = 1, 2, 3, 4, 5, 6, 8, 10, 12, 16, 17, 18, 32, 33, 34, 63, 64 and
+   128, aligned and one element into their storage (whole quads, pairs
+   and single elements): K1 (f32) and K1h (bf16, fp16) over 3,001 bags,
+   bit for bit at L=1 and within rtol = atol = 1e-6 at L=20 (MEAN and
+   per-sample coefficients, padded slots, ids below 0 and past R); K2, K3
+   (weight decay 0 and 0.01), the scaled RMW, the fused K4 (weight decay
+   0 and 0.01), K4h (bf16 and fp16; stochastic rounding from row 0 and
+   from row 3 R, and to nearest), K6 and K7 (weight decay 0 and 0.01)
+   over 3,001 tokens' run totals and dedup output, bit for bit at every
+   slot count a warp of each kernel. (2) At D=10 and D=64 on the 26
+   Criteo Kaggle tables and one B=8192 batch (212,992 bags and slots):
+   K1, K1h, K3, K2, the scaled RMW, the fused K4, K4h (bf16, fp16), K6
+   and K7 held bit-exact (K4, K6 and K7, whose tables are too large to
+   clone, on the rows they update and on 4,096 seeded rows of the table
+   and, at D=64, 4,096 more past element 2^31) and timed beside their
+   bounds, plain versions
+   and PyTorch calls (F.embedding_bag, index_add_, index_copy_, index_add_
+   of the pre-scaled rows; the fused K4 in turns with the unfused
+   composition it replaced; none for K4h, K6 and K7).
 
 Kernel times are device times from torch.profiler (the kernel's own for a
 kernel, all device activity of the call for the plain version and the
@@ -425,7 +433,8 @@ it, which includes the host's time to make the call where that is longer.
 The line before the last is a JSON object with every kernel's numbers
 (K1h, K3h and K4h with an "fp16" sub-entry, K4h with "bert4rec_shape",
 Kq with "int4" and K1's time at the same ids; phase 21's under
-"widths", "d10_shape" and "wide_d1030", the scaled RMW's under K4's
+"widths", "d10_shape" and "wide_d1030", phase 22's under "narrow",
+"narrow_d10" and "narrow_d64", the scaled RMW's under K4's
 "scaled_rmw");
 the last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 outside a checkout of the repository, it exits non-zero and prints no
@@ -502,8 +511,11 @@ COTANGENT_REL = 0.1
 FWD_ATOL = 1e-5
 
 # the fused rowwise kernels' names as the profiler prints them: rows of up
-# to 512 columns (rowwise_adagrad_kernel) and wider (..._wide_kernel)
+# to 64 columns (rowwise_adagrad_narrow_kernel), up to 512
+# (rowwise_adagrad_kernel) and wider (..._wide_kernel)
 ROWWISE_KERNELS = "rowwise_adagrad_"
+# K6's and K7's kernel (moment_update_kernel)
+MOMENT_KERNELS = "moment_"
 # K1's and K1h's kernels as the profiler prints them: rows of up to 64
 # columns (tbe_lookup_narrow_kernel) and wider (tbe_lookup_pooled_kernel)
 K1_KERNELS = "tbe_lookup_"
@@ -1375,7 +1387,7 @@ def hold_moments(fk, k: str, state, u_rt, g_rt, lr: float, step,
     bound_ = rows_bound(N, n_real, D, rows_moved=2 * len(state) + 1,
                         flops_per_elem=14 if adam else 7)
     return {k: {"max_abs_err": max(errs), "bound": bound_,
-                **timings(lambda: kernel(a), "moment_update_kernel",
+                **timings(lambda: kernel(a), MOMENT_KERNELS,
                           bound_["ms"],
                           lambda: plain(b))}}
 
@@ -5738,6 +5750,17 @@ EX_SAMPLE = 4096  # untouched rows checked, as many again past 2^31
 EX_PAST = 2**31  # the block's element the held step must read beyond
 
 
+def row_sample(rows: int, D: int, rng) -> np.ndarray:
+    """EX_SAMPLE rows of a [rows, D] table drawn from `rng`, and as many
+    again past element EX_PAST where the table reaches it: rows a hold
+    reads beside those an update touches, so that a write to a wrong row
+    (a row offset past 2^31 elements above all) shows."""
+    draws = [rng.randint(0, rows, EX_SAMPLE)]
+    if EX_PAST // D < rows:
+        draws.append(rng.randint(EX_PAST // D, rows, EX_SAMPLE))
+    return np.concatenate(draws)
+
+
 def ex_cards() -> tuple:
     """The Kaggle cardinalities capped at EX_MAX_IND (--max_ind_range)."""
     from torchrec_tpu_torch.datasets.synthetic_criteo import (
@@ -5886,10 +5909,8 @@ def hold_example_step(dmp, batch) -> dict:
     D = strat.weights.shape[1]
     n_rows = int(strat.row_offsets[-1]) + strat.meta.tables[-1].rows
     first_past = EX_PAST // D  # the first row at element 2^31 or beyond
-    rng = np.random.RandomState(SEED + 53)
-    sample = torch.from_numpy(np.concatenate([
-        rng.randint(0, n_rows, EX_SAMPLE),
-        rng.randint(first_past, n_rows, EX_SAMPLE)])).to(DEVICE)
+    sample = torch.from_numpy(row_sample(
+        n_rows, D, np.random.RandomState(SEED + 53))).to(DEVICE)
     held = hold_train_step(dmp.make_train_step(),
                            batch.to(DEVICE).batch_args(),
                            expected(K1=1, K4=1), "examples", sample=sample)
@@ -6955,26 +6976,31 @@ NARROW_TIMED = (10, 64)
 
 
 @contextlib.contextmanager
-def row_slots(fk, slots: int):
-    """The row kernel of K2, K3 and K4's scaled RMW takes `slots` slots a
-    warp while open (the wrappers read fk.row_slots_per_warp at each
+def slots_a_warp(fk, kernel: str, slots: int):
+    """The row kernel of K2, K3 and K4's scaled RMW (`kernel` "row"), the
+    fused rowwise kernel of K4 and K4h ("fused") or the moment kernel of K6
+    and K7 ("moment") takes `slots` slots a warp while open, with its lanes
+    per row unchanged (the wrappers read fk.<kernel>_geometry at each
     call)."""
-    saved = fk.row_slots_per_warp
-    fk.row_slots_per_warp = lambda D: slots
+    name = f"{kernel}_geometry"
+    saved = getattr(fk, name)
+    setattr(fk, name, lambda D, *rest: (saved(D, *rest)[0], slots))
     try:
         yield
     finally:
-        fk.row_slots_per_warp = saved
+        setattr(fk, name, saved)
 
 
-def slot_counts(D: int) -> list:
-    """The slots a warp of the row kernel can take at width D: the powers of
-    two from its lane groups' count up to 32 (32 alone past 64 columns)."""
+def slot_counts(D: int, kernel: str = "row") -> list:
+    """The slots a warp of `kernel` (slots_a_warp's names) can take at width
+    D: the powers of two from its lane groups' count up to 32; past 64
+    columns (a warp a row) 32 alone, or 1 to 32 for the fused kernel."""
     from torchrec_tpu_torch.ops.lane_groups import rows_per_warp
 
-    if rows_per_warp(D) == 1:
+    slots = rows_per_warp(D)
+    if slots == 1 and kernel != "fused":
         return [32]
-    out, slots = [], rows_per_warp(D)
+    out = []
     while slots <= 32:
         out.append(slots)
         slots *= 2
@@ -6982,16 +7008,19 @@ def slot_counts(D: int) -> list:
 
 
 def check_narrow_width(tl, fk, D: int, offset: int, rng) -> dict:
-    """K1 (f32), K1h (bf16 and fp16), K2, K3 and K4's scaled RMW against
-    their plain versions on a [NARROW_ROWS, D] table that starts `offset`
-    elements into its storage. The lookups over NARROW_BAGS bags at L=1
+    """K1 (f32), K1h (bf16 and fp16), K2, K3, K4's scaled RMW, the fused
+    K4, K4h (bf16 and fp16), K6 and K7 against their plain versions on a
+    [NARROW_ROWS, D] table that starts `offset` elements into its
+    storage. The lookups over NARROW_BAGS bags at L=1
     (one id, coefficient 1: bit for bit) and at L=NARROW_L (MEAN
     coefficients on even bags, per-sample weights on odd ones, zero-padded
     slots, ids below 0 and past R: within rtol = atol = 1e-6, phase 4's
     tolerance). The row kernels over NARROW_TOKENS tokens (hot rows
     repeated, 15 % invalid) as run totals (K2, K3 at weight decay 0 and
-    0.01) and dedup output (the scaled RMW), bit for bit at every slot
-    count of slot_counts(D). Returns each kernel's largest difference."""
+    0.01, K6 and K7 at both) and dedup output (the scaled RMW, the fused
+    K4 at weight decay 0 and 0.01, K4h under both epilogues at 0.01), bit
+    for bit at every slot count of slot_counts(D, kernel). Returns each
+    kernel's largest difference."""
     from torchrec_tpu_torch.ops import fused_update as fu
 
     R, NB, T, lr, Lk = NARROW_ROWS, NARROW_BAGS, NARROW_TOKENS, FUSED_LR, \
@@ -7054,11 +7083,58 @@ def check_narrow_width(tl, fk, D: int, offset: int, rng) -> dict:
     for slots in slot_counts(D):
         for k, kernel, plain in cases:
             a, b = _placed(W, offset), _placed(W, offset)
-            with row_slots(fk, slots):
+            with slots_a_warp(fk, "row", slots):
                 kernel(a)
             plain(b)
             note(k, _hold(f"{k} at D={D} (offset {offset}, {slots} slots a "
                           f"warp)", [(a, b)]))
+
+    # the fused rowwise kernel (K4, K4h) on the dedup output, the moment
+    # kernel (K6, K7) on the run totals: (name, kernel, plain, state)
+    def put(a):
+        return _placed(torch.from_numpy(a.astype(np.float32)).to(dev), offset)
+
+    M, M1, M2 = (put(rng.rand(R)), put(rng.rand(R, D) * 0.01),
+                 put(rng.rand(R, D) * 0.01))
+    step = torch.full((), START_STEP + 1, dtype=torch.int32, device=dev)
+    fused = [("K4", lambda w, m, wd=wd: fk.fused_update_rowwise_adagrad(
+        w, m, u_dd, g_dd, lr, weight_decay=wd, momentum_stream=True),
+        lambda w, m, wd=wd: fk.fused_update_rowwise_adagrad_reference(
+            w, m, u_dd, g_dd, lr, weight_decay=wd, momentum_stream=True),
+        [W, M]) for wd in (0.0, 0.01)]
+    for dtype in (torch.bfloat16, torch.float16):
+        Wh = _placed(W.to(dtype), offset)
+        for sr, base in ((True, 0), (True, 3 * R), (False, 0)):
+            kw = dict(weight_decay=0.01, stochastic_rounding=sr,
+                      row_base=base)
+            fused.append(("K4h", lambda w, m, kw=kw:
+                          fk.fused_update_rowwise_adagrad_half(
+                              w, m, u_dd, g_dd, lr, step, **kw),
+                          lambda w, m, kw=kw:
+                          fk.fused_update_rowwise_adagrad_half_reference(
+                              w, m, u_dd, g_dd, lr, step, **kw), [Wh, M]))
+    moment = []
+    for wd in (0.0, 0.01):
+        moment += [
+            ("K6", lambda w, m, wd=wd: fk.fused_update_adagrad(
+                w, m, u_rt, g_rt, lr, weight_decay=wd),
+             lambda w, m, wd=wd: fk.fused_update_adagrad_reference(
+                 w, m, u_rt, g_rt, lr, weight_decay=wd), [W, M1]),
+            ("K7", lambda w, m1, m2, wd=wd: fk.fused_update_adam(
+                w, m1, m2, u_rt, g_rt, lr, step, weight_decay=wd),
+             lambda w, m1, m2, wd=wd: fk.fused_update_adam_reference(
+                 w, m1, m2, u_rt, g_rt, lr, step, weight_decay=wd),
+             [W, M1, M2])]
+    for kernel_of, group in (("fused", fused), ("moment", moment)):
+        for slots in slot_counts(D, kernel_of):
+            for k, kernel, plain, state in group:
+                a = [_placed(t, offset) for t in state]
+                b = [_placed(t, offset) for t in state]
+                with slots_a_warp(fk, kernel_of, slots):
+                    kernel(*a)
+                plain(*b)
+                note(k, _hold(f"{k} at D={D} (offset {offset}, {slots} "
+                              f"slots a warp)", list(zip(a, b))))
     return errs
 
 
@@ -7074,9 +7150,10 @@ def check_narrow(tl, fk) -> dict:
     log(f"narrow rows: K1 and K1h (bf16, fp16) bit for bit with their plain "
         f"versions at L=1 and within rtol = atol = 1e-6 at L={NARROW_L} "
         f"(MEAN and per-sample coefficients, padded slots, ids out of "
-        f"range); K2, K3 (weight decay 0 and 0.01) and the scaled RMW bit "
-        f"for bit at every slot count a warp; at D in {NARROW_WIDTHS}, "
-        f"offsets {NARROW_OFFSETS}: largest differences {out}")
+        f"range); K2, K3, the scaled RMW, the fused K4, K4h (bf16, fp16, "
+        f"both epilogues), K6 and K7 bit for bit at every slot count a "
+        f"warp; at D in {NARROW_WIDTHS}, offsets {NARROW_OFFSETS}: largest "
+        f"differences {out}")
     return out
 
 
@@ -7110,7 +7187,8 @@ def time_narrow(tl, fk, D: int) -> dict:
     update's 212,992 slots, run totals and dedup output, gradients of
     1e-3): each bit-exact with its plain version and timed beside its
     bound, its plain version and its PyTorch call (F.embedding_bag,
-    index_add_, index_copy_)."""
+    index_add_, index_copy_); then the fused K4, K4h, K6 and K7
+    (time_narrow_updates)."""
     from torchrec_tpu_torch.ops import fused_update as fu
 
     W, ids, coeff, _, _ = kaggle_lookup(D, SEED + 71)
@@ -7133,21 +7211,147 @@ def time_narrow(tl, fk, D: int) -> dict:
     rows.update(check_k2(fk, W, u_rt, g_rt, FUSED_LR))
     rows.update(check_scaled(fk, W, u_dd, g_dd, scale))
     out.update(report(rows, f" at D={D} (narrow rows)"))
+    del scale, rows
+    gc_cuda()
+    out.update(time_narrow_updates(fk, W, u_rt, g_rt, u_dd, g_dd, gen))
+    return out
+
+
+def hold_in_place(what: str, state: list, ids: torch.Tensor, kernel,
+                  plain) -> float:
+    """`kernel` and `plain` each run in place on `state` from the same
+    start (the table, too large to clone twice, is state[0]), held bit for
+    bit on the rows `ids` they update and on row_sample's seeded rows of
+    the table, which the plain version leaves as they were: a kernel that
+    writes a row it should not differs there. The rows are saved before
+    and put back after each run."""
+    R, D = state[0].shape
+    sample = torch.from_numpy(row_sample(
+        R, D, np.random.RandomState(SEED + 73))).to(ids.device)
+    held = torch.cat([ids, sample])
+    saved = [t[held] for t in state]
+    got = []
+    for fn in (kernel, plain):
+        fn(*state)
+        got.append([t[held] for t in state])
+        for t, rows in zip(state, saved):
+            t[held] = rows
+    err = _hold(what, list(zip(*got)))
+    log(f"{what}: bit for bit on its {ids.numel()} rows and "
+        f"{sample.numel()} sampled rows ({int((sample * D >= EX_PAST).sum())}"
+        f" past element 2^31)")
+    return err
+
+
+def time_narrow_updates(fk, W, u_rt, g_rt, u_dd, g_dd, gen) -> dict:
+    """The fused K4 (f32), K4h (bf16, fp16) and K6 / K7 at width D on one
+    batch's dedup output and run totals over W (kaggle_lookup's table,
+    updated in place) and momenta drawn from `gen`: each held bit for bit
+    with its plain version (K4, K6, K7 at weight decay 0 and 0.01 through
+    hold_in_place; K4h under both epilogues through check_half_update) and
+    timed beside its bound and plain version; the fused K4 also in turns
+    with the unfused composition it replaced (fused, unfused, unfused,
+    fused), its yardstick. No single PyTorch call applies these updates,
+    so the library time is null."""
+    R, D = W.shape
+    lr, what = FUSED_LR, f" at D={D} (narrow rows)"
+    step = torch.full((), START_STEP + 1, dtype=torch.int32, device=DEVICE)
+    real_dd, real_rt = u_dd < R, u_rt < R
+    ids_dd, ids_rt = u_dd[real_dd].long(), u_rt[real_rt].long()
+    n_dd, n_rt = int(ids_dd.numel()), int(ids_rt.numel())
+    log(f"narrow updates D={D}: {u_dd.numel()} slots, {n_dd} rows; the "
+        f"fused kernel's lanes and slots a warp "
+        f"{fk.fused_geometry(D, int(u_dd.numel()))}, the moment kernel's "
+        f"{fk.moment_geometry(D)}")
+    M = torch.rand((R,), generator=gen, device=DEVICE)
+    rows = {}
+
+    def fused(w, m, wd=0.0):
+        fk.fused_update_rowwise_adagrad(w, m, u_dd, g_dd, lr,
+                                        weight_decay=wd, momentum_stream=True)
+
+    def fused_plain(w, m, wd=0.0):
+        fk.fused_update_rowwise_adagrad_reference(
+            w, m, u_dd, g_dd, lr, weight_decay=wd, momentum_stream=True)
+
+    def unfused():
+        fk.rowwise_adagrad_unfused(W, M, u_dd, g_dd, lr)
+
+    err = max(hold_in_place(f"K4{what}, weight decay {wd}", [W, M], ids_dd,
+                            lambda w, m, wd=wd: fused(w, m, wd),
+                            lambda w, m, wd=wd: fused_plain(w, m, wd))
+              for wd in (0.0, 0.01))
+    b = rows_bound(int(u_dd.numel()), n_dd, D, rows_moved=3,
+                   extra_bytes=2 * n_dd * 4, flops_per_elem=7)
+    k4 = {"max_abs_err": err, "bound": b,
+          **timings(lambda: fused(W, M), ROWWISE_KERNELS, b["ms"],
+                    lambda: fused_plain(W, M))}
+    unfused_ms = [device_ms(unfused, bound_ms=b["ms"]) for _ in range(2)]
+    fused_ms = [k4["ms"], device_ms(lambda: fused(W, M), ROWWISE_KERNELS,
+                                    b["ms"])]
+    k4["ms"], k4["unfused_ms"] = sum(fused_ms) / 2, sum(unfused_ms) / 2
+    log(f"K4{what}: fused {fused_ms[0]:.5f} / {fused_ms[1]:.5f} ms, "
+        f"unfused composition {unfused_ms[0]:.5f} / {unfused_ms[1]:.5f} ms "
+        f"(device time, in turns: fused, unfused, unfused, fused)")
+    rows["K4"] = k4
+    half = check_half_update(fk, "K4h", (W.to(torch.bfloat16), M, u_dd,
+                                         g_dd, lr, step), what.strip())
+    del M
+    gc_cuda()
+    moms = [torch.rand((R, D), generator=gen, device=DEVICE) * 0.01]
+    for k in ("K6", "K7"):
+        if k == "K7":
+            moms.append(torch.rand((R, D), generator=gen, device=DEVICE)
+                        * 0.01)
+
+        def kernel(*ts, wd=0.0, k=k):
+            if k == "K6":
+                fk.fused_update_adagrad(*ts, u_rt, g_rt, lr, weight_decay=wd)
+            else:
+                fk.fused_update_adam(*ts, u_rt, g_rt, lr, step,
+                                     weight_decay=wd)
+
+        def plain(*ts, wd=0.0, k=k):
+            if k == "K6":
+                fk.fused_update_adagrad_reference(*ts, u_rt, g_rt, lr,
+                                                  weight_decay=wd)
+            else:
+                fk.fused_update_adam_reference(*ts, u_rt, g_rt, lr, step,
+                                               weight_decay=wd)
+
+        state = [W, *moms]
+        err = max(hold_in_place(f"{k}{what}, weight decay {wd}", state,
+                                ids_rt,
+                                lambda *ts, wd=wd: kernel(*ts, wd=wd),
+                                lambda *ts, wd=wd: plain(*ts, wd=wd))
+                  for wd in (0.0, 0.01))
+        # read W, the momenta and g, write W and the momenta: 5 or 7 rows
+        b = rows_bound(int(u_rt.numel()), n_rt, D,
+                       rows_moved=2 * len(state) + 1,
+                       flops_per_elem=14 if k == "K7" else 7)
+        rows[k] = {"max_abs_err": err, "bound": b,
+                   **timings(lambda: kernel(*state), MOMENT_KERNELS,
+                             b["ms"], lambda: plain(*state))}
+    del moms, state
+    gc_cuda()
+    out = report(rows, what)
+    out["K4"]["unfused_ms"] = k4["unfused_ms"]
+    out["K4h"] = half
     return out
 
 
 def narrow_phase() -> dict:
     """Phase 22 (see the module docstring). Returns per kernel (K1, K1h,
-    K2, K3 and the scaled RMW) this phase's numbers: {"narrow": the
-    largest difference over the widths, "narrow_d10" / "narrow_d64": the
-    held and timed kernel}."""
+    K2, K3, the scaled RMW, K4, K4h, K6 and K7) this phase's numbers:
+    {"narrow": the largest difference over the widths, "narrow_d10" /
+    "narrow_d64": the held and timed kernel}."""
     from torchrec_tpu_torch.ops import fused_update_kernels as fk
     from torchrec_tpu_torch.ops import tbe_lookup as tl
 
     t = time.perf_counter()
     errs = check_narrow(tl, fk)
     gc_cuda()
-    log(f"narrow step 1 (K1, K1h and the row kernel at every lane group): "
+    log(f"narrow step 1 (every narrow kernel at every lane group): "
         f"{time.perf_counter() - t:.2f} s")
     results = {k: {"narrow": {"max_abs_err": e,
                               "widths": list(NARROW_WIDTHS)}}
@@ -7304,8 +7508,9 @@ def main() -> int:
     for k, v in widths["launches"].items():
         flat[k] = flat.get(k, 0) + v
 
-    # narrow rows: K1, K1h and the row kernel of K2, K3 and the scaled RMW
-    # held at every lane group and timed at D=10 and D=64
+    # narrow rows: K1, K1h, the row kernel of K2, K3 and the scaled RMW, the
+    # fused K4 / K4h and K6 / K7 held at every lane group and timed at D=10
+    # and D=64
     narrow = narrow_phase()
     for part in (widths["results"], narrow):
         for k, v in part.items():

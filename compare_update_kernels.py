@@ -1,36 +1,45 @@
 """Time two builds of the embedding kernels against each other on one GPU,
-or the row kernel against its slots per warp.
+or the update kernels against their slots per warp.
 
 Run from the repository root, on a machine with a CUDA card:
 
-    python3 compare_update_kernels.py OTHER_CHECKOUT [--dim D]
-    python3 compare_update_kernels.py --sweep [--dim D]
+    python3 compare_update_kernels.py OTHER_CHECKOUT [--dim D ...]
+    python3 compare_update_kernels.py --sweep [--dim D ...]
 
 The first form builds this checkout's torchrec_tpu_torch/csrc/tbe_lookup.cu
 and fused_update.cu and OTHER_CHECKOUT's (another tree of the repository,
 say a parent commit unpacked with `git archive`). Each build is launched
 through its own tree's wrappers (ops/tbe_lookup.py and
 ops/fused_update_kernels.py, loaded from that tree), so the two may differ
-in their C entry points. At the DLRM's training shape (26 tables of
-100,000 rows of D columns, D=128 by default, and one B=8192 batch of one
-uniform id per table: 212,992 bags and slots) it runs K1 and K1h (bf16)
-over the batch, then K2, K3, K4's scaled RMW, the fused K4, K5, K6, K7,
-K3h and K4h (bf16) on its run totals and dedup output. Each kernel's two
-results are held bit for bit, then each build is timed in turns (other,
-this, this, other; the device time of torch.profiler through
-chip_smoke.device_ms) and printed beside the kernel's bound, with the
-card's name and power limit. An OTHER_CHECKOUT older than the masked path
-takes only D % 4 == 0.
+in their C entry points. For each width D (`--dim`, 128 by default) and
+each table set, `dlrm`, the DLRM's training shape (26 tables of 100,000
+rows, one B=8192 batch of one uniform id per table: 212,992 bags and
+slots), and `kaggle`, the D=10 DeepFM's and the Criteo Kaggle DLRM's (the
+26 Criteo Kaggle tables of chip_smoke.kaggle_lookup, 33,762,577 rows, one
+B=8192 batch: 212,992 slots, about 94,000 distinct rows), it runs K1 and
+K1h (bf16) over the batch, then K2, K3, K4's scaled RMW, the fused K4,
+K5, K6, K7, K3h and K4h (bf16) on its run totals and dedup output. The
+state a kernel updates is made for it and updated in place, so that
+K7's three tables fit on the card at the Kaggle tables' 33.7 M rows: each
+build's run starts from the same rows (the held rows are saved and put
+back), and the two builds are held bit for bit on every row of the
+DLRM's tables and, on the Kaggle tables, which leave no room for copies,
+on the rows a kernel updates and chip_smoke.row_sample's seeded rows
+(4,096, and 4,096 more past element 2^31 at D=64). Then each build
+is timed in turns (other, this, this, other; the device time of
+torch.profiler through chip_smoke.device_ms) and printed beside the
+kernel's bound, with the card's name and power limit. An OTHER_CHECKOUT
+older than the masked path takes only D % 4 == 0.
 
-The second form (--sweep) times this checkout's row kernel of K2, K3 and
-K4's scaled RMW against the slots a warp takes, on the table as it is and
-one element into its storage (the masked path), at the same shape and at
-the D=10 DeepFM's (the 26 Criteo Kaggle tables of
-chip_smoke.kaggle_lookup and one B=8192 batch: 212,992 slots, about
-94,000 distinct rows): every power of two from the warp's lane groups (32
-/ lanes_per_row(D)) to 32, each held bit for bit with the plain version
-first, timed in the order up and then down. `row_slots_per_warp`'s pick
-is marked.
+The second form (--sweep) times this checkout's row kernel (K2, K3 and
+K4's scaled RMW), its fused rowwise kernel (K4, K4h in bf16) and its
+moment kernel (K6, K7) against the slots a warp takes, on the table as it
+is (whole quads, or pairs at an even D) and one element into its storage
+(the masked path), for each table set and width: every power of two from
+the warp's lane groups (32 / lanes_per_row(D)) to 32 (the fused kernel
+also below that at D > 64), each held bit for bit with the plain version
+first (on the rows `held` gives), timed in the order up and then down.
+The geometry's pick is marked.
 """
 
 from __future__ import annotations
@@ -54,6 +63,11 @@ DEVICE = "cuda"
 # wrapper module -> its kernel source
 WRAPPERS = {"fused_update_kernels": "fused_update.cu",
             "tbe_lookup": "tbe_lookup.cu"}
+# table set -> kaggle_lookup's tables (True) or the DLRM's (False)
+TABLE_SETS = {"dlrm": False, "kaggle": True}
+# the kernel each sweep case launches, by its geometry's name
+SWEEPS = {"K2": "row", "K3": "row", "K4 scaled RMW": "row", "K4": "fused",
+          "K4h": "fused", "K6": "moment", "K7": "moment"}
 
 
 def load_wrappers(root: Path) -> dict:
@@ -75,7 +89,9 @@ def inputs(D: int, kaggle: bool = False) -> dict:
     """The table, one batch's ids and its run totals and dedup output:
     the DLRM's tables, or with `kaggle` the 26 Criteo Kaggle tables and
     batch of chip_smoke.kaggle_lookup (the D=10 DeepFM's shape; 212,992
-    slots, about 94,000 distinct rows)."""
+    slots, about 94,000 distinct rows); with what the kernels take beside
+    their state (K2's rows, the scaled RMW's scale, K1's coefficients,
+    K5's g_sq, the step)."""
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(cs.SEED)
     if kaggle:
@@ -94,187 +110,228 @@ def inputs(D: int, kaggle: bool = False) -> dict:
     valid = torch.ones(flat.numel(), dtype=torch.bool, device=DEVICE)
     u_rt, g_rt = fu.run_total_row_grads(flat, grads, valid, R)
     u_dd, g_dd = fu.dedup_row_grads(flat, grads, valid, R)
+    del grads
     rows = W[u_rt.clamp(max=R - 1).long()] - LR * g_rt
     scale = torch.rand(u_dd.numel(), generator=gen, device=DEVICE) * -1e-3
-    return {"W": W, "gen": gen, "ids": flat[:, None].contiguous(),
+    ids = flat[:, None].contiguous()
+    return {"W": W, "gen": gen, "ids": ids, "kaggle": kaggle,
             "u_rt": u_rt, "g_rt": g_rt, "u_dd": u_dd, "g_dd": g_dd,
-            "rows": rows, "scale": scale}
-
-
-def with_state(x: dict) -> dict:
-    """`inputs` with what the other kernels take: a bf16 copy of the
-    table, momenta, the step and K5's g_sq."""
-    W, gen, u_dd = x["W"], x["gen"], x["u_dd"]
-    R, D = W.shape
-    return {**x, "Wh": W.to(torch.bfloat16),
-            "M": torch.rand((R,), generator=gen, device=DEVICE),
-            "M1": torch.rand((R, D), generator=gen, device=DEVICE) * 0.01,
-            "M2": torch.rand((R, D), generator=gen, device=DEVICE) * 0.01,
+            "rows": rows, "scale": scale,
             "step": torch.full((), 6, dtype=torch.int32, device=DEVICE),
-            "coeff": torch.ones(x["ids"].shape, device=DEVICE),
-            "g_sq": fk.row_mean_sq(x["g_dd"]) * (u_dd < R).to(torch.float32)}
+            "coeff": torch.ones(ids.shape, device=DEVICE),
+            "g_sq": fk.row_mean_sq(g_dd) * (u_dd < R).to(torch.float32)}
 
 
-def row_cases(x: dict) -> dict:
-    """The row kernel's three uses: kernel -> (call(wrappers, W), the plain
-    version on W, bound spec)."""
-    u_rt, g_rt, u_dd, g_dd = x["u_rt"], x["g_rt"], x["u_dd"], x["g_dd"]
-    rows, scale = x["rows"], x["scale"]
-    return {
-        "K2": (lambda m, w: m.scatter_rows_write(w, u_rt, rows),
-               lambda w: fk.scatter_rows_write_reference(w, u_rt, rows),
-               (2, 0, 4, "rt")),
-        "K3": (lambda m, w: m.fused_update_sgd(w, u_rt, g_rt, LR),
-               lambda w: fk.fused_update_sgd_reference(w, u_rt, g_rt, LR),
-               (3, 0, 4, "rt")),
-        "K4 scaled RMW": (
-            lambda m, w: m.scaled_row_update(w, u_dd, g_dd, scale),
-            lambda w: fk.scaled_row_update_reference(w, u_dd, g_dd, scale),
-            (3, 4, 4, "dd")),
-    }
+def make_state(x: dict, name: str) -> torch.Tensor:
+    """A state tensor a kernel updates: the table (W), a bf16 copy of it
+    (Wh), the rowwise momentum (M) or a full momentum (M1, M2)."""
+    W, gen = x["W"], x["gen"]
+    R, D = W.shape
+    if name == "W":
+        return W
+    if name == "Wh":
+        return W.to(torch.bfloat16)
+    if name == "M":
+        return torch.rand((R,), generator=gen, device=DEVICE)
+    return torch.rand((R, D), generator=gen, device=DEVICE) * 0.01
 
 
 def cases(x: dict) -> dict:
-    """kernel -> (state names, call(wrappers, *state), profiler name, bound
-    spec: rows moved per real slot, extra bytes per real slot, row bytes,
-    slots; or a callable giving the bound in ms). `wrappers` maps a module
-    name of WRAPPERS to a build's module. K1 and K1h are held on what they
-    return, the others on their state."""
+    """kernel -> (state names, call(wrappers, *state), plain(*state),
+    profiler name, the slots it updates ("rt", "dd", or None for K1 and
+    K1h, held on what they return), bound(state) in ms). `wrappers` maps a
+    module name of WRAPPERS to a build's module."""
     u_rt, g_rt, u_dd, g_dd = x["u_rt"], x["g_rt"], x["u_dd"], x["g_dd"]
     ids, coeff, step = x["ids"], x["coeff"], x["step"]
-    out = {
-        k: (("W" if dtype == torch.float32 else "Wh",),
-            lambda m, w: m["tbe_lookup"].tbe_lookup_pooled(w, ids, coeff),
-            cs.K1_KERNELS,
-            lambda dtype=dtype: cs.bound(
-                x["W" if dtype == torch.float32 else "Wh"], ids,
-                coeff)["ms"])
-        for k, dtype in (("K1", torch.float32), ("K1h", torch.bfloat16))}
-    for k, (call, _, spec) in row_cases(x).items():
-        out[k] = (("W",), lambda m, w, call=call:
-                  call(m["fused_update_kernels"], w), "row_update_kernel",
-                  spec)
-    out.update({
-        "K4": (("W", "M"), lambda m, w, mm: m["fused_update_kernels"]
-               .fused_update_rowwise_adagrad(w, mm, u_dd, g_dd, LR,
-                                             momentum_stream=True),
-               cs.ROWWISE_KERNELS, (3, 8, 4, "dd")),
-        "K5": (("M",), lambda m, mm: m["fused_update_kernels"]
-               .rowwise_momentum_stream(mm, u_dd, x["g_sq"]),
-               "rowwise_momentum_kernel", None),
-        "K6": (("W", "M1"), lambda m, w, m1: m["fused_update_kernels"]
-               .fused_update_adagrad(w, m1, u_rt, g_rt, LR),
-               "moment_update_kernel", (5, 0, 4, "rt")),
-        "K7": (("W", "M1", "M2"), lambda m, w, m1, m2:
-               m["fused_update_kernels"].fused_update_adam(
-                   w, m1, m2, u_rt, g_rt, LR, step),
-               "moment_update_kernel", (7, 0, 4, "rt")),
-        "K3h": (("Wh",), lambda m, w: m["fused_update_kernels"]
-                .fused_update_sgd_half(w, u_rt, g_rt, LR, step),
-                "sgd_half_kernel", (2, 0, 2, "rt")),
-        "K4h": (("Wh", "M"), lambda m, w, mm: m["fused_update_kernels"]
-                .fused_update_rowwise_adagrad_half(w, mm, u_dd, g_dd, LR,
-                                                   step),
-                cs.ROWWISE_KERNELS, (2, 8, 2, "dd")),
-    })
+    rows, scale = x["rows"], x["scale"]
+    R, D = x["W"].shape
+
+    def rows_ms(moved, extra, row_bytes, form):
+        """The slots' ids, `moved` rows of D elements of `row_bytes` and
+        `extra` bytes (a momentum word read and written, a scale read) per
+        real slot, and the half kernels' 4-byte g row, over the HBM
+        rate."""
+        u = u_rt if form == "rt" else u_dd
+
+        def ms(*_):
+            n_real = int((u < R).sum())
+            g_bytes = n_real * D * 4 if row_bytes == 2 else 0
+            return cs.rows_bound(int(u.numel()), n_real, D, moved,
+                                 extra_bytes=n_real * extra + g_bytes,
+                                 row_bytes=row_bytes)["ms"]
+        return ms
+
+    def lookup_ms(w, *_):
+        return cs.bound(w, ids, coeff)["ms"]
+
+    F = "fused_update_kernels"
+    return {
+        "K1": (("W",), lambda m, w: m["tbe_lookup"].tbe_lookup_pooled(
+            w, ids, coeff),
+            lambda w: tl.tbe_lookup_pooled_reference(w, ids, coeff),
+            cs.K1_KERNELS, None, lookup_ms),
+        "K1h": (("Wh",), lambda m, w: m["tbe_lookup"].tbe_lookup_pooled(
+            w, ids, coeff),
+            lambda w: tl.tbe_lookup_pooled_reference(w, ids, coeff),
+            cs.K1_KERNELS, None, lookup_ms),
+        "K2": (("W",), lambda m, w: m[F].scatter_rows_write(w, u_rt, rows),
+               lambda w: fk.scatter_rows_write_reference(w, u_rt, rows),
+               "row_update_kernel", "rt", rows_ms(2, 0, 4, "rt")),
+        "K3": (("W",), lambda m, w: m[F].fused_update_sgd(w, u_rt, g_rt, LR),
+               lambda w: fk.fused_update_sgd_reference(w, u_rt, g_rt, LR),
+               "row_update_kernel", "rt", rows_ms(3, 0, 4, "rt")),
+        "K4 scaled RMW": (
+            ("W",), lambda m, w: m[F].scaled_row_update(w, u_dd, g_dd, scale),
+            lambda w: fk.scaled_row_update_reference(w, u_dd, g_dd, scale),
+            "row_update_kernel", "dd", rows_ms(3, 4, 4, "dd")),
+        "K4": (("W", "M"), lambda m, w, mm: m[F].fused_update_rowwise_adagrad(
+            w, mm, u_dd, g_dd, LR, momentum_stream=True),
+            lambda w, mm: fk.fused_update_rowwise_adagrad_reference(
+                w, mm, u_dd, g_dd, LR, momentum_stream=True),
+            cs.ROWWISE_KERNELS, "dd", rows_ms(3, 8, 4, "dd")),
+        "K5": (("M",), lambda m, mm: m[F].rowwise_momentum_stream(
+            mm, u_dd, x["g_sq"]),
+            lambda mm: fk.rowwise_momentum_stream_reference(
+                mm, u_dd, x["g_sq"]),
+            "rowwise_momentum_kernel", "dd",
+            lambda *_: cs.k5_bound(int(u_dd.numel()),
+                                   int((u_dd < R).sum()))["ms"]),
+        "K6": (("W", "M1"), lambda m, w, m1: m[F].fused_update_adagrad(
+            w, m1, u_rt, g_rt, LR),
+            lambda w, m1: fk.fused_update_adagrad_reference(
+                w, m1, u_rt, g_rt, LR),
+            cs.MOMENT_KERNELS, "rt", rows_ms(5, 0, 4, "rt")),
+        "K7": (("W", "M1", "M2"), lambda m, w, m1, m2: m[F].fused_update_adam(
+            w, m1, m2, u_rt, g_rt, LR, step),
+            lambda w, m1, m2: fk.fused_update_adam_reference(
+                w, m1, m2, u_rt, g_rt, LR, step),
+            cs.MOMENT_KERNELS, "rt", rows_ms(7, 0, 4, "rt")),
+        "K3h": (("Wh",), lambda m, w: m[F].fused_update_sgd_half(
+            w, u_rt, g_rt, LR, step),
+            lambda w: fk.fused_update_sgd_half_reference(
+                w, u_rt, g_rt, LR, step),
+            "sgd_half_kernel", "rt", rows_ms(2, 0, 2, "rt")),
+        "K4h": (("Wh", "M"), lambda m, w, mm:
+                m[F].fused_update_rowwise_adagrad_half(
+                    w, mm, u_dd, g_dd, LR, step),
+                lambda w, mm: fk.fused_update_rowwise_adagrad_half_reference(
+                    w, mm, u_dd, g_dd, LR, step),
+                cs.ROWWISE_KERNELS, "dd", rows_ms(2, 8, 2, "dd")),
+    }
+
+
+def held(x: dict, form: str) -> torch.Tensor:
+    """The rows a kernel's state is held on: every row of the DLRM's
+    tables; on the Kaggle tables, too large to copy whole, the real ids of
+    the run totals ("rt") or of the dedup output ("dd"), which the kernel
+    updates, and chip_smoke.row_sample's seeded rows, which it must leave
+    as they were."""
+    R, D = x["W"].shape
+    if not x["kaggle"]:
+        return torch.arange(R, device=DEVICE)
+    u = x["u_rt"] if form == "rt" else x["u_dd"]
+    sample = torch.from_numpy(cs.row_sample(
+        R, D, np.random.RandomState(cs.SEED + 74))).to(DEVICE)
+    return torch.cat([u[u < R].long(), sample])
+
+
+def rows_after(state: list, ids: torch.Tensor, fn) -> list:
+    """fn(*state) in place; returns the rows `ids` of every state tensor
+    after it and puts back what they held before."""
+    saved = [t[ids] for t in state]
+    fn(*state)
+    out = [t[ids] for t in state]
+    for t, rows in zip(state, saved):
+        t[ids] = rows
     return out
 
 
-def bound_ms(x: dict, spec, D: int) -> float:
-    """The least time: the slots' ids, `rows` rows of D elements of
-    `row_bytes` and `extra` bytes (a momentum word read and written, a
-    scale read) per real slot, and the half kernels' 4-byte g row, over the
-    HBM rate."""
-    R = x["W"].shape[0]
-    if callable(spec):
-        return spec()
-    if spec is None:  # K5: chip_smoke's own bound
-        N = int(x["u_dd"].numel())
-        return cs.k5_bound(N, int((x["u_dd"] < R).sum()))["ms"]
-    rows, extra, row_bytes, form = spec
-    u = x["u_rt"] if form == "rt" else x["u_dd"]
-    n_real = int((u < R).sum())
-    g_bytes = n_real * D * 4 if row_bytes == 2 else 0
-    return cs.rows_bound(int(u.numel()), n_real, D, rows,
-                         extra_bytes=n_real * extra + g_bytes,
-                         row_bytes=row_bytes)["ms"]
-
-
 def compare(other: dict, x: dict, D: int) -> dict:
-    """Every case of `cases` on both builds: held bit for bit, then timed
+    """Every kernel of `cases` on both builds: held bit for bit, then timed
     in turns."""
     this = {"fused_update_kernels": fk, "tbe_lookup": tl}
     out = {}
-    for name, (names, call, kernel, spec) in cases(x).items():
+    for name, (state_names, call, _, kernel, form, bound) in cases(x).items():
+        state = [make_state(x, n) for n in state_names]
         got = {}
         for tag, mods in (("other", other), ("this", this)):
-            state = [x[n].clone() for n in names]
-            res = call(mods, *state)
-            got[tag] = [res] if name in ("K1", "K1h") else state
+            if form is None:
+                got[tag] = [call(mods, *state)]
+            else:
+                got[tag] = rows_after(state, held(x, form),
+                                      lambda *s, mods=mods: call(mods, *s))
         cs._hold(f"{name}: this build against the other",
                  list(zip(got["this"], got["other"])))
-        state = [x[n].clone() for n in names]
+        del got
         times = {"other": [], "this": []}
         for tag in ("other", "this", "this", "other"):
             mods = other if tag == "other" else this
             times[tag].append(cs.device_ms(lambda: call(mods, *state),
                                            kernel))
-        b = bound_ms(x, spec, D)
+        b = bound(*state)
         out[name] = {"this_ms": times["this"], "other_ms": times["other"],
                      "bound_ms": b}
         cs.log(f"{name} D={D}: this {times['this']} ms, other "
                f"{times['other']} ms (device time, in turns: other, this, "
                f"this, other), bit for bit; bound {b:.5f} ms")
+        del state
+        torch.cuda.empty_cache()
     return out
 
 
 def sweep(x: dict, D: int, what: str) -> dict:
-    """The row kernel's uses timed against their slots per warp, on the
-    table as it is (whole quads, or pairs at an even D) and on copies of
-    the table and the gradient rows one element into their storage (the
-    masked path)."""
+    """Each case of SWEEPS timed against its kernel's slots per warp, on
+    the state and gradients as they are and on copies one element into
+    their storage (the masked path)."""
     N = int(x["u_rt"].numel())
-    counts = cs.slot_counts(D)
-    pick = fk.row_slots_per_warp(D)
-    inputs_at = {0: x, 1: {**x, **{k: cs._placed(x[k], 1)
-                                    for k in ("g_rt", "g_dd", "rows")}}}
+    G = fk.row_geometry(D)[0]
+    at = {0: x, 1: {**x, **{k: cs._placed(x[k], 1)
+                            for k in ("g_rt", "g_dd", "rows")}}}
     out = {}
-    for name in row_cases(x):
-        times = {off: {s: [] for s in counts} for off in inputs_at}
-        for off, xo in inputs_at.items():
-            call, plain, spec = row_cases(xo)[name]
-            ref = cs._placed(x["W"], off)
-            plain(ref)
+    for name, kernel_of in SWEEPS.items():
+        state_names, _, plain, profiled, form, bound = cases(x)[name]
+        counts = cs.slot_counts(D, kernel_of)
+        pick = {"row": lambda: fk.row_geometry(D),
+                "fused": lambda: fk.fused_geometry(D, N),
+                "moment": lambda: fk.moment_geometry(D)}[kernel_of]()[1]
+        base = [make_state(x, n) for n in state_names]
+        states = {0: base, 1: [cs._placed(t, 1) for t in base]}
+        ids = held(x, form)
+        ref = rows_after(base, ids, plain)
+        calls = {off: cases(at[off])[name][1] for off in states}
+
+        def run(off, slots):
+            with cs.slots_a_warp(fk, kernel_of, slots):
+                calls[off]({"fused_update_kernels": fk}, *states[off])
+
+        for off in states:
             for slots in counts:
-                w = cs._placed(x["W"], off)
-                with cs.row_slots(fk, slots):
-                    call(fk, w)
+                got = rows_after(states[off], ids,
+                                 lambda *_: run(off, slots))
                 cs._hold(f"{name} D={D} at {slots} slots a warp, offset "
-                         f"{off}", [(w, ref)])
-            del ref
-        ws = {off: cs._placed(x["W"], off) for off in inputs_at}
+                         f"{off}", list(zip(got, ref)))
+        times = {(off, s): [] for off in states for s in counts}
         for order in (counts, counts[::-1]):
             for slots in order:
-                for off, xo in inputs_at.items():
-                    call = row_cases(xo)[name][0]
-                    with cs.row_slots(fk, slots):
-                        times[off][slots].append(cs.device_ms(
-                            lambda: call(fk, ws[off]), "row_update_kernel"))
-        b = bound_ms(x, row_cases(x)[name][2], D)
-        cs.log(f"{name} D={D} ({what}): N={N} slots, lanes per row "
-               f"{fk.row_geometry(D)[0]}; bound {b:.5f} ms; every slot "
-               f"count bit for bit with the plain version; ms up / down, "
-               f"the table as it is, then one element in (masked)")
+                for off in states:
+                    times[off, slots].append(cs.device_ms(
+                        lambda: run(off, slots), profiled))
+        b = bound(*base)
+        cs.log(f"{name} D={D} ({what}): N={N} slots, lanes per row {G}; "
+               f"bound {b:.5f} ms; every slot count bit for bit with the "
+               f"plain version; ms up / down, the table as it is, then one "
+               f"element in (masked)")
         for slots in counts:
-            t0, t1 = times[0][slots], times[1][slots]
-            mark = "  <- row_slots_per_warp" if slots == pick else ""
+            t0, t1 = times[0, slots], times[1, slots]
+            mark = "  <- the geometry's pick" if slots == pick else ""
             cs.log(f"  slots={slots:2d}: {t0[0]:.5f} / {t0[1]:.5f} ms, "
                    f"{100 * b / min(t0):.1f}% of the bound; masked "
                    f"{t1[0]:.5f} / {t1[1]:.5f} ms{mark}")
         out[name] = {"bound_ms": b, "pick": pick,
-                     "ms": {str(s): times[0][s] for s in counts},
-                     "masked_ms": {str(s): times[1][s] for s in counts}}
-        del ws
+                     "ms": {str(s): times[0, s] for s in counts},
+                     "masked_ms": {str(s): times[1, s] for s in counts}}
+        del base, states, ref
+        torch.cuda.empty_cache()
     return out
 
 
@@ -282,9 +339,10 @@ def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("other", nargs="?",
                    help="a checkout whose kernel sources to time")
-    p.add_argument("--dim", type=int, default=128)
+    p.add_argument("--dim", type=int, nargs="+", default=[128])
     p.add_argument("--sweep", action="store_true",
-                   help="time the row kernel against its slots per warp")
+                   help="time the update kernels against their slots per "
+                        "warp")
     args = p.parse_args()
     if (args.other is None) == (not args.sweep):
         p.error("give OTHER_CHECKOUT or --sweep, not both")
@@ -293,19 +351,22 @@ def main() -> int:
     card = cs.identify()
     if args.sweep:
         cs.build_kernels([fk.LIBRARY])
-        out = {}
-        for what, kaggle in (("DLRM tables", False), ("Kaggle tables", True)):
-            out[what] = sweep(inputs(args.dim, kaggle), args.dim, what)
-            torch.cuda.empty_cache()
-        out = {"sweep": out}
     else:
         other = load_wrappers(Path(args.other))
         cs.build_kernels([fk.LIBRARY, tl.LIBRARY]
                          + [m.LIBRARY for m in other.values()])
-        x = with_state(inputs(args.dim))
-        out = {"kernels": compare(other, x, args.dim)}
+    out = {}
+    for tables, kaggle in TABLE_SETS.items():
+        for D in args.dim:
+            x = inputs(D, kaggle)
+            if args.sweep:
+                out[f"{tables} D={D}"] = sweep(x, D, f"{tables} tables")
+            else:
+                out[f"{tables} D={D}"] = compare(other, x, D)
+            del x
+            torch.cuda.empty_cache()
     cs.log(card["smi"])
-    cs.log(json.dumps({"dim": args.dim, **out}))
+    cs.log(json.dumps({"sweep" if args.sweep else "kernels": out}))
     return 0
 
 

@@ -11,13 +11,15 @@ Builds csrc/fused_update.cu, then:
    384 and 512 (one to four 512-byte chunks per row) and D = 640 (the
    wide path: each row read in two passes), at weight decay 0 and 0.01, on
    5,000-row tables and 3,000 slots deduplicated from random ids;
-2. launches the kernel with 1, 2, 4, 8, 16 and 32 slots per warp at three
-   shapes, each value held bit-exact first, and prints the device time of
-   each (torch.profiler, twice, in the order 1..32 then 32..1) beside the
-   bound and the scaled RMW's time on the same rows: the DLRM's (26 tables
-   x 100,000 rows x 128, one B=8192 batch of one id per table) and
+2. launches the kernel, with the lanes per row `fused_geometry` gives,
+   at every slot count a warp that those allow (1 to 32 at a warp a row;
+   32 / lanes_per_row(D) to 32 on narrow rows) at three shapes, each value
+   held bit-exact first, and prints the device time of each
+   (torch.profiler, twice, in the order up then down) beside the bound
+   and the scaled RMW's time on the same rows: the DLRM's (26 tables x
+   100,000 rows x 128, one B=8192 batch of one id per table) and
    BERT4Rec's ([3712, 64], the B=32 batch a train step updates and a
-   B=1024 one). `fused_slots_per_warp`'s pick is marked.
+   B=1024 one). `fused_geometry`'s pick is marked.
 
 Ids, gradients and tables are drawn from seed 0.
 """
@@ -33,15 +35,14 @@ import chip_smoke as cs
 from torchrec_tpu_torch.ops import fused_update as fu
 from torchrec_tpu_torch.ops import fused_update_kernels as fk
 
-SLOTS = (1, 2, 4, 8, 16, 32)
-
-
 def launch(lib, W, M, u, g, lr, slots, wd=0.0) -> None:
-    """The fused kernel with a given number of slots per warp."""
+    """The fused kernel with its geometry's lanes per row and a given
+    number of slots per warp."""
     R, D = W.shape
+    group = fk.fused_geometry(D, u.numel())[0]
     err = lib.trt_fused_rowwise_adagrad_f32(
         W.data_ptr(), M.data_ptr(), u.data_ptr(), g.data_ptr(), R, D,
-        u.numel(), slots, lr, 1e-8, wd,
+        u.numel(), group, slots, lr, 1e-8, wd,
         torch.cuda.current_stream().cuda_stream)
     fk.LIBRARY.check("fused_update_rowwise_adagrad", err)
 
@@ -74,7 +75,8 @@ def sweep(lib, gen, W, M, u, g, lr, what: str) -> None:
     N, n_real = u.numel(), int((u < R).sum())
     b = cs.rows_bound(N, n_real, D, rows_moved=3, extra_bytes=2 * n_real * 4,
                       flops_per_elem=7)
-    for slots in SLOTS:
+    counts = cs.slot_counts(D, "fused")
+    for slots in counts:
         for wd in (0.0, 0.01):
             W1, W2, M1, M2 = W.clone(), W.clone(), M.clone(), M.clone()
             launch(lib, W1, M1, u, g, lr, slots, wd)
@@ -82,21 +84,21 @@ def sweep(lib, gen, W, M, u, g, lr, what: str) -> None:
                 W2, M2, u, g, lr, weight_decay=wd, momentum_stream=True)
             cs._hold(f"{what} slots={slots} wd={wd}", [(W1, W2), (M1, M2)])
     W1, M1 = W.clone(), M.clone()
-    times = {s: [] for s in SLOTS}
-    for order in (SLOTS, SLOTS[::-1]):
+    times = {s: [] for s in counts}
+    for order in (counts, counts[::-1]):
         for slots in order:
             times[slots].append(cs.device_ms(
                 lambda: launch(lib, W1, M1, u, g, lr, slots),
-                "rowwise_adagrad_kernel", b["ms"]))
+                cs.ROWWISE_KERNELS, b["ms"]))
     scale = torch.rand(N, device="cuda", generator=gen) * -1e-3
     rmw = cs.device_ms(lambda: fk.scaled_row_update(W1, u, g, scale),
                        "row_update_kernel", b["ms"])
-    pick = fk.fused_slots_per_warp(N)
+    pick = fk.fused_geometry(D, N)[1]
     print(f"{what}: N={N} slots, {n_real} real, D={D}; bound {b['ms']:.5f} "
           f"ms ({b['bytes']} B); the scaled RMW alone {rmw:.5f} ms; every "
           f"slots-per-warp value bit-exact", flush=True)
     for slots, ts in times.items():
-        mark = "  <- fused_slots_per_warp" if slots == pick else ""
+        mark = "  <- fused_geometry" if slots == pick else ""
         print(f"  slots={slots:2d}: {ts[0]:.5f} / {ts[1]:.5f} ms, "
               f"{100 * b['ms'] / min(ts):.1f}% of the bound{mark}",
               flush=True)

@@ -51,20 +51,25 @@
 //     with every lane holding one 16-byte float4 of each tensor, so a
 //     512-byte row is one coalesced request per tensor (wider rows loop over
 //     512-byte chunks). A sentinel slot costs only its 4-byte id.
-//   * Narrow rows (K2, K3 and K4's scaled RMW, `row_update_kernel`): a row
-//     of quads = ceil(D / 4) quads takes G lanes, the smallest power of two
+//   * Narrow rows (every kernel here but K5, which has no D): a row of
+//     quads = ceil(D / 4) quads takes G lanes, the smallest power of two
 //     >= quads, at most 32, picked by the wrapper from D
 //     (ops/lane_groups.py). Below 65 columns (G < 32) the warp's P = 32 / G
-//     lane groups walk disjoint slots, group p slots p, p + P, p + 2P, ...
-//     of the warp's `slots` (a multiple of P the wrapper picks from G), so
-//     P rows are in flight at once: at D=10 (G = 4) 8 rows, each group
-//     walking 2 of the warp's 16 slots. Lane l of a group holds quad l, as
-//     the vector or masked path below has it, so each column's arithmetic
-//     is the one-row-a-warp layout's; an even narrow row whose quads are
-//     not whole (D=10) moves its quads as pairs of float2s ("Access").
-//     Every group runs the same number of steps, so every lane reaches
-//     each full-mask shuffle; the sentinels are skipped after it. At G = 32
-//     (D > 64) this is the one-row-a-warp walk of 32 slots.
+//     lane groups walk disjoint slots of the warp's `slots` (a multiple of
+//     P the wrapper picks), so P rows are in flight at once: at D=10
+//     (G = 4) 8 rows. The row kernel of K2, K3 and K4's scaled RMW
+//     (`row_update_kernel`) and K6 / K7's (`moment_update_kernel`) give
+//     group p slots p, p + P, p + 2P, ...; the fused K4 / K4h
+//     (`rowwise_adagrad_narrow_kernel`) ranks the warp's real slots by a
+//     ballot and gives group p those of rank p, p + P, ..., so a sentinel
+//     costs no step. Lane l of a group holds quad l, as the vector or
+//     masked path below has it, so each column's arithmetic is the
+//     one-row-a-warp layout's; an even narrow row whose quads are not whole
+//     (D=10) moves its quads as pairs ("Access"). Every group runs the
+//     same number of steps, so every lane reaches each full-mask shuffle;
+//     the sentinels are skipped after it. At G = 32 (D > 64) the row and
+//     moment kernels walk a row a warp, one slot after another, and the
+//     fused K4 / K4h keeps its own one-row-a-warp kernel.
 //   * Any width: a row whose float4s would not be whole or aligned (D % 4
 //     != 0, or a table view that starts mid-row) takes the masked path,
 //     which the launcher picks from D and the pointers (see "Row access").
@@ -214,10 +219,11 @@ __device__ __forceinline__ void store4(float* row, int64_t q, float4 v,
 }
 
 // Narrow rows whose quads are not whole but whose pairs are (D % 2 == 0,
-// rows aligned to 8 bytes) take a third path in the row kernel of K2, K3
-// and K4's scaled RMW: a quad as two float2s, the second only below D, the
+// rows aligned to two elements) take a third path in the narrow kernels
+// (G < 32 lanes a row): a quad as two pairs, the second only below D, the
 // same columns and arithmetic as the masked path, half its loads and
-// stores. At D=10 a row is two whole quads and a pair.
+// stores. A pair is a float2 of an f32 row, one 4-byte word of a half row.
+// At D=10 a row is two whole quads and a pair.
 enum class Access { kVector, kPairs, kMasked };
 
 // Quad q of an f32 row: kReadOnly rows (g, K2's rows) through the read-only
@@ -249,6 +255,26 @@ __device__ __forceinline__ void row_store(float* row, int64_t q, float4 v,
     if (c + 2 < D) p[1] = make_float2(v.z, v.w);
   } else {
     store4<kAcc == Access::kMasked>(row, q, v, D);
+  }
+}
+
+// Quad q of a table row of type T widened to f32, by any access: on the
+// pair path a half row's quad is two 4-byte words (elements 0 and 1, then
+// 2 and 3, the second only below D)
+template <Access kAcc, typename T>
+__device__ __forceinline__ float4 table_load(const T* row, int64_t q,
+                                             int64_t D) {
+  if constexpr (kAcc != Access::kPairs) {
+    return load4<kAcc == Access::kMasked>(row, q, D);
+  } else if constexpr (std::is_same<T, float>::value) {
+    return row_load<kAcc, false>(row, q, D);
+  } else {
+    const int64_t c = 4 * q;
+    const uint32_t* p = reinterpret_cast<const uint32_t*>(row + c);
+    const uint32_t a = p[0];
+    const uint32_t b = c + 2 < D ? p[1] : 0u;  // +0.0 in both formats
+    return make_float4(from_bits<T>(a & 0xffffu), from_bits<T>(a >> 16),
+                       from_bits<T>(b & 0xffffu), from_bits<T>(b >> 16));
   }
 }
 
@@ -347,21 +373,29 @@ __device__ __forceinline__ void moment_step(float& w, float& m1, float& m2,
 }
 
 // K6 / K7: w, m1 (and K7's m2) [R, D], g [N, D]; bc is K7's [2] bias
-// corrections (unused by K6).
-template <Moment kOpt, bool kMasked>
+// corrections (unused by K6). The walk is row_update_kernel's: kGroup lanes
+// hold a row (lane `sub` of a group its quads sub, sub + kGroup, ...), a
+// warp takes `slots` consecutive slots, a multiple of its 32 / kGroup
+// groups, and group p walks slots p, p + 32 / kGroup, ..., skipping the
+// sentinels after the shuffle (ranking the real slots by a ballot instead
+// was no faster on an H100; PERF.md).
+template <Moment kOpt, Access kAcc, int kGroup>
 __global__ void moment_update_kernel(float* __restrict__ w,
                                      float* __restrict__ m1,
                                      float* __restrict__ m2,
                                      const int32_t* __restrict__ uids,
                                      const float* __restrict__ g,
                                      const float* __restrict__ bc, int64_t R,
-                                     int64_t D, int64_t N, MomentArgs a) {
+                                     int64_t D, int64_t N, int slots,
+                                     MomentArgs a) {
+  constexpr int kRows = 32 / kGroup;  // rows in flight per warp
   const int lane = threadIdx.x & 31;
+  const int sub = lane % kGroup;
   const int64_t warp =
       static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
-  const int64_t base = warp * 32;
+  const int64_t base = warp * slots;
   if (base >= N) return;  // whole warp leaves together
-  const int n = static_cast<int>(N - base < 32 ? N - base : 32);
+  const int n = static_cast<int>(N - base < slots ? N - base : slots);
   const int32_t my_id = lane < n ? uids[base + lane] : -1;
   float bc1 = 0.f, bc2 = 0.f;
   if (kOpt == Moment::kAdam) {
@@ -369,27 +403,31 @@ __global__ void moment_update_kernel(float* __restrict__ w,
     bc2 = __ldg(bc + 1);
   }
   const int64_t quads = (D + 3) / 4;
-  for (int j = 0; j < n; ++j) {
+  // the same trip count in every group; j < slots <= 32 (lanes from n on
+  // hold -1, a sentinel)
+  for (int step = 0; step < n; step += kRows) {
+    const int j = step + lane / kGroup;
     const int32_t id = __shfl_sync(kFullMask, my_id, j);
-    if (!is_real(id, R)) continue;  // the same for the whole warp
+    if (!is_real(id, R)) continue;  // the same for the whole group
     const int64_t row = static_cast<int64_t>(id) * D;
     float* wrow = w + row;
     float* m1row = m1 + row;
     float* m2row = kOpt == Moment::kAdam ? m2 + row : nullptr;
     const float* grow = g + (base + j) * D;
-    for (int64_t q = lane; q < quads; q += 32) {
-      const float4 x = load_g4<kMasked>(grow, q, D);
-      float4 wv = load4<kMasked>(wrow, q, D);
-      float4 av = load4<kMasked>(m1row, q, D);
+    for (int64_t q = sub; q < quads; q += kGroup) {
+      const float4 x = row_load<kAcc, true>(grow, q, D);
+      float4 wv = row_load<kAcc, false>(wrow, q, D);
+      float4 av = row_load<kAcc, false>(m1row, q, D);
       float4 bv = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (kOpt == Moment::kAdam) bv = load4<kMasked>(m2row, q, D);
+      if (kOpt == Moment::kAdam) bv = row_load<kAcc, false>(m2row, q, D);
       moment_step<kOpt>(wv.x, av.x, bv.x, x.x, a, bc1, bc2);
       moment_step<kOpt>(wv.y, av.y, bv.y, x.y, a, bc1, bc2);
       moment_step<kOpt>(wv.z, av.z, bv.z, x.z, a, bc1, bc2);
       moment_step<kOpt>(wv.w, av.w, bv.w, x.w, a, bc1, bc2);
-      store4<kMasked>(wrow, q, wv, D);
-      store4<kMasked>(m1row, q, av, D);
-      if (kOpt == Moment::kAdam) store4<kMasked>(m2row, q, bv, D);
+      row_store<kAcc>(wrow, q, wv, D);
+      row_store<kAcc>(m1row, q, av, D);
+      if (kOpt == Moment::kAdam) row_store<kAcc>(m2row, q, bv, D);
+      if (kGroup < 32) break;  // a narrow row: one quad a lane at most
     }
   }
 }
@@ -452,7 +490,9 @@ __global__ void rowwise_momentum_kernel(float* __restrict__ m,
 // 16-byte float4 of g's same 4 columns, so the f32 kernels' lane-to-column
 // map, and with it K4's summation order of g^2, is unchanged. Rows that are
 // not 8-byte aligned quads (D % 4 != 0, a view that starts mid-row) take the
-// masked path ("Row access").
+// masked path ("Row access"); K4h's narrow rows that are 4-byte aligned
+// pairs (an even D, as D=10's 20-byte rows) move each quad as two 4-byte
+// words.
 
 constexpr uint32_t kGolden = 0x9E3779B9u;
 
@@ -540,6 +580,31 @@ __device__ __forceinline__ void store_quad(T* row, int64_t q, float4 w,
   }
 }
 
+// store_quad by any access: on the pair path the quad's elements are the
+// same, written as two pairs (a float2 of an f32 row, a 4-byte word of a
+// half row), the second only below D
+template <Access kAcc, typename T>
+__device__ __forceinline__ void table_store(T* row, int64_t q, float4 w,
+                                            float4 upd, RowRound r,
+                                            int64_t D) {
+  if constexpr (kAcc != Access::kPairs) {
+    store_quad<kAcc == Access::kMasked>(row, q, w, upd, r, D);
+  } else if constexpr (std::is_same<T, float>::value) {
+    row_store<kAcc>(row, q,
+                    make_float4(__fadd_rn(w.x, upd.x), __fadd_rn(w.y, upd.y),
+                                __fadd_rn(w.z, upd.z), __fadd_rn(w.w, upd.w)),
+                    D);
+  } else {
+    const int64_t c = 4 * q;
+    uint32_t* p = reinterpret_cast<uint32_t*>(row + c);
+    p[0] = round_elem<T>(w.x, upd.x, r, c) |
+           (round_elem<T>(w.y, upd.y, r, c + 1) << 16);
+    if (c + 2 < D)
+      p[1] = round_elem<T>(w.z, upd.z, r, c + 2) |
+             (round_elem<T>(w.w, upd.w, r, c + 3) << 16);
+  }
+}
+
 // g' = g + wd * W, FBGEMM's weight decay fold (pallas_embedding.py:647-654)
 __device__ __forceinline__ float4 fold_wd(float4 x, float4 w, float wd) {
   if (wd == 0.f) return x;
@@ -621,9 +686,11 @@ __global__ void sgd_half_kernel(T* __restrict__ w,
 //     real slots only, so a run of sentinels costs no iterations. The walk
 //     is a chain of memory latencies, one per real slot, so the caller
 //     gives each warp fewer slots when N is small (see the wrapper);
-//   * the 32 lanes hold a row, one quad per lane for each 128-column chunk
-//     ("Row access"), kChunks = ceil(D / 128) chunks in registers (at D = 64
-//     half the lanes idle, which keeps one summation order for every D);
+//   * past 64 columns the 32 lanes hold a row, one quad per lane for each
+//     128-column chunk ("Row access"), kChunks = ceil(D / 128) chunks in
+//     registers; a row of up to 64 columns takes a lane group instead
+//     (rowwise_adagrad_narrow_kernel below), whose g^2 sum is this one's
+//     bit for bit;
 //   * the next real slot's g and W chunks and its momentum word are loaded
 //     before the current slot is reduced and stored, so two rows are in
 //     flight per warp across the reduction's latency. This relies on the
@@ -652,22 +719,27 @@ __device__ __forceinline__ float sum_sq(float4 x) {
       __fmul_rn(x.w, x.w));
 }
 
-// The row's momentum step from the lanes' partials: the xor butterfly, then
-// lane 0 adds the mean to its momentum word mv and writes m[id]; every lane
-// gets the scale lr * (-1 / (sqrt(m_new) + eps))
+// The row's momentum step from the partials of the row's kGroup lanes
+// (the warp's 32, or a lane group of a narrow row): the xor butterfly over
+// kGroup / 2, ..., 1 inside the group, then the lane that `writes` (the
+// group's first, `lead`, for a real row) adds the mean to its momentum word
+// mv and writes m[id]; every lane of the group gets the scale
+// lr * (-1 / (sqrt(m_new) + eps)). Every lane of the warp must call it.
+template <int kGroup>
 __device__ __forceinline__ float rowwise_scale(float part, float* m,
                                                int32_t id, float mv, int64_t D,
-                                               float lr, float eps, int lane) {
+                                               float lr, float eps,
+                                               bool writes, int lead) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
+  for (int off = kGroup / 2; off > 0; off >>= 1)
     part = __fadd_rn(part, __shfl_xor_sync(kFullMask, part, off));
   float s = 0.f;
-  if (lane == 0) {
+  if (writes) {
     const float m_new = __fadd_rn(mv, __fdiv_rn(part, static_cast<float>(D)));
     m[id] = m_new;
     s = __fmul_rn(lr, __fdiv_rn(-1.0f, __fadd_rn(__fsqrt_rn(m_new), eps)));
   }
-  return __shfl_sync(kFullMask, s, 0);
+  return __shfl_sync(kFullMask, s, lead);
 }
 
 template <int kChunks, bool kMasked, typename T>
@@ -735,7 +807,8 @@ __global__ void rowwise_adagrad_kernel(T* __restrict__ w,
         part = __fadd_rn(part, sum_sq(gv[c]));
       }
     }
-    const float s = rowwise_scale(part, m, id, mv, D, lr, eps, lane);
+    const float s =
+        rowwise_scale<32>(part, m, id, mv, D, lr, eps, lane == 0, 0);
     T* wrow = w + static_cast<int64_t>(id) * D;
     const RowRound r{sr, sr ? sr_row_key(step_key, id, row_base) : 0u};
 #pragma unroll
@@ -752,6 +825,111 @@ __global__ void rowwise_adagrad_kernel(T* __restrict__ w,
       gv[c] = gn[c];
       wv[c] = wn[c];
     }
+  }
+}
+
+// The slot of rank r (from 0) among a warp's real slots `mask`, r <
+// popc(mask): r itself when the real slots come first (dedup output), else
+// the position of the set bit of rank r
+__device__ __forceinline__ int nth_set_bit(unsigned mask, int r) {
+  if ((mask & (mask + 1u)) == 0u) return r;  // a prefix of the warp
+  int pos = 0;
+#pragma unroll
+  for (int half = 16; half > 0; half >>= 1) {
+    const int low = __popc(mask & ((1u << half) - 1u));
+    if (r >= low) {
+      r -= low;
+      mask >>= half;
+      pos += half;
+    }
+  }
+  return pos;
+}
+
+// The fused rowwise Adagrad on narrow rows (D <= 64): kGroup < 32 lanes a
+// row, lane `sub` of a group holding quad `sub` (the only one: kGroup >=
+// ceil(D / 4)), so the warp holds 32 / kGroup rows. A ballot of the warp's
+// real slots ranks them, and group p takes those of rank p, p + 32 /
+// kGroup, ..., loading its next row (g, W and the momentum word) before it
+// reduces and stores the current one, as rowwise_adagrad_kernel does per
+// warp. Every group runs the warp's trip count, and a group with no row
+// this step runs the butterfly on +0.0 partials, so every lane reaches each
+// full-mask shuffle; the momentum word and the row are skipped after it.
+// The g^2 butterfly runs inside the group (kGroup / 2, ..., 1). The lanes
+// past the row's quads hold +0.0, and partials are sums of squares, never
+// -0.0, so the warp-wide butterfly's steps over offsets >= kGroup add +0.0
+// and change nothing: the group's total is the warp's, bit for bit, and so
+// row_mean_sq's. The group's first lane reads and writes m[u].
+template <int kGroup, typename T, Access kAcc>
+__global__ void rowwise_adagrad_narrow_kernel(
+    T* __restrict__ w, float* __restrict__ m,
+    const int32_t* __restrict__ uids, const float* __restrict__ g,
+    const int32_t* __restrict__ step, int64_t R, int64_t D, int64_t N,
+    int slots, float lr, float eps, float wd, bool sr, uint32_t seed,
+    int64_t row_base) {
+  constexpr int kRows = 32 / kGroup;  // rows in flight per warp
+  const int lane = threadIdx.x & 31;
+  const int sub = lane % kGroup;
+  const int lead = lane - sub;  // the group's first lane
+  const int64_t warp =
+      static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int64_t base = warp * slots;
+  if (base >= N) return;  // whole warp leaves together
+  const int n = static_cast<int>(N - base < slots ? N - base : slots);
+  const int32_t my_id = lane < n ? uids[base + lane] : -1;
+  const unsigned todo = __ballot_sync(kFullMask, is_real(my_id, R));
+  const int count = __popc(todo);
+  if (count == 0) return;  // the same for the whole warp
+  const bool has_quad = sub < (D + 3) / 4;
+  const uint32_t step_key = sr ? sr_step_key(seed, __ldg(step)) : 0u;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  // this group's row of rank r, its slot j, and what it loads
+  int r = lane / kGroup;
+  bool live = r < count;
+  int j = live ? nth_set_bit(todo, r) : 0;
+  int32_t id = __shfl_sync(kFullMask, my_id, j);
+  float4 gv = zero, wv = zero;
+  float mv = 0.f;
+  if (live) {
+    if (has_quad) {
+      gv = row_load<kAcc, true>(g + (base + j) * D, sub, D);
+      wv = table_load<kAcc>(w + static_cast<int64_t>(id) * D, sub, D);
+    }
+    if (sub == 0) mv = m[id];
+  }
+  for (int done = 0; done < count; done += kRows) {  // the same trip count
+    // the group's next row's loads go out before this row's reduction
+    const int rn = r + kRows;
+    const bool live_n = rn < count;
+    const int jn = live_n ? nth_set_bit(todo, rn) : 0;
+    const int32_t next = __shfl_sync(kFullMask, my_id, jn);
+    float4 gn = zero, wn = zero;
+    float mn = 0.f;
+    if (live_n) {
+      if (has_quad) {
+        gn = row_load<kAcc, true>(g + (base + jn) * D, sub, D);
+        wn = table_load<kAcc>(w + static_cast<int64_t>(next) * D, sub, D);
+      }
+      if (sub == 0) mn = m[next];
+    }
+    float part = 0.f;
+    if (live && has_quad) {
+      gv = fold_wd(gv, wv, wd);
+      part = __fadd_rn(part, sum_sq(gv));
+    }
+    const float s = rowwise_scale<kGroup>(part, m, id, mv, D, lr, eps,
+                                          live && sub == 0, lead);
+    if (live && has_quad) {
+      const RowRound rr{sr, sr ? sr_row_key(step_key, id, row_base) : 0u};
+      table_store<kAcc>(w + static_cast<int64_t>(id) * D, sub, wv,
+                        scale4(s, gv), rr, D);
+    }
+    r = rn;
+    live = live_n;
+    id = next;
+    gv = gn;
+    wv = wn;
+    mv = mn;
   }
 }
 
@@ -795,7 +973,8 @@ __global__ void rowwise_adagrad_wide_kernel(T* __restrict__ w,
     for (int64_t q = lane; q < quads; q += 32)
       part = __fadd_rn(part, sum_sq(fold_wd(load_g4<kMasked>(grow, q, D),
                                             load4<kMasked>(wrow, q, D), wd)));
-    const float s = rowwise_scale(part, m, id, mv, D, lr, eps, lane);
+    const float s =
+        rowwise_scale<32>(part, m, id, mv, D, lr, eps, lane == 0, 0);
     const RowRound r{sr, sr ? sr_row_key(step_key, id, row_base) : 0u};
     for (int64_t q = lane; q < quads; q += 32) {
       const float4 wv = load4<kMasked>(wrow, q, D);
@@ -807,6 +986,13 @@ __global__ void rowwise_adagrad_wide_kernel(T* __restrict__ w,
 
 // -- Launchers: each picks the vector or the masked path ----------------------
 
+// A lane group a launch may take at width D: 32 (a warp a row), or a
+// power of two below 32 that covers the row's ceil(D / 4) quads
+bool group_ok(int group, int64_t D) {
+  return group >= 1 && group <= 32 && (group & (group - 1)) == 0 &&
+         (group == 32 || group >= (D + 3) / 4);
+}
+
 // The rowwise kernels' arguments, as the entry points receive them
 struct RowwiseCall {
   void* w;
@@ -815,7 +1001,7 @@ struct RowwiseCall {
   const void* g;
   const void* step;
   int64_t R, D, N;
-  int slots;
+  int group, slots;
   float lr, eps, wd;
   bool sr;
   uint32_t seed;
@@ -865,15 +1051,56 @@ int rowwise_adagrad_path(const RowwiseCall& c) {
   }
 }
 
-// any D >= 1; 1 <= slots <= 32 slots per warp
+template <int kGroup, typename T, Access kAcc>
+int launch_rowwise_narrow(const RowwiseCall& c) {
+  const int64_t warps = (c.N + c.slots - 1) / c.slots;
+  const dim3 grid(
+      static_cast<unsigned>((warps + kWarpsPerBlock - 1) / kWarpsPerBlock));
+  rowwise_adagrad_narrow_kernel<kGroup, T, kAcc>
+      <<<grid, 32 * kWarpsPerBlock, 0, static_cast<cudaStream_t>(c.stream)>>>(
+          static_cast<T*>(c.w), static_cast<float*>(c.m),
+          static_cast<const int32_t*>(c.uids),
+          static_cast<const float*>(c.g),
+          static_cast<const int32_t*>(c.step), c.R, c.D, c.N, c.slots, c.lr,
+          c.eps, c.wd, c.sr, c.seed, c.row_base);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, Access kAcc>
+int rowwise_narrow_group(const RowwiseCall& c) {
+  switch (c.group) {
+    case 1:
+      return launch_rowwise_narrow<1, T, kAcc>(c);
+    case 2:
+      return launch_rowwise_narrow<2, T, kAcc>(c);
+    case 4:
+      return launch_rowwise_narrow<4, T, kAcc>(c);
+    case 8:
+      return launch_rowwise_narrow<8, T, kAcc>(c);
+    default:
+      return launch_rowwise_narrow<16, T, kAcc>(c);
+  }
+}
+
+// `group` lanes per row: 32 (a warp a row, any D >= 1), or a power of two
+// below 32 of at least ceil(D / 4) (the narrow kernel); `slots` per warp:
+// 1-32, a multiple of 32 / group
 template <typename T>
 int rowwise_adagrad(const RowwiseCall& c) {
-  if (c.slots < 1 || c.slots > 32)
+  if (!group_ok(c.group, c.D) || c.slots < 1 || c.slots > 32 ||
+      c.slots % (32 / c.group) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool masked =
-      c.D % 4 != 0 || !aligned(c.w, 4 * sizeof(T)) || !aligned(c.g, 16);
-  return masked ? rowwise_adagrad_path<T, true>(c)
-                : rowwise_adagrad_path<T, false>(c);
+  if (c.group == 32) {
+    const bool masked =
+        c.D % 4 != 0 || !aligned(c.w, 4 * sizeof(T)) || !aligned(c.g, 16);
+    return masked ? rowwise_adagrad_path<T, true>(c)
+                  : rowwise_adagrad_path<T, false>(c);
+  }
+  if (c.D % 4 == 0 && aligned(c.w, 4 * sizeof(T)) && aligned(c.g, 16))
+    return rowwise_narrow_group<T, Access::kVector>(c);
+  if (c.D % 2 == 0 && aligned(c.w, 2 * sizeof(T)) && aligned(c.g, 8))
+    return rowwise_narrow_group<T, Access::kPairs>(c);
+  return rowwise_narrow_group<T, Access::kMasked>(c);
 }
 
 template <typename T, bool kMasked>
@@ -952,10 +1179,7 @@ int launch_rows_group(const RowsCall& c) {
 // `slots` per warp: a multiple of 32 / group, at most 32
 template <RowOp kOp>
 int launch_rows(const RowsCall& c) {
-  const bool group_ok = c.group >= 1 && c.group <= 32 &&
-                        (c.group & (c.group - 1)) == 0 &&
-                        (c.group == 32 || c.group >= (c.D + 3) / 4);
-  if (!group_ok || c.slots < 1 || c.slots > 32 ||
+  if (!group_ok(c.group, c.D) || c.slots < 1 || c.slots > 32 ||
       c.slots % (32 / c.group) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (c.D % 4 == 0 && aligned(c.w, 16) && aligned(c.src, 16))
@@ -966,32 +1190,69 @@ int launch_rows(const RowsCall& c) {
   return launch_rows_group<kOp, Access::kMasked>(c);
 }
 
-template <Moment kOpt, bool kMasked>
-int launch_moments_path(void* w, void* m1, void* m2, const void* uids,
-                        const void* g, const void* bc, int64_t R, int64_t D,
-                        int64_t N, MomentArgs a, void* stream) {
-  const int64_t warps = (N + 31) / 32;
+// What the moment kernels' launchers share
+struct MomentsCall {
+  void* w;
+  void* m1;
+  void* m2;  // K7 only
+  const void* uids;
+  const void* g;
+  const void* bc;  // K7 only
+  int64_t R, D, N;
+  int group, slots;
+  MomentArgs a;
+  void* stream;
+};
+
+template <Moment kOpt, Access kAcc, int kGroup>
+int launch_moments_path(const MomentsCall& c) {
+  const int64_t warps = (c.N + c.slots - 1) / c.slots;
   const dim3 grid(
       static_cast<unsigned>((warps + kWarpsPerBlock - 1) / kWarpsPerBlock));
-  moment_update_kernel<kOpt, kMasked><<<grid, 32 * kWarpsPerBlock, 0,
-                                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float*>(w), static_cast<float*>(m1),
-      static_cast<float*>(m2), static_cast<const int32_t*>(uids),
-      static_cast<const float*>(g), static_cast<const float*>(bc), R, D, N,
-      a);
+  moment_update_kernel<kOpt, kAcc, kGroup>
+      <<<grid, 32 * kWarpsPerBlock, 0, static_cast<cudaStream_t>(c.stream)>>>(
+          static_cast<float*>(c.w), static_cast<float*>(c.m1),
+          static_cast<float*>(c.m2), static_cast<const int32_t*>(c.uids),
+          static_cast<const float*>(c.g), static_cast<const float*>(c.bc),
+          c.R, c.D, c.N, c.slots, c.a);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <Moment kOpt, Access kAcc>
+int launch_moments_group(const MomentsCall& c) {
+  switch (c.group) {
+    case 1:
+      return launch_moments_path<kOpt, kAcc, 1>(c);
+    case 2:
+      return launch_moments_path<kOpt, kAcc, 2>(c);
+    case 4:
+      return launch_moments_path<kOpt, kAcc, 4>(c);
+    case 8:
+      return launch_moments_path<kOpt, kAcc, 8>(c);
+    case 16:
+      return launch_moments_path<kOpt, kAcc, 16>(c);
+    default:
+      return launch_moments_path<kOpt, kAcc, 32>(c);
+  }
+}
+
+// `group` lanes per row: 32, or a power of two of at least ceil(D / 4);
+// `slots` per warp: a multiple of 32 / group, at most 32
 template <Moment kOpt>
-int launch_moments(void* w, void* m1, void* m2, const void* uids,
-                   const void* g, const void* bc, int64_t R, int64_t D,
-                   int64_t N, MomentArgs a, void* stream) {
-  const bool masked = D % 4 != 0 || !aligned(w, 16) || !aligned(m1, 16) ||
-                      (m2 != nullptr && !aligned(m2, 16)) || !aligned(g, 16);
-  return masked ? launch_moments_path<kOpt, true>(w, m1, m2, uids, g, bc, R,
-                                                  D, N, a, stream)
-                : launch_moments_path<kOpt, false>(w, m1, m2, uids, g, bc, R,
-                                                   D, N, a, stream);
+int launch_moments(const MomentsCall& c) {
+  if (!group_ok(c.group, c.D) || c.slots < 1 || c.slots > 32 ||
+      c.slots % (32 / c.group) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool m2_16 = c.m2 == nullptr || aligned(c.m2, 16);
+  if (c.D % 4 == 0 && aligned(c.w, 16) && aligned(c.m1, 16) && m2_16 &&
+      aligned(c.g, 16))
+    return launch_moments_group<kOpt, Access::kVector>(c);
+  // pairs on narrow rows (G < 32); wider rows take the masked path
+  const bool m2_8 = c.m2 == nullptr || aligned(c.m2, 8);
+  if (c.group < 32 && c.D % 2 == 0 && aligned(c.w, 8) && aligned(c.m1, 8) &&
+      m2_8 && aligned(c.g, 8))
+    return launch_moments_group<kOpt, Access::kPairs>(c);
+  return launch_moments_group<kOpt, Access::kMasked>(c);
 }
 
 }  // namespace
@@ -1033,29 +1294,31 @@ int trt_rowwise_momentum_f32(void* m, const void* uids, const void* g_sq,
   return static_cast<int>(cudaGetLastError());
 }
 
-// any D >= 1 (up to 512 columns in registers, wider rows in two passes);
-// 1 <= slots <= 32 slots per warp
+// The fused rowwise Adagrad, any D >= 1 (up to 512 columns in registers,
+// wider rows in two passes): `group` lanes per row and `slots` per warp,
+// both picked by the wrapper (fused_geometry)
 int trt_fused_rowwise_adagrad_f32(void* w, void* m, const void* uids,
                                   const void* g, int64_t R, int64_t D,
-                                  int64_t N, int slots, float lr, float eps,
-                                  float wd, void* stream) {
-  return rowwise_adagrad<float>({w, m, uids, g, nullptr, R, D, N, slots, lr,
-                                 eps, wd, false, 0u, 0, stream});
+                                  int64_t N, int group, int slots, float lr,
+                                  float eps, float wd, void* stream) {
+  return rowwise_adagrad<float>({w, m, uids, g, nullptr, R, D, N, group,
+                                 slots, lr, eps, wd, false, 0u, 0, stream});
 }
 
 // The half-table entry points: `half` 0 is bf16, 1 fp16; `sr` selects the
 // stochastic-rounding epilogue, whose bits take the step from device memory
 // at `step` (an int32, read before the caller increments it), `seed` and
 // `row_base`, the first row of this shard across the group.
-// K4h: any D >= 1, 1 <= slots <= 32.
+// K4h: any D >= 1, `group` and `slots` as the f32 entry point's.
 int trt_fused_rowwise_adagrad_half(void* w, void* m, const void* uids,
                                    const void* g, const void* step,
-                                   int64_t R, int64_t D, int64_t N, int slots,
-                                   float lr, float eps, float wd, int half,
-                                   int sr, uint32_t seed, int64_t row_base,
-                                   void* stream) {
-  const RowwiseCall c{w,  m,   uids, g,  step,    R,    D,        N,
-                      slots, lr, eps, wd, sr != 0, seed, row_base, stream};
+                                   int64_t R, int64_t D, int64_t N, int group,
+                                   int slots, float lr, float eps, float wd,
+                                   int half, int sr, uint32_t seed,
+                                   int64_t row_base, void* stream) {
+  const RowwiseCall c{w,  m,     uids, g,  step, R,       D,    N,
+                      group, slots, lr, eps, wd, sr != 0, seed, row_base,
+                      stream};
   if (half == 0) return rowwise_adagrad<__nv_bfloat16>(c);
   if (half == 1) return rowwise_adagrad<__half>(c);
   return static_cast<int>(cudaErrorInvalidValue);
@@ -1075,23 +1338,27 @@ int trt_fused_update_sgd_half(void* w, const void* uids, const void* g,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// K6 and K7: `group` lanes per row and `slots` per warp, both picked by the
+// wrapper (moment_geometry)
 int trt_fused_update_adagrad_f32(void* w, void* m, const void* uids,
                                  const void* g, int64_t R, int64_t D,
-                                 int64_t N, float lr, float eps, float wd,
-                                 void* stream) {
+                                 int64_t N, int group, int slots, float lr,
+                                 float eps, float wd, void* stream) {
   const MomentArgs a{lr, eps, wd, 0.f, 0.f, 0.f, 0.f};
-  return launch_moments<Moment::kAdagrad>(w, m, nullptr, uids, g, nullptr, R,
-                                          D, N, a, stream);
+  return launch_moments<Moment::kAdagrad>({w, m, nullptr, uids, g, nullptr,
+                                           R, D, N, group, slots, a,
+                                           stream});
 }
 
 int trt_fused_update_adam_f32(void* w, void* m1, void* m2, const void* uids,
                               const void* g, const void* bc, int64_t R,
-                              int64_t D, int64_t N, float lr, float eps,
-                              float wd, float b1, float omb1, float b2,
-                              float omb2, void* stream) {
+                              int64_t D, int64_t N, int group, int slots,
+                              float lr, float eps, float wd, float b1,
+                              float omb1, float b2, float omb2,
+                              void* stream) {
   const MomentArgs a{lr, eps, wd, b1, omb1, b2, omb2};
-  return launch_moments<Moment::kAdam>(w, m1, m2, uids, g, bc, R, D, N, a,
-                                       stream);
+  return launch_moments<Moment::kAdam>({w, m1, m2, uids, g, bc, R, D, N,
+                                        group, slots, a, stream});
 }
 
 const char* trt_cuda_error_string(int err) {

@@ -31,12 +31,12 @@ The JAX functions return new arrays; these update `weights` and the
 momenta IN PLACE and return the same tensors, so callers port one to one.
 CUDA tensors launch the kernel, at any D >= 1: rows that are whole aligned
 quads (D % 4 == 0, aligned tensors) move as vectors, every other table by
-the masked path, which the launcher picks from D and the pointers. The
-row kernel of K2, K3 and K4's scaled RMW gives a row `lanes_per_row(D)`
-lanes (ops/lane_groups.py), so a warp moves several rows of up to 64
-columns at once (`row_geometry`). CPU tensors take the plain PyTorch
-version (`*_reference`). Nothing falls
-back: a failed build or launch raises.
+the masked path, which the launcher picks from D and the pointers. Every
+kernel but K5 gives a row `lanes_per_row(D)` lanes (ops/lane_groups.py),
+so a warp moves several rows of up to 64 columns at once (`row_geometry`,
+`fused_geometry`, `moment_geometry`). CPU tensors take the plain PyTorch
+version (`*_reference`). Nothing falls back: a failed build or launch
+raises.
 
 Slots whose id is not a real row (0 <= id < R) are skipped: the sentinels
 are 2**31 - 1 (`run_total_row_grads`) and R + pos (`dedup_row_grads`).
@@ -77,18 +77,20 @@ def _bind(lib: ctypes.CDLL) -> None:
             [_P, _P, _P, _P, _I64, _I64, _I64, _INT, _INT, _P],
         "trt_rowwise_momentum_f32": [_P, _P, _P, _P, _I64, _I64, _F32, _P],
         "trt_fused_rowwise_adagrad_f32":
-            [_P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_int, _F32, _F32, _F32,
+            [_P, _P, _P, _P, _I64, _I64, _I64, _INT, _INT, _F32, _F32, _F32,
              _P],
         "trt_fused_update_adagrad_f32":
-            [_P, _P, _P, _P, _I64, _I64, _I64, _F32, _F32, _F32, _P],
+            [_P, _P, _P, _P, _I64, _I64, _I64, _INT, _INT, _F32, _F32, _F32,
+             _P],
         "trt_fused_update_adam_f32":
-            [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64] + [_F32] * 7 + [_P],
+            [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _INT, _INT]
+            + [_F32] * 7 + [_P],
         "trt_fused_update_sgd_half":
             [_P, _P, _P, _P, _I64, _I64, _I64, _F32, _F32, _INT, _INT, _U32,
              _I64, _P],
         "trt_fused_rowwise_adagrad_half":
-            [_P, _P, _P, _P, _P, _I64, _I64, _I64, _INT, _F32, _F32, _F32,
-             _INT, _INT, _U32, _I64, _P],
+            [_P, _P, _P, _P, _P, _I64, _I64, _I64, _INT, _INT, _F32, _F32,
+             _F32, _INT, _INT, _U32, _I64, _P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
@@ -356,18 +358,39 @@ def rowwise_momentum_stream(
 # -- K4 ------------------------------------------------------------------------
 
 def fused_slots_per_warp(N: int) -> int:
-    """Slots each warp of the fused kernel walks, one after another: the
-    largest power of two up to 32 at most sqrt(N / 16384). A warp's walk
-    is a chain of memory latencies, one per real slot, which ends the
-    launch when N is small; every warp costs its scheduling, which adds
-    up when N is large. On an H100 this picks the fastest of 1-32 at
-    BERT4Rec's training shape (N 2,048: 1 slot, 1.9 us against 18 us at
-    32) and the DLRM's (N 212,992: 2 slots, 0.114 ms against 0.127 ms at
-    32); see PERF.md."""
+    """Slots each warp of the fused kernel walks, one after another, at a
+    row a warp (D > 64): the largest power of two up to 32 at most
+    sqrt(N / 16384). A warp's walk is a chain of memory latencies, one per
+    real slot, which ends the launch when N is small; every warp costs its
+    scheduling, which adds up when N is large. On an H100 this picks the
+    fastest of 1-32 at BERT4Rec's training shape (N 2,048: 1 slot, 1.9 us
+    against 18 us at 32) and the DLRM's (N 212,992: 2 slots, 0.114 ms
+    against 0.127 ms at 32); see PERF.md."""
     slots = 1
     while slots < 32 and (2 * slots) ** 2 * 16384 <= N:
         slots *= 2
     return slots
+
+
+def fused_geometry(D: int, N: int) -> Tuple[int, int]:
+    """(lanes per row, slots per warp) of the fused rowwise kernel (K4 and
+    K4h) over N slots of width D. D > 64: a warp a row and
+    `fused_slots_per_warp(N)`. Narrow rows: `lanes_per_row(D)` lanes, so
+    P = 32 / G rows a warp, and each lane group walks
+    `fused_slots_per_warp(4 * N)` slots, P times that a warp, at most 32:
+    a group moves a quarter of a wide row's bytes or less a step, so it
+    takes more slots before its warp's scheduling costs more than the
+    latency it hides. From sweeps on an H100 (compare_update_kernels.py
+    --sweep, profile_rowwise.py; PERF.md) at the shapes of the paths that
+    run it: BERT4Rec's 2,048 slots at D=64 (one slot a group; two are
+    26 % slower), and the Criteo Kaggle batch's 212,992 (four a group) for
+    the f32 DeepFM at D=10 (level with two), the Criteo Kaggle DLRM at
+    D=64 (1.5 % faster than two) and the bf16 DeepFM at D=10 (7 %
+    faster)."""
+    G = lanes_per_row(D)
+    if G == 32:
+        return G, fused_slots_per_warp(N)
+    return G, min(32, (32 // G) * fused_slots_per_warp(4 * N))
 
 
 def row_mean_sq(g: torch.Tensor) -> torch.Tensor:
@@ -492,15 +515,30 @@ def fused_update_rowwise_adagrad(
                                        wd, momentum_stream, w_impl)
     if N == 0 or D == 0:
         return weights, momentum
-    slots = fused_slots_per_warp(N)
+    group, slots = fused_geometry(D, N)
     _launch("fused_update_rowwise_adagrad", dev, lambda lib, s:
             lib.trt_fused_rowwise_adagrad_f32(
                 weights.data_ptr(), momentum.data_ptr(), uids.data_ptr(),
-                g.data_ptr(), R, D, N, slots, lr, eps, wd, s))
+                g.data_ptr(), R, D, N, group, slots, lr, eps, wd, s))
     return weights, momentum
 
 
 # -- K6 and K7 -----------------------------------------------------------------
+
+
+# Slots a warp of the moment kernel takes, by lanes per row (D <= 64; a warp
+# a row takes 32 slots at D > 64): the fastest of K6 and K7 together in a
+# sweep on an H100 at the Kaggle batch's 212,992 slots (D = 3, 8, 10, 32
+# and 64; compare_update_kernels.py --sweep, PERF.md), one or two steps a
+# lane group.
+MOMENT_SLOTS = {1: 32, 2: 16, 4: 8, 8: 8, 16: 4, 32: 32}
+
+
+def moment_geometry(D: int) -> Tuple[int, int]:
+    """(lanes per row, slots per warp) of the moment kernel of K6 and K7
+    (csrc/fused_update.cu, `moment_update_kernel`)."""
+    G = lanes_per_row(D)
+    return G, MOMENT_SLOTS[G]
 
 
 def adagrad_rows(w: torch.Tensor, m: torch.Tensor, g: torch.Tensor,
@@ -585,10 +623,11 @@ def fused_update_adagrad(
     (R, D), N = weights.shape, uids.shape[0]
     if N == 0 or D == 0:
         return weights, momentum
+    group, slots = moment_geometry(D)
     _launch("fused_update_adagrad", dev, lambda lib, s:
             lib.trt_fused_update_adagrad_f32(
                 weights.data_ptr(), momentum.data_ptr(), uids.data_ptr(),
-                g.data_ptr(), R, D, N, lr, eps, wd, s))
+                g.data_ptr(), R, D, N, group, slots, lr, eps, wd, s))
     return weights, momentum
 
 
@@ -635,12 +674,13 @@ def fused_update_adam(
     if N == 0 or D == 0:
         return weights, momentum1, momentum2
     bc = adam_bias_correction(step, beta1, beta2)
+    group, slots = moment_geometry(D)
     _launch("fused_update_adam", dev, lambda lib, s:
             lib.trt_fused_update_adam_f32(
                 weights.data_ptr(), momentum1.data_ptr(),
                 momentum2.data_ptr(), uids.data_ptr(), g.data_ptr(),
-                bc.data_ptr(), R, D, N, lr, eps, wd, beta1, 1.0 - beta1,
-                beta2, 1.0 - beta2, s))
+                bc.data_ptr(), R, D, N, group, slots, lr, eps, wd, beta1,
+                1.0 - beta1, beta2, 1.0 - beta2, s))
     return weights, momentum1, momentum2
 
 
@@ -780,11 +820,12 @@ def fused_update_rowwise_adagrad_half(
     (R, D), N = weights.shape, uids.shape[0]
     if N == 0 or D == 0:
         return weights, momentum
-    slots = fused_slots_per_warp(N)
+    group, slots = fused_geometry(D, N)
     _launch("fused_update_rowwise_adagrad_half", dev, lambda lib, s:
             lib.trt_fused_rowwise_adagrad_half(
                 weights.data_ptr(), momentum.data_ptr(), uids.data_ptr(),
-                g.data_ptr(), step.data_ptr(), R, D, N, slots, lr, eps, wd,
+                g.data_ptr(), step.data_ptr(), R, D, N, group, slots, lr,
+                eps, wd,
                 HALF_TYPES[weights.dtype], int(stochastic_rounding), SR_SEED,
                 int(row_base), s))
     return weights, momentum

@@ -1,18 +1,21 @@
 """The lane groups of the narrow-row kernels: how many lanes a row takes.
 
-K1 / K1h (csrc/tbe_lookup.cu) and the row-update kernel of K2, K3 and K4's
-scaled RMW (csrc/fused_update.cu, `row_update_kernel`) hold a row as
-quads of 4 columns, one quad per lane. A row of D columns has
-ceil(D / 4) quads and takes G lanes, the smallest power of two that
-covers them, at most 32, so a warp holds P = 32 / G rows at once:
+K1 / K1h (csrc/tbe_lookup.cu) and, in csrc/fused_update.cu, the row-update
+kernel of K2, K3 and K4's scaled RMW (`row_update_kernel`), the fused
+rowwise Adagrad of K4 / K4h (`rowwise_adagrad_narrow_kernel`) and the
+moment kernel of K6 / K7 (`moment_update_kernel`) hold a row as quads of
+4 columns, one quad per lane. A row of D columns has ceil(D / 4) quads
+and takes G lanes, the smallest power of two that covers them, at most
+32, so a warp holds P = 32 / G rows at once:
 
     D <= 4: G = 1, 32 rows       D 17-32: G = 8, 4 rows
     D 5-8:  G = 2, 16 rows       D 33-64: G = 16, 2 rows
     D 9-16: G = 4, 8 rows        D > 64:  G = 32, one row a warp
 
 Lane l of a group holds quad l, so a column's arithmetic is the same at
-every G. The wrappers take G from here and pass it to the launch: the
-geometry comes from D alone, never from a failed launch.
+every G (and the fused kernel's sum of g^2 over a row, whose butterfly
+runs inside the group). The wrappers take G from here and pass it to the
+launch: the geometry comes from D alone, never from a failed launch.
 """
 
 from __future__ import annotations
