@@ -151,7 +151,8 @@ Phases, each failing the run with a non-zero exit when it fails:
    step's run totals / dedup output at the step the run reached, under
    both epilogues (stochastic rounding and to nearest), also on an fp16
    copy, and K4h at BERT4Rec's shape (the trained [3712, 64] shard in
-   bf16, 2,048 tokens of a B=32 batch; run in 11); each timed. Stochastic
+   bf16, 2,048 tokens of a B=32 batch; run in 11); each timed, K3h also
+   to nearest and beside index_add_ of its rounded update. Stochastic
    rounding shown on the card: 300 K3h steps of lr * g = 1e-4 on a bf16
    table of ones drift the mean by 0.5-1.5x of 0.03 with it and not at
    all without it. Card against CPU: a fresh card bf16 DMP and its CPU
@@ -400,8 +401,8 @@ Phases, each failing the run with a non-zero exit when it fails:
    [33,762,577, 10] table and one batch of the Kaggle features; the wide
    rowwise path at D=1030 (100,000 rows, 65,536 ids) in f32, in turns
    with the unfused composition, and as K4h in bf16 and fp16.
-22. Narrow rows. K1 / K1h, the row kernel of K2, K3 and K4's scaled RMW,
-   the fused K4 / K4h and K6 / K7 give a row of D columns G lanes, the
+22. Narrow rows. K1 / K1h, the row kernel of K2, K3, K3h and K4's scaled
+   RMW, the fused K4 / K4h and K6 / K7 give a row of D columns G lanes, the
    smallest power of two covering its ceil(D / 4) quads
    (ops/lane_groups.py), so a warp holds 32 / G rows at D <= 64. (1)
    Every lane group held against the plain versions on 4,096-row tables
@@ -410,19 +411,21 @@ Phases, each failing the run with a non-zero exit when it fails:
    and single elements): K1 (f32) and K1h (bf16, fp16) over 3,001 bags,
    bit for bit at L=1 and within rtol = atol = 1e-6 at L=20 (MEAN and
    per-sample coefficients, padded slots, ids below 0 and past R); K2, K3
-   (weight decay 0 and 0.01), the scaled RMW, the fused K4 (weight decay
-   0 and 0.01), K4h (bf16 and fp16; stochastic rounding from row 0 and
-   from row 3 R, and to nearest), K6 and K7 (weight decay 0 and 0.01)
-   over 3,001 tokens' run totals and dedup output, bit for bit at every
-   slot count a warp of each kernel. (2) At D=10 and D=64 on the 26
-   Criteo Kaggle tables and one B=8192 batch (212,992 bags and slots):
-   K1, K1h, K3, K2, the scaled RMW, the fused K4, K4h (bf16, fp16), K6
-   and K7 held bit-exact (K4, K6 and K7, whose tables are too large to
-   clone, on the rows they update and on 4,096 seeded rows of the table
-   and, at D=64, 4,096 more past element 2^31) and timed beside their
-   bounds, plain versions
-   and PyTorch calls (F.embedding_bag, index_add_, index_copy_, index_add_
-   of the pre-scaled rows; the fused K4 in turns with the unfused
+   (weight decay 0 and 0.01), K3h (bf16 and fp16; stochastic rounding
+   from row 0 and from row 3 R, and to nearest; weight decay 0 and 0.01),
+   the scaled RMW, the fused K4 (weight decay 0 and 0.01), K4h (bf16 and
+   fp16; stochastic rounding from row 0 and from row 3 R, and to
+   nearest), K6 and K7 (weight decay 0 and 0.01) over 3,001 tokens' run
+   totals and dedup output, bit for bit at every slot count a warp of
+   each kernel. (2) At D=10 and D=64 on the 26 Criteo Kaggle tables and
+   one B=8192 batch (212,992 bags and slots): K1, K1h, K3, K2, the scaled
+   RMW, the fused K4, K4h and K3h (bf16, fp16), K6 and K7 held bit-exact
+   (K4, K6 and K7, whose tables are too large to clone, on the rows they
+   update and on 4,096 seeded rows of the table and, at D=64, 4,096 more
+   past element 2^31) and timed beside their bounds, plain versions and
+   PyTorch calls (F.embedding_bag, index_add_, index_copy_, index_add_ of
+   the pre-scaled rows, index_add_ of K3h's rounded update, held within
+   one ulp of K3h to nearest; the fused K4 in turns with the unfused
    composition it replaced; none for K4h, K6 and K7).
 
 Kernel times are device times from torch.profiler (the kernel's own for a
@@ -516,6 +519,8 @@ FWD_ATOL = 1e-5
 ROWWISE_KERNELS = "rowwise_adagrad_"
 # K6's and K7's kernel (moment_update_kernel)
 MOMENT_KERNELS = "moment_"
+# the row kernel of K2, K3, K3h and K4's scaled RMW
+ROW_KERNEL = "row_update_kernel"
 # K1's and K1h's kernels as the profiler prints them: rows of up to 64
 # columns (tbe_lookup_narrow_kernel) and wider (tbe_lookup_pooled_kernel)
 K1_KERNELS = "tbe_lookup_"
@@ -1179,7 +1184,7 @@ def check_sgd(fk, W, u_rt, g_rt, lr) -> dict:
     return {"K3": {
         "max_abs_err": max(errs), "bound": b,
         **timings(lambda: fk.fused_update_sgd(W1, u_rt, g_rt, lr),
-                  "row_update_kernel", b["ms"],
+                  ROW_KERNEL, b["ms"],
                   lambda: fk.fused_update_sgd_reference(W2, u_rt, g_rt, lr),
                   lambda: W2.index_add_(0, ids_real, g_real, alpha=-lr)),
     }}
@@ -1224,7 +1229,7 @@ def check_k2(fk, W, u_rt, g_rt, lr) -> dict:
     return {"K2": {
         "max_abs_err": _hold("K2", [(W1, W2)]), "bound": b,
         **timings(lambda: fk.scatter_rows_write(W1, u_rt, rows),
-                  "row_update_kernel", b["ms"],
+                  ROW_KERNEL, b["ms"],
                   lambda: fk.scatter_rows_write_reference(W2, u_rt, rows),
                   lambda: W2.index_copy_(0, ids_real, rows_real)),
     }}
@@ -2584,8 +2589,13 @@ def check_half_update(fk, k, args, what: str) -> dict:
     under both epilogues (stochastic rounding, its bits keyed from row 0
     and from row 3 R as rank 3 of a ROW_WISE group keys them, and to
     nearest), for the table and an fp16 copy of it; then each timed with
-    stochastic rounding. No single PyTorch call updates scattered rows this way, so
-    there is no library yardstick."""
+    stochastic rounding. K3h's epilogue to nearest at weight decay 0 is one
+    PyTorch call, JAX's `weights.at[uids].add((-lr * g).astype(dtype))`:
+    W.index_add_ of the real slots' (-lr * g) in the table's type (made
+    outside the timing), held within one ulp of the kernel's result to
+    nearest and timed as K3h's library yardstick, beside the kernel to
+    nearest (`rne_ms`). No single PyTorch call applies K4h's update, so it
+    has no library yardstick."""
     if k == "K3h":
         W, uids, g, lr, step = args
         moms = []
@@ -2611,7 +2621,7 @@ def check_half_update(fk, k, args, what: str) -> dict:
             fk.fused_update_rowwise_adagrad_half_reference(
                 ts[0], ts[1], uids, g, lr, step, stochastic_rounding=sr,
                 row_base=base)
-    name = "sgd_half_kernel" if k == "K3h" else ROWWISE_KERNELS
+    name = ROW_KERNEL if k == "K3h" else ROWWISE_KERNELS
     R, D = W.shape
     N, n_real = int(uids.numel()), int((uids < R).sum())
     # a 2-byte row read and written, a 4-byte g row read (and K4h's
@@ -2626,7 +2636,8 @@ def check_half_update(fk, k, args, what: str) -> dict:
         tag = "bf16" if dtype == torch.bfloat16 else "fp16"
         base = [W.to(dtype)] + moms
         errs = []
-        # the bits of rank 3's block at 3 R rows across the group as well
+        # the bits of rank 3's block at 3 R rows across the group as well;
+        # the last run, to nearest, stays in `a`
         for sr, row_base in ((True, 0), (True, 3 * R), (False, 0)):
             a = [t.clone() for t in base]
             p = [t.clone() for t in base]
@@ -2634,20 +2645,56 @@ def check_half_update(fk, k, args, what: str) -> dict:
             plain(p, sr, row_base)
             errs.append(_hold(f"{k} ({tag}, stochastic_rounding={sr}, "
                               f"row_base={row_base})", list(zip(a, p))))
+        library = None
+        if k == "K3h":
+            real = uids < R
+            ids_real = uids[real].long()
+            upd = (-lr * g[real]).to(dtype)
+            lib = base[0].clone()
+            lib.index_add_(0, ids_real, upd)
+            lib_err = _within_ulp(f"K3h ({tag}) against index_add_", lib,
+                                  a[0])
+
+            def library():
+                lib.index_add_(0, ids_real, upd)
         t = timings(lambda: kernel(a, True), name, b["ms"],
-                    lambda: plain(p, True))
+                    lambda: plain(p, True), library)
+        row = {"max_abs_err": max(errs), "ms": t["ms"],
+               "plain_ms": t["plain_ms"], "library_ms": t["library_ms"],
+               "bound_ms": b["ms"], "bound_by": b["by"]}
+        lib_text = "none"
+        if k == "K3h":
+            row["rne_ms"] = device_ms(lambda: kernel(a, False), name,
+                                      b["ms"])
+            row["library_max_abs_err"] = lib_err
+            lib_text = (f"index_add_ {t['library_ms']:.5f} ms (within one "
+                        f"ulp of the kernel to nearest, max abs "
+                        f"{lib_err:.3e}; the kernel to nearest "
+                        f"{row['rne_ms']:.5f} ms)")
+            del lib, upd
         log(f"{k} {tag} {what}: bit-exact with its plain version under both "
             f"epilogues; {t['ms']:.5f} ms on the device (call "
             f"{t['call_ms']:.4f} ms); plain {t['plain_ms']:.4f} ms; library "
-            f"none; bound {b['ms']:.5f} ms ({b['by']}: {b['bytes']} B); "
-            f"kernel at {100 * b['ms'] / t['ms']:.1f}% of the bound")
-        out[tag] = {"max_abs_err": max(errs), "ms": t["ms"],
-                    "plain_ms": t["plain_ms"], "library_ms": None,
-                    "bound_ms": b["ms"], "bound_by": b["by"]}
+            f"{lib_text}; bound {b['ms']:.5f} ms ({b['by']}: {b['bytes']} "
+            f"B); kernel at {100 * b['ms'] / t['ms']:.1f}% of the bound")
+        out[tag] = row
         del a, p, base
     return {**out["bf16"], "max_abs_err": max(r["max_abs_err"]
                                               for r in out.values()),
             "fp16": out["fp16"]}
+
+
+def _within_ulp(what: str, got: torch.Tensor, ref: torch.Tensor) -> float:
+    """got within one ulp of ref (a half tensor) at every element; returns
+    the largest absolute difference."""
+    up = torch.nextafter(ref, torch.full_like(ref, float("inf")))
+    ulp = (up.float() - ref.float()).abs()
+    diff = (got.float() - ref.float()).abs()
+    if not bool((diff <= ulp).all()):
+        raise AssertionError(f"{what}: {int((diff > ulp).sum())} elements "
+                             f"more than one ulp apart (max abs diff "
+                             f"{diff.max().item():.3e})")
+    return diff.max().item()
 
 
 def check_k4h_b4r(fk, trained, batch_ids) -> dict:
@@ -7008,19 +7055,21 @@ def slot_counts(D: int, kernel: str = "row") -> list:
 
 
 def check_narrow_width(tl, fk, D: int, offset: int, rng) -> dict:
-    """K1 (f32), K1h (bf16 and fp16), K2, K3, K4's scaled RMW, the fused
-    K4, K4h (bf16 and fp16), K6 and K7 against their plain versions on a
-    [NARROW_ROWS, D] table that starts `offset` elements into its
-    storage. The lookups over NARROW_BAGS bags at L=1
+    """K1 (f32), K1h (bf16 and fp16), K2, K3, K3h (bf16 and fp16), K4's
+    scaled RMW, the fused K4, K4h (bf16 and fp16), K6 and K7 against their
+    plain versions on a [NARROW_ROWS, D] table that starts `offset`
+    elements into its storage. The lookups over NARROW_BAGS bags at L=1
     (one id, coefficient 1: bit for bit) and at L=NARROW_L (MEAN
     coefficients on even bags, per-sample weights on odd ones, zero-padded
     slots, ids below 0 and past R: within rtol = atol = 1e-6, phase 4's
     tolerance). The row kernels over NARROW_TOKENS tokens (hot rows
     repeated, 15 % invalid) as run totals (K2, K3 at weight decay 0 and
-    0.01, K6 and K7 at both) and dedup output (the scaled RMW, the fused
-    K4 at weight decay 0 and 0.01, K4h under both epilogues at 0.01), bit
-    for bit at every slot count of slot_counts(D, kernel). Returns each
-    kernel's largest difference."""
+    0.01, K3h on bf16 and fp16 tables under both epilogues, stochastic
+    rounding keyed from row 0 and from row 3 R, at 0 and 0.01, K6 and K7
+    at both) and dedup output (the scaled RMW, the fused K4 at weight
+    decay 0 and 0.01, K4h under both epilogues at 0.01), bit for bit at
+    every slot count of slot_counts(D, kernel). Returns each kernel's
+    largest difference."""
     from torchrec_tpu_torch.ops import fused_update as fu
 
     R, NB, T, lr, Lk = NARROW_ROWS, NARROW_BAGS, NARROW_TOKENS, FUSED_LR, \
@@ -7070,24 +7119,38 @@ def check_narrow_width(tl, fk, D: int, offset: int, rng) -> dict:
     rows = _placed(W[u_rt.clamp(max=R - 1).long()] - lr * g_rt, offset)
     scale = torch.from_numpy(
         (rng.rand(u_dd.numel()) * -1e-3).astype(np.float32)).to(dev)
+    step = torch.full((), START_STEP + 1, dtype=torch.int32, device=dev)
+    # the row kernel's cases: (name, kernel, plain, the table they update)
     cases = [
         ("K2", lambda w: fk.scatter_rows_write(w, u_rt, rows),
-         lambda w: fk.scatter_rows_write_reference(w, u_rt, rows)),
+         lambda w: fk.scatter_rows_write_reference(w, u_rt, rows), W),
         *[("K3", lambda w, wd=wd: fk.fused_update_sgd(w, u_rt, g_rt, lr, wd),
            lambda w, wd=wd: fk.fused_update_sgd_reference(w, u_rt, g_rt, lr,
-                                                          wd))
+                                                          wd), W)
           for wd in (0.0, 0.01)],
         (SCALED, lambda w: fk.scaled_row_update(w, u_dd, g_dd, scale),
-         lambda w: fk.scaled_row_update_reference(w, u_dd, g_dd, scale)),
+         lambda w: fk.scaled_row_update_reference(w, u_dd, g_dd, scale), W),
     ]
+    # K3h on bf16 and fp16 tables: stochastic rounding from row 0 and from
+    # row 3 R, and to nearest, each at weight decay 0 and 0.01
+    for dtype in (torch.bfloat16, torch.float16):
+        for sr, base in ((True, 0), (True, 3 * R), (False, 0)):
+            for wd in (0.0, 0.01):
+                kw = dict(weight_decay=wd, stochastic_rounding=sr,
+                          row_base=base)
+                cases.append((
+                    "K3h", lambda w, kw=kw: fk.fused_update_sgd_half(
+                        w, u_rt, g_rt, lr, step, **kw),
+                    lambda w, kw=kw: fk.fused_update_sgd_half_reference(
+                        w, u_rt, g_rt, lr, step, **kw), W.to(dtype)))
     for slots in slot_counts(D):
-        for k, kernel, plain in cases:
-            a, b = _placed(W, offset), _placed(W, offset)
+        for k, kernel, plain, start in cases:
+            a, b = _placed(start, offset), _placed(start, offset)
             with slots_a_warp(fk, "row", slots):
                 kernel(a)
             plain(b)
-            note(k, _hold(f"{k} at D={D} (offset {offset}, {slots} slots a "
-                          f"warp)", [(a, b)]))
+            note(k, _hold(f"{k} ({start.dtype}) at D={D} (offset {offset}, "
+                          f"{slots} slots a warp)", [(a, b)]))
 
     # the fused rowwise kernel (K4, K4h) on the dedup output, the moment
     # kernel (K6, K7) on the run totals: (name, kernel, plain, state)
@@ -7096,7 +7159,6 @@ def check_narrow_width(tl, fk, D: int, offset: int, rng) -> dict:
 
     M, M1, M2 = (put(rng.rand(R)), put(rng.rand(R, D) * 0.01),
                  put(rng.rand(R, D) * 0.01))
-    step = torch.full((), START_STEP + 1, dtype=torch.int32, device=dev)
     fused = [("K4", lambda w, m, wd=wd: fk.fused_update_rowwise_adagrad(
         w, m, u_dd, g_dd, lr, weight_decay=wd, momentum_stream=True),
         lambda w, m, wd=wd: fk.fused_update_rowwise_adagrad_reference(
@@ -7150,8 +7212,9 @@ def check_narrow(tl, fk) -> dict:
     log(f"narrow rows: K1 and K1h (bf16, fp16) bit for bit with their plain "
         f"versions at L=1 and within rtol = atol = 1e-6 at L={NARROW_L} "
         f"(MEAN and per-sample coefficients, padded slots, ids out of "
-        f"range); K2, K3, the scaled RMW, the fused K4, K4h (bf16, fp16, "
-        f"both epilogues), K6 and K7 bit for bit at every slot count a "
+        f"range); K2, K3, K3h (bf16, fp16, both epilogues), the scaled "
+        f"RMW, the fused K4, K4h (bf16, fp16, both epilogues), K6 and K7 "
+        f"bit for bit at every slot count a "
         f"warp; at D in {NARROW_WIDTHS}, offsets {NARROW_OFFSETS}: largest "
         f"differences {out}")
     return out
@@ -7174,7 +7237,7 @@ def check_scaled(fk, W, u_dd, g_dd, scale) -> dict:
     return {SCALED: {
         "max_abs_err": _hold(SCALED, [(W1, W2)]), "bound": b,
         **timings(lambda: fk.scaled_row_update(W1, u_dd, g_dd, scale),
-                  "row_update_kernel", b["ms"],
+                  ROW_KERNEL, b["ms"],
                   lambda: fk.scaled_row_update_reference(W2, u_dd, g_dd,
                                                          scale),
                   lambda: W2.index_add_(0, ids_real, sg_real)),
@@ -7187,7 +7250,7 @@ def time_narrow(tl, fk, D: int) -> dict:
     update's 212,992 slots, run totals and dedup output, gradients of
     1e-3): each bit-exact with its plain version and timed beside its
     bound, its plain version and its PyTorch call (F.embedding_bag,
-    index_add_, index_copy_); then the fused K4, K4h, K6 and K7
+    index_add_, index_copy_); then the fused K4, K4h, K3h, K6 and K7
     (time_narrow_updates)."""
     from torchrec_tpu_torch.ops import fused_update as fu
 
@@ -7244,15 +7307,16 @@ def hold_in_place(what: str, state: list, ids: torch.Tensor, kernel,
 
 
 def time_narrow_updates(fk, W, u_rt, g_rt, u_dd, g_dd, gen) -> dict:
-    """The fused K4 (f32), K4h (bf16, fp16) and K6 / K7 at width D on one
-    batch's dedup output and run totals over W (kaggle_lookup's table,
-    updated in place) and momenta drawn from `gen`: each held bit for bit
-    with its plain version (K4, K6, K7 at weight decay 0 and 0.01 through
-    hold_in_place; K4h under both epilogues through check_half_update) and
-    timed beside its bound and plain version; the fused K4 also in turns
-    with the unfused composition it replaced (fused, unfused, unfused,
-    fused), its yardstick. No single PyTorch call applies these updates,
-    so the library time is null."""
+    """The fused K4 (f32), K4h and K3h (bf16, fp16) and K6 / K7 at width D
+    on one batch's dedup output and run totals over W (kaggle_lookup's
+    table, updated in place) and momenta drawn from `gen`: each held bit
+    for bit with its plain version (K4, K6, K7 at weight decay 0 and 0.01
+    through hold_in_place; K4h and K3h under both epilogues through
+    check_half_update) and timed beside its bound and plain version; the
+    fused K4 also in turns with the unfused composition it replaced
+    (fused, unfused, unfused, fused), its yardstick; K3h beside index_add_
+    (check_half_update). No single PyTorch call applies the other
+    updates, so their library time is null."""
     R, D = W.shape
     lr, what = FUSED_LR, f" at D={D} (narrow rows)"
     step = torch.full((), START_STEP + 1, dtype=torch.int32, device=DEVICE)
@@ -7298,6 +7362,9 @@ def time_narrow_updates(fk, W, u_rt, g_rt, u_dd, g_dd, gen) -> dict:
                                          g_dd, lr, step), what.strip())
     del M
     gc_cuda()
+    k3h = check_half_update(fk, "K3h", (W.to(torch.bfloat16), u_rt, g_rt, lr,
+                                        step), what.strip())
+    gc_cuda()
     moms = [torch.rand((R, D), generator=gen, device=DEVICE) * 0.01]
     for k in ("K6", "K7"):
         if k == "K7":
@@ -7336,7 +7403,7 @@ def time_narrow_updates(fk, W, u_rt, g_rt, u_dd, g_dd, gen) -> dict:
     gc_cuda()
     out = report(rows, what)
     out["K4"]["unfused_ms"] = k4["unfused_ms"]
-    out["K4h"] = half
+    out["K4h"], out["K3h"] = half, k3h
     return out
 
 
@@ -7508,9 +7575,9 @@ def main() -> int:
     for k, v in widths["launches"].items():
         flat[k] = flat.get(k, 0) + v
 
-    # narrow rows: K1, K1h, the row kernel of K2, K3 and the scaled RMW, the
-    # fused K4 / K4h and K6 / K7 held at every lane group and timed at D=10
-    # and D=64
+    # narrow rows: K1, K1h, the row kernel of K2, K3, K3h and the scaled
+    # RMW, the fused K4 / K4h and K6 / K7 held at every lane group and timed
+    # at D=10 and D=64
     narrow = narrow_phase()
     for part in (widths["results"], narrow):
         for k, v in part.items():

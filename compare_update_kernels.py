@@ -18,9 +18,10 @@ slots), and `kaggle`, the D=10 DeepFM's and the Criteo Kaggle DLRM's (the
 26 Criteo Kaggle tables of chip_smoke.kaggle_lookup, 33,762,577 rows, one
 B=8192 batch: 212,992 slots, about 94,000 distinct rows), it runs K1 and
 K1h (bf16) over the batch, then K2, K3, K4's scaled RMW, the fused K4,
-K5, K6, K7, K3h and K4h (bf16) on its run totals and dedup output. The
-state a kernel updates is made for it and updated in place, so that
-K7's three tables fit on the card at the Kaggle tables' 33.7 M rows: each
+K5, K6, K7, K3h (bf16 and fp16) and K4h (bf16) on its run totals and
+dedup output. The state a kernel updates is made for it and updated in
+place, so that K7's three tables fit on the card at the Kaggle tables'
+33.7 M rows: each
 build's run starts from the same rows (the held rows are saved and put
 back), and the two builds are held bit for bit on every row of the
 DLRM's tables and, on the Kaggle tables, which leave no room for copies,
@@ -31,15 +32,15 @@ torch.profiler through chip_smoke.device_ms) and printed beside the
 kernel's bound, with the card's name and power limit. An OTHER_CHECKOUT
 older than the masked path takes only D % 4 == 0.
 
-The second form (--sweep) times this checkout's row kernel (K2, K3 and
-K4's scaled RMW), its fused rowwise kernel (K4, K4h in bf16) and its
-moment kernel (K6, K7) against the slots a warp takes, on the table as it
-is (whole quads, or pairs at an even D) and one element into its storage
-(the masked path), for each table set and width: every power of two from
-the warp's lane groups (32 / lanes_per_row(D)) to 32 (the fused kernel
-also below that at D > 64), each held bit for bit with the plain version
-first (on the rows `held` gives), timed in the order up and then down.
-The geometry's pick is marked.
+The second form (--sweep) times this checkout's row kernel (K2, K3, K3h
+in bf16 and K4's scaled RMW), its fused rowwise kernel (K4, K4h in bf16)
+and its moment kernel (K6, K7) against the slots a warp takes, on the
+table as it is (whole quads, or pairs at an even D) and one element into
+its storage (the masked path), for each table set and width: every power
+of two from the warp's lane groups (32 / lanes_per_row(D)) to 32 (the
+fused kernel also below that at D > 64), each held bit for bit with the
+plain version first (on the rows `held` gives), timed in the order up
+and then down. The geometry's pick is marked.
 """
 
 from __future__ import annotations
@@ -66,8 +67,12 @@ WRAPPERS = {"fused_update_kernels": "fused_update.cu",
 # table set -> kaggle_lookup's tables (True) or the DLRM's (False)
 TABLE_SETS = {"dlrm": False, "kaggle": True}
 # the kernel each sweep case launches, by its geometry's name
-SWEEPS = {"K2": "row", "K3": "row", "K4 scaled RMW": "row", "K4": "fused",
-          "K4h": "fused", "K6": "moment", "K7": "moment"}
+SWEEPS = {"K2": "row", "K3": "row", "K4 scaled RMW": "row", "K3h": "row",
+          "K4": "fused", "K4h": "fused", "K6": "moment", "K7": "moment"}
+# K3h's profiler filter: all of the call's device work, its one launch
+# (the row kernel on a half table; before, a kernel of its own named
+# sgd_half_kernel), so that a tree of either design times alike
+K3H_KERNELS = ""
 
 
 def load_wrappers(root: Path) -> dict:
@@ -124,13 +129,16 @@ def inputs(D: int, kaggle: bool = False) -> dict:
 
 def make_state(x: dict, name: str) -> torch.Tensor:
     """A state tensor a kernel updates: the table (W), a bf16 copy of it
-    (Wh), the rowwise momentum (M) or a full momentum (M1, M2)."""
+    (Wh), an fp16 copy (Wf), the rowwise momentum (M) or a full momentum
+    (M1, M2)."""
     W, gen = x["W"], x["gen"]
     R, D = W.shape
     if name == "W":
         return W
     if name == "Wh":
         return W.to(torch.bfloat16)
+    if name == "Wf":
+        return W.to(torch.float16)
     if name == "M":
         return torch.rand((R,), generator=gen, device=DEVICE)
     return torch.rand((R, D), generator=gen, device=DEVICE) * 0.01
@@ -206,11 +214,12 @@ def cases(x: dict) -> dict:
             lambda w, m1, m2: fk.fused_update_adam_reference(
                 w, m1, m2, u_rt, g_rt, LR, step),
             cs.MOMENT_KERNELS, "rt", rows_ms(7, 0, 4, "rt")),
-        "K3h": (("Wh",), lambda m, w: m[F].fused_update_sgd_half(
+        **{name: ((state,), lambda m, w: m[F].fused_update_sgd_half(
             w, u_rt, g_rt, LR, step),
             lambda w: fk.fused_update_sgd_half_reference(
                 w, u_rt, g_rt, LR, step),
-            "sgd_half_kernel", "rt", rows_ms(2, 0, 2, "rt")),
+            K3H_KERNELS, "rt", rows_ms(2, 0, 2, "rt"))
+           for name, state in (("K3h", "Wh"), ("K3h fp16", "Wf"))},
         "K4h": (("Wh", "M"), lambda m, w, mm:
                 m[F].fused_update_rowwise_adagrad_half(
                     w, mm, u_dd, g_dd, LR, step),

@@ -15,24 +15,30 @@ several narrow rows. The kernels run on the card only; here:
   wrappers' own geometry: every (bag or real slot, column) is covered
   exactly once, no sentinel slot and no column >= D is touched, at every
   lane group and slot count (the fused kernel's momentum word once a real
-  slot);
+  slot; K3h's stores, the row kernel on a half table, with the stochastic
+  rounding bits of each element keyed as the plain version keys them and
+  its 4-byte words at an even D aligned pairs of columns below D);
 * a torch emulation of the fused kernel's g^2 sum inside a lane group (a
   row's quads padded to G lanes, halved pairwise from G / 2) against
   `row_mean_sq` (the warp's 32 lanes), bit for bit at D = 1..64;
 * the plain versions the wrappers take on CPU tensors (K1 and K3, with
   K2, the fused K4, K6 and K7) at D = 10 and 64 against the Pallas
-  kernels run in interpret mode, and the plain K4h at D = 10 against
-  `apply_fused_update`'s XLA route, on inputs made from a seed with numpy.
+  kernels run in interpret mode, the plain K4h at D = 10 and the plain
+  K3h at D = 10 and 64 against `apply_fused_update`'s XLA route, on
+  inputs made from a seed with numpy.
 
 Tolerances as test_torch_port_ops.py, test_torch_port_fused_update.py and
 test_torch_port_low_precision.py hold the same functions: K1 bit for bit
 at one id a bag, rtol = atol = 1e-6 for longer bags (summation order); K2
 bit for bit; K3, K4, K6 and K7 rows rtol 1e-5 / atol 1e-6 (XLA contracts
 a multiply and an add), momenta rtol 1e-6 (atol 1e-7 for full momenta,
-whose elements reach zero); K4h rows within one ulp of the half type (bit
-for bit where a row is hit once), its momentum rtol 1e-4 / atol 1e-9 (the
-XLA route sums g^2 in another order).
+whose elements reach zero); K4h and K3h rows within one ulp of the half
+type (bit for bit where a row is hit once; untouched rows equal), K4h's
+momentum rtol 1e-4 / atol 1e-9 (the XLA route sums g^2 in another
+order).
 """
+
+import warnings
 
 import jax.numpy as jnp
 import numpy as np
@@ -45,6 +51,13 @@ from torchrec_tpu_torch.ops import fused_update as tfu
 from torchrec_tpu_torch.ops import fused_update_kernels as fk
 from torchrec_tpu_torch.ops import tbe_lookup as tl
 from torchrec_tpu_torch.ops.lane_groups import lanes_per_row, rows_per_warp
+from torchrec_tpu_torch.ops.stochastic_rounding import (
+    _GOLDEN,
+    _mul32,
+    fmix32,
+    sr_bits,
+    sr_row_keys,
+)
 
 WARPS_PER_BLOCK = 8  # kWarpsPerBlock of both sources
 R, LR = 300, 0.1
@@ -180,6 +193,131 @@ def test_row_kernel_index_map_covers_each_slot_once(D):
             hits = _rows_cover(D, N, G, slots)
             np.testing.assert_array_equal(hits[:, :D], 1)
             assert not hits[:, D:].any()
+
+
+def _k3h_launch(D, N=101, R_=R):
+    """The arguments fused_update_sgd_half hands trt_fused_update_sgd_half
+    for fake CUDA tensors [R_, D] bf16, N slots, with the launch stood in
+    for by a recorder (no card here)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    seen = {}
+
+    class Lib:
+        def trt_fused_update_sgd_half(self, *args):
+            seen["args"] = args
+            return 0
+
+    def launch(name, dev, call):
+        seen["name"], seen["err"] = name, call(Lib(), 0)
+
+    saved = fk._launch
+    fk._launch = launch
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # data_ptr of a fake tensor
+            with FakeTensorMode():
+                dev = "cuda"
+                fk.fused_update_sgd_half(
+                    torch.zeros(R_, D, dtype=torch.bfloat16, device=dev),
+                    torch.zeros(N, dtype=torch.int32, device=dev),
+                    torch.zeros(N, D, device=dev), LR,
+                    torch.zeros((), dtype=torch.int32, device=dev))
+    finally:
+        fk._launch = saved
+    assert seen["name"] == "fused_update_sgd_half" and seen["err"] == 0
+    return seen["args"]
+
+
+def _k3h_access(D, G):
+    """The access launch_rows takes for aligned rows: whole quads at
+    D % 4 == 0, 4-byte pairs on narrow rows at an even D, else masked
+    (a table view that starts mid-row takes masked at any D)."""
+    if D % 4 == 0:
+        return "vector"
+    return "pairs" if G < 32 and D % 2 == 0 else "masked"
+
+
+def _k3h_stores(D, uids, G, slots, access, row_base):
+    """The K3h launch's row stores, from its index arithmetic: the row
+    kernel's walk (group p of P = 32 / G takes slots p, p + P, ... below
+    n; lane `sub` of the group quads sub, sub + G, ..., one at most below
+    G = 32), each quad stored as one 8-byte word (vector), two 4-byte
+    words, the second only below D (pairs), or one element a store below
+    D (masked). Yields (slot, first element's offset in the table, the
+    stored columns, each element's (row key, column) for sr_bits)."""
+    P = 32 // G
+    quads = -(-D // 4)
+    for base, ids in _warp_ids(uids, slots):
+        n = min(len(uids) - base, slots)
+        for at in range(0, n, P):
+            for lane in range(32):
+                j = at + lane // G
+                assert j < 32
+                u = ids[j]
+                if not 0 <= u < R:  # sentinels, and -1 from n on
+                    continue
+                for q in range(lane % G, quads, G):
+                    c = 4 * q
+                    if access == "vector":
+                        words = [(c, c + 1, c + 2, c + 3)]
+                    elif access == "pairs":
+                        words = [(c, c + 1)] + (
+                            [(c + 2, c + 3)] if c + 2 < D else [])
+                    else:
+                        words = [(e,) for e in range(c, c + 4) if e < D]
+                    for cols in words:
+                        yield (base + j, u * D + cols[0], cols,
+                               [(row_base + u, e) for e in cols])
+                    if G < 32:
+                        break
+
+
+@pytest.mark.parametrize("D", [1, 2, 3, 4, 5, 8, 10, 12, 16, 17, 32, 33, 63,
+                               64, 65, 128, 130, 600])
+def test_k3h_index_map_and_rounding_keys(D):
+    """K3h on a half table, the row kernel's walk with its stores through
+    table_store: at the geometry the wrapper hands the launch and at every
+    slot count of the lane group, every (real slot, column) is written
+    once and nothing else; each element's stochastic-rounding bits, keyed
+    by (row_base + row, column) as the kernel keys them, equal the plain
+    version's (sr_bits over the real slots' rows); on the pair path every
+    4-byte word holds columns (c, c + 1) of one row, c even, at a 4-byte
+    aligned offset, and a quad's second word is stored only below D."""
+    args = _k3h_launch(D)
+    G, slots = args[7], args[8]
+    assert (G, slots) == fk.row_geometry(D) == (lanes_per_row(D),
+                                                fk.row_slots_per_warp(D))
+    counts = [32] if G == 32 else [s for s in (1, 2, 4, 8, 16, 32)
+                                   if s % (32 // G) == 0]
+    assert slots in counts
+    step = torch.tensor(6, dtype=torch.int32)
+    for uids in _slot_patterns(D):
+        real = (uids >= 0) & (uids < R)
+        for row_base in (0, 3 * R):
+            plain = sr_bits(step, torch.as_tensor(uids[real]).long()
+                            + row_base, D).numpy()
+            for access in sorted({_k3h_access(D, G), "masked"}):
+                for s_ in counts:
+                    hits = np.zeros((len(uids), D + 8), np.int64)
+                    keys = np.full((len(uids), D, 2), -1, np.int64)
+                    for slot, off, cols, kc in _k3h_stores(
+                            D, uids, G, s_, access, row_base):
+                        if access == "pairs":
+                            assert len(cols) == 2 and cols[0] % 2 == 0
+                            assert (2 * off) % 4 == 0 and cols[1] < D
+                        for c, k in zip(cols, kc):
+                            hits[slot, c] += 1
+                            if c < D:
+                                keys[slot, c] = k
+                    np.testing.assert_array_equal(hits[real, :D], 1)
+                    assert not hits[~real].any() and not hits[:, D:].any()
+                    rk = torch.as_tensor(keys[real, :, 0])
+                    col = torch.as_tensor(keys[real, :, 1])
+                    bits = fmix32(sr_row_keys(step, rk.reshape(-1))
+                                  .reshape(rk.shape)
+                                  ^ _mul32(col, _GOLDEN)).numpy()
+                    np.testing.assert_array_equal(bits, plain)
 
 
 # -- the plain versions against the Pallas kernels ---------------------------
@@ -588,3 +726,62 @@ def test_k4h_plain_matches_jax_xla_route_at_d10(name):
     assert (np.abs(got - ref) <= ulp).all()
     np.testing.assert_allclose(M.numpy(), np.asarray(jstate.momentum1),
                                rtol=1e-4, atol=1e-9)
+
+
+def _ulp(x, dtype):
+    """One ulp of the half type `dtype` at each element of f32 x."""
+    t = torch.as_tensor(x).to(dtype)
+    return (torch.nextafter(t, torch.full_like(t, float("inf"))).float()
+            - t.float()).numpy()
+
+
+@pytest.mark.parametrize("wd", [0.0, 0.01])
+@pytest.mark.parametrize("name", ["bf16", "fp16"])
+@pytest.mark.parametrize("D", [10, 64])
+def test_k3h_plain_matches_jax_xla_route(D, name, wd):
+    """K3h's plain version on the port's run totals against JAX's
+    `apply_fused_update` on a half table under EXACT_SGD (its XLA route),
+    stochastic rounding off: the same f32 update, rounded to nearest as
+    `w + upd.astype(dtype)`. Rows hit once bit for bit, untouched rows
+    equal; at weight decay 0.01 (JAX's run-total route) every row within
+    one ulp of the half type. At weight decay 0 JAX adds each duplicate
+    token's rounded step on its own (the port rounds the row's total once:
+    test_torch_port_low_precision.py's trap 2), so there, as at 0.01,
+    every row is held within one ulp, at the larger of the result and the
+    update, of JAX's route on the widened table in f32 (the widths
+    tests' tolerance: half(w + half(upd)) rounds the update first)."""
+    tdt, jdt = {"bf16": (torch.bfloat16, jnp.bfloat16),
+                "fp16": (torch.float16, jnp.float16)}[name]
+    ids, grads, valid = _raw(D, seed=D + 11)
+    w = (np.random.RandomState(D + 12).randn(R, D) * 0.5).astype(np.float32)
+    start = torch.as_tensor(w).to(tdt).float().numpy()  # the table, exactly
+    state = jfu.init_fused_optimizer_state(R, D, jfu.EmbOptimType.EXACT_SGD)
+    state = state.replace(step=jnp.asarray(5, jnp.int32))
+    ref = {}
+    for tag, table in (("half", jnp.asarray(w, jdt)),
+                       ("f32", jnp.asarray(start))):
+        jw, _ = jfu.apply_fused_update(
+            table, state, jnp.asarray(ids), jnp.asarray(grads),
+            jnp.asarray(valid), LR, weight_decay=wd,
+            stochastic_rounding=False)
+        ref[tag] = np.array(jnp.asarray(jw, jnp.float32))
+    uids, totals = tfu.run_total_row_grads(torch.as_tensor(ids),
+                                           torch.as_tensor(grads),
+                                           torch.as_tensor(valid), R)
+    W = torch.as_tensor(w).to(tdt)
+    before = dict(fk.LAUNCHES)
+    out = fk.fused_update_sgd_half(
+        W, uids, totals, LR, torch.tensor(5, dtype=torch.int32),
+        weight_decay=wd, stochastic_rounding=False)
+    assert out is W and fk.LAUNCHES == before and W.dtype == tdt
+    got = W.float().numpy()
+    hits = np.bincount(ids[valid], minlength=R)
+    assert (hits > 1).any()  # duplicate tokens, summed into run totals
+    assert not np.array_equal(got[hits > 0], start[hits > 0])  # it moved
+    np.testing.assert_array_equal(got[hits == 0], start[hits == 0])
+    np.testing.assert_array_equal(got[hits == 1], ref["half"][hits == 1])
+    if wd:
+        assert (np.abs(got - ref["half"]) <= _ulp(ref["half"], tdt)).all()
+    x32 = ref["f32"]
+    big = np.maximum(np.abs(x32), np.abs(x32 - start))
+    assert (np.abs(got - x32) <= _ulp(big, tdt)).all()

@@ -294,6 +294,80 @@ def test_update_kernels_take_any_width_on_a_cuda_tensor(kernel, dim):
     assert (fk.LAUNCHES, tl.LAUNCHES, tl.HALF_LAUNCHES) == launches
 
 
+class _Entry:
+    """A stand-in for one C entry point: records its arguments and returns
+    0 (no error)."""
+
+    def __init__(self, calls: list):
+        self.calls = calls
+
+    def __call__(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+class _Library:
+    """A stand-in for the built library: every entry point an _Entry,
+    which fk._bind gives its ctypes argtypes as it gives the real ones."""
+
+    def __init__(self):
+        self.calls: list = []
+        self.entries: dict = {}
+
+    def __getattr__(self, name):
+        if name.startswith("trt_"):
+            return self.entries.setdefault(name, _Entry(self.calls))
+        raise AttributeError(name)
+
+
+@pytest.mark.parametrize("dim", range(1, 161))
+def test_k3h_hands_its_geometry_to_the_launch(dim, monkeypatch):
+    """On a CUDA tensor of any width, `fused_update_sgd_half` hands
+    `trt_fused_update_sgd_half` the row kernel's (lanes per row, slots per
+    warp) at that width, `row_geometry(D)`, with as many arguments as the
+    entry point's ctypes signature: no width is refused before the launch.
+    The launch is made on a stand-in library (no card and no nvcc here),
+    with fake CUDA tensors."""
+    import warnings
+
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from torchrec_tpu_torch.ops.lane_groups import lanes_per_row
+
+    lib = _Library()
+    fk._bind(lib)
+    launched = []
+
+    def launch(name, device, call):
+        launched.append(name)
+        assert call(lib, 0) == 0
+
+    monkeypatch.setattr(fk, "_launch", launch)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # data_ptr of a fake tensor
+        with FakeTensorMode():
+            dev = "cuda"
+            half = torch.zeros(8, dim, dtype=torch.float16, device=dev)
+            out = fk.fused_update_sgd_half(
+                half, torch.zeros(3, dtype=torch.int32, device=dev),
+                torch.zeros(3, dim, device=dev), LR,
+                torch.zeros((), dtype=torch.int32, device=dev),
+                weight_decay=WD, stochastic_rounding=False, row_base=24)
+            assert out is half
+    assert launched == ["fused_update_sgd_half"] and len(lib.calls) == 1
+    args = lib.calls[0]
+    entry = lib.entries["trt_fused_update_sgd_half"]
+    assert len(args) == len(entry.argtypes)
+    # (w, uids, g, step, R, D, N, group, slots, lr, wd, half, sr, seed,
+    # row_base, stream)
+    R_, D, N, group, slots = args[4:9]
+    assert (R_, D, N) == (8, dim, 3)
+    assert (group, slots) == fk.row_geometry(dim)
+    assert group == lanes_per_row(dim) and slots % (32 // group) == 0
+    assert args[11:13] == (fk.HALF_TYPES[torch.float16], 0)
+    assert args[14] == 24
+
+
 # -- row_mean_sq at any width -------------------------------------------------
 
 

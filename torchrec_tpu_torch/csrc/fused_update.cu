@@ -57,7 +57,7 @@
 //     (ops/lane_groups.py). Below 65 columns (G < 32) the warp's P = 32 / G
 //     lane groups walk disjoint slots of the warp's `slots` (a multiple of
 //     P the wrapper picks), so P rows are in flight at once: at D=10
-//     (G = 4) 8 rows. The row kernel of K2, K3 and K4's scaled RMW
+//     (G = 4) 8 rows. The row kernel of K2, K3, K3h and K4's scaled RMW
 //     (`row_update_kernel`) and K6 / K7's (`moment_update_kernel`) give
 //     group p slots p, p + P, p + 2P, ...; the fused K4 / K4h
 //     (`rowwise_adagrad_narrow_kernel`) ranks the warp's real slots by a
@@ -223,7 +223,12 @@ __device__ __forceinline__ void store4(float* row, int64_t q, float4 v,
 // (G < 32 lanes a row): a quad as two pairs, the second only below D, the
 // same columns and arithmetic as the masked path, half its loads and
 // stores. A pair is a float2 of an f32 row, one 4-byte word of a half row.
-// At D=10 a row is two whole quads and a pair.
+// At D=10 a row is two whole quads and a pair. Below G = 32 a lane holds
+// one quad at most, and the row and moment kernels leave their quad loop
+// after it: unrolled by nvcc, the row kernel's loop issued a quad's second
+// pair after the first pair's arithmetic, two memory round trips a quad;
+// with the `break` both pairs' loads of g and of the row go out before any
+// arithmetic, the second predicated on c + 2 < D (PERF.md).
 enum class Access { kVector, kPairs, kMasked };
 
 // Quad q of an f32 row: kReadOnly rows (g, K2's rows) through the read-only
@@ -275,70 +280,6 @@ __device__ __forceinline__ float4 table_load(const T* row, int64_t q,
     const uint32_t b = c + 2 < D ? p[1] : 0u;  // +0.0 in both formats
     return make_float4(from_bits<T>(a & 0xffffu), from_bits<T>(a >> 16),
                        from_bits<T>(b & 0xffffu), from_bits<T>(b >> 16));
-  }
-}
-
-// -- K2-K4: row writes --------------------------------------------------------
-
-enum class RowOp { kWrite, kSgd, kScaled };
-
-template <RowOp kOp>
-__device__ __forceinline__ float row_op(float w, float x, float lr, float wd,
-                                        float s) {
-  if (kOp == RowOp::kWrite) return x;
-  if (kOp == RowOp::kScaled) return __fadd_rn(w, __fmul_rn(s, x));
-  const float g = wd != 0.f ? __fadd_rn(x, __fmul_rn(wd, w)) : x;
-  return __fsub_rn(w, __fmul_rn(lr, g));
-}
-
-// src is `rows` (K2) or `g` (K3, K4), [N, D]; scale is K4's [N]. kGroup
-// lanes hold a row; a warp takes `slots` consecutive slots, a multiple of
-// its 32 / kGroup groups, and group p walks slots p, p + 32 / kGroup, ...
-template <RowOp kOp, Access kAcc, int kGroup>
-__global__ void row_update_kernel(float* __restrict__ w,
-                                  const int32_t* __restrict__ uids,
-                                  const float* __restrict__ src,
-                                  const float* __restrict__ scale, int64_t R,
-                                  int64_t D, int64_t N, int slots, float lr,
-                                  float wd) {
-  constexpr int kRows = 32 / kGroup;  // rows in flight per warp
-  const int lane = threadIdx.x & 31;
-  const int sub = lane % kGroup;
-  const int64_t warp =
-      static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
-  const int64_t base = warp * slots;
-  if (base >= N) return;  // whole warp leaves together
-  const int n = static_cast<int>(N - base < slots ? N - base : slots);
-  int32_t my_id = -1;
-  float my_s = 0.f;
-  if (lane < n) {
-    my_id = uids[base + lane];
-    if (kOp == RowOp::kScaled && is_real(my_id, R)) my_s = scale[base + lane];
-  }
-  const int64_t quads = (D + 3) / 4;
-  // the same trip count in every group; j < slots <= 32 (lanes from n on
-  // hold -1, a sentinel)
-  for (int step = 0; step < n; step += kRows) {
-    const int j = step + lane / kGroup;
-    const int32_t id = __shfl_sync(kFullMask, my_id, j);
-    const float s = __shfl_sync(kFullMask, my_s, j);
-    if (!is_real(id, R)) continue;  // the same for the whole group
-    float* wrow = w + static_cast<int64_t>(id) * D;
-    const float* srow = src + (base + j) * D;
-    for (int64_t q = sub; q < quads; q += kGroup) {
-      const float4 x = row_load<kAcc, true>(srow, q, D);
-      float4 v;
-      if (kOp == RowOp::kWrite) {
-        v = x;
-      } else {
-        v = row_load<kAcc, false>(wrow, q, D);
-        v.x = row_op<kOp>(v.x, x.x, lr, wd, s);
-        v.y = row_op<kOp>(v.y, x.y, lr, wd, s);
-        v.z = row_op<kOp>(v.z, x.z, lr, wd, s);
-        v.w = row_op<kOp>(v.w, x.w, lr, wd, s);
-      }
-      row_store<kAcc>(wrow, q, v, D);
-    }
   }
 }
 
@@ -490,9 +431,10 @@ __global__ void rowwise_momentum_kernel(float* __restrict__ m,
 // 16-byte float4 of g's same 4 columns, so the f32 kernels' lane-to-column
 // map, and with it K4's summation order of g^2, is unchanged. Rows that are
 // not 8-byte aligned quads (D % 4 != 0, a view that starts mid-row) take the
-// masked path ("Row access"); K4h's narrow rows that are 4-byte aligned
+// masked path ("Row access"); narrow rows (G < 32) that are 4-byte aligned
 // pairs (an even D, as D=10's 20-byte rows) move each quad as two 4-byte
-// words.
+// words. K3h is the row kernel on a half table (T = __nv_bfloat16 /
+// __half), so it takes the row kernel's lane groups and slots a warp.
 
 constexpr uint32_t kGolden = 0x9E3779B9u;
 
@@ -619,36 +561,90 @@ __device__ __forceinline__ float4 scale4(float s, float4 x) {
                      __fmul_rn(s, x.w));
 }
 
-// K3h: W[id] = round(W[id] - lr * (g + wd * W[id])), K3's warp walk.
-template <typename T, bool kMasked>
-__global__ void sgd_half_kernel(T* __restrict__ w,
-                                const int32_t* __restrict__ uids,
-                                const float* __restrict__ g,
-                                const int32_t* __restrict__ step, int64_t R,
-                                int64_t D, int64_t N, float lr, float wd,
-                                bool sr, uint32_t seed, int64_t row_base) {
+// -- K2, K3, K3h and K4's scaled RMW: the row kernel -------------------------
+
+enum class RowOp { kWrite, kSgd, kScaled };
+
+template <RowOp kOp>
+__device__ __forceinline__ float row_op(float w, float x, float lr, float wd,
+                                        float s) {
+  if (kOp == RowOp::kWrite) return x;
+  if (kOp == RowOp::kScaled) return __fadd_rn(w, __fmul_rn(s, x));
+  const float g = wd != 0.f ? __fadd_rn(x, __fmul_rn(wd, w)) : x;
+  return __fsub_rn(w, __fmul_rn(lr, g));
+}
+
+// src is `rows` (K2) or `g` (K3, K3h, K4), [N, D]; scale is K4's [N]. kGroup
+// lanes hold a row; a warp takes `slots` consecutive slots, a multiple of
+// its 32 / kGroup groups, and group p walks slots p, p + 32 / kGroup, ...
+// T is the table's type: float, or K3h's __nv_bfloat16 / __half (kSgd
+// only), whose row quads are widened on load (table_load) and written back
+// through table_store's epilogue, `sr` with bits keyed by (row_base + id,
+// column) from the device step, or to nearest; the f32 arithmetic between
+// is K3's, W + -(lr * (g + wd * W)). f32 tables never read step, sr, seed
+// or row_base.
+template <RowOp kOp, Access kAcc, int kGroup, typename T>
+__global__ void row_update_kernel(T* __restrict__ w,
+                                  const int32_t* __restrict__ uids,
+                                  const float* __restrict__ src,
+                                  const float* __restrict__ scale,
+                                  const int32_t* __restrict__ step, int64_t R,
+                                  int64_t D, int64_t N, int slots, float lr,
+                                  float wd, bool sr, uint32_t seed,
+                                  int64_t row_base) {
+  constexpr bool kHalf = !std::is_same<T, float>::value;
+  static_assert(!kHalf || kOp == RowOp::kSgd, "half tables: K3h only");
+  constexpr int kRows = 32 / kGroup;  // rows in flight per warp
   const int lane = threadIdx.x & 31;
+  const int sub = lane % kGroup;
   const int64_t warp =
       static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
-  const int64_t base = warp * 32;
+  const int64_t base = warp * slots;
   if (base >= N) return;  // whole warp leaves together
-  const int n = static_cast<int>(N - base < 32 ? N - base : 32);
-  const int32_t my_id = lane < n ? uids[base + lane] : -1;
-  const uint32_t step_key = sr ? sr_step_key(seed, __ldg(step)) : 0u;
+  const int n = static_cast<int>(N - base < slots ? N - base : slots);
+  int32_t my_id = -1;
+  float my_s = 0.f;
+  if (lane < n) {
+    my_id = uids[base + lane];
+    if (kOp == RowOp::kScaled && is_real(my_id, R)) my_s = scale[base + lane];
+  }
+  uint32_t step_key = 0u;
+  if (kHalf && sr) step_key = sr_step_key(seed, __ldg(step));
   const int64_t quads = (D + 3) / 4;
-  for (int j = 0; j < n; ++j) {
+  // the same trip count in every group; j < slots <= 32 (lanes from n on
+  // hold -1, a sentinel)
+  for (int at = 0; at < n; at += kRows) {
+    const int j = at + lane / kGroup;
     const int32_t id = __shfl_sync(kFullMask, my_id, j);
-    if (!is_real(id, R)) continue;  // the same for the whole warp
-    const RowRound r{sr, sr ? sr_row_key(step_key, id, row_base) : 0u};
+    const float s = __shfl_sync(kFullMask, my_s, j);
+    if (!is_real(id, R)) continue;  // the same for the whole group
     T* wrow = w + static_cast<int64_t>(id) * D;
-    const float* grow = g + (base + j) * D;
-    for (int64_t q = lane; q < quads; q += 32) {
-      const float4 wv = load4<kMasked>(wrow, q, D);
-      const float4 x = fold_wd(load_g4<kMasked>(grow, q, D), wv, wd);
-      const float4 upd =
-          make_float4(-__fmul_rn(lr, x.x), -__fmul_rn(lr, x.y),
-                      -__fmul_rn(lr, x.z), -__fmul_rn(lr, x.w));
-      store_quad<kMasked>(wrow, q, wv, upd, r, D);
+    const float* srow = src + (base + j) * D;
+    [[maybe_unused]] const RowRound r{
+        sr, kHalf && sr ? sr_row_key(step_key, id, row_base) : 0u};
+    for (int64_t q = sub; q < quads; q += kGroup) {
+      const float4 x = row_load<kAcc, true>(srow, q, D);
+      if constexpr (kHalf) {
+        const float4 wv = table_load<kAcc>(wrow, q, D);
+        const float4 g = fold_wd(x, wv, wd);
+        table_store<kAcc>(wrow, q, wv,
+                          make_float4(-__fmul_rn(lr, g.x), -__fmul_rn(lr, g.y),
+                                      -__fmul_rn(lr, g.z), -__fmul_rn(lr, g.w)),
+                          r, D);
+      } else {
+        float4 v;
+        if (kOp == RowOp::kWrite) {
+          v = x;
+        } else {
+          v = row_load<kAcc, false>(wrow, q, D);
+          v.x = row_op<kOp>(v.x, x.x, lr, wd, s);
+          v.y = row_op<kOp>(v.y, x.y, lr, wd, s);
+          v.z = row_op<kOp>(v.z, x.z, lr, wd, s);
+          v.w = row_op<kOp>(v.w, x.w, lr, wd, s);
+        }
+        row_store<kAcc>(wrow, q, v, D);
+      }
+      if (kGroup < 32) break;  // a narrow row: one quad a lane at most
     }
   }
 }
@@ -1103,91 +1099,73 @@ int rowwise_adagrad(const RowwiseCall& c) {
   return rowwise_narrow_group<T, Access::kMasked>(c);
 }
 
-template <typename T, bool kMasked>
-int launch_sgd_half(void* w, const void* uids, const void* g,
-                    const void* step, int64_t R, int64_t D, int64_t N,
-                    float lr, float wd, bool sr, uint32_t seed,
-                    int64_t row_base, void* stream) {
-  const int64_t warps = (N + 31) / 32;
-  const dim3 grid(
-      static_cast<unsigned>((warps + kWarpsPerBlock - 1) / kWarpsPerBlock));
-  sgd_half_kernel<T, kMasked><<<grid, 32 * kWarpsPerBlock, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<T*>(w), static_cast<const int32_t*>(uids),
-      static_cast<const float*>(g), static_cast<const int32_t*>(step), R, D,
-      N, lr, wd, sr, seed, row_base);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int sgd_half(void* w, const void* uids, const void* g, const void* step,
-             int64_t R, int64_t D, int64_t N, float lr, float wd, bool sr,
-             uint32_t seed, int64_t row_base, void* stream) {
-  const bool masked = D % 4 != 0 || !aligned(w, 8) || !aligned(g, 16);
-  return masked ? launch_sgd_half<T, true>(w, uids, g, step, R, D, N, lr, wd,
-                                           sr, seed, row_base, stream)
-                : launch_sgd_half<T, false>(w, uids, g, step, R, D, N, lr,
-                                            wd, sr, seed, row_base, stream);
-}
-
 // What the row kernels' launchers share: the tensors, the sizes, the lane
-// groups and slots per warp the wrapper picked, K3's lr and weight decay.
+// groups and slots per warp the wrapper picked, K3's lr and weight decay,
+// and K3h's step tensor and rounding (sr, seed, row_base).
 struct RowsCall {
   void* w;
   const void* uids;
   const void* src;
   const void* scale;
+  const void* step;
   int64_t R, D, N;
   int group, slots;
   float lr, wd;
+  bool sr;
+  uint32_t seed;
+  int64_t row_base;
   void* stream;
 };
 
-template <RowOp kOp, Access kAcc, int kGroup>
+template <RowOp kOp, Access kAcc, int kGroup, typename T>
 int launch_rows_path(const RowsCall& c) {
   const int64_t warps = (c.N + c.slots - 1) / c.slots;
   const dim3 grid(
       static_cast<unsigned>((warps + kWarpsPerBlock - 1) / kWarpsPerBlock));
-  row_update_kernel<kOp, kAcc, kGroup>
+  row_update_kernel<kOp, kAcc, kGroup, T>
       <<<grid, 32 * kWarpsPerBlock, 0, static_cast<cudaStream_t>(c.stream)>>>(
-          static_cast<float*>(c.w), static_cast<const int32_t*>(c.uids),
+          static_cast<T*>(c.w), static_cast<const int32_t*>(c.uids),
           static_cast<const float*>(c.src),
-          static_cast<const float*>(c.scale), c.R, c.D, c.N, c.slots, c.lr,
-          c.wd);
+          static_cast<const float*>(c.scale),
+          static_cast<const int32_t*>(c.step), c.R, c.D, c.N, c.slots, c.lr,
+          c.wd, c.sr, c.seed, c.row_base);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <RowOp kOp, Access kAcc>
+template <RowOp kOp, Access kAcc, typename T>
 int launch_rows_group(const RowsCall& c) {
   switch (c.group) {
     case 1:
-      return launch_rows_path<kOp, kAcc, 1>(c);
+      return launch_rows_path<kOp, kAcc, 1, T>(c);
     case 2:
-      return launch_rows_path<kOp, kAcc, 2>(c);
+      return launch_rows_path<kOp, kAcc, 2, T>(c);
     case 4:
-      return launch_rows_path<kOp, kAcc, 4>(c);
+      return launch_rows_path<kOp, kAcc, 4, T>(c);
     case 8:
-      return launch_rows_path<kOp, kAcc, 8>(c);
+      return launch_rows_path<kOp, kAcc, 8, T>(c);
     case 16:
-      return launch_rows_path<kOp, kAcc, 16>(c);
+      return launch_rows_path<kOp, kAcc, 16, T>(c);
     default:
-      return launch_rows_path<kOp, kAcc, 32>(c);
+      return launch_rows_path<kOp, kAcc, 32, T>(c);
   }
 }
 
 // `group` lanes per row: 32, or a power of two of at least ceil(D / 4);
-// `slots` per warp: a multiple of 32 / group, at most 32
-template <RowOp kOp>
+// `slots` per warp: a multiple of 32 / group, at most 32. A quad moves
+// whole (a float4 of an f32 row, a uint2 of a half row) where D % 4 == 0
+// and the rows are aligned to it, as pairs on narrow rows (G < 32) at an
+// even D with rows aligned to a pair, else masked.
+template <RowOp kOp, typename T = float>
 int launch_rows(const RowsCall& c) {
   if (!group_ok(c.group, c.D) || c.slots < 1 || c.slots > 32 ||
       c.slots % (32 / c.group) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (c.D % 4 == 0 && aligned(c.w, 16) && aligned(c.src, 16))
-    return launch_rows_group<kOp, Access::kVector>(c);
-  // pairs on narrow rows (G < 32); wider rows take the masked path
-  if (c.group < 32 && c.D % 2 == 0 && aligned(c.w, 8) && aligned(c.src, 8))
-    return launch_rows_group<kOp, Access::kPairs>(c);
-  return launch_rows_group<kOp, Access::kMasked>(c);
+  if (c.D % 4 == 0 && aligned(c.w, 4 * sizeof(T)) && aligned(c.src, 16))
+    return launch_rows_group<kOp, Access::kVector, T>(c);
+  if (c.group < 32 && c.D % 2 == 0 && aligned(c.w, 2 * sizeof(T)) &&
+      aligned(c.src, 8))
+    return launch_rows_group<kOp, Access::kPairs, T>(c);
+  return launch_rows_group<kOp, Access::kMasked, T>(c);
 }
 
 // What the moment kernels' launchers share
@@ -1259,27 +1237,31 @@ int launch_moments(const MomentsCall& c) {
 
 extern "C" {
 
-// K2, K3 and K4's scaled RMW: `group` lanes per row and `slots` per warp,
-// both picked by the wrapper (ops/lane_groups.py, row_slots_per_warp)
+// K2, K3 and K4's scaled RMW (and K3h below): `group` lanes per row and
+// `slots` per warp, both picked by the wrapper (ops/lane_groups.py,
+// row_slots_per_warp)
 int trt_scatter_rows_write_f32(void* w, const void* uids, const void* rows,
                                int64_t R, int64_t D, int64_t N, int group,
                                int slots, void* stream) {
-  return launch_rows<RowOp::kWrite>(
-      {w, uids, rows, nullptr, R, D, N, group, slots, 0.f, 0.f, stream});
+  return launch_rows<RowOp::kWrite>({w, uids, rows, nullptr, nullptr, R, D,
+                                     N, group, slots, 0.f, 0.f, false, 0u,
+                                     0, stream});
 }
 
 int trt_fused_update_sgd_f32(void* w, const void* uids, const void* g,
                              int64_t R, int64_t D, int64_t N, int group,
                              int slots, float lr, float wd, void* stream) {
-  return launch_rows<RowOp::kSgd>(
-      {w, uids, g, nullptr, R, D, N, group, slots, lr, wd, stream});
+  return launch_rows<RowOp::kSgd>({w, uids, g, nullptr, nullptr, R, D, N,
+                                   group, slots, lr, wd, false, 0u, 0,
+                                   stream});
 }
 
 int trt_scaled_row_update_f32(void* w, const void* uids, const void* g,
                               const void* scale, int64_t R, int64_t D,
                               int64_t N, int group, int slots, void* stream) {
-  return launch_rows<RowOp::kScaled>(
-      {w, uids, g, scale, R, D, N, group, slots, 0.f, 0.f, stream});
+  return launch_rows<RowOp::kScaled>({w, uids, g, scale, nullptr, R, D, N,
+                                      group, slots, 0.f, 0.f, false, 0u, 0,
+                                      stream});
 }
 
 int trt_rowwise_momentum_f32(void* m, const void* uids, const void* g_sq,
@@ -1324,17 +1306,17 @@ int trt_fused_rowwise_adagrad_half(void* w, void* m, const void* uids,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// K3h
+// K3h: the row kernel on a half table, any D >= 1, `group` and `slots` as
+// K3's
 int trt_fused_update_sgd_half(void* w, const void* uids, const void* g,
                               const void* step, int64_t R, int64_t D,
-                              int64_t N, float lr, float wd, int half, int sr,
-                              uint32_t seed, int64_t row_base, void* stream) {
-  if (half == 0)
-    return sgd_half<__nv_bfloat16>(w, uids, g, step, R, D, N, lr, wd,
-                                   sr != 0, seed, row_base, stream);
-  if (half == 1)
-    return sgd_half<__half>(w, uids, g, step, R, D, N, lr, wd, sr != 0, seed,
-                            row_base, stream);
+                              int64_t N, int group, int slots, float lr,
+                              float wd, int half, int sr, uint32_t seed,
+                              int64_t row_base, void* stream) {
+  const RowsCall c{w,     uids,  g,  nullptr, step,    R,    D,        N,
+                   group, slots, lr, wd,      sr != 0, seed, row_base, stream};
+  if (half == 0) return launch_rows<RowOp::kSgd, __nv_bfloat16>(c);
+  if (half == 1) return launch_rows<RowOp::kSgd, __half>(c);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

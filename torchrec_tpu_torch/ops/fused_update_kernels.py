@@ -86,8 +86,8 @@ def _bind(lib: ctypes.CDLL) -> None:
             [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _INT, _INT]
             + [_F32] * 7 + [_P],
         "trt_fused_update_sgd_half":
-            [_P, _P, _P, _P, _I64, _I64, _I64, _F32, _F32, _INT, _INT, _U32,
-             _I64, _P],
+            [_P, _P, _P, _P, _I64, _I64, _I64, _INT, _INT, _F32, _F32, _INT,
+             _INT, _U32, _I64, _P],
         "trt_fused_rowwise_adagrad_half":
             [_P, _P, _P, _P, _P, _I64, _I64, _I64, _INT, _INT, _F32, _F32,
              _F32, _INT, _INT, _U32, _I64, _P],
@@ -174,14 +174,15 @@ def _div(num: float, den: torch.Tensor) -> torch.Tensor:
     return torch.full_like(den, num) / den
 
 
-# -- K2, K3 and K4's scaled RMW: the row kernel's geometry ---------------------
+# -- K2, K3, K3h and K4's scaled RMW: the row kernel's geometry ----------------
 
 
 # Slots a warp of the row kernel takes, by lanes per row: the fastest of
 # the powers of two from the warp's lane groups to 32 in a sweep on an
 # H100 at 212,992 slots (compare_update_kernels.py --sweep, D = 8, 10, 32
-# and 64 on the Criteo Kaggle tables; PERF.md). A group walks its share of
-# the slots one after another: one to four steps here.
+# and 64 on the Criteo Kaggle tables; PERF.md). K3h on bf16 rows, swept
+# at D = 10 and 64, is fastest at the same counts. A group walks its share
+# of the slots one after another: one to four steps here.
 ROW_SLOTS = {1: 32, 2: 32, 4: 16, 8: 16, 16: 8, 32: 32}
 
 
@@ -193,8 +194,8 @@ def row_slots_per_warp(D: int) -> int:
 
 
 def row_geometry(D: int) -> Tuple[int, int]:
-    """(lanes per row, slots per warp) of the row kernel of K2, K3 and
-    K4's scaled RMW (csrc/fused_update.cu, `row_update_kernel`)."""
+    """(lanes per row, slots per warp) of the row kernel of K2, K3, K3h
+    and K4's scaled RMW (csrc/fused_update.cu, `row_update_kernel`)."""
     return lanes_per_row(D), row_slots_per_warp(D)
 
 
@@ -751,7 +752,8 @@ def fused_update_sgd_half(
     the kernel, never by the host). Each touched row becomes
     round(W - lr * (g + wd * W)) in f32, rounded stochastically with
     sr_bits(step, row_base + row, column) or to nearest (`round_rows`).
-    Returns `weights`."""
+    It is the row kernel of K2 and K3 on a half table, with their lanes
+    per row and slots per warp (`row_geometry`). Returns `weights`."""
     dev = _check_half(weights, uids, g, step)
     lr, weight_decay = float(lr), float(weight_decay)
     if dev.type == "cpu":
@@ -761,10 +763,11 @@ def fused_update_sgd_half(
     (R, D), N = weights.shape, uids.shape[0]
     if N == 0 or D == 0:
         return weights
+    group, slots = row_geometry(D)
     _launch("fused_update_sgd_half", dev, lambda lib, s:
             lib.trt_fused_update_sgd_half(
                 weights.data_ptr(), uids.data_ptr(), g.data_ptr(),
-                step.data_ptr(), R, D, N, lr, weight_decay,
+                step.data_ptr(), R, D, N, group, slots, lr, weight_decay,
                 HALF_TYPES[weights.dtype], int(stochastic_rounding),
                 SR_SEED, int(row_base), s))
     return weights

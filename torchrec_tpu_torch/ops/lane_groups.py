@@ -1,7 +1,7 @@
 """The lane groups of the narrow-row kernels: how many lanes a row takes.
 
 K1 / K1h (csrc/tbe_lookup.cu) and, in csrc/fused_update.cu, the row-update
-kernel of K2, K3 and K4's scaled RMW (`row_update_kernel`), the fused
+kernel of K2, K3, K3h and K4's scaled RMW (`row_update_kernel`), the fused
 rowwise Adagrad of K4 / K4h (`rowwise_adagrad_narrow_kernel`) and the
 moment kernel of K6 / K7 (`moment_update_kernel`) hold a row as quads of
 4 columns, one quad per lane. A row of D columns has ceil(D / 4) quads
