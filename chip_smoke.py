@@ -394,17 +394,24 @@ Phases, each failing the run with a non-zero exit when it fails:
    it read; the touched rows and momenta against apply_fused_update on
    the CPU at their own row ids, f32 within EX_RTOL, half rows within one
    ulp; untouched rows equal). The counters must equal the requests' and
-   steps' sum. (3) Each default route's kernel held bit-exact and timed
+   steps' sum. The same f32 model (seeded) quantized to int8 and to int4
+   by quantize_embeddings and sharded by shard_quantized (its pooled
+   values within their rows' error bounds of the f32 ones, checked
+   before the counters start), then served: 3 requests at B=8192 and 3 at
+   B=256 a type, each launching exactly one Kq (its narrow path) and no
+   K1, every probability within 2x its first-order bound of the f32
+   model's. (3) Each default route's kernel held bit-exact and timed
    on its held step's ids and gradients (K3, the fused K4 in turns with
    the unfused composition, K5, K6, K7, K3h and K4h with fp16 copies);
-   K1, K1h, K8, the routed gather and Kq (8 and 4 bits) at D=10 on a
-   [33,762,577, 10] table and one batch of the Kaggle features; the wide
-   rowwise path at D=1030 (100,000 rows, 65,536 ids) in f32, in turns
-   with the unfused composition, and as K4h in bf16 and fp16.
+   K1 and K1h at D=10 on a [33,762,577, 10] table and one batch of the
+   Kaggle features; the wide rowwise path at D=1030 (100,000 rows, 65,536
+   ids) in f32, in turns with the unfused composition, and as K4h in
+   bf16 and fp16.
 22. Narrow rows. K1 / K1h, the row kernel of K2, K3, K3h and K4's scaled
-   RMW, the fused K4 / K4h and K6 / K7 give a row of D columns G lanes, the
-   smallest power of two covering its ceil(D / 4) quads
-   (ops/lane_groups.py), so a warp holds 32 / G rows at D <= 64. (1)
+   RMW, the fused K4 / K4h, K6 / K7, K8, the routed gather and Kq give a
+   row of D columns G lanes, the smallest power of two covering its
+   ceil(D / 4) quads (ops/lane_groups.py), so a warp holds 32 / G rows
+   (bags, tokens) at D <= 64. (1)
    Every lane group held against the plain versions on 4,096-row tables
    at D = 1, 2, 3, 4, 5, 6, 8, 10, 12, 16, 17, 18, 32, 33, 34, 63, 64 and
    128, aligned and one element into their storage (whole quads, pairs
@@ -417,16 +424,28 @@ Phases, each failing the run with a non-zero exit when it fails:
    fp16; stochastic rounding from row 0 and from row 3 R, and to
    nearest), K6 and K7 (weight decay 0 and 0.01) over 3,001 tokens' run
    totals and dedup output, bit for bit at every slot count a warp of
-   each kernel. (2) At D=10 and D=64 on the 26 Criteo Kaggle tables and
-   one B=8192 batch (212,992 bags and slots): K1, K1h, K3, K2, the scaled
+   each kernel; K8 over 3,001 ids (below 0 and past R) bit for bit; the
+   routed gather over [7, 13, 33] tokens (three shard sizes, rank 1,
+   padded tokens, ids below 0 and past every shard) by value, +0.0 under
+   every masked token, its route-only mode bit for bit; Kq at 8 bits
+   (every D), 4 (an even D) and 2 (D % 4 == 0), the packed rows one byte
+   into their storage in the offset case, pooled over 3,001 bags at L=20
+   and unpooled with and without coefficients, bit for bit. (2) At D=10
+   and D=64 on the 26 Criteo Kaggle tables and one B=8192 batch (212,992
+   bags and slots): K1, K1h, K8, the routed gather (and its route-only
+   mode), Kq at 8 and 4 bits (pooled and unpooled), K3, K2, the scaled
    RMW, the fused K4, K4h and K3h (bf16, fp16), K6 and K7 held bit-exact
+   (the routed gather by value)
    (K4, K6 and K7, whose tables are too large to clone, on the rows they
    update and on 4,096 seeded rows of the table and, at D=64, 4,096 more
    past element 2^31) and timed beside their bounds, plain versions and
-   PyTorch calls (F.embedding_bag, index_add_, index_copy_, index_add_ of
-   the pre-scaled rows, index_add_ of K3h's rounded update, held within
-   one ulp of K3h to nearest; the fused K4 in turns with the unfused
-   composition it replaced; none for K4h, K6 and K7).
+   PyTorch calls (F.embedding_bag, index_select, the quantized embedding
+   bag of phase 15, index_add_, index_copy_, index_add_ of the pre-scaled
+   rows, index_add_ of K3h's rounded update, held within one ulp of K3h
+   to nearest; the fused K4 in turns with the unfused composition it
+   replaced; none for the routed gather, K4h, K6 and K7); K8, the routed
+   gather and Kq also beside a sector bound (every 32-byte sector their
+   distinct rows, and Kq's scales and shifts, touch).
 
 Kernel times are device times from torch.profiler (the kernel's own for a
 kernel, all device activity of the call for the plain version and the
@@ -524,6 +543,12 @@ ROW_KERNEL = "row_update_kernel"
 # K1's and K1h's kernels as the profiler prints them: rows of up to 64
 # columns (tbe_lookup_narrow_kernel) and wider (tbe_lookup_pooled_kernel)
 K1_KERNELS = "tbe_lookup_"
+# K8's (gather_rows_narrow_kernel, gather_rows_kernel), the routed gather's
+# (routed_gather_narrow_kernel, routed_gather_kernel) and Kq's
+# (quant_lookup_narrow_kernel, quant_lookup_kernel), the same way
+K8_KERNELS = "gather_rows_"
+ROUTED_KERNELS = "routed_gather_"
+KQ_KERNELS = "quant_lookup_"
 # kernel -> (wrapper name, source, the Pallas function it replaces)
 KERNELS = {
     "K1": ("tbe_lookup_pooled", "torchrec_tpu_torch/csrc/tbe_lookup.cu",
@@ -1707,7 +1732,7 @@ def check_gather(W: torch.Tensor, ids: torch.Tensor, what: str) -> dict:
     distinct = int(torch.unique(safe).numel())
     b = gather_bound(N, distinct, D)
     per_id = (N * 4 + 2 * N * D * 4) / HBM_BYTES_PER_S * 1e3
-    t = timings(lambda: gr.gather_rows(W, ids), "gather_rows_kernel",
+    t = timings(lambda: gr.gather_rows(W, ids), K8_KERNELS,
                 b["ms"], lambda: gr.gather_rows_reference(W, ids),
                 lambda: torch.index_select(W, 0, safe))
     log(f"K8 {what}: W {tuple(W.shape)}, {N} ids ({distinct} distinct "
@@ -1856,17 +1881,17 @@ def check_routed_gather(trained, seqs, train_kjt) -> dict:
                 return rows * own.to(rows.dtype)[..., None]
 
             # in turns: kernel, composition, composition, kernel
-            k_ms = [device_ms(kernel, "routed_gather_kernel", b["ms"])]
+            k_ms = [device_ms(kernel, ROUTED_KERNELS, b["ms"])]
             c_ms = [device_ms(composition, bound_ms=b["ms"])
                     for _ in range(2)]
-            k_ms.append(device_ms(kernel, "routed_gather_kernel", b["ms"]))
+            k_ms.append(device_ms(kernel, ROUTED_KERNELS, b["ms"]))
             t = {"ms": sum(k_ms) / 2, "composition_ms": sum(c_ms) / 2,
                  "plain_ms": device_ms(
                      lambda: gr.routed_gather_rows_reference(
                          W, ids, lengths, sr, off, rank), bound_ms=b["ms"]),
                  "route_ms": device_ms(
                      lambda: gr.route_tokens(ids, lengths, sr, off, rank),
-                     "routed_gather_kernel"),
+                     ROUTED_KERNELS),
                  "route_plain_ms": device_ms(
                      lambda: strat._route(ids, lengths, rank)),
                  "host_ms": host_ms(kernel),
@@ -3426,16 +3451,19 @@ def row_error_bound(tables: dict, bits: int) -> dict:
     """Per table, each row's bound on |dequantized - f32| (any element):
     half a step of the fp16-rounded scale, plus the shift's fp16 rounding
     (at most |lo| 2^-11, or half fp16's smallest subnormal) and what a
-    scale rounded down loses at the top of the range ((hi - lo) 2^-11,
-    clipped to qmax)."""
+    scale rounded down loses at the top of the range, clipped to qmax:
+    qmax times the scale's fp16 rounding, at most (hi - lo) 2^-11 for a
+    normal scale and qmax 2^-25 for a subnormal one (a row whose range is
+    below qmax 2^-14, as in the Kaggle tables' largest at their initial
+    U(-b, b), b = sqrt(1 / rows))."""
     qmax = (1 << bits) - 1
     out = {}
     for name, w in tables.items():
         lo, hi = w.amin(1), w.amax(1)
         scale = ((hi - lo) / qmax).half().float()
         scale = torch.where(scale == 0, torch.ones_like(scale), scale)
-        out[name] = (scale / 2 + (lo.abs() + (hi - lo)) * FP16_REL
-                     + 2.0 ** -25)
+        top = ((hi - lo) * FP16_REL).clamp(min=qmax * 2.0 ** -25)
+        out[name] = scale / 2 + lo.abs() * FP16_REL + top + 2.0 ** -25
     return out
 
 
@@ -3495,11 +3523,15 @@ def library_quant_lookup(sq, ids: torch.Tensor):
     """PyTorch's own int-N pooled lookup over the same rows: the group
     repacked once into its fused rows (the packed bytes, then scale and
     shift inline: f32 for the byte op, fp16 for the 4-bit one, which holds
-    the fp16-rounded values exactly), one bag per id, SUM. Returns the
-    call; it is timed here and used nowhere in the port."""
-    R = sq.data.shape[0]
+    the fp16-rounded values exactly), one bag per id, SUM. The CUDA ops
+    take whole groups of columns only (the byte op D % 4 == 0, the 4-bit
+    one D % 8 == 0), so a narrower row is padded with zero codes to the
+    next such width and the call returns the first D columns (a view).
+    Returns the call; it is timed here and used nowhere in the port."""
+    R, D = sq.data.shape[0], sq.data.shape[1] * 8 // sq.bits
     ty = torch.float32 if sq.bits == 8 else torch.float16
-    fused = torch.cat([sq.data] + [
+    pad = -D % (4 if sq.bits == 8 else 8) * sq.bits // 8  # bytes
+    fused = torch.cat([sq.data, sq.data.new_zeros((R, pad))] + [
         v.to(ty).view(torch.uint8).reshape(R, -1)
         for v in (sq.scale, sq.shift)], dim=1).contiguous()
     op = (torch.ops.quantized.embedding_bag_byte_rowwise_offsets
@@ -3509,7 +3541,7 @@ def library_quant_lookup(sq, ids: torch.Tensor):
     offsets = torch.arange(idx.numel() + 1, dtype=idx.dtype,
                            device=idx.device)
     return lambda: op(fused, idx, offsets, False, 0, False, None, None,
-                      True)
+                      True)[:, :D]
 
 
 def check_quant_kernel(ql, tl, sq, W, ids, what: str) -> dict:
@@ -3533,7 +3565,7 @@ def check_quant_kernel(ql, tl, sq, W, ids, what: str) -> dict:
     got = lib()
     torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-6)
     lib_err = (got - ref).abs().max().item()
-    t = timings(lambda: ql.quant_lookup_pooled(*args), "quant_lookup_kernel",
+    t = timings(lambda: ql.quant_lookup_pooled(*args), KQ_KERNELS,
                 b["ms"], lambda: ql.quant_lookup_pooled_reference(*args),
                 lib)
     kb = bound(W, ids, coeff)
@@ -6757,6 +6789,143 @@ def kd_train(route: int, planned: bool = True) -> dict:
             "args": held["args"], "steps": len(batches)}
 
 
+def kd_quant_requests(rng: np.random.RandomState) -> list:
+    """(batch, dense [B, 13], KeyedJaggedTensor of 26 features x B x 1, ids
+    [26, B] numpy): REQUESTS_PER_BATCH at B=8192, then at B=256, each
+    feature's ids uniform over its table's rows."""
+    from torchrec_tpu_torch.sparse import KeyedJaggedTensor
+
+    cards = kd_cards()
+    out = []
+    for b in ([BENCH_BATCH] * REQUESTS_PER_BATCH
+              + [SERVE_BATCH] * REQUESTS_PER_BATCH):
+        ids = np.stack([rng.randint(0, c, size=b)
+                        for c in cards]).astype(np.int32)
+        kjt = KeyedJaggedTensor.from_lengths(
+            [f"f{i}" for i in range(len(cards))], ids.reshape(-1),
+            np.ones(len(cards) * b, np.int32))
+        dense = torch.from_numpy(rng.randn(b, DENSE_IN).astype(np.float32))
+        out.append((b, dense, kjt, ids))
+    return out
+
+
+def kd_quant_prepare() -> dict:
+    """The quantized D=10 DeepFM made ready outside the counted window:
+    the f32 model (planned, seeded), the requests of kd_quant_requests,
+    its probabilities for each, each example's first-order bound on its
+    probability's distance from the f32 model per quantized type (the sum
+    over its pooled elements of |d p / d pooled| times the row's error
+    bound, row_error_bound) with the pooled values and their bounds, and
+    the model quantized by quantize_embeddings and sharded by
+    shard_quantized for each type of QUANT_TYPES."""
+    from torchrec_tpu_torch.inference import (
+        quantize_embeddings,
+        shard_quantized,
+    )
+    from torchrec_tpu_torch.modules.embedding_configs import DataType
+
+    t0 = time.perf_counter()
+    dmp = make_kd_dmp(DEVICE).init(SEED)
+    sebc = dmp.sharded_ebcs[DFM_KEY]
+    requests = kd_quant_requests(np.random.RandomState(SEED + 67))
+    tables = sebc.unshard_tables()
+    per_row = {name: row_error_bound(tables, bits)
+               for name, bits in QUANT_TYPES.items()}
+    del tables
+    F_ = len(kd_cards())
+    f32, bounds = [], {name: [] for name in QUANT_TYPES}
+    for batch, dense, kjt, ids in requests:
+        dense, kjt = dense.to(DEVICE), kjt.to(DEVICE)
+        with torch.no_grad():
+            pooled = sebc(kjt)
+        leaf = pooled.values.detach().clone().requires_grad_(True)
+        sebc.injected = dataclasses.replace(pooled, values=leaf)
+        try:
+            p = dmp.module(dense, kjt)
+            (g,) = torch.autograd.grad(p.sum(), leaf)
+        finally:
+            sebc.injected = None
+        f32.append(p.detach()[:, 0].cpu())
+        g = g.reshape(batch, F_, KD_DIM).abs().sum(-1)
+        rows = torch.from_numpy(ids.T).to(DEVICE).long()  # [B, 26]
+        for name, bnd in per_row.items():
+            eps = torch.stack([bnd[f"t{i}"][rows[:, i]]
+                               for i in range(F_)], 1)
+            bounds[name].append({"p": (g * eps).sum(1).cpu(),
+                                 "pooled": pooled.values.detach(),
+                                 "eps": eps.repeat_interleave(KD_DIM, 1)})
+    del per_row
+    sharded = {}
+    for name in QUANT_TYPES:
+        pm = quantize_embeddings(dmp, DataType[name], DEVICE)
+        sharded[name] = shard_quantized(pm)
+        del pm
+        # the sharded module's pooled values against the f32 ones, element
+        # by element
+        qebc = sharded[name]._sharded[DFM_KEY]
+        for (_, _, kjt, _), bnd in zip(requests, bounds[name]):
+            with torch.inference_mode():
+                qv = qebc(kjt.to(DEVICE)).values
+            over = ((qv - bnd.pop("pooled")).abs()
+                    - bnd.pop("eps")).max().item()
+            if over > 0:
+                raise AssertionError(f"deepfm D={KD_DIM} {name}: pooled "
+                                     f"values beyond their bound by "
+                                     f"{over:.3e}")
+    del dmp, sebc
+    gc_cuda()
+    log(f"deepfm D={KD_DIM} quantized: f32 probabilities and first-order "
+        f"bounds of {len(requests)} requests; int8 and int4 modules "
+        f"quantized and sharded, their pooled values within their rows' "
+        f"error bounds of the f32 ones; in {time.perf_counter() - t0:.2f} s")
+    return {"requests": requests, "f32": f32, "bounds": bounds,
+            "sharded": sharded}
+
+
+def kd_quant_serve(ready: dict) -> dict:
+    """The quantized D=10 DeepFM served through shard_quantized: every
+    request of `ready` at int8 and at int4, each launching exactly one Kq
+    and nothing else (no K1); probabilities finite, of shape [B, 1], each
+    within Q_SLACK times its first-order bound of the f32 model's, and the
+    sharded module's pooled values within their rows' error bounds of the
+    f32 ones (checked in kd_quant_prepare). Returns each type's request ms
+    and its largest ratio of distance to bound."""
+    out = {}
+    for name, spm in ready["sharded"].items():
+        ms = {BENCH_BATCH: [], SERVE_BATCH: []}
+        ratio = 0.0
+        for (batch, dense, kjt, _), ref, bnd in zip(
+                ready["requests"], ready["f32"], ready["bounds"][name]):
+            before = counts()
+            t0 = time.perf_counter()
+            p = spm.predict(dense.to(DEVICE), kjt.to(DEVICE)).cpu()
+            ms[batch].append((time.perf_counter() - t0) * 1e3)
+            after = counts()
+            launched = {k: after[k] - before[k] for k in after}
+            if launched != expected(Kq=1):
+                raise AssertionError(f"deepfm D={KD_DIM} {name} sharded "
+                                     f"request launched {launched}")
+            if p.shape != (batch, 1) or not bool(torch.isfinite(p).all()):
+                raise AssertionError(f"deepfm D={KD_DIM} {name}: bad "
+                                     f"output {tuple(p.shape)}")
+            d = (p[:, 0] - ref).abs()
+            over = (d - Q_SLACK * bnd["p"] - 1e-6).max().item()
+            if over > 0:
+                raise AssertionError(f"deepfm D={KD_DIM} {name}: outputs "
+                                     f"beyond {Q_SLACK} x their bound by "
+                                     f"{over:.3e}")
+            ratio = max(ratio, (d / bnd["p"].clamp(min=1e-30)).max().item())
+        for batch, t in ms.items():
+            log(f"deepfm D={KD_DIM} {name} sharded serve B={batch}: request "
+                f"ms (host clock, H2D + predict + D2H, first includes "
+                f"warm-up) {t}")
+        log(f"deepfm D={KD_DIM} {name}: one Kq a request; outputs within "
+            f"{Q_SLACK} x their first-order bound of the f32 model's "
+            f"(largest ratio {ratio:.4f})")
+        out[name] = {"request_ms": ms, "bound_ratio": ratio}
+    return out
+
+
 def kd_kernels(captured) -> dict:
     """Each default route's update kernel held and timed on its held step's
     arguments (`captured`: (kernel, arguments) pairs), at the D=10
@@ -6866,19 +7035,54 @@ def hold_lookups(tl, W, ids, coeff) -> dict:
     return out
 
 
-def check_lookups_d10(tl, gr, ql) -> dict:
-    """The lookups at D=KD_DIM on kaggle_lookup's table and batch: K1 and
-    K1h (bf16) through hold_lookups (their narrow path); K8 through
-    check_gather; the routed gather on a rank that owns every row (ids [26,
-    8192, 1] local to each table) equal by value; Kq at 8 and 4 bits,
-    pooled and unpooled, bit-exact. K8, the routed gather and Kq on their
-    scalar paths."""
+def check_lookups_d10(tl) -> dict:
+    """K1 and K1h (bf16) at D=KD_DIM on kaggle_lookup's table and batch,
+    through hold_lookups (their narrow path). K8, the routed gather and Kq
+    are held and timed there in phase 22 (time_lookups)."""
+    W, ids, coeff, _, _ = kaggle_lookup(KD_DIM, SEED + 66)
+    return hold_lookups(tl, W, ids, coeff)
+
+
+def sector_bytes(base: int, row_bytes: int, rows: torch.Tensor,
+                 word_arrays=()) -> int:
+    """The least bytes the distinct rows `rows` of a table at address
+    `base` with rows of `row_bytes` bytes take from memory in 32-byte
+    sectors, with their words of each 4-byte-per-row array at the
+    addresses of `word_arrays` (Kq's scale and shift): every sector a row
+    or word touches, once."""
+    r = rows.long()
+    first = (base + r * row_bytes) // 32
+    last = (base + r * row_bytes + row_bytes - 1) // 32
+    span = int((last - first).max().item()) + 1 if r.numel() else 0
+    parts = [torch.where(first + k <= last, first + k, first)
+             for k in range(span)]
+    n = int(torch.unique(torch.cat(parts)).numel()) if parts else 0
+    for addr in word_arrays:
+        n += int(torch.unique((addr + r * 4) // 32).numel())
+    return 32 * n
+
+
+def time_lookups(gr, ql, W, ids, coeff, local, offs) -> dict:
+    """K8, the routed gather and Kq (8 and 4 bits) at W's width on
+    kaggle_lookup's table and batch (212,992 ids): K8 through check_gather
+    (bit-exact, beside index_select); the routed gather on a rank that owns
+    every row (ids [26, 8192, 1] local to each table) equal by value to its
+    plain version and its route-only mode bit for bit; Kq pooled and
+    unpooled bit-exact, timed beside PyTorch's quantized embedding bag
+    (library_quant_lookup, held within rtol = atol = 1e-6 of the plain
+    version). Each beside its byte bound and its sector bound (every
+    32-byte sector a distinct row, and Kq's scale and shift, touch)."""
     from torchrec_tpu_torch.ops.quant import quantize_rowwise
 
     cards = kd_cards()
-    W, ids, coeff, local, offs = kaggle_lookup(KD_DIM, SEED + 66)
-    out = hold_lookups(tl, W, ids, coeff)
-    k8 = check_gather(W, ids.reshape(-1), f"at D={KD_DIM}")
+    R, D = W.shape
+    flat = ids.reshape(-1)
+    rows = torch.unique(flat)
+    out = {}
+    k8 = check_gather(W, flat, f"at D={D}")
+    k8["sector_bound_ms"] = (sector_bytes(W.data_ptr(), 4 * D, rows)
+                             + flat.numel() * (4 + 4 * D)) \
+        / HBM_BYTES_PER_S * 1e3
     out["K8"] = {k: v for k, v in k8.items() if k != "call_ms"}
     F_, B_ = local.shape
     ids3 = torch.from_numpy(local.reshape(F_, B_, 1)).to(DEVICE)
@@ -6887,41 +7091,66 @@ def check_lookups_d10(tl, gr, ql) -> dict:
     local_off = torch.from_numpy(offs.astype(np.int32)).to(DEVICE)
     route = (ids3, lengths, shard_rows, local_off, 0)
     got = gr.routed_gather_rows(W, *route)
-    err = _hold(f"the routed gather at D={KD_DIM}",
+    err = _hold(f"the routed gather at D={D}",
                 [(got, gr.routed_gather_rows_reference(W, *route))])
-    b = gather_bound(int(ids3.numel()), int(torch.unique(ids).numel()),
-                     KD_DIM)
-    t = timings(lambda: gr.routed_gather_rows(W, *route),
-                "routed_gather_kernel", b["ms"],
-                lambda: gr.routed_gather_rows_reference(W, *route))
+    loc, own = gr.route_tokens(*route)
+    ref_loc, ref_own = gr.route_tokens_reference(*route)
+    if not (torch.equal(loc, ref_loc) and torch.equal(own, ref_own)):
+        raise AssertionError(f"the route-only mode at D={D} is not "
+                             "bit-exact with the plain route")
+    b = routed_bound(ids3, lengths, ref_loc, ref_own, D)
+    t = timings(lambda: gr.routed_gather_rows(W, *route), ROUTED_KERNELS,
+                b["ms"], lambda: gr.routed_gather_rows_reference(W, *route))
     out["K8r"] = {"max_abs_err": err, "ms": t["ms"],
                   "plain_ms": t["plain_ms"], "library_ms": None,
-                  "bound_ms": b["ms"], "bound_by": b["by"]}
-    log(f"K8r D={KD_DIM}: {F_} x {B_} tokens, equal to its plain version; "
-        f"{t['ms']:.5f} ms on the device; plain {t['plain_ms']:.4f} ms; "
-        f"bound {b['ms']:.5f} ms; kernel at {100 * b['ms'] / t['ms']:.1f}% "
-        f"of the bound")
+                  "bound_ms": b["ms"], "bound_by": b["by"],
+                  "sector_bound_ms": k8["sector_bound_ms"]}
+    log(f"K8r D={D}: {F_} x {B_} tokens, equal to its plain version, its "
+        f"route-only mode bit-exact; {t['ms']:.5f} ms on the device (call "
+        f"{t['call_ms']:.5f} ms); plain {t['plain_ms']:.4f} ms; bound "
+        f"{b['ms']:.5f} ms, in sectors {k8['sector_bound_ms']:.5f} ms; "
+        f"kernel at {100 * b['ms'] / t['ms']:.1f}% of the bound")
+    del got
     for bits in (8, 4):
         q = quantize_rowwise(W, bits)
         args = (q.data, q.scale, q.shift, ids, coeff, bits)
         got = ql.quant_lookup_pooled(*args)
-        rows = ql.quant_lookup_rows(*args[:3], ids.reshape(-1), bits)
-        err = _hold(f"Kq at {bits} bits, D={KD_DIM}", [
-            (got, ql.quant_lookup_pooled_reference(*args)),
-            (rows, ql.quant_lookup_rows_reference(*args[:3],
-                                                  ids.reshape(-1), bits))])
-        b = quant_bound(bits, KD_DIM, ids, coeff)
-        t = timings(lambda: ql.quant_lookup_pooled(*args),
-                    "quant_lookup_kernel", b["ms"],
-                    lambda: ql.quant_lookup_pooled_reference(*args))
+        ref = ql.quant_lookup_pooled_reference(*args)
+        rows_got = ql.quant_lookup_rows(*args[:3], flat, bits)
+        rows_ref = ql.quant_lookup_rows_reference(*args[:3], flat, bits)
+        err = _hold(f"Kq at {bits} bits, D={D}",
+                    [(got, ref), (rows_got, rows_ref)])
+        del rows_got, rows_ref
+        lib = library_quant_lookup(q, ids)
+        lib_out = lib()
+        torch.testing.assert_close(lib_out, ref, rtol=1e-6, atol=1e-6)
+        lib_err = (lib_out - ref).abs().max().item()
+        del lib_out, got, ref
+        b = quant_bound(bits, D, ids, coeff)
+        sectors = sector_bytes(q.data.data_ptr(), D * bits // 8, rows,
+                               (q.scale.data_ptr(), q.shift.data_ptr()))
+        sector_ms = (sectors + ids.numel() * 8 + ids.shape[0] * D * 4) \
+            / HBM_BYTES_PER_S * 1e3
+        t = timings(lambda: ql.quant_lookup_pooled(*args), KQ_KERNELS,
+                    b["ms"], lambda: ql.quant_lookup_pooled_reference(*args),
+                    lib)
         out[f"Kq{bits}"] = {"max_abs_err": err, "ms": t["ms"],
-                            "plain_ms": t["plain_ms"], "library_ms": None,
-                            "bound_ms": b["ms"], "bound_by": b["by"]}
-        log(f"Kq {bits} bits D={KD_DIM}: bit-exact with its plain version "
-            f"(pooled and unpooled); {t['ms']:.5f} ms on the device; plain "
-            f"{t['plain_ms']:.4f} ms; bound {b['ms']:.5f} ms; kernel at "
-            f"{100 * b['ms'] / t['ms']:.1f}% of the bound")
-        del q
+                            "plain_ms": t["plain_ms"],
+                            "library_ms": t["library_ms"],
+                            "library_max_abs_err": lib_err,
+                            "bound_ms": b["ms"], "bound_by": b["by"],
+                            "sector_bound_ms": sector_ms}
+        log(f"Kq {bits} bits D={D}: bit-exact with its plain version "
+            f"(pooled and unpooled); {t['ms']:.5f} ms on the device (call "
+            f"{t['call_ms']:.5f} ms); plain {t['plain_ms']:.4f} ms; PyTorch's"
+            f" quantized embedding bag {t['library_ms']:.5f} ms (max abs err"
+            f" {lib_err:.3e}); bound {b['ms']:.5f} ms ({b['bytes']} B, "
+            f"{b['rows']} distinct rows), in sectors {sector_ms:.5f} ms "
+            f"({sectors} B of rows, scales and shifts); kernel at "
+            f"{100 * b['ms'] / t['ms']:.1f}% of the bound, "
+            f"{100 * sector_ms / t['ms']:.1f}% of the sector bound")
+        del q, args, lib
+        gc_cuda()
     q8, q4 = out.pop("Kq8"), out.pop("Kq4")
     out["Kq"] = {**q8, "max_abs_err": max(q8["max_abs_err"],
                                           q4["max_abs_err"]), "int4": q4}
@@ -6934,8 +7163,6 @@ def widths_phase() -> dict:
     just before it (checked against the sum of every request's and step's
     asserted launches), "results": per kernel, this phase's numbers}."""
     from torchrec_tpu_torch.ops import fused_update_kernels as fk
-    from torchrec_tpu_torch.ops import gather_rows as gr
-    from torchrec_tpu_torch.ops import quant_lookup as ql
     from torchrec_tpu_torch.ops import tbe_lookup as tl
 
     t_phase = time.perf_counter()
@@ -6944,8 +7171,10 @@ def widths_phase() -> dict:
     log(f"widths step 1 (the update kernels at every width): "
         f"{time.perf_counter() - t_phase:.2f} s")
 
-    # the main path: the D=10 DeepFM served and trained, counted from 0
+    # the main path: the D=10 DeepFM served and trained, and served
+    # quantized (its f32 reference and packages made first), counted from 0
     t = time.perf_counter()
+    ready = kd_quant_prepare()
     reset_counts()
     served = {(dt, planned): kd_serve(dt, planned) for dt, planned in (
         ("FP32", True), ("FP32", False), ("BF16", True))}
@@ -6955,8 +7184,11 @@ def widths_phase() -> dict:
                            + [(r, False) for r in KD_ROW_WISE]):
         trained[route, planned] = kd_train(route, planned)
         gc_cuda()
+    quant = kd_quant_serve(ready)
     launches = {k: v for k, v in counts().items() if v}
-    want: dict = {}
+    want: dict = {"Kq": len(QUANT_TYPES) * len(ready["requests"])}
+    del ready
+    gc_cuda()
     for dt, _ in served:
         k = "K1" if dt == "FP32" else "K1h"
         want[k] = want.get(k, 0) + 2 * REQUESTS_PER_BATCH
@@ -6968,16 +7200,16 @@ def widths_phase() -> dict:
         raise AssertionError(f"widths: the DeepFM path launched {launches}, "
                              f"its requests and steps {want} (one group "
                              f"each)")
-    log(f"widths step 2 (the D={KD_DIM} DeepFM served and trained): "
-        f"{time.perf_counter() - t:.2f} s; launches {launches} (the "
-        f"counters)")
+    log(f"widths step 2 (the D={KD_DIM} DeepFM served and trained, and "
+        f"served at int8 and int4): {time.perf_counter() - t:.2f} s; "
+        f"launches {launches} (the counters)")
 
     t = time.perf_counter()
     d10 = kd_kernels([(next(iter(KD_ROUTES[r][3])), v.pop("args"))
                       for (r, _), v in trained.items()
                       if v["args"] is not None])
     gc_cuda()
-    d10.update(check_lookups_d10(tl, gr, ql))
+    d10.update(check_lookups_d10(tl))
     gc_cuda()
     wide = time_wide(fk)
     gc_cuda()
@@ -6986,6 +7218,8 @@ def widths_phase() -> dict:
     numbers = {
         "serve_request_ms": {f"{dt} {'planned' if p else 'ROW_WISE'}":
                              r["request_ms"] for (dt, p), r in served.items()},
+        "quant_request_ms": {k: v["request_ms"] for k, v in quant.items()},
+        "quant_bound_ratio": {k: v["bound_ratio"] for k, v in quant.items()},
         "train_median_ms": {
             f"{KD_ROUTES[r][2]} {KD_ROUTES[r][0]} {KD_ROUTES[r][1] or ''} "
             f"{'planned' if p else 'ROW_WISE'}": v["median_ms"]
@@ -7020,6 +7254,9 @@ NARROW_L = 20
 # the widths timed: the D=10 DeepFM's (phase 21) and the Kaggle DLRM's
 # (phase 20)
 NARROW_TIMED = (10, 64)
+# the routed gather's tokens [F, B, L] at every width: 3,003, so the last
+# warp is partial at every lane group
+NARROW_ROUTE_SHAPE = (7, 13, 33)
 
 
 @contextlib.contextmanager
@@ -7200,22 +7437,105 @@ def check_narrow_width(tl, fk, D: int, offset: int, rng) -> dict:
     return errs
 
 
-def check_narrow(tl, fk) -> dict:
-    """check_narrow_width at every width of NARROW_WIDTHS and offset of
-    NARROW_OFFSETS. Returns per kernel the largest difference."""
+def check_narrow_lookups(gr, ql, D: int, offset: int, rng) -> dict:
+    """K8, the routed gather and Kq against their plain versions at width D,
+    each table `offset` elements (Kq: bytes) into its storage:
+    K8 over NARROW_TOKENS ids of a [NARROW_ROWS, D] table (ids below 0 and
+    past R), bit for bit; the routed gather over NARROW_ROUTE_SHAPE tokens
+    (three shard sizes and offsets, rank 1, padded tokens, negative ids and
+    ids past every shard) equal by value with +0.0 under every masked
+    token, its route-only mode bit for bit; Kq, pooled over NARROW_BAGS
+    bags at L=NARROW_L (MEAN and per-sample coefficients, zero-padded
+    slots, ids below 0 and past R) and unpooled with and without a
+    coefficient, bit for bit, at each bit count that packs D (8 every D, 4
+    an even D, 2 D % 4 == 0). Returns each kernel's largest difference."""
+    from torchrec_tpu_torch.ops.quant import quantize_rowwise
+
+    R, T, NB, Lk = NARROW_ROWS, NARROW_TOKENS, NARROW_BAGS, NARROW_L
+    dev = torch.device(DEVICE)
+    what = f"at D={D} (offset {offset})"
+    w = torch.from_numpy((rng.randn(R, D) * 0.1).astype(np.float32)).to(dev)
+    W = _placed(w, offset)
+    errs = {}
+
+    ids = torch.from_numpy(
+        rng.randint(-5, R + 100, size=T).astype(np.int32)).to(dev)
+    errs["K8"] = _hold(f"K8 {what}", [(gr.gather_rows_forward(W, ids),
+                                       gr.gather_rows_reference(W, ids))])
+
+    F_, B_, L_ = NARROW_ROUTE_SHAPE
+    ids3 = torch.from_numpy(rng.randint(-50, 2 * R, size=(F_, B_, L_)
+                                        ).astype(np.int32)).to(dev)
+    lengths = torch.from_numpy(rng.randint(0, L_ + 1, size=(F_, B_)
+                                           ).astype(np.int32)).to(dev)
+    sr = torch.from_numpy(rng.randint(R // 4, R // 2, size=F_
+                                      ).astype(np.int32)).to(dev)
+    off = torch.from_numpy(rng.randint(0, R // 2, size=F_
+                                       ).astype(np.int32)).to(dev)
+    route = (ids3, lengths, sr, off, 1)
+    got = gr.routed_gather_rows(W, *route)
+    local, owned = gr.route_tokens(*route)
+    ref_local, ref_owned = gr.route_tokens_reference(*route)
+    err = _hold(f"the routed gather {what}",
+                [(got, gr.routed_gather_rows_reference(W, *route))])
+    masked = got[~ref_owned]
+    if bool(torch.signbit(masked).any()) or bool(masked.any()):
+        raise AssertionError(f"the routed gather {what}: a masked token "
+                             "is not +0.0")
+    if not (torch.equal(local, ref_local) and torch.equal(owned, ref_owned)):
+        raise AssertionError(f"the route-only mode {what} is not bit-exact "
+                             "with the plain route")
+    if not 0 < int(ref_owned.sum()) < ref_owned.numel():
+        raise AssertionError(f"the routed gather {what}: no token owned, "
+                             "or no token masked")
+    errs["K8r"] = err
+
+    ids20 = torch.from_numpy(
+        rng.randint(-5, R + 100, size=(NB, Lk)).astype(np.int32)).to(dev)
+    lens = torch.from_numpy(rng.randint(0, Lk + 1, size=NB)).to(dev)
+    mask = torch.arange(Lk, device=dev)[None, :] < lens[:, None]
+    psw = torch.from_numpy(rng.rand(NB, Lk).astype(np.float32)).to(dev)
+    c20 = torch.where(torch.arange(NB, device=dev)[:, None] % 2 == 0,
+                      mask / lens.clamp(min=1)[:, None],
+                      mask * psw).float().contiguous()
+    flat, cflat = ids20.reshape(-1), c20.reshape(-1)
+    errs["Kq"] = 0.0
+    for bits in (8, 4, 2):
+        if D * bits % 8 or (bits == 2 and D % 4):
+            continue
+        q = quantize_rowwise(w, bits)
+        args = (_placed(q.data, offset), q.scale, q.shift)
+        errs["Kq"] = max(errs["Kq"], _hold(f"Kq at {bits} bits {what}", [
+            (ql.quant_lookup_pooled(*args, ids20, c20, bits),
+             ql.quant_lookup_pooled_reference(*args, ids20, c20, bits)),
+            (ql.quant_lookup_rows(*args, flat, bits, cflat),
+             ql.quant_lookup_rows_reference(*args, flat, bits, cflat)),
+            (ql.quant_lookup_rows(*args, flat, bits),
+             ql.quant_lookup_rows_reference(*args, flat, bits))]))
+    return errs
+
+
+def check_narrow(tl, fk, gr, ql) -> dict:
+    """check_narrow_width and check_narrow_lookups at every width of
+    NARROW_WIDTHS and offset of NARROW_OFFSETS. Returns per kernel the
+    largest difference."""
     rng = np.random.RandomState(SEED + 70)
     out: dict = {}
     for D in NARROW_WIDTHS:
         for offset in NARROW_OFFSETS:
-            for k, err in check_narrow_width(tl, fk, D, offset, rng).items():
+            errs = check_narrow_width(tl, fk, D, offset, rng)
+            errs.update(check_narrow_lookups(gr, ql, D, offset, rng))
+            for k, err in errs.items():
                 out[k] = max(out.get(k, 0.0), err)
     log(f"narrow rows: K1 and K1h (bf16, fp16) bit for bit with their plain "
         f"versions at L=1 and within rtol = atol = 1e-6 at L={NARROW_L} "
         f"(MEAN and per-sample coefficients, padded slots, ids out of "
         f"range); K2, K3, K3h (bf16, fp16, both epilogues), the scaled "
         f"RMW, the fused K4, K4h (bf16, fp16, both epilogues), K6 and K7 "
-        f"bit for bit at every slot count a "
-        f"warp; at D in {NARROW_WIDTHS}, offsets {NARROW_OFFSETS}: largest "
+        f"bit for bit at every slot count a warp; K8, Kq (8, 4, 2 bits; "
+        f"pooled at L={NARROW_L} and unpooled) and the route-only mode bit "
+        f"for bit, the routed gather by value (+0.0 under masked tokens); "
+        f"at D in {NARROW_WIDTHS}, offsets {NARROW_OFFSETS}: largest "
         f"differences {out}")
     return out
 
@@ -7244,19 +7564,22 @@ def check_scaled(fk, W, u_dd, g_dd, scale) -> dict:
     }}
 
 
-def time_narrow(tl, fk, D: int) -> dict:
-    """K1, K1h (bf16), K3, K2 and K4's scaled RMW at width D on
+def time_narrow(tl, fk, gr, ql, D: int) -> dict:
+    """K1, K1h (bf16), K8, the routed gather, Kq (8 and 4 bits;
+    time_lookups), K3, K2 and K4's scaled RMW at width D on
     kaggle_lookup's table and batch (212,992 bags; the same ids as one
     update's 212,992 slots, run totals and dedup output, gradients of
     1e-3): each bit-exact with its plain version and timed beside its
     bound, its plain version and its PyTorch call (F.embedding_bag,
-    index_add_, index_copy_); then the fused K4, K4h, K3h, K6 and K7
-    (time_narrow_updates)."""
+    index_select, the quantized embedding bag, index_add_, index_copy_);
+    then the fused K4, K4h, K3h, K6 and K7 (time_narrow_updates)."""
     from torchrec_tpu_torch.ops import fused_update as fu
 
-    W, ids, coeff, _, _ = kaggle_lookup(D, SEED + 71)
+    W, ids, coeff, local, offs = kaggle_lookup(D, SEED + 71)
     R = W.shape[0]
     out = hold_lookups(tl, W, ids, coeff)
+    out.update(time_lookups(gr, ql, W, ids, coeff, local, offs))
+    gc_cuda()
     flat = ids.reshape(-1)
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(SEED + 72)
@@ -7409,14 +7732,17 @@ def time_narrow_updates(fk, W, u_rt, g_rt, u_dd, g_dd, gen) -> dict:
 
 def narrow_phase() -> dict:
     """Phase 22 (see the module docstring). Returns per kernel (K1, K1h,
-    K2, K3, the scaled RMW, K4, K4h, K6 and K7) this phase's numbers:
+    K2, K3, the scaled RMW, K4, K4h, K6, K7, K8, the routed gather and Kq)
+    this phase's numbers:
     {"narrow": the largest difference over the widths, "narrow_d10" /
     "narrow_d64": the held and timed kernel}."""
     from torchrec_tpu_torch.ops import fused_update_kernels as fk
+    from torchrec_tpu_torch.ops import gather_rows as gr
+    from torchrec_tpu_torch.ops import quant_lookup as ql
     from torchrec_tpu_torch.ops import tbe_lookup as tl
 
     t = time.perf_counter()
-    errs = check_narrow(tl, fk)
+    errs = check_narrow(tl, fk, gr, ql)
     gc_cuda()
     log(f"narrow step 1 (every narrow kernel at every lane group): "
         f"{time.perf_counter() - t:.2f} s")
@@ -7424,7 +7750,7 @@ def narrow_phase() -> dict:
                               "widths": list(NARROW_WIDTHS)}}
                for k, e in errs.items()}
     for D in NARROW_TIMED:
-        for k, v in time_narrow(tl, fk, D).items():
+        for k, v in time_narrow(tl, fk, gr, ql, D).items():
             results[k][f"narrow_d{D}"] = v
         gc_cuda()
     log(f"narrow phase: {time.perf_counter() - t:.2f} s")
@@ -7569,15 +7895,16 @@ def main() -> int:
 
     # every table width: the update kernels at D = 1 to 4096 and on
     # unaligned views, then the Criteo Kaggle DeepFM at D=10 served and
-    # trained on every fused route (K1, K2-K7, K1h, K3h, K4h), its kernels
-    # and lookups held and timed at D=10, the wide rowwise path at D=1030
+    # trained on every fused route (K1, K2-K7, K1h, K3h, K4h) and served
+    # at int8 and int4 (Kq), its kernels and lookups held and timed at
+    # D=10, the wide rowwise path at D=1030
     widths = widths_phase()
     for k, v in widths["launches"].items():
         flat[k] = flat.get(k, 0) + v
 
     # narrow rows: K1, K1h, the row kernel of K2, K3, K3h and the scaled
-    # RMW, the fused K4 / K4h and K6 / K7 held at every lane group and timed
-    # at D=10 and D=64
+    # RMW, the fused K4 / K4h, K6 / K7, K8, the routed gather and Kq held at
+    # every lane group and timed at D=10 and D=64
     narrow = narrow_phase()
     for part in (widths["results"], narrow):
         for k, v in part.items():
@@ -7637,8 +7964,8 @@ def main() -> int:
         f"phases, with K8 and Kq the latter's, K1, K3, K4 and Kq the "
         f"planner phase's, and K1, K2 (staging), K3, K4 and K8 (write-back) "
         f"the UVM phase's, K1, K4, the routed gather and Kq the "
-        f"examples', and K1, K1h, K2-K7, K3h, K4h and the scaled RMW the "
-        f"D={KD_DIM} DeepFM's ({flat}): "
+        f"examples', and K1, K1h, K2-K7, K3h, K4h, the scaled RMW and Kq "
+        f"(its int8 and int4 requests) the D={KD_DIM} DeepFM's ({flat}): "
         f"{launches}")
     log(card["smi"])
     log(json.dumps({"kernels": [{

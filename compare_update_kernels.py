@@ -4,29 +4,34 @@ or the update kernels against their slots per warp.
 Run from the repository root, on a machine with a CUDA card:
 
     python3 compare_update_kernels.py OTHER_CHECKOUT [--dim D ...]
+        [--kernels NAME ...]
     python3 compare_update_kernels.py --sweep [--dim D ...]
 
-The first form builds this checkout's torchrec_tpu_torch/csrc/tbe_lookup.cu
-and fused_update.cu and OTHER_CHECKOUT's (another tree of the repository,
-say a parent commit unpacked with `git archive`). Each build is launched
-through its own tree's wrappers (ops/tbe_lookup.py and
-ops/fused_update_kernels.py, loaded from that tree), so the two may differ
-in their C entry points. For each width D (`--dim`, 128 by default) and
+The first form builds this checkout's torchrec_tpu_torch/csrc/tbe_lookup.cu,
+fused_update.cu, gather_rows.cu and quant_lookup.cu and OTHER_CHECKOUT's
+(another tree of the repository, say a parent commit unpacked with `git
+archive`). Each build is launched through its own tree's wrappers
+(ops/tbe_lookup.py, ops/fused_update_kernels.py, ops/gather_rows.py and
+ops/quant_lookup.py, loaded from that tree), so the two may differ in
+their C entry points (a tree older than the lookups' lane groups passes
+no G). For each width D (`--dim`, 128 by default) and
 each table set, `dlrm`, the DLRM's training shape (26 tables of 100,000
 rows, one B=8192 batch of one uniform id per table: 212,992 bags and
 slots), and `kaggle`, the D=10 DeepFM's and the Criteo Kaggle DLRM's (the
 26 Criteo Kaggle tables of chip_smoke.kaggle_lookup, 33,762,577 rows, one
-B=8192 batch: 212,992 slots, about 94,000 distinct rows), it runs K1 and
-K1h (bf16) over the batch, then K2, K3, K4's scaled RMW, the fused K4,
-K5, K6, K7, K3h (bf16 and fp16) and K4h (bf16) on its run totals and
-dedup output. The state a kernel updates is made for it and updated in
+B=8192 batch: 212,992 slots, about 94,000 distinct rows), it runs K1,
+K1h (bf16), K8, the routed gather (a rank owning every row, one token a
+feature and example) and Kq (the table quantized to 8 and to 4 bits) over
+the batch, then K2, K3, K4's scaled RMW, the fused K4, K5, K6, K7, K3h
+(bf16 and fp16) and K4h (bf16) on its run totals and dedup output. The state a kernel updates is made for it and updated in
 place, so that K7's three tables fit on the card at the Kaggle tables'
 33.7 M rows: each
 build's run starts from the same rows (the held rows are saved and put
 back), and the two builds are held bit for bit on every row of the
 DLRM's tables and, on the Kaggle tables, which leave no room for copies,
 on the rows a kernel updates and chip_smoke.row_sample's seeded rows
-(4,096, and 4,096 more past element 2^31 at D=64). Then each build
+(4,096, and 4,096 more past element 2^31 at D=64); the lookups on what
+they return. Then each build
 is timed in turns (other, this, this, other; the device time of
 torch.profiler through chip_smoke.device_ms) and printed beside the
 kernel's bound, with the card's name and power limit. An OTHER_CHECKOUT
@@ -56,14 +61,21 @@ import torch
 import chip_smoke as cs
 from torchrec_tpu_torch.ops import fused_update as fu
 from torchrec_tpu_torch.ops import fused_update_kernels as fk
+from torchrec_tpu_torch.ops import gather_rows as gr
+from torchrec_tpu_torch.ops import quant_lookup as ql
 from torchrec_tpu_torch.ops import tbe_lookup as tl
 from torchrec_tpu_torch.ops.cuda_build import CudaLibrary
+from torchrec_tpu_torch.ops.quant import quantize_rowwise
 
 TABLES, ROWS, BATCH, LR = 26, 100_000, 8192, 0.1
 DEVICE = "cuda"
 # wrapper module -> its kernel source
 WRAPPERS = {"fused_update_kernels": "fused_update.cu",
-            "tbe_lookup": "tbe_lookup.cu"}
+            "tbe_lookup": "tbe_lookup.cu", "gather_rows": "gather_rows.cu",
+            "quant_lookup": "quant_lookup.cu"}
+# this tree's wrapper modules, by the names of WRAPPERS
+THIS = {"fused_update_kernels": fk, "tbe_lookup": tl, "gather_rows": gr,
+        "quant_lookup": ql}
 # table set -> kaggle_lookup's tables (True) or the DLRM's (False)
 TABLE_SETS = {"dlrm": False, "kaggle": True}
 # the kernel each sweep case launches, by its geometry's name
@@ -100,15 +112,19 @@ def inputs(D: int, kaggle: bool = False) -> dict:
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(cs.SEED)
     if kaggle:
-        W, ids, _, _, _ = cs.kaggle_lookup(D, cs.SEED + 71)
+        W, ids, _, local, offs = cs.kaggle_lookup(D, cs.SEED + 71)
         flat = ids.reshape(-1)
+        cards = cs.kd_cards()
     else:
         W = torch.randn((TABLES * ROWS, D), generator=gen,
                         device=DEVICE) * 0.1
         rng = np.random.RandomState(cs.SEED)
-        flat = np.concatenate([rng.randint(0, ROWS, BATCH) + t * ROWS
-                               for t in range(TABLES)]).astype(np.int32)
-        flat = torch.from_numpy(flat).to(DEVICE)
+        local = np.stack([rng.randint(0, ROWS, BATCH)
+                          for _ in range(TABLES)]).astype(np.int32)
+        offs = np.arange(TABLES, dtype=np.int64) * ROWS
+        flat = torch.from_numpy(
+            (local + offs[:, None]).reshape(-1).astype(np.int32)).to(DEVICE)
+        cards = (ROWS,) * TABLES
     R = W.shape[0]
     grads = torch.randn((flat.numel(), D), generator=gen, device=DEVICE)
     grads *= 1e-3
@@ -119,7 +135,14 @@ def inputs(D: int, kaggle: bool = False) -> dict:
     rows = W[u_rt.clamp(max=R - 1).long()] - LR * g_rt
     scale = torch.rand(u_dd.numel(), generator=gen, device=DEVICE) * -1e-3
     ids = flat[:, None].contiguous()
-    return {"W": W, "gen": gen, "ids": ids, "kaggle": kaggle,
+    # the routed gather's batch: one token a feature and example, on a rank
+    # that owns every row of every table
+    F_, B_ = local.shape
+    route = (torch.from_numpy(local.reshape(F_, B_, 1)).to(DEVICE),
+             torch.ones((F_, B_), dtype=torch.int32, device=DEVICE),
+             torch.tensor(cards, dtype=torch.int32, device=DEVICE),
+             torch.from_numpy(offs.astype(np.int32)).to(DEVICE), 0)
+    return {"W": W, "gen": gen, "ids": ids, "kaggle": kaggle, "route": route,
             "u_rt": u_rt, "g_rt": g_rt, "u_dd": u_dd, "g_dd": g_dd,
             "rows": rows, "scale": scale,
             "step": torch.full((), 6, dtype=torch.int32, device=DEVICE),
@@ -130,11 +153,13 @@ def inputs(D: int, kaggle: bool = False) -> dict:
 def make_state(x: dict, name: str) -> torch.Tensor:
     """A state tensor a kernel updates: the table (W), a bf16 copy of it
     (Wh), an fp16 copy (Wf), the rowwise momentum (M) or a full momentum
-    (M1, M2)."""
+    (M1, M2); or the table quantized to 8 or 4 bits (Q8, Q4), Kq's."""
     W, gen = x["W"], x["gen"]
     R, D = W.shape
     if name == "W":
         return W
+    if name in ("Q8", "Q4"):
+        return quantize_rowwise(W, int(name[1]))
     if name == "Wh":
         return W.to(torch.bfloat16)
     if name == "Wf":
@@ -172,8 +197,36 @@ def cases(x: dict) -> dict:
     def lookup_ms(w, *_):
         return cs.bound(w, ids, coeff)["ms"]
 
+    flat = ids.reshape(-1)
+    route = x["route"]
+
+    def gather_ms(*_):
+        return cs.gather_bound(int(flat.numel()),
+                               int(torch.unique(flat).numel()), D)["ms"]
+
+    def routed_ms(*_):
+        loc, own = gr.route_tokens_reference(*route)
+        return cs.routed_bound(route[0], route[1], loc, own, D)["ms"]
+
+    def kq_ms(q):
+        return cs.quant_bound(q.bits, D, ids, coeff)["ms"]
+
     F = "fused_update_kernels"
     return {
+        "K8": (("W",), lambda m, w: m["gather_rows"].gather_rows_forward(
+            w, flat), lambda w: gr.gather_rows_reference(w, flat),
+            cs.K8_KERNELS, None, gather_ms),
+        "K8 routed": (("W",), lambda m, w: m["gather_rows"].routed_gather_rows(
+            w, *route), lambda w: gr.routed_gather_rows_reference(w, *route),
+            cs.ROUTED_KERNELS, None, routed_ms),
+        **{f"Kq int{bits}": ((f"Q{bits}",), lambda m, q:
+                              m["quant_lookup"].quant_lookup_pooled(
+                                  q.data, q.scale, q.shift, ids, coeff,
+                                  q.bits),
+                              lambda q: ql.quant_lookup_pooled_reference(
+                                  q.data, q.scale, q.shift, ids, coeff,
+                                  q.bits), cs.KQ_KERNELS, None, kq_ms)
+           for bits in (8, 4)},
         "K1": (("W",), lambda m, w: m["tbe_lookup"].tbe_lookup_pooled(
             w, ids, coeff),
             lambda w: tl.tbe_lookup_pooled_reference(w, ids, coeff),
@@ -255,12 +308,14 @@ def rows_after(state: list, ids: torch.Tensor, fn) -> list:
     return out
 
 
-def compare(other: dict, x: dict, D: int) -> dict:
-    """Every kernel of `cases` on both builds: held bit for bit, then timed
-    in turns."""
-    this = {"fused_update_kernels": fk, "tbe_lookup": tl}
+def compare(other: dict, x: dict, D: int, only=None) -> dict:
+    """Every kernel of `cases` (those named in `only`, when given) on both
+    builds: held bit for bit, then timed in turns."""
+    this = THIS
     out = {}
     for name, (state_names, call, _, kernel, form, bound) in cases(x).items():
+        if only and name not in only:
+            continue
         state = [make_state(x, n) for n in state_names]
         got = {}
         for tag, mods in (("other", other), ("this", this)):
@@ -352,6 +407,8 @@ def main() -> int:
     p.add_argument("--sweep", action="store_true",
                    help="time the update kernels against their slots per "
                         "warp")
+    p.add_argument("--kernels", nargs="+",
+                   help="compare only these kernels (names as printed)")
     args = p.parse_args()
     if (args.other is None) == (not args.sweep):
         p.error("give OTHER_CHECKOUT or --sweep, not both")
@@ -362,7 +419,7 @@ def main() -> int:
         cs.build_kernels([fk.LIBRARY])
     else:
         other = load_wrappers(Path(args.other))
-        cs.build_kernels([fk.LIBRARY, tl.LIBRARY]
+        cs.build_kernels([m.LIBRARY for m in THIS.values()]
                          + [m.LIBRARY for m in other.values()])
     out = {}
     for tables, kaggle in TABLE_SETS.items():
@@ -371,7 +428,7 @@ def main() -> int:
             if args.sweep:
                 out[f"{tables} D={D}"] = sweep(x, D, f"{tables} tables")
             else:
-                out[f"{tables} D={D}"] = compare(other, x, D)
+                out[f"{tables} D={D}"] = compare(other, x, D, args.kernels)
             del x
             torch.cuda.empty_cache()
     cs.log(card["smi"])

@@ -4,7 +4,10 @@ Counterpart of `gather_rows` in torchrec_tpu/ops/pallas_embedding.py
 (:91-146, the Pallas body `_gather_kernel` at :70). The CUDA source is
 csrc/gather_rows.cu; it is compiled with `nvcc` for sm_90a into a shared
 library with a plain C interface on first use and bound with `ctypes`
-(ops/cuda_build.py).
+(ops/cuda_build.py). A row takes `lanes_per_row(D)` lanes
+(ops/lane_groups.py), passed to the launch: at D <= 64 a warp copies
+several rows, one per lane group; wider rows take a warp each. The routed
+gather takes the same lanes a token, its route-only mode one thread.
 
 `gather_rows` is a `torch.autograd.Function`. Its forward launches the
 kernel for CUDA tensors and takes the plain PyTorch version,
@@ -39,17 +42,18 @@ from typing import Optional, Tuple
 import torch
 
 from torchrec_tpu_torch.ops.cuda_build import CudaLibrary
+from torchrec_tpu_torch.ops.lane_groups import lanes_per_row
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.trt_gather_rows_f32
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3 + [
-        ctypes.c_void_p
+        ctypes.c_int, ctypes.c_void_p
     ]
     fn.restype = ctypes.c_int
     fn = lib.trt_routed_gather_rows_f32
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 6 + [
-        ctypes.c_void_p
+        ctypes.c_int, ctypes.c_void_p
     ]
     fn.restype = ctypes.c_int
 
@@ -117,7 +121,7 @@ def gather_rows_forward(
     with torch.cuda.device(weights.device):
         err = lib.trt_gather_rows_f32(
             weights.data_ptr(), flat_ids.data_ptr(), out.data_ptr(), R, D, N,
-            stream,
+            lanes_per_row(D), stream,
         )
     LIBRARY.check("gather_rows", err)
     LAUNCHES += 1
@@ -240,7 +244,8 @@ def _launch_routed(weights: Optional[torch.Tensor], ids, lengths,
         None if out is None else out.data_ptr(),
         None if local is None else local.data_ptr(),
         None if owned is None else owned.data_ptr(),
-        R, D, F, B, L, rank, stream,
+        R, D, F, B, L, rank, 1 if weights is None else lanes_per_row(D),
+        stream,
     )
     if dev.index == torch.cuda.current_device():
         err = _routed_fn(*args)

@@ -5,7 +5,9 @@ gather, unpack, dequantize and pooling of `dequantize_rows` and
 `quant_embedding_bag_lookup` (torchrec_tpu/ops/quant.py:68-109), the hot
 sparse operation of every quantized request. The CUDA source is
 csrc/quant_lookup.cu, compiled with `nvcc` for sm_90a on first use and
-bound with `ctypes` (ops/cuda_build.py).
+bound with `ctypes` (ops/cuda_build.py). A row takes `lanes_per_row(D)`
+lanes (ops/lane_groups.py), passed to the launch: at D <= 64 a warp pools
+several bags, one per lane group; wider rows take a warp each.
 
 Two wrappers, each with its own launch counter:
 
@@ -29,16 +31,17 @@ from typing import Optional
 import torch
 
 from torchrec_tpu_torch.ops.cuda_build import CudaLibrary
+from torchrec_tpu_torch.ops.lane_groups import lanes_per_row
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.trt_quant_lookup_pooled
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 4 + [
-        ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fn = lib.trt_quant_lookup_rows
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 3 + [
-        ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
 
@@ -159,7 +162,7 @@ def quant_lookup_pooled(data: torch.Tensor, scale: torch.Tensor,
         err = lib.trt_quant_lookup_pooled(
             data.data_ptr(), scale.data_ptr(), shift.data_ptr(),
             flat_ids.data_ptr(), coeff.data_ptr(), out.data_ptr(), R, D, NB,
-            L, bits, stream)
+            L, bits, lanes_per_row(D), stream)
     LIBRARY.check("quant_lookup_pooled", err)
     LAUNCHES += 1
     return out
@@ -189,7 +192,7 @@ def quant_lookup_rows(data: torch.Tensor, scale: torch.Tensor,
         err = lib.trt_quant_lookup_rows(
             data.data_ptr(), scale.data_ptr(), shift.data_ptr(),
             ids.data_ptr(), None if coeff is None else coeff.data_ptr(),
-            out.data_ptr(), R, D, N, bits, stream)
+            out.data_ptr(), R, D, N, bits, lanes_per_row(D), stream)
     LIBRARY.check("quant_lookup_rows", err)
     ROWS_LAUNCHES += 1
     return out
