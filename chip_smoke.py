@@ -644,32 +644,28 @@ def expected(**launches) -> dict:
     return {k: launches.get(k, 0) for k in (*KERNELS, SCALED, ROUTE, QROWS)}
 
 
-def _counted():
-    from torchrec_tpu_torch.ops import fused_update_kernels as fk
-    from torchrec_tpu_torch.ops import gather_rows as gr
-    from torchrec_tpu_torch.ops import quant_lookup as ql
-    from torchrec_tpu_torch.ops import tbe_lookup as tl
-
-    return tl, fk, gr, ql
+# the registry's counter (utils/tracing.py) of each kernel of KERNELS whose
+# counter has another name than its wrapper
+COUNTERS = {"K1": "tbe_lookup", "K1h": "tbe_lookup_half", "Kq": "quant_lookup"}
+_counted_from: dict = {}
 
 
 def counts() -> dict:
-    """Launches per kernel so far."""
-    tl, fk, gr, ql = _counted()
-    return {"K1": tl.LAUNCHES, "K1h": tl.HALF_LAUNCHES, "K8": gr.LAUNCHES,
-            "K8r": gr.ROUTED_LAUNCHES, ROUTE: gr.ROUTE_LAUNCHES,
-            SCALED: fk.LAUNCHES[SCALED], "Kq": ql.LAUNCHES,
-            QROWS: ql.ROWS_LAUNCHES,
-            **{k: fk.LAUNCHES[name] for k, (name, _, _) in KERNELS.items()
-               if k not in ("K1", "K1h", "K8", "K8r", "Kq")}}
+    """Launches per kernel since the last `reset_counts`."""
+    from torchrec_tpu_torch.utils import tracing
+
+    now = tracing.counts()
+    names = {k: COUNTERS.get(k, name) for k, (name, _, _) in KERNELS.items()}
+    names.update({c: c for c in (SCALED, ROUTE, QROWS)})
+    return {k: now.get(n, 0) - _counted_from.get(n, 0)
+            for k, n in names.items()}
 
 
 def reset_counts() -> None:
-    tl, fk, gr, ql = _counted()
-    tl.LAUNCHES = tl.HALF_LAUNCHES = 0
-    gr.LAUNCHES = gr.ROUTED_LAUNCHES = gr.ROUTE_LAUNCHES = 0
-    ql.LAUNCHES = ql.ROWS_LAUNCHES = 0
-    fk.reset_launches()
+    from torchrec_tpu_torch.utils import tracing
+
+    _counted_from.clear()
+    _counted_from.update(tracing.counts())
 
 
 def make_dmp(device: str, train: bool = False, optim=None,
@@ -3962,13 +3958,16 @@ def step_calls(groups) -> tuple:
 
 
 def comm_calls() -> dict:
-    from torchrec_tpu_torch.parallel import comm
+    """Calls per collective so far (`comm.<name>` in the registry)."""
+    from torchrec_tpu_torch.utils import tracing
 
-    return dict(comm.CALLS)
+    return {k[len("comm."):]: v for k, v in tracing.counts().items()
+            if k.startswith("comm.")}
 
 
 def _moved(after: dict, before: dict) -> dict:
-    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    return {k: after[k] - before.get(k, 0) for k in after
+            if after[k] != before.get(k, 0)}
 
 
 @contextlib.contextmanager

@@ -34,6 +34,7 @@ import torch
 import chip_smoke as cs
 from torchrec_tpu_torch.ops import fused_update as fu
 from torchrec_tpu_torch.ops import fused_update_kernels as fk
+from torchrec_tpu_torch.utils import tracing
 
 def launch(lib, W, M, u, g, lr, slots, wd=0.0) -> None:
     """The fused kernel with its geometry's lanes per row and a given
@@ -57,12 +58,14 @@ def check_widths(gen, rng) -> None:
         valid = torch.from_numpy(rng.rand(N) > 0.1)
         u, gd = fu.dedup_row_grads(ids.cuda(), g, valid.cuda(), R)
         for wd in (0.0, 0.01):
-            fk.reset_launches()
+            before = tracing.counts()
             W1, W2, M1, M2 = W.clone(), W.clone(), M.clone(), M.clone()
             fk.fused_update_rowwise_adagrad(W1, M1, u, gd, 0.1,
                                             weight_decay=wd,
                                             momentum_stream=True)
-            launched = {k: v for k, v in fk.LAUNCHES.items() if v}
+            launched = {k: v - before.get(k, 0)
+                        for k, v in tracing.counts().items()
+                        if v != before.get(k, 0)}
             fk.fused_update_rowwise_adagrad_reference(
                 W2, M2, u, gd, 0.1, weight_decay=wd, momentum_stream=True)
             cs._hold(f"D={D} wd={wd}", [(W1, W2), (M1, M2)])

@@ -53,9 +53,6 @@ from torchrec_tpu_torch.models import (
 )
 from torchrec_tpu_torch.models.bert4rec import Dense, LayerNorm
 from torchrec_tpu_torch.modules import EmbeddingCollection, EmbeddingConfig
-from torchrec_tpu_torch.ops import fused_update_kernels as fk
-from torchrec_tpu_torch.ops import gather_rows as gr
-from torchrec_tpu_torch.ops import tbe_lookup as tl
 from torchrec_tpu_torch.ops.fused_update import EmbOptimType
 from torchrec_tpu_torch.parallel import (
     DistributedModelParallel,
@@ -66,6 +63,7 @@ from torchrec_tpu_torch.parallel import (
     ShardingType,
 )
 from torchrec_tpu_torch.sparse import KeyedJaggedTensor
+from torchrec_tpu_torch.utils import tracing
 from torchrec_tpu_torch.utils.jax_bridge import (
     flax_dense_to_state_dict,
     fused_optimizer_state,
@@ -79,10 +77,6 @@ KEY = "model/ec"  # the flax field path and the port's module path alike
 FUSED_LR, DENSE_LR, STEPS, START_STEP = 0.1, 0.05, 3, 5
 TIGHT = dict(rtol=1e-6, atol=1e-6)
 MODEL = dict(rtol=1e-4, atol=1e-5)
-
-
-def _launches():
-    return tl.LAUNCHES, gr.LAUNCHES, dict(fk.LAUNCHES)
 
 
 def _batch(seed, all_pad_row=False):
@@ -155,7 +149,7 @@ def test_unsharded_ec_and_its_gradient_match_jax():
     ec = EmbeddingCollection([EmbeddingConfig(**t) for t in _ec_tables()],
                              max_feature_length=L, device="cpu")
     load_flax_params(ec, tables)
-    launches = _launches()
+    launches = tracing.counts()
     out = ec(KeyedJaggedTensor.from_lengths(keys, values, lengths))
     assert out.keys() == jout.keys()
     assert sorted(out) == ["a@t0", "a@t1", "b", "c"]
@@ -164,7 +158,7 @@ def test_unsharded_ec_and_its_gradient_match_jax():
         np.testing.assert_array_equal(out[n].detach().numpy(),
                                       np.asarray(jout[n]))
     sum((out[n] * torch.as_tensor(cot[n])).sum() for n in out).backward()
-    assert _launches() == launches  # CPU tensors: plain versions only
+    assert tracing.counts() == launches  # CPU tensors: plain versions only
     for name, p in ec.embeddings.items():
         np.testing.assert_allclose(p.grad.numpy(), np.asarray(jgrad[name]),
                                    **TIGHT)
@@ -348,9 +342,9 @@ def test_dmp_eval_matches_jax():
     ids, labels = _batch(7, all_pad_row=True)
     jloss, (_, jlogits) = jdmp.make_eval_fn()(state, _jsb(ids),
                                               jnp.asarray(labels))
-    launches = _launches()
+    launches = tracing.counts()
     loss, (_, logits) = dmp.make_eval_fn()(_kjt(ids), torch.as_tensor(labels))
-    assert _launches() == launches
+    assert tracing.counts() == launches
     assert logits.shape == (B, L, V)
     np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **MODEL)
     np.testing.assert_allclose(float(loss), float(jloss), **MODEL)
@@ -372,7 +366,7 @@ def _check_train_steps(optim, dropout):
     jdmp, state, dmp = _bridged(optim, seed=8, dropout=dropout)
     jstep, step = jdmp.make_train_step(), dmp.make_train_step()
     start = dmp.sharded_ebcs[KEY].unshard_to_dense()["item_embedding"]
-    launches = _launches()
+    launches = tracing.counts()
     touched = np.zeros(V, bool)
     for s in range(STEPS):
         ids, labels = _batch(20 + s)
@@ -381,7 +375,7 @@ def _check_train_steps(optim, dropout):
         loss, (_, logits) = step(_kjt(ids), torch.as_tensor(labels))
         assert not loss.requires_grad and logits.shape == (B, L, V)
         np.testing.assert_allclose(float(loss), float(jloss), **MODEL)
-    assert _launches() == launches  # plain versions only
+    assert tracing.counts() == launches  # plain versions only
     assert dmp.step == STEPS
 
     jdense = flax_dense_to_state_dict(

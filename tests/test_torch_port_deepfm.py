@@ -66,8 +66,6 @@ from torchrec_tpu_torch.modules import (
     VectorCrossNet,
 )
 from torchrec_tpu_torch.modules import utils as tutils
-from torchrec_tpu_torch.ops import fused_update_kernels as fk
-from torchrec_tpu_torch.ops import tbe_lookup as tl
 from torchrec_tpu_torch.ops.fused_update import EmbOptimType
 from torchrec_tpu_torch.optim import (
     CombinedOptimizer,
@@ -88,6 +86,7 @@ from torchrec_tpu_torch.parallel import (
     ShardingType,
 )
 from torchrec_tpu_torch.sparse import KeyedJaggedTensor
+from torchrec_tpu_torch.utils import tracing
 from torchrec_tpu_torch.utils.jax_bridge import (
     flax_dense_to_state_dict,
     fused_optimizer_state,
@@ -554,11 +553,11 @@ def test_dmp_eval_matches_jax():
     jloss, (_, jp) = jdmp.make_eval_fn()(state, jnp.asarray(dense),
                                          _jsb(ids, lengths),
                                          jnp.asarray(labels))
-    launches = (tl.LAUNCHES, dict(fk.LAUNCHES))
+    launches = tracing.counts()
     loss, (_, p) = dmp.make_eval_fn()(torch.as_tensor(dense),
                                       _kjt(ids, lengths),
                                       torch.as_tensor(labels))
-    assert (tl.LAUNCHES, fk.LAUNCHES) == launches  # plain versions only
+    assert tracing.counts() == launches  # plain versions only
     assert p.shape == (B,) and ((p >= 0) & (p <= 1)).all()
     np.testing.assert_allclose(p.numpy(), np.asarray(jp), **MODEL)
     np.testing.assert_allclose(float(loss), float(jloss), **MODEL)
@@ -573,7 +572,7 @@ def test_dmp_train_steps_match_jax(optim, clipping):
     jsched = jmake_warmup_schedule(_jstages(), FUSED_LR)
     start = dmp.sharded_ebcs[PORT_KEY].unshard_to_dense()
     touched = {f"t{i}": np.zeros(r, bool) for i, r in enumerate(ROWS)}
-    launches = (tl.LAUNCHES, dict(fk.LAUNCHES))
+    launches = tracing.counts()
     engaged = 0
     for s in range(STEPS):
         ids, lengths, dense, labels = _request(20 + s)
@@ -590,7 +589,7 @@ def test_dmp_train_steps_match_jax(optim, clipping):
         np.testing.assert_allclose(float(loss), float(jloss), **MODEL)
         if clipping == "NORM":
             engaged += float(dmp.dense_optimizer.inner.last_norm) >= CLIP
-    assert (tl.LAUNCHES, fk.LAUNCHES) == launches
+    assert tracing.counts() == launches
     assert dmp.step == START + STEPS == int(state.step)
     assert dmp.dense_optimizer.count == START + STEPS
     if clipping == "NORM":

@@ -31,7 +31,6 @@ from torchrec_tpu_torch.modules import (
     EmbeddingBagConfig,
     PoolingType,
 )
-from torchrec_tpu_torch.ops import tbe_lookup as tl
 from torchrec_tpu_torch.parallel import (
     DistributedModelParallel,
     ParameterSharding,
@@ -40,6 +39,7 @@ from torchrec_tpu_torch.parallel import (
 )
 from torchrec_tpu_torch.parallel.strategies import ROW_TILE
 from torchrec_tpu_torch.sparse import KeyedJaggedTensor
+from torchrec_tpu_torch.utils import tracing
 from torchrec_tpu_torch.utils.jax_bridge import load_jax_weights
 
 D, DENSE_IN, B = 16, 5, 32
@@ -115,10 +115,10 @@ def test_dlrm_eval_forward_matches_jax(L, mean):
                      jtables)
     kjt = KeyedJaggedTensor.from_lengths(
         [f"f{i}" for i in range(len(ROWS))], ids, lengths)
-    launches = tl.LAUNCHES
+    launches = tracing.counts()
     loss, (_, logits, _) = dmp.make_eval_fn()(
         torch.as_tensor(dense), kjt, torch.as_tensor(labels))
-    assert tl.LAUNCHES == launches
+    assert tracing.counts() == launches
     assert logits.dtype == torch.float32 and logits.shape == (B,)
     np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
                                rtol=1e-4, atol=1e-5)

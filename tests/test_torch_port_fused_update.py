@@ -30,6 +30,7 @@ from torchrec_tpu.ops import fused_update as jfu
 from torchrec_tpu.ops import pallas_embedding as pe
 from torchrec_tpu_torch.ops import fused_update as tfu
 from torchrec_tpu_torch.ops import fused_update_kernels as fk
+from torchrec_tpu_torch.utils import tracing
 
 R, D = 500, 128
 LR = 0.05
@@ -53,10 +54,6 @@ def _raw_batch(n=300, seed=1, dim=D):
     return ids, grads, valid
 
 
-def _unchanged_launches():
-    return dict(fk.LAUNCHES)
-
-
 def test_k2_scatter_rows_write_matches_pallas():
     rng = np.random.RandomState(2)
     w = _weights()
@@ -69,10 +66,10 @@ def test_k2_scatter_rows_write_matches_pallas():
     ref = np.asarray(pe.scatter_rows_write(
         jnp.asarray(w), jnp.asarray(uids), jnp.asarray(rows),
         interpret=True))
-    before = _unchanged_launches()
+    before = tracing.counts()
     W = _t(w)
     out = fk.scatter_rows_write(W, _t(uids), _t(rows))
-    assert out is W and fk.LAUNCHES == before  # in place, plain version
+    assert out is W and tracing.counts() == before  # in place, plain version
     np.testing.assert_array_equal(out.numpy(), ref)
 
 
@@ -148,12 +145,12 @@ def test_k4_rowwise_adagrad_matches_pallas(stream, w_impl, dim, wd):
         jnp.asarray(w), jnp.asarray(m), jnp.asarray(uids), jnp.asarray(sums),
         LR, weight_decay=wd, momentum_stream=stream, w_impl=w_impl,
         interpret=True)
-    before = _unchanged_launches()
+    before = tracing.counts()
     W, M = _t(w), _t(m)
     out_w, out_m = fk.fused_update_rowwise_adagrad(
         W, M, _t(uids), _t(sums), LR, weight_decay=wd,
         momentum_stream=stream, w_impl=w_impl)
-    assert out_w is W and out_m is M and fk.LAUNCHES == before
+    assert out_w is W and out_m is M and tracing.counts() == before
     np.testing.assert_allclose(out_w.numpy(), np.asarray(ref_w), rtol=1e-5,
                                atol=1e-6)
     np.testing.assert_allclose(out_m.numpy(), np.asarray(ref_m), rtol=1e-6)
@@ -215,11 +212,11 @@ def test_k5_rowwise_momentum_stream_matches_pallas(dups):
         jnp.asarray(m0), jnp.asarray(uids), jnp.asarray(gsq), eps=1e-8,
         interpret=True)
     assert not bool(ovf)
-    before = _unchanged_launches()
+    before = tracing.counts()
     M = _t(m0)
     out_m, inv, overflowed = fk.rowwise_momentum_stream(
         M, _t(uids), _t(gsq), eps=1e-8)
-    assert out_m is M and fk.LAUNCHES == before
+    assert out_m is M and tracing.counts() == before
     assert overflowed.dtype == torch.bool and not bool(overflowed)
     np.testing.assert_allclose(out_m.numpy(), np.asarray(ref_m), rtol=1e-6)
     np.testing.assert_allclose(inv.numpy(), np.asarray(ref_inv), rtol=1e-6)
@@ -351,11 +348,11 @@ def test_k6_fused_update_adagrad_matches_pallas(wd):
     ref_w, ref_m = pe.fused_update_adagrad(
         jnp.asarray(w), jnp.asarray(m), jnp.asarray(uids),
         jnp.asarray(totals), LR, weight_decay=wd, interpret=True)
-    before = _unchanged_launches()
+    before = tracing.counts()
     W, M = _t(w), _t(m)
     out_w, out_m = fk.fused_update_adagrad(W, M, _t(uids), _t(totals), LR,
                                            weight_decay=wd)
-    assert out_w is W and out_m is M and fk.LAUNCHES == before
+    assert out_w is W and out_m is M and tracing.counts() == before
     np.testing.assert_allclose(out_w.numpy(), np.asarray(ref_w), rtol=1e-5,
                                atol=1e-6)
     np.testing.assert_allclose(out_m.numpy(), np.asarray(ref_m), rtol=1e-6,
@@ -375,13 +372,13 @@ def test_k7_fused_update_adam_matches_pallas(wd):
         jnp.asarray(w), jnp.asarray(m1), jnp.asarray(m2), jnp.asarray(uids),
         jnp.asarray(totals), LR, jnp.asarray(step, jnp.int32),
         weight_decay=wd, interpret=True)
-    before = _unchanged_launches()
+    before = tracing.counts()
     W, M1, M2 = _t(w), _t(m1), _t(m2)
     out = fk.fused_update_adam(W, M1, M2, _t(uids), _t(totals), LR,
                                torch.tensor(step, dtype=torch.int32),
                                weight_decay=wd)
     assert out[0] is W and out[1] is M1 and out[2] is M2
-    assert fk.LAUNCHES == before
+    assert tracing.counts() == before
     np.testing.assert_allclose(W.numpy(), np.asarray(ref_w), rtol=1e-5,
                                atol=1e-6)
     for got, ref in ((M1, ref_m1), (M2, ref_m2)):
@@ -471,12 +468,12 @@ def test_apply_fused_update_full_state_matches_jax(optim, wd):
     ref_w, ref_opt = jfu.apply_fused_update(
         jnp.asarray(w), jopt, jnp.asarray(ids), jnp.asarray(grads),
         jnp.asarray(valid), 0.1, weight_decay=wd)
-    before = _unchanged_launches()
+    before = tracing.counts()
     W = _t(w)
     out_w, out_opt = tfu.apply_fused_update(
         W, topt, _t(ids), _t(grads), _t(valid), 0.1, weight_decay=wd)
     assert out_w is W and out_opt is topt and int(topt.step) == 5
-    assert fk.LAUNCHES == before
+    assert tracing.counts() == before
     rtol, atol = NEW_OPTIMS[optim]
     np.testing.assert_allclose(out_w.numpy(), np.asarray(ref_w), rtol=rtol,
                                atol=atol)

@@ -44,13 +44,10 @@ from torchrec_tpu_torch.ops import embedding as temb
 from torchrec_tpu_torch.ops import gather_rows as gr
 from torchrec_tpu_torch.ops import tbe_lookup as tl
 from torchrec_tpu_torch.sparse import KeyedJaggedTensor
+from torchrec_tpu_torch.utils import tracing
 
 R = 60
 GRAD_TOL = dict(rtol=1e-6, atol=1e-6)
-
-
-def _launches():
-    return tl.LAUNCHES, gr.LAUNCHES
 
 
 def _ids(rng, shape, lo=-R - 3, hi=R + 7):
@@ -65,9 +62,9 @@ def test_k8_matches_pallas_interpret(N, T, D):
     rng = np.random.RandomState(N + D)
     w = rng.randn(R, D).astype(np.float32)
     ids = _ids(rng, (N,))
-    launches = _launches()
+    launches = tracing.counts()
     out = gr.gather_rows(torch.as_tensor(w), torch.as_tensor(ids))
-    assert _launches() == launches  # CPU tensors take the plain version
+    assert tracing.counts() == launches  # CPU tensors take the plain version
     assert out.shape == (N, D) and out.dtype == torch.float32
     if N:
         ref = np.asarray(pe.gather_rows(jnp.asarray(w), jnp.asarray(ids), T,
@@ -150,11 +147,11 @@ def test_k1_gradient_matches_jax_vjp(L, kind):
 
     tw = torch.tensor(w, requires_grad=True)
     tc = torch.tensor(coeff, requires_grad=True)
-    launches = _launches()
+    launches = tracing.counts()
     out = tl.tbe_lookup_pooled(tw, torch.as_tensor(ids), tc)
     assert out.grad_fn is not None
     out.backward(torch.as_tensor(d_out))
-    assert _launches() == launches
+    assert tracing.counts() == launches
     np.testing.assert_allclose(tw.grad.numpy(), np.asarray(jd_w), **GRAD_TOL)
     np.testing.assert_allclose(tc.grad.numpy(), np.asarray(jd_coeff),
                                **GRAD_TOL)
@@ -332,7 +329,7 @@ def test_routed_gather_matches_jax_route_and_pallas_gather(my):
     assert ((ids < 0) & (np.arange(L) < lengths[..., None])).any()
 
     args = _port_route_args(strat, ids, lengths, my)
-    launches = (gr.LAUNCHES, gr.ROUTED_LAUNCHES, gr.ROUTE_LAUNCHES)
+    launches = tracing.counts()
     tw = torch.as_tensor(w)
     for out in (gr.routed_gather_rows_reference(tw, *args),
                 gr.routed_gather_rows(tw, *args)):
@@ -344,7 +341,7 @@ def test_routed_gather_matches_jax_route_and_pallas_gather(my):
         np.testing.assert_array_equal(t_local.numpy(), local)
         np.testing.assert_array_equal(t_owned.numpy(), owned)
     # CPU tensors take the plain versions
-    assert (gr.LAUNCHES, gr.ROUTED_LAUNCHES, gr.ROUTE_LAUNCHES) == launches
+    assert tracing.counts() == launches
 
 
 def test_routed_gather_gives_zeros_under_a_non_finite_masked_row():

@@ -39,6 +39,7 @@ from torchrec_tpu_torch.modules.embedding_configs import DataType
 from torchrec_tpu_torch.ops import fused_update as tfu
 from torchrec_tpu_torch.parallel.types import ComputeKernel
 from torchrec_tpu_torch.sparse import KeyedJaggedTensor
+from torchrec_tpu_torch.utils import tracing
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "torchrec_tpu")
@@ -470,7 +471,7 @@ def test_routed_gather_raises_on_a_cuda_tensor_without_a_card(wrapper):
 
     from torchrec_tpu_torch.ops import gather_rows as gr
 
-    launches = (gr.LAUNCHES, gr.ROUTED_LAUNCHES, gr.ROUTE_LAUNCHES)
+    launches = tracing.counts()
     with FakeTensorMode():
         ids = torch.zeros(1, 2, 3, dtype=torch.int32, device="cuda")
         lengths = torch.zeros(1, 2, dtype=torch.int32, device="cuda")
@@ -482,7 +483,7 @@ def test_routed_gather_raises_on_a_cuda_tensor_without_a_card(wrapper):
             else:
                 gr.routed_gather_rows(
                     torch.zeros(4, 8, device="cuda"), *args)
-    assert (gr.LAUNCHES, gr.ROUTED_LAUNCHES, gr.ROUTE_LAUNCHES) == launches
+    assert tracing.counts() == launches
 
 
 @pytest.mark.parametrize("wrapper", ["quant_lookup_pooled",
@@ -505,7 +506,7 @@ def test_kq_raises_when_its_library_does_not_build(wrapper, monkeypatch):
     monkeypatch.setattr(ql.LIBRARY, "_lib", None)
     monkeypatch.setattr(ql, "quant_lookup_pooled_reference", plain)
     monkeypatch.setattr(ql, "quant_lookup_rows_reference", plain)
-    launches = (ql.LAUNCHES, ql.ROWS_LAUNCHES)
+    launches = tracing.counts()
     with FakeTensorMode():
         data = torch.zeros(8, 4, dtype=torch.uint8, device="cuda")
         scale = torch.ones(8, device="cuda")
@@ -517,7 +518,7 @@ def test_kq_raises_when_its_library_does_not_build(wrapper, monkeypatch):
                 ql.quant_lookup_pooled(data, scale, shift, ids, coeff, 8)
             else:
                 ql.quant_lookup_rows(data, scale, shift, ids.reshape(-1), 8)
-    assert (ql.LAUNCHES, ql.ROWS_LAUNCHES) == launches
+    assert tracing.counts() == launches
 
 
 def _code_strings(path):

@@ -69,6 +69,7 @@ from torchrec_tpu_torch.parallel import (
     ShardingType,
 )
 from torchrec_tpu_torch.sparse import KeyedJaggedTensor
+from torchrec_tpu_torch.utils import tracing
 from torchrec_tpu_torch.utils.jax_bridge import (
     flax_dense_to_state_dict,
     load_jax_weights,
@@ -247,11 +248,11 @@ def _port_update(optim, w, ids, grads, valid, opt, tdt, **kw):
             setattr(state, f"momentum{tag[1]}", torch.tensor(opt[tag]))
     state.step.fill_(int(opt["step"]))
     weights = torch.tensor(w).to(tdt)
-    launches = (tl.LAUNCHES, tl.HALF_LAUNCHES, dict(fk.LAUNCHES))
+    launches = tracing.counts()
     tfu.apply_fused_update(weights, state, torch.tensor(ids),
                            torch.tensor(grads), torch.tensor(valid), LR, **kw)
     # CPU tensors take the plain versions
-    assert (tl.LAUNCHES, tl.HALF_LAUNCHES, fk.LAUNCHES) == launches
+    assert tracing.counts() == launches
     assert weights.dtype == tdt
     moms = {t: getattr(state, f"momentum{t[1]}").numpy()
             for t in ("m1", "m2") if getattr(state, f"momentum{t[1]}")
@@ -573,9 +574,9 @@ def test_low_precision_matches_fp32_loosely(name):
         ebc.shard_from_dense(dense)
         assert ebc.states[0].weights.dtype == (
             torch.float32 if dt is DataType.FP32 else tdt)
-        launches = (tl.LAUNCHES, tl.HALF_LAUNCHES)
+        launches = tracing.counts()
         kt = ebc(kjt)
-        assert (tl.LAUNCHES, tl.HALF_LAUNCHES) == launches
+        assert tracing.counts() == launches
         assert kt.values.dtype == torch.float32  # fp32 accumulation
         outs[dt], ebcs[dt] = kt.values.numpy(), ebc
     half = DataType[name.upper()]
@@ -686,11 +687,11 @@ def test_k1h_matches_jax_half_pooling(L, name):
     ref = np.asarray(jemb.pooled_lookup(
         jnp.asarray(w, jdt), jnp.asarray(ids),
         jnp.asarray(coeff).astype(jdt)))
-    launches = (tl.LAUNCHES, tl.HALF_LAUNCHES)
+    launches = tracing.counts()
     out = tl.tbe_lookup_pooled(
         torch.tensor(w).to(tdt), torch.tensor(ids),
         torch.tensor(coeff).to(tdt).float())
-    assert (tl.LAUNCHES, tl.HALF_LAUNCHES) == launches
+    assert tracing.counts() == launches
     assert out.dtype == torch.float32
     if L == 1:
         np.testing.assert_array_equal(out.numpy(), ref)
@@ -792,7 +793,7 @@ def test_half_kernels_raise_on_a_cuda_tensor_without_a_card(kernel):
     are fake CUDA tensors (metadata only), which a CPU build can make."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
-    launches = (tl.LAUNCHES, tl.HALF_LAUNCHES, dict(fk.LAUNCHES))
+    launches = tracing.counts()
     with FakeTensorMode():
         w = torch.zeros(8, 4, dtype=torch.bfloat16, device="cuda")
         step = torch.zeros((), dtype=torch.int32, device="cuda")
@@ -808,4 +809,4 @@ def test_half_kernels_raise_on_a_cuda_tensor_without_a_card(kernel):
             else:
                 fk.fused_update_rowwise_adagrad_half(
                     w, torch.zeros(8, device="cuda"), uids, g, 0.1, step)
-    assert (tl.LAUNCHES, tl.HALF_LAUNCHES, fk.LAUNCHES) == launches
+    assert tracing.counts() == launches

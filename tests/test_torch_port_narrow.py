@@ -58,6 +58,7 @@ from torchrec_tpu_torch.ops.stochastic_rounding import (
     sr_bits,
     sr_row_keys,
 )
+from torchrec_tpu_torch.utils import tracing
 
 WARPS_PER_BLOCK = 8  # kWarpsPerBlock of both sources
 R, LR = 300, 0.1
@@ -344,10 +345,10 @@ def test_k1_plain_matches_pallas_at_narrow_widths(D, L, kind):
     w, ids, coeff = _k1_inputs(D, L, kind, seed=D + L)
     ref = np.asarray(pe.tbe_lookup_pooled(
         jnp.asarray(w), jnp.asarray(ids), jnp.asarray(coeff), interpret=True))
-    launches = tl.LAUNCHES
+    launches = tracing.counts()
     out = tl.tbe_lookup_pooled(torch.as_tensor(w), torch.as_tensor(ids),
                                torch.as_tensor(coeff)).numpy()
-    assert tl.LAUNCHES == launches  # CPU tensors take the plain version
+    assert tracing.counts() == launches  # CPU tensors take the plain version
     if L == 1:
         np.testing.assert_array_equal(out, ref)
     else:
@@ -377,11 +378,11 @@ def test_k3_plain_matches_pallas_at_narrow_widths(D, wd):
     ref = np.asarray(pe.fused_update_sgd(
         jnp.asarray(w), jnp.asarray(uids), jnp.asarray(totals), LR,
         weight_decay=wd, interpret=True))
-    before = dict(fk.LAUNCHES)
+    before = tracing.counts()
     W = torch.as_tensor(w.copy())
     out = fk.fused_update_sgd(W, torch.as_tensor(uids),
                               torch.as_tensor(totals), LR, weight_decay=wd)
-    assert out is W and fk.LAUNCHES == before  # in place, plain version
+    assert out is W and tracing.counts() == before  # in place, plain version
     np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-6)
 
 
@@ -638,12 +639,12 @@ def test_k4_plain_matches_pallas_at_narrow_widths(D, wd):
     ref_w, ref_m = pe.fused_update_rowwise_adagrad(
         jnp.asarray(w), jnp.asarray(m), jnp.asarray(uids), jnp.asarray(sums),
         LR, weight_decay=wd, momentum_stream=True, interpret=True)
-    before = dict(fk.LAUNCHES)
+    before = tracing.counts()
     W, M = torch.as_tensor(w.copy()), torch.as_tensor(m.copy())
     out = fk.fused_update_rowwise_adagrad(
         W, M, torch.as_tensor(uids), torch.as_tensor(sums), LR,
         weight_decay=wd, momentum_stream=True)
-    assert out[0] is W and out[1] is M and fk.LAUNCHES == before
+    assert out[0] is W and out[1] is M and tracing.counts() == before
     np.testing.assert_allclose(W.numpy(), np.asarray(ref_w), rtol=1e-5,
                                atol=1e-6)
     np.testing.assert_allclose(M.numpy(), np.asarray(ref_m), rtol=1e-6)
@@ -666,7 +667,7 @@ def test_moment_plain_matches_pallas_at_narrow_widths(D, k):
     else:
         ref = pe.fused_update_adam(*j, LR, jnp.asarray(step, jnp.int32),
                                    interpret=True)
-    before = dict(fk.LAUNCHES)
+    before = tracing.counts()
     state = [torch.as_tensor(a.copy()) for a in (w, *moms)]
     args = (torch.as_tensor(uids), torch.as_tensor(totals), LR)
     if k == "K6":
@@ -675,7 +676,7 @@ def test_moment_plain_matches_pallas_at_narrow_widths(D, k):
         out = fk.fused_update_adam(*state, *args,
                                    torch.tensor(step, dtype=torch.int32))
     assert all(o is s for o, s in zip(out, state))
-    assert fk.LAUNCHES == before
+    assert tracing.counts() == before
     np.testing.assert_allclose(state[0].numpy(), np.asarray(ref[0]),
                                rtol=1e-5, atol=1e-6)
     for got, r in zip(state[1:], ref[1:]):
@@ -708,11 +709,11 @@ def test_k4h_plain_matches_jax_xla_route_at_d10(name):
                                      torch.as_tensor(grads),
                                      torch.as_tensor(valid), R)
     W, M = torch.as_tensor(w).to(tdt), torch.as_tensor(m.copy())
-    before = dict(fk.LAUNCHES)
+    before = tracing.counts()
     fk.fused_update_rowwise_adagrad_half(
         W, M, uids, sums, LR, torch.tensor(5, dtype=torch.int32),
         weight_decay=0.01, stochastic_rounding=False)
-    assert fk.LAUNCHES == before and W.dtype == tdt
+    assert tracing.counts() == before and W.dtype == tdt
     got = W.float().numpy()
     ref = np.array(jnp.asarray(jw, jnp.float32))
     hits = np.bincount(ids[valid], minlength=R)
@@ -769,11 +770,11 @@ def test_k3h_plain_matches_jax_xla_route(D, name, wd):
                                            torch.as_tensor(grads),
                                            torch.as_tensor(valid), R)
     W = torch.as_tensor(w).to(tdt)
-    before = dict(fk.LAUNCHES)
+    before = tracing.counts()
     out = fk.fused_update_sgd_half(
         W, uids, totals, LR, torch.tensor(5, dtype=torch.int32),
         weight_decay=wd, stochastic_rounding=False)
-    assert out is W and fk.LAUNCHES == before and W.dtype == tdt
+    assert out is W and tracing.counts() == before and W.dtype == tdt
     got = W.float().numpy()
     hits = np.bincount(ids[valid], minlength=R)
     assert (hits > 1).any()  # duplicate tokens, summed into run totals

@@ -70,8 +70,6 @@ from torchrec_tpu_torch.modules import (
     EmbeddingConfig,
     PoolingType,
 )
-from torchrec_tpu_torch.ops import fused_update_kernels as fk
-from torchrec_tpu_torch.ops import tbe_lookup as tl
 from torchrec_tpu_torch.ops.fused_update import EmbOptimType
 from torchrec_tpu_torch.parallel import (
     DistributedModelParallel,
@@ -82,6 +80,7 @@ from torchrec_tpu_torch.parallel import (
     ShardingType,
 )
 from torchrec_tpu_torch.sparse import KeyedJaggedTensor
+from torchrec_tpu_torch.utils import tracing
 from torchrec_tpu_torch.utils.jax_bridge import (
     flax_dense_to_state_dict,
     fused_optimizer_state,
@@ -201,7 +200,7 @@ def test_train_steps_match_jax(optim, L, mean, schedule):
 
     jstep = jdmp.make_train_step()
     step = dmp.make_train_step()
-    launches = (tl.LAUNCHES, dict(fk.LAUNCHES))
+    launches = tracing.counts()
     for ids, lengths, dense, labels in batches:
         sb = JKJT.from_lengths(KEYS, jnp.asarray(ids),
                                jnp.asarray(lengths)).to_padded(L)
@@ -213,7 +212,7 @@ def test_train_steps_match_jax(optim, L, mean, schedule):
         assert not loss.requires_grad and logits.shape == (B,)
         np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-4,
                                    atol=1e-5)
-    assert (tl.LAUNCHES, fk.LAUNCHES) == launches  # plain versions only
+    assert tracing.counts() == launches  # plain versions only
     assert dmp.step == STEPS
 
     jdense = flax_dense_to_state_dict(

@@ -65,6 +65,7 @@ from torchrec_tpu_torch.parallel import (
     ShardingType,
 )
 from torchrec_tpu_torch.sparse import KeyedJaggedTensor
+from torchrec_tpu_torch.utils import tracing
 from torchrec_tpu_torch.utils.jax_bridge import (
     flax_dense_to_state_dict,
     fused_optimizer_state,
@@ -168,12 +169,12 @@ def test_apply_fused_update_at_any_width_matches_jax(optim, dtype, dim, sr):
     for k, v in moms.items():
         setattr(state, k, torch.tensor(v))
     W = torch.tensor(w).to(tdt)
-    launches = (tl.LAUNCHES, tl.HALF_LAUNCHES, dict(fk.LAUNCHES))
+    launches = tracing.counts()
     out_w, out = tfu.apply_fused_update(
         W, state, torch.tensor(ids), torch.tensor(grads),
         torch.tensor(valid), LR, weight_decay=WD, stochastic_rounding=sr)
     # CPU tensors take the plain versions
-    assert (tl.LAUNCHES, tl.HALF_LAUNCHES, fk.LAUNCHES) == launches
+    assert tracing.counts() == launches
     assert out_w is W and W.dtype == tdt and int(out.step) == START + 1
     got = W.float().numpy()
     hits = np.bincount(ids[valid], minlength=R)
@@ -259,7 +260,7 @@ def test_update_kernels_take_any_width_on_a_cuda_tensor(kernel, dim):
     can make."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
-    launches = (dict(fk.LAUNCHES), tl.LAUNCHES, tl.HALF_LAUNCHES)
+    launches = tracing.counts()
     with FakeTensorMode():
         dev = "cuda"
         f32 = torch.zeros(8, dim, device=dev)
@@ -291,7 +292,7 @@ def test_update_kernels_take_any_width_on_a_cuda_tensor(kernel, dim):
         with pytest.raises(RuntimeError) as raised:
             call()
     assert not isinstance(raised.value, NotImplementedError)
-    assert (fk.LAUNCHES, tl.LAUNCHES, tl.HALF_LAUNCHES) == launches
+    assert tracing.counts() == launches
 
 
 class _Entry:
@@ -539,7 +540,7 @@ def test_deepfm_at_d10_serves_and_trains_as_jax(optim, half):
     jstep, step = jdmp.make_train_step(), dmp.make_train_step()
     start = dmp.sharded_ebcs[PORT_KEY].unshard_to_dense()
     touched = {f"t{i}": np.zeros(r, bool) for i, r in enumerate(KD_ROWS)}
-    launches = (tl.LAUNCHES, tl.HALF_LAUNCHES, dict(fk.LAUNCHES))
+    launches = tracing.counts()
     for s in range(KD_STEPS):
         ids, lengths, dense, labels = _kd_request(20 + s)
         for i in range(len(KD_ROWS)):
@@ -549,7 +550,7 @@ def test_deepfm_at_d10_serves_and_trains_as_jax(optim, half):
         loss, _ = step(torch.as_tensor(dense), _kjt(ids, lengths),
                        torch.as_tensor(labels))
         np.testing.assert_allclose(float(loss), float(jloss), **MODEL)
-    assert (tl.LAUNCHES, tl.HALF_LAUNCHES, fk.LAUNCHES) == launches
+    assert tracing.counts() == launches
 
     jdense = flax_dense_to_state_dict(
         jax.tree.map(np.asarray, state.dense_params), dmp.module)

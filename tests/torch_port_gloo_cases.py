@@ -34,7 +34,8 @@ Cases:
   the rank's blocks, the unsharded drawn tables, and the largest tensor
   any op made meanwhile beside the sizes of the rank's block and of the
   global layout.
-Each case also records the collective calls it made (parallel/comm.CALLS).
+Each case also records the collective calls it made (`comm.*` counters,
+utils/tracing.py).
 """
 
 from __future__ import annotations
@@ -226,16 +227,17 @@ def _state_out(prefix: str, strat, out: dict) -> None:
 
 
 def _calls(prefix: str, before: dict, out: dict) -> None:
-    from torchrec_tpu_torch.parallel import comm
+    from torchrec_tpu_torch.utils import tracing
 
-    for k, v in comm.CALLS.items():
-        out[f"{prefix}/calls/{k}"] = np.asarray(v - before[k])
+    for k, v in tracing.counts().items():
+        if k.startswith("comm."):
+            out[f"{prefix}/calls/{k[5:]}"] = np.asarray(v - before.get(k, 0))
 
 
 def run_strategy_case(env, kind: str, st: str, optim: str, out: dict,
                       dtype=None) -> None:
     """One strategy's forward and update on this rank's slice."""
-    from torchrec_tpu_torch.parallel import comm
+    from torchrec_tpu_torch.utils import tracing
 
     seq = kind == "sequence"
     rank, n = env.rank, env.world_size
@@ -247,13 +249,13 @@ def run_strategy_case(env, kind: str, st: str, optim: str, out: dict,
     ids, lengths, w = global_batch(seed + 2, not seq and weighted(st),
                                    SEQ_L if seq else L)
     sb = _batch(ids, lengths, w, rank, n)
-    before = dict(comm.CALLS)
+    before = tracing.counts()
     fwd = strat(sb)
     _calls(prefix + "/fwd", before, out)
     out[f"{prefix}/forward"] = fwd.float().numpy()
     d = cotangent(seed + 3, (len(ROWS), B, SEQ_L, D) if seq
                   else (len(ROWS), B, D))
-    before = dict(comm.CALLS)
+    before = tracing.counts()
     with torch.no_grad():
         strat.update(sb, torch.as_tensor(_rows(d, rank, n)), FUSED_LR)
     _calls(prefix + "/upd", before, out)
@@ -359,7 +361,7 @@ def _kjt(ids, lengths, rank, n):
 
 
 def run_dmp_case(env, optim: str, init_dir: pathlib.Path, out: dict) -> None:
-    from torchrec_tpu_torch.parallel import comm
+    from torchrec_tpu_torch.utils import tracing
     from torchrec_tpu_torch.utils.jax_bridge import (
         fused_optimizer_state,
         load_jax_weights,
@@ -375,7 +377,7 @@ def run_dmp_case(env, optim: str, init_dir: pathlib.Path, out: dict) -> None:
     load_jax_weights(dmp, dense, tables)
     prefix = f"dmp/{optim}"
     ids, lengths, dense_x, labels = dlrm_request(case_seed("dmp", "eval"))
-    before = dict(comm.CALLS)
+    before = tracing.counts()
     _, (_, logits, _) = dmp.make_eval_fn()(
         torch.as_tensor(_rows(dense_x, rank, n, 0)),
         _kjt(ids, lengths, rank, n),
@@ -385,7 +387,7 @@ def run_dmp_case(env, optim: str, init_dir: pathlib.Path, out: dict) -> None:
     step = dmp.make_train_step()
     for s in range(STEPS):
         ids, lengths, dense_x, labels = dlrm_request(case_seed("dmp", str(s)))
-        before = dict(comm.CALLS)
+        before = tracing.counts()
         loss, (_, logits, _) = step(
             torch.as_tensor(_rows(dense_x, rank, n, 0)),
             _kjt(ids, lengths, rank, n),

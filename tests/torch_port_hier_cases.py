@@ -286,14 +286,15 @@ def _state_out(prefix: str, strat, out: dict) -> None:
 
 
 def _calls(prefix: str, before: dict, out: dict) -> None:
-    from torchrec_tpu_torch.parallel import comm
+    from torchrec_tpu_torch.utils import tracing
 
-    for k, v in comm.CALLS.items():
-        out[f"{prefix}/calls/{k}"] = np.asarray(v - before[k])
+    for k, v in tracing.counts().items():
+        if k.startswith("comm."):
+            out[f"{prefix}/calls/{k[5:]}"] = np.asarray(v - before.get(k, 0))
 
 
 def run_strategy_case(env, kind, st, optim, routing, out, prefix):
-    from torchrec_tpu_torch.parallel import comm
+    from torchrec_tpu_torch.utils import tracing
 
     strat, sb, d = _loaded(env, kind, st, optim, routing)
     out[f"{prefix}/loaded"] = strat.weights.numpy().copy()
@@ -301,11 +302,11 @@ def run_strategy_case(env, kind, st, optim, routing, out, prefix):
     for what, t in zip(("ids", "lengths", "weights"), dist_):
         if t is not None:
             out[f"{prefix}/dist/{what}"] = t.numpy()
-    before = dict(comm.CALLS)
+    before = tracing.counts()
     fwd = strat(sb)
     _calls(prefix + "/fwd", before, out)
     out[f"{prefix}/forward"] = fwd.numpy()
-    before = dict(comm.CALLS)
+    before = tracing.counts()
     with torch.no_grad():
         strat.update(sb, d, FUSED_LR)
     _calls(prefix + "/upd", before, out)
@@ -462,10 +463,10 @@ def run_dmp_case(env, init_dir: pathlib.Path, out, prefix):
     """The same STEPS batches through make_train_step, the prefetched step
     (a2a routing) and SparseDistPipeline (allgather), each DMP from the
     JAX init."""
-    from torchrec_tpu_torch.parallel import comm
     from torchrec_tpu_torch.parallel.train_pipeline import (
         SparseDistPipeline,
     )
+    from torchrec_tpu_torch.utils import tracing
     from torchrec_tpu_torch.utils.jax_bridge import load_jax_weights
 
     dense, tables = _init(init_dir / "dlrm_init.npz")
@@ -495,7 +496,7 @@ def run_dmp_case(env, init_dir: pathlib.Path, out, prefix):
             it = iter(batches)
             run = (pipe.progress(it) for _ in batches)
         for s in range(STEPS):
-            before = dict(comm.CALLS)
+            before = tracing.counts()
             loss, _ = next(run)
             _calls(f"{p}/step{s}", before, out)
             out[f"{p}/loss{s}"] = loss.numpy()

@@ -28,7 +28,8 @@ Cases:
 - vb/dmp: an EBC and a linear head under masked_bce_with_logits (the
   global batch's count, `VariableBatch.rank_count`) through the DMP:
   three steps from the JAX DMP's initial state.
-Each case also records the collective calls it made (parallel/comm.CALLS).
+Each case also records the collective calls it made (`comm.*` counters,
+utils/tracing.py).
 """
 
 from __future__ import annotations
@@ -120,10 +121,11 @@ def _sb(ids, lengths, w, keys):
 
 
 def _calls(prefix: str, before: dict, out: dict) -> None:
-    from torchrec_tpu_torch.parallel import comm
+    from torchrec_tpu_torch.utils import tracing
 
-    for k, v in comm.CALLS.items():
-        out[f"{prefix}/calls/{k}"] = np.asarray(v - before[k])
+    for k, v in tracing.counts().items():
+        if k.startswith("comm."):
+            out[f"{prefix}/calls/{k[5:]}"] = np.asarray(v - before.get(k, 0))
 
 
 def build_towers(env, variant: str, optim: str):
@@ -174,15 +176,15 @@ def run_tower_case(env, variant: str, optim: str, init: dict,
     ids, lengths, w = tower_batch(seed, variant == "mean_weighted")
     sb = _sb(rows(ids, rank, n), rows(lengths, rank, n),
              None if w is None else rows(w, rank, n), FEATURES)
-    from torchrec_tpu_torch.parallel import comm
+    from torchrec_tpu_torch.utils import tracing
 
-    before = dict(comm.CALLS)
+    before = tracing.counts()
     with torch.no_grad():
         fwd = tc(sb)
     _calls(prefix + "/fwd", before, out)
     out[f"{prefix}/forward"] = fwd.numpy()
     d = rows(tower_cotangent(seed + 1), rank, n, axis=0)
-    before = dict(comm.CALLS)
+    before = tracing.counts()
     tc.update(sb, torch.as_tensor(d), LR)
     _calls(prefix + "/upd", before, out)
     out[f"{prefix}/weights"] = tc.weights.numpy()
@@ -325,7 +327,7 @@ def build_vb_dmp(env):
 
 
 def run_vb_dmp_case(env, init: dict, out: dict) -> None:
-    from torchrec_tpu_torch.parallel import comm
+    from torchrec_tpu_torch.utils import tracing
     from torchrec_tpu_torch.utils.jax_bridge import (
         fused_optimizer_state,
         load_jax_weights,
@@ -343,7 +345,7 @@ def run_vb_dmp_case(env, init: dict, out: dict) -> None:
             vb.example_mask[rank * b:(rank + 1) * b], vb.rank_count(n))
     step = dmp.make_train_step()
     for s in range(VB_STEPS):
-        before = dict(comm.CALLS)
+        before = tracing.counts()
         loss, (_, logits) = step(*args)
         _calls(f"vb/dmp/step{s}", before, out)
         out[f"vb/dmp/loss{s}"] = loss.numpy()

@@ -214,27 +214,28 @@ def record_state(dmp, prefix: str, out: dict) -> None:
 
 
 def _calls(prefix: str, before: dict, out: dict) -> None:
-    from torchrec_tpu_torch.parallel import comm
+    from torchrec_tpu_torch.utils import tracing
 
-    for k, v in comm.CALLS.items():
-        out[f"{prefix}/calls/{k}"] = np.asarray(v - before[k])
+    for k, v in tracing.counts().items():
+        if k.startswith("comm."):
+            out[f"{prefix}/calls/{k[5:]}"] = np.asarray(v - before.get(k, 0))
 
 
 def run_uvm_case(env, plan: str, optim: str, init: dict, out: dict) -> None:
     """The UVM DMP on this rank's slice: eval, then UVM_STEPS steps."""
-    from torchrec_tpu_torch.parallel import comm
+    from torchrec_tpu_torch.utils import tracing
 
     prefix = f"uvm/{plan}/{optim}"
     dmp = uvm_dmp(env, plan == "all_uvm", optim)
     load_uvm_init(dmp, init, prefix)
     n, r = env.world_size, env.rank
-    before = dict(comm.CALLS)
+    before = tracing.counts()
     loss, (_, logits) = dmp.make_eval_fn()(*port_args(100, r, n))
     _calls(prefix + "/eval", before, out)
     out[prefix + "/eval_logits"] = logits.numpy()
     step = dmp.make_train_step()
     for s in range(UVM_STEPS):
-        before = dict(comm.CALLS)
+        before = tracing.counts()
         loss, (_, logits) = step(*port_args(s, r, n))
         _calls(f"{prefix}/step{s}", before, out)
         out[f"{prefix}/loss{s}"] = loss.numpy()

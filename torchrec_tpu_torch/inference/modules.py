@@ -42,7 +42,10 @@ from torchrec_tpu_torch.parallel.types import ShardingEnv
 from torchrec_tpu_torch.quant.embedding_modules import (
     QuantEmbeddingBagCollection,
 )
+from torchrec_tpu_torch.utils import tracing
 from torchrec_tpu_torch.utils.device import DeviceLike, resolve_device
+
+PREDICT_SPAN = "## predict ##"  # utils/tracing.py
 
 
 def _copy_with(module: nn.Module, swap: Mapping[int, nn.Module],
@@ -96,8 +99,8 @@ class PredictModule(nn.Module):
 
     def predict(self, *args):
         """The model's output on `args` (on the module's device), under
-        torch.inference_mode()."""
-        with torch.inference_mode():
+        torch.inference_mode() and the `## predict ##` span."""
+        with torch.inference_mode(), tracing.span(PREDICT_SPAN):
             return self.module(*args)
 
     def forward(self, *args):

@@ -7,8 +7,10 @@ embeddings from the EBC, and an interaction that concatenates the dense
 features, DeepFM's deep part (one Dense + ReLU of width
 `deep_fm_dimension` over all of them flattened) and the factorization
 machine's scalar; then one Dense and a sigmoid. The layers are flax-style
-`Dense` (modules/dense.py); the deep part and the FM run under the
-profiler labels `## deepfm_deep ##` and `## deepfm_fm ##`. The EBC sits
+`Dense` (modules/dense.py); the deep part and the FM, each with its
+concatenation, run under the spans `## deepfm_deep ##` and
+`## deepfm_fm ##`, their backward under `## deepfm_deep.bwd ##` and
+`## deepfm_fm.bwd ##` (utils/tracing.py). The EBC sits
 at `sparse_arch.embedding_bag_collection`, so the DMP's plan key inside a
 wrapper `m` is "m/sparse_arch/embedding_bag_collection", where the JAX
 one is "m/embedding_bag_collection" (the flax field); `flax_names` maps
@@ -22,7 +24,6 @@ from typing import Sequence
 
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 from torchrec_tpu_torch.modules.deepfm import DeepFM, FactorizationMachine
 from torchrec_tpu_torch.modules.dense import Dense
@@ -32,6 +33,10 @@ from torchrec_tpu_torch.modules.embedding_modules import (
 )
 from torchrec_tpu_torch.sparse.jagged import KeyedTensor
 from torchrec_tpu_torch.utils.device import DeviceLike
+from torchrec_tpu_torch.utils.tracing import ModuleSpan
+
+_DEEP_SPAN = ModuleSpan("deepfm_deep")
+_FM_SPAN = ModuleSpan("deepfm_fm")
 
 
 class _SparseArch(nn.Module):
@@ -96,10 +101,8 @@ class FMInteractionArch(nn.Module):
             dim=1)))
         tensors = [dense_features, *(per_key[name] for name in
                                      self.sparse_feature_names)]
-        with record_function("## deepfm_deep ##"):
-            deep = self.deep_fm(tensors)
-        with record_function("## deepfm_fm ##"):
-            fm = self.fm(tensors)
+        deep = _DEEP_SPAN(self.deep_fm, tensors)
+        fm = _FM_SPAN(self.fm, tensors)
         return torch.cat([dense_features, deep, fm], dim=1)
 
 

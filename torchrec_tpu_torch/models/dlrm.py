@@ -5,7 +5,10 @@ InteractionArch, OverArch, DLRM and the DLRMTrain loss wrapper. The
 pairwise interaction is one [B, F+1, D] x [B, D, F+1] batched product with
 the upper triangle taken in `np.triu_indices(F + 1, k=1)` order; the JAX
 package leaves it to XLA outside any Pallas kernel, and here it stays
-`torch.bmm`. Logits are always fp32.
+`torch.bmm`. Logits are always fp32. The dense arch, the interaction and
+the over arch run under the spans `## dlrm_dense_arch ##`,
+`## dlrm_interaction ##` and `## dlrm_over_arch ##`, their backward under
+`## <name>.bwd ##` (utils/tracing.py).
 """
 
 from __future__ import annotations
@@ -21,6 +24,12 @@ from torchrec_tpu_torch.modules.embedding_modules import (
 )
 from torchrec_tpu_torch.modules.mlp import MLP, Perceptron
 from torchrec_tpu_torch.utils.device import DeviceLike
+from torchrec_tpu_torch.utils.tracing import ModuleSpan
+
+# the dense parts' spans and their backward's (`## <name>.bwd ##`)
+_DENSE_SPAN = ModuleSpan("dlrm_dense_arch")
+_INTERACTION_SPAN = ModuleSpan("dlrm_interaction")
+_OVER_SPAN = ModuleSpan("dlrm_over_arch")
 
 
 def _identity(x: torch.Tensor) -> torch.Tensor:
@@ -169,10 +178,11 @@ class DLRM(nn.Module):
     ) -> torch.Tensor:
         """dense_features [B, d_in]; sparse_features the [F, B, L] batch.
         Returns fp32 logits [B, 1]."""
-        embedded_dense = self.dense_arch(dense_features)
+        embedded_dense = _DENSE_SPAN(self.dense_arch, dense_features)
         embedded_sparse = self.sparse_arch(sparse_features)
-        concatenated = self.inter_arch(embedded_dense, embedded_sparse)
-        return self.over_arch(concatenated).float()
+        concatenated = _INTERACTION_SPAN(self.inter_arch, embedded_dense,
+                                         embedded_sparse)
+        return _OVER_SPAN(self.over_arch, concatenated).float()
 
 
 class DLRMTrain(nn.Module):

@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from torchrec_tpu_torch.ops import fused_update_kernels as fk
+from torchrec_tpu_torch.utils import tracing
 
 
 class EmbOptimType(enum.Enum):
@@ -67,6 +68,8 @@ FUSED_PARAM_KEYS = ("eps", "weight_decay", "beta1", "beta2", "eta",
                     "momentum", "stochastic_rounding", "w_impl", "mom_impl")
 # the skip sentinel of run_total_row_grads
 RUN_SENTINEL = 2**31 - 1
+# the span around the sort and segment sums that total each row's gradient
+ROW_TOTALS_SPAN = "## update_row_totals ##"
 
 
 @dataclasses.dataclass
@@ -213,12 +216,13 @@ def dedup_row_grads(
     so uids are sorted AND unique.
     """
     N = flat_ids.shape[0]
-    sid, g, first = _sorted_runs(flat_ids, row_grads, valid, num_rows)
-    seg = torch.cumsum(first, 0) - 1  # compact run index, nondecreasing
-    sums = _run_totals(g, seg)
-    uids = torch.full_like(sid, num_rows).scatter_(0, seg, sid)
-    pos = torch.arange(N, dtype=torch.int32, device=sid.device)
-    uids = torch.where(uids >= num_rows, num_rows + pos, uids)
+    with tracing.span(ROW_TOTALS_SPAN):
+        sid, g, first = _sorted_runs(flat_ids, row_grads, valid, num_rows)
+        seg = torch.cumsum(first, 0) - 1  # compact run index, nondecreasing
+        sums = _run_totals(g, seg)
+        uids = torch.full_like(sid, num_rows).scatter_(0, seg, sid)
+        pos = torch.arange(N, dtype=torch.int32, device=sid.device)
+        uids = torch.where(uids >= num_rows, num_rows + pos, uids)
     return uids, sums
 
 
@@ -233,13 +237,14 @@ def run_total_row_grads(
     2**31 - 1. The uids are unique among real slots but not sorted, so
     this form feeds the per-slot kernels K2 and K3 only.
     """
-    sid, g, first = _sorted_runs(flat_ids, row_grads, valid, num_rows)
-    # each slot's run's first position, JAX's cummax(where(first, pos, 0))
-    # (PyTorch's cummax scans a 1-D tensor in one block on the card)
-    run_start = torch.searchsorted(sid, sid)
-    totals = _run_totals(g, run_start)
-    uids = torch.where(first & (sid < num_rows), sid, RUN_SENTINEL)
-    return uids.to(torch.int32), totals
+    with tracing.span(ROW_TOTALS_SPAN):
+        sid, g, first = _sorted_runs(flat_ids, row_grads, valid, num_rows)
+        # each slot's run's first position, JAX's cummax(where(first, pos,
+        # 0)) (PyTorch's cummax scans a 1-D tensor in one block on the card)
+        run_start = torch.searchsorted(sid, sid)
+        totals = _run_totals(g, run_start)
+        uids = torch.where(first & (sid < num_rows), sid, RUN_SENTINEL)
+        return uids.to(torch.int32), totals
 
 
 def _add_rows(t: torch.Tensor, ids: torch.Tensor, fm: torch.Tensor,

@@ -44,12 +44,18 @@ Real ids must be unique (K2-K4, K6, K7) or sorted (K5), as the callers
 guarantee. `lr`, `weight_decay`, `eps` and the betas are Python floats,
 passed by value, and K7's step is a device tensor, so no launch waits on
 the device.
+
+Each wrapper runs under the `## update_kernel ##` span, its launch or its
+plain version alike, and counts its launches under its own name
+(utils/tracing.py): `fused_update_rowwise_adagrad` is the fused K4 + K5
+kernel, `scaled_row_update` K4's scaled RMW on its other routes.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Dict, Tuple
+import functools
+from typing import Callable, Tuple
 
 import torch
 
@@ -60,6 +66,7 @@ from torchrec_tpu_torch.ops.stochastic_rounding import (
     sr_bits,
     stochastic_round,
 )
+from torchrec_tpu_torch.utils import tracing
 
 _P, _I64, _F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
 _INT, _U32 = ctypes.c_int, ctypes.c_uint32
@@ -100,23 +107,18 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 LIBRARY = CudaLibrary("fused_update.cu", _bind)
 
-# Kernel launches made by each wrapper in this process.
-LAUNCHES: Dict[str, int] = {
-    "scatter_rows_write": 0,
-    "fused_update_sgd": 0,
-    "fused_update_rowwise_adagrad": 0,  # the fused K4 + K5 kernel
-    "scaled_row_update": 0,  # K4's scaled RMW, on the other routes
-    "rowwise_momentum_stream": 0,
-    "fused_update_adagrad": 0,
-    "fused_update_adam": 0,
-    "fused_update_sgd_half": 0,  # K3h
-    "fused_update_rowwise_adagrad_half": 0,  # K4h
-}
+KERNEL_SPAN = "## update_kernel ##"
 
 
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+def _in_span(wrapper: Callable) -> Callable:
+    """`wrapper` (a launch, or its plain version on the CPU) under
+    KERNEL_SPAN."""
+
+    @functools.wraps(wrapper)
+    def spanned(*args, **kwargs):
+        with tracing.span(KERNEL_SPAN):
+            return wrapper(*args, **kwargs)
+    return spanned
 
 
 # -- checks and launch ---------------------------------------------------------
@@ -159,7 +161,7 @@ def _launch(name: str, device: torch.device, call: Callable) -> None:
     with torch.cuda.device(device):
         err = call(lib, torch.cuda.current_stream(device).cuda_stream)
     LIBRARY.check(name, err)
-    LAUNCHES[name] += 1
+    tracing.count(name)
 
 
 def _real_slots(uids: torch.Tensor, R: int) -> torch.Tensor:
@@ -211,6 +213,7 @@ def scatter_rows_write_reference(weights: torch.Tensor, uids: torch.Tensor,
     return weights
 
 
+@_in_span
 def scatter_rows_write(weights: torch.Tensor, uids: torch.Tensor,
                        rows: torch.Tensor) -> torch.Tensor:
     """K2: weights[uids[t]] = rows[t] in place, for real uids[t]; sentinel
@@ -248,6 +251,7 @@ def fused_update_sgd_reference(weights: torch.Tensor, uids: torch.Tensor,
     return weights
 
 
+@_in_span
 def fused_update_sgd(weights: torch.Tensor, uids: torch.Tensor,
                      g: torch.Tensor, lr: float,
                      weight_decay: float = 0.0) -> torch.Tensor:
@@ -284,6 +288,7 @@ def scaled_row_update_reference(weights: torch.Tensor, uids: torch.Tensor,
     return weights
 
 
+@_in_span
 def scaled_row_update(weights: torch.Tensor, uids: torch.Tensor,
                       g: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """K4's scaled RMW: W[id] += scale[t] * g[t] in place for unique real
@@ -325,6 +330,7 @@ def rowwise_momentum_stream_reference(
                                       device=momentum.device)
 
 
+@_in_span
 def rowwise_momentum_stream(
     momentum: torch.Tensor, uids: torch.Tensor, g_sq: torch.Tensor,
     eps: float = 1.0e-8,
@@ -485,6 +491,7 @@ def rowwise_adagrad_unfused(
         rowwise_momentum_stream, scaled_row_update, scatter_rows_write)
 
 
+@_in_span
 def fused_update_rowwise_adagrad(
     weights: torch.Tensor, momentum: torch.Tensor, uids: torch.Tensor,
     g: torch.Tensor, lr: float, eps: float = 1.0e-8,
@@ -604,6 +611,7 @@ def fused_update_adagrad_reference(weights, momentum, uids, g, lr,
     return weights, momentum
 
 
+@_in_span
 def fused_update_adagrad(
     weights: torch.Tensor, momentum: torch.Tensor, uids: torch.Tensor,
     g: torch.Tensor, lr: float, eps: float = 1.0e-8,
@@ -648,6 +656,7 @@ def fused_update_adam_reference(weights, momentum1, momentum2, uids, g, lr,
     return weights, momentum1, momentum2
 
 
+@_in_span
 def fused_update_adam(
     weights: torch.Tensor, momentum1: torch.Tensor, momentum2: torch.Tensor,
     uids: torch.Tensor, g: torch.Tensor, lr: float, step: torch.Tensor,
@@ -740,6 +749,7 @@ def fused_update_sgd_half_reference(
     return weights
 
 
+@_in_span
 def fused_update_sgd_half(
     weights: torch.Tensor, uids: torch.Tensor, g: torch.Tensor, lr: float,
     step: torch.Tensor, weight_decay: float = 0.0,
@@ -802,6 +812,7 @@ def fused_update_rowwise_adagrad_half_reference(
     return weights, momentum
 
 
+@_in_span
 def fused_update_rowwise_adagrad_half(
     weights: torch.Tensor, momentum: torch.Tensor, uids: torch.Tensor,
     g: torch.Tensor, lr: float, step: torch.Tensor, eps: float = 1.0e-8,

@@ -32,6 +32,9 @@ outside autograd; CUDA tensors launch, CPU tensors take
 gives zeros where JAX multiplies by the mask, so a non-finite row under it
 gives 0 here and NaN there, and a row with negative entries +0.0 here and
 -0.0 there (equal as values).
+
+Launches count (utils/tracing.py) as `gather_rows` (K8, also from K1's
+backward), `routed_gather_rows` and `route_tokens`.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ import torch
 
 from torchrec_tpu_torch.ops.cuda_build import CudaLibrary
 from torchrec_tpu_torch.ops.lane_groups import lanes_per_row
+from torchrec_tpu_torch.utils import tracing
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -60,12 +64,6 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 LIBRARY = CudaLibrary("gather_rows.cu", _bind)
 
-# Kernel launches made by `gather_rows` and K1's backward in this process.
-LAUNCHES = 0
-# Launches of the routed gather (`routed_gather_rows`) and of its
-# route-only mode (`route_tokens`).
-ROUTED_LAUNCHES = 0
-ROUTE_LAUNCHES = 0
 _routed_fn = None
 
 
@@ -107,7 +105,6 @@ def gather_rows_forward(
 ) -> torch.Tensor:
     """The forward alone, outside autograd: K8 for CUDA tensors, the plain
     version for CPU tensors."""
-    global LAUNCHES
     _check(weights, flat_ids)
     if weights.device.type == "cpu":
         return gather_rows_reference(weights, flat_ids)
@@ -124,7 +121,7 @@ def gather_rows_forward(
             lanes_per_row(D), stream,
         )
     LIBRARY.check("gather_rows", err)
-    LAUNCHES += 1
+    tracing.count("gather_rows")
     return out
 
 
@@ -265,7 +262,6 @@ def routed_gather_rows(
     lives on another shard. One kernel launch for CUDA tensors,
     `routed_gather_rows_reference` for CPU tensors. Not differentiable:
     the sharded path runs outside autograd."""
-    global ROUTED_LAUNCHES
     _check_route(ids, lengths, shard_rows, local_off)
     if weights.dtype != torch.float32 or weights.dim() != 2:
         raise TypeError(f"weights must be a 2-D float32 tensor, got "
@@ -285,7 +281,7 @@ def routed_gather_rows(
         raise ValueError("weights has no rows to gather")
     _launch_routed(weights, ids, lengths, shard_rows, local_off, rank, out,
                    None, None)
-    ROUTED_LAUNCHES += 1
+    tracing.count("routed_gather_rows")
     return out
 
 
@@ -297,7 +293,6 @@ def route_tokens(
     [F, B, L] int32, owned [F, B, L] bool), as `route_tokens_reference`
     computes them. One launch for CUDA tensors, the plain version for CPU
     tensors."""
-    global ROUTE_LAUNCHES
     _check_route(ids, lengths, shard_rows, local_off)
     if ids.device.type == "cpu":
         return route_tokens_reference(ids, lengths, shard_rows, local_off,
@@ -308,5 +303,5 @@ def route_tokens(
         return local, owned
     _launch_routed(None, ids, lengths, shard_rows, local_off, rank, None,
                    local, owned)
-    ROUTE_LAUNCHES += 1
+    tracing.count("route_tokens")
     return local, owned

@@ -9,11 +9,13 @@ bound with `ctypes` (ops/cuda_build.py). A row takes `lanes_per_row(D)`
 lanes (ops/lane_groups.py), passed to the launch: at D <= 64 a warp pools
 several bags, one per lane group; wider rows take a warp each.
 
-Two wrappers, each with its own launch counter:
+Two wrappers, each with its own launch counter (utils/tracing.py), each
+launch, or plain version on the CPU, under the `## lookup_kernel ##` span:
 
-* `quant_lookup_pooled`: out[b] = sum_l coeff[b, l] * deq(ids[b, l]);
-* `quant_lookup_rows`: out[n] = deq(ids[n]), times coeff[n] when given
-  (PoolingMode.NONE's rows times the mask).
+* `quant_lookup_pooled` (counter `quant_lookup`): out[b] = sum_l
+  coeff[b, l] * deq(ids[b, l]);
+* `quant_lookup_rows` (counter `quant_lookup_rows`): out[n] = deq(ids[n]),
+  times coeff[n] when given (PoolingMode.NONE's rows times the mask).
 
 where deq(r) = q[r] * scale[r] + shift[r], each product and sum rounded
 on its own, the pooled sum taken in slot order. CUDA tensors launch the
@@ -32,6 +34,7 @@ import torch
 
 from torchrec_tpu_torch.ops.cuda_build import CudaLibrary
 from torchrec_tpu_torch.ops.lane_groups import lanes_per_row
+from torchrec_tpu_torch.utils import tracing
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -48,9 +51,7 @@ def _bind(lib: ctypes.CDLL) -> None:
 LIBRARY = CudaLibrary("quant_lookup.cu", _bind)
 
 BITS = (8, 4, 2)
-# Kernel launches in this process: pooled, and unpooled
-LAUNCHES = 0
-ROWS_LAUNCHES = 0
+KERNEL_SPAN = "## lookup_kernel ##"
 
 
 def quant_dim(data: torch.Tensor, bits: int) -> int:
@@ -144,28 +145,28 @@ def quant_lookup_pooled(data: torch.Tensor, scale: torch.Tensor,
     weights and, for the sharded MEAN, 1 / length. Returns [NB, D] f32.
     CUDA tensors launch Kq, CPU tensors take the plain version. A slot
     whose coefficient is 0 is not read by the kernel."""
-    global LAUNCHES
     _check(data, scale, shift, flat_ids, coeff, bits)
     if flat_ids.dim() != 2:
         raise TypeError(f"flat_ids must be 2-D, got {tuple(flat_ids.shape)}")
-    if data.device.type == "cpu":
-        return quant_lookup_pooled_reference(data, scale, shift, flat_ids,
-                                             coeff, bits)
-    lib = LIBRARY.load()
-    R, D = data.shape[0], quant_dim(data, bits)
-    NB, L = flat_ids.shape
-    out = torch.empty((NB, D), dtype=torch.float32, device=data.device)
-    if NB == 0 or D == 0:
+    with tracing.span(KERNEL_SPAN):
+        if data.device.type == "cpu":
+            return quant_lookup_pooled_reference(data, scale, shift,
+                                                 flat_ids, coeff, bits)
+        lib = LIBRARY.load()
+        R, D = data.shape[0], quant_dim(data, bits)
+        NB, L = flat_ids.shape
+        out = torch.empty((NB, D), dtype=torch.float32, device=data.device)
+        if NB == 0 or D == 0:
+            return out
+        stream = torch.cuda.current_stream(data.device).cuda_stream
+        with torch.cuda.device(data.device):
+            err = lib.trt_quant_lookup_pooled(
+                data.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+                flat_ids.data_ptr(), coeff.data_ptr(), out.data_ptr(), R, D,
+                NB, L, bits, lanes_per_row(D), stream)
+        LIBRARY.check("quant_lookup_pooled", err)
+        tracing.count("quant_lookup")
         return out
-    stream = torch.cuda.current_stream(data.device).cuda_stream
-    with torch.cuda.device(data.device):
-        err = lib.trt_quant_lookup_pooled(
-            data.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-            flat_ids.data_ptr(), coeff.data_ptr(), out.data_ptr(), R, D, NB,
-            L, bits, lanes_per_row(D), stream)
-    LIBRARY.check("quant_lookup_pooled", err)
-    LAUNCHES += 1
-    return out
 
 
 def quant_lookup_rows(data: torch.Tensor, scale: torch.Tensor,
@@ -174,25 +175,25 @@ def quant_lookup_rows(data: torch.Tensor, scale: torch.Tensor,
     """Fused int-N gather and dequantize: ids int32 [N] -> [N, D] f32,
     each row times coeff [N] when given. CUDA tensors launch Kq's unpooled
     mode, CPU tensors take the plain version."""
-    global ROWS_LAUNCHES
     _check(data, scale, shift, ids, coeff, bits)
     if ids.dim() != 1:
         raise TypeError(f"ids must be 1-D, got {tuple(ids.shape)}")
-    if data.device.type == "cpu":
-        return quant_lookup_rows_reference(data, scale, shift, ids, bits,
-                                           coeff)
-    lib = LIBRARY.load()
-    R, D = data.shape[0], quant_dim(data, bits)
-    N = ids.shape[0]
-    out = torch.empty((N, D), dtype=torch.float32, device=data.device)
-    if N == 0 or D == 0:
+    with tracing.span(KERNEL_SPAN):
+        if data.device.type == "cpu":
+            return quant_lookup_rows_reference(data, scale, shift, ids, bits,
+                                               coeff)
+        lib = LIBRARY.load()
+        R, D = data.shape[0], quant_dim(data, bits)
+        N = ids.shape[0]
+        out = torch.empty((N, D), dtype=torch.float32, device=data.device)
+        if N == 0 or D == 0:
+            return out
+        stream = torch.cuda.current_stream(data.device).cuda_stream
+        with torch.cuda.device(data.device):
+            err = lib.trt_quant_lookup_rows(
+                data.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+                ids.data_ptr(), None if coeff is None else coeff.data_ptr(),
+                out.data_ptr(), R, D, N, bits, lanes_per_row(D), stream)
+        LIBRARY.check("quant_lookup_rows", err)
+        tracing.count("quant_lookup_rows")
         return out
-    stream = torch.cuda.current_stream(data.device).cuda_stream
-    with torch.cuda.device(data.device):
-        err = lib.trt_quant_lookup_rows(
-            data.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-            ids.data_ptr(), None if coeff is None else coeff.data_ptr(),
-            out.data_ptr(), R, D, N, bits, lanes_per_row(D), stream)
-    LIBRARY.check("quant_lookup_rows", err)
-    ROWS_LAUNCHES += 1
-    return out

@@ -22,9 +22,9 @@ K1h is the same kernel over bf16 / fp16 tables (the rows widened to f32,
 the sum and the output f32), where the JAX package pools such tables with
 an XLA gather and einsum (torchrec_tpu/ops/embedding.py:77-116). The same
 wrapper and Function take it: the table's dtype picks the kernel, each with
-its own launch counter. Its VJP is K1's; `d_coeff` gathers the half rows
-with plain torch indexing, since K8 takes f32 tables only, and `d_W`
-comes back in the table's dtype.
+its own launch counter (utils/tracing.py). Its VJP is K1's; `d_coeff`
+gathers the half rows with plain torch indexing, since K8 takes f32
+tables only, and `d_W` comes back in the table's dtype.
 """
 
 from __future__ import annotations
@@ -40,6 +40,7 @@ from torchrec_tpu_torch.ops.gather_rows import (
     scatter_add_rows,
 )
 from torchrec_tpu_torch.ops.lane_groups import lanes_per_row
+from torchrec_tpu_torch.utils import tracing
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -60,10 +61,8 @@ LIBRARY = CudaLibrary("tbe_lookup.cu", _bind)
 # the table dtypes the kernels take: K1 f32, K1h bf16 (code 0) and fp16 (1)
 HALF_TYPES = {torch.bfloat16: 0, torch.float16: 1}
 TABLE_TYPES = (torch.float32, *HALF_TYPES)
-# Kernel launches made by `tbe_lookup_pooled` in this process: K1 on f32
-# tables, K1h on bf16 / fp16 ones.
-LAUNCHES = 0
-HALF_LAUNCHES = 0
+# the span around each launch, or the plain version on the CPU
+KERNEL_SPAN = "## lookup_kernel ##"
 
 
 def _check(weights: torch.Tensor, flat_ids: torch.Tensor,
@@ -110,37 +109,37 @@ def tbe_lookup_pooled_forward(
     weights: torch.Tensor, flat_ids: torch.Tensor, coeff: torch.Tensor
 ) -> torch.Tensor:
     """The forward alone, outside autograd: K1 (K1h for a half table) for
-    CUDA tensors, the plain version for CPU tensors."""
-    global LAUNCHES, HALF_LAUNCHES
+    CUDA tensors, the plain version for CPU tensors. Launches count as
+    `tbe_lookup` (K1) and `tbe_lookup_half` (K1h)."""
     _check(weights, flat_ids, coeff)
-    if weights.device.type == "cpu":
-        return tbe_lookup_pooled_reference(weights, flat_ids, coeff)
-    R, D = weights.shape
-    NB, L = flat_ids.shape
-    out = torch.empty((NB, D), dtype=torch.float32, device=weights.device)
-    if NB == 0 or D == 0:
+    with tracing.span(KERNEL_SPAN):
+        if weights.device.type == "cpu":
+            return tbe_lookup_pooled_reference(weights, flat_ids, coeff)
+        R, D = weights.shape
+        NB, L = flat_ids.shape
+        out = torch.empty((NB, D), dtype=torch.float32, device=weights.device)
+        if NB == 0 or D == 0:
+            return out
+        group = lanes_per_row(D)
+        lib = LIBRARY.load()
+        stream = torch.cuda.current_stream(weights.device).cuda_stream
+        half = HALF_TYPES.get(weights.dtype)
+        with torch.cuda.device(weights.device):
+            if half is None:
+                err = lib.trt_tbe_lookup_pooled_f32(
+                    weights.data_ptr(), flat_ids.data_ptr(),
+                    coeff.data_ptr(), out.data_ptr(), R, D, NB, L, group,
+                    stream,
+                )
+            else:
+                err = lib.trt_tbe_lookup_pooled_half(
+                    weights.data_ptr(), flat_ids.data_ptr(),
+                    coeff.data_ptr(), out.data_ptr(), R, D, NB, L, group,
+                    half, stream,
+                )
+        LIBRARY.check("tbe_lookup_pooled", err)
+        tracing.count("tbe_lookup" if half is None else "tbe_lookup_half")
         return out
-    group = lanes_per_row(D)
-    lib = LIBRARY.load()
-    stream = torch.cuda.current_stream(weights.device).cuda_stream
-    half = HALF_TYPES.get(weights.dtype)
-    with torch.cuda.device(weights.device):
-        if half is None:
-            err = lib.trt_tbe_lookup_pooled_f32(
-                weights.data_ptr(), flat_ids.data_ptr(), coeff.data_ptr(),
-                out.data_ptr(), R, D, NB, L, group, stream,
-            )
-        else:
-            err = lib.trt_tbe_lookup_pooled_half(
-                weights.data_ptr(), flat_ids.data_ptr(), coeff.data_ptr(),
-                out.data_ptr(), R, D, NB, L, group, half, stream,
-            )
-    LIBRARY.check("tbe_lookup_pooled", err)
-    if half is None:
-        LAUNCHES += 1
-    else:
-        HALF_LAUNCHES += 1
-    return out
 
 
 class TbeLookupPooled(torch.autograd.Function):

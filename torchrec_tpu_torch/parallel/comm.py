@@ -39,22 +39,19 @@ differentiable form (a `torch.autograd.Function`) of the same call: the
 backward of all_gather is reduce_scatter of the gradient, of
 reduce_scatter all_gather, of all_to_all the all_to_all with split and
 concat swapped, JAX's transposes. The feature-processed EBC's lookup at
-world size n runs through them. `CALLS` counts the calls made to
-torch.distributed per function, forward and backward alike, as the kernel
-wrappers count their launches.
+world size n runs through them. The calls made to torch.distributed are
+counted per function, forward and backward alike, as the kernel wrappers
+count their launches: `comm.<function>` in utils/tracing.py's registry.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
-# calls made to torch.distributed in this process, per function
-CALLS: Dict[str, int] = {"all_gather": 0, "reduce_scatter": 0,
-                         "all_to_all": 0, "all_reduce_mean": 0,
-                         "all_reduce_sum": 0, "broadcast": 0}
+from torchrec_tpu_torch.utils import tracing
 
 
 def _front(x: torch.Tensor, axis: int) -> torch.Tensor:
@@ -85,7 +82,7 @@ def _all_gather(pg, n: int, x: torch.Tensor, axis: int) -> torch.Tensor:
     out = torch.empty((n * xs.shape[0], *xs.shape[1:]), dtype=xs.dtype,
                       device=xs.device)
     dist.all_gather_into_tensor(out, xs, group=pg)
-    CALLS["all_gather"] += 1
+    tracing.count("comm.all_gather")
     return _back(out, axis, x.dtype)
 
 
@@ -97,7 +94,7 @@ def _reduce_scatter(pg, n: int, x: torch.Tensor, axis: int) -> torch.Tensor:
     out = torch.empty((xs.shape[0] // n, *xs.shape[1:]), dtype=xs.dtype,
                       device=xs.device)
     dist.reduce_scatter_tensor(out, xs, op=dist.ReduceOp.SUM, group=pg)
-    CALLS["reduce_scatter"] += 1
+    tracing.count("comm.reduce_scatter")
     return _back(out, axis, x.dtype)
 
 
@@ -109,7 +106,7 @@ def _all_to_all(pg, n: int, x: torch.Tensor, split_axis: int,
                          f"split over {n} ranks")
     out = torch.empty_like(xs)
     dist.all_to_all_single(out, xs, group=pg)
-    CALLS["all_to_all"] += 1
+    tracing.count("comm.all_to_all")
     blocks = out.reshape(n, xs.shape[0] // n, *xs.shape[1:]).unbind(0)
     return torch.cat([_back(b, split_axis, x.dtype) for b in blocks],
                      dim=concat_axis)
@@ -195,7 +192,8 @@ def _all_reduce(env, tensors: Sequence[torch.Tensor],
     pg, n = _group(env, group)
     flat = torch.cat([t.reshape(-1).to(torch.float32) for t in tensors])
     dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=pg)
-    CALLS["all_reduce_mean" if mean else "all_reduce_sum"] += 1
+    tracing.count("comm.all_reduce_mean" if mean
+                  else "comm.all_reduce_sum")
     if mean:
         flat /= n
     off = 0
@@ -239,6 +237,6 @@ def broadcast_host(env, x, shape, dtype, src: int):
     for lo in range(0, max(flat.size, 1), step):
         part = torch.from_numpy(flat[lo:lo + step]).to(env.device)
         dist.broadcast(part, src=src, group=env.group)
-        CALLS["broadcast"] += 1
+        tracing.count("comm.broadcast")
         flat[lo:lo + step] = part.cpu().numpy()
     return out

@@ -117,7 +117,6 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 from torchrec_tpu_torch.modules.embedding_modules import (
     EmbeddingBagCollection,
@@ -171,7 +170,18 @@ from torchrec_tpu_torch.sparse.jagged import (
     KeyedTensor,
     PaddedSparseBatch,
 )
+from torchrec_tpu_torch.utils import tracing
 from torchrec_tpu_torch.utils.device import DeviceLike
+
+# the train step's spans (utils/tracing.py); the feature processor's open
+# only where the DMP has a feature-processed EBC
+TRAIN_STEP = "## train_step ##"
+FP_FORWARD = "## train_feature_processor ##"
+DENSE_FORWARD = "## train_dense_forward ##"
+BACKWARD = "## train_backward ##"
+FP_BACKWARD = "## train_fp_backward ##"
+DENSE_OPTIMIZER = "## train_dense_optimizer ##"
+
 
 def _replace_module(root: nn.Module, old: nn.Module, new: nn.Module) -> None:
     """Put `new` wherever a module of `root` holds `old` as a child."""
@@ -677,6 +687,11 @@ class DistributedModelParallel(nn.Module):
                     loss_fn: Optional[Callable]):
         """One optimizer step on `args`; a module with an entry in
         `dists` looks up and updates from it."""
+        with tracing.span(TRAIN_STEP):
+            return self._step(args, dists, loss_fn)
+
+    def _step(self, args, dists: Mapping[str, tuple],
+              loss_fn: Optional[Callable]):
         sparse = self._sparse_arg(args)
         lr = self._fused_lr()
         # the sharded lookups' values enter the dense model as leaves:
@@ -686,8 +701,8 @@ class DistributedModelParallel(nn.Module):
         # the processed weights only; its update takes them detached
         batches = {key: sparse for key in self.sharded_ebcs}
         fp_pooled: Dict[str, torch.Tensor] = {}
-        with record_function("## train_feature_processor ##"):
-            for key, fp_ebc in self._fp_ebcs.items():
+        for key, fp_ebc in self._fp_ebcs.items():
+            with tracing.span(FP_FORWARD):
                 sebc = self.sharded_ebcs[key]
                 sb = fp_ebc.feature_processor(
                     as_padded(sparse, sebc.max_feature_length))
@@ -717,7 +732,7 @@ class DistributedModelParallel(nn.Module):
                         values=leaves[key], keys=out.keys,
                         length_per_key=out.length_per_key)
         try:
-            with record_function("## train_dense_forward ##"):
+            with tracing.span(DENSE_FORWARD):
                 out = self.module(*args)
                 loss, aux = out if loss_fn is None else loss_fn(out)
         finally:
@@ -725,17 +740,16 @@ class DistributedModelParallel(nn.Module):
                       *self._fp_ebcs.values()):
                 m.injected = None
         self.dense_optimizer.zero_grad(set_to_none=True)
-        with record_function("## train_backward ##"):
+        with tracing.span(BACKWARD):
             loss.backward()
-        with record_function("## train_fp_backward ##"):
-            # the pooled cotangent back through K1's VJP in its
-            # coefficient into the processor's parameters (with a group,
-            # on every rank: it makes collectives)
-            for key, pooled in fp_pooled.items():
-                if (leaves[key].grad is not None
-                        or self.env.group is not None):
+        # the pooled cotangent back through K1's VJP in its coefficient
+        # into the processor's parameters (with a group, on every rank: it
+        # makes collectives)
+        for key, pooled in fp_pooled.items():
+            if leaves[key].grad is not None or self.env.group is not None:
+                with tracing.span(FP_BACKWARD):
                     pooled.backward(_grad(leaves[key]))
-        with record_function("## train_dense_optimizer ##"):
+        with tracing.span(DENSE_OPTIMIZER):
             # the JAX step differentiates every dense parameter, so one
             # the loss does not reach gets a zero gradient, on which
             # Adam still steps; torch's optimizers skip a None one

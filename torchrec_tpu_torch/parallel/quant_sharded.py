@@ -36,7 +36,9 @@ from torchrec_tpu_torch.ops.embedding import PoolingMode
 from torchrec_tpu_torch.ops.quant import QuantizedTable, quantize_rowwise
 from torchrec_tpu_torch.ops.quant_lookup import quant_lookup_pooled
 from torchrec_tpu_torch.parallel import comm
+from torchrec_tpu_torch.parallel.sharded_ebc import OUTPUT_SPAN
 from torchrec_tpu_torch.parallel.strategies import (
+    ROUTE_SPAN,
     ArrayLike,
     _pad_rows_tile,
     as_tensor,
@@ -48,6 +50,12 @@ from torchrec_tpu_torch.quant.embedding_modules import (
     quant_bits,
 )
 from torchrec_tpu_torch.sparse.jagged import KeyedTensor
+from torchrec_tpu_torch.utils import tracing
+
+# the span (utils/tracing.py) of the whole forward; inside it the route to
+# Kq (ROUTE_SPAN), Kq (`## lookup_kernel ##`) and the output's gather and
+# copy into the KeyedTensor's values (OUTPUT_SPAN) have their own
+FORWARD_SPAN = "## qebc_fwd ##"
 
 
 class ShardedQuantEmbeddingBagCollection(nn.Module):
@@ -178,10 +186,30 @@ class ShardedQuantEmbeddingBagCollection(nn.Module):
     def forward(self, features: SparseInput) -> KeyedTensor:
         """Replicated batch in, pooled KeyedTensor [B, sum(D)] out: one Kq
         launch over this rank's slots, one all_gather of the slots."""
-        sb = as_padded(features, self.max_feature_length)
+        with tracing.span(FORWARD_SPAN):
+            sb = as_padded(features, self.max_feature_length)
+            B, L = sb.ids.shape[1], sb.ids.shape[2]
+            with tracing.span(ROUTE_SPAN):
+                ids, coeff = self._route(sb, B, L)
+            pooled = quant_lookup_pooled(
+                self.data, self.scale, self.shift, ids, coeff,
+                self.bits).reshape(self.f_max, B, self.dim)
+            with tracing.span(OUTPUT_SPAN):
+                slots = comm.all_gather(self.env, pooled, 0)  # [n f_max, B, D]
+                # the one copy of the output: [B, F, D] in canonical order
+                out = slots.permute(1, 0, 2)
+                if not self._in_order:
+                    out = out[:, self.out_pos]
+                values = out.reshape(B, -1)
+        return KeyedTensor(values=values, keys=self.embedding_names,
+                           length_per_key=tuple(
+                               self.dim for _ in self.embedding_names))
+
+    def _route(self, sb, B: int, L: int):
+        """Kq's flat ids [f_max B, L] int32 (each slot's feature's rows,
+        offset to its table) and pooling coefficients [f_max B, L]."""
         key_index = {k: i for i, k in enumerate(sb.keys)}
         order = [key_index[f] for f in self._slot_features]
-        B, L = sb.ids.shape[1], sb.ids.shape[2]
         ids = (feature_rows(sb.ids, order).to(torch.int32)
                + self.feat_rowoff[:, None, None])
         lengths = feature_rows(sb.lengths, order) * self.feat_valid[
@@ -192,17 +220,5 @@ class ShardedQuantEmbeddingBagCollection(nn.Module):
         denom = lengths.to(torch.float32).clamp(min=1.0)[:, :, None]
         coeff = torch.where(self.feat_mean[:, None, None], coeff / denom,
                             coeff)
-        pooled = quant_lookup_pooled(
-            self.data, self.scale, self.shift,
-            ids.reshape(self.f_max * B, L),
-            coeff.reshape(self.f_max * B, L),
-            self.bits).reshape(self.f_max, B, self.dim)
-        slots = comm.all_gather(self.env, pooled, 0)  # [n f_max, B, D]
-        # the one copy of the output: [B, F, D] in canonical order
-        out = slots.permute(1, 0, 2)
-        if not self._in_order:
-            out = out[:, self.out_pos]
-        values = out.reshape(B, -1)
-        return KeyedTensor(values=values, keys=self.embedding_names,
-                           length_per_key=tuple(
-                               self.dim for _ in self.embedding_names))
+        return (ids.reshape(self.f_max * B, L),
+                coeff.reshape(self.f_max * B, L))

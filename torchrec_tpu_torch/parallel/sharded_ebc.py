@@ -35,12 +35,27 @@ from torchrec_tpu_torch.parallel.embedding_sharding import (
     group_tables,
 )
 from torchrec_tpu_torch.parallel.strategies import (
+    ROUTE_SPAN,
     ArrayLike,
     EmbeddingGroupState,
     create_sharding_strategy,
 )
 from torchrec_tpu_torch.parallel.types import ParameterSharding, ShardingEnv
 from torchrec_tpu_torch.sparse.jagged import KeyedTensor
+from torchrec_tpu_torch.utils import tracing
+
+# spans (utils/tracing.py) around the forward's concatenation of the groups'
+# pooled values (and the quantized EBC's copy of its output) and the
+# update's stacking of each group's cotangent slices, outside the groups'
+# own `## ebc_fwd_* ##` / `## ebc_update_* ##` spans
+OUTPUT_SPAN = "## ebc_output ##"
+COTANGENT_SPAN = "## ebc_cotangent ##"
+
+
+def group_spans(kind: str, groups: Sequence) -> Tuple[str, ...]:
+    """`## <kind>_<sharding type>_g<i> ##` for each group i."""
+    return tuple(f"## {kind}_{g.sharding_type.value}_g{i} ##"
+                 for i, g in enumerate(groups))
 
 
 class ShardedEmbeddingModule(GroupedInputDistMixin, nn.Module):
@@ -175,8 +190,18 @@ class ShardedEmbeddingBagCollection(ShardedEmbeddingModule):
         offsets = np.concatenate([[0], np.cumsum(self.length_per_key)])
         self._out_slice = {n: (int(offsets[i]), int(offsets[i + 1]))
                            for i, n in enumerate(self.embedding_names)}
+        self._fwd_spans = group_spans("ebc_fwd", self.groups)
+        self._update_spans = group_spans("ebc_update", self.groups)
 
     # -- compute -------------------------------------------------------------
+
+    def _padded(self, features: Optional[SparseInput]):
+        """The batch padded to max_feature_length (a jagged one converted
+        on the device) under the lookup route's span."""
+        if features is None:
+            return None
+        with tracing.span(ROUTE_SPAN):
+            return as_padded(features, self.max_feature_length)
 
     def forward(self, features: Optional[SparseInput],
                 dist: Optional[Sequence] = None) -> KeyedTensor:
@@ -185,19 +210,19 @@ class ShardedEmbeddingBagCollection(ShardedEmbeddingModule):
         (which may be None when every group has a dist)."""
         if self.injected is not None:
             return self.injected
-        sb = (None if features is None
-              else as_padded(features, self.max_feature_length))
+        sb = self._padded(features)
         per_name: Dict[str, torch.Tensor] = {}
         for gi, (strat, group) in enumerate(zip(self.strategies,
                                                 self.groups)):
             d = None if dist is None else dist[gi]
-            with torch.profiler.record_function(
-                    f"## ebc_fwd_{group.sharding_type.value}_g{gi} ##"):
+            with tracing.span(self._fwd_spans[gi]):
                 out = (strat(self._group_batch(sb, gi)) if d is None
                        else strat.forward_from_dist(d))  # [F_g, B, D_g]
             for j, ename in enumerate(group.embedding_names):
                 per_name[ename] = out[j]
-        values = torch.cat([per_name[n] for n in self.embedding_names], dim=1)
+        with tracing.span(OUTPUT_SPAN):
+            values = torch.cat([per_name[n] for n in self.embedding_names],
+                               dim=1)
         return KeyedTensor(values=values, keys=self.embedding_names,
                            length_per_key=self.length_per_key)
 
@@ -209,16 +234,15 @@ class ShardedEmbeddingBagCollection(ShardedEmbeddingModule):
         forward's KeyedTensor.values [B, sum(D)]: each group gets its
         features' [F_g, B, D_g] slices by embedding name, and its dist
         where `dist` has one, as in `forward`."""
-        sb = (None if features is None
-              else as_padded(features, self.max_feature_length))
+        sb = self._padded(features)
         for gi, (strat, group) in enumerate(zip(self.strategies,
                                                 self.groups)):
-            d_pooled = torch.stack([
-                d_values[:, slice(*self._out_slice[n])]
-                for n in group.embedding_names])
+            with tracing.span(COTANGENT_SPAN):
+                d_pooled = torch.stack([
+                    d_values[:, slice(*self._out_slice[n])]
+                    for n in group.embedding_names])
             d = None if dist is None else dist[gi]
-            with torch.profiler.record_function(
-                    f"## ebc_update_{group.sharding_type.value}_g{gi} ##"):
+            with tracing.span(self._update_spans[gi]):
                 if d is None:
                     strat.update(self._group_batch(sb, gi), d_pooled,
                                  learning_rate)

@@ -30,9 +30,13 @@ from torchrec_tpu_torch.parallel.embedding_sharding import group_tables
 from torchrec_tpu_torch.parallel.sequence_strategies import (
     create_sequence_sharding_strategy,
 )
-from torchrec_tpu_torch.parallel.sharded_ebc import ShardedEmbeddingModule
+from torchrec_tpu_torch.parallel.sharded_ebc import (
+    ShardedEmbeddingModule,
+    group_spans,
+)
 from torchrec_tpu_torch.parallel.strategies import EmbeddingGroupState
 from torchrec_tpu_torch.parallel.types import ParameterSharding, ShardingEnv
+from torchrec_tpu_torch.utils import tracing
 
 
 class ShardedEmbeddingCollection(ShardedEmbeddingModule):
@@ -59,6 +63,8 @@ class ShardedEmbeddingCollection(ShardedEmbeddingModule):
             create_sequence_sharding_strategy(env, g, optim, optim_kwargs)
             for g in self.groups
         )
+        self._fwd_spans = group_spans("ec_fwd", self.groups)
+        self._update_spans = group_spans("ec_update", self.groups)
 
     def forward(self, features: Optional[SparseInput],
                 as_jagged: bool = False,
@@ -76,8 +82,7 @@ class ShardedEmbeddingCollection(ShardedEmbeddingModule):
         for gi, (strat, group) in enumerate(zip(self.strategies,
                                                 self.groups)):
             d = None if dist is None else dist[gi]
-            with torch.profiler.record_function(
-                    f"## ec_fwd_{group.sharding_type.value}_g{gi} ##"):
+            with tracing.span(self._fwd_spans[gi]):
                 rows = (strat(self._group_batch(sb, gi)) if d is None
                         else strat.forward_from_dist(d))  # [F_g, B, L, D]
             out.update(zip(group.embedding_names, rows.unbind(0)))
@@ -97,8 +102,7 @@ class ShardedEmbeddingCollection(ShardedEmbeddingModule):
                                                 self.groups)):
             d = torch.stack([d_tokens[n] for n in group.embedding_names])
             dg = None if dist is None else dist[gi]
-            with torch.profiler.record_function(
-                    f"## ec_update_{group.sharding_type.value}_g{gi} ##"):
+            with tracing.span(self._update_spans[gi]):
                 if dg is None:
                     strat.update(self._group_batch(sb, gi), d,
                                  learning_rate)

@@ -85,6 +85,7 @@ from torchrec_tpu_torch.parallel import comm
 from torchrec_tpu_torch.parallel.embedding_sharding import GroupMeta
 from torchrec_tpu_torch.parallel.types import ShardingEnv, ShardingType
 from torchrec_tpu_torch.sparse.jagged import PaddedSparseBatch
+from torchrec_tpu_torch.utils import tracing
 
 # Per-device packed row counts are padded to this tile, as in the JAX
 # package, so that a shard round-trips between the two packages unchanged.
@@ -92,6 +93,9 @@ ROW_TILE = 128
 # init_weights draws each table in chunks of this many rows, so that a rank
 # holds its block and one chunk, never a whole table
 INIT_CHUNK_ROWS = 1 << 16
+# the span (utils/tracing.py) around a lookup's route to the kernel: its
+# global ids, mask and pooling coefficients
+ROUTE_SPAN = "## lookup_route ##"
 
 ArrayLike = Union[np.ndarray, torch.Tensor]
 
@@ -577,9 +581,11 @@ class DpEmbeddingSharding(BaseEmbeddingShardingStrategy):
 
     def forward(self, sb):
         L = sb.ids.shape[2]
-        coeff = _pool_coeff(sb.lengths, L, self.feat_mean, sb.weights,
-                            self.weights.dtype)
-        return pooled_lookup(self.weights, self._gids(sb.ids), coeff)
+        with tracing.span(ROUTE_SPAN):
+            coeff = _pool_coeff(sb.lengths, L, self.feat_mean, sb.weights,
+                                self.weights.dtype)
+            gids = self._gids(sb.ids)
+        return pooled_lookup(self.weights, gids, coeff)
 
     def _gather_flat(self, gids: torch.Tensor, valid: torch.Tensor,
                      grads: torch.Tensor):
