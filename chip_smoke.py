@@ -10,7 +10,8 @@ Phases, each failing the run with a non-zero exit when it fails:
 2. Build the kernels with nvcc for sm_90a, one nvcc per source, started
    together: K1 and K1h (csrc/tbe_lookup.cu), K2-K7, K3h and K4h
    (csrc/fused_update.cu), K8 with the routed gather
-   (csrc/gather_rows.cu) and Kq (csrc/quant_lookup.cu).
+   (csrc/gather_rows.cu), Kq (csrc/quant_lookup.cu) and the DLRM's dot
+   interaction (csrc/dot_interaction.cu).
 3. Serve the DLRM that bench.py and bench_config.py describe, at full
    width, through the port's DistributedModelParallel.make_eval_fn:
    26 fp32 tables of 100,000 x 128 (ROW_WISE on one device), dense arch
@@ -446,6 +447,23 @@ Phases, each failing the run with a non-zero exit when it fails:
    replaced; none for the routed gather, K4h, K6 and K7); K8, the routed
    gather and Kq also beside a sector bound (every 32-byte sector their
    distinct rows, and Kq's scales and shifts, touch).
+23. The DLRM's dot interaction (ops/dot_interaction.py, one kernel a
+   direction in place of the cat, Gram bmm, upper-triangle gather and cat,
+   and their backward). Held against its plain version at the Criteo
+   Kaggle DLRM's shape (B = 65,536, n = 27, D = 64), at bench.py's D = 128,
+   at D = 63 and 66 (the element access) and at n = 64, one launch each
+   way: the forward bit for
+   bit (but the one example of a 65,536 batch that cuBLAS sums with
+   another kernel) and within D * 2^-24 of the float64 products' scale,
+   the backward within 1e-5 of its scale. Timed at the Kaggle shape,
+   forward, backward and both, in turns with the plain version, the
+   composition it replaced (its backward the gather's sorted index_put_
+   and the bmm's two products) and the index_select composition as the
+   library yardstick, beside the bytes bound (0.168 ms forward, 0.303 ms
+   backward); the kernel must beat the yardstick. bench.py's DLRM then
+   takes 2 steps and 2 requests at B=8192: each step launches the
+   forward and the backward once (counters `dot_interaction`,
+   `dot_interaction_bwd`), each request the forward once.
 
 Kernel times are device times from torch.profiler (the kernel's own for a
 kernel, all device activity of the call for the plain version and the
@@ -457,7 +475,8 @@ The line before the last is a JSON object with every kernel's numbers
 Kq with "int4" and K1's time at the same ids; phase 21's under
 "widths", "d10_shape" and "wide_d1030", phase 22's under "narrow",
 "narrow_d10" and "narrow_d64", the scaled RMW's under K4's
-"scaled_rmw");
+"scaled_rmw"; phase 23's as a last entry, "dot_interaction", with the
+launches that bench.py's DLRM counted in its steps and requests);
 the last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 outside a checkout of the repository, it exits non-zero and prints no
 result.
@@ -7756,6 +7775,226 @@ def narrow_phase() -> dict:
     return results
 
 
+# -- phase 23: the DLRM's dot interaction -------------------------------------
+
+# the Criteo Kaggle DLRM's interaction (the benchmark's DLRM cells): B
+# examples of n = F + 1 = 27 rows of D = 64; held and timed
+DI_SHAPE = (65536, 26, 64)
+# held only: bench.py's D = 128, two widths not a multiple of 4 (the
+# element access) and the largest n the kernel takes
+DI_HELD = ((8192, 26, 128), (4099, 26, 63), (513, 30, 66), (777, 63, 130))
+# the kernels' names as the profiler prints them
+DI_KERNELS = "dot_interaction_"
+DI_COUNTERS = ("dot_interaction", "dot_interaction_bwd")
+# cuBLAS's batched GEMM takes 65,535 examples a launch and sums the one
+# left over of a 65,536 batch with another kernel, in another order
+CUBLAS_BATCH = 65535
+
+
+def di_counts() -> dict:
+    from torchrec_tpu_torch.utils import tracing
+
+    now = tracing.counts()
+    return {k: now.get(k, 0) for k in DI_COUNTERS}
+
+
+def di_moved(before: dict) -> dict:
+    return {k: v - before[k] for k, v in di_counts().items()}
+
+
+def di_bound(B: int, F: int, D: int) -> dict:
+    """Least times: forward reads C and writes [B, D + P]; backward reads
+    the output's gradient and C and writes dC (f32, each byte once)."""
+    n = F + 1
+    c_bytes = 4 * B * n * D
+    out_bytes = 4 * B * (D + n * (n - 1) // 2)
+    fwd, bwd = c_bytes + out_bytes, out_bytes + 2 * c_bytes
+    return {"fwd_bytes": fwd, "bwd_bytes": bwd,
+            "fwd_bound_ms": fwd / HBM_BYTES_PER_S * 1e3,
+            "bwd_bound_ms": bwd / HBM_BYTES_PER_S * 1e3,
+            "bound_ms": (fwd + bwd) / HBM_BYTES_PER_S * 1e3}
+
+
+def di_index_select(dense, sparse):
+    """The library yardstick: the same with the triangle taken by
+    index_select on the flattened Gram (its backward index_add_)."""
+    n = sparse.shape[1] + 1
+    combined = torch.cat([dense[:, None, :], sparse], dim=1)
+    gram = torch.bmm(combined, combined.transpose(1, 2))
+    iu, ju = torch.triu_indices(n, n, offset=1, device=gram.device)
+    return torch.cat([dense, gram.flatten(1).index_select(1, iu * n + ju)],
+                     dim=1)
+
+
+def di_inputs(B: int, F: int, D: int, seed: int) -> tuple:
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    n = F + 1
+    dense = torch.randn(B, D, device=DEVICE, generator=g)
+    sparse = torch.randn(B, F, D, device=DEVICE, generator=g)
+    grad = torch.randn(B, D + n * (n - 1) // 2, device=DEVICE, generator=g)
+    return dense, sparse, grad
+
+
+def check_interaction(di, B: int, F: int, D: int) -> dict:
+    """The kernel against its plain version at one shape: the forward bit
+    for bit (but cuBLAS's left-over example) and within D * 2^-24 of the
+    float64 products' |a| . |b| scale, the backward within 1e-5 of its
+    scale; one launch each way."""
+    dense, sparse, grad = di_inputs(B, F, D, SEED + B + F + D)
+    before = di_counts()
+    out = di.dot_interaction_forward(dense, sparse)
+    d_dense, d_sparse = di.dot_interaction_backward(grad, dense, sparse)
+    torch.cuda.synchronize()
+    if di_moved(before) != {k: 1 for k in DI_COUNTERS}:
+        raise AssertionError(f"interaction B={B} F={F} D={D}: launched "
+                             f"{di_moved(before)}")
+    plain = di.dot_interaction_reference(dense, sparse)
+    differ = (out != plain).any(dim=1).nonzero().flatten().tolist()
+    exact = di.dot_interaction_reference(dense.double(), sparse.double())
+    scale = di.dot_interaction_reference(dense.abs().double(),
+                                         sparse.abs().double())
+    fwd_err = float(((out.double() - exact).abs()
+                     / scale.clamp_min(1e-30)).max())
+    want = di.dot_interaction_backward_reference(grad, dense, sparse)
+    bwd_err = max(float((g - w).abs().max()) / float(w.abs().max())
+                  for g, w in zip((d_dense, d_sparse), want))
+    log(f"interaction B={B} F={F} D={D}: forward bit for bit with the "
+        f"plain version but examples {differ}, {fwd_err:.3e} of the "
+        f"float64 scale (bound {D * 2.0 ** -24:.3e}); backward "
+        f"{bwd_err:.3e} of its scale")
+    if differ not in ([], [CUBLAS_BATCH]) or fwd_err > D * 2.0 ** -24:
+        raise AssertionError(f"interaction forward B={B} F={F} D={D}: "
+                             f"examples {differ}, error {fwd_err}")
+    if not bwd_err <= 1e-5:
+        raise AssertionError(f"interaction backward B={B} F={F} D={D}: "
+                             f"{bwd_err}")
+    return {"max_abs_err": float((out - plain).abs().max()),
+            "differing_examples": differ, "fwd_rel_err": fwd_err,
+            "bwd_rel_err": bwd_err}
+
+
+def time_interaction(di) -> dict:
+    """At DI_SHAPE, in turns (kernel, plain version, the composition it
+    replaced, the index_select yardstick, then back): forward, backward
+    and the two together, each device time beside its bound. The
+    composition is the plain forward (cat, Gram bmm, the upper triangle
+    gathered, cat) under autograd, whose backward is the gather's sorted
+    index_put_ and the bmm's two products."""
+    B, F, D = DI_SHAPE
+    dense, sparse, grad = di_inputs(B, F, D, SEED + 23)
+    d0 = dense.clone().requires_grad_()
+    s0 = sparse.clone().requires_grad_()
+    graphs = {"composition": di.dot_interaction_reference(d0, s0),
+              "index_select": di_index_select(d0, s0)}
+
+    def autograd_bwd(name):
+        return lambda: torch.autograd.grad(graphs[name], [d0, s0], grad,
+                                           retain_graph=True)
+
+    def both(fwd, bwd):
+        return lambda: (fwd(), bwd())
+
+    fwd = {
+        "kernel": lambda: di.dot_interaction_forward(dense, sparse),
+        "plain": lambda: di.dot_interaction_reference(dense, sparse),
+        "composition": lambda: di.dot_interaction_reference(dense, sparse),
+        "index_select": lambda: di_index_select(dense, sparse),
+    }
+    bwd = {
+        "kernel": lambda: di.dot_interaction_backward(grad, dense, sparse),
+        "plain": lambda: di.dot_interaction_backward_reference(grad, dense,
+                                                               sparse),
+        "composition": autograd_bwd("composition"),
+        "index_select": autograd_bwd("index_select"),
+    }
+    bnd = di_bound(B, F, D)
+    times = {f"{k}_{part}": [] for k in fwd for part in ("fwd", "bwd", "ms")}
+    order = list(fwd)
+    for turn in (order, order[::-1]):
+        for k in turn:
+            kernel = DI_KERNELS if k == "kernel" else ""
+            times[f"{k}_fwd"].append(device_ms(fwd[k], kernel,
+                                               bnd["fwd_bound_ms"]))
+            times[f"{k}_bwd"].append(device_ms(bwd[k], kernel,
+                                               bnd["bwd_bound_ms"]))
+            times[f"{k}_ms"].append(device_ms(both(fwd[k], bwd[k]), kernel,
+                                              bnd["bound_ms"]))
+    out = {k: sum(v) / len(v) for k, v in times.items()}
+    # the kernels' entry as every kernel's: its time, the bound, the plain
+    # version's and the library yardstick's
+    out.update({"ms": out["kernel_ms"], "library_ms": out["index_select_ms"],
+                "turns": times, **bnd,
+                "call_ms": cuda_ms(both(fwd["kernel"], bwd["kernel"]), 20),
+                "share": bnd["bound_ms"] / out["kernel_ms"]})
+    log(f"interaction at B={B} F={F} D={D} (ms, device; in turns "
+        f"{times}): kernel forward {out['kernel_fwd']:.5f} (bound "
+        f"{bnd['fwd_bound_ms']:.5f}), backward {out['kernel_bwd']:.5f} "
+        f"(bound {bnd['bwd_bound_ms']:.5f}), both {out['kernel_ms']:.5f} "
+        f"(bound {bnd['bound_ms']:.5f}, {100 * out['share']:.1f} %); plain "
+        f"{out['plain_ms']:.5f}, the composition it replaced "
+        f"{out['composition_ms']:.5f}, index_select {out['index_select_ms']:.5f}"
+        f"; the wrapper calls' stream time {out['call_ms']:.5f}")
+    if not out["kernel_ms"] < out["index_select_ms"]:
+        raise AssertionError("the interaction kernel is slower than the "
+                             "index_select composition")
+    return out
+
+
+def interaction_steps() -> dict:
+    """bench.py's DLRM: a train step launches each direction once, a
+    request the forward once. Returns the launches counted in each step
+    and request."""
+    dmp = make_dmp(DEVICE, train=True).init(SEED)
+    step, evaluate = dmp.make_train_step(), dmp.make_eval_fn()
+    rng = np.random.RandomState(SEED + 23)
+    batches = [to_device(make_batch(rng, BENCH_BATCH)) for _ in range(3)]
+    step(*batches[0])
+    torch.cuda.synchronize()
+    launched = {"step": [], "request": []}
+    for batch in batches[1:]:
+        before = di_counts()
+        step(*batch)
+        torch.cuda.synchronize()
+        launched["step"].append(di_moved(before))
+        before = di_counts()
+        evaluate(*batch)
+        torch.cuda.synchronize()
+        launched["request"].append(di_moved(before))
+    log(f"interaction launches per DLRM step and request: {launched}")
+    want = {"step": {"dot_interaction": 1, "dot_interaction_bwd": 1},
+            "request": {"dot_interaction": 1, "dot_interaction_bwd": 0}}
+    for kind, moved in launched.items():
+        if any(m != want[kind] for m in moved):
+            raise AssertionError(f"interaction launches per {kind}: {moved}, "
+                                 f"expected {want[kind]}")
+    del dmp
+    gc_cuda()
+    return launched
+
+
+def interaction_phase() -> dict:
+    """Phase 23 (see the module docstring): the interaction's numbers."""
+    from torchrec_tpu_torch.ops import dot_interaction as di
+
+    t = time.perf_counter()
+    held = {f"B{B}_F{F}_D{D}": check_interaction(di, B, F, D)
+            for B, F, D in (DI_SHAPE, *DI_HELD)}
+    gc_cuda()
+    out = {"max_abs_err": max(h["max_abs_err"] for h in held.values()),
+           "held": held, **time_interaction(di)}
+    gc_cuda()
+    out["launches_on_the_path"] = interaction_steps()
+    log(f"interaction phase: {time.perf_counter() - t:.2f} s")
+    return out
+
+
+def interaction_launches(on_path: dict) -> dict:
+    """The launches of each counter over the steps and requests of
+    bench.py's DLRM that interaction_steps counted."""
+    return {k: sum(m[k] for moved in on_path.values() for m in moved)
+            for k in DI_COUNTERS}
+
+
 def gc_cuda() -> None:
     """Free what Python no longer holds, so that the next peak counts only
     what is alive."""
@@ -7771,6 +8010,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
               file=sys.stderr)
         return 1
+    from torchrec_tpu_torch.ops import dot_interaction as di
     from torchrec_tpu_torch.ops import fused_update_kernels as fk
     from torchrec_tpu_torch.ops import gather_rows as gr
     from torchrec_tpu_torch.ops import quant_lookup as ql
@@ -7778,7 +8018,8 @@ def main() -> int:
     from torchrec_tpu_torch.ops.fused_update import EmbOptimType
 
     card = identify()
-    build_kernels([tl.LIBRARY, fk.LIBRARY, gr.LIBRARY, ql.LIBRARY])
+    build_kernels([tl.LIBRARY, fk.LIBRARY, gr.LIBRARY, ql.LIBRARY,
+                   di.LIBRARY])
     t0 = time.perf_counter()
     dmp = make_dmp(DEVICE).init(SEED)
     torch.cuda.synchronize()
@@ -7915,6 +8156,11 @@ def main() -> int:
                 results[key]["max_abs_err"] = max(
                     results[key]["max_abs_err"], sub["max_abs_err"])
 
+    # the DLRM's dot interaction: held at the paths' shapes, timed at the
+    # Criteo Kaggle DLRM's beside what it replaced, launched once a step
+    # each way
+    interaction = interaction_phase()
+
     launches = {k: trained[name]["launches"][k]
                 for name, ks in STEP_KERNELS.items() for k in ks}
     launches["K4"] += b4r_trained["launches"]["K4"]
@@ -7974,7 +8220,18 @@ def main() -> int:
         "replaces": KERNELS[k][2],
         "launches": launches[k],
         **results[k],
-    } for k in sorted(KERNELS)]}))
+    } for k in sorted(KERNELS)] + [{
+        # launched by bench.py's DLRM in the steps and requests that
+        # interaction_steps counted
+        "name": "dot_interaction",
+        "route": "cuda",
+        "source": "torchrec_tpu_torch/csrc/dot_interaction.cu",
+        "replaces": "no pl.pallas_call: the einsum and triu_indices gather "
+                    "of torchrec_tpu/models/dlrm.py:73, left to XLA",
+        "launches": interaction_launches(
+            interaction["launches_on_the_path"]),
+        **interaction,
+    }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card["name"],
         "count": torch.cuda.device_count()}}))

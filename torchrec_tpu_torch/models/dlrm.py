@@ -2,11 +2,12 @@
 
 Counterpart of torchrec_tpu/models/dlrm.py: SparseArch, DenseArch,
 InteractionArch, OverArch, DLRM and the DLRMTrain loss wrapper. The
-pairwise interaction is one [B, F+1, D] x [B, D, F+1] batched product with
-the upper triangle taken in `np.triu_indices(F + 1, k=1)` order; the JAX
-package leaves it to XLA outside any Pallas kernel, and here it stays
-`torch.bmm`. Logits are always fp32. The dense arch, the interaction and
-the over arch run under the spans `## dlrm_dense_arch ##`,
+pairwise interaction is the upper triangle, in `np.triu_indices(F + 1,
+k=1)` order, of each example's [F+1, D] x [D, F+1] Gram product; the JAX
+package leaves it to XLA outside any Pallas kernel, and here it is one
+hand-written CUDA kernel a direction (ops/dot_interaction.py), with its
+plain PyTorch version on the CPU. Logits are always fp32. The dense arch,
+the interaction and the over arch run under the spans `## dlrm_dense_arch ##`,
 `## dlrm_interaction ##` and `## dlrm_over_arch ##`, their backward under
 `## <name>.bwd ##` (utils/tracing.py).
 """
@@ -23,6 +24,7 @@ from torchrec_tpu_torch.modules.embedding_modules import (
     SparseInput,
 )
 from torchrec_tpu_torch.modules.mlp import MLP, Perceptron
+from torchrec_tpu_torch.ops.dot_interaction import dot_interaction
 from torchrec_tpu_torch.utils.device import DeviceLike
 from torchrec_tpu_torch.utils.tracing import ModuleSpan
 
@@ -94,16 +96,14 @@ class InteractionArch(nn.Module):
         F = self.num_sparse_features
         if F <= 0:
             return dense_features
-        combined = torch.cat(
-            [dense_features[:, None, :], sparse_features], dim=1
-        )  # [B, F+1, D]
-        if self.dtype is not None:
-            combined = combined.to(self.dtype)
-        combined = combined.float()
-        gram = torch.bmm(combined, combined.transpose(1, 2))
-        iu, ju = torch.triu_indices(F + 1, F + 1, offset=1,
-                                    device=gram.device)
-        return torch.cat([dense_features, gram[:, iu, ju]], dim=1)
+        if self.dtype is None:
+            return dot_interaction(dense_features, sparse_features)
+        # the products of the inputs rounded to the compute dtype, beside
+        # the dense input as it came
+        out = dot_interaction(dense_features.to(self.dtype).float(),
+                              sparse_features.to(self.dtype).float())
+        return torch.cat([dense_features, out[:, dense_features.shape[1]:]],
+                         dim=1)
 
 
 class OverArch(nn.Module):
