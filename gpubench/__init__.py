@@ -10,9 +10,15 @@ adding files:
 
 * ``configs/<config>.json``: a model configuration (sizes, optimizers,
   dtype, the peak its MFU divides by). Its ``"model"`` names the program
-  builder ``programs/<model>.py`` (the port's public API) and the plain
-  reference ``reference/<model>.py``.
-* ``traffic/<mix>.json``: a traffic mix, parameters only. Its ``"driver"``
+  builder ``programs/<model>.py`` (the port's public API: ``model``,
+  ``linears``, ``scores``, and where it needs them its own
+  ``sparse_batch`` and ``KERNELS``) and the plain reference
+  ``reference/<model>.py`` (``linear_shapes``, ``forward``, ``loss``,
+  ``flops_per_example``, ``tiny_sizes`` for the CPU tests, and
+  ``linear_biases`` where a layer has no bias). ``drivers/train.py``
+  lists every key.
+* ``traffic/<mix>.json``: a traffic mix, parameters only (its ids a
+  feature one int, or a list of one length a feature). Its ``"driver"``
   names the general generator and loop ``drivers/<driver>.py``.
 * ``metrics/<metric>.py``: one reader a metric, ``read(ctx) -> float |
   None``; None leaves the metric out of the result line.

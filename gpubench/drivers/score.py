@@ -3,7 +3,8 @@ scored by the program's ShardedPredictModule, `in_flight` chunks at a
 time, from a pool of chunks made on the card from the seed and kept in
 pinned host memory.
 
-Traffic parameters: `batch` (candidates a chunk), `ids_per_feature`,
+Traffic parameters: `batch` (candidates a chunk), `ids_per_feature` (an
+int or a list of F lengths, as for training: `inputs.make_batch`),
 `zipf_a`, `pool` (distinct chunks), `bits` (the package's integer width),
 `in_flight`, `warmup_chunks`, `sample_every` (about one chunk in this
 many keeps its scores for the comparison, drawn from the seed; the first
@@ -15,6 +16,10 @@ them; a completion thread waits on each chunk's event in order and stamps
 the host clock. A chunk's latency runs from its issue (before its copy
 in) to that stamp. The window ends when every chunk issued in it has
 been stamped (or a minute has passed, and the rest count as failed).
+
+The configuration, program and reference modules are those of training
+(`drivers/train.py`): the program module's `sparse_batch` and `KERNELS`
+and the reference's `linear_biases` are taken here too.
 """
 
 from __future__ import annotations
@@ -29,8 +34,15 @@ from typing import Dict, List
 import torch
 
 from gpubench import check, inputs, trace, work
-from gpubench.drivers.train import build_kernels, mark, slices, sync
+from gpubench.drivers.train import (
+    batch_form,
+    build_kernels,
+    mark,
+    slices,
+    sync,
+)
 from gpubench.programs import common as prog_common
+from gpubench.reference import common as ref_common
 from gpubench.reference import score as ref_score
 from gpubench.result import Result, Run
 
@@ -78,7 +90,8 @@ def build_predictor(r: Run):
     dmp = prog_common.build_dmp(cfg, r.program.model(cfg, train=False),
                                 r.device)
     prog_common.load_weights(dmp, r.program.linears(dmp.module), cfg,
-                             r.model.linear_shapes(cfg), r.seed)
+                             r.model.linear_shapes(cfg), r.seed,
+                             ref_common.linear_biases(r.model, cfg))
     sync(r.device)
     mark(r, "float model")
     dtype = {8: DataType.INT8, 4: DataType.INT4}[r.traffic["bits"]]
@@ -121,6 +134,7 @@ class Scorer:
 
     def __init__(self, r: Run, spm, pool):
         self.r, self.spm, self.pool = r, spm, pool
+        self.sparse_batch = batch_form(r.program)
         tr = r.traffic
         pin = torch.device(r.device).type == "cuda"
         self.slots = []
@@ -159,7 +173,7 @@ class Scorer:
             dev[k].copy_(v, non_blocking=True)
         h0 = time.perf_counter()
         logits = self.spm.predict(dev["dense"],
-                                  prog_common.sparse_batch(self.r.cfg, dev))
+                                  self.sparse_batch(self.r.cfg, dev))
         self.host.append(time.perf_counter() - h0)
         out.copy_(self.r.program.scores(logits), non_blocking=True)
         done = _Done(self.r.device)
@@ -186,7 +200,7 @@ def _sample(r: Run, i: int) -> bool:
 def run(r: Run, wrap_predict=None) -> Result:
     tr = r.traffic
     mark(r, "imports")
-    compile_s = (build_kernels(("tbe_lookup", "quant_lookup"))
+    compile_s = (build_kernels(("tbe_lookup", "quant_lookup"), r.program)
                  if torch.device(r.device).type == "cuda" else 0.0)
     mark(r, "kernels")
     pool = make_pool(r)
@@ -244,9 +258,10 @@ def run(r: Run, wrap_predict=None) -> Result:
     if not stopped:
         numbers["score_gap"] = float("inf")
     F = len(r.cfg["num_embeddings_per_feature"])
-    B, L, D = tr["batch"], tr["ids_per_feature"], r.cfg["embedding_dim"]
+    B, D = tr["batch"], r.cfg["embedding_dim"]
+    ids = inputs.ids_per_example(F, tr["ids_per_feature"])
     per = [work.distinct_rows(c["ids"], c["lengths"]) for c in pool]
-    qbytes = sum(work.quant_lookup_bytes(per[j % len(pool)], F, B, L, D,
+    qbytes = sum(work.quant_lookup_bytes(per[j % len(pool)], F, B, ids, D,
                                          tr["bits"]) for j in done)
     return Result(
         setup_s=setup_s, compile_s=compile_s,

@@ -2,10 +2,28 @@
 back, with no synchronise between steps, over a pool of batches made on
 the card at set-up and cycled; one synchronise ends the window.
 
-Traffic parameters (`traffic/<mix>.json`): `batch`, `ids_per_feature`,
-`zipf_a` (null: uniform ids), `pool` (distinct batches), `warmup_steps`
-(after the checked ones), `sample_rows` (rows a table is checked at that
-no checked batch touches).
+Traffic parameters (`traffic/<mix>.json`): `batch`, `ids_per_feature`
+(an int L for every feature, or a list of F fixed lengths L_f, as
+MLPerf's multi-hot Criteo has: `inputs.make_batch`), `zipf_a` (null:
+uniform ids), `pool` (distinct batches), `warmup_steps` (after the
+checked ones), `sample_rows` (rows a table is checked at that no checked
+batch touches).
+
+The optimizer keys of a configuration (`configs/<name>.json`), read here
+and by the reference: `fused_optimizer` (ROWWISE_ADAGRAD, ADAGRAD or
+ADAM) with `fused_learning_rate`, `fused_eps` and Adam's `fused_beta1` /
+`fused_beta2`; `dense_optimizer` (SGD, ADAGRAD or ADAM) with
+`dense_learning_rate` and optionally `dense_eps` (torch.optim's default
+where absent). The program module (`programs/<model>.py`) gives
+`model(cfg, train)` and `linears(module)`, and may give
+`sparse_batch(cfg, batch)` (the port's batch form it feeds the step;
+`programs/common.sparse_batch`'s PaddedSparseBatch where absent) and
+`KERNELS`, the names of further `torchrec_tpu_torch.ops` libraries it
+runs, built at set-up so that their build counts as `compile_s`. The
+reference module (`reference/<model>.py`) gives `linear_shapes(cfg)`,
+`forward`, `loss`, `flops_per_example`, `tiny_sizes(cfg)` (the sizes the
+CPU tests set, `tests/conftest.py`), and may give `linear_biases(cfg)`,
+which layers have a bias (all where absent).
 
 Set-up builds one DistributedModelParallel from the seed and drives it
 through `CHECKED` steps on pool batches 0..2 through the window's own
@@ -27,6 +45,7 @@ import torch
 
 from gpubench import check, inputs, trace, work
 from gpubench.programs import common as prog_common
+from gpubench.reference import common as ref_common
 from gpubench.reference import train as ref_train
 from gpubench.result import Result, Run
 
@@ -64,13 +83,14 @@ def make_rowsets(r: Run, batches: List[dict]) -> List[torch.Tensor]:
     return out
 
 
-def build_kernels(names) -> float:
-    """Build (first run) or load the program's CUDA libraries; seconds
-    spent compiling."""
+def build_kernels(names, program=None) -> float:
+    """Build (first run) or load the program's CUDA libraries, `names` and
+    those the program module lists in its `KERNELS`; seconds spent
+    compiling."""
     import importlib
 
     spent = 0.0
-    for name in names:
+    for name in dict.fromkeys([*names, *getattr(program, "KERNELS", ())]):
         lib = importlib.import_module(f"torchrec_tpu_torch.ops.{name}").LIBRARY
         spent += lib.build()["seconds"]
         lib.load()
@@ -109,7 +129,17 @@ def _table_grad(cfg, m: torch.Tensor) -> float:
     if cfg["fused_optimizer"] == "ROWWISE_ADAGRAD":
         # m = mean(g^2) over the row's D columns
         return float((m.double().sum() * cfg["embedding_dim"]).sqrt())
+    if cfg["fused_optimizer"] == "ADAGRAD":
+        # m = g^2, element by element
+        return float(m.double().sum().sqrt())
     return float(m.norm()) / (1.0 - cfg["fused_beta1"])
+
+
+def batch_form(program) -> Callable:
+    """`sparse_batch(cfg, batch)`, the port's sparse batch of a benchmark
+    batch: the program module's where it gives one, the common
+    PaddedSparseBatch otherwise."""
+    return getattr(program, "sparse_batch", prog_common.sparse_batch)
 
 
 def set_up_program(r: Run, pool, rowsets, wrap_step=None):
@@ -120,16 +150,18 @@ def set_up_program(r: Run, pool, rowsets, wrap_step=None):
                                 r.device)
     lins = r.program.linears(dmp.module)
     mark(r, "program built")
+    biases = ref_common.linear_biases(r.model, cfg)
     prog_common.load_weights(dmp, lins, cfg, r.model.linear_shapes(cfg),
-                             r.seed)
+                             r.seed, biases)
     sync(r.device)
     mark(r, "weights")
-    params = [p for lin in lins for p in (lin.weight, lin.bias)]
+    params = [p for lin in lins for p in (lin.weight, lin.bias)
+              if p is not None]
     step = dmp.make_train_step()
     if wrap_step is not None:
         step = wrap_step(step, dmp)
-    args = [(b["dense"], prog_common.sparse_batch(cfg, b), b["labels"])
-            for b in pool]
+    make = batch_form(r.program)
+    args = [(b["dense"], make(cfg, b), b["labels"]) for b in pool]
     with torch.no_grad():
         p0 = [p.detach().clone() for p in params]
         w0, _ = _state_rows(dmp, rowsets, cfg)
@@ -145,7 +177,7 @@ def set_up_program(r: Run, pool, rowsets, wrap_step=None):
                 _, m1 = _state_rows(dmp, rowsets, cfg)
     with torch.no_grad():
         w3, _ = _state_rows(dmp, rowsets, cfg)
-        leaves = ref_train.dense_leaves(len(lins))
+        leaves = ref_train.dense_leaves(biases)
         readings = ref_train.Readings(
             losses=losses,
             grad={**dict(zip(leaves, grad)),
@@ -190,7 +222,8 @@ def slices(ends: List[float], what: str, width: float = 5.0) -> None:
 def run(r: Run, wrap_step=None) -> Result:
     tr = r.traffic
     mark(r, "imports")
-    compile_s = (build_kernels(("tbe_lookup", "fused_update_kernels"))
+    compile_s = (build_kernels(("tbe_lookup", "fused_update_kernels"),
+                               r.program)
                  if torch.device(r.device).type == "cuda" else 0.0)
     mark(r, "kernels")
     pool = make_pool(r)
@@ -235,14 +268,15 @@ def _window_bytes(r: Run, pool, start: int, steps: int) -> dict:
     """The lookup's and the update's work bytes over the window's steps."""
     cfg, tr = r.cfg, r.traffic
     F = len(cfg["num_embeddings_per_feature"])
-    B, L, D = tr["batch"], tr["ids_per_feature"], cfg["embedding_dim"]
+    B, D = tr["batch"], cfg["embedding_dim"]
+    ids = inputs.ids_per_example(F, tr["ids_per_feature"])
     state = work.optimizer_state_floats(cfg["fused_optimizer"], D)
     look = upd = 0
     per = [work.distinct_rows(b["ids"], b["lengths"]) for b in pool]
     for k in range(steps):
         u = per[(start + k) % len(pool)]
-        look += work.lookup_bytes(u, F, B, L, D)
-        upd += work.update_bytes(u, F, B, L, D, state)
+        look += work.lookup_bytes(u, F, B, ids, D)
+        upd += work.update_bytes(u, F, B, ids, D, state)
     return {"lookup": look, "update": upd}
 
 

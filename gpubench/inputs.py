@@ -9,13 +9,16 @@ permutation drawn from the seed, as hashed or value-ordered ids are: the
 hot rows do not lie together at the table's start. Every tensor comes
 from its own `torch.Generator` on the device, seeded by `sub_seed(seed,
 tag, index)`, so any one table, layer or batch can be drawn again alone:
-the reference redraws what it needs after the window.
+the reference redraws what it needs after the window. A traffic's
+`ids_per_feature` is one int L for every feature, or a list of F fixed
+lengths (multi-hot features of their own sizes, `make_batch`); a linear
+layer may have no bias (`make_linears`).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -74,17 +77,39 @@ def row_orders(cards: Sequence[int], seed: int,
             for t, n in enumerate(cards)]
 
 
-def make_batch(cards: Sequence[int], batch: int, ids_per_feature: int,
+def feature_lengths(F: int, ids_per_feature) -> List[int]:
+    """Each feature's ids an example: a traffic's `ids_per_feature`, one
+    int for every feature or a list of F."""
+    if isinstance(ids_per_feature, int):
+        return [ids_per_feature] * F
+    if len(ids_per_feature) != F:
+        raise ValueError(f"ids_per_feature has {len(ids_per_feature)} "
+                         f"entries for {F} features")
+    return [int(n) for n in ids_per_feature]
+
+
+def ids_per_example(F: int, ids_per_feature) -> int:
+    """The real ids an example, the sum of the features' lengths: F L
+    for an int L."""
+    return sum(feature_lengths(F, ids_per_feature))
+
+
+def make_batch(cards: Sequence[int], batch: int, ids_per_feature,
                zipf_a, seed: int, index: int, device,
                orders: Sequence[torch.Tensor] = ()) -> Dict[str, torch.Tensor]:
     """One batch on the device: ids [F, B, L] int32 (Zipf(zipf_a) ranks per
     feature, mapped to rows by `orders` (`row_orders`, drawn here where
-    not given); uniform where zipf_a is None), every slot real (lengths
-    L); dense [B, 13] log-normal features standardised as the port's
-    Criteo stream does; labels [B] Bernoulli at the published click
-    rate."""
+    not given); uniform where zipf_a is None); dense [B, 13] log-normal
+    features standardised as the port's Criteo stream does; labels [B]
+    Bernoulli at the published click rate. `ids_per_feature` an int L:
+    every slot real (lengths L). A list of F lengths L_f (a fixed number
+    of ids a feature, as MLPerf's multi-hot Criteo has): L is their
+    largest, lengths[f] = L_f, and the slots past L_f hold 0; the draws
+    are those of an int L, in the same order and shapes."""
     g = generator(device, seed, BATCH, index)
-    F, B, L = len(cards), batch, ids_per_feature
+    F, B = len(cards), batch
+    per = feature_lengths(F, ids_per_feature)
+    L = max(per)
     n = torch.as_tensor(cards, dtype=torch.int64, device=device)[:, None, None]
     if zipf_a is None:
         ids = torch.randint(0, 2 ** 62, (F, B, L), generator=g,
@@ -101,8 +126,13 @@ def make_batch(cards: Sequence[int], batch: int, ids_per_feature: int,
     dense = (torch.log1p(raw) - 1.9) / 1.1
     labels = (torch.rand((B,), generator=g, device=device)
               < CRITEO_KAGGLE_CTR).float()
+    lengths = torch.as_tensor(per, dtype=torch.int32, device=device)
+    if min(per) < L:
+        real = (torch.arange(L, device=device)[None, None, :]
+                < lengths[:, None, None])
+        ids = torch.where(real, ids, torch.zeros_like(ids))
     return {"ids": ids.to(torch.int32).contiguous(),
-            "lengths": torch.full((F, B), L, dtype=torch.int32, device=device),
+            "lengths": lengths[:, None].expand(F, B).contiguous(),
             "dense": dense.contiguous(), "labels": labels}
 
 
@@ -128,22 +158,30 @@ def make_table(seed: int, t: int, rows: int, dim: int, device,
     return w.to(dtype)
 
 
-def make_linear(seed: int, i: int, fan_in: int, fan_out: int,
-                device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Linear layer i: weight [out, in] and bias [out], U(-b, b) with b =
-    sqrt(1 / fan_in) (torch's nn.Linear bound)."""
+def make_linear(seed: int, i: int, fan_in: int, fan_out: int, device,
+                bias: bool = True
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Linear layer i: weight [out, in] and bias [out] (None for a layer
+    without one), U(-b, b) with b = sqrt(1 / fan_in) (torch's nn.Linear
+    bound)."""
     g = generator(device, seed, LINEAR, i)
     b = math.sqrt(1.0 / fan_in)
     w = torch.empty((fan_out, fan_in), device=device).uniform_(-b, b,
                                                                generator=g)
+    if not bias:
+        return w, None
     bias = torch.empty((fan_out,), device=device).uniform_(-b, b, generator=g)
     return w, bias
 
 
-def make_linears(seed: int, shapes: Sequence[Tuple[int, int]],
-                 device) -> List[Tuple[torch.Tensor, torch.Tensor]]:
-    return [make_linear(seed, i, fi, fo, device)
-            for i, (fi, fo) in enumerate(shapes)]
+def make_linears(seed: int, shapes: Sequence[Tuple[int, int]], device,
+                 biases: Optional[Sequence[bool]] = None
+                 ) -> List[Tuple[torch.Tensor, Optional[torch.Tensor]]]:
+    """Every layer of `shapes`, layer i from its own stream i; `biases`
+    (all True where not given) says which layers have a bias."""
+    biases = [True] * len(shapes) if biases is None else list(biases)
+    return [make_linear(seed, i, fi, fo, device, bias)
+            for i, ((fi, fo), bias) in enumerate(zip(shapes, biases))]
 
 
 def sample_rows(seed: int, t: int, rows: int, count: int,

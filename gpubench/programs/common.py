@@ -1,10 +1,11 @@
 """What the program builders share: the DistributedModelParallel a
 configuration states, loaded with the benchmark's weights, and the
-port's sparse batch of a benchmark batch. Only the port's public API."""
+port's sparse batch of a benchmark batch (the default of a program module
+that gives no `sparse_batch` of its own). Only the port's public API."""
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
@@ -28,7 +29,9 @@ def tables(cfg: dict):
 
 def build_dmp(cfg: dict, module: torch.nn.Module, device):
     """The DMP over `module` (built on "meta") with the configuration's
-    fused and dense optimizers and the DMP's default plan."""
+    fused and dense optimizers and the DMP's default plan. The dense
+    optimizer takes `dense_eps` where the configuration states it, and
+    torch.optim's default otherwise."""
     from torchrec_tpu_torch.ops.fused_update import EmbOptimType
     from torchrec_tpu_torch.parallel import DistributedModelParallel
 
@@ -37,8 +40,10 @@ def build_dmp(cfg: dict, module: torch.nn.Module, device):
     if cfg["fused_optimizer"] == "ADAM":
         fused.update(beta1=cfg["fused_beta1"], beta2=cfg["fused_beta2"])
     lr = cfg["dense_learning_rate"]
+    eps = {"eps": cfg["dense_eps"]} if "dense_eps" in cfg else {}
     dense = {"SGD": lambda p: torch.optim.SGD(p, lr=lr),
-             "ADAM": lambda p: torch.optim.Adam(p, lr=lr)}[
+             "ADAGRAD": lambda p: torch.optim.Adagrad(p, lr=lr, **eps),
+             "ADAM": lambda p: torch.optim.Adam(p, lr=lr, **eps)}[
                  cfg["dense_optimizer"]]
     return DistributedModelParallel(
         module, fused_optim=EmbOptimType[cfg["fused_optimizer"]],
@@ -47,10 +52,13 @@ def build_dmp(cfg: dict, module: torch.nn.Module, device):
 
 @torch.no_grad()
 def load_weights(dmp, linears: List[torch.nn.Linear], cfg: dict,
-                 shapes, seed: int) -> None:
+                 shapes, seed: int,
+                 biases: Optional[Sequence[bool]] = None) -> None:
     """Draw the tables and the linear layers from the seed on the DMP's
     device and load them: tables through `load_tables` (which restarts
-    the fused optimizer's state), layers into the modules in place."""
+    the fused optimizer's state), layers into the modules in place.
+    `biases` (all True where not given) says which layers have a bias;
+    the program's layers have to agree."""
     device = dmp.env.device
     D = cfg["embedding_dim"]
     (key,) = dmp.sharded_ebcs
@@ -60,10 +68,17 @@ def load_weights(dmp, linears: List[torch.nn.Linear], cfg: dict,
                                           feature_keys(cfg)))}
     dmp.load_tables({key: drawn})
     del drawn
-    for lin, (w, b) in zip(linears, inputs.make_linears(seed, shapes,
-                                                         device)):
+    drawn_linears = inputs.make_linears(seed, shapes, device, biases)
+    if len(linears) != len(drawn_linears):
+        raise ValueError(f"the program has {len(linears)} linear layers, "
+                         f"the reference {len(drawn_linears)}")
+    for i, (lin, (w, b)) in enumerate(zip(linears, drawn_linears)):
+        if (lin.bias is None) != (b is None):
+            raise ValueError(f"linear layer {i}: the program's bias and "
+                             f"the reference's disagree")
         lin.weight.copy_(w)
-        lin.bias.copy_(b)
+        if b is not None:
+            lin.bias.copy_(b)
 
 
 def sparse_batch(cfg: dict, batch: dict):

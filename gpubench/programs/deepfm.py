@@ -45,7 +45,5 @@ def linears(module: torch.nn.Module) -> List[torch.nn.Linear]:
             m.inter_arch.deep_fm.deep_module[0], m.over_arch.linear]
 
 
-
-
 def scores(out) -> torch.Tensor:
     return out.reshape(-1)

@@ -9,6 +9,9 @@ import torch
 
 from gpubench.programs.common import tables
 
+# the interaction's kernel (ops/dot_interaction.py), built at set-up
+KERNELS = ("dot_interaction",)
+
 
 def model(cfg: dict, train: bool) -> torch.nn.Module:
     from torchrec_tpu_torch.models import DLRM, DLRMTrain
@@ -30,8 +33,6 @@ def linears(module: torch.nn.Module) -> List[torch.nn.Linear]:
     out = [p.linear for p in m.dense_arch.mlp.perceptrons]
     out += [p.linear for p in m.over_arch.mlp.perceptrons]
     return out + [m.over_arch.head.linear]
-
-
 
 
 def scores(out) -> torch.Tensor:

@@ -11,6 +11,8 @@ is written out so that the control is the same on every device.
 
 from __future__ import annotations
 
+from typing import List
+
 import torch
 import torch.nn.functional as F
 
@@ -53,10 +55,20 @@ def mm(a: torch.Tensor, b: torch.Tensor, precision: Precision) -> torch.Tensor:
     return a @ b
 
 
-def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-           precision: Precision) -> torch.Tensor:
-    """x [N, in] times weight [out, in] plus bias [out]."""
-    return mm(x, w.t(), precision) + b
+def linear(x: torch.Tensor, w: torch.Tensor, b, precision: Precision
+           ) -> torch.Tensor:
+    """x [N, in] times weight [out, in] plus bias [out] (none where b is
+    None)."""
+    y = mm(x, w.t(), precision)
+    return y if b is None else y + b
+
+
+def linear_biases(model, cfg: dict) -> List[bool]:
+    """Which of a reference model's `linear_shapes` have a bias: its
+    `linear_biases(cfg)` where it gives one, every layer otherwise."""
+    if hasattr(model, "linear_biases"):
+        return list(model.linear_biases(cfg))
+    return [True] * len(model.linear_shapes(cfg))
 
 
 def bce_with_logits(z: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -96,6 +108,15 @@ def rowwise_adagrad_(w, m, g, touched, lr: float, eps: float) -> None:
     gr = g[r]
     m[r] += (gr * gr).mean(dim=1)
     w[r] -= lr * gr / (torch.sqrt(m[r])[:, None] + eps)
+
+
+def adagrad_rows_(w, m, g, touched, lr: float, eps: float) -> None:
+    """Adagrad element by element: m += g^2; w -= lr g / (sqrt(m) + eps),
+    on the rows a step touched (the port's K6 places eps so)."""
+    r = touched.nonzero().squeeze(1)
+    gr = g[r]
+    m[r] += gr * gr
+    w[r] -= lr * gr / (torch.sqrt(m[r]) + eps)
 
 
 def adam_rows_(w, m1, m2, g, touched, step: int, lr: float, b1: float,

@@ -28,6 +28,12 @@ def linear_shapes(cfg: dict) -> List[Tuple[int, int]]:
             (D + deep + 1, 1)]
 
 
+def tiny_sizes(cfg: dict) -> dict:
+    """The sizes a CPU test sets in place of the configuration's: narrow
+    layers (the tests cap the tables)."""
+    return {"hidden_layer_size": 16, "deep_fm_dimension": 16}
+
+
 def forward(cfg: dict, linears: Sequence, dense: torch.Tensor,
             pooled: torch.Tensor, precision: str) -> torch.Tensor:
     """dense [B, 13], pooled [B, F, D] -> probabilities [B]."""

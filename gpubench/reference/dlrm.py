@@ -31,6 +31,13 @@ def linear_shapes(cfg: dict) -> List[Tuple[int, int]]:
     return shapes
 
 
+def tiny_sizes(cfg: dict) -> dict:
+    """The sizes a CPU test sets in place of the configuration's: narrow
+    layers (the tests cap the tables)."""
+    return {"embedding_dim": 8, "dense_arch_layer_sizes": [16, 8],
+            "over_arch_layer_sizes": [16, 1]}
+
+
 def forward(cfg: dict, linears: Sequence, dense: torch.Tensor,
             pooled: torch.Tensor, precision: str) -> torch.Tensor:
     """dense [B, 13], pooled [B, F, D] -> logits [B]."""

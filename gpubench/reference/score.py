@@ -34,7 +34,8 @@ def scores(cfg: dict, model, seed: int, batches: Sequence[dict],
         rows.append(common.dequantize_rows(codes, scale, shift))
         rowsets.append(rowset)
     shapes = model.linear_shapes(cfg)
-    linears = inputs.make_linears(seed, shapes, device)
+    linears = inputs.make_linears(seed, shapes, device,
+                                  common.linear_biases(model, cfg))
     out = []
     for b in batches:
         pooled = torch.stack([

@@ -29,15 +29,12 @@ def cuda_card():
 
 def tiny_config(cfg: dict) -> dict:
     """The configuration at a CPU test's size: tables of at most 500 rows,
-    narrow layers; the structure, optimizers and dtype as stated."""
+    the narrow layers its reference module's `tiny_sizes(cfg)` gives; the
+    structure, optimizers and dtype as stated."""
     c = copy.deepcopy(cfg)
     c["num_embeddings_per_feature"] = [min(n, 500)
                                        for n in c["num_embeddings_per_feature"]]
-    if c["model"] == "dlrm":
-        c.update(embedding_dim=8, dense_arch_layer_sizes=[16, 8],
-                 over_arch_layer_sizes=[16, 1])
-    else:
-        c.update(hidden_layer_size=16, deep_fm_dimension=16)
+    c.update(registry.module("reference", c["model"]).tiny_sizes(c))
     return c
 
 
@@ -57,6 +54,11 @@ def tiny_run(workload: str, seed: int = 2**33 + 5, trace: bool = False,
                clock=lambda: 0.0)
 
 
-TRAIN_CELLS = ("criteo_kaggle_dlrm.train_b65536",
-               "criteo_simple_deepfm_d10.train_b262144")
-SCORE_CELLS = ("criteo_kaggle_dlrm.score_int8_b65536",)
+def cells_of(driver: str) -> tuple:
+    """BENCHMARK.json's cells whose traffic `driver` runs."""
+    return tuple(w["name"] for w in registry.benchmark()["workloads"]
+                 if registry.data("traffic", w["traffic"])["driver"] == driver)
+
+
+TRAIN_CELLS = cells_of("train")
+SCORE_CELLS = cells_of("score")

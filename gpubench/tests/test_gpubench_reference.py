@@ -4,6 +4,8 @@ limits; the control (the reference in the next lower precision in the
 program's place) and each fault the cell can have, planted under the
 timed path, come out not correct."""
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -21,9 +23,11 @@ def _driver(r):
 
 
 def _half_batch(step, dmp):
-    from torchrec_tpu_torch.sparse import PaddedSparseBatch
+    from torchrec_tpu_torch.sparse import KeyedJaggedTensor, PaddedSparseBatch
 
     def f(dense, sb, labels):
+        if isinstance(sb, KeyedJaggedTensor):  # a program's own form
+            sb = sb.to_padded(int(sb.lengths.max()))
         n = dense.shape[0] // 2
         half = PaddedSparseBatch(ids=sb.ids[:, :n], lengths=sb.lengths[:, :n],
                                  keys=sb.keys)
@@ -125,4 +129,56 @@ def test_score_control_is_not_correct(workload, kind):
     r = tiny_run(workload)
     numbers = _driver(r).reference_numbers(r, kind)
     ok, _ = check.judge(numbers, registry.data("limits", workload))
+    assert not ok, numbers
+
+
+# the DLRM cell's configuration with ADAGRAD, element by element, on the
+# tables and on the dense layers (the Kaggle DLRM states rowwise Adagrad
+# and SGD)
+ADAGRAD = {"fused_optimizer": "ADAGRAD", "fused_learning_rate": 0.01,
+           "dense_optimizer": "ADAGRAD", "dense_learning_rate": 0.01,
+           "dense_eps": 1e-8}
+DLRM_TRAIN = "criteo_kaggle_dlrm.train_b65536"
+
+
+def _adagrad_run():
+    r = tiny_run(DLRM_TRAIN)
+    return dataclasses.replace(r, cfg={**r.cfg, **ADAGRAD})
+
+
+def test_dlrm_adagrad_sound_run_is_correct():
+    r = _adagrad_run()
+    res = _driver(r).run(r)
+    assert res.attempted > 0
+    assert _correct(DLRM_TRAIN, res), res.numbers
+
+
+def test_dlrm_adagrad_optimizers_are_built():
+    from gpubench.drivers import train
+
+    r = _adagrad_run()
+    pool = train.make_pool(r)
+    dmp, _, _, _ = train.set_up_program(
+        r, pool, train.make_rowsets(r, pool[:train.CHECKED]))
+    opt = dmp.dense_optimizer
+    assert isinstance(opt, torch.optim.Adagrad)
+    assert opt.defaults["eps"] == 1e-8 and opt.defaults["lr"] == 0.01
+    (sebc,) = dmp.sharded_ebcs.values()
+    for s in sebc.strategies:  # per-element state
+        assert s.momentum1.shape[-1] == r.cfg["embedding_dim"]
+
+
+@pytest.mark.parametrize("fault", sorted(TRAIN_FAULTS))
+def test_dlrm_adagrad_fault_is_not_correct(fault):
+    r = _adagrad_run()
+    res = _driver(r).run(r, wrap_step=TRAIN_FAULTS[fault])
+    assert not _correct(DLRM_TRAIN, res), res.numbers
+
+
+@pytest.mark.parametrize("kind",
+                         registry.module("drivers", "train").REFERENCE_KINDS)
+def test_dlrm_adagrad_reference_in_the_programs_place(kind):
+    r = _adagrad_run()
+    numbers = _driver(r).reference_numbers(r, kind)
+    ok, _ = check.judge(numbers, registry.data("limits", DLRM_TRAIN))
     assert not ok, numbers

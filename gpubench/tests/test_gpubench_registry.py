@@ -10,7 +10,7 @@ import sys
 import torch
 
 from gpubench import registry, run
-from gpubench.tests.conftest import tiny_config
+from gpubench.tests.conftest import SCORE_CELLS, TRAIN_CELLS, tiny_config
 
 NEW_METRIC = '''"""Steps a second in the window (a metric added as a file)."""
 
@@ -67,3 +67,58 @@ def test_run_refuses_without_cuda():
         cwd=registry.ROOT, capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
     assert out.stdout.strip() == ""
+
+
+def test_tiny_config_sizes_come_from_the_reference():
+    dlrm = tiny_config(registry.data("configs", "criteo_kaggle_dlrm"))
+    assert (dlrm["embedding_dim"], dlrm["dense_arch_layer_sizes"],
+            dlrm["over_arch_layer_sizes"]) == (8, [16, 8], [16, 1])
+    deepfm = tiny_config(registry.data("configs",
+                                       "criteo_simple_deepfm_d10"))
+    assert (deepfm["hidden_layer_size"], deepfm["deep_fm_dimension"]) == (
+        16, 16)
+    assert deepfm["embedding_dim"] == 10
+    for c in (dlrm, deepfm):
+        assert max(c["num_embeddings_per_feature"]) == 500
+
+
+def test_cells_by_driver_cover_the_benchmark():
+    names = {w["name"] for w in registry.benchmark()["workloads"]}
+    assert set(TRAIN_CELLS) | set(SCORE_CELLS) == names
+    assert "criteo_kaggle_dlrm.train_uniform_b65536" in TRAIN_CELLS
+    assert "criteo_kaggle_dlrm.score_int8_b65536" in SCORE_CELLS
+
+
+def test_build_kernels_takes_the_programs_list(monkeypatch):
+    """The driver's libraries and then those the program module lists
+    under KERNELS, each built and loaded once, their build seconds
+    summed."""
+    import importlib
+    import types
+
+    from gpubench.drivers import train
+
+    built = []
+
+    class Lib:
+        def __init__(self, name):
+            self.name = name
+
+        def build(self):
+            built.append(self.name)
+            return {"seconds": 1.5}
+
+        def load(self):
+            return self
+
+    def fake_import(path):
+        return types.SimpleNamespace(LIBRARY=Lib(path.rsplit(".", 1)[1]))
+
+    monkeypatch.setattr(importlib, "import_module", fake_import)
+    program = types.SimpleNamespace(KERNELS=("b", "c"))
+    assert train.build_kernels(("a", "b"), program) == 4.5
+    assert built == ["a", "b", "c"]
+    built.clear()
+    assert train.build_kernels(("a",), types.SimpleNamespace()) == 1.5
+    assert built == ["a"]
+    assert registry.module("programs", "dlrm").KERNELS == ("dot_interaction",)

@@ -45,13 +45,15 @@ def test_distinct_rows_and_bytes():
     lengths = torch.tensor([[1, 1, 1], [1, 0, 1]], dtype=torch.int32)
     assert work.distinct_rows(ids, lengths) == 3
     F, B, L, D = 2, 3, 1, 4
+    ids = F * L  # ids an example
     inputs = F * B * L * 4 + F * B * 4
-    assert work.lookup_bytes(3, F, B, L, D) == 3 * D * 4 + inputs + F * B * D * 4
+    assert work.lookup_bytes(3, F, B, ids, D) == (
+        3 * D * 4 + inputs + F * B * D * 4)
     # rowwise Adagrad: row and momentum word read and written
-    assert work.update_bytes(3, F, B, L, D, 1) == (
+    assert work.update_bytes(3, F, B, ids, D, 1) == (
         3 * 2 * (D * 4 + 4) + F * B * D * 4 + inputs)
     # int8: D bytes, scale and shift a row
-    assert work.quant_lookup_bytes(3, F, B, L, D, 8) == (
+    assert work.quant_lookup_bytes(3, F, B, ids, D, 8) == (
         3 * (D + 8) + inputs + F * B * D * 4)
-    assert work.quant_lookup_bytes(3, F, B, L, D, 4) == (
+    assert work.quant_lookup_bytes(3, F, B, ids, D, 4) == (
         3 * (D // 2 + 8) + inputs + F * B * D * 4)

@@ -43,20 +43,22 @@ def distinct_rows(ids: torch.Tensor, lengths: torch.Tensor) -> int:
     return total
 
 
-def sparse_input_bytes(F: int, B: int, L: int) -> int:
-    """The ids [F, B, L] and lengths [F, B], int32."""
-    return F * B * L * ID + F * B * ID
+def sparse_input_bytes(F: int, B: int, ids: int) -> int:
+    """The real ids of B examples (`ids` an example: F L where every
+    feature has L, the sum of the features' lengths otherwise) and the
+    lengths [F, B], int32."""
+    return B * ids * ID + F * B * ID
 
 
-def lookup_bytes(distinct: int, F: int, B: int, L: int, D: int,
+def lookup_bytes(distinct: int, F: int, B: int, ids: int, D: int,
                  row_bytes: float = F32) -> int:
     """A pooled lookup: distinct rows read, ids and lengths read, pooled
     f32 outputs [F, B, D] written."""
-    return int(distinct * D * row_bytes + sparse_input_bytes(F, B, L)
+    return int(distinct * D * row_bytes + sparse_input_bytes(F, B, ids)
                + F * B * D * F32)
 
 
-def update_bytes(distinct: int, F: int, B: int, L: int, D: int,
+def update_bytes(distinct: int, F: int, B: int, ids: int, D: int,
                  state_floats_per_row: int, row_bytes: float = F32) -> int:
     """A fused sparse optimizer step: each distinct row and its state
     (`state_floats_per_row` f32, e.g. 1 for rowwise Adagrad, 2D for Adam)
@@ -64,16 +66,16 @@ def update_bytes(distinct: int, F: int, B: int, L: int, D: int,
     lengths read once."""
     per_row = 2 * (D * row_bytes + state_floats_per_row * F32)
     return int(distinct * per_row + F * B * D * F32
-               + sparse_input_bytes(F, B, L))
+               + sparse_input_bytes(F, B, ids))
 
 
-def quant_lookup_bytes(distinct: int, F: int, B: int, L: int, D: int,
+def quant_lookup_bytes(distinct: int, F: int, B: int, ids: int, D: int,
                        bits: int) -> int:
     """A pooled lookup over row-wise quantized tables: each distinct row's
     packed codes and its f32 scale and shift read, ids and lengths read,
     f32 outputs written."""
     return int(distinct * (D * bits // 8 + 2 * F32)
-               + sparse_input_bytes(F, B, L) + F * B * D * F32)
+               + sparse_input_bytes(F, B, ids) + F * B * D * F32)
 
 
 def optimizer_state_floats(optim: str, D: int) -> int:
