@@ -8,7 +8,7 @@ Phases, each failing the run with a non-zero exit when it fails:
 
 1. Identify the card (name, count, power limit); TF32 is switched off.
 2. Build the kernels with nvcc for sm_90a, one nvcc per source, started
-   together: K1 and K1h (csrc/tbe_lookup.cu), K2-K7, K3h and K4h
+   together: K1, K1h and K1j (csrc/tbe_lookup.cu), K2-K7, K3h and K4h
    (csrc/fused_update.cu), K8 with the routed gather
    (csrc/gather_rows.cu), Kq (csrc/quant_lookup.cu) and the DLRM's dot
    interaction (csrc/dot_interaction.cu).
@@ -278,13 +278,16 @@ Phases, each failing the run with a non-zero exit when it fails:
    table's type, kernel, ranks and estimates) and the planner's wall
    time are printed, the DMP's plan must be the planner's; 3 requests at
    B=8192 and 3 at B=256 and 3 steps at B=8192 under EXACT_SGD and
-   ROWWISE_ADAGRAD beside the ROW_WISE DMP from the same seed: K1 once a
-   request, K1 and K3 / the fused K4 once a step, logits and trained
-   state within rtol 1e-4 / atol 1e-5 (whether bit for bit is printed).
-   (c) The planned DLRM under a masked_bce_with_logits wrapper takes one
-   EXACT_SGD step on a VariableBatch of 6,000 real rows padded to 8,192:
-   its loss and state equal the step on the 6,000 rows alone within the
-   bound; the pad rows pool to zeros and their pooled values take a
+   ROWWISE_ADAGRAD beside the ROW_WISE DMP from the same seed: one lookup
+   a request, one lookup and K3 / the fused K4 once a step, the lookup K1
+   on the ROW_WISE DMP and K1j on the planned one (its one DATA_PARALLEL
+   group, group-less, takes a KeyedJaggedTensor's jagged route), logits
+   and trained state within rtol 1e-4 / atol 1e-5 (whether bit for bit is
+   printed). (c) The planned DLRM under a masked_bce_with_logits wrapper
+   takes one EXACT_SGD step on a VariableBatch of 6,000 real rows padded
+   to 8,192 (K1 on its PaddedSparseBatch): its loss and state equal the
+   step on the 6,000 rows alone (K1j on their KeyedJaggedTensor) within
+   the bound; the pad rows pool to zeros and their pooled values take a
    gradient of exactly 0. Inside an NCCL group of one rank: (b) the tower
    DLRM, tests/test_tower_dmp.py's TowerModel over bench.py's tables
    (two towers of 13 tables, each interaction an MLP 1,664 -> 512 -> 256,
@@ -334,8 +337,9 @@ Phases, each failing the run with a non-zero exit when it fails:
    request's and step's K2 and K8 launches equal a replay of the
    directories on the CPU. Then save_reshardable from the UVM plan,
    load_reshardable into the all-device ROW_WISE plan and into the
-   planner's default (all DATA_PARALLEL on one card), and 2 steps on each
-   equal 2 more steps of the saved DMP; save_state / restore_state
+   planner's default (all DATA_PARALLEL on one card, whose steps take the
+   jagged route: K1j), and 2 steps on each equal 2 more steps of the saved
+   DMP; save_state / restore_state
    resumes bit for bit. The file sizes and save and load times are
    printed.
 20. The port's examples through their main(argv) (torchrec_tpu_torch/
@@ -383,16 +387,21 @@ Phases, each failing the run with a non-zero exit when it fails:
    Criteo_x1 DeepFM, FuxiCTR's embedding size), dense arch 13 -> 400 ->
    10, deep width 400, fused lr 0.1, dense Adam 1e-3, B=8192. Served
    given no plan (the planner's), under a ROW_WISE plan and with bf16
-   tables: 3 requests at B=8192 and 3 at B=256, K1 (K1h) once each on
-   its narrow path (eight bags a warp at D=10, phase 22). Trained given no plan under EXACT_SGD (K3),
+   tables given no plan: 3 requests at B=8192 and 3 at B=256, one lookup
+   each on its narrow path (eight bags a warp at D=10, phase 22): K1j
+   under the planner's plan (its DATA_PARALLEL group takes the
+   KeyedJaggedTensor's jagged route, f32 and bf16 tables alike), K1 under
+   the ROW_WISE plan. Trained given no plan under EXACT_SGD (K3),
    ROWWISE_ADAGRAD on its default route (the fused K4), with mom_impl=
    "xla" (the scaled RMW) and with w_impl="write" (K5 and K2), ADAGRAD
    (K6), ADAM (K7), and with bf16 tables under EXACT_SGD (K3h) and
    ROWWISE_ADAGRAD (K4h), and under the ROW_WISE plan for EXACT_SGD and
-   ROWWISE_ADAGRAD: 3 warm-up and 10 timed steps, each launching one K1
-   (K1h) and its route's update and nothing else, losses finite, then one
-   step held against the plain versions (K1's pooled output over the rows
-   it read; the touched rows and momenta against apply_fused_update on
+   ROWWISE_ADAGRAD: 3 warm-up and 10 timed steps, each launching one
+   lookup (K1j given no plan, K1 under the ROW_WISE plan) and its route's
+   update and nothing else, losses finite, then one step held against the
+   plain versions (the lookup's pooled output against K1's plain version
+   over the rows it read, K1j's bags padded to its cap; the touched rows
+   and momenta against apply_fused_update on
    the CPU at their own row ids, f32 within EX_RTOL, half rows within one
    ulp; untouched rows equal). The counters must equal the requests' and
    steps' sum. The same f32 model (seeded) quantized to int8 and to int4
@@ -464,6 +473,20 @@ Phases, each failing the run with a non-zero exit when it fails:
    takes 2 steps and 2 requests at B=8192: each step launches the
    forward and the backward once (counters `dot_interaction`,
    `dot_interaction_bwd`), each request the forward once.
+24. K1j, the offsets form of the pooled lookup (a bag pools
+   ids[offsets[b]:offsets[b + 1]], at most a cap of them), at MLPerf
+   DLRM-DCNv2's lookup on one card: the 26 tables of one GPU's share of
+   the 8-GPU deployment (MLPERF_CARDINALITIES, each table over 100,000
+   rows cut to its row-wise eighth; 25,629,123 x 128 f32), 8,192
+   examples of 214 ids in the published per-feature lengths (one feature
+   of 100), Zipf(1.05) ids over each table. Held at cap 100 without
+   coefficients, and at cap 17 with MEAN-and-weight coefficients: equal
+   bit for bit to K1 on the same bags padded to the cap, and within
+   2^-20 of each bag's sum of |c| |w| of its plain version (a multiply,
+   then torch's sum); a sign flipped, a row or a bag's last id dropped
+   moves a sum by far more. Timed beside its bytes bound (each distinct
+   row read once, the ids, offsets and output once), its plain version,
+   F.embedding_bag with offsets and K1 on the bags padded to 100.
 
 Kernel times are device times from torch.profiler (the kernel's own for a
 kernel, all device activity of the call for the plain version and the
@@ -472,7 +495,9 @@ it, which includes the host's time to make the call where that is longer.
 
 The line before the last is a JSON object with every kernel's numbers
 (K1h, K3h and K4h with an "fp16" sub-entry, K4h with "bert4rec_shape",
-Kq with "int4" and K1's time at the same ids; phase 21's under
+Kq with "int4" and K1's time at the same ids, K1j with phase 24's
+"mlperf_dcn_shape" and the launches of phases 18, 19 and 21's
+KeyedJaggedTensor paths; phase 21's under
 "widths", "d10_shape" and "wide_d1030", phase 22's under "narrow",
 "narrow_d10" and "narrow_d64", the scaled RMW's under K4's
 "scaled_rmw"; phase 23's as a last entry, "dot_interaction", with the
@@ -560,7 +585,8 @@ MOMENT_KERNELS = "moment_"
 # the row kernel of K2, K3, K3h and K4's scaled RMW
 ROW_KERNEL = "row_update_kernel"
 # K1's and K1h's kernels as the profiler prints them: rows of up to 64
-# columns (tbe_lookup_narrow_kernel) and wider (tbe_lookup_pooled_kernel)
+# columns (tbe_lookup_narrow_kernel) and wider (tbe_lookup_pooled_kernel);
+# K1j's (tbe_lookup_jagged_kernel)
 K1_KERNELS = "tbe_lookup_"
 # K8's (gather_rows_narrow_kernel, gather_rows_kernel), the routed gather's
 # (routed_gather_narrow_kernel, routed_gather_kernel) and Kq's
@@ -603,6 +629,11 @@ KERNELS = {
     "K4h": ("fused_update_rowwise_adagrad_half",
             "torchrec_tpu_torch/csrc/fused_update.cu",
             "torchrec_tpu/ops/fused_update.py:647"),
+    # the offsets form of K1 for a jagged batch, where the JAX package
+    # pads the batch to [F, B, L] first (KeyedJaggedTensor.to_padded)
+    "K1j": ("tbe_lookup_jagged_forward",
+            "torchrec_tpu_torch/csrc/tbe_lookup.cu",
+            "torchrec_tpu/sparse/jagged.py:356"),
     # the int-N dequantizing pooled lookup, in place of the XLA gather,
     # unpack, dequantize and einsum of the quantized lookup
     "Kq": ("quant_lookup_pooled", "torchrec_tpu_torch/csrc/quant_lookup.cu",
@@ -665,7 +696,8 @@ def expected(**launches) -> dict:
 
 # the registry's counter (utils/tracing.py) of each kernel of KERNELS whose
 # counter has another name than its wrapper
-COUNTERS = {"K1": "tbe_lookup", "K1h": "tbe_lookup_half", "Kq": "quant_lookup"}
+COUNTERS = {"K1": "tbe_lookup", "K1h": "tbe_lookup_half",
+            "K1j": "tbe_lookup_jagged", "Kq": "quant_lookup"}
 _counted_from: dict = {}
 
 
@@ -685,6 +717,19 @@ def reset_counts() -> None:
 
     _counted_from.clear()
     _counted_from.update(tracing.counts())
+
+
+def kjt_lookups(dmp, key: str) -> dict:
+    """The lookup launches of one forward of `dmp`'s sharded EBC `key` on a
+    KeyedJaggedTensor, by ShardedEmbeddingBagCollection's route rule: K1j
+    for each group that takes the jagged route (DATA_PARALLEL without a
+    process group), K1 (K1h on half tables) for each other group."""
+    out: dict = {}
+    for strat in dmp.sharded_ebcs[key].strategies:
+        k = ("K1j" if strat.supports_jagged
+             else "K1" if strat.weights.dtype == torch.float32 else "K1h")
+        out[k] = out.get(k, 0) + 1
+    return out
 
 
 def make_dmp(device: str, train: bool = False, optim=None,
@@ -951,6 +996,21 @@ def bound(weights, ids, coeff) -> dict:
     nbytes = (rows * D * weights.element_size() + ids.numel() * 4
               + coeff.numel() * 4 + NB * D * 4)
     flops = 2 * int(live.numel()) * D
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return {"bytes": nbytes, "rows": rows, "flops": flops,
+            "ms": max(t_bytes, t_ops) * 1e3,
+            "by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def jagged_bound(weights, ids, offsets) -> dict:
+    """`bound` for K1j over every id of its bags: the distinct rows, the
+    ids, the offsets and the output, against 2 flops an id's element."""
+    R, D = weights.shape
+    rows = int(torch.unique(ids.clamp(0, R - 1)).numel())
+    NB = offsets.shape[0] - 1
+    nbytes = (rows * D * weights.element_size() + ids.numel() * 4
+              + offsets.numel() * 4 + NB * D * 4)
+    flops = 2 * ids.numel() * D
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
     return {"bytes": nbytes, "rows": rows, "flops": flops,
             "ms": max(t_bytes, t_ops) * 1e3,
@@ -4786,11 +4846,14 @@ def planned_dlrm() -> dict:
     batches = [to_device(make_batch(rng, BENCH_BATCH))
                for _ in range(MIXED_STEPS)]
     touched = _dlrm_touched(batches)
-    out = {"launches": {"K1": 0, "K3": 0, "K4": 0}}
+    out = {"launches": {"K1": 0, "K1j": 0, "K3": 0, "K4": 0}}
     for optim in (EmbOptimType.EXACT_SGD, EmbOptimType.ROWWISE_ADAGRAD):
         k = STEP_KERNELS[optim.name][0]
         runs = {}
-        for tag, types in (("ROW_WISE", None), ("planned", "planned")):
+        # the planner's one DATA_PARALLEL group takes the batches'
+        # KeyedJaggedTensors on the jagged route (K1j)
+        for tag, types, lookup in (("ROW_WISE", None, "K1"),
+                                   ("planned", "planned", "K1j")):
             dmp = make_dmp(DEVICE, train=True, optim=optim,
                            plan_types=types).init(SEED)
             if tag == "planned" and dmp.plan.plan[TRAIN_KEY] != want:
@@ -4799,13 +4862,13 @@ def planned_dlrm() -> dict:
             runs[tag] = {}
             if optim is EmbOptimType.EXACT_SGD:
                 runs[tag]["served"] = run_requests(
-                    dmp, requests, {"K1": 1}, {},
+                    dmp, requests, {lookup: 1}, {},
                     f"planned phase, {tag} DLRM", logits_of)
-                out["launches"]["K1"] += len(requests)
-            runs[tag].update(run_steps(dmp, batches, {"K1": 1, k: 1}, {},
+                out["launches"][lookup] += len(requests)
+            runs[tag].update(run_steps(dmp, batches, {lookup: 1, k: 1}, {},
                                        f"planned phase, {tag} {optim.name}"))
             runs[tag].update(_snapshot(dmp, TRAIN_KEY))
-            out["launches"]["K1"] += MIXED_STEPS
+            out["launches"][lookup] += MIXED_STEPS
             out["launches"][k] += MIXED_STEPS
             del dmp
             gc_cuda()
@@ -5062,17 +5125,20 @@ def variable_batch_step() -> dict:
             VB_REAL, BENCH_BATCH):
         raise AssertionError("the variable batch's mask")
     runs = {}
-    for tag, args in (
-            ("padded", (vb.dense, vb.sparse, vb.labels, vb.example_mask)),
-            ("unpadded", (dense.to(DEVICE), kjt.to(DEVICE),
-                          labels.to(DEVICE),
-                          torch.ones(VB_REAL, device=DEVICE)))):
+    # the padded batch takes K1, the 6,000 rows' KeyedJaggedTensor the
+    # planned DATA_PARALLEL group's jagged route (K1j)
+    for tag, lookup, args in (
+            ("padded", "K1", (vb.dense, vb.sparse, vb.labels,
+                              vb.example_mask)),
+            ("unpadded", "K1j", (dense.to(DEVICE), kjt.to(DEVICE),
+                                 labels.to(DEVICE),
+                                 torch.ones(VB_REAL, device=DEVICE)))):
         dmp = make_dmp(DEVICE, train=True, optim=EmbOptimType.EXACT_SGD,
                        plan_types="planned", wrap=MaskedDLRM).init(SEED)
         sebc, seen = dmp.sharded_ebcs[TRAIN_KEY], {}
         with returning(sebc, "forward", seen), \
                 capturing(sebc, "update", seen):
-            runs[tag] = run_steps(dmp, [args], {"K1": 1, "K3": 1}, {},
+            runs[tag] = run_steps(dmp, [args], {lookup: 1, "K3": 1}, {},
                                   f"variable batch, {tag}")
         runs[tag].update(_snapshot(dmp, TRAIN_KEY))
         runs[tag]["pooled"] = seen["forward"].values
@@ -5095,7 +5161,7 @@ def variable_batch_step() -> dict:
         f"pad rows pool to zeros and their pooled values' gradient is "
         f"exactly 0; step ms {pad['ms']} (padded), "
         f"{runs['unpadded']['ms']} (unpadded)")
-    return {"launches": {"K1": 2, "K3": 2}}
+    return {"launches": {"K1": 1, "K1j": 1, "K3": 2}}
 
 
 def planned_quant(env) -> dict:
@@ -5662,8 +5728,8 @@ def bench_uvm(ops: Ops, optim, tmp: str) -> None:
     def steps(batches, dmps, what, replay=None):
         """Each batch's step on each DMP: [(losses, ms)] a batch. With a
         replay, the launches of every step are predicted: the UVM DMP's
-        from the replay's directories, the all-device DMPs' K1 and the
-        update once."""
+        from the replay's directories, the all-device DMPs' lookup (K1, or
+        K1j on the planner's DATA_PARALLEL group) and the update once."""
         out = []
         fns = [d.make_train_step() for d in dmps]
         for batch in batches:
@@ -5675,7 +5741,7 @@ def bench_uvm(ops: Ops, optim, tmp: str) -> None:
                     want = expected(K1=1 + n_uvm, **{upd: 1 + n_uvm},
                                     **replay.prepare(uvm_ids(batch[1]), True))
                 elif replay is not None:
-                    want = expected(K1=1, **{upd: 1})
+                    want = expected(**kjt_lookups(d, TRAIN_KEY), **{upd: 1})
                 (loss, _), ms, _ = ops(what, lambda: fn(*batch), want)
                 losses.append(loss)
                 times.append(ms)
@@ -6027,7 +6093,8 @@ def hold_train_step(step, batch, per_step: dict, what: str,
                     capture: str = "", sample=None) -> dict:
     """One train step, which must launch `per_step`, held against the
     plain versions: the pooled output of its first lookup against the
-    plain pooled lookup over the rows it read (rtol = atol = 1e-6); the
+    plain pooled lookup over the rows it read (rtol = atol = 1e-6; K1j's
+    bags padded to its cap, as its own plain version pads them); the
     rows and momenta its first update touched against apply_fused_update
     on the CPU, run on the step's own ids and row gradients over CPU
     tables holding copies of those rows taken before the step (at their
@@ -6050,6 +6117,7 @@ def hold_train_step(step, batch, per_step: dict, what: str,
 
     seen: dict = {}
     lookup, update = strategies.pooled_lookup, strategies.apply_fused_update
+    jagged = strategies.tbe_lookup_jagged_forward
     rng = np.random.RandomState(SEED + 63)
 
     def watched_lookup(weights, ids, coeff):
@@ -6057,6 +6125,15 @@ def hold_train_step(step, batch, per_step: dict, what: str,
         if "out" not in seen:
             uniq = torch.unique(ids.reshape(-1).long())
             seen.update(ids=ids.cpu(), coeff=coeff.cpu(), l_uniq=uniq.cpu(),
+                        l_rows=weights[uniq].cpu(), out=out.cpu())
+        return out
+
+    def watched_jagged(weights, ids, offsets, coeff=None, cap=tl.NO_CAP):
+        out = jagged(weights, ids, offsets, coeff, cap)
+        if "out" not in seen:
+            flat, c = tl.jagged_padded(ids, offsets, coeff, cap)
+            uniq = torch.unique(flat.reshape(-1).long())
+            seen.update(ids=flat.cpu(), coeff=c.cpu(), l_uniq=uniq.cpu(),
                         l_rows=weights[uniq].cpu(), out=out.cpu())
         return out
 
@@ -6078,6 +6155,7 @@ def hold_train_step(step, batch, per_step: dict, what: str,
         return update(weights, opt, ids, grads, valid, lr, **kw)
 
     strategies.pooled_lookup = watched_lookup
+    strategies.tbe_lookup_jagged_forward = watched_jagged
     strategies.apply_fused_update = watched_update
     try:
         with (capturing(fk, capture, seen) if capture
@@ -6090,6 +6168,7 @@ def hold_train_step(step, batch, per_step: dict, what: str,
     finally:
         strategies.pooled_lookup, strategies.apply_fused_update = (
             lookup, update)
+        strategies.tbe_lookup_jagged_forward = jagged
     launched = {k: after[k] - before[k] for k in after}
     if launched != per_step or not math.isfinite(float(loss)):
         raise AssertionError(f"{what}: the held step launched {launched}, "
@@ -6713,14 +6792,16 @@ def _kd_groups(dmp, key: str) -> tuple:
 
 def kd_serve(data_type: str, planned: bool) -> dict:
     """REQUESTS_PER_BATCH requests at B=8192 and at B=256 through
-    make_eval_fn, each launching K1 (K1h on half tables) once per
-    sharding group and nothing else; probabilities finite in [0, 1]."""
+    make_eval_fn, each launching one lookup per sharding group (kjt_lookups:
+    K1j on the planner's DATA_PARALLEL group, K1 or K1h on another) and
+    nothing else; probabilities finite in [0, 1]."""
     what = (f"deepfm D={KD_DIM} {data_type} "
             f"({'planned' if planned else 'ROW_WISE'})")
     dmp = make_kd_dmp(DEVICE, data_type=data_type,
                       planned=planned).init(SEED)
     groups, types = _kd_groups(dmp, DFM_KEY)
-    want = expected(**{"K1" if data_type == "FP32" else "K1h": groups})
+    lookups = kjt_lookups(dmp, DFM_KEY)
+    want = expected(**lookups)
     eval_fn = dmp.make_eval_fn()
     rng = np.random.RandomState(SEED + 61)
     requests = [(b, *kd_request(rng, b))
@@ -6746,15 +6827,15 @@ def kd_serve(data_type: str, planned: bool) -> dict:
             f"+ D2H, first includes warm-up) {ms}")
     log(f"{what} serve: plan {types}, {groups} group(s), launches per "
         f"request {({k: v for k, v in want.items() if v})}")
-    return {"request_ms": latencies, "plan": types}
+    return {"request_ms": latencies, "plan": types, "lookups": lookups}
 
 
 def kd_train(route: int, planned: bool = True) -> dict:
     """KD_ROUTES[route]: WARMUP_STEPS + TIMED_STEPS train steps at B=8192,
-    each launching K1 (K1h) and the route's update once per group and
-    nothing else, losses finite; then one step held (hold_train_step), whose
-    update kernel's arguments are kept on the default routes under the
-    planner's plan."""
+    each launching one lookup (kjt_lookups) and the route's update once
+    per group and nothing else, losses finite; then one step held
+    (hold_train_step), whose update kernel's arguments are kept on the
+    default routes under the planner's plan."""
     from torchrec_tpu_torch.ops.fused_update import EmbOptimType
 
     name, params, data_type, update = KD_ROUTES[route]
@@ -6765,8 +6846,8 @@ def kd_train(route: int, planned: bool = True) -> dict:
                       fused_params=params, data_type=data_type,
                       planned=planned).init(SEED)
     groups, types = _kd_groups(dmp, DFM_TRAIN_KEY)
-    lookup = "K1" if data_type == "FP32" else "K1h"
-    per_step = expected(**{lookup: groups},
+    lookups = kjt_lookups(dmp, DFM_TRAIN_KEY)
+    per_step = expected(**lookups,
                         **{k: v * groups for k, v in update.items()})
     step = dmp.make_train_step()
     rng = np.random.RandomState(SEED + 62)
@@ -6804,7 +6885,7 @@ def kd_train(route: int, planned: bool = True) -> dict:
         capture = KERNELS[next(iter(update))][0]
     held = hold_train_step(step, batches[-1], per_step, what, capture)
     return {"ms": timed, "median_ms": median, "held": held["held"],
-            "args": held["args"], "steps": len(batches)}
+            "args": held["args"], "steps": len(batches), "lookups": lookups}
 
 
 def kd_quant_requests(rng: np.random.RandomState) -> list:
@@ -7207,12 +7288,11 @@ def widths_phase() -> dict:
     want: dict = {"Kq": len(QUANT_TYPES) * len(ready["requests"])}
     del ready
     gc_cuda()
-    for dt, _ in served:
-        k = "K1" if dt == "FP32" else "K1h"
-        want[k] = want.get(k, 0) + 2 * REQUESTS_PER_BATCH
+    for r in served.values():
+        for k, v in r["lookups"].items():
+            want[k] = want.get(k, 0) + v * 2 * REQUESTS_PER_BATCH
     for (route, _), r in trained.items():
-        _, _, dt, update = KD_ROUTES[route]
-        for k, v in {"K1" if dt == "FP32" else "K1h": 1, **update}.items():
+        for k, v in {**r["lookups"], **KD_ROUTES[route][3]}.items():
             want[k] = want.get(k, 0) + v * r["steps"]
     if launches != want:
         raise AssertionError(f"widths: the DeepFM path launched {launches}, "
@@ -7995,6 +8075,146 @@ def interaction_launches(on_path: dict) -> dict:
             for k in DI_COUNTERS}
 
 
+# -- phase 24: K1j at MLPerf DLRM-DCNv2's lookup ------------------------------
+
+# MLPerf DLRM-DCNv2's ids a feature (recommendation_v2's multi-hot sizes)
+DCN_LENGTHS = (3, 2, 1, 2, 6, 1, 1, 1, 1, 7, 3, 8, 1, 6, 9, 5, 1, 1, 1,
+               12, 100, 27, 10, 3, 1, 1)
+DCN_BATCH = 8192  # its per-GPU batch
+DCN_CAP, DCN_SHORT_CAP = 100, 17  # no bag cut; bags cut at 17
+DCN_ZIPF = 1.05
+# one GPU's share of the 8-GPU deployment: each table over 100,000 rows
+# split row-wise over the 8 GPUs (ceil(rows / 8) on this one), the
+# smaller tables whole
+DCN_GPUS, DCN_ROW_WISE_OVER = 8, 100_000
+K1J_KERNEL = "tbe_lookup_jagged"  # tbe_lookup_jagged_kernel
+
+
+def dcn_rows() -> list:
+    return [-(-r // DCN_GPUS) if r > DCN_ROW_WISE_OVER else r
+            for r in MLPERF_CARDINALITIES]
+
+
+def dcn_lookup(seed: int) -> tuple:
+    """MLPerf DLRM-DCNv2's lookup on one card: (W [R, DIM] f32 drawn
+    U(-0.01, 0.01), ids [N] int32 global rows, offsets [26 B + 1] int32),
+    bags feature by feature as a KeyedJaggedTensor orders them. Each
+    feature's ids are Zipf(DCN_ZIPF) ranks over its table, scattered over
+    its rows by a multiplicative hash."""
+    from torchrec_tpu_torch.datasets.random import (
+        uniform_open,
+        zipf_inverse_cdf,
+    )
+
+    rows = dcn_rows()
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    starts = np.concatenate([[0], np.cumsum(rows)[:-1]])
+    values = []
+    for r, n, start in zip(rows, DCN_LENGTHS, starts):
+        u = uniform_open((DCN_BATCH * n,), gen, torch.device(DEVICE))
+        rank = zipf_inverse_cdf(u.double(), torch.tensor(
+            float(r), dtype=torch.float64, device=DEVICE), DCN_ZIPF)
+        rank = rank.floor().long().clamp(1, r) - 1
+        values.append((rank * 2654435761) % r + int(start))
+    ids = torch.cat(values).to(torch.int32)
+    lengths = torch.tensor(DCN_LENGTHS, dtype=torch.int32,
+                           device=DEVICE).repeat_interleave(DCN_BATCH)
+    offsets = torch.cat([torch.zeros(1, dtype=torch.int32, device=DEVICE),
+                         lengths.cumsum(0).to(torch.int32)])
+    W = torch.empty((sum(rows), DIM), device=DEVICE).uniform_(
+        -0.01, 0.01, generator=gen)
+    return W, ids, offsets
+
+
+def hold_jagged(tl, W, ids, offsets, coeff, cap: int, what: str) -> dict:
+    """K1j against K1 on the same bags padded to `cap` (bit for bit) and
+    against its plain version (within 2^-20 of each bag's sum of |c| |w|,
+    the plain version summing its products in torch's order)."""
+    got = tl.tbe_lookup_jagged_forward(W, ids, offsets, coeff, cap)
+    flat, c = tl.jagged_padded(ids, offsets, coeff, cap)
+    if not torch.equal(got, tl.tbe_lookup_pooled_forward(W, flat, c)):
+        raise AssertionError(f"K1j {what}: not bit for bit with K1 on the "
+                             f"bags padded to {cap}")
+    plain = tl.tbe_lookup_jagged_reference(W, ids, offsets, coeff, cap)
+    rows = torch.unique(flat.reshape(-1).long())
+    slots = torch.searchsorted(rows, flat.long()).to(torch.int32)
+    scale = tl.tbe_lookup_pooled_reference(W[rows].abs(), slots, c.abs())
+    err = (got - plain).abs()
+    if not bool((err <= 2.0 ** -20 * scale + 1e-30).all()):
+        worst = int((err - 2.0 ** -20 * scale).argmax())
+        raise AssertionError(f"K1j {what}: element {worst} is "
+                             f"{err.reshape(-1)[worst]:.3e} from its plain "
+                             f"version, beyond 2^-20 of its scale")
+    out = {"bags": int(offsets.shape[0] - 1), "ids": int(ids.numel()),
+           "cap": cap, "max_abs_err": err.max().item(),
+           "max_rel_to_scale": (err / scale.clamp(min=1e-30)).max().item()}
+    log(f"K1j {what}: bit for bit with K1 on the bags padded to {cap}; "
+        f"against the plain version {out}")
+    return out
+
+
+def jagged_phase(tl) -> dict:
+    """Phase 24 (see the module docstring): K1j held and timed at MLPerf
+    DLRM-DCNv2's lookup. Returns K1j's entry of the kernels line."""
+    import torch.nn.functional as F
+
+    t0 = time.perf_counter()
+    W, ids, offsets = dcn_lookup(SEED + 240)
+    NB = offsets.shape[0] - 1
+    lengths = offsets[1:] - offsets[:-1]
+    bag = torch.repeat_interleave(torch.arange(NB, device=DEVICE),
+                                  lengths.long())
+    # MEAN over a bag's first DCN_SHORT_CAP ids times a per-sample weight;
+    # the ids past the cap carry one too, which the kernel must not read
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 241)
+    coeff = ((torch.rand(ids.shape, generator=gen, device=DEVICE) + 0.25)
+             / lengths.clamp(min=1, max=DCN_SHORT_CAP).float()[bag])
+    held = {"sum": hold_jagged(tl, W, ids, offsets, None, DCN_CAP,
+                               "sum, cap 100"),
+            "mean_weighted": hold_jagged(tl, W, ids, offsets, coeff,
+                                         DCN_SHORT_CAP,
+                                         f"mean x weights, cap "
+                                         f"{DCN_SHORT_CAP}")}
+    del coeff, bag
+    gc_cuda()
+
+    flat, c = tl.jagged_padded(ids, offsets, None, DCN_CAP)
+    ids_long, offs_long = ids.long(), offsets[:-1].long()
+    library = F.embedding_bag(ids_long, W, offs_long, mode="sum")
+    library_err = (library - tl.tbe_lookup_jagged_forward(
+        W, ids, offsets, None, DCN_CAP)).abs().max().item()
+    del library
+    b = jagged_bound(W, ids, offsets)
+    t = timings(lambda: tl.tbe_lookup_jagged_forward(W, ids, offsets, None,
+                                                     DCN_CAP),
+                K1J_KERNEL, b["ms"],
+                lambda: tl.tbe_lookup_jagged_reference(W, ids, offsets, None,
+                                                       DCN_CAP),
+                lambda: F.embedding_bag(ids_long, W, offs_long, mode="sum"))
+    k1_ms = device_ms(lambda: tl.tbe_lookup_pooled_forward(W, flat, c),
+                      K1_KERNELS, b["ms"])
+    shape = {"tables_rows": int(W.shape[0]), "dim": int(W.shape[1]),
+             "batch": DCN_BATCH, "bags": NB, "ids": int(ids.numel()),
+             "distinct_rows": b["rows"], "bytes": b["bytes"],
+             "k1_padded_ms": k1_ms, "library_max_abs_err": library_err,
+             "held": held}
+    log(f"K1j at MLPerf DLRM-DCNv2's lookup ({W.shape[0]} x {W.shape[1]} "
+        f"f32, {NB} bags, {ids.numel()} ids, {b['rows']} distinct rows): "
+        f"{t['ms']:.5f} ms on the device (call {t['call_ms']:.5f} ms); "
+        f"plain {t['plain_ms']:.5f} ms; F.embedding_bag with offsets "
+        f"{t['library_ms']:.5f} ms (max abs diff {library_err:.3e}); K1 on "
+        f"the bags padded to {DCN_CAP} {k1_ms:.5f} ms; bound "
+        f"{b['ms']:.5f} ms ({b['by']}: {b['bytes']} B); kernel at "
+        f"{100 * b['ms'] / t['ms']:.1f}% of the bound; phase "
+        f"{time.perf_counter() - t0:.2f} s")
+    del W, ids, offsets, flat, c, ids_long, offs_long
+    gc_cuda()
+    return {"max_abs_err": max(h["max_abs_err"] for h in held.values()),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "library_ms": t["library_ms"], "bound_ms": b["ms"],
+            "bound_by": b["by"], "mlperf_dcn_shape": shape}
+
+
 def gc_cuda() -> None:
     """Free what Python no longer holds, so that the next peak counts only
     what is alive."""
@@ -8161,6 +8381,10 @@ def main() -> int:
     # each way
     interaction = interaction_phase()
 
+    # K1j, the offsets form of K1, held and timed at MLPerf DLRM-DCNv2's
+    # lookup
+    results["K1j"] = jagged_phase(tl)
+
     launches = {k: trained[name]["launches"][k]
                 for name, ks in STEP_KERNELS.items() for k in ks}
     launches["K4"] += b4r_trained["launches"]["K4"]
@@ -8170,6 +8394,7 @@ def main() -> int:
         K1=(served_launches + pw_served["launches"] + pw_steps["K1"]
             + dfm["launches"]["K1"] + quant["launches"]["K1"]
             + flat.get("K1", 0)),
+        K1j=flat.get("K1j", 0),
         K2=sum(r["K2"] for r in routes) + flat.get("K2", 0),
         K6=launches["K6"] + flat.get("K6", 0),
         K7=launches["K7"] + flat.get("K7", 0),
@@ -8206,11 +8431,11 @@ def main() -> int:
         f"and K3 the quantized phase's training and f32 server, Kq its "
         f"quantized requests and servers ({quant['launches']}); K1, K3, K4 "
         f"and the routed gather also the flat-strategies and hierarchical "
-        f"phases, with K8 and Kq the latter's, K1, K3, K4 and Kq the "
-        f"planner phase's, and K1, K2 (staging), K3, K4 and K8 (write-back) "
-        f"the UVM phase's, K1, K4, the routed gather and Kq the "
-        f"examples', and K1, K1h, K2-K7, K3h, K4h, the scaled RMW and Kq "
-        f"(its int8 and int4 requests) the D={KD_DIM} DeepFM's ({flat}): "
+        f"phases, with K8 and Kq the latter's, K1, K1j, K3, K4 and Kq the "
+        f"planner phase's, and K1, K1j, K2 (staging), K3, K4 and K8 "
+        f"(write-back) the UVM phase's, K1, K4, the routed gather and Kq "
+        f"the examples', and K1, K1j, K2-K7, K3h, K4h, the scaled RMW and "
+        f"Kq (its int8 and int4 requests) the D={KD_DIM} DeepFM's ({flat}): "
         f"{launches}")
     log(card["smi"])
     log(json.dumps({"kernels": [{

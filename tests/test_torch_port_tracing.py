@@ -6,7 +6,11 @@ node. Under `torch.profiler`, a small DLRM's train step through
 spans that the benchmark's per-layer metrics read; each `.bwd` span holds
 its part's backward operators; and every concatenation, sort and matrix
 product of the step and of the call sits under a span below
-`## train_step ##` / `## predict ##`. The
+`## train_step ##` / `## predict ##`. A DLRM_DCN's train step records
+`## dlrm_crossnet ##` and its `.bwd`, and every operator of it that moves
+data sits under a layer span. The launch counters count one launch a
+kernel of a step: here the plain versions stand in for the kernels, each
+wrapped to count as its kernel counts on a card. The
 profiler's raw events are read (name, start, end); on the CPU the backward
 runs on the calling thread, so containment in time is containment.
 """
@@ -16,19 +20,28 @@ import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from torchrec_tpu_torch.inference import quantize_embeddings, shard_quantized
-from torchrec_tpu_torch.models import DLRM, DLRMTrain, SimpleDeepFMNN
+from torchrec_tpu_torch.models import (
+    DLRM,
+    DLRM_DCN,
+    DLRMTrain,
+    SimpleDeepFMNN,
+)
 from torchrec_tpu_torch.modules import (
     EmbeddingBagCollection,
     EmbeddingBagConfig,
 )
 from torchrec_tpu_torch.modules.embedding_configs import DataType
+from torchrec_tpu_torch.ops import dot_interaction as di
+from torchrec_tpu_torch.ops import fused_update_kernels as fk
+from torchrec_tpu_torch.ops import tbe_lookup as tl
+from torchrec_tpu_torch.ops.fused_update import EmbOptimType
 from torchrec_tpu_torch.parallel import (
     DistributedModelParallel,
     ParameterSharding,
     ShardingPlan,
     ShardingType,
 )
-from torchrec_tpu_torch.sparse import KeyedJaggedTensor
+from torchrec_tpu_torch.sparse import KeyedJaggedTensor, PaddedSparseBatch
 from torchrec_tpu_torch.utils import tracing
 
 D, DENSE_IN, B, L = 8, 5, 16, 2
@@ -253,3 +266,134 @@ def test_counts_are_one_registry_read_by_deltas():
             if v != before.get(k, 0)} == {"test.one": 2, "test.two": 3}
     after["test.one"] = -1  # a copy: the registry is not changed
     assert tracing.counts()["test.one"] == before.get("test.one", 0) + 2
+
+
+# -- DLRM_DCN -----------------------------------------------------------------
+
+# the DCN step's spans: the DLRM's with the cross net in place of the
+# interaction
+DCN_SPANS = tuple(
+    n.replace("dlrm_interaction", "dlrm_crossnet") for n in STEP_SPANS)
+# operators that move no data: views, and a `to` or `detach` that returns
+# its input
+NO_WORK_OPS = {"aten::as_strided", "aten::detach", "aten::select",
+               "aten::to", "aten::view", "aten::alias", "aten::slice",
+               "aten::reshape", "aten::_unsafe_view", "aten::t",
+               "aten::transpose", "aten::expand"}
+
+
+def _dcn_dmp(optim=EmbOptimType.ADAGRAD):
+    ebc = EmbeddingBagCollection(_tables(), max_feature_length=L,
+                                 device="meta")
+    model = DLRMTrain(DLRM_DCN(ebc, DENSE_IN, (16, D), (16, 8, 1), 2, 4,
+                               device="meta"))
+    return DistributedModelParallel(model, fused_optim=optim,
+                                    device="cpu").init(0)
+
+
+@pytest.fixture(scope="module")
+def traced_dcn_step():
+    """The events of one DLRM_DCN train step (after an untraced one)."""
+    step = _dcn_dmp().make_train_step()
+    step(*_batch(1))
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        step(*_batch(2))
+    return _events(prof)
+
+
+def test_dcn_train_step_records_its_spans(traced_dcn_step):
+    names = {n for n, _, _ in traced_dcn_step if n.startswith("## ")}
+    assert set(DCN_SPANS) <= names, set(DCN_SPANS) - names
+    # no span that `interaction_device_ms.train` reads
+    assert not any(n.startswith("## dlrm_interaction") for n in names)
+    (fwd,) = _spans(traced_dcn_step, "## dlrm_crossnet ##")
+    held = {n for n, s, _ in traced_dcn_step if _inside(s, [fwd])}
+    assert {"aten::cat", "aten::mm", "aten::addmm", "aten::mul"} <= held
+    (bwd,) = _spans(traced_dcn_step, "## dlrm_crossnet.bwd ##")
+    held = {n for n, s, _ in traced_dcn_step if _inside(s, [bwd])}
+    assert {"MmBackward0", "AddmmBackward0", "CatBackward0"} <= held
+
+
+def test_dcn_train_step_ops_sit_under_a_layer_span(traced_dcn_step):
+    """Every operator of the step that moves data sits under a span below
+    `## train_step ##`: those under none are views and no-op casts."""
+    within = _spans(traced_dcn_step, "## train_step ##")
+    layers = [(s, t) for n, s, t in traced_dcn_step
+              if n.startswith("## ") and n != "## train_step ##"]
+    ops = {n for n, s, _ in traced_dcn_step
+           if n.startswith("aten::") and _inside(s, within)}
+    loose = {n for n, s, _ in traced_dcn_step
+             if n.startswith("aten::") and _inside(s, within)
+             and not _inside(s, layers)}
+    assert {"aten::cat", "aten::sort", "aten::mm", "aten::index_select",
+            "aten::searchsorted"} <= ops
+    assert loose <= NO_WORK_OPS, loose - NO_WORK_OPS
+
+
+# the kernels a step launches, by counter, and the plain version that
+# stands in for each on the CPU
+STAND_INS = {
+    "tbe_lookup": (tl, "tbe_lookup_pooled_reference"),
+    "tbe_lookup_jagged": (tl, "tbe_lookup_jagged_reference"),
+    "fused_update_adagrad": (fk, "fused_update_adagrad_reference"),
+    "fused_update_rowwise_adagrad": (
+        fk, "fused_update_rowwise_adagrad_reference"),
+    "dot_interaction": (di, "dot_interaction_reference"),
+    "dot_interaction_bwd": (di, "dot_interaction_backward_reference"),
+}
+
+
+@pytest.fixture
+def counting(monkeypatch):
+    """The plain versions of STAND_INS, each counting one launch of its
+    kernel a call (a plain version called inside another counts none:
+    the kernel it stands in for is one launch)."""
+    inside = []
+
+    def counted(fn, name):
+        def call(*args, **kwargs):
+            if not inside:
+                tracing.count(name)
+            inside.append(name)
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                inside.pop()
+        return call
+
+    for name, (mod, attr) in STAND_INS.items():
+        monkeypatch.setattr(mod, attr, counted(getattr(mod, attr), name))
+
+    def launched(step, *args):
+        before = tracing.counts()
+        step(*args)
+        after = tracing.counts()
+        return {k: after.get(k, 0) - before.get(k, 0) for k in STAND_INS}
+    return launched
+
+
+def test_dcn_step_launches_one_jagged_lookup(counting):
+    """A DLRM_DCN step on a KeyedJaggedTensor: one K1j for its one group,
+    one K6, and no K1."""
+    step = _dcn_dmp().make_train_step()
+    assert counting(step, *_batch(8)) == {
+        "tbe_lookup": 0, "tbe_lookup_jagged": 1, "fused_update_adagrad": 1,
+        "fused_update_rowwise_adagrad": 0, "dot_interaction": 0,
+        "dot_interaction_bwd": 0}
+
+
+def test_padded_dlrm_step_launches_as_before(counting):
+    """The Criteo Kaggle DLRM's step (rowwise Adagrad, a PaddedSparseBatch
+    of one id a feature, as its benchmark cells feed it): K1, K4 and the
+    interaction's two kernels, once each, and no K1j; a KeyedJaggedTensor
+    takes K1j in K1's place."""
+    step = _dmp(train=True).make_train_step()
+    dense, kjt, labels = _batch(9)
+    sb = kjt.to_padded(1)
+    assert isinstance(sb, PaddedSparseBatch)
+    want = {"tbe_lookup": 1, "tbe_lookup_jagged": 0,
+            "fused_update_adagrad": 0, "fused_update_rowwise_adagrad": 1,
+            "dot_interaction": 1, "dot_interaction_bwd": 1}
+    assert counting(step, dense, sb, labels) == want
+    assert counting(step, dense, kjt, labels) == {
+        **want, "tbe_lookup": 0, "tbe_lookup_jagged": 1}

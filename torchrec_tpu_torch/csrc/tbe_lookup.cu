@@ -52,8 +52,12 @@
 // sum is f32 and so is the output. A lane then reads 4 elements, one 8-byte
 // quad, so a warp reads a D=128 bf16 row (256 bytes) in one request; the
 // bytes per row halve, which is the point of the half table.
-// The kernel launches on the caller's stream, allocates nothing and does
-// not synchronise; the Python wrapper allocates `out`.
+// K1j (`trt_tbe_lookup_jagged`) is the offsets form of the same lookup, for
+// jagged batches: bag b pools the ids between offsets[b] and offsets[b + 1]
+// (at most `cap` of them), so a batch of bags of many lengths moves only
+// its real ids, where the padded form above reads L slots a bag.
+// The kernels launch on the caller's stream, allocate nothing and do not
+// synchronise; the Python wrapper allocates `out`.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -232,6 +236,141 @@ __global__ void tbe_lookup_narrow_kernel(const T* __restrict__ w,
   }
 }
 
+// The offsets form (K1j): bag b pools the ids[offsets[b] + l] for l below
+// min(offsets[b + 1] - offsets[b], cap), each times coeff[offsets[b] + l],
+// or times 1 where `coeff` is null (plain sum pooling). kGroup lanes take a
+// bag and 32 / kGroup bags share a warp; lane `sub` holds quad
+// blockIdx.y * kGroup + sub of its bag's rows, so at kGroup = 32 the
+// column chunks of a row wider than 128 columns are blockIdx.y. Bags differ
+// in length, so a warp runs its longest bag's slots: a lane past its own
+// bag's length loads a coefficient of 0 and reads nothing, and every lane
+// reaches every full-mask shuffle. Each output element gets the operations
+// of the padded kernels above in the same order (acc += c * v over the
+// bag's slots), so the two forms agree bit for bit on the same bags.
+template <typename T, Access kAcc, int kGroup>
+__global__ void tbe_lookup_jagged_kernel(const T* __restrict__ w,
+                                         const int32_t* __restrict__ ids,
+                                         const int32_t* __restrict__ offsets,
+                                         const float* __restrict__ coeff,
+                                         float* __restrict__ out, int64_t R,
+                                         int64_t D, int64_t NB, int64_t cap) {
+  constexpr int kBags = 32 / kGroup;
+  const int lane = threadIdx.x & 31;
+  const int sub = lane % kGroup;
+  const int64_t first =
+      ((int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5)) * kBags;
+  if (first >= NB) return;  // whole warp leaves together
+  const int64_t bag = first + lane / kGroup;
+  const bool live = bag < NB;
+  const int q = (int)blockIdx.y * kGroup + sub;
+  const bool active = live && q < (D + 3) / 4;
+  int64_t start = 0;
+  int len = 0;
+  if (live) {
+    start = offsets[bag];
+    const int64_t n = offsets[bag + 1] - start;
+    len = (int)(n < cap ? n : cap);
+  }
+  const int longest = (int)__reduce_max_sync(kFullMask, (unsigned)len);
+
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int base = 0; base < longest; base += kGroup) {
+    const int n = longest - base < kGroup ? longest - base : kGroup;
+    int64_t my_id = 0;
+    float my_c = 0.f;
+    if (base + sub < len) {
+      const int64_t slot = start + base + sub;
+      const int64_t id = ids[slot];
+      my_id = id < 0 ? 0 : (id >= R ? R - 1 : id);
+      my_c = coeff == nullptr ? 1.f : coeff[slot];
+    }
+    for (int j = 0; j < n; ++j) {
+      const float c = __shfl_sync(kFullMask, my_c, j, kGroup);
+      const int64_t row = __shfl_sync(kFullMask, my_id, j, kGroup);
+      if (c == 0.f || !active) continue;
+      const float4 v = load_quad<kAcc>(w + row * D, q, D);
+      acc.x += c * v.x;
+      acc.y += c * v.y;
+      acc.z += c * v.z;
+      acc.w += c * v.w;
+    }
+  }
+  if (!active) return;
+  float* o = out + bag * D + 4 * (int64_t)q;
+  const int64_t c = 4 * (int64_t)q;
+  if constexpr (kAcc == Access::kQuad) {
+    *reinterpret_cast<float4*>(o) = acc;
+  } else if constexpr (kAcc == Access::kPair) {
+    *reinterpret_cast<float2*>(o) = make_float2(acc.x, acc.y);
+    if (c + 2 < D) {
+      *reinterpret_cast<float2*>(o + 2) = make_float2(acc.z, acc.w);
+    }
+  } else {
+    o[0] = acc.x;
+    if (c + 1 < D) o[1] = acc.y;
+    if (c + 2 < D) o[2] = acc.z;
+    if (c + 3 < D) o[3] = acc.w;
+  }
+}
+
+template <typename T, int kGroup>
+int launch_jagged_group(const T* w, const int32_t* ids, const int32_t* offs,
+                        const float* cf, float* out, int64_t R, int64_t D,
+                        int64_t NB, int64_t cap, cudaStream_t s) {
+  constexpr int kBags = 32 / kGroup;
+  const int64_t warps = (NB + kBags - 1) / kBags;
+  const int64_t quads = (D + 3) / 4;
+  const dim3 grid((unsigned)((warps + kWarpsPerBlock - 1) / kWarpsPerBlock),
+                  (unsigned)((quads + kGroup - 1) / kGroup));
+  const dim3 block(32 * kWarpsPerBlock);
+  const bool vec = (D % 4 == 0) && ((uintptr_t)w % (4 * sizeof(T)) == 0) &&
+                   ((uintptr_t)out % 16 == 0);
+  const bool pairs = (D % 2 == 0) && ((uintptr_t)w % (2 * sizeof(T)) == 0) &&
+                     ((uintptr_t)out % 8 == 0);
+  if (vec) {
+    tbe_lookup_jagged_kernel<T, Access::kQuad, kGroup>
+        <<<grid, block, 0, s>>>(w, ids, offs, cf, out, R, D, NB, cap);
+  } else if (pairs) {
+    tbe_lookup_jagged_kernel<T, Access::kPair, kGroup>
+        <<<grid, block, 0, s>>>(w, ids, offs, cf, out, R, D, NB, cap);
+  } else {
+    tbe_lookup_jagged_kernel<T, Access::kElem, kGroup>
+        <<<grid, block, 0, s>>>(w, ids, offs, cf, out, R, D, NB, cap);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_jagged(const void* w, const void* ids, const void* offsets,
+                  const void* coeff, void* out, int64_t R, int64_t D,
+                  int64_t NB, int64_t cap, int group, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const T* wt = static_cast<const T*>(w);
+  const int32_t* idp = static_cast<const int32_t*>(ids);
+  const int32_t* op = static_cast<const int32_t*>(offsets);
+  const float* cf = static_cast<const float*>(coeff);
+  float* of = static_cast<float*>(out);
+  if (group != 32 && (D + 3) / 4 > group) return (int)cudaErrorInvalidValue;
+  switch (group) {
+    case 1:
+      return launch_jagged_group<T, 1>(wt, idp, op, cf, of, R, D, NB, cap, s);
+    case 2:
+      return launch_jagged_group<T, 2>(wt, idp, op, cf, of, R, D, NB, cap, s);
+    case 4:
+      return launch_jagged_group<T, 4>(wt, idp, op, cf, of, R, D, NB, cap, s);
+    case 8:
+      return launch_jagged_group<T, 8>(wt, idp, op, cf, of, R, D, NB, cap, s);
+    case 16:
+      return launch_jagged_group<T, 16>(wt, idp, op, cf, of, R, D, NB, cap,
+                                        s);
+    case 32:
+      return launch_jagged_group<T, 32>(wt, idp, op, cf, of, R, D, NB, cap,
+                                        s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 template <typename T, int kGroup>
 int launch_narrow(bool vec, const T* w, const int32_t* ids, const float* cf,
                   float* out, int64_t R, int64_t D, int64_t NB, int64_t L,
@@ -325,6 +464,25 @@ int trt_tbe_lookup_pooled_half(const void* w, const void* ids,
                                  stream);
   if (half == 1)
     return launch<__half>(w, ids, coeff, out, R, D, NB, L, group, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K1j, the offsets form: bag b pools ids[offsets[b] .. offsets[b] +
+// min(length, cap)), `coeff` per id or null (every coefficient 1); int32
+// ids and offsets [NB + 1]; `half` -1 for f32 rows, 0 bf16, 1 fp16.
+int trt_tbe_lookup_jagged(const void* w, const void* ids, const void* offsets,
+                          const void* coeff, void* out, int64_t R, int64_t D,
+                          int64_t NB, int64_t cap, int group, int half,
+                          void* stream) {
+  if (half == -1)
+    return launch_jagged<float>(w, ids, offsets, coeff, out, R, D, NB, cap,
+                                group, stream);
+  if (half == 0)
+    return launch_jagged<__nv_bfloat16>(w, ids, offsets, coeff, out, R, D,
+                                        NB, cap, group, stream);
+  if (half == 1)
+    return launch_jagged<__half>(w, ids, offsets, coeff, out, R, D, NB, cap,
+                                 group, stream);
   return (int)cudaErrorInvalidValue;
 }
 

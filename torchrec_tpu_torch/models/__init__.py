@@ -7,9 +7,11 @@ from torchrec_tpu_torch.models.bert4rec import (  # noqa: F401
 )
 from torchrec_tpu_torch.models.dlrm import (  # noqa: F401
     DLRM,
+    DLRM_DCN,
     DLRMTrain,
     DenseArch,
     InteractionArch,
+    InteractionDCNArch,
     OverArch,
     SparseArch,
 )

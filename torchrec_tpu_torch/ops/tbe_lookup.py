@@ -25,11 +25,20 @@ wrapper and Function take it: the table's dtype picks the kernel, each with
 its own launch counter (utils/tracing.py). Its VJP is K1's; `d_coeff`
 gathers the half rows with plain torch indexing, since K8 takes f32
 tables only, and `d_W` comes back in the table's dtype.
+
+K1j, `tbe_lookup_jagged_forward`, is the offsets form of the same lookup
+(the same source file), with no JAX counterpart: a jagged batch's bags
+pool `ids[offsets[b]:offsets[b + 1]]`, so a multi-hot batch of bags of
+many lengths moves its real ids only, where the padded form reads max L
+slots a bag. It is a forward alone; the sharded EBC's DATA_PARALLEL
+strategy takes it outside autograd and updates from the pooled cotangent
+itself (parallel/strategies.py).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Tuple
 
 import torch
 
@@ -51,6 +60,11 @@ def _bind(lib: ctypes.CDLL) -> None:
     fn.restype = ctypes.c_int
     fn = lib.trt_tbe_lookup_pooled_half
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 4 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p
+    ]
+    fn.restype = ctypes.c_int
+    fn = lib.trt_tbe_lookup_jagged
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 4 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p
     ]
     fn.restype = ctypes.c_int
@@ -185,3 +199,116 @@ def tbe_lookup_pooled(
     and `coeff` (see `TbeLookupPooled`).
     """
     return TbeLookupPooled.apply(weights, flat_ids, coeff)
+
+
+# the cap of a jagged lookup that takes every id of every bag
+NO_CAP = 2**31 - 1
+
+
+def _check_jagged(weights: torch.Tensor, ids: torch.Tensor,
+                  offsets: torch.Tensor,
+                  coeff: Optional[torch.Tensor]) -> None:
+    if weights.dtype not in TABLE_TYPES or weights.dim() != 2:
+        raise TypeError(
+            f"weights must be a 2-D float32, bfloat16 or float16 tensor, got "
+            f"{weights.dtype} {tuple(weights.shape)}"
+        )
+    for name, t in (("ids", ids), ("offsets", offsets)):
+        if t.dtype != torch.int32 or t.dim() != 1:
+            raise TypeError(f"{name} must be a 1-D int32 tensor, got "
+                            f"{t.dtype} {tuple(t.shape)}")
+    if offsets.shape[0] < 1:
+        raise ValueError("offsets needs at least one entry")
+    if coeff is not None and (coeff.dtype != torch.float32
+                              or coeff.shape != ids.shape):
+        raise TypeError(
+            f"coeff must be float32 of shape {tuple(ids.shape)}, got "
+            f"{coeff.dtype} {tuple(coeff.shape)}"
+        )
+    tensors = [("weights", weights), ("ids", ids), ("offsets", offsets)]
+    if coeff is not None:
+        tensors.append(("coeff", coeff))
+    devices = {t.device for _, t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"tensors on different devices: {devices}")
+    if weights.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {weights.device}")
+    for name, t in tensors:
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if weights.shape[0] == 0 and ids.numel():
+        raise ValueError("weights has no rows to look up")
+
+
+def jagged_padded(
+    ids: torch.Tensor, offsets: torch.Tensor,
+    coeff: Optional[torch.Tensor] = None, cap: int = NO_CAP,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The bags of the offsets form padded to `cap` slots (to the longest
+    bag where `cap` is NO_CAP), K1's input for the same sums: [NB, L]
+    int32 ids, 0 in a pad slot, and [NB, L] f32 coefficients, 0 in a pad
+    slot and 1 on a real id where `coeff` is None."""
+    lengths = (offsets[1:] - offsets[:-1]).clamp(max=cap)
+    L = cap if cap < NO_CAP else (
+        int(lengths.max()) if lengths.numel() else 0)
+    col = torch.arange(L, device=ids.device)
+    real = col[None, :] < lengths[:, None]
+    src = (offsets[:-1, None].long() + col[None, :]).clamp(
+        0, max(ids.shape[0] - 1, 0))
+    flat = torch.where(real, ids[src], 0) if L else src.to(torch.int32)
+    c = real.float()
+    if coeff is not None and L:
+        c = torch.where(real, coeff[src], 0.0)
+    return flat.to(torch.int32).contiguous(), c.contiguous()
+
+
+def tbe_lookup_jagged_reference(
+    weights: torch.Tensor, ids: torch.Tensor, offsets: torch.Tensor,
+    coeff: Optional[torch.Tensor] = None, cap: int = NO_CAP,
+) -> torch.Tensor:
+    """Plain PyTorch version of the offsets form: the bags padded to `cap`
+    slots (`jagged_padded`), then K1's plain version over them. A bag
+    padded to the padded route's L sums as K1's plain version sums that
+    route's bag, bit for bit (torch's sum over the slots groups its terms
+    by their number)."""
+    return tbe_lookup_pooled_reference(
+        weights, *jagged_padded(ids, offsets, coeff, cap))
+
+
+def tbe_lookup_jagged_forward(
+    weights: torch.Tensor, ids: torch.Tensor, offsets: torch.Tensor,
+    coeff: Optional[torch.Tensor] = None, cap: int = NO_CAP,
+) -> torch.Tensor:
+    """K1j, the offsets form of the pooled lookup, outside autograd: bag b
+    pools W[clip(ids[n])] times coeff[n] (times 1 where `coeff` is None)
+    for n from offsets[b] over its first min(offsets[b + 1] - offsets[b],
+    cap) ids, so only the batch's real ids are read.
+
+    weights [R, D] f32, bf16 or fp16 (a half table's coefficients already
+    rounded to its dtype, as `pooled_lookup` rounds them); ids [N] int32
+    global rows (slots past offsets[-1] are read by no bag); offsets
+    [NB + 1] int32; coeff [N] f32 or None. Returns [NB, D] f32. CUDA
+    tensors launch the kernel (counted as `tbe_lookup_jagged`, f32 and half
+    tables alike); CPU tensors take `tbe_lookup_jagged_reference`."""
+    _check_jagged(weights, ids, offsets, coeff)
+    with tracing.span(KERNEL_SPAN):
+        if weights.device.type == "cpu":
+            return tbe_lookup_jagged_reference(weights, ids, offsets, coeff,
+                                               cap)
+        R, D = weights.shape
+        NB = offsets.shape[0] - 1
+        out = torch.empty((NB, D), dtype=torch.float32, device=weights.device)
+        if NB == 0 or D == 0:
+            return out
+        lib = LIBRARY.load()
+        stream = torch.cuda.current_stream(weights.device).cuda_stream
+        with torch.cuda.device(weights.device):
+            err = lib.trt_tbe_lookup_jagged(
+                weights.data_ptr(), ids.data_ptr(), offsets.data_ptr(),
+                None if coeff is None else coeff.data_ptr(), out.data_ptr(),
+                R, D, NB, min(int(cap), NO_CAP), lanes_per_row(D),
+                HALF_TYPES.get(weights.dtype, -1), stream,
+            )
+        LIBRARY.check("tbe_lookup_jagged", err)
+        tracing.count("tbe_lookup_jagged")
+        return out

@@ -17,7 +17,7 @@ their shards and fused optimizer state as buffers; `init`,
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Sequence, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -38,10 +38,11 @@ from torchrec_tpu_torch.parallel.strategies import (
     ROUTE_SPAN,
     ArrayLike,
     EmbeddingGroupState,
+    JaggedRoute,
     create_sharding_strategy,
 )
 from torchrec_tpu_torch.parallel.types import ParameterSharding, ShardingEnv
-from torchrec_tpu_torch.sparse.jagged import KeyedTensor
+from torchrec_tpu_torch.sparse.jagged import KeyedJaggedTensor, KeyedTensor
 from torchrec_tpu_torch.utils import tracing
 
 # spans (utils/tracing.py) around the forward's concatenation of the groups'
@@ -154,10 +155,28 @@ class ShardedEmbeddingBagCollection(ShardedEmbeddingModule):
     """Sharded EBC: the groups' strategies and the routing between the
     sparse batch, the groups and the output order.
 
-    max_feature_length: the L a KeyedJaggedTensor input is padded to, as
-    in the unsharded module it replaces. optim / optim_kwargs: the fused
-    optimizer of every group and its fused_params. `injected` holds a
-    KeyedTensor.
+    max_feature_length: the most values a bag of a KeyedJaggedTensor
+    input takes (its first ones), as the unsharded module it replaces pads
+    such an input to that L. optim / optim_kwargs: the fused optimizer of
+    every group and its fused_params. `injected` holds a KeyedTensor.
+
+    Which route a group's lookup and update take, in this order:
+      * the group's entry of `dist` where one is given (the prefetched
+        step's input dist of a RW, TW or CW group);
+      * the jagged route where the input is a KeyedJaggedTensor and the
+        group's strategy takes one (`supports_jagged`: DATA_PARALLEL
+        without a process group): the forward is K1j over the real values
+        and the update forms one row gradient a real value, so no
+        [F, B, L] ids and no [F, B, L, D] gradient are built; the route
+        (offsets, each value's bag and row) is built once a batch, and the
+        update of the batch the forward took reuses it;
+      * the padded route otherwise: a PaddedSparseBatch as it comes, a
+        KeyedJaggedTensor padded to max_feature_length on the device
+        (once a call, for every group that takes this route), K1 over the
+        [F, B, L] slots and the update over all of them.
+    Both routes pool and update alike: the jagged one takes a bag's first
+    max_feature_length values and their coefficients as the padded one
+    does.
     """
 
     def __init__(
@@ -192,6 +211,9 @@ class ShardedEmbeddingBagCollection(ShardedEmbeddingModule):
                            for i, n in enumerate(self.embedding_names)}
         self._fwd_spans = group_spans("ebc_fwd", self.groups)
         self._update_spans = group_spans("ebc_update", self.groups)
+        # the last jagged batch and its groups' routes (_jagged_route)
+        self._routes: Tuple[Optional[KeyedJaggedTensor],
+                            Dict[int, JaggedRoute]] = (None, {})
 
     # -- compute -------------------------------------------------------------
 
@@ -203,6 +225,47 @@ class ShardedEmbeddingBagCollection(ShardedEmbeddingModule):
         with tracing.span(ROUTE_SPAN):
             return as_padded(features, self.max_feature_length)
 
+    def _group_inputs(self, features: Optional[SparseInput],
+                      dist: Optional[Sequence]) -> List[Tuple[str, object]]:
+        """Each group's input and its route: ("dist", its input dist),
+        ("jagged", the group's index; `_jagged_route` builds its route) or
+        ("padded", the group's features of the padded batch), by the rule
+        in the class docstring. The batch is padded once, and only where a
+        group takes the padded route."""
+        jagged = isinstance(features, KeyedJaggedTensor)
+        sb = None
+        out = []
+        for gi, strat in enumerate(self.strategies):
+            if dist is not None and dist[gi] is not None:
+                out.append(("dist", dist[gi]))
+            elif jagged and strat.supports_jagged:
+                out.append(("jagged", gi))
+            else:
+                if sb is None:
+                    sb = self._padded(features)
+                out.append(("padded", self._group_batch(sb, gi)))
+        return out
+
+    def _jagged_route(self, kjt: KeyedJaggedTensor, gi: int) -> JaggedRoute:
+        """Group gi's route for the jagged batch `kjt`, built once a batch:
+        `update` takes the one `forward` built for the same batch object
+        (held until another batch comes), so the route's device work runs
+        once a step. The group's features are the batch itself where that
+        is all of it, in order, and a permutation on the device otherwise."""
+        batch, routes = self._routes
+        if batch is not kjt:
+            batch, routes = kjt, {}
+            self._routes = (batch, routes)
+        if gi not in routes:
+            key_index = {k: i for i, k in enumerate(kjt.keys)}
+            idx = [key_index[f] for f in self.groups[gi].features]
+            if idx != list(range(len(kjt.keys))):
+                with tracing.span(ROUTE_SPAN):
+                    kjt = kjt.permute(idx)
+            routes[gi] = self.strategies[gi].jagged_route(
+                kjt, self.max_feature_length)
+        return routes[gi]
+
     def forward(self, features: Optional[SparseInput],
                 dist: Optional[Sequence] = None) -> KeyedTensor:
         """-> KeyedTensor [B, sum(D)]. `dist`: the batch's `input_dist`;
@@ -210,14 +273,18 @@ class ShardedEmbeddingBagCollection(ShardedEmbeddingModule):
         (which may be None when every group has a dist)."""
         if self.injected is not None:
             return self.injected
-        sb = self._padded(features)
         per_name: Dict[str, torch.Tensor] = {}
-        for gi, (strat, group) in enumerate(zip(self.strategies,
-                                                self.groups)):
-            d = None if dist is None else dist[gi]
+        inputs = self._group_inputs(features, dist)
+        for gi, (strat, group, (route, x)) in enumerate(zip(
+                self.strategies, self.groups, inputs)):
             with tracing.span(self._fwd_spans[gi]):
-                out = (strat(self._group_batch(sb, gi)) if d is None
-                       else strat.forward_from_dist(d))  # [F_g, B, D_g]
+                if route == "dist":
+                    out = strat.forward_from_dist(x)
+                elif route == "jagged":
+                    out = strat.forward_jagged(
+                        self._jagged_route(features, x))
+                else:
+                    out = strat(x)  # [F_g, B, D_g]
             for j, ename in enumerate(group.embedding_names):
                 per_name[ename] = out[j]
         with tracing.span(OUTPUT_SPAN):
@@ -232,22 +299,23 @@ class ShardedEmbeddingBagCollection(ShardedEmbeddingModule):
                ) -> Tuple[EmbeddingGroupState, ...]:
         """Fused optimizer step, in place, from the cotangent of the
         forward's KeyedTensor.values [B, sum(D)]: each group gets its
-        features' [F_g, B, D_g] slices by embedding name, and its dist
-        where `dist` has one, as in `forward`."""
-        sb = self._padded(features)
-        for gi, (strat, group) in enumerate(zip(self.strategies,
-                                                self.groups)):
+        features' [F_g, B, D_g] slices by embedding name, and its input by
+        the forward's rule."""
+        inputs = self._group_inputs(features, dist)
+        for gi, (strat, group, (route, x)) in enumerate(zip(
+                self.strategies, self.groups, inputs)):
             with tracing.span(COTANGENT_SPAN):
                 d_pooled = torch.stack([
                     d_values[:, slice(*self._out_slice[n])]
                     for n in group.embedding_names])
-            d = None if dist is None else dist[gi]
             with tracing.span(self._update_spans[gi]):
-                if d is None:
-                    strat.update(self._group_batch(sb, gi), d_pooled,
-                                 learning_rate)
+                if route == "dist":
+                    strat.update_from_dist(x, d_pooled, learning_rate)
+                elif route == "jagged":
+                    strat.update_jagged(self._jagged_route(features, x),
+                                        d_pooled, learning_rate)
                 else:
-                    strat.update_from_dist(d, d_pooled, learning_rate)
+                    strat.update(x, d_pooled, learning_rate)
         return self.states
 
 

@@ -63,7 +63,7 @@ from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Dict, List, Mapping, Optional, Tuple, Union
+from typing import Dict, List, Mapping, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -73,6 +73,7 @@ from torchrec_tpu_torch.modules.embedding_configs import (
     data_type_to_torch_dtype,
 )
 from torchrec_tpu_torch.ops.embedding import pooled_lookup
+from torchrec_tpu_torch.ops.tbe_lookup import tbe_lookup_jagged_forward
 from torchrec_tpu_torch.ops.gather_rows import route_tokens_reference
 from torchrec_tpu_torch.ops.fused_update import (
     EmbOptimType,
@@ -84,7 +85,11 @@ from torchrec_tpu_torch.ops.fused_update import (
 from torchrec_tpu_torch.parallel import comm
 from torchrec_tpu_torch.parallel.embedding_sharding import GroupMeta
 from torchrec_tpu_torch.parallel.types import ShardingEnv, ShardingType
-from torchrec_tpu_torch.sparse.jagged import PaddedSparseBatch
+from torchrec_tpu_torch.sparse.jagged import (
+    KeyedJaggedTensor,
+    PaddedSparseBatch,
+    lengths_to_offsets,
+)
 from torchrec_tpu_torch.utils import tracing
 
 # Per-device packed row counts are padded to this tile, as in the JAX
@@ -167,6 +172,22 @@ def gather_batch(env: ShardingEnv, sb: PaddedSparseBatch) -> Tuple[
     return ints[:, :, :L], ints[:, :, L].to(sb.lengths.dtype), psw
 
 
+class JaggedRoute(NamedTuple):
+    """A jagged batch's route on the device (`DpEmbeddingSharding.
+    jagged_route`): global ids [N] int32, offsets [F B + 1] int32, each
+    value's bag [N], valid [N], the coefficients [N] in the table's dtype
+    or None, the batch's F and B, and the cap on a bag's values."""
+
+    gids: torch.Tensor
+    offsets: torch.Tensor
+    bag: torch.Tensor
+    valid: torch.Tensor
+    coeff: Optional[torch.Tensor]
+    features: int
+    batch: int
+    cap: int
+
+
 class BaseEmbeddingShardingStrategy(nn.Module):
     """One table group sharded one way. Holds this rank's block of the
     group's shard as the buffer `weights` and the fused optimizer state as
@@ -182,6 +203,10 @@ class BaseEmbeddingShardingStrategy(nn.Module):
     """
 
     supports_input_dist = False
+    # takes a KeyedJaggedTensor as it comes (`jagged_route`, then
+    # `forward_jagged` / `update_jagged`); the sharded EBC pads the batch
+    # for the others
+    supports_jagged = False
 
     def __init__(
         self,
@@ -611,6 +636,68 @@ class DpEmbeddingSharding(BaseEmbeddingShardingStrategy):
         row_grads = d_pooled[:, :, None, :] * coeff[:, :, :, None]
         self._apply(self._gids(sb.ids), _token_mask(sb.lengths, L),
                     row_grads, learning_rate)
+
+    # -- the jagged route ------------------------------------------------------
+
+    @property
+    def supports_jagged(self) -> bool:
+        """Without a process group: the update's all_gather would need the
+        same number of values on every rank, which a jagged batch does
+        not promise."""
+        return self.env.group is None
+
+    def jagged_route(self, kjt: KeyedJaggedTensor,
+                     max_length: int) -> JaggedRoute:
+        """A jagged batch's route to K1j and the update, on the device with
+        nothing read back. A bag takes its first `max_length` values, as
+        the padded route truncates it; values past offsets[-1] are
+        invalid. The coefficients are `_pool_coeff`'s, value by value: None
+        for a batch of SUM features and no per-sample weights, where every
+        one would be 1."""
+        with tracing.span(ROUTE_SPAN):
+            N, B = kjt.values.shape[0], kjt.stride
+            offsets = lengths_to_offsets(kjt.lengths.to(torch.int32))
+            pos = torch.arange(N, dtype=torch.int32, device=offsets.device)
+            bag = (torch.searchsorted(offsets, pos, right=True) - 1).clamp(
+                0, max(offsets.shape[0] - 2, 0))
+            valid = (pos < offsets[-1]) & (pos - offsets[bag] < max_length)
+            feature = bag // B
+            gids = (kjt.values.to(torch.int32)
+                    + self.feat_row_off[feature]).contiguous()
+            coeff = None
+            mean = bool(self.meta.feature_pooling_mean.any())
+            if kjt.weights is not None or mean:
+                dtype = self.weights.dtype
+                coeff = valid.to(dtype)
+                if kjt.weights is not None:
+                    coeff = coeff * kjt.weights.to(dtype)
+                if mean:
+                    lengths = kjt.lengths.clamp(max=max_length)
+                    denom = lengths.to(dtype).clamp(min=1.0)[bag]
+                    coeff = torch.where(self.feat_mean[feature],
+                                        coeff / denom, coeff)
+            return JaggedRoute(gids, offsets, bag, valid, coeff,
+                               len(kjt.keys), B, max_length)
+
+    def forward_jagged(self, route: JaggedRoute) -> torch.Tensor:
+        """The pooled output [F, B, D] fp32 of a jagged batch, K1j over its
+        real values (no [F, B, L] layout is built)."""
+        coeff = route.coeff
+        if coeff is not None:  # rounded to the table's dtype, as K1's
+            coeff = coeff.to(self.weights.dtype).float().contiguous()
+        out = tbe_lookup_jagged_forward(self.weights, route.gids,
+                                        route.offsets, coeff, route.cap)
+        return out.reshape(route.features, route.batch, self.dim)
+
+    def update_jagged(self, route: JaggedRoute, d_pooled: torch.Tensor,
+                      learning_rate: float) -> None:
+        """The fused update from a jagged batch: each real value's row
+        gradient [N, D] is its bag's cotangent (times its coefficient),
+        then `apply_fused_update` over the N values."""
+        row_grads = d_pooled.reshape(-1, self.dim).index_select(0, route.bag)
+        if route.coeff is not None:
+            row_grads = row_grads * route.coeff[:, None]
+        self._apply(route.gids, route.valid, row_grads, learning_rate)
 
 
 class RwEmbeddingSharding(BaseEmbeddingShardingStrategy):
